@@ -1,0 +1,10 @@
+"""Layers of the port (counterpart of ``deeplearning4j_tpu/nn/layers``)."""
+from .attention import SelfAttentionLayer
+from .base import LayerConf
+from .core import (DenseLayer, EmbeddingSequenceLayer,
+                   PositionalEmbeddingLayer, RnnOutputLayer)
+from .norm import LayerNormalization
+
+__all__ = ["LayerConf", "DenseLayer", "EmbeddingSequenceLayer",
+           "PositionalEmbeddingLayer", "RnnOutputLayer",
+           "LayerNormalization", "SelfAttentionLayer"]

@@ -1,0 +1,1 @@
+"""Counterpart of ``deeplearning4j_tpu/serving``."""
