@@ -7,6 +7,8 @@ imports torch and numpy, never jax or deeplearning4j_tpu; its kernels are
 hand-written CUDA C++ for Hopper (sm_90a) under ``csrc/``.
 
 Ported so far: serving ``models.zoo_extra.transformer_lm`` through the
-paged ``serving.generation.GenerationEngine``, with the flash-attention
-forward kernel (``ops.flash_attention``).
+paged ``serving.generation.GenerationEngine``, and training it with
+``ComputationGraph.fit`` (``optimize.solver``, ``optimize.updaters``,
+``nn.losses``), with the flash-attention forward and backward kernels
+(``ops.flash_attention``).
 """

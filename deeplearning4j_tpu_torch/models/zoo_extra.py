@@ -14,6 +14,7 @@ from ..nn.inputs import InputType
 from ..nn.layers import (DenseLayer, EmbeddingSequenceLayer,
                          LayerNormalization, PositionalEmbeddingLayer,
                          RnnOutputLayer, SelfAttentionLayer)
+from ..optimize.updaters import Adam
 
 
 def _base_builder(seed, updater, dtype="float32"):
@@ -36,11 +37,12 @@ def transformer_lm(vocab_size: int = 256, *, d_model: int = 256,
     ``token_input=True`` feeds [B,T] integer token ids through an
     EmbeddingSequenceLayer gather; the default takes one-hot [B,T,V].
     The graph lives on ``device`` (default: the CUDA card); call ``init()``
-    to create its parameters."""
+    to create its parameters. ``updater`` defaults to ``Adam(3e-4)``, as
+    the reference's does."""
     embed = (EmbeddingSequenceLayer(n_in=vocab_size, n_out=d_model)
              if token_input
              else DenseLayer(n_out=d_model, activation="identity"))
-    g = (_base_builder(seed, updater, dtype=dtype)
+    g = (_base_builder(seed, updater or Adam(3e-4), dtype=dtype)
          .add_inputs("tokens")
          .add_layer("embed", embed, "tokens")
          .add_layer("pos", PositionalEmbeddingLayer(n_out=d_model,

@@ -1,7 +1,8 @@
 """Activation registry.
 
 Counterpart of ``deeplearning4j_tpu/nn/activations.py``, with the
-activations the transformer LM uses. ``gelu`` is the tanh approximation,
+activations the transformer LM and the losses' fused forms use (relu,
+sigmoid and tanh come with the losses). ``gelu`` is the tanh approximation,
 because the reference registers ``jax.nn.gelu``, whose default is that
 approximation (``activations.py:50``); PyTorch's default is the exact erf
 form.
@@ -13,6 +14,9 @@ import torch.nn.functional as F
 
 _ACTIVATIONS = {
     "identity": lambda x: x,
+    "relu": torch.relu,
+    "sigmoid": torch.sigmoid,
+    "tanh": torch.tanh,
     "gelu": lambda x: F.gelu(x, approximate="tanh"),
     "softmax": lambda x: torch.softmax(x, dim=-1),
 }

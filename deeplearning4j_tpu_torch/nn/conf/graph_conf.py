@@ -6,7 +6,8 @@ The topological sort is the reference's Kahn's algorithm with the same tie
 order, so a graph's vertex order equals the JAX graph's, which is the
 order of its ``net.params``. Shape inference sets each layer's ``n_in``
 at build time. Automatic preprocessors and JSON serde come with later
-slices; the transformer LM needs neither.
+slices; the transformer LM needs neither. Truncated BPTT comes with the
+recurrent layers (ROADMAP A4) and raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -28,6 +29,8 @@ class ComputationGraphConfiguration:
     input_types: Optional[List[Any]] = None
     seed: int = 12345
     dtype: str = "float32"
+    gradient_normalization: Optional[str] = None
+    gradient_normalization_threshold: float = 1.0
     updater: Optional[Any] = None
 
 
@@ -86,6 +89,10 @@ class GraphBuilder:
         self._vertex_inputs[name] = list(inputs)
         return self
 
+    def tbptt_length(self, fwd: int, bwd: Optional[int] = None):
+        raise NotImplementedError("truncated BPTT is not ported yet "
+                                  "(ROADMAP A4)")
+
     def set_outputs(self, *names: str) -> "GraphBuilder":
         self._outputs = list(names)
         return self
@@ -130,4 +137,7 @@ class GraphBuilder:
             vertex_names=order, vertices=dict(self._vertices),
             vertex_inputs=dict(self._vertex_inputs),
             input_types=self._input_types, seed=nc.seed, dtype=nc.dtype,
+            gradient_normalization=nc.gradient_normalization,
+            gradient_normalization_threshold=(
+                nc.gradient_normalization_threshold),
             updater=nc.updater)

@@ -2,7 +2,9 @@
 
 Counterpart of ``LayerVertex`` and ``ElementWiseVertex`` in
 ``deeplearning4j_tpu/nn/graph/vertices.py``. A vertex takes a LIST of input
-tensors; shape inference goes through ``output_type(input_types)``.
+tensors; shape inference goes through ``output_type(input_types)``. A
+[B,T] feature mask reaches a layer only when the layer ``accepts_mask``
+and its input is a [B,T,F] sequence (``LayerVertex.apply`` ``:68-77``).
 """
 from __future__ import annotations
 
@@ -42,8 +44,13 @@ class LayerVertex(VertexConf):
     def param_dict(self) -> dict:
         return self.layer.param_dict()
 
-    def forward(self, inputs):
-        return self.layer(inputs[0])
+    def forward(self, inputs, mask=None, *, train=False, gen=None):
+        x = inputs[0]
+        kwargs = {}
+        if mask is not None and getattr(self.layer, "accepts_mask", False) \
+                and x.dim() == 3:
+            kwargs["mask"] = mask
+        return self.layer(x, train=train, gen=gen, **kwargs)
 
 
 class ElementWiseVertex(VertexConf):

@@ -4,7 +4,9 @@ Counterpart of ``SelfAttentionLayer`` in
 ``deeplearning4j_tpu/nn/layers/attention.py`` (``:25-88``), with its
 dispatch rule: the flash-attention kernel when
 ``fused_attention_applicable`` admits the shapes, the plain
-``parallel.ring_attention.attention`` otherwise.
+``parallel.ring_attention.attention`` otherwise. The kernel path is
+differentiable (``ops.flash_attention.FlashAttentionFunction``), so a loss
+on the card trains ``Wq/Wk/Wv`` through it.
 """
 from __future__ import annotations
 
@@ -13,7 +15,7 @@ from typing import Optional
 from ...ops.flash_attention import flash_attention, fused_attention_applicable
 from ...parallel.ring_attention import attention
 from ..inputs import InputTypeRecurrent
-from .base import LayerConf, resolve_ff_size
+from .base import LayerConf, maybe_dropout, resolve_ff_size
 
 
 class SelfAttentionLayer(LayerConf):
@@ -21,6 +23,8 @@ class SelfAttentionLayer(LayerConf):
     ``causal`` each position attends to itself and earlier steps; a [B,T]
     mask excludes padded timesteps as keys."""
     expected_input = "rnn"
+    weight_param_names = ("Wq", "Wk", "Wv", "Wo")
+    accepts_mask = True
 
     def __init__(self, n_in: Optional[int] = None, n_out: int = 0,
                  n_heads: int = 4, causal: bool = False,
@@ -54,7 +58,8 @@ class SelfAttentionLayer(LayerConf):
         B, T, _ = x.shape
         return x.reshape(B, T, self.n_heads, -1).transpose(1, 2)
 
-    def forward(self, x, mask=None):
+    def forward(self, x, mask=None, *, train=False, gen=None):
+        x = maybe_dropout(x, self.dropout, gen, train)
         q = self._heads(x @ self.Wq)
         k = self._heads(x @ self.Wk)
         v = self._heads(x @ self.Wv)

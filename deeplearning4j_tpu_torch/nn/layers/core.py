@@ -3,8 +3,10 @@ embedding and the time-distributed RnnOutput head.
 
 Counterpart of ``deeplearning4j_tpu/nn/layers/core.py`` (``DenseLayer``
 ``:34``, ``EmbeddingSequenceLayer`` ``:106``, ``PositionalEmbeddingLayer``
-``:144``, ``RnnOutputLayer`` ``:209``). Parameter names and layouts are the
-reference's.
+``:144``, ``RnnOutputLayer`` ``:209`` with the loss of
+``BaseOutputLayerMixin`` ``:175-184``). Parameter names and layouts are the
+reference's, and so are the places dropout applies: a Dense layer's input,
+an embedding's output.
 """
 from __future__ import annotations
 
@@ -14,7 +16,8 @@ import torch
 from torch import nn
 
 from ..inputs import InputTypeFeedForward, InputTypeRecurrent
-from .base import LayerConf, resolve_ff_size
+from ..losses import get_loss
+from .base import LayerConf, maybe_dropout, resolve_ff_size
 
 
 class DenseLayer(LayerConf):
@@ -37,11 +40,12 @@ class DenseLayer(LayerConf):
                              dtype, device)
         self.b = self._binit((self.n_out,), dtype, device)
 
-    def pre_output(self, x):
+    def pre_output(self, x, *, train=False, gen=None):
+        x = maybe_dropout(x, self.dropout, gen, train)
         return x @ self.W + self.b
 
-    def forward(self, x):
-        return self.act(self.pre_output(x))
+    def forward(self, x, *, train=False, gen=None):
+        return self.act(self.pre_output(x, train=train, gen=gen))
 
 
 class EmbeddingSequenceLayer(LayerConf):
@@ -65,15 +69,17 @@ class EmbeddingSequenceLayer(LayerConf):
         self.W = self._winit(gen, (self.n_in, self.n_out), self.n_in,
                              self.n_out, dtype, device)
 
-    def forward(self, x):
+    def forward(self, x, *, train=False, gen=None):
         idx = x[..., 0] if x.dim() == 3 and x.shape[-1] == 1 else x
-        return self.act(self.W[idx.long()])
+        return self.act(maybe_dropout(self.W[idx.long()], self.dropout, gen,
+                                      train))
 
 
 class PositionalEmbeddingLayer(LayerConf):
     """Learned absolute positions added to [B,T,F]; ``max_length`` bounds T
     and shorter sequences use the table's prefix."""
     expected_input = "rnn"
+    weight_param_names = ()          # no decay on positions
 
     def __init__(self, n_out: Optional[int] = None, max_length: int = 2048,
                  **kw):
@@ -89,7 +95,7 @@ class PositionalEmbeddingLayer(LayerConf):
                                dtype=torch.float32)
         self.P = nn.Parameter(P.to(dtype=dtype, device=device))
 
-    def forward(self, x):
+    def forward(self, x, *, train=False, gen=None):
         T = x.shape[1]
         if T > self.max_length:
             raise ValueError(f"sequence length {T} exceeds max_length "
@@ -98,8 +104,9 @@ class PositionalEmbeddingLayer(LayerConf):
 
 
 class RnnOutputLayer(DenseLayer):
-    """Time-distributed output layer for [B,T,F] activations. ``loss`` is
-    held as configuration for the training slice."""
+    """Time-distributed output layer for [B,T,F] activations, scored per
+    timestep by ``loss`` on its pre-activation (so softmax cross-entropy
+    takes ``log_softmax``)."""
     expected_input = "rnn"
 
     def __init__(self, n_in: Optional[int] = None, n_out: int = 0,
@@ -111,3 +118,11 @@ class RnnOutputLayer(DenseLayer):
         t = itype.timestep_length if isinstance(itype, InputTypeRecurrent) \
             else -1
         return InputTypeRecurrent(self.n_out, t)
+
+    def compute_loss_per_example(self, x, labels, mask=None, *, train=False,
+                                 gen=None):
+        """Per-example loss [B] of ``labels`` against this layer's
+        pre-activation on ``x``, under an optional [B,T] mask."""
+        pre = self.pre_output(x, train=train, gen=gen)
+        return get_loss(self.loss)(labels, pre, self.activation or "identity",
+                                   mask)

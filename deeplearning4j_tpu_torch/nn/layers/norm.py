@@ -17,6 +17,7 @@ from .base import LayerConf
 
 class LayerNormalization(LayerConf):
     expected_input = "any"
+    weight_param_names = ()          # no l1/l2 on gain/bias
 
     def __init__(self, n_out: Optional[int] = None, eps: float = 1e-5,
                  **kw):
@@ -33,7 +34,7 @@ class LayerNormalization(LayerConf):
         self.gain = nn.Parameter(torch.ones(nf, dtype=dtype, device=device))
         self.bias = nn.Parameter(torch.zeros(nf, dtype=dtype, device=device))
 
-    def forward(self, x):
+    def forward(self, x, *, train=False, gen=None):
         mean = x.mean(dim=-1, keepdim=True)
         var = torch.clamp((x * x).mean(dim=-1, keepdim=True) - mean * mean,
                           min=0.0)

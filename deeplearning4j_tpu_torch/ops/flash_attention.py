@@ -1,19 +1,24 @@
-"""Flash-attention forward: a hand-written CUDA kernel for Hopper, its plain
-PyTorch version, and the probe that decides when a layer takes it.
+"""Flash attention for Hopper: the forward kernel (K1), the two backward
+kernels (K2 dq, K3 dk/dv), their plain PyTorch versions, the autograd
+Function that joins them, and the probe that decides when a layer takes it.
 
 Counterpart of ``deeplearning4j_tpu/ops/pallas_attention.py``:
 ``fused_attention_applicable`` (its ``:61-87``), ``flash_attention``
-(``:513-525``) and the forward kernel ``_fwd`` / ``_fwd_body``
-(``:138-220``). The kernel is ``csrc/flash_attention_fwd.cu``; its source
-says what it computes, what bounds it and what its simple design leaves for
-later.
+(``:513-525``), the ``custom_vjp`` ``_flash`` / ``_flash_fwd`` /
+``_flash_bwd`` (``:490-510``), the forward kernel ``_fwd`` / ``_fwd_body``
+(``:138-220``) and the backward ``_bwd`` with ``_dq_body`` / ``_dkv_body``
+(``:224-389``). The kernels are ``csrc/flash_attention_fwd.cu`` and
+``csrc/flash_attention_bwd.cu``; each source says what it computes, what
+bounds it and what its simple design leaves for later.
 
-Dispatch: ``flash_attention_fwd`` on a CPU tensor computes the plain version
-(``flash_attention_reference``); on a CUDA tensor it launches the kernel or
-raises. There is no fallback around the kernel on the card. Each launch adds
-one to ``flash_attention.launches``.
+Dispatch: each kernel wrapper (``flash_attention_fwd``,
+``flash_attention_bwd_dq``, ``flash_attention_bwd_dkv``) computes its plain
+version on a CPU tensor and launches its kernel on a CUDA tensor or raises.
+There is no fallback around a kernel on the card. Each launch adds one to
+the wrapper's ``launches`` (the forward's count is
+``flash_attention.launches``).
 
-Build: on first use the source is compiled with ``nvcc`` for ``sm_90a`` into
+Build: on first use each source is compiled with ``nvcc`` for ``sm_90a`` into
 a shared library with a plain C interface under ``ops/_build/`` (named by
 the source's hash, so an edited source rebuilds) and loaded with ``ctypes``.
 """
@@ -32,6 +37,7 @@ from typing import Optional, Tuple
 import torch
 
 NEG = -1e30
+DEAD = -1e29            # an lse at or below this: the row sees no key
 
 # Head dims the kernel is compiled for. The TPU probe admits D in {64, 96}
 # or any multiple of 128; the Hopper kernel keeps a quarter of a row's f32
@@ -40,12 +46,13 @@ KERNEL_HEAD_DIMS = (64, 96, 128, 256)
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCE = _PKG / "csrc" / "flash_attention_fwd.cu"
+BWD_SOURCE = _PKG / "csrc" / "flash_attention_bwd.cu"
 BUILD_DIR = _PKG / "ops" / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lib_lock = threading.Lock()
-_launcher = None        # the loaded C entry point, set once by _kernel()
+_launchers = {}         # C entry points by symbol, loaded once by _kernel()
 
 
 def fused_attention_applicable(B: int, H: int, T: int, D: int,
@@ -68,52 +75,77 @@ def _nvcc() -> str:
     return found
 
 
+def _library_path(source: Path) -> Path:
+    tag = hashlib.sha256(source.read_bytes()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{source.stem}_{tag}.so"
+
+
 def library_path() -> Path:
-    tag = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"libflash_attention_fwd_{tag}.so"
+    return _library_path(SOURCE)
 
 
-def build() -> Path:
-    """Compile the kernel for sm_90a unless this source's library exists.
-    Returns the library path; nvcc's report (registers, shared memory,
-    spills) is kept beside it with the suffix ``.log``."""
-    out = library_path()
+def bwd_library_path() -> Path:
+    return _library_path(BWD_SOURCE)
+
+
+def _build(source: Path, out: Path) -> Path:
     if out.exists():
         return out
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(source)]
     res = subprocess.run(cmd, capture_output=True, text=True)
     out.with_suffix(".log").write_text(
         " ".join(cmd) + "\n" + res.stdout + res.stderr)
     if res.returncode != 0:
         raise RuntimeError(f"nvcc failed ({res.returncode}) building "
-                           f"{SOURCE.name}:\n{res.stderr[-4000:]}")
+                           f"{source.name}:\n{res.stderr[-4000:]}")
     os.replace(tmp, out)
     return out
 
 
-def _kernel():
-    global _launcher
+def build() -> Path:
+    """Compile the forward kernel for sm_90a unless this source's library
+    exists. Returns the library path; nvcc's report (registers, shared
+    memory, spills) is kept beside it with the suffix ``.log``."""
+    return _build(SOURCE, library_path())
+
+
+def build_bwd() -> Path:
+    """Compile the two backward kernels (one library), as ``build``."""
+    return _build(BWD_SOURCE, bwd_library_path())
+
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# symbol -> (its library's build function, argument types); every entry
+# returns a CUDA error code
+_ENTRIES = {
+    "dl4j_flash_attention_fwd":
+        (build, [_P] * 6 + [_I] * 6 + [ctypes.c_float, _P]),
+    "dl4j_flash_attention_bwd_dq":
+        (build_bwd, [_P] * 8 + [_I] * 6 + [ctypes.c_float, _P]),
+    "dl4j_flash_attention_bwd_dkv":
+        (build_bwd, [_P] * 9 + [_I] * 6 + [ctypes.c_float, _P]),
+}
+
+
+def _kernel(symbol: str):
     with _lib_lock:
-        if _launcher is None:
-            fn = ctypes.CDLL(str(build())).dl4j_flash_attention_fwd
-            fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
-                           + [ctypes.c_float, ctypes.c_void_p])
+        fn = _launchers.get(symbol)
+        if fn is None:
+            build_lib, argtypes = _ENTRIES[symbol]
+            fn = getattr(ctypes.CDLL(str(build_lib())), symbol)
+            fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-            _launcher = fn
-        return _launcher
+            _launchers[symbol] = fn
+        return fn
 
 
 # ----------------------------------------------------------- plain version
-def flash_attention_reference(q3, k3, v3, causal: bool, scale: float,
-                              key_mask=None) -> Tuple[torch.Tensor,
-                                                      torch.Tensor]:
-    """The kernel's function in torch ops: q3/k3/v3 [BH,T,D], key_mask
-    [B,T] or None. Returns (O [BH,T,D] in q3's dtype, lse [BH,T] f32).
-    Scores are f32; causal and masked keys are filled with -1e30, as the
-    TPU kernel fills them."""
+def _scores(q3, k3, causal, scale, key_mask):
+    """f32 scores [BH,T,T] with causal and masked keys filled with -1e30,
+    as the TPU kernels fill them."""
     BH, T, _ = q3.shape
     s = torch.matmul(q3.float(), k3.float().transpose(1, 2)) * scale
     if causal:
@@ -124,9 +156,68 @@ def flash_attention_reference(q3, k3, v3, causal: bool, scale: float,
         hidden = ~(key_mask.to(torch.float32) > 0)                 # [B,T]
         hidden = hidden.repeat_interleave(BH // key_mask.shape[0], dim=0)
         s = s.masked_fill(hidden[:, None, :], NEG)
+    return s
+
+
+def flash_attention_reference(q3, k3, v3, causal: bool, scale: float,
+                              key_mask=None) -> Tuple[torch.Tensor,
+                                                      torch.Tensor]:
+    """The forward kernel's function in torch ops: q3/k3/v3 [BH,T,D],
+    key_mask [B,T] or None. Returns (O [BH,T,D] in q3's dtype, lse [BH,T]
+    f32)."""
+    s = _scores(q3, k3, causal, scale, key_mask)
     lse = torch.logsumexp(s, dim=-1)
     o = torch.matmul(torch.softmax(s, dim=-1), v3.float())
     return o.to(q3.dtype), lse
+
+
+def _bwd_probs(q3, k3, v3, dout, lse, delta, causal, scale, key_mask):
+    """P and dS of the FA-2 backward, recomputed from lse and delta as both
+    backward kernels do, each rounded to the input dtype as the operand of
+    the products that take it. A row with no visible key (lse at or below
+    -1e29, see ``csrc/flash_attention_bwd.cu``) takes P = 1/T and dS = 0,
+    which is what autograd gives through the plain forward."""
+    T = q3.shape[1]
+    s = _scores(q3, k3, causal, scale, key_mask)
+    dead = (lse <= DEAD)[..., None]
+    p = torch.exp(s - lse[..., None])
+    dp = torch.matmul(dout.float(), v3.float().transpose(1, 2))
+    ds = torch.where(dead, 0.0, p * (dp - delta[..., None]) * scale)
+    p = torch.where(dead, 1.0 / T, p)
+    dt = q3.dtype
+    return p.to(dt).float(), ds.to(dt).float()
+
+
+def flash_attention_bwd_dq_reference(q3, k3, v3, dout, lse, delta,
+                                     causal: bool, scale: float,
+                                     key_mask=None) -> torch.Tensor:
+    """The dq kernel's function in torch ops: dq = dS.K in q's dtype."""
+    _, ds = _bwd_probs(q3, k3, v3, dout, lse, delta, causal, scale,
+                       key_mask)
+    return torch.matmul(ds, k3.float()).to(q3.dtype)
+
+
+def flash_attention_bwd_dkv_reference(q3, k3, v3, dout, lse, delta,
+                                      causal: bool, scale: float,
+                                      key_mask=None):
+    """The dk/dv kernel's function in torch ops: dk = dS^T.Q and
+    dv = P^T.dO, in k's and v's dtypes."""
+    p, ds = _bwd_probs(q3, k3, v3, dout, lse, delta, causal, scale,
+                       key_mask)
+    dk = torch.matmul(ds.transpose(1, 2), q3.float())
+    dv = torch.matmul(p.transpose(1, 2), dout.float())
+    return dk.to(k3.dtype), dv.to(v3.dtype)
+
+
+def flash_attention_bwd_reference(q3, k3, v3, dout, lse, delta,
+                                  causal: bool, scale: float,
+                                  key_mask=None):
+    """The FA-2 backward in torch ops, both kernels' functions: q3/k3/v3/
+    dout [BH,T,D], lse and delta = rowsum(dO*O) [BH,T] f32, key_mask [B,T]
+    or None. Returns (dq, dk, dv) in the input dtype, products in f32."""
+    args = (q3, k3, v3, dout, lse, delta, causal, scale, key_mask)
+    return (flash_attention_bwd_dq_reference(*args),
+            *flash_attention_bwd_dkv_reference(*args))
 
 
 # ----------------------------------------------------------------- wrapper
@@ -157,39 +248,133 @@ def _check(q3, k3, v3, key_mask):
             raise ValueError("key_mask must lie on q's device")
 
 
-def flash_attention_fwd(q3, k3, v3, key_mask=None, *, causal: bool,
-                        scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The ``_fwd`` counterpart: q3/k3/v3 [BH,T,D], key_mask [B,T] or None.
-    Returns (O [BH,T,D], lse [BH,T] f32). CPU tensors take the plain
-    version; CUDA tensors launch the kernel on the current stream."""
+def _check_bwd(q3, k3, v3, dout, lse, delta, key_mask):
+    _check(q3, k3, v3, key_mask)
+    if dout.shape != q3.shape or dout.dtype != q3.dtype or \
+            dout.device != q3.device or not dout.is_contiguous():
+        raise ValueError(f"dout must be a contiguous {tuple(q3.shape)} "
+                         f"{q3.dtype} tensor on q's device")
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t.shape != q3.shape[:2] or t.dtype != torch.float32 or \
+                t.device != q3.device or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous "
+                             f"{tuple(q3.shape[:2])} float32 tensor on q's "
+                             f"device")
+
+
+def _on_cpu(q3) -> bool:
     if q3.device.type == "cpu":
-        return flash_attention_reference(q3, k3, v3, causal, scale, key_mask)
+        return True
     if q3.device.type != "cuda":
         raise ValueError(f"flash attention runs on CPU or CUDA tensors, not "
                          f"{q3.device}")
-    _check(q3, k3, v3, key_mask)
+    return False
+
+
+def _launch(symbol: str, ins, key_mask, outs, *, causal: bool,
+            scale: float) -> None:
+    """Launch ``symbol`` on the current stream with pointers ``ins``, the
+    key mask (or null) and ``outs``, then the shape, type and mode
+    arguments every entry point takes; raise on a CUDA error."""
+    q3 = ins[0]
     BH, T, D = q3.shape
-    mask = None
-    heads = 1
+    mask, heads = None, 1
     if key_mask is not None:
         mask = key_mask.to(torch.float32).contiguous()
         heads = BH // key_mask.shape[0]
-    o = torch.empty_like(q3)
-    lse = torch.empty((BH, T), dtype=torch.float32, device=q3.device)
-    launch = _kernel()
+    fn = _kernel(symbol)
+    ptrs = ([t.data_ptr() for t in ins]
+            + [None if mask is None else mask.data_ptr()]
+            + [t.data_ptr() for t in outs])
     with torch.cuda.device(q3.device):
         stream = torch.cuda.current_stream(q3.device).cuda_stream
-        err = launch(q3.data_ptr(), k3.data_ptr(), v3.data_ptr(),
-                     None if mask is None else mask.data_ptr(),
-                     o.data_ptr(), lse.data_ptr(), BH, heads, T, D,
-                     int(q3.dtype == torch.bfloat16), int(bool(causal)),
-                     float(scale), stream)
+        err = fn(*ptrs, BH, heads, T, D, int(q3.dtype == torch.bfloat16),
+                 int(bool(causal)), float(scale), stream)
     if err != 0:
-        raise RuntimeError(f"flash-attention kernel launch failed with CUDA "
-                           f"error {err} (BH={BH}, T={T}, D={D}, "
-                           f"{q3.dtype})")
+        raise RuntimeError(f"{symbol} launch failed with CUDA error {err} "
+                           f"(BH={BH}, T={T}, D={D}, {q3.dtype})")
+
+
+def flash_attention_fwd(q3, k3, v3, key_mask=None, *, causal: bool,
+                        scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The ``_fwd`` counterpart (K1): q3/k3/v3 [BH,T,D], key_mask [B,T] or
+    None. Returns (O [BH,T,D], lse [BH,T] f32). CPU tensors take the plain
+    version; CUDA tensors launch the kernel on the current stream."""
+    if _on_cpu(q3):
+        return flash_attention_reference(q3, k3, v3, causal, scale, key_mask)
+    _check(q3, k3, v3, key_mask)
+    o = torch.empty_like(q3)
+    lse = torch.empty(q3.shape[:2], dtype=torch.float32, device=q3.device)
+    _launch("dl4j_flash_attention_fwd", [q3, k3, v3], key_mask, [o, lse],
+            causal=causal, scale=scale)
     flash_attention.launches += 1
     return o, lse
+
+
+def flash_attention_bwd_dq(q3, k3, v3, dout, lse, delta, key_mask=None, *,
+                           causal: bool, scale: float) -> torch.Tensor:
+    """The ``_dq_body`` pass (K2): dq [BH,T,D] in q's dtype from q/k/v/dout
+    [BH,T,D], K1's lse and delta [BH,T] f32. CPU tensors take the plain
+    version; CUDA tensors launch the kernel on the current stream."""
+    if _on_cpu(q3):
+        return flash_attention_bwd_dq_reference(q3, k3, v3, dout, lse, delta,
+                                                causal, scale, key_mask)
+    _check_bwd(q3, k3, v3, dout, lse, delta, key_mask)
+    dq = torch.empty_like(q3)
+    _launch("dl4j_flash_attention_bwd_dq", [q3, k3, v3, dout, lse, delta],
+            key_mask, [dq], causal=causal, scale=scale)
+    flash_attention_bwd_dq.launches += 1
+    return dq
+
+
+def flash_attention_bwd_dkv(q3, k3, v3, dout, lse, delta, key_mask=None, *,
+                            causal: bool, scale: float):
+    """The ``_dkv_body`` pass (K3): (dk, dv) [BH,T,D] in k's and v's dtypes,
+    from the same inputs as ``flash_attention_bwd_dq``."""
+    if _on_cpu(q3):
+        return flash_attention_bwd_dkv_reference(q3, k3, v3, dout, lse,
+                                                 delta, causal, scale,
+                                                 key_mask)
+    _check_bwd(q3, k3, v3, dout, lse, delta, key_mask)
+    dk, dv = torch.empty_like(k3), torch.empty_like(v3)
+    _launch("dl4j_flash_attention_bwd_dkv", [q3, k3, v3, dout, lse, delta],
+            key_mask, [dk, dv], causal=causal, scale=scale)
+    flash_attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """K1 forward and K2/K3 backward as one differentiable op on
+    [B,H,T,D] q/k/v: the ``_flash`` / ``_flash_fwd`` / ``_flash_bwd``
+    ``custom_vjp`` of the reference. The forward saves the [BH,T,D]
+    operands, O, lse and the key mask; the backward takes
+    delta = rowsum(dO*O) in f32, as the reference does outside its kernels,
+    then the dq and dk/dv passes. The key mask gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, key_mask, causal: bool, scale: float):
+        B, H, T, D = q.shape
+        # reshape may return a strided view (the layer's [B,T,H,D] ->
+        # [B,H,T,D] transpose); the kernels read rows of D contiguous values
+        q3, k3, v3 = (t.reshape(B * H, T, D).contiguous() for t in (q, k, v))
+        o3, lse = flash_attention_fwd(q3, k3, v3, key_mask, causal=causal,
+                                      scale=scale)
+        ctx.save_for_backward(q3, k3, v3, o3, lse, key_mask)
+        ctx.causal, ctx.scale = causal, scale
+        return o3.reshape(B, H, T, D)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q3, k3, v3, o3, lse, key_mask = ctx.saved_tensors
+        do3 = dout.reshape(o3.shape).to(o3.dtype).contiguous()
+        delta = (do3.float() * o3.float()).sum(dim=-1)
+        args = (q3, k3, v3, do3, lse, delta, key_mask)
+        kw = dict(causal=ctx.causal, scale=ctx.scale)
+        dq = flash_attention_bwd_dq(*args, **kw)
+        dk, dv = flash_attention_bwd_dkv(*args, **kw)
+        shape = dout.shape
+        return (dq.reshape(shape), dk.reshape(shape), dv.reshape(shape),
+                None, None, None)
 
 
 def flash_attention(q, k, v, *, causal: bool = False,
@@ -197,15 +382,15 @@ def flash_attention(q, k, v, *, causal: bool = False,
     """Fused softmax attention, [B,H,T,D] in and out: the drop-in for
     ``parallel.ring_attention.attention`` when
     ``fused_attention_applicable``. ``key_mask`` [B,T] excludes padded
-    timesteps as keys."""
-    B, H, T, D = q.shape
+    timesteps as keys. Differentiable in q, k and v on both devices."""
+    D = q.shape[-1]
     scale = float(scale) if scale is not None else 1.0 / math.sqrt(D)
-    # reshape may return a strided view (the layer's [B,T,H,D] -> [B,H,T,D]
-    # transpose), and the kernel reads rows of D contiguous elements
-    q3, k3, v3 = (t.reshape(B * H, T, D).contiguous() for t in (q, k, v))
-    o, _ = flash_attention_fwd(q3, k3, v3, key_mask, causal=causal,
-                               scale=scale)
-    return o.reshape(B, H, T, D)
+    return FlashAttentionFunction.apply(q, k, v, key_mask, bool(causal),
+                                        scale)
 
 
-flash_attention.launches = 0     # kernel launches, counted in flash_attention_fwd
+flash_attention.launches = 0     # K1 launches, counted in flash_attention_fwd
+flash_attention_bwd_dq.launches = 0      # K2 launches
+flash_attention_bwd_dkv.launches = 0     # K3 launches
+
+
