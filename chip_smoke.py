@@ -8,8 +8,9 @@ Phases; any failure raises and exits non-zero before a result is printed:
 
 1. Device: requires CUDA, prints the card's name and power limit, turns
    TF32 off so float32 products are full float32.
-2. Kernels: builds every kernel of the serving and training paths from
-   this checkout's sources (one ``nvcc`` per source, started together),
+2. Kernels: builds every kernel of the serving and training paths
+   (flash attention and LSTM) from this checkout's sources (one ``nvcc``
+   per source, started together),
    then holds each kernel against its plain PyTorch version on the card:
    - K1, the flash-attention forward, at the shapes the serving path gives
      it (float32 at atol 2e-5, bfloat16 at atol 2e-2);
@@ -35,9 +36,34 @@ Phases; any failure raises and exits non-zero before a result is printed:
    T 1024, B 2 on the card and on the CPU (plain versions) from the same
    weights: the loss at rel 1e-5, every gradient at rel-to-max 1e-4, and
    the attention projections' gradients nonzero.
-   In phases 3 and 4 the launch counts are set to 0 just before the path
-   is driven and read just after; every kernel of the path must launch.
-6. Report: JSON lines of per-shape kernel times, the serving and training
+6. LSTM kernels: K5 (``lstm_fwd``) and K6 (``lstm_bwd``) against their
+   plain versions at the char-RNN's training shapes (T 64 and its tBPTT
+   chunks 50 and 14, B 32, H 512, float32, Graves peepholes) and at
+   coverage shapes (no peepholes, a mask, bfloat16, H 256, B 1/3/4/8,
+   T 1): forward atol 1e-5 (the reference's lstm pin), backward atol 3e-5,
+   bfloat16 2e-2. Times each with its plain version and cuDNN's LSTM
+   (``torch.nn.LSTM(87, 512)``, forward and backward) at T 64, B 32.
+7. Serve the char-RNN: ``text_generation_lstm`` at bench.py ``bench_lstm``'s
+   width (vocab 87, two GravesLSTM(512), T 64) with random weights from a
+   seed, served by ``GenerationEngine`` (the "state" adapter) to 8
+   concurrent greedy requests of 40-160 prompt characters and 64 new
+   tokens each. One request's tokens must equal ``naive_generate_lstm``'s
+   (``rnn_time_step``); K5 must launch once per layer for every prefill
+   batch and decode step.
+8. Train the char-RNN: 6 ``net.fit`` calls with RmsProp(1e-3) on one batch
+   of B 32 one-hot sequences of T 64 (two tBPTT chunks, 50 and 14 steps);
+   K5 and K6 each launch 2 layers x 2 chunks = 4 times a fit; the loss is
+   finite and the 50-step chunk's loss falls from the first fit to the
+   last.
+9. Cross-device LSTM: one f32 tBPTT ``fit`` of the char-RNN at B 8, T 64 on
+   the card and on the CPU (plain versions) from the same weights and
+   RmsProp state: the first chunk's loss at rel 1e-5, every gradient at
+   rel-to-max 1e-4 and every ``R`` gradient nonzero, the parameters after
+   the step at rel-to-max 1e-4.
+   In phases 3, 4, 7 and 8 the launch counts are set to 0 just before the
+   path is driven and read just after; every kernel of the path must
+   launch.
+10. Report: JSON lines of per-shape kernel times, the serving and training
    metrics and the kernels, then last ``{"ok": true, "device": ...}``.
 """
 from __future__ import annotations
@@ -53,11 +79,15 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from deeplearning4j_tpu_torch.interop.jax_params import load_jax_params
+from deeplearning4j_tpu_torch.interop.jax_params import (load_jax_opt_state,
+                                                         load_jax_params)
 from deeplearning4j_tpu_torch.models.decode import (TransformerDecodeSpec,
-                                                    naive_generate)
-from deeplearning4j_tpu_torch.models.zoo_extra import transformer_lm
+                                                    naive_generate,
+                                                    naive_generate_lstm)
+from deeplearning4j_tpu_torch.models.zoo_extra import (text_generation_lstm,
+                                                       transformer_lm)
 from deeplearning4j_tpu_torch.ops import flash_attention as fa
+from deeplearning4j_tpu_torch.ops import lstm
 from deeplearning4j_tpu_torch.optimize.updaters import Adam
 from deeplearning4j_tpu_torch.serving.generation import GenerationEngine
 
@@ -74,6 +104,16 @@ ENGINE = dict(block_len=16, max_seq_len=1024, decode_slots=8,
               prefill_batches=(1, 2), prompt_rungs=(512, 1024))
 N_REQUESTS, MAX_TOKENS = 8, 32
 TRAIN_B, TRAIN_STEPS = 8, 6                  # bench.py _TLM batch
+# bench.py bench_lstm: the char-RNN (vocab 87, 2 x GravesLSTM(512), T 64)
+CHAR = dict(vocab_size=87, hidden=512, max_length=64)
+CHAR_B, CHAR_T, CHAR_FITS = 32, 64, 6
+CHAR_ENGINE = dict(block_len=16, max_seq_len=256, decode_slots=8,
+                   prefill_batches=(1, 2, 4), prompt_rungs=(64, 128, 256))
+CHAR_REQUESTS, CHAR_MAX_TOKENS = 8, 64
+# K5 forward: the reference's lstm parity pin (ops/kernels/builtins.py:114);
+# K6 backward: tests/test_pallas_lstm.py:191, 287; bf16 2e-2
+LSTM_TOL = {("fwd", torch.float32): 1e-5, ("bwd", torch.float32): 3e-5,
+            ("fwd", torch.bfloat16): 2e-2, ("bwd", torch.bfloat16): 2e-2}
 
 
 def log(*a):
@@ -96,7 +136,8 @@ def device_phase() -> str:
 
 # ------------------------------------------------------------------ phase 2
 BUILDS = {"flash_attention_fwd": fa.build,
-          "flash_attention_bwd": fa.build_bwd}
+          "flash_attention_bwd": fa.build_bwd,
+          "lstm_fwd": lstm.build_fwd, "lstm_bwd": lstm.build_bwd}
 
 
 def build_phase():
@@ -372,15 +413,17 @@ def slice_phase():
 COUNTED = {"flash_attention_fwd": fa.flash_attention,
            "flash_attention_bwd_dq": fa.flash_attention_bwd_dq,
            "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv}
+LSTM_COUNTED = {"lstm_fwd": lstm.fused_lstm_fwd,
+                "lstm_bwd": lstm.fused_lstm_bwd}
 
 
 def _reset_launches():
-    for fn in COUNTED.values():
+    for fn in (*COUNTED.values(), *LSTM_COUNTED.values()):
         fn.launches = 0
 
 
-def _launches():
-    return {name: fn.launches for name, fn in COUNTED.items()}
+def _launches(counted=COUNTED):
+    return {name: fn.launches for name, fn in counted.items()}
 
 
 def _one_hot_prev(x, V, dtype):
@@ -486,6 +529,312 @@ def cross_device_phase():
             "worst_grad": worst, "launches": launches}
 
 
+# ------------------------------------------------------------------ phase 6
+def _lstm_case(gen, T, B, H, dtype, peep, masked):
+    """K5's inputs at the scales of a xavier-initialised layer, and K6's
+    cotangents."""
+    r = lambda *shape, sc: (torch.randn(*shape, generator=gen) * sc).to(
+        dtype).cuda()
+    fwd = [r(T, B, 4 * H, sc=0.3), r(B, H, sc=0.1), r(B, H, sc=0.1),
+           r(H, 4 * H, sc=0.05)]
+    mask = ((torch.rand(T, B, generator=gen) > 0.3).float().cuda()
+            if masked else None)
+    peeps = tuple(r(H, sc=0.2) for _ in range(3)) if peep else None
+    cot = [r(T, B, H, sc=0.5), r(B, H, sc=0.5), r(B, H, sc=0.5)]
+    return fwd, mask, peeps, cot
+
+
+def _lstm_bound(kind, T, B, H, dtype, peep, masked):
+    """Least time (ms) for the card: each input read once and each output
+    written once at the memory rate, against the products' flops
+    (2*T*B*H*4H for K5, twice that for K6's dh and dR products) at the
+    dtype's peak. Returns (ms, "bytes" | "operations")."""
+    n_seq, n_gate = T * B * H, T * B * 4 * H
+    if kind == "fwd":      # x_proj, R, h0, c0 in; hs, gates, cs, c/h_prev, hT, cT out
+        elems = n_gate + 4 * H * H + 2 * B * H + n_gate + 4 * n_seq \
+            + 2 * B * H
+        flops = 2.0 * T * B * H * 4 * H
+    else:                  # gates, cs, c/h_prev, dhs, R, dhT, dcT in; dxp, dh0, dc0, dR out
+        elems = n_gate + 4 * n_seq + 4 * H * H + 2 * B * H + n_gate \
+            + 2 * B * H + 4 * H * H
+        flops = 4.0 * T * B * H * 4 * H
+    elems += (3 * H * (1 if kind == "fwd" else 2)) if peep else 0
+    nbytes = elems * torch.finfo(dtype).bits // 8 + (T * B * 4 if masked
+                                                       else 0)
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def _max_err(got, want) -> float:
+    return max((g.float() - w.float()).abs().max().item()
+               for g, w in zip(got, want))
+
+
+def lstm_kernel_phase():
+    """K5 and K6 against their plain versions at the char-RNN's training
+    shapes and at coverage shapes; times at the training shapes beside
+    the plain versions, cuDNN's LSTM and the bound."""
+    gen = torch.Generator().manual_seed(SEED + 5)
+    f32, bf16 = torch.float32, torch.bfloat16
+    H = CHAR["hidden"]
+    errs = {(k, d): 0.0 for k in ("fwd", "bwd") for d in (f32, bf16)}
+    # (T, B, H, dtype, peepholes, mask): the tBPTT chunks, then coverage
+    main = [(CHAR_T, CHAR_B, H, f32, True, False),
+            (50, CHAR_B, H, f32, True, False),
+            (14, CHAR_B, H, f32, True, False)]
+    cover = [(CHAR_T, CHAR_B, H, f32, False, False),
+             (CHAR_T, CHAR_B, H, f32, True, True),
+             (CHAR_T, CHAR_B, H, bf16, True, False),
+             (CHAR_T, CHAR_B, H, bf16, False, True),
+             (CHAR_T, 8, 256, f32, True, False),
+             (128, 4, H, f32, True, True),
+             (16, 3, H, f32, True, True),
+             (1, 8, H, f32, True, False),
+             (1, 1, H, f32, True, False),
+             (1, 1, H, bf16, True, False)]
+    rows = []
+    for T, B, H_, dtype, peep, masked in main + cover:
+        fwd, mask, peeps, (dhs, dhT, dcT) = _lstm_case(gen, T, B, H_, dtype,
+                                                        peep, masked)
+        got = lstm.fused_lstm_fwd(*fwd, mask, peeps)
+        torch.cuda.synchronize()
+        want = lstm.lstm_fwd_reference(*fwd, mask, peeps)
+        res = want[1:5]
+        bargs = (*res, dhs, fwd[3], dhT, dcT, mask, peeps)
+        got_b = lstm.fused_lstm_bwd(*bargs)
+        torch.cuda.synchronize()
+        want_b = lstm.lstm_bwd_reference(*bargs)
+        for kind, g, w in (("fwd", got, want), ("bwd", got_b, want_b)):
+            if not all(torch.isfinite(t.float()).all() for t in g):
+                raise AssertionError(f"{kind} kernel output is not finite")
+            err = _max_err(g, w)
+            if err > LSTM_TOL[(kind, dtype)]:
+                raise AssertionError(
+                    f"lstm {kind} kernel disagrees with plain at T={T} B={B} "
+                    f"H={H_} {dtype} peep={peep} mask={masked}: {err:.3g} > "
+                    f"{LSTM_TOL[(kind, dtype)]}")
+            errs[(kind, dtype)] = max(errs[(kind, dtype)], err)
+        if (T, B, H_, dtype, peep, masked) not in main:
+            continue
+        row = {"T": T, "B": B, "H": H_, "dtype": str(dtype), "peepholes": True,
+               "fwd_ms": _time_ms(lambda: lstm.fused_lstm_fwd(
+                   *fwd, mask, peeps)),
+               "bwd_ms": _time_ms(lambda: lstm.fused_lstm_bwd(*bargs))}
+        row["fwd_bound_ms"], row["fwd_bound_by"] = _lstm_bound(
+            "fwd", T, B, H_, dtype, peep, masked)
+        row["bwd_bound_ms"], row["bwd_bound_by"] = _lstm_bound(
+            "bwd", T, B, H_, dtype, peep, masked)
+        if T == CHAR_T:
+            row["fwd_plain_ms"] = _time_ms(lambda: lstm.lstm_fwd_reference(
+                *fwd, mask, peeps), iters=5, warmup=1)
+            row["bwd_plain_ms"] = _time_ms(lambda: lstm.lstm_bwd_reference(
+                *bargs), iters=5, warmup=1)
+            # cuDNN's LSTM at the same T, B, H: the no-peephole recurrence
+            # plus the input projection of the 87 one-hot inputs
+            cud = torch.nn.LSTM(CHAR["vocab_size"], H_).cuda()
+            xin = torch.randn(T, B, CHAR["vocab_size"], generator=gen).cuda()
+            xin.requires_grad_(True)
+            out, _ = cud(xin)
+            dout = torch.randn(T, B, H_, generator=gen).cuda()
+            leaves = [xin, *cud.parameters()]
+            row["fwd_library_ms"] = _time_ms(lambda: cud(xin))
+            row["bwd_library_ms"] = _time_ms(lambda: torch.autograd.grad(
+                out, leaves, dout, retain_graph=True))
+        rows.append(row)
+    # the time a step adds (barrier included): the T 64 and T 14 calls'
+    # difference over their 50 steps
+    t64, t14 = (next(r for r in rows if r["T"] == T) for T in (CHAR_T, 14))
+    step_us = {f"{k}_us_per_step": (t64[f"{k}_ms"] - t14[f"{k}_ms"])
+               / (CHAR_T - 14) * 1e3 for k in ("fwd", "bwd")}
+    # the serving path's shapes: a prefill over a 128 rung at B 4, masked,
+    # and one decode step at the 8 slots
+    for T, B in ((128, 4), (1, 8)):
+        fwd, mask, peeps, _ = _lstm_case(gen, T, B, H, f32, True, T > 1)
+        ms = _time_ms(lambda: lstm.fused_lstm_fwd(*fwd, mask, peeps))
+        bound, by = _lstm_bound("fwd", T, B, H, f32, True, T > 1)
+        rows.append({"T": T, "B": B, "H": H, "dtype": str(f32),
+                     "peepholes": True, "masked": T > 1, "fwd_ms": ms,
+                     "fwd_bound_ms": bound, "fwd_bound_by": by})
+    log("lstm kernel phase: max abs err", {f"{k}/{d}": e
+                                           for (k, d), e in errs.items()})
+    return errs, rows, step_us
+
+
+# ------------------------------------------------------------------ phase 7
+def char_serve_phase():
+    net = text_generation_lstm(**CHAR).init(seed=SEED)
+    eng = GenerationEngine(net, **CHAR_ENGINE)
+    n_layers = sum(hasattr(l, "apply_with_final_state") for l in net.layers)
+    rng = np.random.default_rng(SEED + 6)
+    lens = rng.integers(40, 161, size=CHAR_REQUESTS)
+    V = CHAR["vocab_size"]
+    prompts = [rng.integers(0, V, size=int(n)).tolist() for n in lens]
+    try:
+        _reset_launches()                       # the serving run's count
+        t0 = time.perf_counter()
+        streams = [eng.generate(p, max_tokens=CHAR_MAX_TOKENS, stream=True)
+                   for p in prompts]
+        results = [s.result() for s in streams]
+        wall_s = time.perf_counter() - t0
+        launches = _launches(LSTM_COUNTED)
+        snap = eng.metrics()["default"]
+        adapter = eng.models()["default"]["adapter"]
+    finally:
+        eng.stop()
+    if adapter != "state":
+        raise AssertionError(f"the char-RNN was served by the {adapter!r} "
+                             f"adapter")
+    for i, (toks, reason) in enumerate(results):
+        if len(toks) != CHAR_MAX_TOKENS or reason != "length":
+            raise AssertionError(f"char request {i}: {len(toks)} tokens, "
+                                 f"finish reason {reason!r}")
+        if not all(0 <= t < V for t in toks):
+            raise AssertionError(f"char request {i}: token out of range")
+    want = n_layers * (snap["prefills"] + snap["decode_steps"])
+    if launches != {"lstm_fwd": want, "lstm_bwd": 0}:
+        raise AssertionError(f"serving launched {launches}; {snap['prefills']}"
+                             f" prefill batches and {snap['decode_steps']} "
+                             f"decode steps of {n_layers} layers imply "
+                             f"{want} K5 launches")
+    ref = naive_generate_lstm(net, prompts[0], CHAR_MAX_TOKENS)
+    if ref != results[0][0]:
+        first = next(i for i, (a, b) in enumerate(zip(ref, results[0][0]))
+                     if a != b)
+        raise AssertionError(f"engine tokens differ from naive_generate_lstm "
+                             f"at step {first}: {results[0][0]} vs {ref}")
+    return {"requests": CHAR_REQUESTS, "tokens": CHAR_REQUESTS * CHAR_MAX_TOKENS,
+            "prompt_lens": [int(n) for n in lens],
+            "prefill_batches": snap["prefills"],
+            "decode_steps": snap["decode_steps"],
+            "ttft_ms_p50": snap["ttft_ms"]["p50"],
+            "ttft_ms_p99": snap["ttft_ms"]["p99"],
+            "decode_step_ms_p50": snap["decode_step_ms"]["p50"],
+            "decode_tokens_per_sec": snap["decode_tokens_per_sec"],
+            "wall_s": wall_s, "launches": launches}
+
+
+# ------------------------------------------------------------------ phase 8
+def _char_batch(seed, B, T):
+    """bench.py bench_lstm's feed: one-hot characters and the one-hot of
+    the next character, ``np.roll(ids, -1, axis=1)``."""
+    ids = np.random.default_rng(seed).integers(0, CHAR["vocab_size"], (B, T))
+    eye = np.eye(CHAR["vocab_size"], dtype=np.float32)
+    return eye[ids], eye[np.roll(ids, -1, axis=1)]
+
+
+def char_train_phase():
+    """The char-RNN with RmsProp(1e-3): 6 fits on one batch, each two tBPTT
+    chunks (50 and 14 steps), timed to their end. The 50-step chunk's loss
+    of each fit is the score of steps 0..49 at the fit's starting weights
+    (no dropout: the same forward), taken between the counted fits."""
+    net = text_generation_lstm(**CHAR).init(seed=SEED)
+    k = net.conf.tbptt_fwd_length
+    x_np, y_np = _char_batch(SEED + 7, CHAR_B, CHAR_T)
+    x = torch.as_tensor(x_np, device=net.device)
+    y = torch.as_tensor(y_np, device=net.device)
+    rec = _Losses()
+    net.set_listeners(rec)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, first_chunk, launches = [], [], {n: 0 for n in LSTM_COUNTED}
+    for _ in range(CHAR_FITS):
+        first_chunk.append(net.score(x[:, :k], y[:, :k]))
+        torch.cuda.synchronize()
+        _reset_launches()                      # this fit's count
+        t0 = time.perf_counter()
+        net.fit(x, y, batch_size=CHAR_B)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        for name, n in _launches(LSTM_COUNTED).items():
+            launches[name] += n
+    peak = torch.cuda.max_memory_allocated()
+    last_chunk = [float(v) for v in rec.losses]
+    want = 2 * 2 * CHAR_FITS                   # layers x chunks x fits
+    if launches != {name: want for name in LSTM_COUNTED}:
+        raise AssertionError(f"char training launched {launches}, not {want} "
+                             f"of each (2 layers x 2 chunks x {CHAR_FITS})")
+    if net.iteration_count != 2 * CHAR_FITS:
+        raise AssertionError(f"{net.iteration_count} tBPTT iterations")
+    losses = first_chunk + last_chunk
+    if len(last_chunk) != CHAR_FITS or not all(math.isfinite(v)
+                                               for v in losses):
+        raise AssertionError(f"char training losses are not finite: {losses}")
+    if not first_chunk[-1] < first_chunk[0]:
+        raise AssertionError(f"the 50-step chunk's loss did not fall: "
+                             f"{first_chunk}")
+    p50 = float(np.median(step_ms[1:]))
+    return {"model": "text_generation_lstm vocab 87 hidden 512 f32 "
+                     "RmsProp(1e-3) tBPTT 50",
+            "batch": CHAR_B, "seq_len": CHAR_T, "fits": CHAR_FITS,
+            "chunk50_losses": first_chunk, "chunk14_losses": last_chunk,
+            "step_ms": step_ms, "step_ms_p50_after_first": p50,
+            "tokens_per_sec": CHAR_B * CHAR_T / (p50 / 1e3),
+            "max_memory_allocated_bytes": peak, "launches": launches}
+
+
+# ------------------------------------------------------------------ phase 9
+def char_cross_device_phase():
+    """One f32 tBPTT fit of the char-RNN at B 8, T 64 on the card (K5/K6)
+    and on the CPU (plain versions) from the same weights and RmsProp
+    state (one card fit first, so the state is not zero)."""
+    B = 8
+    gpu = text_generation_lstm(**CHAR).init(seed=SEED + 8)
+    cpu = text_generation_lstm(**CHAR, device="cpu").init()
+    x0, y0 = _char_batch(SEED + 9, B, CHAR_T)
+    gpu.fit(x0, y0, batch_size=B)
+    load_jax_params(cpu, [{n: p.detach().cpu().numpy()
+                           for n, p in pd.items()}
+                          for pd in gpu.param_dicts().values()])
+    load_jax_opt_state(cpu, [{n: {s: t.cpu().numpy() for s, t in st.items()}
+                              for n, st in layer.items()}
+                             for layer in gpu.opt_state.values()],
+                       iteration_count=gpu.iteration_count)
+    x_np, y_np = _char_batch(SEED + 10, B, CHAR_T)
+    k = gpu.conf.tbptt_fwd_length
+
+    def chunk_loss_and_grads(net):
+        x = torch.as_tensor(x_np[:, :k], device=net.device)
+        y = torch.as_tensor(y_np[:, :k], device=net.device)
+        loss = net.loss_fn(x, y)
+        named = [(f"{i}.{n}", p) for i, pd in net.param_dicts().items()
+                 for n, p in pd.items()]
+        grads = torch.autograd.grad(loss, [p for _, p in named])
+        return loss.item(), {n: g.cpu() for (n, _), g in zip(named, grads)}
+
+    l_gpu, g_gpu = chunk_loss_and_grads(gpu)
+    l_cpu, g_cpu = chunk_loss_and_grads(cpu)
+    loss_rel = abs(l_gpu - l_cpu) / abs(l_cpu)
+    if loss_rel > 1e-5:
+        raise AssertionError(f"first chunk's loss on the card {l_gpu} vs "
+                             f"CPU {l_cpu}")
+    worst = max(g_gpu, key=lambda n: _rel_to_max(g_gpu[n], g_cpu[n]))
+    grad_rel = _rel_to_max(g_gpu[worst], g_cpu[worst])
+    if grad_rel > 1e-4:
+        raise AssertionError(f"gradient {worst} on the card differs from the "
+                             f"CPU's: rel-to-max {grad_rel:.3g}")
+    for i in (0, 1):
+        if not float(g_gpu[f"{i}.R"].abs().max()) > 0:
+            raise AssertionError(f"layer {i} R got no gradient on the card")
+    _reset_launches()                     # the card's fit, counted alone
+    gpu.fit(x_np, y_np, batch_size=B)
+    torch.cuda.synchronize()
+    launches = _launches(LSTM_COUNTED)
+    cpu.fit(x_np, y_np, batch_size=B)
+    if launches != {"lstm_fwd": 4, "lstm_bwd": 4}:
+        raise AssertionError(f"cross-device fit launched {launches}")
+    pairs = [(f"{i}.{n}", p.detach().cpu(), cpu.param_dicts()[i][n].detach())
+             for i, pd in gpu.param_dicts().items() for n, p in pd.items()]
+    worst_p = max(pairs, key=lambda t: _rel_to_max(t[1], t[2]))
+    param_rel = _rel_to_max(worst_p[1], worst_p[2])
+    if param_rel > 1e-4:
+        raise AssertionError(f"parameter {worst_p[0]} after the step differs "
+                             f"from the CPU's: rel-to-max {param_rel:.3g}")
+    return {"chunk_loss_rel": loss_rel, "grad_rel_to_max": grad_rel,
+            "worst_grad": worst, "param_rel_to_max": param_rel,
+            "worst_param": worst_p[0], "launches": launches}
+
+
 # ------------------------------------------------------------------- main
 def main() -> int:
     smi = device_phase()
@@ -495,6 +844,10 @@ def main() -> int:
     slice_row = slice_phase()
     train_row = train_phase()
     cross_row = cross_device_phase()
+    lstm_errs, lstm_rows, lstm_step_us = lstm_kernel_phase()
+    char_serve = char_serve_phase()
+    char_train = char_train_phase()
+    char_cross = char_cross_device_phase()
     top = next(r for r in rows if r["BH"] == 16 and r["T"] == 1024
                and r["dtype"] == str(torch.float32))
     serve_k1 = slice_row["flash_attention_launches"]
@@ -528,11 +881,37 @@ def main() -> int:
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"]})
+    lstm_top = next(r for r in lstm_rows if r["T"] == CHAR_T
+                    and r["B"] == CHAR_B)
+    lsrc = "deeplearning4j_tpu_torch/csrc/lstm_{}.cu"
+    lref = "deeplearning4j_tpu/ops/pallas_lstm.py:{}"
+    for kind, name, line in (("fwd", "lstm_fwd", 147), ("bwd", "lstm_bwd", 282)):
+        serve_n = char_serve["launches"][name]
+        train_n = char_train["launches"][name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": lsrc.format(kind),
+            "replaces": lref.format(line), "launches": serve_n + train_n,
+            "launches_by_path": {"serve": serve_n, "train": train_n},
+            "max_abs_err": max(lstm_errs[(kind, torch.float32)],
+                               lstm_errs[(kind, torch.bfloat16)]),
+            "max_abs_err_f32": lstm_errs[(kind, torch.float32)],
+            "max_abs_err_bf16": lstm_errs[(kind, torch.bfloat16)],
+            "shape": "T=64 B=32 H=512 float32 peepholes",
+            "ms": lstm_top[f"{kind}_ms"],
+            "plain_ms": lstm_top[f"{kind}_plain_ms"],
+            "bound_ms": lstm_top[f"{kind}_bound_ms"],
+            "bound_by": lstm_top[f"{kind}_bound_by"],
+            "library_ms": lstm_top[f"{kind}_library_ms"]})
     print(json.dumps({"kernel_shapes": rows, "bwd_kernel_shapes": bwd_rows,
-                      "card": smi}), flush=True)
+                      "lstm_kernel_shapes": lstm_rows,
+                      "lstm_step_us": lstm_step_us, "card": smi}),
+          flush=True)
     print(json.dumps({"slice": slice_row, "card": smi}), flush=True)
     print(json.dumps({"train": train_row, "cross_device": cross_row,
                       "card": smi}), flush=True)
+    print(json.dumps({"char_serve": char_serve, "char_train": char_train,
+                      "char_cross_device": char_cross, "card": smi}),
+          flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,12 +1,14 @@
-"""Carry a JAX graph's weights and updater state into the port's graph.
+"""Carry a JAX network's weights and updater state into the port's.
 
-The JAX package keeps a ComputationGraph's parameters as ``net.params``: a
-tuple with one dict per vertex, in ``net.vertex_names`` order, under the
-same names and layouts the port's layers use. The port never imports JAX,
-so the caller turns those arrays into numpy first, e.g.
+The JAX package keeps a network's parameters as ``net.params``: a tuple
+with one dict per vertex of a ComputationGraph (in ``net.vertex_names``
+order) or per layer of a MultiLayerNetwork (in layer order), under the same
+names and layouts the port's layers use. The port never imports JAX, so
+the caller turns those arrays into numpy first, e.g.
 ``[{k: np.asarray(v) for k, v in p.items()} for p in jax_net.params]``.
-The updater state (``net.opt_state``) has one more level, the state name,
-so a parity test can start both packages from one mid-training state.
+The updater state (``net.opt_state``) has one more level, the state name
+(Adam's ``m`` and ``v``, RmsProp's ``h``), so a parity test can start both
+packages from one mid-training state.
 """
 from __future__ import annotations
 
@@ -16,30 +18,43 @@ import numpy as np
 import torch
 
 
+def _groups(net, what: str, items, vertex_names) -> dict:
+    """``items`` (one entry per vertex or layer) keyed as the port network
+    keys its parameters: by vertex name for a graph (``vertex_names``,
+    default the port graph's own order, which its topological sort makes
+    equal to the JAX graph's), by layer index for a MultiLayerNetwork."""
+    if not net.initialized:
+        raise RuntimeError(f"call init() on the port network before loading "
+                           f"{what} into it")
+    own = list(net.param_dicts())
+    if hasattr(net, "vertex_names"):
+        names = list(vertex_names) if vertex_names is not None else own
+    elif vertex_names is not None:
+        raise ValueError("a MultiLayerNetwork's groups are its layers, in "
+                         "order; it takes no vertex names")
+    else:
+        names = own
+    if len(names) != len(items):
+        raise ValueError(f"{len(items)} {what} dicts for {len(names)} "
+                         f"vertices or layers")
+    src = dict(zip(names, items))
+    if set(src) != set(own):
+        raise ValueError(
+            f"vertex names differ: missing {sorted(set(own) - set(src))}, "
+            f"unexpected {sorted(set(src) - set(own))}")
+    return src
+
+
 def load_jax_params(net, params: Sequence[Mapping[str, np.ndarray]],
                     vertex_names: Optional[Sequence[str]] = None) -> None:
-    """Copy ``params`` (one dict of numpy arrays per vertex, in
-    ``vertex_names`` order; default the port graph's own order, which its
-    topological sort makes equal to the JAX graph's) into the initialized
-    port graph ``net``, matching by vertex name and parameter name. Every
-    shape is checked; a missing, extra or misshapen entry raises before
-    anything is copied."""
-    if not net.initialized:
-        raise RuntimeError("call init() on the port graph before loading "
-                           "parameters into it")
-    names = list(vertex_names) if vertex_names is not None \
-        else list(net.vertex_names)
-    if len(names) != len(params):
-        raise ValueError(f"{len(params)} parameter dicts for "
-                         f"{len(names)} vertex names")
-    src = dict(zip(names, params))
-    if set(src) != set(net.vertex_names):
-        raise ValueError(
-            f"vertex names differ: missing {sorted(set(net.vertex_names) - set(src))}, "
-            f"unexpected {sorted(set(src) - set(net.vertex_names))}")
+    """Copy ``params`` (one dict of numpy arrays per vertex of a graph, in
+    ``vertex_names`` order, or per layer of a MultiLayerNetwork, in layer
+    order) into the initialized port network ``net``, matching by vertex
+    name (or layer index) and parameter name. Every shape is checked; a
+    missing, extra or misshapen entry raises before anything is copied."""
+    src = _groups(net, "parameter", params, vertex_names)
     pairs = []
-    for name in net.vertex_names:
-        own = net.vertices[name].param_dict()
+    for name, own in net.param_dicts().items():
         theirs = src[name]
         if set(own) != set(theirs):
             raise ValueError(
@@ -60,28 +75,16 @@ def load_jax_params(net, params: Sequence[Mapping[str, np.ndarray]],
 
 def load_jax_opt_state(net, opt_state, *, iteration_count: int,
                        vertex_names: Optional[Sequence[str]] = None) -> None:
-    """Copy a JAX graph's updater state into the port graph ``net``:
-    ``opt_state`` is one dict per vertex (in ``vertex_names`` order, default
-    the port graph's own) of {parameter name: {state name: numpy array}},
-    e.g. Adam's ``m`` and ``v``, as in the JAX graph's ``net.opt_state``
-    turned into numpy. ``iteration_count`` is the JAX graph's, which the
-    schedules and Adam's bias correction read. Every name and shape is
-    checked before anything is copied."""
-    if not net.initialized:
-        raise RuntimeError("call init() on the port graph before loading "
-                           "updater state into it")
-    names = list(vertex_names) if vertex_names is not None \
-        else list(net.vertex_names)
-    if len(names) != len(opt_state):
-        raise ValueError(f"{len(opt_state)} state dicts for {len(names)} "
-                         f"vertex names")
-    src = dict(zip(names, opt_state))
-    if set(src) != set(net.vertex_names):
-        raise ValueError(
-            f"vertex names differ: missing {sorted(set(net.vertex_names) - set(src))}, "
-            f"unexpected {sorted(set(src) - set(net.vertex_names))}")
+    """Copy a JAX network's updater state into the port network ``net``:
+    ``opt_state`` is one dict per vertex or layer (in the order
+    ``load_jax_params`` takes) of {parameter name: {state name: numpy
+    array}}, e.g. Adam's ``m`` and ``v``, as in the JAX network's
+    ``net.opt_state`` turned into numpy. ``iteration_count`` is the JAX
+    network's, which the schedules and Adam's bias correction read. Every
+    name and shape is checked before anything is copied."""
+    src = _groups(net, "state", opt_state, vertex_names)
     pairs = []
-    for name in net.vertex_names:
+    for name in net.param_dicts():
         own, theirs = net.opt_state[name], src[name]
         if set(own) != set(theirs):
             raise ValueError(f"vertex {name!r}: state for parameters "

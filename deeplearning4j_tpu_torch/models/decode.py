@@ -1,8 +1,10 @@
-"""Cache-aware autoregressive decode for the transformer LM.
+"""Cache-aware autoregressive decode for the transformer LM and the
+char-RNN.
 
 Counterpart of ``deeplearning4j_tpu/models/decode.py``:
 ``TransformerDecodeSpec`` (``prefill_forward`` ``:167``, ``decode_step``
-``:194``, ``_block_step`` ``:214``) and ``naive_generate`` (``:399``).
+``:194``, ``_block_step`` ``:214``), ``LSTMDecodeSpec`` (``:286-366``),
+``naive_generate`` (``:399``) and ``naive_generate_lstm`` (``:428-446``).
 
 - ``prefill_forward`` runs the graph's own ``apply_fn`` over the padded
   prompt, so its logits are those of a plain ``net.output`` (and its
@@ -14,9 +16,17 @@ Counterpart of ``deeplearning4j_tpu/models/decode.py``:
   ``parallel.ring_attention.attention`` over the gathered context.
 - ``naive_generate`` is the cache-free greedy reference: one full forward
   per emitted token.
+- ``LSTMDecodeSpec`` serves a ``text_generation_lstm``-style
+  MultiLayerNetwork: its cache is the per-layer recurrent state, fixed in
+  shape. ``prefill_scan`` runs the padded prompt through each layer once,
+  masked by ``t < length`` (one K5 launch per layer on the card, where the
+  reference steps through the prompt one token at a time): masked steps
+  carry the state through, so the final state and the last position's
+  output are those at ``length - 1``. ``naive_generate_lstm`` is its greedy
+  reference through the public ``rnn_time_step``.
 
-The speculative-decoding window, the LSTM spec and the draft builder come
-with later slices.
+The speculative-decoding window and the draft builder come with a later
+slice (ROADMAP A2).
 """
 from __future__ import annotations
 
@@ -30,6 +40,7 @@ from ..device import DeviceLike, check_same_device, resolve_device
 from ..nn.layers import (DenseLayer, EmbeddingSequenceLayer,
                          LayerNormalization, RnnOutputLayer,
                          SelfAttentionLayer)
+from ..nn.multilayer import MultiLayerNetwork
 from ..parallel.ring_attention import attention
 
 
@@ -161,4 +172,93 @@ def naive_generate(net, prompt_ids: Sequence[int], max_new: int, *,
         nxt = int(torch.argmax(probs[0, len(ids) - 1]))
         out.append(nxt)
         ids.append(nxt)
+    return out
+
+
+class LSTMDecodeSpec:
+    """Incremental decode for a ``text_generation_lstm``-style
+    MultiLayerNetwork (LSTM/GravesLSTM stack + RnnOutputLayer head over
+    one-hot input): the decode cache is each recurrent layer's (h, c)."""
+
+    def __init__(self, net):
+        if not isinstance(net, MultiLayerNetwork):
+            raise ValueError("LSTMDecodeSpec supports MultiLayerNetwork "
+                             "stacks (ComputationGraph transformers take "
+                             "TransformerDecodeSpec)")
+        last = net.layers[-1]
+        if not isinstance(last, RnnOutputLayer):
+            raise ValueError("LSTM decode requires an RnnOutputLayer head")
+        if not any(hasattr(l, "apply_with_final_state") for l in net.layers):
+            raise ValueError("no recurrent layer found")
+        self.net = net
+        self.vocab = last.n_out
+        self.dtype = net.dtype
+        self.token_input = False          # char-LM contract: one-hot input
+
+    def init_states(self, batch: int):
+        """Zero (h, c) for ``batch`` sequences per recurrent layer, None for
+        the others: the structure ``apply_fn(collect_rnn_states=True)``
+        returns."""
+        net = self.net
+        return [(torch.zeros((batch, l.n_out), dtype=self.dtype,
+                             device=net.device),
+                 torch.zeros((batch, l.n_out), dtype=self.dtype,
+                             device=net.device))
+                if hasattr(l, "apply_with_final_state") else None
+                for l in net.layers]
+
+    def _head(self, x_seq, rnn_states, mask=None):
+        """Run the stack below the head over [B,L,V]; returns its last
+        position's logits [B,V] and the new states."""
+        net = self.net
+        acts, states = net.apply_fn(x_seq, to_layer=len(net.layers) - 2,
+                                    features_mask=mask,
+                                    rnn_states=rnn_states,
+                                    collect_rnn_states=True)
+        logits = net.layers[-1].pre_output(acts[-1][:, -1])
+        return logits, states
+
+    def _one_hot(self, tokens):
+        return F.one_hot(tokens.long(), self.vocab).to(self.dtype)
+
+    @torch.inference_mode()
+    def decode_step(self, tokens, rnn_states):
+        """tokens [B] int ids -> (pre-activation logits [B,V], new
+        states)."""
+        return self._head(self._one_hot(tokens[:, None]), rnn_states)
+
+    @torch.inference_mode()
+    def prefill_scan(self, tokens, lengths, rnn_states):
+        """The padded prompts [B,L] with their lengths [B]: the logits [B,V]
+        at position ``length - 1`` and the states after it, what a
+        per-token ``rnn_time_step`` priming loop produces."""
+        L = tokens.shape[1]
+        mask = (torch.arange(L, device=tokens.device)[None, :]
+                < lengths[:, None]).to(self.dtype)
+        return self._head(self._one_hot(tokens), rnn_states, mask)
+
+
+@torch.inference_mode()
+def naive_generate_lstm(net, prompt_ids: Sequence[int], max_new: int, *,
+                        device: DeviceLike = None) -> List[int]:
+    """Greedy reference for the char-RNN through the public streaming
+    ``rnn_time_step`` (the reference DL4J's own generation story).
+    ``device`` (default: the CUDA card) must be the net's device."""
+    check_same_device("the net", net.device, resolve_device(device))
+    vocab = net.layers[-1].n_out
+
+    def step(tok):
+        x = torch.zeros((1, vocab), dtype=net.dtype, device=net.device)
+        x[0, int(tok)] = 1.0
+        return net.rnn_time_step(x)[0]
+
+    net.rnn_clear_previous_state()
+    probs = None
+    for t in prompt_ids:
+        probs = step(t)
+    out: List[int] = []
+    for _ in range(max_new):
+        nxt = int(torch.argmax(probs))
+        out.append(nxt)
+        probs = step(nxt)
     return out

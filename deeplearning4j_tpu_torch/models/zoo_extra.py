@@ -1,20 +1,78 @@
-"""Zoo models of the port: the decoder-only transformer LM.
+"""Zoo models of the port: the GravesLSTM char-RNN and the decoder-only
+transformer LM.
 
-Counterpart of ``transformer_lm`` in ``deeplearning4j_tpu/models/zoo_extra.py``
-(``:333-393``), with the same keyword arguments, vertex names and both
-input forms, plus the ``device`` the graph lives on.
+Counterpart of ``text_generation_lstm`` and ``sample_text``
+(``deeplearning4j_tpu/models/zoo_extra.py:285-330``) and ``transformer_lm``
+(``:333-393``), with the same keyword arguments, layers, vertex names and
+input forms, plus the ``device`` the network lives on.
 """
 from __future__ import annotations
+
+import numpy as np
 
 from ..device import DeviceLike
 from ..nn.conf.config import NeuralNetConfiguration
 from ..nn.graph.graph import ComputationGraph
 from ..nn.graph.vertices import ElementWiseVertex
 from ..nn.inputs import InputType
-from ..nn.layers import (DenseLayer, EmbeddingSequenceLayer,
+from ..nn.layers import (DenseLayer, EmbeddingSequenceLayer, GravesLSTM,
                          LayerNormalization, PositionalEmbeddingLayer,
                          RnnOutputLayer, SelfAttentionLayer)
-from ..optimize.updaters import Adam
+from ..nn.multilayer import MultiLayerNetwork
+from ..optimize.updaters import Adam, RmsProp
+
+
+def text_generation_lstm(vocab_size: int = 77, *, hidden: int = 256,
+                         max_length: int = 40, tbptt_length: int = 50,
+                         seed: int = 12345, updater=None,
+                         dtype: str = "float32",
+                         device: DeviceLike = None) -> MultiLayerNetwork:
+    """Reference zoo/model/TextGenerationLSTM.java conf() :76-92:
+    GravesLSTM(hidden) x2 + a time-distributed softmax over one-hot
+    characters, l2 1e-3, RmsProp(1e-3) unless ``updater`` is given, tBPTT
+    in chunks of ``tbptt_length`` steps. Its recurrences take the K5/K6
+    kernels where ``ops.lstm.fused_lstm_applicable`` admits them. The
+    network lives on ``device`` (default: the CUDA card); call ``init()``
+    to create its parameters."""
+    b = (NeuralNetConfiguration(seed=seed, updater=updater or RmsProp(1e-3),
+                                l2=1e-3, weight_init="xavier", dtype=dtype)
+         .list(GravesLSTM(n_out=hidden, activation="tanh"),
+               GravesLSTM(n_out=hidden, activation="tanh"),
+               RnnOutputLayer(n_out=vocab_size, activation="softmax",
+                              loss="mcxent"))
+         .set_input_type(InputType.recurrent(vocab_size, max_length))
+         .tbptt_length(tbptt_length))
+    return MultiLayerNetwork(b.build(), device=device)
+
+
+def sample_text(net, *, vocab_size: int, seed_ids, n_steps: int,
+                temperature: float = 1.0, rng_seed: int = 0):
+    """Generate ``n_steps`` token ids from a char-RNN through the streaming
+    ``rnn_time_step``: prime the state with ``seed_ids`` (one-hot, one step
+    at a time), then draw each next id from the softmax re-tempered as
+    p_i ∝ p_i^(1/temperature) with numpy's ``default_rng(rng_seed)``, as
+    the reference draws, so equal probabilities give equal ids."""
+    rng = np.random.default_rng(rng_seed)
+    net.rnn_clear_previous_state()
+
+    def step(tok):
+        x = np.zeros((1, vocab_size), np.float32)
+        x[0, int(tok)] = 1.0
+        return net.rnn_time_step(x)[0].float().cpu().numpy()
+
+    probs = None
+    for t in seed_ids:
+        probs = step(t)
+    out = []
+    for _ in range(n_steps):
+        if probs is None:
+            probs = np.full(vocab_size, 1.0 / vocab_size)
+        p = np.clip(probs, 1e-12, None) ** (1.0 / max(temperature, 1e-6))
+        p /= p.sum()
+        nxt = int(rng.choice(vocab_size, p=p))
+        out.append(nxt)
+        probs = step(nxt)
+    return out
 
 
 def _base_builder(seed, updater, dtype="float32"):

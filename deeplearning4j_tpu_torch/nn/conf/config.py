@@ -1,25 +1,31 @@
-"""Network-wide defaults and their cascade into layers.
+"""Network-wide defaults, their cascade into layers, and the
+``MultiLayerNetwork`` configuration.
 
-Counterpart of ``NeuralNetConfiguration`` in
-``deeplearning4j_tpu/nn/conf/config.py`` (``:79-142``): the global
-defaults a graph builder fills into every layer field left None (reference
+Counterpart of ``deeplearning4j_tpu/nn/conf/config.py``:
+``NeuralNetConfiguration`` (``:79-142``), the global defaults a builder
+fills into every layer field left None (reference
 NeuralNetConfiguration.java:604-608), the global updater (``Sgd`` at the
 given or default learning rate when none is named), l1/l2, per-parameter
-learning rates and gradient normalization. JSON serde comes with a later
-slice.
+learning rates and gradient normalization; ``ListBuilder`` and
+``MultiLayerConfiguration`` (``:27-64``, ``:144-236``): layers in order,
+``n_in`` inferred from the input type, the backprop type and the tBPTT
+length. JSON serde comes with ROADMAP A2.
 
-This slice trains with the per-step SGD path only. Other optimization
-algorithms (ROADMAP A5), gradient checkpointing and mixed precision
-(``compute_dtype``, ROADMAP A10) raise ``NotImplementedError``, as does
-``list`` (``MultiLayerNetwork``, ROADMAP A10).
+Training takes the per-step SGD path only. Other optimization algorithms
+and layerwise pretraining (ROADMAP A5), gradient checkpointing and mixed
+precision (``compute_dtype``, ROADMAP A10) raise ``NotImplementedError``.
+No input preprocessor is ported yet (they come with the conv layers, A5),
+so ``preprocessor(i)`` is None for every layer.
 """
 from __future__ import annotations
 
 import copy
 import dataclasses
-from typing import Optional
+from dataclasses import dataclass, field
+from typing import Any, Dict, List, Optional
 
 from ...optimize.updaters import Sgd, updater_from_name
+from ..inputs import InputTypeFeedForward, check_input_family
 
 _CASCADED = ("activation", "weight_init", "distribution", "bias_init", "l1",
              "l2", "dropout", "bias_learning_rate")
@@ -82,11 +88,97 @@ class NeuralNetConfiguration:
                 setattr(layer, name, getattr(self, name))
         return layer
 
-    def list(self, *layers):
-        raise NotImplementedError("MultiLayerNetwork is not ported yet "
-                                  "(ROADMAP A10); build a graph with "
-                                  "graph_builder()")
+    def list(self, *layers) -> "ListBuilder":
+        return ListBuilder(self, list(layers))
 
     def graph_builder(self):
         from .graph_conf import GraphBuilder
         return GraphBuilder(self)
+
+
+@dataclass
+class MultiLayerConfiguration:
+    layers: List[Any] = field(default_factory=list)
+    input_preprocessors: Dict[str, Any] = field(default_factory=dict)
+    input_type: Optional[Any] = None
+    seed: int = 12345
+    dtype: str = "float32"
+    backprop_type: str = "standard"       # "standard" | "tbptt"
+    tbptt_fwd_length: int = 20
+    tbptt_bwd_length: int = 20
+    gradient_normalization: Optional[str] = None
+    gradient_normalization_threshold: float = 1.0
+    updater: Optional[Any] = None
+
+    def preprocessor(self, idx: int):
+        return self.input_preprocessors.get(str(idx))
+
+
+class ListBuilder:
+    def __init__(self, nn_conf: NeuralNetConfiguration, layers: List[Any]):
+        self.nn_conf = nn_conf
+        self.layers = layers
+        self._input_type = None
+        self._backprop_type = "standard"
+        self._tbptt_fwd = 20
+        self._tbptt_bwd = 20
+
+    def layer(self, layer_or_idx, maybe_layer=None) -> "ListBuilder":
+        self.layers.append(maybe_layer if maybe_layer is not None
+                           else layer_or_idx)
+        return self
+
+    def set_input_type(self, itype) -> "ListBuilder":
+        self._input_type = itype
+        return self
+
+    def backprop_type(self, bp: str) -> "ListBuilder":
+        self._backprop_type = bp
+        return self
+
+    def tbptt_length(self, fwd: int, bwd: Optional[int] = None
+                     ) -> "ListBuilder":
+        """Truncated BPTT in chunks of ``fwd`` steps. Each chunk's step
+        backpropagates through the whole chunk, so bwd != fwd is refused,
+        as the reference refuses it."""
+        self._backprop_type = "tbptt"
+        if bwd is not None and bwd != fwd:
+            raise ValueError(
+                "tbptt bwd length must equal fwd length: the chunk step "
+                "computes exact gradients over the full chunk")
+        self._tbptt_fwd = fwd
+        self._tbptt_bwd = fwd
+        return self
+
+    def pretrain(self, flag: bool) -> "ListBuilder":
+        if flag:
+            raise NotImplementedError("layerwise pretraining is not ported "
+                                      "yet (ROADMAP A5)")
+        return self
+
+    def build(self) -> MultiLayerConfiguration:
+        nc = self.nn_conf
+        itype = self._input_type
+        if itype is None:
+            n_in = getattr(self.layers[0], "n_in", None)
+            if n_in:
+                itype = InputTypeFeedForward(n_in)
+                self._input_type = itype
+        resolved = []
+        for layer in self.layers:
+            layer = nc._cascade(layer)
+            if itype is not None:
+                check_input_family(itype, layer.expected_input)
+                if getattr(layer, "n_in", "absent") is None:
+                    layer.n_in = itype.size
+                itype = layer.output_type(itype)
+            resolved.append(layer)
+        return MultiLayerConfiguration(
+            layers=resolved, input_type=self._input_type, seed=nc.seed,
+            dtype=nc.dtype, backprop_type=self._backprop_type,
+            tbptt_fwd_length=self._tbptt_fwd,
+            tbptt_bwd_length=self._tbptt_bwd,
+            gradient_normalization=nc.gradient_normalization,
+            gradient_normalization_threshold=(
+                nc.gradient_normalization_threshold),
+            updater=nc.updater)

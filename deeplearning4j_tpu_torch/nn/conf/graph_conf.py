@@ -6,8 +6,11 @@ The topological sort is the reference's Kahn's algorithm with the same tie
 order, so a graph's vertex order equals the JAX graph's, which is the
 order of its ``net.params``. Shape inference sets each layer's ``n_in``
 at build time. Automatic preprocessors and JSON serde come with later
-slices; the transformer LM needs neither. Truncated BPTT comes with the
-recurrent layers (ROADMAP A4) and raises ``NotImplementedError``.
+slices; the transformer LM needs neither. Truncated BPTT on a graph needs
+the graph's recurrent-state carry (``rnn_states``), which comes with the
+rest of the training engine (ROADMAP A10); it raises
+``NotImplementedError`` until then (a ``MultiLayerNetwork`` trains with
+tBPTT).
 """
 from __future__ import annotations
 
@@ -15,7 +18,7 @@ from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
 
 from ..graph.vertices import LayerVertex, VertexConf
-from ..inputs import InputTypeFeedForward
+from ..inputs import check_input_family
 from ..layers.base import resolve_ff_size
 
 
@@ -57,14 +60,6 @@ def topological_sort(names, inputs_of, network_inputs):
     return order
 
 
-def _check_family(itype, expected: str) -> None:
-    # the layer-family rules of the reference's auto_preprocessor that need
-    # no preprocessor: feed-forward activations cannot enter a recurrent layer
-    if expected == "rnn" and isinstance(itype, InputTypeFeedForward):
-        raise ValueError("Cannot feed FF input to an RNN layer without an "
-                         "explicit FeedForwardToRnnPreProcessor")
-
-
 class GraphBuilder:
     def __init__(self, nn_conf):
         self.nn_conf = nn_conf
@@ -90,8 +85,9 @@ class GraphBuilder:
         return self
 
     def tbptt_length(self, fwd: int, bwd: Optional[int] = None):
-        raise NotImplementedError("truncated BPTT is not ported yet "
-                                  "(ROADMAP A4)")
+        raise NotImplementedError("truncated BPTT on a ComputationGraph is "
+                                  "not ported yet (ROADMAP A10); a "
+                                  "MultiLayerNetwork trains with it")
 
     def set_outputs(self, *names: str) -> "GraphBuilder":
         self._outputs = list(names)
@@ -122,7 +118,8 @@ class GraphBuilder:
                 in_types = [itypes[i] for i in self._vertex_inputs[name]]
                 try:
                     if isinstance(v, LayerVertex):
-                        _check_family(in_types[0], v.layer.expected_input)
+                        check_input_family(in_types[0],
+                                           v.layer.expected_input)
                         if getattr(v.layer, "n_in", "absent") is None:
                             v.layer.n_in = resolve_ff_size(in_types[0])
                     itypes[name] = v.output_type(in_types)

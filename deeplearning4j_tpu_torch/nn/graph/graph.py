@@ -20,6 +20,7 @@ import torch
 from torch import nn
 
 from ...device import DeviceLike, resolve_device, torch_dtype
+from ...optimize.solver import score_listeners
 from ...optimize.updaters import MultiLayerUpdater
 from ..conf.graph_conf import ComputationGraphConfiguration
 from .vertices import LayerVertex
@@ -179,15 +180,7 @@ class ComputationGraph(nn.Module):
         """Score callbacks: each is called as
         ``listener.iteration_done(net, iteration, loss)`` after every step.
         Epoch and performance listeners come with telemetry (ROADMAP A8)."""
-        for lis in listeners:
-            if not hasattr(lis, "iteration_done"):
-                raise TypeError(f"{type(lis).__name__} has no "
-                                f"iteration_done(net, iteration, loss)")
-            if hasattr(lis, "on_epoch_start") or hasattr(lis, "note_batch"):
-                raise NotImplementedError(
-                    f"{type(lis).__name__}: epoch and performance listeners "
-                    f"are not ported yet (ROADMAP A8)")
-        self.listeners = list(listeners)
+        self.listeners = score_listeners(listeners)
         return self
 
     def fit(self, data=None, labels=None, *, epochs: int = 1,

@@ -27,3 +27,12 @@ class InputTypeRecurrent:
     """[batch, time, features], batch-major as in the reference port."""
     size: int
     timestep_length: int = -1
+
+
+def check_input_family(itype, expected: str) -> None:
+    """The layer-family rules of the reference's ``auto_preprocessor`` that
+    need no preprocessor: feed-forward activations cannot enter a recurrent
+    layer."""
+    if expected == "rnn" and isinstance(itype, InputTypeFeedForward):
+        raise ValueError("Cannot feed FF input to an RNN layer without an "
+                         "explicit FeedForwardToRnnPreProcessor")

@@ -4,7 +4,10 @@ from .base import LayerConf
 from .core import (DenseLayer, EmbeddingSequenceLayer,
                    PositionalEmbeddingLayer, RnnOutputLayer)
 from .norm import LayerNormalization
+from .recurrent import (GravesBidirectionalLSTM, GravesLSTM, LastTimeStepLayer,
+                        LSTM)
 
 __all__ = ["LayerConf", "DenseLayer", "EmbeddingSequenceLayer",
            "PositionalEmbeddingLayer", "RnnOutputLayer",
-           "LayerNormalization", "SelfAttentionLayer"]
+           "LayerNormalization", "SelfAttentionLayer", "LSTM", "GravesLSTM",
+           "GravesBidirectionalLSTM", "LastTimeStepLayer"]

@@ -20,21 +20,20 @@ the wrapper's ``launches`` (the forward's count is
 
 Build: on first use each source is compiled with ``nvcc`` for ``sm_90a`` into
 a shared library with a plain C interface under ``ops/_build/`` (named by
-the source's hash, so an edited source rebuilds) and loaded with ``ctypes``.
+the source's hash, so an edited source rebuilds) and loaded with ``ctypes``
+(``ops/nvcc.py``).
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import math
-import os
-import shutil
-import subprocess
-import threading
 from pathlib import Path
 from typing import Optional, Tuple
 
 import torch
+
+from .nvcc import PKG, build_library, load_symbol
+from .nvcc import library_path as _lib_path
 
 NEG = -1e30
 DEAD = -1e29            # an lse at or below this: the row sees no key
@@ -44,15 +43,8 @@ DEAD = -1e29            # an lse at or below this: the row sees no key
 # accumulator per thread, which stays in registers up to D = 256.
 KERNEL_HEAD_DIMS = (64, 96, 128, 256)
 
-_PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "flash_attention_fwd.cu"
-BWD_SOURCE = _PKG / "csrc" / "flash_attention_bwd.cu"
-BUILD_DIR = _PKG / "ops" / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-
-_lib_lock = threading.Lock()
-_launchers = {}         # C entry points by symbol, loaded once by _kernel()
+SOURCE = PKG / "csrc" / "flash_attention_fwd.cu"
+BWD_SOURCE = PKG / "csrc" / "flash_attention_bwd.cu"
 
 
 def fused_attention_applicable(B: int, H: int, T: int, D: int,
@@ -66,55 +58,24 @@ def fused_attention_applicable(B: int, H: int, T: int, D: int,
 
 
 # --------------------------------------------------------------- the build
-def _nvcc() -> str:
-    found = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(found):
-        raise RuntimeError("nvcc not found (looked on PATH and in "
-                           "/usr/local/cuda/bin): the flash-attention kernel "
-                           "cannot be built")
-    return found
-
-
-def _library_path(source: Path) -> Path:
-    tag = hashlib.sha256(source.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{source.stem}_{tag}.so"
-
-
 def library_path() -> Path:
-    return _library_path(SOURCE)
+    return _lib_path(SOURCE)
 
 
 def bwd_library_path() -> Path:
-    return _library_path(BWD_SOURCE)
-
-
-def _build(source: Path, out: Path) -> Path:
-    if out.exists():
-        return out
-    nvcc = _nvcc()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(source)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    out.with_suffix(".log").write_text(
-        " ".join(cmd) + "\n" + res.stdout + res.stderr)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}) building "
-                           f"{source.name}:\n{res.stderr[-4000:]}")
-    os.replace(tmp, out)
-    return out
+    return _lib_path(BWD_SOURCE)
 
 
 def build() -> Path:
     """Compile the forward kernel for sm_90a unless this source's library
     exists. Returns the library path; nvcc's report (registers, shared
     memory, spills) is kept beside it with the suffix ``.log``."""
-    return _build(SOURCE, library_path())
+    return build_library(SOURCE)
 
 
 def build_bwd() -> Path:
     """Compile the two backward kernels (one library), as ``build``."""
-    return _build(BWD_SOURCE, bwd_library_path())
+    return build_library(BWD_SOURCE)
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -131,15 +92,7 @@ _ENTRIES = {
 
 
 def _kernel(symbol: str):
-    with _lib_lock:
-        fn = _launchers.get(symbol)
-        if fn is None:
-            build_lib, argtypes = _ENTRIES[symbol]
-            fn = getattr(ctypes.CDLL(str(build_lib())), symbol)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-            _launchers[symbol] = fn
-        return fn
+    return load_symbol(symbol, *_ENTRIES[symbol])
 
 
 # ----------------------------------------------------------- plain version

@@ -11,9 +11,12 @@ warmed at construction and scheduled by its continuous-batching runtime.
         ...
 
 The engine runs on the CUDA card unless ``device="cpu"`` is given, and the
-net must live on that device. Several models per engine, hot-swap, the
-HTTP front end and the speculative, prefix-cache and int8 options come
-with later slices.
+net must live on that device. ``adapter="auto"`` serves a transformer
+graph through the paged K/V cache and a recurrent MultiLayerNetwork (the
+char-RNN) through its recurrent state; ``models()`` reports which.
+Several models per engine, hot-swap, the HTTP front end and the
+speculative, prefix-cache and int8 options come with a later slice
+(ROADMAP A2).
 """
 from __future__ import annotations
 
@@ -28,11 +31,17 @@ from .scheduler import ModelRuntime, TokenStream
 class GenerationEngine:
     def __init__(self, net, *, model_name: str = "default",
                  config: Optional[GenerationConfig] = None,
-                 device: DeviceLike = None, **config_kwargs):
+                 adapter: str = "auto", device: DeviceLike = None,
+                 draft=None, **config_kwargs):
+        if draft is not None:
+            raise NotImplementedError("speculative decoding (a transformer "
+                                      "or an LSTM draft) is not ported yet "
+                                      "(ROADMAP A2)")
         self.device = resolve_device(device)
         check_same_device("the net", net.device, self.device)
         ps = GenerationProgramSet(
-            net, config=config or GenerationConfig(**config_kwargs)).warm()
+            net, config=config or GenerationConfig(**config_kwargs),
+            adapter=adapter).warm()
         self._rt = ModelRuntime(model_name, ps)
         self._draining = False
 
@@ -59,6 +68,18 @@ class GenerationEngine:
     def metrics(self) -> Dict[str, dict]:
         """{model name: metrics snapshot}, as the reference engine keys it."""
         return {self._rt.name: self._rt.metrics.snapshot()}
+
+    def models(self) -> Dict[str, dict]:
+        """{model name: its adapter and capacity plan}, a subset of the
+        reference engine's rows."""
+        rt = self._rt
+        cfg = rt.config
+        return {rt.name: {
+            "adapter": rt.ps.adapter, "decode_slots": cfg.decode_slots,
+            "block_len": cfg.block_len, "capacity": cfg.capacity,
+            "num_blocks": cfg.num_blocks,
+            "prompt_rungs": list(cfg.prompt_rungs),
+            "prefill_batches": list(cfg.prefill_batches)}}
 
     def stop(self, drain: bool = True, timeout: float = 10.0) -> None:
         self._draining = True

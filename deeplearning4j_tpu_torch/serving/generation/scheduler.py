@@ -3,7 +3,10 @@ admission and per-token streams.
 
 Counterpart of ``deeplearning4j_tpu/serving/generation/scheduler.py``
 (``TokenStream``, ``ModelRuntime``: ``submit`` / ``_loop`` / ``_admit`` /
-``_prefill_misses`` / ``_plain_step`` / ``_finish_slot`` / ``stop``).
+``_prefill_misses`` / ``_plain_step`` / ``_finish_slot`` / ``stop``),
+including its ``adapter != "paged"`` paths: a model served through the
+state adapter allocates no cache blocks, and its prefill writes each
+request's recurrent state into the request's slot.
 One dispatch thread per model owns the decode loop:
 
     loop:  admit (bucketed prefill of queued requests into free slots)
@@ -156,7 +159,7 @@ class ModelRuntime:
                 f"prompt ({plen}) + max_tokens ({max_new}) exceeds cache "
                 f"capacity {cfg.capacity} tokens")
         need = cfg.blocks_needed(plen, max_new)
-        if need > cfg.num_blocks - 1:
+        if self.ps.adapter == "paged" and need > cfg.num_blocks - 1:
             raise BlockPoolExhaustedError(
                 f"request needs {need} cache blocks but the pool only has "
                 f"{cfg.num_blocks - 1} — lower max_tokens or grow "
@@ -172,7 +175,8 @@ class ModelRuntime:
                 raise DrainingError(
                     f"generation model '{self.name}' is draining/stopped")
             if len(self._queue) >= cfg.queue_limit:
-                if self._allocator.free_blocks == 0:
+                if self.ps.adapter == "paged" and \
+                        self._allocator.free_blocks == 0:
                     self.metrics.record_rejection("exhausted")
                     raise BlockPoolExhaustedError(
                         f"model '{self.name}': KV block pool exhausted and "
@@ -222,18 +226,19 @@ class ModelRuntime:
                     keep.append(r)
             self._queue = keep
             max_p = cfg.prefill_batches[-1]
+            paged = self.ps.adapter == "paged"
             while self._queue and self._slots_free and len(cands) < max_p:
                 r = self._queue[0]
-                if cfg.blocks_needed(len(r.prompt), r.max_new) > \
-                        self._allocator.free_blocks:
+                need = cfg.blocks_needed(len(r.prompt), r.max_new)
+                if paged and need > self._allocator.free_blocks:
                     break        # head-of-line: wait for blocks to free
                 self._queue.popleft()
                 # registered for failure delivery before its blocks, so a
                 # failure below resolves this caller through _fail_all
                 r.slot = self._slots_free.pop()
                 self._slot_req[r.slot] = r
-                r.blocks = self._allocator.alloc(
-                    cfg.blocks_needed(len(r.prompt), r.max_new))
+                if paged:
+                    r.blocks = self._allocator.alloc(need)
                 cands.append(r)
         if cands:
             self._prefill_misses(cands)
@@ -246,6 +251,7 @@ class ModelRuntime:
         tokens = np.zeros((P, L), np.int64)
         lengths = np.ones(P, np.int64)
         tables_p = np.zeros((P, mb), np.int64)      # padding rows -> trash
+        slots = np.full(P, cfg.decode_slots, np.int64)   # ... and trash slot
         temp = np.zeros(P, np.float32)
         topk = np.zeros(P, np.int64)
         for i, r in enumerate(cands):
@@ -253,10 +259,11 @@ class ModelRuntime:
             tokens[i, :plen] = r.prompt
             lengths[i] = plen
             tables_p[i, :len(r.blocks)] = r.blocks
+            slots[i] = r.slot
             temp[i] = r.temperature
             topk[i] = r.top_k
         first = self.ps.run_prefill(self._cache, tokens, lengths, tables_p,
-                                    self._gen, temp, topk)
+                                    slots, self._gen, temp, topk)
         now = time.monotonic()
         emitted = 0
         for i, r in enumerate(cands):

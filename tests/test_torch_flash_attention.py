@@ -14,6 +14,7 @@ from deeplearning4j_tpu.ops import pallas_attention as jpa
 from deeplearning4j_tpu.parallel.ring_attention import attention as jattention
 from deeplearning4j_tpu_torch import device as tdevice
 from deeplearning4j_tpu_torch.ops import flash_attention as fa
+from deeplearning4j_tpu_torch.ops import nvcc
 from deeplearning4j_tpu_torch.parallel.ring_attention import attention
 
 ATOL = 2e-5
@@ -182,10 +183,10 @@ def test_wrapper_checks_refuse_what_the_kernel_does_not_take(bad):
 
 
 def test_build_needs_nvcc(monkeypatch):
-    monkeypatch.setattr(fa.shutil, "which", lambda name: None)
-    monkeypatch.setattr(fa.os.path, "exists", lambda p: False)
-    monkeypatch.setattr(fa, "library_path",
-                        lambda: fa.BUILD_DIR / "missing.so")
+    monkeypatch.setattr(nvcc.shutil, "which", lambda name: None)
+    monkeypatch.setattr(nvcc.os.path, "exists", lambda p: False)
+    monkeypatch.setattr(nvcc, "library_path",
+                        lambda source: nvcc.BUILD_DIR / "missing.so")
     with pytest.raises(RuntimeError, match="nvcc not found"):
         fa.build()
 
@@ -194,4 +195,4 @@ def test_library_is_named_by_source_hash():
     import hashlib
     tag = hashlib.sha256(fa.SOURCE.read_bytes()).hexdigest()[:16]
     assert fa.library_path().name == f"libflash_attention_fwd_{tag}.so"
-    assert fa.library_path().parent == fa.BUILD_DIR
+    assert fa.library_path().parent == nvcc.BUILD_DIR

@@ -21,6 +21,7 @@ import torch
 
 from deeplearning4j_tpu.ops import pallas_attention as jpa
 from deeplearning4j_tpu_torch.ops import flash_attention as fa
+from deeplearning4j_tpu_torch.ops import nvcc
 
 H = 2
 TOL = 1e-4
@@ -225,10 +226,10 @@ def test_backward_refuses_non_cpu_non_cuda_tensors():
 def test_backward_library_is_built_apart_and_named_by_its_hash(monkeypatch):
     tag = hashlib.sha256(fa.BWD_SOURCE.read_bytes()).hexdigest()[:16]
     assert fa.bwd_library_path().name == f"libflash_attention_bwd_{tag}.so"
-    assert fa.bwd_library_path().parent == fa.BUILD_DIR
-    monkeypatch.setattr(fa.shutil, "which", lambda name: None)
-    monkeypatch.setattr(fa.os.path, "exists", lambda p: False)
-    monkeypatch.setattr(fa, "bwd_library_path",
-                        lambda: fa.BUILD_DIR / "missing.so")
+    assert fa.bwd_library_path().parent == nvcc.BUILD_DIR
+    monkeypatch.setattr(nvcc.shutil, "which", lambda name: None)
+    monkeypatch.setattr(nvcc.os.path, "exists", lambda p: False)
+    monkeypatch.setattr(nvcc, "library_path",
+                        lambda source: nvcc.BUILD_DIR / "missing.so")
     with pytest.raises(RuntimeError, match="nvcc not found"):
         fa.build_bwd()

@@ -20,7 +20,16 @@ bad = sorted(m for m in sys.modules
              or m == "deeplearning4j_tpu" or m.startswith("deeplearning4j_tpu."))
 print(len(names))
 print(",".join(bad))
+print(",".join(names))
 """
+
+# every slice's modules, so a module that stops being importable (or is
+# moved out of the walk) is noticed
+_REQUIRED = {f"deeplearning4j_tpu_torch.{m}" for m in (
+    "ops.flash_attention", "ops.lstm", "ops.nvcc", "nn.multilayer",
+    "nn.layers.recurrent", "nn.conf.config", "optimize.solver",
+    "models.decode", "models.zoo_extra", "interop.jax_params",
+    "serving.generation.programs", "serving.generation.scheduler")}
 
 _FORBIDDEN = re.compile(
     r"^\s*(import\s+(jax|deeplearning4j_tpu)\b(?!_torch)"
@@ -36,6 +45,7 @@ def test_every_module_imports_without_jax():
     n_modules, bad = int(lines[0]), lines[1]
     assert n_modules >= 20
     assert bad == "", f"importing the port loaded {bad}"
+    assert _REQUIRED <= set(lines[2].split(","))
 
 
 def test_sources_name_no_jax_import():

@@ -259,7 +259,7 @@ def test_what_this_slice_leaves_raises_not_implemented(ask):
         elif ask == "checkpointing":
             NeuralNetConfiguration(gradient_checkpointing=True)
         elif ask == "multilayer":
-            NeuralNetConfiguration().list()
+            NeuralNetConfiguration().list().pretrain(True)
         else:
             pnet.set_listeners(EpochListener())
     assert pnet.iteration_count == 0
