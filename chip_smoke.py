@@ -60,10 +60,32 @@ Phases; any failure raises and exits non-zero before a result is printed:
    RmsProp state: the first chunk's loss at rel 1e-5, every gradient at
    rel-to-max 1e-4 and every ``R`` gradient nonzero, the parameters after
    the step at rel-to-max 1e-4.
-   In phases 3, 4, 7 and 8 the launch counts are set to 0 just before the
-   path is driven and read just after; every kernel of the path must
-   launch.
-10. Report: JSON lines of per-shape kernel times, the serving and training
+10. K7 and K8: the fused 1x1 conv + bias + relu (``conv1x1_bias_relu``)
+   against its plain version at every 1x1 conv shape of a GoogLeNet
+   forward at B 32, 224x224 (float32 at rel-to-max 1e-5), at the
+   reference's parity shape (N 2, H 4, W 4, C 128, F 128, atol 1e-5) and
+   in bfloat16 (rel-to-max 2e-2); the int8 matmul (``int8_matmul``)
+   bitwise against its plain version at the int8 serving net's shapes
+   (M 256, K 512, N 512 and 256) and at coverage shapes (M 1, 8, 33; K not
+   a multiple of 4; zero rows). Times each beside its plain version, the
+   library call (``relu(addmm)``; ``torch._int_mm``) and the bound.
+11. Serve GoogLeNet: ``googlenet(1000)`` at 224x224x3, f32, random weights
+   from a seed, behind ``InferenceEngine`` (buckets 1, 8, 32; a
+   ``forward_fn`` returning the graph's one output) to 8 closed-loop
+   client threads of 8 requests of 1-8 images each. K7 must launch 37
+   times per dispatched batch; one response must equal ``net.output`` at
+   rel-to-max 1e-5.
+12. Serve the int8 tier: bench.py's int8 serving net (Dense 512 -> 512 ->
+   512, softmax 256) behind ``InferenceEngine`` (buckets 8, 32, 256) with
+   ``int8_forward_fn``, 8 clients of 16 requests of 1-32 rows. K8 must
+   launch 3 times per dispatched batch; at B 256 the int8 forward stays
+   within rel 0.05 of the f32 forward.
+13. CPU against card: GoogLeNet at 224, B 2, every vertex's activation at
+   rel-to-max 1e-4; the int8 forward at B 16 at atol 1e-6.
+   In phases 3, 4, 7, 8, 11 and 12 the launch counts are set to 0 just
+   before the path is driven and read just after; every kernel of the
+   path must launch.
+14. Report: JSON lines of per-shape kernel times, the serving and training
    metrics and the kernels, then last ``{"ok": true, "device": ...}``.
 """
 from __future__ import annotations
@@ -84,11 +106,19 @@ from deeplearning4j_tpu_torch.interop.jax_params import (load_jax_opt_state,
 from deeplearning4j_tpu_torch.models.decode import (TransformerDecodeSpec,
                                                     naive_generate,
                                                     naive_generate_lstm)
-from deeplearning4j_tpu_torch.models.zoo_extra import (text_generation_lstm,
+from deeplearning4j_tpu_torch.models.zoo_extra import (googlenet,
+                                                       text_generation_lstm,
                                                        transformer_lm)
+from deeplearning4j_tpu_torch.nn.conf.config import NeuralNetConfiguration
+from deeplearning4j_tpu_torch.nn.layers import (ConvolutionLayer, DenseLayer,
+                                                OutputLayer)
+from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
 from deeplearning4j_tpu_torch.ops import flash_attention as fa
 from deeplearning4j_tpu_torch.ops import lstm
-from deeplearning4j_tpu_torch.optimize.updaters import Adam
+from deeplearning4j_tpu_torch.ops.kernels import conv as k7
+from deeplearning4j_tpu_torch.ops.kernels import quantized as k8
+from deeplearning4j_tpu_torch.optimize.updaters import Adam, Sgd
+from deeplearning4j_tpu_torch.serving import InferenceEngine
 from deeplearning4j_tpu_torch.serving.generation import GenerationEngine
 
 SEED = 20261016
@@ -114,6 +144,17 @@ CHAR_REQUESTS, CHAR_MAX_TOKENS = 8, 64
 # K6 backward: tests/test_pallas_lstm.py:191, 287; bf16 2e-2
 LSTM_TOL = {("fwd", torch.float32): 1e-5, ("bwd", torch.float32): 3e-5,
             ("fwd", torch.bfloat16): 2e-2, ("bwd", torch.bfloat16): 2e-2}
+# GoogLeNet served at its full width (zoo_extra.googlenet: 224x224x3, 1000
+# classes); K7's pin is the reference's conv1x1_bias_relu 1e-5
+# (ops/kernels/builtins.py:194), bf16 2e-2
+GNET = dict(n_classes=1000, height=224, width=224, channels=3)
+GNET_B, GNET_BUCKETS, GNET_CLIENTS, GNET_PER_CLIENT = 32, (1, 8, 32), 8, 8
+GNET_SIZES = (1, 2, 3, 5, 8)       # bench.py:1101-1102's sizes to the top bucket
+# bench.py:1484-1490: the int8 serving net, batch up to 256 (:1467)
+INT8_NET = (512, 512, 256)
+INT8_BUCKETS, INT8_CLIENTS, INT8_PER_CLIENT = (8, 32, 256), 8, 16
+INT8_SIZES = (1, 2, 3, 5, 8, 13, 21, 32)
+PEAK_INT8_OPS = 1979e12
 
 
 def log(*a):
@@ -137,7 +178,8 @@ def device_phase() -> str:
 # ------------------------------------------------------------------ phase 2
 BUILDS = {"flash_attention_fwd": fa.build,
           "flash_attention_bwd": fa.build_bwd,
-          "lstm_fwd": lstm.build_fwd, "lstm_bwd": lstm.build_bwd}
+          "lstm_fwd": lstm.build_fwd, "lstm_bwd": lstm.build_bwd,
+          "conv1x1_bias_relu": k7.build, "int8_matmul": k8.build}
 
 
 def build_phase():
@@ -835,6 +877,356 @@ def char_cross_device_phase():
             "worst_param": worst_p[0], "launches": launches}
 
 
+# ----------------------------------------------------------------- phase 10
+def googlenet_1x1_shapes(B):
+    """(vertex, M, C, F) of every 1x1 conv with bias and relu in a GoogLeNet
+    forward at batch B, from the configuration's shape inference."""
+    conf = googlenet(**GNET, device="cpu").conf
+    itypes = dict(zip(conf.network_inputs, conf.input_types))
+    out = []
+    for name in conf.vertex_names:
+        v = conf.vertices[name]
+        it = [itypes[i] for i in conf.vertex_inputs[name]]
+        itypes[name] = v.output_type(it)
+        layer = getattr(v, "layer", None)
+        if isinstance(layer, ConvolutionLayer) and \
+                tuple(layer.kernel_size) == (1, 1):
+            out.append((name, B * it[0].height * it[0].width, it[0].channels,
+                        layer.n_out))
+    return out
+
+
+def _roof_ms(flops, nbytes, peak):
+    """(ms, "bytes" | "operations"): the larger of the two times."""
+    t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def conv_kernel_phase():
+    """K7 against its plain version at GoogLeNet's 1x1 shapes (B 32), the
+    reference's parity shape and in bf16; times beside the plain version,
+    ``relu(addmm)`` (cuBLAS) and the bound."""
+    gen = torch.Generator().manual_seed(SEED + 11)
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    def case(M, C, F, dtype, wscale=None):
+        x = torch.randn(M, C, generator=gen).to(dtype).cuda()
+        sc = (2.0 / C) ** 0.5 if wscale is None else wscale
+        w = (torch.randn(C, F, generator=gen) * sc).to(dtype).cuda()
+        b = (torch.randn(F, generator=gen) * 0.1 + 0.2).to(dtype).cuda()
+        return x, w, b
+
+    errs = {"parity_abs": 0.0, "f32_rel": 0.0, "bf16_rel": 0.0}
+    # the reference's parity shape (ops/kernels/conv.py:152-162)
+    x, w, b = case(2 * 4 * 4, 128, 128, f32, wscale=0.1)
+    errs["parity_abs"] = (k7.conv1x1_fused(x, w, b)
+                          - k7._conv1x1_plain(x, w, b)).abs().max().item()
+    if errs["parity_abs"] > 1e-5:
+        raise AssertionError(f"K7 at the parity shape: {errs['parity_abs']}")
+    rows, seen = [], {}
+    shapes = googlenet_1x1_shapes(GNET_B)
+    if len(shapes) != 37:
+        raise AssertionError(f"{len(shapes)} 1x1 convs in GoogLeNet, not 37")
+    for name, M, C, F in shapes:
+        if (M, C, F) in seen:            # time each distinct shape once
+            rows.append(dict(seen[(M, C, F)], vertex=name))
+            continue
+        x, w, b = case(M, C, F, f32)
+        got = k7.conv1x1_fused(x, w, b)
+        torch.cuda.synchronize()
+        want = k7._conv1x1_plain(x, w, b)
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"K7 output not finite at {M}x{C}x{F}")
+        err = _rel_to_max(got, want)
+        if err > 1e-5:
+            raise AssertionError(f"K7 disagrees with plain at M={M} C={C} "
+                                 f"F={F} f32: rel-to-max {err:.3g}")
+        errs["f32_rel"] = max(errs["f32_rel"], err)
+        flops, nbytes = k7.roofline(M, C, F)
+        bound, by = _roof_ms(flops, nbytes, PEAK_FLOPS[f32])
+        row = {"vertex": name, "M": M, "C": C, "F": F, "dtype": str(f32),
+               "rel_err": err, "abs_err": (got - want).abs().max().item(),
+               "ms": _time_ms(lambda: k7.conv1x1_fused(x, w, b)),
+               "plain_ms": _time_ms(lambda: k7._conv1x1_plain(x, w, b)),
+               "library_ms": _time_ms(lambda: torch.relu(torch.addmm(b, x, w))),
+               "bound_ms": bound, "bound_by": by}
+        seen[(M, C, F)] = row
+        rows.append(row)
+    bf_rows = []
+    for M, C, F in ((100352, 64, 64), (25088, 192, 96), (1568, 832, 384),
+                    (1000, 100, 50)):
+        x, w, b = case(M, C, F, bf16)
+        got = k7.conv1x1_fused(x, w, b)
+        torch.cuda.synchronize()
+        err = _rel_to_max(got, k7._conv1x1_plain(x, w, b))
+        if err > 2e-2:
+            raise AssertionError(f"K7 disagrees with plain at M={M} C={C} "
+                                 f"F={F} bf16: rel-to-max {err:.3g}")
+        errs["bf16_rel"] = max(errs["bf16_rel"], err)
+        flops, nbytes = k7.roofline(M, C, F, itemsize=2)
+        bound, by = _roof_ms(flops, nbytes, PEAK_FLOPS[bf16])
+        bf_rows.append({"M": M, "C": C, "F": F, "dtype": str(bf16),
+                        "rel_err": err,
+                        "ms": _time_ms(lambda: k7.conv1x1_fused(x, w, b)),
+                        "library_ms": _time_ms(
+                            lambda: torch.relu(torch.addmm(b, x, w))),
+                        "bound_ms": bound, "bound_by": by})
+    # one GoogLeNet forward's 37 calls at B 32, f32
+    total = {k: sum(r[k] for r in rows) for k in ("ms", "plain_ms",
+                                                  "library_ms", "bound_ms")}
+    by_bytes = sum(r["bound_ms"] for r in rows if r["bound_by"] == "bytes")
+    total["bound_by"] = ("bytes" if by_bytes >= total["bound_ms"] / 2
+                         else "operations")
+    log("K7 phase: errors", errs, "per forward", total)
+    return errs, rows, bf_rows, total
+
+
+def int8_kernel_phase():
+    """K8 bitwise against its plain version at the int8 net's shapes (M 256)
+    and coverage shapes; times beside the plain version, ``torch._int_mm``
+    (the int32 product alone, cuBLASLt) and the bound."""
+    gen = torch.Generator().manual_seed(SEED + 12)
+
+    def case(M, K, N, zero_rows=()):
+        x = torch.randn(M, K, generator=gen)
+        x[list(zero_rows)] = 0.0
+        w = torch.randn(K, N, generator=gen)
+        w_q, w_s = k8.quantize_weights(w.cuda())
+        x_q, x_s = k8.quantize_rows(x.cuda())
+        return x_q.contiguous(), w_q.contiguous(), x_s, w_s
+
+    main = [(256, 512, 512), (256, 512, 512), (256, 512, 256)]
+    cover = [(1, 512, 512), (8, 512, 256), (33, 512, 512), (33, 37, 70),
+             (5, 515, 129), (64, 256, 256), (40, 512, 256, (0, 7, 39))]
+    rows, max_err = [], 0.0
+    for i, shape in enumerate(main + cover):
+        M, K, N = shape[:3]
+        args = case(M, K, N, *shape[3:])
+        got = k8.int8_matmul_fused(*args)
+        torch.cuda.synchronize()
+        want = k8.int8_matmul_plain(*args)
+        max_err = max(max_err, (got - want).abs().max().item())
+        if not torch.equal(got, want):
+            raise AssertionError(
+                f"K8 differs from plain at M={M} K={K} N={N}: max abs "
+                f"{(got - want).abs().max().item():.3g} (pinned bitwise)")
+        if i >= len(main) or shape in [tuple(r["shape"]) for r in rows]:
+            continue
+        flops, nbytes = k8.roofline(M, K, N)
+        bound, by = _roof_ms(flops, nbytes, PEAK_INT8_OPS)
+        xq, wq = args[0], args[1]
+        rows.append({"shape": [M, K, N], "M": M, "K": K, "N": N,
+                     "ms": _time_ms(lambda: k8.int8_matmul_fused(*args)),
+                     "plain_ms": _time_ms(lambda: k8.int8_matmul_plain(*args)),
+                     "library_ms": _time_ms(lambda: torch._int_mm(xq, wq)),
+                     "bound_ms": bound, "bound_by": by})
+    # one forward of the int8 net at B 256: three products
+    per = {(r["M"], r["K"], r["N"]): r for r in rows}
+    total = {k: sum(per[s[:3]][k] for s in main)
+             for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    total["bound_by"] = rows[0]["bound_by"]
+    log("K8 phase: bitwise at", len(main + cover), "shapes; per forward",
+        total)
+    return rows, total, max_err
+
+
+# ----------------------------------------------------------------- phase 11
+def _serve_closed_loop(eng, pool, sizes, clients, per_client):
+    """``clients`` threads, each sending ``per_client`` requests in turn
+    (sizes cycling from the client's index), the next when the last
+    returns. Returns (per-request latencies in ms, wall s)."""
+    lat = [[] for _ in range(clients)]
+
+    def client(c):
+        for i in range(per_client):
+            n = sizes[(c + i) % len(sizes)]
+            x = pool[c % (len(pool) - n + 1):][:n]
+            t0 = time.perf_counter()
+            out = eng.predict(x, timeout=120)
+            lat[c].append((time.perf_counter() - t0) * 1e3)
+            if out.shape[0] != n or not np.isfinite(out).all():
+                raise AssertionError(f"client {c} request {i}: "
+                                     f"{out.shape}, finite "
+                                     f"{np.isfinite(out).all()}")
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(clients) as ex:
+        for f in [ex.submit(client, c) for c in range(clients)]:
+            f.result()
+    wall = time.perf_counter() - t0
+    return [v for per in lat for v in per], wall
+
+
+def _latency_stats(lat, wall, n_rows, snap):
+    return {"requests": len(lat), "rows": n_rows,
+            "requests_per_s": len(lat) / wall, "rows_per_s": n_rows / wall,
+            "latency_ms_p50": float(np.percentile(lat, 50)),
+            "latency_ms_p99": float(np.percentile(lat, 99)), "wall_s": wall,
+            "batches": snap["batches"], "per_bucket": snap["per_bucket"],
+            "batch_occupancy": snap["batch_occupancy"]}
+
+
+def _device_kernels(fn, top=15):
+    """One call of ``fn`` under ``torch.profiler``: the device time of each
+    kernel (profiler entries with device time and no host time of their
+    own), the top ``top`` by time, and their sum against the wall time."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = []
+    for ev in prof.key_averages():
+        dev = getattr(ev, "self_device_time_total",
+                      getattr(ev, "self_cuda_time_total", 0)) / 1e3
+        if dev > 0 and ev.self_cpu_time_total == 0:
+            rows.append({"kernel": ev.key[:90], "calls": ev.count,
+                         "ms": dev})
+    rows.sort(key=lambda r: -r["ms"])
+    return {"wall_ms": wall_ms, "device_ms": sum(r["ms"] for r in rows),
+            "top": rows[:top]}
+
+
+def googlenet_serve_phase():
+    net = googlenet(**GNET).init(seed=SEED + 13)
+    fwd = lambda n, x: n._output_pure(x)[0]      # the graph's one output
+    t0 = time.perf_counter()
+    eng = InferenceEngine(net, feature_shape=(224, 224, 3),
+                          buckets=GNET_BUCKETS, forward_fn=fwd)
+    warm_s = time.perf_counter() - t0
+    pool = np.random.default_rng(SEED + 14).standard_normal(
+        (16, 224, 224, 3)).astype(np.float32)
+    n_rows = sum(GNET_SIZES[(c + i) % len(GNET_SIZES)]
+                 for c in range(GNET_CLIENTS) for i in range(GNET_PER_CLIENT))
+    try:
+        traces0 = eng.trace_count
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        k7.conv1x1_fused.launches = 0            # the serving run's count
+        lat, wall = _serve_closed_loop(eng, pool, GNET_SIZES, GNET_CLIENTS,
+                                       GNET_PER_CLIENT)
+        launches = k7.conv1x1_fused.launches
+        peak = torch.cuda.max_memory_allocated()
+        snap = eng.metrics()["default"]
+        if eng.trace_count != traces0:
+            raise AssertionError("traffic warmed a program")
+        got = eng.predict(pool[:3])
+    finally:
+        eng.stop()
+    if launches != 37 * snap["batches"] or launches == 0:
+        raise AssertionError(f"K7 launched {launches} times for "
+                             f"{snap['batches']} batches (37 each)")
+    want = net.output(pool[:3]).cpu()
+    err = _rel_to_max(torch.as_tensor(got), want)
+    if err > 1e-5:
+        raise AssertionError(f"GoogLeNet response differs from net.output: "
+                             f"rel-to-max {err:.3g}")
+    # one B 32 forward on the card, alone: its time and its kernels
+    x32 = torch.as_tensor(np.concatenate([pool, pool]), device=net.device)
+    with torch.inference_mode():
+        fwd_ms = _time_ms(lambda: fwd(net, x32), iters=10)
+        kernels = _device_kernels(lambda: fwd(net, x32))
+    row = _latency_stats(lat, wall, n_rows, snap)
+    row.update({"model": "googlenet 1000 classes 224x224x3 f32",
+                "buckets": list(GNET_BUCKETS), "warm_s": warm_s,
+                "images_per_s": row.pop("rows_per_s"),
+                "max_memory_allocated_bytes": peak,
+                "response_rel_to_max": err, "k7_launches": launches,
+                "forward_ms_b32": fwd_ms, "forward_kernels_b32": kernels})
+    return net, row
+
+
+# ----------------------------------------------------------------- phase 12
+def int8_net(device=None):
+    K, H, V = INT8_NET
+    conf = (NeuralNetConfiguration(seed=7, updater=Sgd(0.1), dtype="float32")
+            .list(DenseLayer(n_in=K, n_out=H, activation="relu"),
+                  DenseLayer(n_out=H, activation="relu"),
+                  OutputLayer(n_out=V, activation="softmax", loss="mcxent"))
+            .build())
+    return MultiLayerNetwork(conf, device=device)
+
+
+def int8_serve_phase():
+    net = int8_net().init(seed=SEED + 15)
+    fwd8 = k8.int8_forward_fn(net)
+    eng = InferenceEngine(net, feature_shape=(INT8_NET[0],),
+                          buckets=INT8_BUCKETS, forward_fn=fwd8)
+    rng = np.random.default_rng(SEED + 16)
+    pool = rng.standard_normal((64, INT8_NET[0])).astype(np.float32)
+    n_rows = sum(INT8_SIZES[(c + i) % len(INT8_SIZES)]
+                 for c in range(INT8_CLIENTS) for i in range(INT8_PER_CLIENT))
+    try:
+        k8.int8_matmul_fused.launches = 0        # the serving run's count
+        lat, wall = _serve_closed_loop(eng, pool, INT8_SIZES, INT8_CLIENTS,
+                                       INT8_PER_CLIENT)
+        launches = k8.int8_matmul_fused.launches
+        snap = eng.metrics()["default"]
+        x256 = rng.standard_normal((256, INT8_NET[0])).astype(np.float32)
+        y8 = eng.registry.get().active.run(x256)
+    finally:
+        eng.stop()
+    if launches != 3 * snap["batches"] or launches == 0:
+        raise AssertionError(f"K8 launched {launches} times for "
+                             f"{snap['batches']} batches (3 each)")
+    y32 = net.output(x256).cpu().numpy()
+    rel = float(np.max(np.abs(y8 - y32)) / (np.max(np.abs(y32)) + 1e-12))
+    if not rel < 0.05:
+        raise AssertionError(f"int8 forward is {rel:.3g} of f32 (limit 0.05)")
+    xt = torch.as_tensor(x256, device=net.device)
+    with torch.inference_mode():
+        int8_ms = _time_ms(lambda: fwd8(net, xt))
+        f32_ms = _time_ms(lambda: net._output_pure(xt))
+    row = _latency_stats(lat, wall, n_rows, snap)
+    row.update({"model": "int8 serving net 512-512-512-256 f32 weights",
+                "buckets": list(INT8_BUCKETS), "int8_ms_b256": int8_ms,
+                "f32_ms_b256": f32_ms, "max_rel_err_vs_f32": rel,
+                "k8_launches": launches})
+    return net, row
+
+
+# ----------------------------------------------------------------- phase 13
+def cnn_cross_device_phase(gnet, mlp):
+    """GoogLeNet at 224 B 2, every vertex, and the int8 forward at B 16, on
+    the card (K7, K8) and on the CPU (plain versions), same weights."""
+    def carry(src, dst):
+        groups = src.param_dicts()
+        load_jax_params(dst, [{k: v.detach().cpu().numpy()
+                               for k, v in groups[n].items()}
+                              for n in groups])
+        return dst
+
+    cpu = carry(gnet, googlenet(**GNET, device="cpu").init())
+    x = np.random.default_rng(SEED + 17).standard_normal(
+        (2, 224, 224, 3)).astype(np.float32)
+    k7.conv1x1_fused.launches = 0
+    got = gnet.feed_forward(x)
+    launches = k7.conv1x1_fused.launches
+    want = cpu.feed_forward(x)
+    worst = max(want, key=lambda n: _rel_to_max(got[n].cpu(), want[n]))
+    rel = _rel_to_max(got[worst].cpu(), want[worst])
+    if rel > 1e-4 or launches != 37:
+        raise AssertionError(f"GoogLeNet vertex {worst} on the card differs "
+                             f"from the CPU's: rel-to-max {rel:.3g} "
+                             f"({launches} K7 launches)")
+    mcpu = carry(mlp, int8_net(device="cpu").init())
+    xi = np.random.default_rng(SEED + 18).standard_normal(
+        (16, INT8_NET[0])).astype(np.float32)
+    with torch.inference_mode():
+        y_gpu = k8.int8_forward_fn(mlp)(
+            mlp, torch.as_tensor(xi, device=mlp.device)).cpu()
+        y_cpu = k8.int8_forward_fn(mcpu)(mcpu, torch.as_tensor(xi))
+    err8 = (y_gpu - y_cpu).abs().max().item()
+    if err8 > 1e-6:
+        raise AssertionError(f"int8 forward on the card vs CPU: {err8:.3g}")
+    return {"googlenet_worst_vertex": worst, "googlenet_rel_to_max": rel,
+            "k7_launches": launches, "int8_max_abs_err": err8}
+
+
 # ------------------------------------------------------------------- main
 def main() -> int:
     smi = device_phase()
@@ -848,6 +1240,11 @@ def main() -> int:
     char_serve = char_serve_phase()
     char_train = char_train_phase()
     char_cross = char_cross_device_phase()
+    k7_errs, k7_rows, k7_bf16_rows, k7_total = conv_kernel_phase()
+    k8_rows, k8_total, k8_err = int8_kernel_phase()
+    gnet, gserve = googlenet_serve_phase()
+    mlp, i8serve = int8_serve_phase()
+    cnn_cross = cnn_cross_device_phase(gnet, mlp)
     top = next(r for r in rows if r["BH"] == 16 and r["T"] == 1024
                and r["dtype"] == str(torch.float32))
     serve_k1 = slice_row["flash_attention_launches"]
@@ -902,15 +1299,45 @@ def main() -> int:
             "bound_ms": lstm_top[f"{kind}_bound_ms"],
             "bound_by": lstm_top[f"{kind}_bound_by"],
             "library_ms": lstm_top[f"{kind}_library_ms"]})
+    kernels.append({
+        "name": "conv1x1_bias_relu", "route": "cuda",
+        "source": "deeplearning4j_tpu_torch/csrc/conv1x1_bias_relu.cu",
+        "replaces": "deeplearning4j_tpu/ops/kernels/conv.py:83",
+        "launches": gserve["k7_launches"],
+        "launches_by_path": {"serve_googlenet": gserve["k7_launches"]},
+        "max_abs_err": k7_errs["parity_abs"],
+        "max_rel_to_max_err_f32": k7_errs["f32_rel"],
+        "max_rel_to_max_err_bf16": k7_errs["bf16_rel"],
+        "shape": "the 37 1x1 convs of one GoogLeNet forward, B 32 f32",
+        "ms": k7_total["ms"], "plain_ms": k7_total["plain_ms"],
+        "bound_ms": k7_total["bound_ms"], "bound_by": k7_total["bound_by"],
+        "library_ms": k7_total["library_ms"]})
+    kernels.append({
+        "name": "int8_matmul", "route": "cuda",
+        "source": "deeplearning4j_tpu_torch/csrc/int8_matmul.cu",
+        "replaces": "deeplearning4j_tpu/ops/kernels/quantized.py:92",
+        "launches": i8serve["k8_launches"],
+        "launches_by_path": {"serve_int8": i8serve["k8_launches"]},
+        "max_abs_err": k8_err,
+        "shape": "the 3 products of one int8 net forward, M 256",
+        "ms": k8_total["ms"], "plain_ms": k8_total["plain_ms"],
+        "bound_ms": k8_total["bound_ms"], "bound_by": k8_total["bound_by"],
+        "library_ms": k8_total["library_ms"]})
     print(json.dumps({"kernel_shapes": rows, "bwd_kernel_shapes": bwd_rows,
                       "lstm_kernel_shapes": lstm_rows,
-                      "lstm_step_us": lstm_step_us, "card": smi}),
+                      "lstm_step_us": lstm_step_us,
+                      "conv1x1_shapes": k7_rows,
+                      "conv1x1_bf16_shapes": k7_bf16_rows,
+                      "int8_matmul_shapes": k8_rows, "card": smi}),
           flush=True)
     print(json.dumps({"slice": slice_row, "card": smi}), flush=True)
     print(json.dumps({"train": train_row, "cross_device": cross_row,
                       "card": smi}), flush=True)
     print(json.dumps({"char_serve": char_serve, "char_train": char_train,
                       "char_cross_device": char_cross, "card": smi}),
+          flush=True)
+    print(json.dumps({"googlenet_serve": gserve, "int8_serve": i8serve,
+                      "cnn_cross_device": cnn_cross, "card": smi}),
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -3,7 +3,9 @@
 The JAX package keeps a network's parameters as ``net.params``: a tuple
 with one dict per vertex of a ComputationGraph (in ``net.vertex_names``
 order) or per layer of a MultiLayerNetwork (in layer order), under the same
-names and layouts the port's layers use. The port never imports JAX, so
+names and layouts the port's layers use (a conv's ``W`` is HWIO
+[kh, kw, C, F] in both; a vertex without parameters, such as a pooling,
+LRN or merge vertex, has an empty dict). The port never imports JAX, so
 the caller turns those arrays into numpy first, e.g.
 ``[{k: np.asarray(v) for k, v in p.items()} for p in jax_net.params]``.
 The updater state (``net.opt_state``) has one more level, the state name

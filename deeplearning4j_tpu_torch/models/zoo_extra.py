@@ -1,10 +1,11 @@
-"""Zoo models of the port: the GravesLSTM char-RNN and the decoder-only
-transformer LM.
+"""Zoo models of the port: GoogLeNet, the GravesLSTM char-RNN and the
+decoder-only transformer LM.
 
-Counterpart of ``text_generation_lstm`` and ``sample_text``
-(``deeplearning4j_tpu/models/zoo_extra.py:285-330``) and ``transformer_lm``
-(``:333-393``), with the same keyword arguments, layers, vertex names and
-input forms, plus the ``device`` the network lives on.
+Counterpart of ``_inception_v1`` and ``googlenet``
+(``deeplearning4j_tpu/models/zoo_extra.py:31-105``), ``text_generation_lstm``
+and ``sample_text`` (``:285-330``) and ``transformer_lm`` (``:333-393``),
+with the same keyword arguments, layers, vertex names and input forms, plus
+the ``device`` the network lives on.
 """
 from __future__ import annotations
 
@@ -13,13 +14,101 @@ import numpy as np
 from ..device import DeviceLike
 from ..nn.conf.config import NeuralNetConfiguration
 from ..nn.graph.graph import ComputationGraph
-from ..nn.graph.vertices import ElementWiseVertex
+from ..nn.graph.vertices import ElementWiseVertex, MergeVertex
 from ..nn.inputs import InputType
-from ..nn.layers import (DenseLayer, EmbeddingSequenceLayer, GravesLSTM,
-                         LayerNormalization, PositionalEmbeddingLayer,
-                         RnnOutputLayer, SelfAttentionLayer)
+from ..nn.layers import (ConvolutionLayer, DenseLayer, EmbeddingSequenceLayer,
+                         GlobalPoolingLayer, GravesLSTM, LayerNormalization,
+                         LocalResponseNormalization, OutputLayer,
+                         PositionalEmbeddingLayer, RnnOutputLayer,
+                         SelfAttentionLayer, SubsamplingLayer)
 from ..nn.multilayer import MultiLayerNetwork
-from ..optimize.updaters import Adam, RmsProp
+from ..optimize.updaters import Adam, Nesterovs, RmsProp
+from .zoo import _base_builder
+
+
+def _inception_v1(g, name, inp, cfg):
+    """One GoogLeNet inception module (reference GoogLeNet.java:125-140):
+    cfg = [[c1x1], [c3x3_reduce, c3x3], [c5x5_reduce, c5x5], [pool_proj]].
+    Its four 1x1 convs (bias, relu) take K7."""
+    def conv(n_out, k):
+        return ConvolutionLayer(n_out=n_out, kernel_size=(k, k),
+                                convolution_mode="same", activation="relu",
+                                bias_init=0.2)
+    g.add_layer(f"{name}-cnn1", conv(cfg[0][0], 1), inp)
+    g.add_layer(f"{name}-cnn2", conv(cfg[1][0], 1), inp)
+    g.add_layer(f"{name}-cnn3", conv(cfg[2][0], 1), inp)
+    g.add_layer(f"{name}-max1", SubsamplingLayer(
+        pooling_type="max", kernel_size=(3, 3), stride=(1, 1),
+        convolution_mode="same"), inp)
+    g.add_layer(f"{name}-cnn4", conv(cfg[1][1], 3), f"{name}-cnn2")
+    g.add_layer(f"{name}-cnn5", conv(cfg[2][1], 5), f"{name}-cnn3")
+    g.add_layer(f"{name}-cnn6", conv(cfg[3][0], 1), f"{name}-max1")
+    g.add_vertex(f"{name}-depthconcat1", MergeVertex(),
+                 f"{name}-cnn1", f"{name}-cnn4", f"{name}-cnn5",
+                 f"{name}-cnn6")
+    return f"{name}-depthconcat1"
+
+
+def googlenet(n_classes: int = 1000, *, height: int = 224, width: int = 224,
+              channels: int = 3, seed: int = 42, updater=None,
+              dtype: str = "float32",
+              device: DeviceLike = None) -> ComputationGraph:
+    """Reference zoo/model/GoogLeNet.java conf() :144-176, NHWC: a 7x7/2
+    stem, LRN, nine inception modules, global average pooling, a
+    dropout-0.4 Dense(1024) and a softmax output; l2 2e-4 and
+    ``Nesterovs(1e-2, momentum=0.9)`` unless ``updater`` is given. Its 37
+    1x1 convs with bias and relu (cnn2 and four in each module) take K7.
+    The graph lives on ``device`` (default: the CUDA card); call
+    ``init()`` to create its parameters."""
+    g = _base_builder(seed, updater or Nesterovs(1e-2, momentum=0.9), dtype,
+                      l2=2e-4)
+    g.add_inputs("input")
+    g.add_layer("cnn1", ConvolutionLayer(n_out=64, kernel_size=(7, 7),
+                                         stride=(2, 2), convolution_mode="same",
+                                         activation="relu", bias_init=0.2),
+                "input")
+    g.add_layer("max1", SubsamplingLayer(pooling_type="max", kernel_size=(3, 3),
+                                         stride=(2, 2), convolution_mode="same"),
+                "cnn1")
+    g.add_layer("lrn1", LocalResponseNormalization(n=5, alpha=1e-4, beta=0.75),
+                "max1")
+    g.add_layer("cnn2", ConvolutionLayer(n_out=64, kernel_size=(1, 1),
+                                         convolution_mode="same",
+                                         activation="relu", bias_init=0.2),
+                "lrn1")
+    g.add_layer("cnn3", ConvolutionLayer(n_out=192, kernel_size=(3, 3),
+                                         convolution_mode="same",
+                                         activation="relu", bias_init=0.2),
+                "cnn2")
+    g.add_layer("lrn2", LocalResponseNormalization(n=5, alpha=1e-4, beta=0.75),
+                "cnn3")
+    g.add_layer("max2", SubsamplingLayer(pooling_type="max", kernel_size=(3, 3),
+                                         stride=(2, 2), convolution_mode="same"),
+                "lrn2")
+    x = _inception_v1(g, "3a", "max2", [[64], [96, 128], [16, 32], [32]])
+    x = _inception_v1(g, "3b", x, [[128], [128, 192], [32, 96], [64]])
+    g.add_layer("max3", SubsamplingLayer(pooling_type="max", kernel_size=(3, 3),
+                                         stride=(2, 2), convolution_mode="same"),
+                x)
+    x = _inception_v1(g, "4a", "max3", [[192], [96, 208], [16, 48], [64]])
+    x = _inception_v1(g, "4b", x, [[160], [112, 224], [24, 64], [64]])
+    x = _inception_v1(g, "4c", x, [[128], [128, 256], [24, 64], [64]])
+    x = _inception_v1(g, "4d", x, [[112], [144, 288], [32, 64], [64]])
+    x = _inception_v1(g, "4e", x, [[256], [160, 320], [32, 128], [128]])
+    g.add_layer("max4", SubsamplingLayer(pooling_type="max", kernel_size=(3, 3),
+                                         stride=(2, 2), convolution_mode="same"),
+                x)
+    x = _inception_v1(g, "5a", "max4", [[256], [160, 320], [32, 128], [128]])
+    x = _inception_v1(g, "5b", x, [[384], [192, 384], [48, 128], [128]])
+    g.add_layer("avg3", GlobalPoolingLayer(pooling_type="avg"), x)
+    g.add_layer("fc1", DenseLayer(n_out=1024, activation="relu", dropout=0.4),
+                "avg3")
+    g.add_layer("output", OutputLayer(n_out=n_classes, activation="softmax",
+                                      loss="mcxent", weight_init="xavier"),
+                "fc1")
+    g.set_outputs("output")
+    g.set_input_types(InputType.convolutional(height, width, channels))
+    return ComputationGraph(g.build(), device=device)
 
 
 def text_generation_lstm(vocab_size: int = 77, *, hidden: int = 256,
@@ -73,13 +162,6 @@ def sample_text(net, *, vocab_size: int, seed_ids, n_steps: int,
         out.append(nxt)
         probs = step(nxt)
     return out
-
-
-def _base_builder(seed, updater, dtype="float32"):
-    """The zoo's shared defaults (``models/zoo.py`` ``_base_builder``)."""
-    return NeuralNetConfiguration(seed=seed, updater=updater,
-                                  weight_init="relu", activation="identity",
-                                  dtype=dtype).graph_builder()
 
 
 def transformer_lm(vocab_size: int = 256, *, d_model: int = 256,

@@ -14,8 +14,9 @@ length. JSON serde comes with ROADMAP A2.
 Training takes the per-step SGD path only. Other optimization algorithms
 and layerwise pretraining (ROADMAP A5), gradient checkpointing and mixed
 precision (``compute_dtype``, ROADMAP A10) raise ``NotImplementedError``.
-No input preprocessor is ported yet (they come with the conv layers, A5),
-so ``preprocessor(i)`` is None for every layer.
+No input preprocessor is ported yet (A5), so ``preprocessor(i)`` is None
+for every layer; ``_infer_n_in`` (``:231-236``) gives a CNN layer its
+input channels.
 """
 from __future__ import annotations
 
@@ -25,10 +26,21 @@ from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
 
 from ...optimize.updaters import Sgd, updater_from_name
-from ..inputs import InputTypeFeedForward, check_input_family
+from ..inputs import (InputTypeConvolutional, InputTypeFeedForward,
+                      check_input_family)
 
 _CASCADED = ("activation", "weight_init", "distribution", "bias_init", "l1",
              "l2", "dropout", "bias_learning_rate")
+
+
+def _infer_n_in(layer, itype) -> int:
+    """A layer's ``n_in`` from its input type: the channels for a CNN
+    layer on convolutional input, else the flat feature width."""
+    from ..layers.base import resolve_ff_size
+    if layer.expected_input == "cnn" and \
+            isinstance(itype, InputTypeConvolutional):
+        return itype.channels
+    return resolve_ff_size(itype)
 
 
 class NeuralNetConfiguration:
@@ -170,7 +182,7 @@ class ListBuilder:
             if itype is not None:
                 check_input_family(itype, layer.expected_input)
                 if getattr(layer, "n_in", "absent") is None:
-                    layer.n_in = itype.size
+                    layer.n_in = _infer_n_in(layer, itype)
                 itype = layer.output_type(itype)
             resolved.append(layer)
         return MultiLayerConfiguration(

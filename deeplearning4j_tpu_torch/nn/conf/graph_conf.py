@@ -19,7 +19,7 @@ from typing import Any, Dict, List, Optional
 
 from ..graph.vertices import LayerVertex, VertexConf
 from ..inputs import check_input_family
-from ..layers.base import resolve_ff_size
+from .config import _infer_n_in
 
 
 @dataclass
@@ -121,7 +121,7 @@ class GraphBuilder:
                         check_input_family(in_types[0],
                                            v.layer.expected_input)
                         if getattr(v.layer, "n_in", "absent") is None:
-                            v.layer.n_in = resolve_ff_size(in_types[0])
+                            v.layer.n_in = _infer_n_in(v.layer, in_types[0])
                     itypes[name] = v.output_type(in_types)
                 except ValueError as e:
                     raise ValueError(

@@ -2,7 +2,8 @@
 
 Counterpart of ``deeplearning4j_tpu/nn/graph/graph.py``: ``init``, the
 topological forward ``apply_fn`` with its feature-mask flow (``:91-176``),
-``loss_fn`` (``:178-241``), ``output``, ``score`` (``:265-273``),
+``loss_fn`` (``:178-241``), ``output`` / ``_output_pure`` /
+``feed_forward`` (``:249-263``), ``score`` (``:265-273``),
 ``num_params`` and ``fit`` (``:350-370``) with the updater state
 (``opt_state``) and ``iteration_count`` the net carries.
 
@@ -157,13 +158,25 @@ class ComputationGraph(nn.Module):
                             else x, device=self.device)
         return t if not t.is_floating_point() else t.to(self.dtype)
 
+    def _output_pure(self, inputs, *, train: bool = False):
+        """The list of network outputs for input tensors (one per network
+        input, or a bare tensor), in ``network_outputs`` order: the
+        reference's ``_output_pure`` (``:256-258``), which
+        ``serving.programs.default_forward`` calls."""
+        acts = self.apply_fn(inputs, train=train)
+        return [acts[o] for o in self.conf.network_outputs]
+
     @torch.inference_mode()
     def output(self, *inputs):
         """Network output(s) for numpy arrays or tensors (token ids stay
         integer; float inputs take the graph's dtype)."""
-        acts = self.apply_fn([self._as_input(x) for x in inputs])
-        outs = [acts[o] for o in self.conf.network_outputs]
+        outs = self._output_pure([self._as_input(x) for x in inputs])
         return outs[0] if len(outs) == 1 else outs
+
+    @torch.inference_mode()
+    def feed_forward(self, *inputs, train: bool = False):
+        """Every vertex's activation (and each network input) by name."""
+        return self.apply_fn([self._as_input(x) for x in inputs], train=train)
 
     @torch.no_grad()
     def score(self, x=None, y=None, dataset=None) -> float:

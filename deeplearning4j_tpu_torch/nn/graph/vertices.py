@@ -1,7 +1,8 @@
-"""Graph vertices: a layer, or an elementwise combination of inputs.
+"""Graph vertices: a layer, a channel concatenation, or an elementwise
+combination of inputs.
 
-Counterpart of ``LayerVertex`` and ``ElementWiseVertex`` in
-``deeplearning4j_tpu/nn/graph/vertices.py``. A vertex takes a LIST of input
+Counterpart of ``LayerVertex``, ``MergeVertex`` (``:102-123``) and
+``ElementWiseVertex`` in ``deeplearning4j_tpu/nn/graph/vertices.py``. A vertex takes a LIST of input
 tensors; shape inference goes through ``output_type(input_types)``. A
 [B,T] feature mask reaches a layer only when the layer ``accepts_mask``
 and its input is a [B,T,F] sequence (``LayerVertex.apply`` ``:68-77``).
@@ -10,9 +11,11 @@ from __future__ import annotations
 
 from typing import Any, List
 
+import torch
 from torch import nn
 
-from ..inputs import InputTypeRecurrent
+from ..inputs import (InputTypeConvolutional, InputTypeFeedForward,
+                      InputTypeRecurrent)
 
 
 class VertexConf(nn.Module):
@@ -51,6 +54,31 @@ class LayerVertex(VertexConf):
                 and x.dim() == 3:
             kwargs["mask"] = mask
         return self.layer(x, train=train, gen=gen, **kwargs)
+
+
+class MergeVertex(VertexConf):
+    """Concatenate along the last axis: the channels of NHWC maps (the
+    reference's NCHW depth concat), or the features."""
+
+    def output_type(self, itypes):
+        it0 = itypes[0]
+        if isinstance(it0, InputTypeConvolutional):
+            bad = [i for i in itypes
+                   if not isinstance(i, InputTypeConvolutional)
+                   or (i.height, i.width) != (it0.height, it0.width)]
+            if bad:
+                raise ValueError(
+                    f"MergeVertex concatenates channels, so all inputs must "
+                    f"be convolutional with equal spatial dims; got {itypes}")
+            return InputTypeConvolutional(it0.height, it0.width,
+                                          sum(i.channels for i in itypes))
+        if isinstance(it0, InputTypeRecurrent):
+            return InputTypeRecurrent(sum(i.size for i in itypes),
+                                      it0.timestep_length)
+        return InputTypeFeedForward(sum(i.size for i in itypes))
+
+    def forward(self, inputs):
+        return torch.cat(inputs, dim=-1)
 
 
 class ElementWiseVertex(VertexConf):

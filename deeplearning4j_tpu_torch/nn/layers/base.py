@@ -22,7 +22,8 @@ import torch
 from torch import nn
 
 from ..activations import get_activation
-from ..inputs import InputTypeFeedForward, InputTypeRecurrent
+from ..inputs import (InputTypeConvolutional, InputTypeFeedForward,
+                      InputTypeRecurrent)
 from ..weights import init_weights
 
 
@@ -111,4 +112,6 @@ def resolve_ff_size(itype) -> int:
     """Feed-forward input width for a layer fed by ``itype``."""
     if isinstance(itype, (InputTypeFeedForward, InputTypeRecurrent)):
         return itype.size
+    if isinstance(itype, InputTypeConvolutional):
+        return itype.flat_size()
     raise ValueError(f"Cannot infer feed-forward size from {itype}")

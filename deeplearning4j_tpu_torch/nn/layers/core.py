@@ -1,10 +1,11 @@
-"""Core layers of the transformer LM: Dense, EmbeddingSequence, Positional
-embedding and the time-distributed RnnOutput head.
+"""Core layers: Dense, Activation, EmbeddingSequence, Positional embedding,
+and the Output and time-distributed RnnOutput heads.
 
 Counterpart of ``deeplearning4j_tpu/nn/layers/core.py`` (``DenseLayer``
-``:34``, ``EmbeddingSequenceLayer`` ``:106``, ``PositionalEmbeddingLayer``
-``:144``, ``RnnOutputLayer`` ``:209`` with the loss of
-``BaseOutputLayerMixin`` ``:175-184``). Parameter names and layouts are the
+``:34``, ``ActivationLayer`` ``:60``, ``EmbeddingSequenceLayer`` ``:106``,
+``PositionalEmbeddingLayer`` ``:144``, ``OutputLayer`` ``:189`` and
+``RnnOutputLayer`` ``:209`` with the loss of ``BaseOutputLayerMixin``
+``:175-184``). Parameter names and layouts are the
 reference's, and so are the places dropout applies: a Dense layer's input,
 an embedding's output.
 """
@@ -46,6 +47,36 @@ class DenseLayer(LayerConf):
 
     def forward(self, x, *, train=False, gen=None):
         return self.act(self.pre_output(x, train=train, gen=gen))
+
+
+class ActivationLayer(LayerConf):
+    """The activation alone, on input of any family."""
+    expected_input = "any"
+
+    def forward(self, x, *, train=False, gen=None):
+        return self.act(x)
+
+
+class BaseOutputLayerMixin:
+    """The output layers' loss, taken on the pre-activation so softmax
+    cross-entropy takes ``log_softmax``."""
+
+    def compute_loss_per_example(self, x, labels, mask=None, *, train=False,
+                                 gen=None):
+        """Per-example loss [B] of ``labels`` against this layer's
+        pre-activation on ``x``, under an optional [B,T] mask."""
+        pre = self.pre_output(x, train=train, gen=gen)
+        return get_loss(self.loss)(labels, pre, self.activation or "identity",
+                                   mask)
+
+
+class OutputLayer(DenseLayer, BaseOutputLayerMixin):
+    """A Dense layer scored by ``loss``."""
+
+    def __init__(self, n_in: Optional[int] = None, n_out: int = 0,
+                 loss: str = "mcxent", **kw):
+        super().__init__(n_in=n_in, n_out=n_out, **kw)
+        self.loss = loss
 
 
 class EmbeddingSequenceLayer(LayerConf):
@@ -103,26 +134,12 @@ class PositionalEmbeddingLayer(LayerConf):
         return self.act(x + self.P[:T][None])
 
 
-class RnnOutputLayer(DenseLayer):
+class RnnOutputLayer(OutputLayer):
     """Time-distributed output layer for [B,T,F] activations, scored per
-    timestep by ``loss`` on its pre-activation (so softmax cross-entropy
-    takes ``log_softmax``)."""
+    timestep."""
     expected_input = "rnn"
-
-    def __init__(self, n_in: Optional[int] = None, n_out: int = 0,
-                 loss: str = "mcxent", **kw):
-        super().__init__(n_in=n_in, n_out=n_out, **kw)
-        self.loss = loss
 
     def output_type(self, itype):
         t = itype.timestep_length if isinstance(itype, InputTypeRecurrent) \
             else -1
         return InputTypeRecurrent(self.n_out, t)
-
-    def compute_loss_per_example(self, x, labels, mask=None, *, train=False,
-                                 gen=None):
-        """Per-example loss [B] of ``labels`` against this layer's
-        pre-activation on ``x``, under an optional [B,T] mask."""
-        pre = self.pre_output(x, train=train, gen=gen)
-        return get_loss(self.loss)(labels, pre, self.activation or "identity",
-                                   mask)

@@ -1,15 +1,20 @@
-"""Layer normalization over the feature axis.
+"""Layer normalization over the feature axis, and cross-channel local
+response normalization.
 
-Counterpart of ``LayerNormalization`` in
-``deeplearning4j_tpu/nn/layers/norm.py`` (``:92-123``). The formula is the
-reference's, not ``F.layer_norm``'s: var = max(E[x^2] - mean^2, 0), then
-rsqrt(var + eps).
+Counterpart of ``LayerNormalization`` and ``LocalResponseNormalization`` in
+``deeplearning4j_tpu/nn/layers/norm.py`` (``:92-123``, ``:125-143``). The
+formulas are the reference's, not ``F.layer_norm``'s or
+``F.local_response_norm``'s: var = max(E[x^2] - mean^2, 0), then
+rsqrt(var + eps); and x / (k + alpha·Σx²)^beta with the sum over a window
+of n channels padded with n//2 zeros on each side (alpha is not divided by
+n).
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from .base import LayerConf
@@ -40,3 +45,23 @@ class LayerNormalization(LayerConf):
                           min=0.0)
         inv = torch.rsqrt(var + self.eps)
         return self.act((x - mean) * inv * self.gain + self.bias)
+
+
+class LocalResponseNormalization(LayerConf):
+    """Cross-channel LRN over NHWC (reference defaults k=2, n=5,
+    alpha=1e-4, beta=0.75)."""
+    expected_input = "cnn"
+
+    def __init__(self, k: float = 2.0, n: int = 5, alpha: float = 1e-4,
+                 beta: float = 0.75, **kw):
+        super().__init__(**kw)
+        self.k = k
+        self.n = n
+        self.alpha = alpha
+        self.beta = beta
+
+    def forward(self, x, *, train=False, gen=None):
+        half = self.n // 2
+        sq = F.pad(x * x, (half, half))
+        summed = sq.unfold(-1, self.n, 1).sum(dim=-1)
+        return x / (self.k + self.alpha * summed) ** self.beta

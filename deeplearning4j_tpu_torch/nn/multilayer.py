@@ -180,10 +180,16 @@ class MultiLayerNetwork(nn.Module):
                             else x, device=self.device)
         return t if not t.is_floating_point() else t.to(self.dtype)
 
+    def _output_pure(self, x, *, train: bool = False):
+        """The last layer's activations for an input tensor: the
+        reference's ``_output_pure``, which
+        ``serving.programs.default_forward`` calls."""
+        return self.apply_fn(x, train=train)[-1]
+
     @torch.inference_mode()
     def output(self, x, train: bool = False):
         """The last layer's activations for a numpy array or tensor."""
-        return self.apply_fn(self._as_input(x), train=train)[-1]
+        return self._output_pure(self._as_input(x), train=train)
 
     @torch.inference_mode()
     def feed_forward(self, x, train: bool = False):

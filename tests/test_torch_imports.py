@@ -29,7 +29,9 @@ _REQUIRED = {f"deeplearning4j_tpu_torch.{m}" for m in (
     "ops.flash_attention", "ops.lstm", "ops.nvcc", "nn.multilayer",
     "nn.layers.recurrent", "nn.conf.config", "optimize.solver",
     "models.decode", "models.zoo_extra", "interop.jax_params",
-    "serving.generation.programs", "serving.generation.scheduler")}
+    "serving.generation.programs", "serving.generation.scheduler",
+    "ops.kernels.conv", "ops.kernels.quantized", "nn.layers.conv",
+    "models.zoo", "serving.engine", "serving.batcher", "serving.programs")}
 
 _FORBIDDEN = re.compile(
     r"^\s*(import\s+(jax|deeplearning4j_tpu)\b(?!_torch)"
