@@ -16,7 +16,11 @@ Phases; any failure raises and exits non-zero before a result is printed:
      it (float32 at atol 2e-5, bfloat16 at atol 2e-2);
    - K2 and K3, the backward's dq and dk/dv kernels, at the training
      shapes (BH 64 = B 8 x H 8, T 1024, D 64, causal) at rel-to-max 1e-4
-     in float32 and 2e-2 in bfloat16;
+     in float32 and 2e-2 in bfloat16, at a ring hop's shapes (BH 8,
+     Tq = Tk 2048, D 64, both types, the causal diagonal hop and the
+     unmasked full hop, with the lse and delta of a longer key set as the
+     ring's backward passes the whole sequence's) and at one data-parallel
+     worker's (BH 16 = B 2 x H 8, T 1024, float32, causal);
    - each also at coverage shapes (other head dims, a key mask with a
      fully masked row, T 200 causal with a mask).
    Times each kernel, its plain version and the PyTorch library call for
@@ -82,14 +86,45 @@ Phases; any failure raises and exits non-zero before a result is printed:
    within rel 0.05 of the f32 forward.
 13. CPU against card: GoogLeNet at 224, B 2, every vertex's activation at
    rel-to-max 1e-4; the int8 forward at B 16 at atol 1e-6.
-   In phases 3, 4, 7, 8, 11 and 12 the launch counts are set to 0 just
+   In phases 3, 4, 7, 8, 11, 12, 16 and 17 the launch counts are set to 0 just
    before the path is driven and read just after; every kernel of the
    path must launch.
-14. Report: JSON lines of per-shape kernel times, the serving and training
+14. K9 (``threshold_encode_fused``) bitwise against its plain version, in
+   float32 and bfloat16, at n = 25,000,000 (bench.py:2222's ResNet-50
+   scale), at the ``_TLM`` model's parameter count, at 65,536 + 777, on a
+   slice that starts one element off alignment, at threshold 0, and on
+   inputs holding NaN, infinities, both zeros and values equal to the
+   threshold. Times it beside the plain version and the 9 (5) bytes an
+   element bound. No single PyTorch call computes it.
+15. K4 (``flash_block_update``) against its plain version from a random
+   incoming carry (and from the first hop's empty carry) at BH 8-64,
+   t 128-2048, D 64-256, Tq != Tk, ragged lengths, the diagonal and the
+   full hop: the normalised result acc / l at atol 2e-5 in float32, 2e-2
+   in bfloat16. Times it at the ring's block (BH 8, t 2048, D 64) beside
+   the plain version and the bound. No PyTorch call takes or gives a carry.
+16. Ring attention: ``ring_attention_sharded(mesh of 8, "seq",
+   causal=True)`` on [1, 8, 16384, 64] (t_local 2048), forward and
+   backward, float32 and bfloat16, against ``flash_attention`` on the
+   whole sequence (forward atol 2e-5, gradients rel-to-max 1e-4; bf16
+   2e-2) and against the plain ring (``use_fused=False``). K4, K2 and K3
+   must each launch 36 times a ring (8 diagonal + 28 full hops).
+17. Compressed data-parallel training: ``ParallelWrapper(transformer_lm at
+   the _TLM width in f32 with Adam(3e-4), mesh of 4 logical workers,
+   gradient_accumulator=EncodedAccumulator(threshold))`` takes 5 ``fit``
+   steps on one batch of B 8 (2 rows a worker). K9 must launch once a
+   worker a step, K1-K3 12 times a worker a step; the loss is finite and
+   falls; ``_acc_state`` is [4, num_params] and finite. Times a step
+   beside the plain sync path's and a single worker's ``fit`` on the same
+   batch.
+18. CPU against card, the parallel layer: one fused ring forward at
+   T 2048 on 4 workers (atol 2e-5) and one ``EncodedAccumulator.combine``
+   (dense and topk) on the same gradients (bitwise).
+19. Report: JSON lines of per-shape kernel times, the serving and training
    metrics and the kernels, then last ``{"ok": true, "device": ...}``.
 """
 from __future__ import annotations
 
+import importlib
 import json
 import math
 import subprocess
@@ -118,8 +153,17 @@ from deeplearning4j_tpu_torch.ops import lstm
 from deeplearning4j_tpu_torch.ops.kernels import conv as k7
 from deeplearning4j_tpu_torch.ops.kernels import quantized as k8
 from deeplearning4j_tpu_torch.optimize.updaters import Adam, Sgd
+from deeplearning4j_tpu_torch.parallel import ParallelWrapper, make_mesh
+from deeplearning4j_tpu_torch.parallel.accumulation import EncodedAccumulator
+from deeplearning4j_tpu_torch.parallel.ring_attention import \
+    ring_attention_sharded
 from deeplearning4j_tpu_torch.serving import InferenceEngine
 from deeplearning4j_tpu_torch.serving.generation import GenerationEngine
+
+# the package exports the function ``ops.threshold_encode`` (as the
+# reference's does), which hides the kernel module of the same name from a
+# ``from ... import``
+k9 = importlib.import_module("deeplearning4j_tpu_torch.ops.threshold_encode")
 
 SEED = 20261016
 # H100 SXM published peaks (NVIDIA data sheet; dense, at the 700 W limit)
@@ -155,6 +199,14 @@ INT8_NET = (512, 512, 256)
 INT8_BUCKETS, INT8_CLIENTS, INT8_PER_CLIENT = (8, 32, 256), 8, 16
 INT8_SIZES = (1, 2, 3, 5, 8, 13, 21, 32)
 PEAK_INT8_OPS = 1979e12
+# ring attention: the _TLM head shape at a length that is the reason a ring
+# exists, on 8 logical workers (t_local 2048)
+RING = dict(B=1, H=8, T=16384, D=64, workers=8)
+# compressed data-parallel training: _TLM in f32 on 4 logical workers, B 8
+# the threshold sits at the 80th-90th percentile of this model's raw
+# gradient entries (loss summed over T: median |g| 0.02, 90 % 0.2)
+DP_WORKERS, DP_STEPS, DP_THRESHOLD = 4, 5, 0.1
+K9_N = 25_000_000                  # bench.py:2222, a ResNet-50's gradient
 
 
 def log(*a):
@@ -179,7 +231,9 @@ def device_phase() -> str:
 BUILDS = {"flash_attention_fwd": fa.build,
           "flash_attention_bwd": fa.build_bwd,
           "lstm_fwd": lstm.build_fwd, "lstm_bwd": lstm.build_bwd,
-          "conv1x1_bias_relu": k7.build, "int8_matmul": k8.build}
+          "conv1x1_bias_relu": k7.build, "int8_matmul": k8.build,
+          "flash_block_update": fa.build_block_update,
+          "threshold_encode": k9.build}
 
 
 def build_phase():
@@ -312,14 +366,25 @@ def kernel_phase():
     return errs, rows
 
 
-def _bwd_case(gen, BH, T, D, dtype, causal, masked, B=None):
-    """Backward inputs from K1's forward: (q, k, v, dO, lse, delta, mask)."""
+def _bwd_case(gen, BH, T, D, dtype, causal, masked, B=None, ring_hop=False):
+    """Backward inputs from K1's forward: (q, k, v, dO, lse, delta, mask).
+    ``ring_hop``: lse and delta are those of a longer key set (this block
+    and one more that every query sees), as a ring hop's backward gets the
+    whole sequence's, not its block's own."""
     q, k, v, km = _case(gen, BH, T, D, dtype, causal, masked, B=B)
     if masked:
         km[0, :8] = 0.0               # causal rows 0..7 see no key
     do = torch.randn(BH, T, D, generator=gen).to(dtype).cuda()
-    o, lse = fa.flash_attention_fwd(q, k, v, km, causal=causal,
-                                    scale=1.0 / math.sqrt(D))
+    scale = 1.0 / math.sqrt(D)
+    o, lse = fa.flash_attention_fwd(q, k, v, km, causal=causal, scale=scale)
+    if ring_hop:
+        k2, v2, _, _ = _case(gen, BH, T, D, dtype, False, False)
+        o2, lse2 = fa.flash_attention_fwd(q, k2, v2, None, causal=False,
+                                          scale=scale)
+        both = torch.logaddexp(lse, lse2)
+        o = (o.float() * torch.exp(lse - both)[..., None]
+             + o2.float() * torch.exp(lse2 - both)[..., None]).to(dtype)
+        lse = both
     delta = (do.float() * o.float()).sum(dim=-1)
     return q, k, v, do, lse, delta, km
 
@@ -330,8 +395,10 @@ def _rel_to_max(got, want) -> float:
 
 
 def bwd_kernel_phase():
-    """K2 (dq) and K3 (dk/dv) against their plain versions, at the training
-    shapes and at coverage shapes; timings at the training shapes."""
+    """K2 (dq) and K3 (dk/dv) against their plain versions, at the shapes
+    each path gives them (the training step, the ring's diagonal and full
+    hops, a data-parallel worker) and at coverage shapes; timings at the
+    paths' shapes."""
     gen = torch.Generator().manual_seed(SEED + 1)
     # per kernel and dtype: (max abs error, max rel-to-max error)
     errs = {k: {d: (0.0, 0.0) for d in (torch.float32, torch.bfloat16)}
@@ -342,12 +409,22 @@ def bwd_kernel_phase():
                                                    torch.bfloat16)
              for D_ in (96, 128, 256)]
     cover += [(64, torch.float32, 200, True), (64, torch.bfloat16, 200, True)]
-    cases = [(B * H, T, D, dtype, True, False, None)
+    # (BH, T, D, dtype, causal, masked, B of the mask, path): the bf16
+    # training step's; the ring's two hops (diagonal and full, with the
+    # whole sequence's lse); one data-parallel worker's; coverage
+    cases = [(B * H, T, D, dtype, True, False, None, "train")
              for dtype in (torch.float32, torch.bfloat16)]
-    cases += [(4, T_, D_, dtype, causal, True, 2)
+    t_ring, BH_ring = RING["T"] // RING["workers"], RING["B"] * RING["H"]
+    cases += [(BH_ring, t_ring, RING["D"], dtype, causal, False, None, "ring")
+              for dtype in (torch.float32, torch.bfloat16)
+              for causal in (True, False)]
+    cases += [(B // DP_WORKERS * H, T, D, torch.float32, True, False, None,
+               "train_data_parallel")]
+    cases += [(4, T_, D_, dtype, causal, True, 2, "coverage")
               for D_, dtype, T_, causal in cover]
-    for BH, T_, D_, dtype, causal, masked, B_ in cases:
-        args = _bwd_case(gen, BH, T_, D_, dtype, causal, masked, B=B_)
+    for BH, T_, D_, dtype, causal, masked, B_, path in cases:
+        args = _bwd_case(gen, BH, T_, D_, dtype, causal, masked, B=B_,
+                         ring_hop=path == "ring")
         kw = dict(causal=causal, scale=1.0 / math.sqrt(D_))
         got = {"dq": (fa.flash_attention_bwd_dq(*args, **kw),),
                "dkv": fa.flash_attention_bwd_dkv(*args, **kw)}
@@ -356,6 +433,7 @@ def bwd_kernel_phase():
         plain_args = (q, k, v, do, lse, delta, causal, kw["scale"], km)
         want = {"dq": (fa.flash_attention_bwd_dq_reference(*plain_args),),
                 "dkv": fa.flash_attention_bwd_dkv_reference(*plain_args)}
+        case_err = {}
         for kind in ("dq", "dkv"):
             if not all(torch.isfinite(t.float()).all() for t in got[kind]):
                 raise AssertionError(f"{kind} kernel output is not finite")
@@ -364,21 +442,25 @@ def bwd_kernel_phase():
             if err > BWD_TOL[dtype]:
                 raise AssertionError(
                     f"{kind} kernel disagrees with plain at BH={BH} T={T_} "
-                    f"D={D_} {dtype} causal={causal} masked={masked}: "
-                    f"rel-to-max {err:.3g} > {BWD_TOL[dtype]}")
+                    f"D={D_} {dtype} causal={causal} masked={masked} "
+                    f"({path}): rel-to-max {err:.3g} > {BWD_TOL[dtype]}")
+            case_err[kind] = err
             err_abs = max((g.float() - w.float()).abs().max().item()
                           for g, w in zip(got[kind], want[kind]))
             errs[kind][dtype] = (max(errs[kind][dtype][0], err_abs),
                                  max(errs[kind][dtype][1], err))
         if masked:
             continue
-        # timings at the training shapes; SDPA's backward (forward excluded)
-        # computes dq, dk and dv together
-        q4, k4, v4 = (t.view(B, H, T, D).detach().requires_grad_()
-                      for t in (q, k, v))
-        out = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
-        lib_ms = _time_ms(lambda: torch.autograd.grad(
-            out, (q4, k4, v4), do.view(B, H, T, D), retain_graph=True))
+        # timings at the paths' shapes; SDPA's backward (forward excluded)
+        # computes dq, dk and dv together. It cannot take a ring hop's
+        # foreign lse, so those rows have no library time
+        lib_ms = None
+        if path != "ring":
+            q4, k4, v4 = (t.view(1, BH, T_, D_).detach().requires_grad_()
+                          for t in (q, k, v))
+            out = F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal)
+            lib_ms = _time_ms(lambda: torch.autograd.grad(
+                out, (q4, k4, v4), do.view(1, BH, T_, D_), retain_graph=True))
         for kind, kernel, plain in (
                 ("dq", fa.flash_attention_bwd_dq,
                  fa.flash_attention_bwd_dq_reference),
@@ -386,9 +468,10 @@ def bwd_kernel_phase():
                  fa.flash_attention_bwd_dkv_reference)):
             ms = _time_ms(lambda: kernel(*args, **kw))
             plain_ms = _time_ms(lambda: plain(*plain_args))
-            bound_ms, bound_by = _bound(kind, BH, T, D, dtype, True)
-            rows.append({"kernel": kind, "BH": BH, "T": T, "D": D,
-                         "dtype": str(dtype), "causal": True, "ms": ms,
+            bound_ms, bound_by = _bound(kind, BH, T_, D_, dtype, causal)
+            rows.append({"kernel": kind, "path": path, "BH": BH, "T": T_,
+                         "D": D_, "dtype": str(dtype), "causal": causal,
+                         "rel_to_max_err": case_err[kind], "ms": ms,
                          "plain_ms": plain_ms, "library_ms": lib_ms,
                          "bound_ms": bound_ms, "bound_by": bound_by})
     log("backward kernel phase: (max abs, rel-to-max) err", {
@@ -457,10 +540,12 @@ COUNTED = {"flash_attention_fwd": fa.flash_attention,
            "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv}
 LSTM_COUNTED = {"lstm_fwd": lstm.fused_lstm_fwd,
                 "lstm_bwd": lstm.fused_lstm_bwd}
+PARALLEL_COUNTED = dict(COUNTED, flash_block_update=fa.flash_block_update,
+                        threshold_encode=k9.threshold_encode_fused)
 
 
 def _reset_launches():
-    for fn in (*COUNTED.values(), *LSTM_COUNTED.values()):
+    for fn in (*PARALLEL_COUNTED.values(), *LSTM_COUNTED.values()):
         fn.launches = 0
 
 
@@ -1227,6 +1312,389 @@ def cnn_cross_device_phase(gnet, mlp):
             "k7_launches": launches, "int8_max_abs_err": err8}
 
 
+# ----------------------------------------------------------------- phase 14
+def _bits_err(got, want) -> float:
+    """Largest |got - want| over the entries whose bits differ (two NaNs
+    count as equal); a NaN against a number, or a difference that is not
+    finite, counts as infinity. 0.0 exactly when the two are bitwise equal."""
+    ints = {4: torch.int32, 2: torch.int16}[got.element_size()]
+    same = (got.view(ints) == want.view(ints)) | (torch.isnan(got)
+                                                  & torch.isnan(want))
+    diff = (got.float() - want.float()).abs()
+    diff = torch.nan_to_num(diff, nan=float("inf"), posinf=float("inf"))
+    diff = torch.where(same, torch.zeros_like(diff), diff)
+    # +0 against -0 differs in bits and by 0.0: count the smallest subnormal
+    diff = torch.where(~same & (diff == 0), torch.full_like(diff, 1e-45), diff)
+    return float(diff.max())
+
+
+def _residual_like(gen, n, dtype, t):
+    """A residual at a gradient's scale around the threshold ``t``, with
+    the values a compare can get wrong placed at its start and end."""
+    r = torch.randn(n, generator=gen) * (2.0 * t if t else 1.0)
+    special = torch.tensor([float("nan"), 0.0, -0.0, float("inf"),
+                            -float("inf"), t, -t, 1e-30, -1e-30])
+    r[:9] = special
+    r[-9:] = special
+    return r.to(dtype).cuda()
+
+
+def k9_kernel_phase(n_params):
+    """K9 against its plain version, bitwise, and its time at n = 25M and
+    at the data-parallel path's row (the model's parameter count)."""
+    gen = torch.Generator().manual_seed(SEED + 20)
+    f32, bf16 = torch.float32, torch.bfloat16
+    rows, shapes, worst = [], 0, 0.0
+    for dtype in (f32, bf16):
+        # (n, threshold, element offset of the slice in its buffer)
+        cases = [(K9_N, 1e-3, 0), (n_params, DP_THRESHOLD, 0),
+                 (65_536 + 777, 1e-3, 0), (65_536 + 777, 0.0, 0),
+                 (1_000_003, 1e-3, 1), (70_001, 0.0123, 3)]
+        for n, t, off in cases:
+            buf = _residual_like(gen, n + off, dtype, t)
+            r = buf[off:]
+            if off and r.data_ptr() % 16 == 0:
+                raise AssertionError("the slice is aligned after all")
+            signs, res = k9.threshold_encode_fused(r, t)
+            torch.cuda.synchronize()
+            want_s, want_r = k9.threshold_encode_plain(r, t)
+            err = max(_bits_err(res, want_r),
+                      float((signs.int() - want_s.int()).abs().max()))
+            if err != 0.0:
+                bad = int((signs != want_s).sum()
+                          + (res.float() != want_r.float()).sum())
+                raise AssertionError(
+                    f"K9 differs from plain at n={n} t={t} offset={off} "
+                    f"{dtype}: by {err:.3g}, about {bad} entries (pinned "
+                    f"bitwise)")
+            worst = max(worst, err)
+            # the special values at the end: NaN, +0, ..., t at [-4]
+            if not bool(torch.isnan(res[-9]) and signs[-9] == 0
+                        and (signs[-4] == 1 or t == 0) and signs[-8] == 0):
+                raise AssertionError("K9's NaN, zero or at-threshold entry "
+                                     "is wrong")
+            shapes += 1
+            if n not in (K9_N, n_params):
+                continue
+            nbytes = k9.roofline_bytes(n, dtype)
+            rows.append({
+                "n": n, "dtype": str(dtype), "threshold": t,
+                "shipped_share": float((signs != 0).float().mean()),
+                "ms": _time_ms(lambda: k9.threshold_encode_fused(r, t)),
+                "plain_ms": _time_ms(lambda: k9.threshold_encode_plain(r, t),
+                                     iters=5, warmup=1),
+                "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                "bound_by": "bytes", "library_ms": None})
+            del buf, r, signs, res, want_s, want_r
+    log("K9 phase: max abs err", worst, "over", shapes, "shapes;", rows)
+    return worst, rows
+
+
+# ----------------------------------------------------------------- phase 15
+def _k4_bound(BH, Tq, Tk, D, dtype, causal):
+    """Least time (ms): 4*D flops a visible pair at the dtype's peak against
+    q, k, v read once and acc, m, l read and written once (f32)."""
+    pairs = Tq * (Tq + 1) / 2 if causal else Tq * Tk
+    item = torch.finfo(dtype).bits // 8
+    nbytes = (BH * (Tq + 2 * Tk) * D * item
+              + 2 * 4 * BH * Tq * (D + 2))
+    return _roof_ms(4.0 * D * pairs * BH, nbytes, PEAK_FLOPS[dtype])
+
+
+def k4_kernel_phase():
+    """K4 against its plain version from a random incoming carry and from
+    the first hop's empty one; timings at the ring's block."""
+    gen = torch.Generator().manual_seed(SEED + 21)
+    f32, bf16 = torch.float32, torch.bfloat16
+    t_ring = RING["T"] // RING["workers"]
+    BH_ring = RING["B"] * RING["H"]
+    # (BH, Tq, Tk, D, causal); the ring's two hops first
+    shapes = [(BH_ring, t_ring, t_ring, 64, True),
+              (BH_ring, t_ring, t_ring, 64, False),
+              (64, 128, 128, 64, True), (64, 128, 128, 64, False),
+              (16, 512, 512, 128, True), (16, 512, 512, 128, False),
+              (8, 256, 384, 64, False), (8, 384, 128, 96, False),
+              (4, 200, 136, 96, False), (4, 200, 200, 64, True),
+              (2, 128, 256, 256, False)]
+    errs = {f32: 0.0, bf16: 0.0}
+    rows = []
+
+    def rnd(*shape, dtype):
+        return torch.randn(*shape, generator=gen).to(dtype).cuda()
+
+    for dtype in (f32, bf16):
+        for BH, Tq, Tk, D, causal in shapes:
+            scale = 1.0 / math.sqrt(D)
+            q, k, v = rnd(BH, Tq, D, dtype=dtype), rnd(BH, Tk, D, dtype=dtype), \
+                rnd(BH, Tk, D, dtype=dtype)
+            empty = (torch.zeros(BH, Tq, D, device="cuda"),
+                     torch.full((BH, Tq), -1e30, device="cuda"),
+                     torch.zeros(BH, Tq, device="cuda"))
+            # a carry that an earlier hop over other keys left behind
+            kp, vp = rnd(BH, Tk, D, dtype=dtype), rnd(BH, Tk, D, dtype=dtype)
+            earlier = fa.flash_block_update_reference(*empty, q, kp, vp,
+                                                      False, scale)
+            for carry in (empty, earlier):
+                got = fa.flash_block_update(*carry, q, k, v, causal=causal,
+                                            scale=scale)
+                torch.cuda.synchronize()
+                want = fa.flash_block_update_reference(*carry, q, k, v,
+                                                       causal, scale)
+                if not all(torch.isfinite(t).all() for t in got):
+                    raise AssertionError("K4 output is not finite")
+                err = ((got[0] / got[2][..., None])
+                       - (want[0] / want[2][..., None])).abs().max().item()
+                err_m = (got[1] - want[1]).abs().max().item()
+                err_l = _rel_to_max(got[2], want[2])
+                if err > TOL[dtype] or err_m > 1e-3 or err_l > BWD_TOL[dtype]:
+                    raise AssertionError(
+                        f"K4 disagrees with plain at BH={BH} Tq={Tq} Tk={Tk} "
+                        f"D={D} causal={causal} {dtype}: acc/l {err:.3g} > "
+                        f"{TOL[dtype]}, m {err_m:.3g}, l rel {err_l:.3g}")
+                errs[dtype] = max(errs[dtype], err)
+            if (BH, Tq, D) != (BH_ring, t_ring, 64):
+                continue
+            bound, by = _k4_bound(BH, Tq, Tk, D, dtype, causal)
+            rows.append({
+                "BH": BH, "Tq": Tq, "Tk": Tk, "D": D, "dtype": str(dtype),
+                "hop": "diagonal" if causal else "full",
+                "ms": _time_ms(lambda: fa.flash_block_update(
+                    *earlier, q, k, v, causal=causal, scale=scale), iters=10),
+                "plain_ms": _time_ms(lambda: fa.flash_block_update_reference(
+                    *earlier, q, k, v, causal, scale), iters=5, warmup=1),
+                "bound_ms": bound, "bound_by": by, "library_ms": None})
+    log("K4 phase: max abs err of acc/l", {str(d): e for d, e in errs.items()},
+        rows)
+    return errs, rows
+
+
+# ----------------------------------------------------------------- phase 16
+def _wall_ms(fn, iters=3) -> float:
+    """Host clock around ``iters`` calls that end in a synchronise."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def ring_phase():
+    """Path B at its full width: the fused ring forward and backward
+    against ``flash_attention`` on the whole sequence and against the
+    plain ring, in f32 and bf16."""
+    B, H, T, D, n = (RING[k] for k in ("B", "H", "T", "D", "workers"))
+    mesh = make_mesh((n,), ("seq",))
+    fused = ring_attention_sharded(mesh, "seq", causal=True)
+    plain = ring_attention_sharded(mesh, "seq", causal=True, use_fused=False)
+    whole = lambda q, k, v: fa.flash_attention(q, k, v, causal=True)
+    gen = torch.Generator().manual_seed(SEED + 22)
+    hops = n * (n + 1) // 2                     # 8 diagonal + 28 full
+    rows = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        # half-scale inputs keep |out| under 2, where a bf16 ulp is
+        # 0.0078: the plain ring carries its sums in bf16
+        q, k, v, do = ((torch.randn(B, H, T, D, generator=gen) * 0.5)
+                       .to(dtype).cuda() for _ in range(4))
+
+        def run(fn):
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            out = fn(*leaves)
+            return out.detach(), torch.autograd.grad(out, leaves, do)
+
+        _reset_launches()                        # the ring's own count
+        o_ring, g_ring = run(fused)
+        torch.cuda.synchronize()
+        launches = _launches(PARALLEL_COUNTED)
+        want = {"flash_attention_fwd": 0, "flash_attention_bwd_dq": hops,
+                "flash_attention_bwd_dkv": hops, "flash_block_update": hops,
+                "threshold_encode": 0}
+        if launches != want:
+            raise AssertionError(f"the ring launched {launches}, not {want}")
+        if o_ring.shape != (B, H, T, D) or not torch.isfinite(
+                o_ring.float()).all():
+            raise AssertionError("the ring's output is not finite")
+        row = {"launches": launches}
+        for name, fn in (("flash_attention", whole), ("plain_ring", plain)):
+            o_ref, g_ref = run(fn)
+            torch.cuda.synchronize()
+            err = (o_ring.float() - o_ref.float()).abs().max().item()
+            rel = max(_rel_to_max(a, b) for a, b in zip(g_ring, g_ref))
+            if err > TOL[dtype] or rel > BWD_TOL[dtype]:
+                raise AssertionError(
+                    f"the fused ring differs from {name} in {dtype}: forward "
+                    f"{err:.3g} > {TOL[dtype]} or gradients rel-to-max "
+                    f"{rel:.3g} > {BWD_TOL[dtype]}")
+            row[f"fwd_abs_err_vs_{name}"] = err
+            row[f"grad_rel_to_max_vs_{name}"] = rel
+            del o_ref, g_ref
+        with torch.no_grad():
+            row["ring_fwd_ms"] = _wall_ms(lambda: fused(q, k, v))
+            row["flash_attention_fwd_ms"] = _wall_ms(lambda: whole(q, k, v))
+            row["plain_ring_fwd_ms"] = _wall_ms(lambda: plain(q, k, v))
+        row["ring_fwd_bwd_ms"] = _wall_ms(lambda: run(fused))
+        row["flash_attention_fwd_bwd_ms"] = _wall_ms(lambda: run(whole))
+        row["plain_ring_fwd_bwd_ms"] = _wall_ms(lambda: run(plain), iters=2)
+        rows[str(dtype)] = row
+        del o_ring, g_ring
+        torch.cuda.empty_cache()
+    out = {"shape": [B, H, T, D], "workers": n, "t_local": T // n,
+           "causal": True, "hops_per_ring": hops, **rows}
+    log("ring phase:", out)
+    return out
+
+
+# ----------------------------------------------------------------- phase 17
+def _tlm_f32(seed):
+    return transformer_lm(**TLM, token_input=True,
+                          updater=Adam(3e-4)).init(seed=seed)
+
+
+def _fit_steps(fit, net, steps):
+    """``steps`` calls of ``fit()``, each timed to its end; the losses the
+    net's listener saw."""
+    rec = _Losses()
+    net.set_listeners(rec)
+    step_ms = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        fit()
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    return step_ms, [float(v) for v in rec.losses]
+
+
+def dp_phase():
+    """Path A at its full width: ``ParallelWrapper`` with an
+    ``EncodedAccumulator`` on 4 logical workers, beside the plain sync path
+    and a single worker's ``fit`` on the same batch."""
+    from deeplearning4j_tpu_torch.datasets.dataset import (
+        DataSet, ListDataSetIterator)
+    V, T = TLM["vocab_size"], TLM["max_length"]
+    rng = np.random.default_rng(SEED + 23)
+    x = torch.as_tensor(rng.integers(0, V, (TRAIN_B, T)), device="cuda")
+    y = _one_hot_prev(x, V, torch.float32)
+    feed = lambda: ListDataSetIterator([DataSet(x, y)])
+    net = _tlm_f32(SEED + 24)
+    n_params = net.num_params()
+    mesh = make_mesh((DP_WORKERS,), ("data",))
+    pw = ParallelWrapper(net, mesh=mesh, gradient_accumulator=
+                         EncodedAccumulator(threshold=DP_THRESHOLD))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()                       # the compressed run's count
+    step_ms, losses = _fit_steps(lambda: pw.fit(feed()), net, DP_STEPS)
+    launches = _launches(PARALLEL_COUNTED)
+    peak = torch.cuda.max_memory_allocated()
+    per_worker = TLM["n_blocks"] * DP_WORKERS * DP_STEPS
+    want = {"flash_attention_fwd": per_worker,
+            "flash_attention_bwd_dq": per_worker,
+            "flash_attention_bwd_dkv": per_worker, "flash_block_update": 0,
+            "threshold_encode": DP_WORKERS * DP_STEPS}
+    if launches != want:
+        raise AssertionError(f"compressed training launched {launches}, not "
+                             f"{want}")
+    if len(losses) != DP_STEPS or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"compressed training losses: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"compressed training loss did not fall: "
+                             f"{losses}")
+    acc = pw._acc_state
+    if tuple(acc.shape) != (DP_WORKERS, n_params) or not torch.isfinite(
+            acc).all():
+        raise AssertionError(f"the residual carry is {tuple(acc.shape)} or "
+                             f"not finite")
+    row = {"model": "transformer_lm _TLM f32 Adam(3e-4)", "workers": DP_WORKERS,
+           "batch": TRAIN_B, "seq_len": T, "steps": DP_STEPS,
+           "threshold": DP_THRESHOLD, "num_params": n_params,
+           "losses": losses, "step_ms": step_ms,
+           "step_ms_p50_after_first": float(np.median(step_ms[1:])),
+           "max_memory_allocated_bytes": peak, "launches": launches,
+           "acc_state_bytes": acc.numel() * acc.element_size(),
+           "carry_abs_max": float(acc.abs().max())}
+    # the share of entries a step ships (an entry ships when its residual
+    # clears the threshold): of a fresh gradient alone, as the first step
+    # saw it, and of the carried residual plus a gradient, as the next would
+    _, flat = pw._worker_grads(x, y, torch.Generator(device="cuda"), 0)
+    q = torch.quantile(flat[0].abs()[::64].float(),
+                       torch.tensor([0.5, 0.9, 0.99], device="cuda"))
+    row["grad_abs_quantiles_50_90_99"] = [float(v) for v in q]
+    row["shipped_share_from_zero_carry"] = float(
+        (flat.abs() >= DP_THRESHOLD).float().mean())
+    row["shipped_share_next_step"] = float(
+        ((acc + flat).abs() >= DP_THRESHOLD).float().mean())
+    del flat
+    # one more compressed step under the profiler: its kernels by device time
+    row["step_kernels"] = _device_kernels(lambda: pw.fit(feed()), top=12)
+    del pw, net, acc
+    torch.cuda.empty_cache()
+    # the same batch through the plain sync path and a single worker's fit
+    net2 = _tlm_f32(SEED + 24)
+    pw2 = ParallelWrapper(net2, mesh=mesh)
+    ms2, losses2 = _fit_steps(lambda: pw2.fit(feed()), net2, DP_STEPS)
+    net3 = _tlm_f32(SEED + 24)
+    ms3, losses3 = _fit_steps(lambda: net3.fit(x, y, batch_size=TRAIN_B),
+                              net3, DP_STEPS)
+    # the plain sync path takes the same steps as one worker on the whole
+    # batch (the mean of the shards' gradients is the batch's gradient)
+    if abs(losses2[-1] - losses3[-1]) > 1e-2 * abs(losses3[-1]):
+        raise AssertionError(f"plain sync losses {losses2} differ from a "
+                             f"single worker's {losses3}")
+    row.update({"plain_sync_step_ms": ms2, "plain_sync_losses": losses2,
+                "plain_sync_step_ms_p50_after_first":
+                    float(np.median(ms2[1:])),
+                "single_worker_step_ms": ms3, "single_worker_losses": losses3,
+                "single_worker_step_ms_p50_after_first":
+                    float(np.median(ms3[1:]))})
+    log("data-parallel phase:", row)
+    return row
+
+
+# ----------------------------------------------------------------- phase 18
+def parallel_cross_device_phase():
+    """One fused ring forward at T 2048 on 4 workers and one
+    ``EncodedAccumulator.combine`` (both encoders) on the card (K4, K9) and
+    on the CPU (plain versions), from the same inputs."""
+    gen = torch.Generator().manual_seed(SEED + 25)
+    q, k, v = (torch.randn(1, 8, 2048, 64, generator=gen) * 0.5
+               for _ in range(3))
+    out = {}
+    res = {}
+    for dev in ("cuda", "cpu"):
+        fn = ring_attention_sharded(make_mesh((4,), ("seq",), dev), "seq",
+                                    causal=True, use_fused=True)
+        _reset_launches()
+        res[dev] = fn(q.to(dev), k.to(dev), v.to(dev)).cpu()
+        if dev == "cuda":
+            out["ring_k4_launches"] = fa.flash_block_update.launches
+    err = (res["cuda"] - res["cpu"]).abs().max().item()
+    if err > TOL[torch.float32] or out["ring_k4_launches"] != 10:
+        raise AssertionError(f"ring forward on the card vs CPU: {err:.3g} "
+                             f"({out['ring_k4_launches']} K4 launches)")
+    out["ring_fwd_abs_err"] = err
+    n, size, t = 4, 200_003, 1e-3
+    grads = torch.randn(n, size, generator=gen) * 2e-3
+    state = torch.randn(n, size, generator=gen) * 5e-4
+    for enc in ("dense", "topk"):
+        acc = EncodedAccumulator(threshold=t, encoder=enc)
+        got = {}
+        for dev in ("cuda", "cpu"):
+            _reset_launches()
+            u, s = acc.combine(grads.to(dev), state.to(dev),
+                               make_mesh((n,), ("data",), dev))
+            got[dev] = (u.cpu(), s.cpu())
+            if dev == "cuda":
+                out[f"{enc}_k9_launches"] = k9.threshold_encode_fused.launches
+        if not all(torch.equal(a, b) for a, b in zip(got["cuda"],
+                                                     got["cpu"])):
+            raise AssertionError(f"{enc} combine on the card differs from "
+                                 f"the CPU's (pinned bitwise)")
+    if out["dense_k9_launches"] != n or out["topk_k9_launches"] != 0:
+        raise AssertionError(f"combine launched K9 {out}")
+    return out
+
+
 # ------------------------------------------------------------------- main
 def main() -> int:
     smi = device_phase()
@@ -1245,18 +1713,29 @@ def main() -> int:
     gnet, gserve = googlenet_serve_phase()
     mlp, i8serve = int8_serve_phase()
     cnn_cross = cnn_cross_device_phase(gnet, mlp)
+    del gnet, mlp
+    torch.cuda.empty_cache()
+    n_params = _tlm_f32(SEED + 24).num_params()
+    k9_err, k9_rows = k9_kernel_phase(n_params)
+    k4_errs, k4_rows = k4_kernel_phase()
+    ring_row = ring_phase()
+    dp_row = dp_phase()
+    par_cross = parallel_cross_device_phase()
     top = next(r for r in rows if r["BH"] == 16 and r["T"] == 1024
                and r["dtype"] == str(torch.float32))
     serve_k1 = slice_row["flash_attention_launches"]
     train_k = train_row["launches"]
+    ring_dtypes = (str(torch.float32), str(torch.bfloat16))
     src = "deeplearning4j_tpu_torch/csrc/flash_attention_{}.cu"
     ref = "deeplearning4j_tpu/ops/pallas_attention.py:{}"
     kernels = [{
         "name": "flash_attention_fwd", "route": "cuda",
         "source": src.format("fwd"), "replaces": ref.format(186),
-        "launches": serve_k1 + train_k["flash_attention_fwd"],
-        "launches_by_path": {"serve": serve_k1,
-                             "train": train_k["flash_attention_fwd"]},
+        "launches": serve_k1 + train_k["flash_attention_fwd"]
+        + dp_row["launches"]["flash_attention_fwd"],
+        "launches_by_path": {
+            "serve": serve_k1, "train": train_k["flash_attention_fwd"],
+            "train_data_parallel": dp_row["launches"]["flash_attention_fwd"]},
         "max_abs_err": errs[torch.float32],
         "max_abs_err_f32": errs[torch.float32],
         "max_abs_err_bf16": errs[torch.bfloat16],
@@ -1270,7 +1749,14 @@ def main() -> int:
                  and r["dtype"] == str(torch.bfloat16))
         kernels.append({
             "name": name, "route": "cuda", "source": src.format("bwd"),
-            "replaces": ref.format(line), "launches": train_k[name],
+            "replaces": ref.format(line),
+            "launches": train_k[name] + dp_row["launches"][name]
+            + sum(ring_row[d]["launches"][name] for d in ring_dtypes),
+            "launches_by_path": {
+                "train": train_k[name],
+                "train_data_parallel": dp_row["launches"][name],
+                "ring": sum(ring_row[d]["launches"][name]
+                            for d in ring_dtypes)},
             "max_abs_err": max(e[0] for e in bwd_errs[kind].values()),
             "max_rel_err_f32": bwd_errs[kind][torch.float32][1],
             "max_rel_err_bf16": bwd_errs[kind][torch.bfloat16][1],
@@ -1323,12 +1809,44 @@ def main() -> int:
         "ms": k8_total["ms"], "plain_ms": k8_total["plain_ms"],
         "bound_ms": k8_total["bound_ms"], "bound_by": k8_total["bound_by"],
         "library_ms": k8_total["library_ms"]})
+    k4_top = next(r for r in k4_rows if r["hop"] == "full"
+                  and r["dtype"] == str(torch.float32))
+    ring_k4 = sum(ring_row[d]["launches"]["flash_block_update"]
+                  for d in ring_dtypes)
+    kernels.append({
+        "name": "flash_block_update", "route": "cuda",
+        "source": "deeplearning4j_tpu_torch/csrc/flash_block_update.cu",
+        "replaces": "deeplearning4j_tpu/ops/pallas_attention.py:440",
+        "launches": ring_k4, "launches_by_path": {"ring": ring_k4},
+        "max_abs_err": k4_errs[torch.float32],
+        "max_abs_err_f32": k4_errs[torch.float32],
+        "max_abs_err_bf16": k4_errs[torch.bfloat16],
+        "shape": "one full hop: BH=8 Tq=Tk=2048 D=64 float32",
+        "ms": k4_top["ms"], "plain_ms": k4_top["plain_ms"],
+        "bound_ms": k4_top["bound_ms"], "bound_by": k4_top["bound_by"],
+        "library_ms": None})
+    k9_top = next(r for r in k9_rows if r["n"] == n_params
+                  and r["dtype"] == str(torch.float32))
+    kernels.append({
+        "name": "threshold_encode", "route": "cuda",
+        "source": "deeplearning4j_tpu_torch/csrc/threshold_encode.cu",
+        "replaces": "deeplearning4j_tpu/ops/pallas_compression.py:89",
+        "launches": dp_row["launches"]["threshold_encode"],
+        "launches_by_path": {
+            "train_data_parallel": dp_row["launches"]["threshold_encode"]},
+        "max_abs_err": k9_err,
+        "shape": f"one worker's flat residual: n={n_params} float32",
+        "ms": k9_top["ms"], "plain_ms": k9_top["plain_ms"],
+        "bound_ms": k9_top["bound_ms"], "bound_by": k9_top["bound_by"],
+        "library_ms": None})
     print(json.dumps({"kernel_shapes": rows, "bwd_kernel_shapes": bwd_rows,
                       "lstm_kernel_shapes": lstm_rows,
                       "lstm_step_us": lstm_step_us,
                       "conv1x1_shapes": k7_rows,
                       "conv1x1_bf16_shapes": k7_bf16_rows,
-                      "int8_matmul_shapes": k8_rows, "card": smi}),
+                      "int8_matmul_shapes": k8_rows,
+                      "threshold_encode_shapes": k9_rows,
+                      "flash_block_update_shapes": k4_rows, "card": smi}),
           flush=True)
     print(json.dumps({"slice": slice_row, "card": smi}), flush=True)
     print(json.dumps({"train": train_row, "cross_device": cross_row,
@@ -1338,6 +1856,9 @@ def main() -> int:
           flush=True)
     print(json.dumps({"googlenet_serve": gserve, "int8_serve": i8serve,
                       "cnn_cross_device": cnn_cross, "card": smi}),
+          flush=True)
+    print(json.dumps({"ring": ring_row, "data_parallel": dp_row,
+                      "parallel_cross_device": par_cross, "card": smi}),
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

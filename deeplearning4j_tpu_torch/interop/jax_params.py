@@ -10,7 +10,8 @@ the caller turns those arrays into numpy first, e.g.
 ``[{k: np.asarray(v) for k, v in p.items()} for p in jax_net.params]``.
 The updater state (``net.opt_state``) has one more level, the state name
 (Adam's ``m`` and ``v``, RmsProp's ``h``), so a parity test can start both
-packages from one mid-training state.
+packages from one mid-training state. A ``ParallelWrapper``'s accumulator
+carry (``_acc_state``, ``[n, num_params]``) crosses both ways too.
 """
 from __future__ import annotations
 
@@ -110,3 +111,29 @@ def load_jax_opt_state(net, opt_state, *, iteration_count: int,
         for t, arr in pairs:
             t.copy_(torch.tensor(arr, dtype=t.dtype))
     net.iteration_count = int(iteration_count)
+
+
+def load_jax_acc_state(wrapper, acc_state: np.ndarray) -> None:
+    """Copy a JAX ``ParallelWrapper._acc_state`` (``[n, num_params]``, the
+    per-worker carry of its gradient accumulator, as numpy) into the port's
+    ``wrapper``. Both packages lay a worker's row out in the same order
+    (``parallel.data_parallel.flat_param_order``: vertices or layers in
+    order, each one's parameter names sorted, as ``ravel_pytree``), so the
+    carry crosses as a copy."""
+    arr = np.asarray(acc_state)
+    want = (wrapper.n, int(wrapper.net.num_params()))
+    if tuple(arr.shape) != want:
+        raise ValueError(f"accumulator carry of shape {tuple(arr.shape)} "
+                         f"does not match the wrapper's {want}")
+    wrapper._acc_state = torch.tensor(arr, dtype=wrapper.net.dtype,
+                                      device=wrapper.net.device)
+
+
+def acc_state_to_numpy(wrapper) -> np.ndarray:
+    """The port wrapper's accumulator carry as a float32 numpy array
+    ``[n, num_params]``, in the layout the JAX wrapper's has (bf16 values
+    are exact in float32)."""
+    if wrapper._acc_state is None:
+        raise ValueError("the wrapper has no accumulator carry yet: it is "
+                         "made at the first accumulator step")
+    return wrapper._acc_state.detach().float().cpu().numpy()

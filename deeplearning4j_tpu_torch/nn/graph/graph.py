@@ -4,8 +4,9 @@ Counterpart of ``deeplearning4j_tpu/nn/graph/graph.py``: ``init``, the
 topological forward ``apply_fn`` with its feature-mask flow (``:91-176``),
 ``loss_fn`` (``:178-241``), ``output`` / ``_output_pure`` /
 ``feed_forward`` (``:249-263``), ``score`` (``:265-273``),
-``num_params`` and ``fit`` (``:350-370``) with the updater state
-(``opt_state``) and ``iteration_count`` the net carries.
+``params_flat`` / ``set_params_flat`` (``:305-334``), ``num_params`` and
+``fit`` (``:350-370``) with the updater state (``opt_state``) and
+``iteration_count`` the net carries.
 
 The graph is an ``nn.Module`` on one device, given at construction; its
 vertices live in ``self.vertices`` under their configuration names, in
@@ -83,6 +84,37 @@ class ComputationGraph(nn.Module):
 
     def num_params(self) -> int:
         return int(sum(p.numel() for p in self.parameters()))
+
+    def _ordered_params(self):
+        for name in self.vertex_names:
+            own = self.vertices[name].param_dict()
+            layer = getattr(self.vertices[name], "layer", None)
+            order = (getattr(layer, "param_order", tuple(own))
+                     if layer is not None else sorted(own))
+            for pname in order:
+                if pname in own:
+                    yield own[pname]
+
+    def params_flat(self) -> torch.Tensor:
+        """All parameters as one 1-D vector: vertices in topological
+        order, each layer's in its ``param_order`` (reference ``:305-315``)."""
+        leaves = [p.detach().reshape(-1) for p in self._ordered_params()]
+        if not leaves:
+            return torch.zeros(0, dtype=self.dtype, device=self.device)
+        return torch.cat(leaves)
+
+    @torch.no_grad()
+    def set_params_flat(self, flat) -> None:
+        flat = torch.as_tensor(flat)
+        expected = self.num_params()
+        if tuple(flat.shape) != (expected,):
+            raise ValueError(f"Expected flat parameter vector of length "
+                             f"{expected}, got shape {tuple(flat.shape)}")
+        off = 0
+        for p in self._ordered_params():
+            n = p.numel()
+            p.copy_(flat[off:off + n].reshape(p.shape).to(p.dtype))
+            off += n
 
     # ------------------------------------------------------------ forward
     def apply_fn(self, inputs, *, train: bool = False,

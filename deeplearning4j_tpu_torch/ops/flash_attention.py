@@ -1,18 +1,23 @@
 """Flash attention for Hopper: the forward kernel (K1), the two backward
-kernels (K2 dq, K3 dk/dv), their plain PyTorch versions, the autograd
-Function that joins them, and the probe that decides when a layer takes it.
+kernels (K2 dq, K3 dk/dv), the ring hop's carry kernel (K4), their plain
+PyTorch versions, the autograd Function that joins K1-K3, and the probes
+that decide when a layer or a ring takes them.
 
 Counterpart of ``deeplearning4j_tpu/ops/pallas_attention.py``:
 ``fused_attention_applicable`` (its ``:61-87``), ``flash_attention``
 (``:513-525``), the ``custom_vjp`` ``_flash`` / ``_flash_fwd`` /
 ``_flash_bwd`` (``:490-510``), the forward kernel ``_fwd`` / ``_fwd_body``
 (``:138-220``) and the backward ``_bwd`` with ``_dq_body`` / ``_dkv_body``
-(``:224-389``). The kernels are ``csrc/flash_attention_fwd.cu`` and
-``csrc/flash_attention_bwd.cu``; each source says what it computes, what
+(``:224-389``), and for ring attention ``flash_block_update`` /
+``_fwd_carry_body`` (``:393-470``), ``flash_block_bwd`` (``:473-479``) and
+``fused_ring_applicable`` (``:482-486``). The kernels are
+``csrc/flash_attention_fwd.cu``, ``csrc/flash_attention_bwd.cu`` and
+``csrc/flash_block_update.cu``; each source says what it computes, what
 bounds it and what its simple design leaves for later.
 
 Dispatch: each kernel wrapper (``flash_attention_fwd``,
-``flash_attention_bwd_dq``, ``flash_attention_bwd_dkv``) computes its plain
+``flash_attention_bwd_dq``, ``flash_attention_bwd_dkv``,
+``flash_block_update``) computes its plain
 version on a CPU tensor and launches its kernel on a CUDA tensor or raises.
 There is no fallback around a kernel on the card. Each launch adds one to
 the wrapper's ``launches`` (the forward's count is
@@ -45,6 +50,7 @@ KERNEL_HEAD_DIMS = (64, 96, 128, 256)
 
 SOURCE = PKG / "csrc" / "flash_attention_fwd.cu"
 BWD_SOURCE = PKG / "csrc" / "flash_attention_bwd.cu"
+BLOCK_UPDATE_SOURCE = PKG / "csrc" / "flash_block_update.cu"
 
 
 def fused_attention_applicable(B: int, H: int, T: int, D: int,
@@ -78,6 +84,11 @@ def build_bwd() -> Path:
     return build_library(BWD_SOURCE)
 
 
+def build_block_update() -> Path:
+    """Compile the ring hop's carry kernel, as ``build``."""
+    return build_library(BLOCK_UPDATE_SOURCE)
+
+
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # symbol -> (its library's build function, argument types); every entry
 # returns a CUDA error code
@@ -88,6 +99,8 @@ _ENTRIES = {
         (build_bwd, [_P] * 8 + [_I] * 6 + [ctypes.c_float, _P]),
     "dl4j_flash_attention_bwd_dkv":
         (build_bwd, [_P] * 9 + [_I] * 6 + [ctypes.c_float, _P]),
+    "dl4j_flash_block_update":
+        (build_block_update, [_P] * 9 + [_I] * 6 + [ctypes.c_float, _P]),
 }
 
 
@@ -347,3 +360,107 @@ flash_attention_bwd_dq.launches = 0      # K2 launches
 flash_attention_bwd_dkv.launches = 0     # K3 launches
 
 
+# ------------------------------------------------- the ring hop (K4)
+def fused_ring_applicable(t_local: int, D: int, dtype: torch.dtype) -> bool:
+    """Can the ring take the carry kernel? The TPU probe's rules (f32/bf16,
+    the per-worker sequence block ``t_local = T / ring_size`` a positive
+    multiple of 128) with the head dims the kernels are built for."""
+    return (dtype in (torch.float32, torch.bfloat16)
+            and D in KERNEL_HEAD_DIMS and t_local > 0 and t_local % 128 == 0)
+
+
+def flash_block_update_reference(acc, m, l, q3, k3, v3, causal: bool,
+                                 scale: float):
+    """The carry kernel's function in torch ops: fold the [BH,Tq,D] x
+    [BH,Tk,D] block into the carry (acc [BH,Tq,D], m, l [BH,Tq], all f32)
+    and return it raw. ``causal`` is the ring's diagonal hop (Tq == Tk):
+    keys above the diagonal are filled with -1e30. P is rounded to v's dtype
+    before the P.V product, as the kernel rounds it."""
+    s = torch.matmul(q3.float(), k3.float().transpose(1, 2)) * scale
+    if causal:
+        Tq, Tk = s.shape[1:]
+        above = torch.ones(Tq, Tk, dtype=torch.bool,
+                           device=q3.device).triu(diagonal=1)
+        s = s.masked_fill(above, NEG)
+    m_new = torch.maximum(m, s.max(dim=-1).values)
+    p = torch.exp(s - m_new[..., None])
+    corr = torch.exp(m - m_new)
+    l_new = l * corr + p.sum(dim=-1)
+    acc_new = acc * corr[..., None] + torch.matmul(
+        p.to(v3.dtype).float(), v3.float())
+    return acc_new, m_new, l_new
+
+
+def _check_block_update(acc, m, l, q3, k3, v3, causal):
+    if q3.dim() != 3 or k3.dim() != 3 or k3.shape != v3.shape or \
+            q3.shape[0] != k3.shape[0] or q3.shape[2] != k3.shape[2]:
+        raise ValueError(f"q must be [BH,Tq,D] and k/v [BH,Tk,D], got "
+                         f"{tuple(q3.shape)}, {tuple(k3.shape)}, "
+                         f"{tuple(v3.shape)}")
+    if not (q3.dtype == k3.dtype == v3.dtype) or \
+            q3.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"q/k/v must all be float32 or bfloat16, got "
+                         f"{q3.dtype}, {k3.dtype}, {v3.dtype}")
+    BH, Tq, D = q3.shape
+    if D not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"head dim {D} is not one the kernel is built for "
+                         f"{KERNEL_HEAD_DIMS}")
+    if causal and Tq != k3.shape[1]:
+        raise ValueError(f"causal is the diagonal hop: Tq {Tq} must equal "
+                         f"Tk {k3.shape[1]}")
+    for name, t, shape in (("acc", acc, (BH, Tq, D)), ("m", m, (BH, Tq)),
+                           ("l", l, (BH, Tq))):
+        if tuple(t.shape) != shape or t.dtype != torch.float32:
+            raise ValueError(f"the carry's {name} must be a float32 "
+                             f"{shape} tensor, got {t.dtype} "
+                             f"{tuple(t.shape)}")
+    for t in (acc, m, l, q3, k3, v3):
+        if t.device != q3.device or not t.is_contiguous():
+            raise ValueError("the carry and q/k/v must be contiguous and "
+                             "lie on one device")
+
+
+def flash_block_update(acc, m, l, q3, k3, v3, *, causal: bool, scale: float):
+    """The ``flash_block_update`` counterpart (K4): one ring hop's block
+    folded into the running online-softmax carry without the [Tq,Tk] scores
+    ever reaching device memory. acc [BH,Tq,D], m and l [BH,Tq], all f32
+    (the first hop passes m = -1e30, l = 0, acc = 0). Returns the updated
+    carry raw, in fresh tensors (the incoming carry is left as it was; the
+    caller normalises after the last hop). CPU tensors take the plain
+    version; CUDA tensors launch the kernel on the current stream."""
+    if _on_cpu(q3):
+        return flash_block_update_reference(acc, m, l, q3, k3, v3, causal,
+                                            scale)
+    _check_block_update(acc, m, l, q3, k3, v3, causal)
+    BH, Tq, D = q3.shape
+    Tk = k3.shape[1]
+    outs = (torch.empty_like(acc), torch.empty_like(m), torch.empty_like(l))
+    fn = _kernel("dl4j_flash_block_update")
+    with torch.cuda.device(q3.device):
+        stream = torch.cuda.current_stream(q3.device).cuda_stream
+        err = fn(*(t.data_ptr() for t in (q3, k3, v3, acc, m, l, *outs)),
+                 BH, Tq, Tk, D, int(q3.dtype == torch.bfloat16),
+                 int(bool(causal)), float(scale), stream)
+    if err != 0:
+        raise RuntimeError(f"dl4j_flash_block_update launch failed with CUDA "
+                           f"error {err} (BH={BH}, Tq={Tq}, Tk={Tk}, D={D}, "
+                           f"{q3.dtype})")
+    flash_block_update.launches += 1
+    return outs
+
+
+def flash_block_bwd(q3, k3, v3, o3, lse, do3, *, causal: bool, scale: float):
+    """One ring hop's backward contribution (FA-2 math with the GLOBAL
+    logsumexp, so the hops' contributions sum exactly): (dq_contrib, dk,
+    dv) for this (q, k-block) pair through the dq and dk/dv kernels (K2,
+    K3; their plain versions on CPU tensors). q3/k3/v3/o3/do3 [BH,t,D],
+    lse [BH,t] f32."""
+    do3 = do3.to(o3.dtype).contiguous()
+    delta = (do3.float() * o3.float()).sum(dim=-1)
+    args = (q3, k3, v3, do3, lse, delta)
+    dq = flash_attention_bwd_dq(*args, causal=causal, scale=scale)
+    dk, dv = flash_attention_bwd_dkv(*args, causal=causal, scale=scale)
+    return dq, dk, dv
+
+
+flash_block_update.launches = 0          # K4 launches

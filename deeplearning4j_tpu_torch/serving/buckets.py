@@ -7,7 +7,7 @@ waste is the price of running only shapes that were warmed (kernels built,
 cuDNN algorithms chosen) before traffic. The ladder is the only set of
 batch shapes that exist after warm-up, which is what makes the
 no-re-warm guarantee checkable. ``validate_for_mesh`` comes with
-mesh-sharded serving (ROADMAP A7).
+mesh-sharded serving (ROADMAP A7b).
 """
 from __future__ import annotations
 

@@ -11,7 +11,7 @@ flight finishes on the old set, the next batch runs the new one.
 
 Left for later, each raising ``NotImplementedError`` that names its
 ROADMAP item: a hot swap from a path and ``reload_from_checkpoint`` (model
-zips, A2), ``publish_metrics`` (A8), a ``mesh`` (A7). The HTTP front end
+zips, A2), ``publish_metrics`` (A8), a ``mesh`` (A7b). The HTTP front end
 comes with A2.
 """
 from __future__ import annotations
@@ -40,12 +40,12 @@ class InferenceEngine:
                  forward_fn: Optional[Callable] = None):
         if mesh is not None:
             raise NotImplementedError("mesh-sharded serving is not ported "
-                                      "yet (ROADMAP A7)")
+                                      "yet (ROADMAP A7b)")
         self.registry = ModelRegistry()
         self.buckets = tuple(buckets)
         self.dtype = dtype
         self.mesh = None
-        self.data_axis = data_axis     # the mesh's batch axis, with A7
+        self.data_axis = data_axis     # the mesh's batch axis, with A7b
         self.batch_window_ms = batch_window_ms
         self.queue_limit = queue_limit
         self.default_timeout_s = default_timeout_s

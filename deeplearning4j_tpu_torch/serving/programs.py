@@ -89,7 +89,7 @@ class ProgramSet:
     """One model version's forward, the network it runs and the buckets it
     has warmed."""
 
-    mesh = None             # mesh-sharded serving: ROADMAP A7
+    mesh = None             # mesh-sharded serving: ROADMAP A7b
 
     def __init__(self, net, *, feature_shape: Tuple[int, ...],
                  ladder: BucketLadder, dtype="float32",

@@ -31,7 +31,10 @@ _REQUIRED = {f"deeplearning4j_tpu_torch.{m}" for m in (
     "models.decode", "models.zoo_extra", "interop.jax_params",
     "serving.generation.programs", "serving.generation.scheduler",
     "ops.kernels.conv", "ops.kernels.quantized", "nn.layers.conv",
-    "models.zoo", "serving.engine", "serving.batcher", "serving.programs")}
+    "models.zoo", "serving.engine", "serving.batcher", "serving.programs",
+    "ops.compression", "ops.threshold_encode", "parallel.mesh",
+    "parallel.accumulation", "parallel.data_parallel",
+    "parallel.ring_attention")}
 
 _FORBIDDEN = re.compile(
     r"^\s*(import\s+(jax|deeplearning4j_tpu)\b(?!_torch)"
