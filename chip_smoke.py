@@ -6,12 +6,17 @@ card and check it. Run from the repository root:
 
 Phases; any failure raises and exits non-zero before a result is printed:
 
-1. Device: requires CUDA, prints the card's name and power limit, turns
-   TF32 off so float32 products are full float32.
+1. Device: requires CUDA, prints the card's name and power limit and the
+   Python, PyTorch, CUDA and cuDNN versions (the library calls timed below
+   come with them), turns TF32 off so float32 products are full float32.
 2. Kernels: builds every kernel of the serving and training paths
    (flash attention and LSTM) from this checkout's sources (one ``nvcc``
-   per source, started together),
-   then holds each kernel against its plain PyTorch version on the card:
+   per source, started together; each source's build seconds are
+   reported), prints the registers, spills and shared memory of every
+   instantiation of the two kernels redesigned for Hopper (K1 and K3) and
+   checks their SASS: the bf16 ones must issue ``wgmma`` (HGMMA), the f32
+   ones must not (no TF32), then holds each kernel against its plain
+   PyTorch version on the card:
    - K1, the flash-attention forward, at the shapes the serving path gives
      it (float32 at atol 2e-5, bfloat16 at atol 2e-2);
    - K2 and K3, the backward's dq and dk/dv kernels, at the training
@@ -22,10 +27,14 @@ Phases; any failure raises and exits non-zero before a result is printed:
      ring's backward passes the whole sequence's) and at one data-parallel
      worker's (BH 16 = B 2 x H 8, T 1024, float32, causal);
    - each also at coverage shapes (other head dims, a key mask with a
-     fully masked row, T 200 causal with a mask).
+     fully masked row, T 200 causal with a mask) and at the edges of K1's
+     and K3's tiles, causal: T 320 at BH 3, T 1000, both dtypes; bf16 at
+     D 256, T 1000 and at D 128, T 200, BH 3.
    Times each kernel, its plain version and the PyTorch library call for
-   the same function (SDPA, its backward for K2/K3), beside the least
-   time the card could take.
+   the same function (SDPA, its backward for K2/K3, whose kernels' names
+   are recorded: they say which of SDPA's backends ran; at the training
+   shape it is also timed pinned to each backend), beside the least time
+   the card could take.
 3. Serve: ``transformer_lm`` at the repository's end-to-end width
    (bench.py ``_TLM``: vocab 4096, d_model 512, 8 heads, 12 blocks,
    T 1024) with random weights from a seed, served by ``GenerationEngine``
@@ -149,7 +158,7 @@ from deeplearning4j_tpu_torch.nn.layers import (ConvolutionLayer, DenseLayer,
                                                 OutputLayer)
 from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
 from deeplearning4j_tpu_torch.ops import flash_attention as fa
-from deeplearning4j_tpu_torch.ops import lstm
+from deeplearning4j_tpu_torch.ops import lstm, nvcc
 from deeplearning4j_tpu_torch.ops.kernels import conv as k7
 from deeplearning4j_tpu_torch.ops.kernels import quantized as k8
 from deeplearning4j_tpu_torch.optimize.updaters import Adam, Sgd
@@ -207,6 +216,10 @@ RING = dict(B=1, H=8, T=16384, D=64, workers=8)
 # gradient entries (loss summed over T: median |g| 0.02, 90 % 0.2)
 DP_WORKERS, DP_STEPS, DP_THRESHOLD = 4, 5, 0.1
 K9_N = 25_000_000                  # bench.py:2222, a ResNet-50's gradient
+# (BH, T, D, dtype), causal: edges of K1's and K3's tiles (64 and 128 rows)
+EDGES = [(3, 320, 64, torch.float32), (3, 320, 64, torch.bfloat16),
+         (8, 1000, 64, torch.float32), (8, 1000, 64, torch.bfloat16),
+         (4, 1000, 256, torch.bfloat16), (3, 200, 128, torch.bfloat16)]
 
 
 def log(*a):
@@ -224,16 +237,57 @@ def device_phase() -> str:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     print(smi, flush=True)
+    # the library yardsticks (SDPA, cuBLAS, cuDNN) come with this build
+    print(json.dumps(SOFTWARE), flush=True)
     return smi
+
+
+SOFTWARE = {"python": sys.version.split()[0], "torch": torch.__version__,
+            "cuda": torch.version.cuda,
+            "cudnn": torch.backends.cudnn.version()}
 
 
 # ------------------------------------------------------------------ phase 2
 BUILDS = {"flash_attention_fwd": fa.build,
           "flash_attention_bwd": fa.build_bwd,
+          "flash_attention_bwd_dkv": fa.build_bwd_dkv,
           "lstm_fwd": lstm.build_fwd, "lstm_bwd": lstm.build_bwd,
           "conv1x1_bias_relu": k7.build, "int8_matmul": k8.build,
           "flash_block_update": fa.build_block_update,
           "threshold_encode": k9.build}
+
+
+# the kernels redesigned for Hopper: (source, C entry point); their bf16
+# instantiations must issue wgmma (HGMMA in the SASS), their f32 ones none
+REDESIGNED = {"flash_attention_fwd": "dl4j_flash_attention_fwd",
+              "flash_attention_bwd_dkv": "dl4j_flash_attention_bwd_dkv"}
+
+
+def _ptxas_report(log_text):
+    """{kernel function: (registers, spill store bytes, spill load bytes)}
+    from nvcc's -Xptxas -v report."""
+    out, fn = {}, None
+    for line in log_text.splitlines():
+        if "Compiling entry function" in line:
+            fn = line.split("'")[1]
+        elif fn and "spill stores" in line:
+            nums = [int(w) for w in line.replace(",", " ").split()
+                    if w.isdigit()]
+            spill = (nums[1], nums[2])
+        elif fn and "Used" in line and "registers" in line:
+            regs = int(line.split("Used")[1].split()[0])
+            out[fn] = (regs, *spill)
+            fn = None
+    return out
+
+
+def _sass_functions(lib):
+    """{kernel function: its SASS text} from cuobjdump."""
+    sass = subprocess.run([nvcc.cuda_tool("cuobjdump"), "-sass", str(lib)],
+                          capture_output=True,
+                          text=True, check=True).stdout
+    parts = sass.split("Function : ")[1:]
+    return {p.split()[0]: p for p in parts}
 
 
 def build_phase():
@@ -241,8 +295,33 @@ def build_phase():
     with ThreadPoolExecutor(len(BUILDS)) as ex:
         paths = dict(zip(BUILDS, ex.map(lambda b: b(), BUILDS.values())))
     log(f"built {sorted(paths)} in {time.perf_counter() - t0:.1f}s")
+    report = {"build_s": {}, "kernels": {}}
     for name, path in paths.items():
-        log(path.with_suffix(".log").read_text()[-2000:])
+        text = path.with_suffix(".log").read_text()
+        first = text.splitlines()[0]
+        if first.startswith("# nvcc"):
+            report["build_s"][name] = float(first.split()[2])
+        log(text[-2000:])
+    for name, symbol in REDESIGNED.items():
+        usage = _ptxas_report(paths[name].with_suffix(".log").read_text())
+        sass = _sass_functions(paths[name])
+        for fn, (regs, st, ld) in sorted(usage.items()):
+            bf16 = "bf16" in fn
+            D = int(fn.split("ILi")[1].split("E")[0])
+            hgmma = sass[fn].count("HGMMA")
+            if bf16 != (hgmma > 0):
+                raise AssertionError(f"{fn}: {hgmma} HGMMA instructions in "
+                                     f"its SASS (bf16 must use wgmma, f32 "
+                                     f"must not)")
+            smem = fa.shared_memory_bytes(
+                symbol, D, torch.bfloat16 if bf16 else torch.float32)
+            report["kernels"][fn] = {
+                "D": D, "dtype": "bf16" if bf16 else "f32",
+                "registers": regs, "spill_store_bytes": st,
+                "spill_load_bytes": ld, "dynamic_smem_bytes": smem,
+                "hgmma": hgmma}
+    log("redesigned kernels:", json.dumps(report, indent=1))
+    return report
 
 
 def _time_ms(fn, iters=20, warmup=3) -> float:
@@ -361,6 +440,17 @@ def kernel_phase():
                                  f"O {e_o:.3g}, lse {e_l:.3g} > "
                                  f"{TOL[dtype]}")
         errs[dtype] = max(errs[dtype], worst)
+    # the redesigned kernels' edges: T not a multiple of their 64/128-row
+    # tiles, an odd BH, bf16 at D 256 (one warpgroup's 128 accumulators)
+    for BH, T, D, dtype in EDGES:
+        q, k, v, _ = _case(gen, BH, T, D, dtype, True, False)
+        e_o, e_l = _compare(q, k, v, None, True, 1.0 / math.sqrt(D))
+        worst = max(e_o, e_l)
+        if worst > TOL[dtype]:
+            raise AssertionError(f"kernel disagrees with plain at BH={BH} "
+                                 f"T={T} D={D} {dtype} causal: O {e_o:.3g}, "
+                                 f"lse {e_l:.3g} > {TOL[dtype]}")
+        errs[dtype] = max(errs[dtype], worst)
     log("kernel phase: max abs err f32", errs[torch.float32], "bf16",
         errs[torch.bfloat16])
     return errs, rows
@@ -403,7 +493,7 @@ def bwd_kernel_phase():
     # per kernel and dtype: (max abs error, max rel-to-max error)
     errs = {k: {d: (0.0, 0.0) for d in (torch.float32, torch.bfloat16)}
             for k in ("dq", "dkv")}
-    rows = []
+    rows, backends = [], {}
     B, H, T, D = TRAIN_B, TLM["n_heads"], TLM["max_length"], 64
     cover = [(D_, dtype, 256, False) for dtype in (torch.float32,
                                                    torch.bfloat16)
@@ -422,6 +512,8 @@ def bwd_kernel_phase():
                "train_data_parallel")]
     cases += [(4, T_, D_, dtype, causal, True, 2, "coverage")
               for D_, dtype, T_, causal in cover]
+    cases += [(BH_, T_, D_, dtype, True, False, None, "edge")
+              for BH_, T_, D_, dtype in EDGES]
     for BH, T_, D_, dtype, causal, masked, B_, path in cases:
         args = _bwd_case(gen, BH, T_, D_, dtype, causal, masked, B=B_,
                          ring_hop=path == "ring")
@@ -449,18 +541,24 @@ def bwd_kernel_phase():
                           for g, w in zip(got[kind], want[kind]))
             errs[kind][dtype] = (max(errs[kind][dtype][0], err_abs),
                                  max(errs[kind][dtype][1], err))
-        if masked:
+        if masked or path == "edge":
             continue
         # timings at the paths' shapes; SDPA's backward (forward excluded)
         # computes dq, dk and dv together. It cannot take a ring hop's
         # foreign lse, so those rows have no library time
-        lib_ms = None
+        lib_ms, lib_kernels = None, None
         if path != "ring":
             q4, k4, v4 = (t.view(1, BH, T_, D_).detach().requires_grad_()
                           for t in (q, k, v))
             out = F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal)
-            lib_ms = _time_ms(lambda: torch.autograd.grad(
-                out, (q4, k4, v4), do.view(1, BH, T_, D_), retain_graph=True))
+            sdpa_bwd = lambda: torch.autograd.grad(
+                out, (q4, k4, v4), do.view(1, BH, T_, D_), retain_graph=True)
+            lib_ms = _time_ms(sdpa_bwd)
+            # which of SDPA's backends the yardstick ran: its kernels' names
+            lib_kernels = _device_kernels(sdpa_bwd, top=4)["top"]
+            if path == "train":
+                backends[str(dtype)] = _sdpa_backward_by_backend(
+                    q4, k4, v4, do.view(1, BH, T_, D_), causal)
         for kind, kernel, plain in (
                 ("dq", fa.flash_attention_bwd_dq,
                  fa.flash_attention_bwd_dq_reference),
@@ -473,10 +571,34 @@ def bwd_kernel_phase():
                          "D": D_, "dtype": str(dtype), "causal": causal,
                          "rel_to_max_err": case_err[kind], "ms": ms,
                          "plain_ms": plain_ms, "library_ms": lib_ms,
+                         "library_kernels": lib_kernels,
                          "bound_ms": bound_ms, "bound_by": bound_by})
     log("backward kernel phase: (max abs, rel-to-max) err", {
         k: {str(d): e for d, e in v.items()} for k, v in errs.items()})
-    return errs, rows
+    log("SDPA backward by backend at the train shape (ms):", backends)
+    return errs, rows, backends
+
+
+def _sdpa_backward_by_backend(q4, k4, v4, do4, causal):
+    """SDPA's forward and backward pinned to each of its CUDA backends in
+    turn: {backend: backward ms, or why it refused these inputs}."""
+    try:
+        from torch.nn.attention import SDPBackend, sdpa_kernel
+    except ImportError as e:                  # a PyTorch before 2.3
+        return {"not measured": str(e)}
+    out = {}
+    for backend in (SDPBackend.FLASH_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.CUDNN_ATTENTION):
+        try:
+            with sdpa_kernel(backend):
+                o = F.scaled_dot_product_attention(q4, k4, v4,
+                                                   is_causal=causal)
+                out[backend.name] = _time_ms(lambda: torch.autograd.grad(
+                    o, (q4, k4, v4), do4, retain_graph=True))
+        except RuntimeError as e:
+            out[backend.name] = f"refused: {str(e).splitlines()[0][:200]}"
+    return out
 
 
 # ------------------------------------------------------------------ phase 3
@@ -1698,9 +1820,9 @@ def parallel_cross_device_phase():
 # ------------------------------------------------------------------- main
 def main() -> int:
     smi = device_phase()
-    build_phase()
+    build_report = build_phase()
     errs, rows = kernel_phase()
-    bwd_errs, bwd_rows = bwd_kernel_phase()
+    bwd_errs, bwd_rows, sdpa_backends = bwd_kernel_phase()
     slice_row = slice_phase()
     train_row = train_phase()
     cross_row = cross_device_phase()
@@ -1748,7 +1870,8 @@ def main() -> int:
         r = next(r for r in bwd_rows if r["kernel"] == kind
                  and r["dtype"] == str(torch.bfloat16))
         kernels.append({
-            "name": name, "route": "cuda", "source": src.format("bwd"),
+            "name": name, "route": "cuda",
+            "source": src.format("bwd" if kind == "dq" else "bwd_dkv"),
             "replaces": ref.format(line),
             "launches": train_k[name] + dp_row["launches"][name]
             + sum(ring_row[d]["launches"][name] for d in ring_dtypes),
@@ -1846,7 +1969,10 @@ def main() -> int:
                       "conv1x1_bf16_shapes": k7_bf16_rows,
                       "int8_matmul_shapes": k8_rows,
                       "threshold_encode_shapes": k9_rows,
-                      "flash_block_update_shapes": k4_rows, "card": smi}),
+                      "flash_block_update_shapes": k4_rows,
+                      "build": build_report, "software": SOFTWARE,
+                      "sdpa_backward_by_backend": sdpa_backends,
+                      "card": smi}),
           flush=True)
     print(json.dumps({"slice": slice_row, "card": smi}), flush=True)
     print(json.dumps({"train": train_row, "cross_device": cross_row,

@@ -1,11 +1,11 @@
-// Flash-attention backward for Hopper (sm_90a): two kernels, plain CUDA C++
-// behind a C interface (loaded with ctypes by
-// deeplearning4j_tpu_torch/ops/flash_attention.py).
+// Flash-attention backward, the dq pass, for Hopper (sm_90a): plain CUDA
+// C++ behind a C interface (loaded with ctypes by
+// deeplearning4j_tpu_torch/ops/flash_attention.py). The dk/dv pass (K3) is
+// csrc/flash_attention_bwd_dkv.cu.
 //
-// Replaces the TPU kernels of deeplearning4j_tpu/ops/pallas_attention.py
-// `_bwd`: the dq pass `_dq_body` (the pl.pallas_call at :345) and the dk/dv
-// pass `_dkv_body` (the pl.pallas_call at :376). Same function, the
-// FlashAttention-2 backward that recomputes P from the forward's lse:
+// Replaces the TPU kernel deeplearning4j_tpu/ops/pallas_attention.py `_bwd`
+// -> `_dq_body` (the pl.pallas_call at :345). Same function, the dq half of
+// the FlashAttention-2 backward that recomputes P from the forward's lse:
 //   inputs q, k, v, dO [BH, T, D] (f32 or bf16), lse [BH, T] f32 (K1's, one
 //   value per row; the TPU keeps it lane-replicated as [BH, T, 128]),
 //   delta = rowsum(dO * O) [BH, T] f32 (computed by the caller, as the
@@ -13,50 +13,36 @@
 //   (f32, > 0 = visible, row b = bh / H);
 //   s = (q . k) * scale, causal keys above the diagonal and masked keys
 //   filled with -1e30 as K1 fills them, p = exp(s - lse),
-//   dS = p * (dO . v - delta) * scale;
-//   dq = sum_k dS . k                    (kernel 1, K2: 6*D flops a pair)
-//   dv = sum_q p^T . dO, dk = sum_q dS^T . q   (kernel 2, K3: 8*D flops)
-//   stored in the input dtype. With bf16 inputs the dot operands are bf16
-//   (products of bf16 values are exact in f32) with f32 accumulation, and p
-//   and dS are rounded to bf16 before the products that take them, as the
-//   reference's p.astype(do.dtype) and ds.astype(k.dtype) do.
+//   dS = p * (dO . v - delta) * scale; dq = sum_k dS . k (6*D flops a
+//   pair), stored in the input dtype. With bf16 inputs the dot operands are
+//   bf16 (products of bf16 values are exact in f32) with f32 accumulation,
+//   and dS is rounded to bf16 before the product that takes it, as the
+//   reference's ds.astype(k.dtype) does.
 //
-// A row with no visible key. K1 fills every score of such a row with -1e30,
-// so its softmax is uniform over all T keys and its lse is -1e30 + log(T),
-// which is -1e30 in f32. exp(s - lse) is then 1 for every key, not 1/T, and
-// the TPU kernel's backward gives that row's dk/dv T times too large. Here a
-// row whose lse is at or below -1e29 takes p = 1/T for every key and
-// dS = 0 (every score of the row is a constant fill, which passes no
-// gradient), which is what autograd gives through the plain forward. Keys
-// past a ragged edge (T not a multiple of the tile) get p = 0.
+// A row with no visible key (lse at or below -1e29: K1 filled every score
+// with -1e30) passes no gradient to q (dS = 0), which is what autograd
+// gives through the plain forward. Keys past a ragged edge get p = 0.
 //
 // Order of sums. Each output row is summed by one thread in a fixed order,
 // with no atomics, so results are the same from run to run.
 //
-// What bounds it on this card: per visible query/key pair the dq kernel
-// does three D-long products (6*D flops) and the dk/dv kernel four (8*D),
-// against q/k/v/dO reads and dq or dk/dv writes (5 or 6 * BH*T*D elements).
-// Causal, that is about 0.15*T (dq) and T/6 (dk/dv) flops per f32 byte: at
-// the training shapes (T 1024, D 64) some 150 and 170, far above the card's
-// f32 balance of 67 TFLOP/s / 3.35 TB/s = 20, so bound by operations. In
-// bf16 it is twice that, some 300 and 340 per byte, just above the 295 of
-// 989 TFLOP/s / 3.35 TB/s: bound by operations too, barely.
+// What bounds it on this card: three D-long products a visible pair
+// against q/k/v/dO reads and the dq write (5 * BH*T*D elements). Causal at
+// T 1024, D 64 that is about 150 flops per f32 byte, far above the card's
+// f32 balance of 67 TFLOP/s / 3.35 TB/s = 20; in bf16 about 300 against
+// 295: bound by operations.
 //
-// Design, and what it leaves for later: K1's. One thread block of 256
-// threads owns 64 rows (queries for dq, keys for dk/dv), four threads to a
-// row, and loops over the other side's tiles itself (the TPU's sequential
-// grid axis becomes that loop). The owned rows and the streamed tiles are
-// staged in shared memory with rows padded to an odd word stride; each
-// thread computes 1/4 of the scores of its row with scalar FMAs, writes p
-// and dS to shared memory for the row's own warp, and keeps 1/4 of the
-// row's f32 accumulators in registers. Streamed tiles are 64 rows, or 32
-// for f32 at D = 256 where four 64-row tiles would exceed the 227 KB of
-// shared memory a block may use. Without a key mask, causal tiles that hold
-// no visible pair are skipped; with one, every tile is visited, since a row
-// with no visible key spreads its dv over all T keys. No tensor cores
-// (wgmma), no TMA, no overlap of the next tile's loads with this tile's
-// math, and one block per SM where a tile set needs over 113 KB: those are
-// the work of a later, faster version.
+// Design, and what it leaves for later: one thread block of 256 threads
+// owns 64 query rows, four threads to a row, and loops over key tiles
+// itself (the TPU's sequential grid axis becomes that loop). The owned rows
+// and the streamed tiles are staged in shared memory with rows padded to an
+// odd word stride; each thread computes 1/4 of the scores of its row with
+// scalar FMAs, writes dS to shared memory for the row's own warp, and keeps
+// 1/4 of the row's f32 accumulator in registers. Key tiles are 64 rows, or
+// 32 for f32 at D = 256. Without a key mask, causal tiles that hold no
+// visible pair are skipped. No tensor cores (wgmma), no TMA, no overlap of
+// the next tile's loads with this tile's math: the work of a later, faster
+// version (the design of csrc/flash_attention_bwd_dkv.cu).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
@@ -83,12 +69,12 @@ template <typename T, int D> struct Stride {
     static constexpr int value = D + (sizeof(T) == 4 ? 1 : 2);
 };
 
-// Rows of a streamed tile (keys for dq, queries for dk/dv).
+// Rows of a streamed key tile.
 template <typename T, int D> struct Tile {
     static constexpr int value = (sizeof(T) == 4 && D == 256) ? 32 : 64;
 };
 
-// Both kernels stage 2*ROWS owned and 2*BS streamed rows of D elements.
+// The kernel stages 2*ROWS owned and 2*BK streamed rows of D elements.
 template <typename T, int D>
 constexpr size_t tiles_bytes() {
     return (size_t)(2 * ROWS + 2 * Tile<T, D>::value) * Stride<T, D>::value
@@ -100,13 +86,6 @@ constexpr size_t dq_smem_bytes() {
     constexpr int BK = Tile<T, D>::value;
     return tiles_bytes<T, D>() + (size_t)ROWS * (BK + 1) * sizeof(float)
            + (size_t)BK * sizeof(float);
-}
-
-template <typename T, int D>
-constexpr size_t dkv_smem_bytes() {
-    constexpr int BQ = Tile<T, D>::value;
-    return tiles_bytes<T, D>() + 2 * (size_t)ROWS * (BQ + 1) * sizeof(float)
-           + 2 * (size_t)BQ * sizeof(float);
 }
 
 // rows [t0, t0 + n) of a [seq, D] slab into shared memory, zero past seq
@@ -220,129 +199,9 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
 }
 
-// -------------------------------------------------------------- K3: dk, dv
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ delta,
-                     const float* __restrict__ mask, T* __restrict__ dk,
-                     T* __restrict__ dv, int seq, int heads, int causal,
-                     float scale) {
-    constexpr int LD = Stride<T, D>::value;
-    constexpr int BQ = Tile<T, D>::value;
-    constexpr int QPT = BQ / TPR;       // queries each thread scores per tile
-    constexpr int DPT = D / TPR;
-    constexpr int LDS = BQ + 1;
-    extern __shared__ __align__(16) unsigned char smem_raw[];
-    T* sK = reinterpret_cast<T*>(smem_raw);
-    T* sV = sK + ROWS * LD;
-    T* sQ = sV + ROWS * LD;
-    T* sDO = sQ + BQ * LD;
-    float* sP = reinterpret_cast<float*>(sDO + BQ * LD);   // [ROWS][LDS]
-    float* sDS = sP + ROWS * LDS;                           // [ROWS][LDS]
-    float* sL = sDS + ROWS * LDS;                           // [BQ] lse
-    float* sD = sL + BQ;                                    // [BQ] delta
-
-    const int tid = threadIdx.x;
-    const int r = tid / TPR;            // key row within the tile
-    const int c = tid % TPR;
-    const int bh = blockIdx.y;
-    const int k0 = blockIdx.x * ROWS;
-    const int key = k0 + r;
-    const size_t base = (size_t)bh * seq * D;
-    const float* mrow = mask ? mask + (size_t)(bh / heads) * seq : nullptr;
-    const bool live = key < seq;
-    const bool visible = !mrow || !live || mrow[key] > 0.f;
-    const float uniform = 1.f / (float)seq;   // p of a row with no visible key
-
-    stage<T, D>(sK, k + base, k0, ROWS, seq);
-    stage<T, D>(sV, v + base, k0, ROWS, seq);
-
-    float acc_k[DPT], acc_v[DPT];
-#pragma unroll
-    for (int j = 0; j < DPT; ++j) acc_k[j] = acc_v[j] = 0.f;
-
-    // causal, no key mask: queries before this key tile see none of its keys
-    const int q_begin = (causal && !mrow) ? (k0 / BQ) * BQ : 0;
-    for (int q0 = q_begin; q0 < seq; q0 += BQ) {
-        __syncthreads();
-        stage<T, D>(sQ, q + base, q0, BQ, seq);
-        stage<T, D>(sDO, dout + base, q0, BQ, seq);
-        if (tid < BQ) {
-            const int t = q0 + tid;
-            sL[tid] = t < seq ? lse[(size_t)bh * seq + t] : 0.f;
-            sD[tid] = t < seq ? delta[(size_t)bh * seq + t] : 0.f;
-        }
-        __syncthreads();
-
-        float s[QPT], dp[QPT];
-#pragma unroll
-        for (int jj = 0; jj < QPT; ++jj) s[jj] = dp[jj] = 0.f;
-#pragma unroll 4
-        for (int d = 0; d < D; ++d) {
-            const float kd = to_f(sK[r * LD + d]);
-            const float vd = to_f(sV[r * LD + d]);
-#pragma unroll
-            for (int jj = 0; jj < QPT; ++jj) {
-                const int at = (c + TPR * jj) * LD + d;
-                s[jj] = fmaf(kd, to_f(sQ[at]), s[jj]);
-                dp[jj] = fmaf(vd, to_f(sDO[at]), dp[jj]);
-            }
-        }
-#pragma unroll
-        for (int jj = 0; jj < QPT; ++jj) {
-            const int i = c + TPR * jj;
-            const int query = q0 + i;
-            float p = 0.f, ds = 0.f;
-            if (live && query < seq) {
-                const float l = sL[i];
-                if (l <= DEAD) {
-                    p = uniform;
-                } else {
-                    float x = s[jj] * scale;
-                    if (causal && key > query) x = NEG;
-                    if (!visible) x = NEG;
-                    p = expf(x - l);
-                    ds = p * (dp[jj] - sD[i]) * scale;
-                }
-            }
-            // operands in the input dtype: p.astype(do.dtype),
-            // ds.astype(q.dtype)
-            sP[r * LDS + i] = to_f(from_f<T>(p));
-            sDS[r * LDS + i] = to_f(from_f<T>(ds));
-        }
-        __syncwarp();                   // the row's p and dS, from its own warp
-
-#pragma unroll 4
-        for (int ii = 0; ii < BQ; ++ii) {
-            const float pv = sP[r * LDS + ii];
-            const float g = sDS[r * LDS + ii];
-            const T* orow = sDO + ii * LD;
-            const T* qrow = sQ + ii * LD;
-#pragma unroll
-            for (int j = 0; j < DPT; ++j) {
-                acc_v[j] = fmaf(pv, to_f(orow[c + TPR * j]), acc_v[j]);
-                acc_k[j] = fmaf(g, to_f(qrow[c + TPR * j]), acc_k[j]);
-            }
-        }
-    }
-
-    if (live) {
-        T* outk = dk + base + (size_t)key * D;
-        T* outv = dv + base + (size_t)key * D;
-#pragma unroll
-        for (int j = 0; j < DPT; ++j) {
-            outk[c + TPR * j] = from_f<T>(acc_k[j]);
-            outv[c + TPR * j] = from_f<T>(acc_v[j]);
-        }
-    }
-}
-
 struct Args {
     const void *q, *k, *v, *dout, *lse, *delta, *mask;
-    void *dq, *dk, *dv;
+    void *dq;
     int bh, heads, seq, causal;
     float scale;
     cudaStream_t stream;
@@ -366,70 +225,34 @@ cudaError_t launch_dq(const Args& a) {
     return cudaGetLastError();
 }
 
-template <typename T, int D>
-cudaError_t launch_dkv(const Args& a) {
-    constexpr size_t smem = dkv_smem_bytes<T, D>();
-    static_assert(smem <= 232448, "dk/dv tiles exceed a block's shared memory");
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_bwd_dkv_kernel<T, D>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    const dim3 grid((a.seq + ROWS - 1) / ROWS, a.bh);
-    flash_bwd_dkv_kernel<T, D><<<grid, THREADS, smem, a.stream>>>(
-        static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-        static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
-        static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-        static_cast<const float*>(a.mask), static_cast<T*>(a.dk),
-        static_cast<T*>(a.dv), a.seq, a.heads, a.causal, a.scale);
-    return cudaGetLastError();
-}
-
-// one switch over (head dim, dtype) for either kernel
-template <bool DKV, int D>
+template <int D>
 cudaError_t by_dtype(int is_bf16, const Args& a) {
-    if constexpr (DKV)
-        return is_bf16 ? launch_dkv<__nv_bfloat16, D>(a)
-                       : launch_dkv<float, D>(a);
-    else
-        return is_bf16 ? launch_dq<__nv_bfloat16, D>(a)
-                       : launch_dq<float, D>(a);
+    return is_bf16 ? launch_dq<__nv_bfloat16, D>(a) : launch_dq<float, D>(a);
 }
 
-template <bool DKV>
 int dispatch(int head_dim, int is_bf16, const Args& a) {
     if (a.bh < 1 || a.bh > 65535 || a.heads < 1 || a.seq < 1)
         return (int)cudaErrorInvalidValue;
     switch (head_dim) {
-        case 64: return (int)by_dtype<DKV, 64>(is_bf16, a);
-        case 96: return (int)by_dtype<DKV, 96>(is_bf16, a);
-        case 128: return (int)by_dtype<DKV, 128>(is_bf16, a);
-        case 256: return (int)by_dtype<DKV, 256>(is_bf16, a);
+        case 64: return (int)by_dtype<64>(is_bf16, a);
+        case 96: return (int)by_dtype<96>(is_bf16, a);
+        case 128: return (int)by_dtype<128>(is_bf16, a);
+        case 256: return (int)by_dtype<256>(is_bf16, a);
         default: return (int)cudaErrorInvalidValue;
     }
 }
 
 }  // namespace
 
-// Each launches its kernel on `stream` and returns cudaGetLastError() after
-// the launch (0 = launched). `mask` may be null. Head dims: 64, 96, 128, 256.
+// Launches the kernel on `stream` and returns cudaGetLastError() after the
+// launch (0 = launched). `mask` may be null. Head dims: 64, 96, 128, 256.
 extern "C" int dl4j_flash_attention_bwd_dq(
         const void* q, const void* k, const void* v, const void* dout,
         const void* lse, const void* delta, const void* mask, void* dq,
         int bh, int heads, int seq, int head_dim, int is_bf16, int causal,
         float scale, void* stream) {
-    const Args a{q, k, v, dout, lse, delta, mask, dq, nullptr, nullptr,
+    const Args a{q, k, v, dout, lse, delta, mask, dq,
                  bh, heads, seq, causal, scale,
                  static_cast<cudaStream_t>(stream)};
-    return dispatch<false>(head_dim, is_bf16, a);
-}
-
-extern "C" int dl4j_flash_attention_bwd_dkv(
-        const void* q, const void* k, const void* v, const void* dout,
-        const void* lse, const void* delta, const void* mask, void* dk,
-        void* dv, int bh, int heads, int seq, int head_dim, int is_bf16,
-        int causal, float scale, void* stream) {
-    const Args a{q, k, v, dout, lse, delta, mask, nullptr, dk, dv,
-                 bh, heads, seq, causal, scale,
-                 static_cast<cudaStream_t>(stream)};
-    return dispatch<true>(head_dim, is_bf16, a);
+    return dispatch(head_dim, is_bf16, a);
 }

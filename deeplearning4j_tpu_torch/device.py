@@ -34,11 +34,14 @@ def check_same_device(what: str, have: torch.device,
         raise ValueError(f"{what} lives on {have}, but {want} was asked for")
 
 
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float64": torch.float64}
 
 
 def torch_dtype(name: str) -> torch.dtype:
-    """Map a configuration's dtype name ("float32", "bfloat16") to torch."""
+    """Map a configuration's dtype name ("float32", "bfloat16",
+    "float64") to torch. The kernels' probes admit float32 and bfloat16
+    only, so float64 always takes the plain paths."""
     try:
         return _DTYPES[str(name)]
     except KeyError:

@@ -199,10 +199,12 @@ class ComputationGraph(nn.Module):
         return [acts[o] for o in self.conf.network_outputs]
 
     @torch.inference_mode()
-    def output(self, *inputs):
+    def output(self, *inputs, train: bool = False):
         """Network output(s) for numpy arrays or tensors (token ids stay
-        integer; float inputs take the graph's dtype)."""
-        outs = self._output_pure([self._as_input(x) for x in inputs])
+        integer; float inputs take the graph's dtype); ``train`` runs the
+        layers in training mode, as the reference's keyword does."""
+        outs = self._output_pure([self._as_input(x) for x in inputs],
+                                 train=train)
         return outs[0] if len(outs) == 1 else outs
 
     @torch.inference_mode()
@@ -245,3 +247,26 @@ class ComputationGraph(nn.Module):
                               dataset=dataset, async_prefetch=async_prefetch,
                               steps_per_dispatch=steps_per_dispatch)
         return self
+
+    # ------------------------------------------------- not ported yet
+    def rnn_time_step(self, *inputs):
+        raise NotImplementedError("streaming inference through a graph "
+                                  "(rnn_time_step) is not ported yet "
+                                  "(ROADMAP A10)")
+
+    def rnn_clear_previous_state(self):
+        raise NotImplementedError("streaming inference through a graph "
+                                  "(rnn_clear_previous_state) is not ported "
+                                  "yet (ROADMAP A10)")
+
+    def pretrain(self, iterator, epochs: int = 1):
+        raise NotImplementedError("layerwise pretraining is not ported yet "
+                                  "(ROADMAP A5)")
+
+    def evaluate(self, iterator_or_x, y=None):
+        raise NotImplementedError("evaluation (eval/Evaluation) is not "
+                                  "ported yet (ROADMAP A5)")
+
+    def clone(self):
+        raise NotImplementedError("clone, checkpointing and model zips are "
+                                  "not ported yet (ROADMAP A10)")

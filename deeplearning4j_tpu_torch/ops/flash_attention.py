@@ -11,9 +11,11 @@ Counterpart of ``deeplearning4j_tpu/ops/pallas_attention.py``:
 (``:224-389``), and for ring attention ``flash_block_update`` /
 ``_fwd_carry_body`` (``:393-470``), ``flash_block_bwd`` (``:473-479``) and
 ``fused_ring_applicable`` (``:482-486``). The kernels are
-``csrc/flash_attention_fwd.cu``, ``csrc/flash_attention_bwd.cu`` and
-``csrc/flash_block_update.cu``; each source says what it computes, what
-bounds it and what its simple design leaves for later.
+``csrc/flash_attention_fwd.cu`` (K1), ``csrc/flash_attention_bwd.cu`` (K2),
+``csrc/flash_attention_bwd_dkv.cu`` (K3) and ``csrc/flash_block_update.cu``
+(K4); each source says what it computes, what bounds it and what its
+design leaves for later. K1 and K3 run bf16 on the tensor cores (``wgmma``,
+``csrc/hopper_mma.cuh``) and f32 in full f32 FMAs.
 
 Dispatch: each kernel wrapper (``flash_attention_fwd``,
 ``flash_attention_bwd_dq``, ``flash_attention_bwd_dkv``,
@@ -44,12 +46,13 @@ NEG = -1e30
 DEAD = -1e29            # an lse at or below this: the row sees no key
 
 # Head dims the kernel is compiled for. The TPU probe admits D in {64, 96}
-# or any multiple of 128; the Hopper kernel keeps a quarter of a row's f32
-# accumulator per thread, which stays in registers up to D = 256.
+# or any multiple of 128; the Hopper kernels keep their f32 accumulators in
+# registers up to D = 256 (D = 96 runs as 128 with zero columns).
 KERNEL_HEAD_DIMS = (64, 96, 128, 256)
 
 SOURCE = PKG / "csrc" / "flash_attention_fwd.cu"
 BWD_SOURCE = PKG / "csrc" / "flash_attention_bwd.cu"
+DKV_SOURCE = PKG / "csrc" / "flash_attention_bwd_dkv.cu"
 BLOCK_UPDATE_SOURCE = PKG / "csrc" / "flash_block_update.cu"
 
 
@@ -80,8 +83,13 @@ def build() -> Path:
 
 
 def build_bwd() -> Path:
-    """Compile the two backward kernels (one library), as ``build``."""
+    """Compile the backward's dq kernel, as ``build``."""
     return build_library(BWD_SOURCE)
+
+
+def build_bwd_dkv() -> Path:
+    """Compile the backward's dk/dv kernel, as ``build``."""
+    return build_library(DKV_SOURCE)
 
 
 def build_block_update() -> Path:
@@ -98,7 +106,9 @@ _ENTRIES = {
     "dl4j_flash_attention_bwd_dq":
         (build_bwd, [_P] * 8 + [_I] * 6 + [ctypes.c_float, _P]),
     "dl4j_flash_attention_bwd_dkv":
-        (build_bwd, [_P] * 9 + [_I] * 6 + [ctypes.c_float, _P]),
+        (build_bwd_dkv, [_P] * 9 + [_I] * 6 + [ctypes.c_float, _P]),
+    "dl4j_flash_attention_fwd_smem": (build, [_I, _I]),
+    "dl4j_flash_attention_bwd_dkv_smem": (build_bwd_dkv, [_I, _I]),
     "dl4j_flash_block_update":
         (build_block_update, [_P] * 9 + [_I] * 6 + [ctypes.c_float, _P]),
 }
@@ -106,6 +116,14 @@ _ENTRIES = {
 
 def _kernel(symbol: str):
     return load_symbol(symbol, *_ENTRIES[symbol])
+
+
+def shared_memory_bytes(symbol: str, head_dim: int,
+                        dtype: torch.dtype) -> int:
+    """Dynamic shared memory a block of K1 (``"dl4j_flash_attention_fwd"``)
+    or K3 (``"dl4j_flash_attention_bwd_dkv"``) takes at this head dim and
+    dtype, as the kernel's source sizes it (builds the library)."""
+    return _kernel(f"{symbol}_smem")(head_dim, int(dtype == torch.bfloat16))
 
 
 # ----------------------------------------------------------- plain version
@@ -244,6 +262,9 @@ def _launch(symbol: str, ins, key_mask, outs, *, causal: bool,
     arguments every entry point takes; raise on a CUDA error."""
     q3 = ins[0]
     BH, T, D = q3.shape
+    # K1 and K3 copy rows in 16-byte pieces: a view that starts off a
+    # 16-byte boundary is copied to fresh (aligned) memory first
+    ins = [t if t.data_ptr() % 16 == 0 else t.clone() for t in ins]
     mask, heads = None, 1
     if key_mask is not None:
         mask = key_mask.to(torch.float32).contiguous()

@@ -3,18 +3,22 @@ libraries with a plain C interface, loaded with ``ctypes``.
 
 The JAX package has no counterpart: its Pallas kernels compile inside XLA.
 Each source under ``csrc/`` becomes one library under ``ops/_build/``
-(git-ignored), named by the source's hash so an edited source rebuilds;
-nvcc's report (registers, shared memory, spills) is kept beside it with the
-suffix ``.log``. Sources are built at first use, never at import.
+(git-ignored), named by the hash of the source and the local headers it
+includes (``#include "..."``), so an edited source or header rebuilds;
+nvcc's report (registers, shared memory, spills), preceded by the build's
+seconds, is kept beside it with the suffix ``.log``. Sources are built at
+first use, never at import.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 from typing import Callable, Dict, Sequence
 
@@ -36,8 +40,26 @@ def _nvcc() -> str:
     return found
 
 
+def cuda_tool(name: str) -> str:
+    """A CUDA toolkit program (``cuobjdump``, ...) from the directory of the
+    nvcc that builds the kernels."""
+    found = Path(_nvcc()).resolve().parent / name
+    if not found.exists():
+        raise RuntimeError(f"{name} not found beside nvcc ({found.parent})")
+    return str(found)
+
+
+def _local_headers(source: Path):
+    text = source.read_text()
+    return [source.parent / h for h in
+            re.findall(r'^#include "([^"]+)"', text, flags=re.M)]
+
+
 def library_path(source: Path) -> Path:
-    tag = hashlib.sha256(source.read_bytes()).hexdigest()[:16]
+    h = hashlib.sha256(source.read_bytes())
+    for header in _local_headers(source):
+        h.update(header.read_bytes())
+    tag = h.hexdigest()[:16]
     return BUILD_DIR / f"lib{source.stem}_{tag}.so"
 
 
@@ -50,9 +72,12 @@ def build_library(source: Path) -> Path:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
     cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(source)]
+    t0 = time.perf_counter()
     res = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
     out.with_suffix(".log").write_text(
-        " ".join(cmd) + "\n" + res.stdout + res.stderr)
+        f"# nvcc {seconds:.1f} s\n" + " ".join(cmd) + "\n" + res.stdout
+        + res.stderr)
     if res.returncode != 0:
         raise RuntimeError(f"nvcc failed ({res.returncode}) building "
                            f"{source.name}:\n{res.stderr[-4000:]}")

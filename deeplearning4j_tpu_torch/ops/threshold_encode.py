@@ -53,6 +53,15 @@ def threshold_in_dtype(threshold: float, dtype: torch.dtype) -> torch.Tensor:
     return torch.tensor(float(threshold), dtype=dtype)
 
 
+def threshold_update(signs: torch.Tensor, threshold: float,
+                     dtype: torch.dtype, out=None) -> torch.Tensor:
+    """The update a sign map stands for, ``sign * t`` in the residual's
+    dtype: what the plain encode takes off the residual and what the dense
+    encoder's peers apply. One function, so the two stay bitwise one."""
+    t = threshold_in_dtype(threshold, dtype).to(signs.device)
+    return torch.mul(signs.to(dtype), t, out=out)
+
+
 # ----------------------------------------------------------- plain version
 def xla_sign(r: torch.Tensor) -> torch.Tensor:
     """sign(r) with a zero keeping its own sign, as XLA's sign does
@@ -70,7 +79,8 @@ def threshold_encode_plain(residual: torch.Tensor, threshold: float
     s = torch.where(residual.abs() >= t, xla_sign(residual),
                     torch.zeros((), dtype=residual.dtype,
                                 device=residual.device))
-    return s.to(torch.int8), residual - s * t
+    return s.to(torch.int8), residual - threshold_update(s, threshold,
+                                                         residual.dtype)
 
 
 # ----------------------------------------------------------------- wrapper

@@ -26,7 +26,7 @@ import torch
 from ..device import DeviceLike, resolve_device
 from ..ops.compression import (threshold_decode, threshold_encode,
                                threshold_encode_signs)
-from ..ops.threshold_encode import threshold_in_dtype
+from ..ops.threshold_encode import threshold_update
 from .mesh import Mesh, pmean
 
 
@@ -99,12 +99,11 @@ class EncodedAccumulator(GradientsAccumulator):
         if self.encoder == "dense":
             # the sign-map front door, one pass a worker; the update peers
             # apply is rebuilt from the int8 map only as the mean's operand
-            t = threshold_in_dtype(self.threshold, residual.dtype).to(
-                residual.device)
             for i in range(n):
                 signs, new_residual[i] = threshold_encode_signs(
                     residual[i], self.threshold)
-                torch.mul(signs.to(residual.dtype), t, out=sent[i])
+                threshold_update(signs, self.threshold, residual.dtype,
+                                 out=sent[i])
             return pmean(sent, mesh, axis), new_residual
         capacity = max(1, int(self.capacity_fraction * size))
         for i in range(n):

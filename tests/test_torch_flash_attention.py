@@ -193,6 +193,9 @@ def test_build_needs_nvcc(monkeypatch):
 
 def test_library_is_named_by_source_hash():
     import hashlib
-    tag = hashlib.sha256(fa.SOURCE.read_bytes()).hexdigest()[:16]
+    # the source and the local header it includes (the wgmma helpers)
+    h = hashlib.sha256(fa.SOURCE.read_bytes())
+    h.update((fa.SOURCE.parent / "hopper_mma.cuh").read_bytes())
+    tag = h.hexdigest()[:16]
     assert fa.library_path().name == f"libflash_attention_fwd_{tag}.so"
     assert fa.library_path().parent == nvcc.BUILD_DIR
