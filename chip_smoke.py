@@ -13,10 +13,12 @@ Phases; any failure raises and exits non-zero before a result is printed:
    (flash attention and LSTM) from this checkout's sources (one ``nvcc``
    per source, started together; each source's build seconds are
    reported), prints the registers, spills and shared memory of every
-   instantiation of the two kernels redesigned for Hopper (K1 and K3) and
-   checks their SASS: the bf16 ones must issue ``wgmma`` (HGMMA), the f32
-   ones must not (no TF32), then holds each kernel against its plain
-   PyTorch version on the card:
+   instantiation of the attention kernels redesigned for Hopper (K1, K2
+   and K3) and checks their SASS: the bf16 ones must issue ``wgmma``
+   (HGMMA), the f32 ones must not (no TF32); does the same for every tile
+   instantiation of K7, none of which may issue HGMMA (f32 on full FMAs,
+   bf16 widened to f32), then holds each kernel against its plain PyTorch
+   version on the card:
    - K1, the flash-attention forward, at the shapes the serving path gives
      it (float32 at atol 2e-5, bfloat16 at atol 2e-2);
    - K2 and K3, the backward's dq and dk/dv kernels, at the training
@@ -27,9 +29,11 @@ Phases; any failure raises and exits non-zero before a result is printed:
      ring's backward passes the whole sequence's) and at one data-parallel
      worker's (BH 16 = B 2 x H 8, T 1024, float32, causal);
    - each also at coverage shapes (other head dims, a key mask with a
-     fully masked row, T 200 causal with a mask) and at the edges of K1's
-     and K3's tiles, causal: T 320 at BH 3, T 1000, both dtypes; bf16 at
-     D 256, T 1000 and at D 128, T 200, BH 3.
+     fully masked row, T 200 causal with a mask) and at the edges of the
+     redesigned kernels' tiles, causal: T 320 at BH 3, T 1000, both dtypes;
+     bf16 at D 256, T 1000 and at D 128, T 200, BH 3. K2 is also timed at
+     the ring's diagonal hop beside its full hop (the causal hop should
+     cost about half).
    Times each kernel, its plain version and the PyTorch library call for
    the same function (SDPA, its backward for K2/K3, whose kernels' names
    are recorded: they say which of SDPA's backends ran; at the training
@@ -77,11 +81,15 @@ Phases; any failure raises and exits non-zero before a result is printed:
    against its plain version at every 1x1 conv shape of a GoogLeNet
    forward at B 32, 224x224 (float32 at rel-to-max 1e-5), at the
    reference's parity shape (N 2, H 4, W 4, C 128, F 128, atol 1e-5) and
-   in bfloat16 (rel-to-max 2e-2); the int8 matmul (``int8_matmul``)
+   in bfloat16 (rel-to-max 2e-2), at ragged coverage shapes (M 1000, C
+   100 or 37, F 50; a view of x off a 16-byte boundary), two runs giving
+   the same bits, each shape's tile plan (``tile_plan``) printed; the
+   int8 matmul (``int8_matmul``)
    bitwise against its plain version at the int8 serving net's shapes
    (M 256, K 512, N 512 and 256) and at coverage shapes (M 1, 8, 33; K not
    a multiple of 4; zero rows). Times each beside its plain version, the
-   library call (``relu(addmm)``; ``torch._int_mm``) and the bound.
+   library call (``relu(addmm)``; ``torch._int_mm``) and the bound; K7 and
+   ``relu(addmm)`` are also timed by device time in phase 19.
 11. Serve GoogLeNet: ``googlenet(1000)`` at 224x224x3, f32, random weights
    from a seed, behind ``InferenceEngine`` (buckets 1, 8, 32; a
    ``forward_fn`` returning the graph's one output) to 8 closed-loop
@@ -128,7 +136,12 @@ Phases; any failure raises and exits non-zero before a result is printed:
 18. CPU against card, the parallel layer: one fused ring forward at
    T 2048 on 4 workers (atol 2e-5) and one ``EncodedAccumulator.combine``
    (dense and topk) on the same gradients (bitwise).
-19. Report: JSON lines of per-shape kernel times, the serving and training
+19. K7 and ``relu(addmm)`` by device time at GoogLeNet's shapes, and K2
+   and K3 at the ring's diagonal and full hops (the profiler's kernel
+   sums over 20 calls), which the host's enqueue does not reach: a loop
+   of these short calls times the host as much as the card. Its profiler
+   sessions come after every host-bound phase.
+20. Report: JSON lines of per-shape kernel times, the serving and training
    metrics and the kernels, then last ``{"ok": true, "device": ...}``.
 """
 from __future__ import annotations
@@ -136,6 +149,7 @@ from __future__ import annotations
 import importlib
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -260,6 +274,7 @@ BUILDS = {"flash_attention_fwd": fa.build,
 # the kernels redesigned for Hopper: (source, C entry point); their bf16
 # instantiations must issue wgmma (HGMMA in the SASS), their f32 ones none
 REDESIGNED = {"flash_attention_fwd": "dl4j_flash_attention_fwd",
+              "flash_attention_bwd": "dl4j_flash_attention_bwd_dq",
               "flash_attention_bwd_dkv": "dl4j_flash_attention_bwd_dkv"}
 
 
@@ -320,8 +335,66 @@ def build_phase():
                 "registers": regs, "spill_store_bytes": st,
                 "spill_load_bytes": ld, "dynamic_smem_bytes": smem,
                 "hgmma": hgmma}
+    report["conv1x1_tiles"] = _k7_instantiations(paths["conv1x1_bias_relu"])
     log("redesigned kernels:", json.dumps(report, indent=1))
     return report
+
+
+def _demangle(names):
+    """{mangled name: its C++ form} by the toolkit's cu++filt."""
+    names = sorted(names)
+    text = subprocess.run([nvcc.cuda_tool("cu++filt"), *names],
+                          capture_output=True, text=True,
+                          check=True).stdout.splitlines()
+    if len(text) != len(names):
+        raise AssertionError(f"cu++filt gave {len(text)} names for "
+                             f"{len(names)}")
+    return dict(zip(names, text))
+
+
+def _k7_instantiations(lib):
+    """K7's tile instantiations, one for each tile of ``k7.TILES``, dtype
+    and copy width: registers, spills, shared memory; none may issue HGMMA
+    (f32 stays on full FMAs, bf16 is widened to f32)."""
+    usage = _ptxas_report(lib.with_suffix(".log").read_text())
+    sass = _sass_functions(lib)
+    plain = _demangle(fn for fn in usage if "conv1x1_kernel" in fn)
+    found = {}
+    for fn, text in plain.items():
+        # the template's arguments <T, BM, BN, VEC>, as cu++filt writes
+        # them ("float, (int)64, (int)32, (bool)1") or without the casts
+        args = [re.sub(r"^\(\w+\)", "", a.strip()) for a in
+                text.split("conv1x1_kernel<")[1].split(">")[0].split(",")]
+        ctype, bm, bn, vec = args
+        found[ctype, int(bm), int(bn), vec in ("1", "true")] = fn
+    out = {}
+    for bm, bn in k7.TILES:
+        for ctype, dtype, tag in (("float", torch.float32, "f32"),
+                                  ("__nv_bfloat16", torch.bfloat16, "bf16")):
+            for vec in (True, False):
+                want = f"{ctype}, {bm}, {bn}, {str(vec).lower()}"
+                fn = found.pop((ctype, bm, bn, vec), None)
+                if fn is None:
+                    raise AssertionError(
+                        f"no K7 instantiation conv1x1_kernel<{want}> in the "
+                        f"library; it holds {sorted(plain.values())}")
+                regs, st, ld = usage[fn]
+                hgmma = sass[fn].count("HGMMA")
+                if hgmma:
+                    raise AssertionError(f"{plain[fn]}: {hgmma} HGMMA "
+                                         f"instructions in its SASS (K7 "
+                                         f"runs on FMAs)")
+                out[f"conv1x1_kernel<{want}>"] = {
+                    "bm": bm, "bn": bn, "dtype": tag,
+                    "vec16": vec, "registers": regs,
+                    "spill_store_bytes": st, "spill_load_bytes": ld,
+                    "dynamic_smem_bytes": k7.shared_memory_bytes(bm, bn,
+                                                                 dtype),
+                    "hgmma": hgmma}
+    if found:
+        raise AssertionError(f"K7 instantiations of no tile in k7.TILES: "
+                             f"{sorted(found)}")
+    return out
 
 
 def _time_ms(fn, iters=20, warmup=3) -> float:
@@ -576,7 +649,17 @@ def bwd_kernel_phase():
     log("backward kernel phase: (max abs, rel-to-max) err", {
         k: {str(d): e for d, e in v.items()} for k, v in errs.items()})
     log("SDPA backward by backend at the train shape (ms):", backends)
-    return errs, rows, backends
+    # the ring's causal diagonal hop beside its full hop, per kernel
+    hops = []
+    for kind in ("dq", "dkv"):
+        for dtype in (torch.float32, torch.bfloat16):
+            by = {r["causal"]: r["ms"] for r in rows if r["kernel"] == kind
+                  and r["path"] == "ring" and r["dtype"] == str(dtype)}
+            hops.append({"kernel": kind, "dtype": str(dtype),
+                         "diagonal_ms": by[True], "full_ms": by[False],
+                         "diagonal_over_full": by[True] / by[False]})
+    log("ring hops, diagonal against full:", hops)
+    return errs, rows, backends, hops
 
 
 def _sdpa_backward_by_backend(q4, k4, v4, do4, causal):
@@ -1110,12 +1193,34 @@ def _roof_ms(flops, nbytes, peak):
                                        else "bytes")
 
 
+def _device_ms_per_call(fn, n=20, name=None, tries=3):
+    """Device time of one call of ``fn`` (ms): the profiler's kernel times
+    over ``n`` calls, divided by ``n``; only kernels whose name holds
+    ``name`` when it is given. A session that records no such kernel (the
+    profiler now and then returns none after many sessions) is taken
+    again, up to ``tries`` sessions; then this raises."""
+    def many():
+        for _ in range(n):
+            fn()
+    for _ in range(tries):
+        top = _device_kernels(many, top=1000)["top"]
+        ms = sum(r["ms"] for r in top
+                 if name is None or name in r["kernel"]) / n
+        if ms > 0:
+            return ms
+    raise AssertionError(f"{tries} profiler sessions recorded no kernel"
+                         f"{'' if name is None else ' named ' + name} in "
+                         f"{n} calls")
+
+
 def conv_kernel_phase():
     """K7 against its plain version at GoogLeNet's 1x1 shapes (B 32), the
-    reference's parity shape and in bf16; times beside the plain version,
-    ``relu(addmm)`` (cuBLAS) and the bound."""
+    reference's parity shape, in bf16 and at ragged coverage shapes; loop
+    times beside the plain version, ``relu(addmm)`` (cuBLAS) and the
+    bound."""
     gen = torch.Generator().manual_seed(SEED + 11)
     f32, bf16 = torch.float32, torch.bfloat16
+    sms = k7._sm_count(torch.cuda.current_device())   # the plans' SMs
 
     def case(M, C, F, dtype, wscale=None):
         x = torch.randn(M, C, generator=gen).to(dtype).cuda()
@@ -1124,6 +1229,13 @@ def conv_kernel_phase():
         b = (torch.randn(F, generator=gen) * 0.1 + 0.2).to(dtype).cuda()
         return x, w, b
 
+    def same_bits_twice(x, w, b):
+        if not torch.equal(k7.conv1x1_fused(x, w, b),
+                           k7.conv1x1_fused(x, w, b)):
+            M, C = x.shape
+            raise AssertionError(f"two runs of K7 differ at M={M} C={C} "
+                                 f"F={w.shape[1]} {x.dtype}")
+
     errs = {"parity_abs": 0.0, "f32_rel": 0.0, "bf16_rel": 0.0}
     # the reference's parity shape (ops/kernels/conv.py:152-162)
     x, w, b = case(2 * 4 * 4, 128, 128, f32, wscale=0.1)
@@ -1131,6 +1243,7 @@ def conv_kernel_phase():
                           - k7._conv1x1_plain(x, w, b)).abs().max().item()
     if errs["parity_abs"] > 1e-5:
         raise AssertionError(f"K7 at the parity shape: {errs['parity_abs']}")
+    same_bits_twice(x, w, b)
     rows, seen = [], {}
     shapes = googlenet_1x1_shapes(GNET_B)
     if len(shapes) != 37:
@@ -1150,19 +1263,22 @@ def conv_kernel_phase():
             raise AssertionError(f"K7 disagrees with plain at M={M} C={C} "
                                  f"F={F} f32: rel-to-max {err:.3g}")
         errs["f32_rel"] = max(errs["f32_rel"], err)
+        same_bits_twice(x, w, b)
         flops, nbytes = k7.roofline(M, C, F)
         bound, by = _roof_ms(flops, nbytes, PEAK_FLOPS[f32])
         row = {"vertex": name, "M": M, "C": C, "F": F, "dtype": str(f32),
+               "plan": list(k7.tile_plan(M, C, F, sms)),
                "rel_err": err, "abs_err": (got - want).abs().max().item(),
-               "ms": _time_ms(lambda: k7.conv1x1_fused(x, w, b)),
+               "ms_loop": _time_ms(lambda: k7.conv1x1_fused(x, w, b)),
                "plain_ms": _time_ms(lambda: k7._conv1x1_plain(x, w, b)),
-               "library_ms": _time_ms(lambda: torch.relu(torch.addmm(b, x, w))),
+               "library_ms_loop": _time_ms(
+                   lambda: torch.relu(torch.addmm(b, x, w))),
                "bound_ms": bound, "bound_by": by}
         seen[(M, C, F)] = row
         rows.append(row)
     bf_rows = []
     for M, C, F in ((100352, 64, 64), (25088, 192, 96), (1568, 832, 384),
-                    (1000, 100, 50)):
+                    (1000, 100, 50), (1000, 37, 51)):
         x, w, b = case(M, C, F, bf16)
         got = k7.conv1x1_fused(x, w, b)
         torch.cuda.synchronize()
@@ -1171,22 +1287,87 @@ def conv_kernel_phase():
             raise AssertionError(f"K7 disagrees with plain at M={M} C={C} "
                                  f"F={F} bf16: rel-to-max {err:.3g}")
         errs["bf16_rel"] = max(errs["bf16_rel"], err)
+        same_bits_twice(x, w, b)
         flops, nbytes = k7.roofline(M, C, F, itemsize=2)
         bound, by = _roof_ms(flops, nbytes, PEAK_FLOPS[bf16])
         bf_rows.append({"M": M, "C": C, "F": F, "dtype": str(bf16),
+                        "plan": list(k7.tile_plan(M, C, F, sms)),
                         "rel_err": err,
                         "ms": _time_ms(lambda: k7.conv1x1_fused(x, w, b)),
                         "library_ms": _time_ms(
                             lambda: torch.relu(torch.addmm(b, x, w))),
                         "bound_ms": bound, "bound_by": by})
-    # one GoogLeNet forward's 37 calls at B 32, f32
-    total = {k: sum(r[k] for r in rows) for k in ("ms", "plain_ms",
-                                                  "library_ms", "bound_ms")}
+    # ragged f32 coverage: C a multiple of 4 and not, F not; a view of x
+    # that starts 4 bytes off a 16-byte boundary (the wrapper copies it)
+    for M, C, F, off in ((1000, 100, 50, 0), (1000, 37, 50, 0),
+                         (1000, 100, 52, 1)):
+        x, w, b = case(M, C, F, f32)
+        if off:
+            x = torch.cat([x.flatten(), x.new_zeros(off)])[off:]
+            x = x[:M * C].view(M, C)
+        got = k7.conv1x1_fused(x, w, b)
+        torch.cuda.synchronize()
+        err = _rel_to_max(got, k7._conv1x1_plain(x, w, b))
+        if err > 1e-5:
+            raise AssertionError(f"K7 disagrees with plain at M={M} C={C} "
+                                 f"F={F} f32 (coverage, offset {off}): "
+                                 f"rel-to-max {err:.3g}")
+        errs["f32_rel"] = max(errs["f32_rel"], err)
+        same_bits_twice(x, w, b)
+    log("K7 phase: errors", errs)
+    log("K7 tile plans (bm, bn, splits, k_per):",
+        {r["vertex"]: r["plan"] for r in rows})
+    return errs, rows, bf_rows
+
+
+def ring_hop_device_time_phase(hops):
+    """K2's and K3's device time at the ring's diagonal and full hops
+    (BH 8, Tq = Tk 2048, D 64, the whole sequence's lse), filled into
+    ``hops`` beside the loop times ``bwd_kernel_phase`` took."""
+    gen = torch.Generator().manual_seed(SEED + 27)
+    t_ring, BH = RING["T"] // RING["workers"], RING["B"] * RING["H"]
+    names = {"dq": "flash_dq", "dkv": "flash_dkv"}
+    wrappers = {"dq": fa.flash_attention_bwd_dq,
+                "dkv": fa.flash_attention_bwd_dkv}
+    for h in hops:
+        dtype = getattr(torch, h["dtype"].split(".")[1])
+        ms = {}
+        for causal in (True, False):
+            args = _bwd_case(gen, BH, t_ring, RING["D"], dtype, causal, False,
+                             ring_hop=True)
+            kw = dict(causal=causal, scale=1.0 / math.sqrt(RING["D"]))
+            ms[causal] = _device_ms_per_call(
+                lambda: wrappers[h["kernel"]](*args, **kw),
+                name=names[h["kernel"]])
+        h.update(diagonal_device_ms=ms[True], full_device_ms=ms[False],
+                 diagonal_over_full_device=ms[True] / ms[False])
+    log("ring hops by device time:", hops)
+
+
+def conv_device_time_phase(rows):
+    """K7 and ``relu(addmm)`` by device time at each GoogLeNet shape of
+    ``rows`` (filled in as "ms" and "library_ms"), on fresh inputs; then
+    one forward's 37 calls summed: "ms" and "library_ms" device time, the
+    "_loop" ones timed loops of calls."""
+    gen = torch.Generator().manual_seed(SEED + 26)
+    for M, C, F in sorted({(r["M"], r["C"], r["F"]) for r in rows}):
+        x = torch.randn(M, C, generator=gen).cuda()
+        w = (torch.randn(C, F, generator=gen) * (2.0 / C) ** 0.5).cuda()
+        b = (torch.randn(F, generator=gen) * 0.1 + 0.2).cuda()
+        ms = _device_ms_per_call(lambda: k7.conv1x1_fused(x, w, b),
+                                 name="conv1x1")
+        lib_ms = _device_ms_per_call(lambda: torch.relu(torch.addmm(b, x, w)))
+        for r in rows:
+            if (r["M"], r["C"], r["F"]) == (M, C, F):
+                r["ms"], r["library_ms"] = ms, lib_ms
+    total = {k: sum(r[k] for r in rows)
+             for k in ("ms", "plain_ms", "library_ms", "bound_ms", "ms_loop",
+                       "library_ms_loop")}
     by_bytes = sum(r["bound_ms"] for r in rows if r["bound_by"] == "bytes")
     total["bound_by"] = ("bytes" if by_bytes >= total["bound_ms"] / 2
                          else "operations")
-    log("K7 phase: errors", errs, "per forward", total)
-    return errs, rows, bf_rows, total
+    log("K7 device time, per forward", total)
+    return total
 
 
 def int8_kernel_phase():
@@ -1336,7 +1517,11 @@ def googlenet_serve_phase():
     x32 = torch.as_tensor(np.concatenate([pool, pool]), device=net.device)
     with torch.inference_mode():
         fwd_ms = _time_ms(lambda: fwd(net, x32), iters=10)
-        kernels = _device_kernels(lambda: fwd(net, x32))
+        kernels = _device_kernels(lambda: fwd(net, x32), top=1000)
+    # K7's share of the forward's kernel time, over all its tile shapes
+    kernels["k7_ms"] = sum(r["ms"] for r in kernels["top"]
+                           if "conv1x1" in r["kernel"])
+    kernels["top"] = kernels["top"][:15]
     row = _latency_stats(lat, wall, n_rows, snap)
     row.update({"model": "googlenet 1000 classes 224x224x3 f32",
                 "buckets": list(GNET_BUCKETS), "warm_s": warm_s,
@@ -1822,7 +2007,7 @@ def main() -> int:
     smi = device_phase()
     build_report = build_phase()
     errs, rows = kernel_phase()
-    bwd_errs, bwd_rows, sdpa_backends = bwd_kernel_phase()
+    bwd_errs, bwd_rows, sdpa_backends, ring_hops = bwd_kernel_phase()
     slice_row = slice_phase()
     train_row = train_phase()
     cross_row = cross_device_phase()
@@ -1830,7 +2015,7 @@ def main() -> int:
     char_serve = char_serve_phase()
     char_train = char_train_phase()
     char_cross = char_cross_device_phase()
-    k7_errs, k7_rows, k7_bf16_rows, k7_total = conv_kernel_phase()
+    k7_errs, k7_rows, k7_bf16_rows = conv_kernel_phase()
     k8_rows, k8_total, k8_err = int8_kernel_phase()
     gnet, gserve = googlenet_serve_phase()
     mlp, i8serve = int8_serve_phase()
@@ -1843,6 +2028,8 @@ def main() -> int:
     ring_row = ring_phase()
     dp_row = dp_phase()
     par_cross = parallel_cross_device_phase()
+    k7_total = conv_device_time_phase(k7_rows)
+    ring_hop_device_time_phase(ring_hops)
     top = next(r for r in rows if r["BH"] == 16 and r["T"] == 1024
                and r["dtype"] == str(torch.float32))
     serve_k1 = slice_row["flash_attention_launches"]
@@ -1917,10 +2104,13 @@ def main() -> int:
         "max_abs_err": k7_errs["parity_abs"],
         "max_rel_to_max_err_f32": k7_errs["f32_rel"],
         "max_rel_to_max_err_bf16": k7_errs["bf16_rel"],
-        "shape": "the 37 1x1 convs of one GoogLeNet forward, B 32 f32",
+        "shape": "the 37 1x1 convs of one GoogLeNet forward, B 32 f32 "
+                 "(ms and library_ms: device time)",
         "ms": k7_total["ms"], "plain_ms": k7_total["plain_ms"],
         "bound_ms": k7_total["bound_ms"], "bound_by": k7_total["bound_by"],
-        "library_ms": k7_total["library_ms"]})
+        "library_ms": k7_total["library_ms"],
+        "ms_loop": k7_total["ms_loop"],
+        "library_ms_loop": k7_total["library_ms_loop"]})
     kernels.append({
         "name": "int8_matmul", "route": "cuda",
         "source": "deeplearning4j_tpu_torch/csrc/int8_matmul.cu",
@@ -1972,6 +2162,7 @@ def main() -> int:
                       "flash_block_update_shapes": k4_rows,
                       "build": build_report, "software": SOFTWARE,
                       "sdpa_backward_by_backend": sdpa_backends,
+                      "ring_hops_diagonal_vs_full": ring_hops,
                       "card": smi}),
           flush=True)
     print(json.dumps({"slice": slice_row, "card": smi}), flush=True)

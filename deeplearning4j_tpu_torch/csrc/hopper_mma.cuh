@@ -1,9 +1,11 @@
 // Hopper (sm_90a) building blocks shared by the port's tensor-core kernels
-// (csrc/flash_attention_fwd.cu, csrc/flash_attention_bwd_dkv.cu): 16-byte
-// cp.async copies into 128-byte-swizzled shared-memory panels, wgmma
-// shared-memory descriptors, and the m64n64k16 bf16 wgmma with both
-// operands in shared memory (SS) or A in registers (RS); and, for the same
-// kernels' f32 FMA paths, padded f32 row tiles and their float4 loads.
+// (csrc/flash_attention_fwd.cu, csrc/flash_attention_bwd.cu,
+// csrc/flash_attention_bwd_dkv.cu): 16-byte cp.async copies into
+// 128-byte-swizzled shared-memory panels, wgmma shared-memory descriptors,
+// and the m64n64k16 bf16 wgmma with both operands in shared memory (SS) or
+// A in registers (RS); and, for the same kernels' f32 FMA paths, padded f32
+// row tiles and their float4 loads. csrc/conv1x1_bias_relu.cu takes its
+// cp.async copies.
 //
 // A panel holds R rows of 64 bf16 values (128 bytes a row) in the layout of
 // CU_TENSOR_MAP_SWIZZLE_128B: the 16-byte group g of row r sits at

@@ -14,8 +14,8 @@ Counterpart of ``deeplearning4j_tpu/ops/pallas_attention.py``:
 ``csrc/flash_attention_fwd.cu`` (K1), ``csrc/flash_attention_bwd.cu`` (K2),
 ``csrc/flash_attention_bwd_dkv.cu`` (K3) and ``csrc/flash_block_update.cu``
 (K4); each source says what it computes, what bounds it and what its
-design leaves for later. K1 and K3 run bf16 on the tensor cores (``wgmma``,
-``csrc/hopper_mma.cuh``) and f32 in full f32 FMAs.
+design leaves for later. K1, K2 and K3 run bf16 on the tensor cores
+(``wgmma``, ``csrc/hopper_mma.cuh``) and f32 in full f32 FMAs.
 
 Dispatch: each kernel wrapper (``flash_attention_fwd``,
 ``flash_attention_bwd_dq``, ``flash_attention_bwd_dkv``,
@@ -108,6 +108,7 @@ _ENTRIES = {
     "dl4j_flash_attention_bwd_dkv":
         (build_bwd_dkv, [_P] * 9 + [_I] * 6 + [ctypes.c_float, _P]),
     "dl4j_flash_attention_fwd_smem": (build, [_I, _I]),
+    "dl4j_flash_attention_bwd_dq_smem": (build_bwd, [_I, _I]),
     "dl4j_flash_attention_bwd_dkv_smem": (build_bwd_dkv, [_I, _I]),
     "dl4j_flash_block_update":
         (build_block_update, [_P] * 9 + [_I] * 6 + [ctypes.c_float, _P]),
@@ -120,9 +121,10 @@ def _kernel(symbol: str):
 
 def shared_memory_bytes(symbol: str, head_dim: int,
                         dtype: torch.dtype) -> int:
-    """Dynamic shared memory a block of K1 (``"dl4j_flash_attention_fwd"``)
-    or K3 (``"dl4j_flash_attention_bwd_dkv"``) takes at this head dim and
-    dtype, as the kernel's source sizes it (builds the library)."""
+    """Dynamic shared memory a block of K1 (``"dl4j_flash_attention_fwd"``),
+    K2 (``"dl4j_flash_attention_bwd_dq"``) or K3
+    (``"dl4j_flash_attention_bwd_dkv"``) takes at this head dim and dtype,
+    as the kernel's source sizes it (builds the library)."""
     return _kernel(f"{symbol}_smem")(head_dim, int(dtype == torch.bfloat16))
 
 
@@ -262,7 +264,7 @@ def _launch(symbol: str, ins, key_mask, outs, *, causal: bool,
     arguments every entry point takes; raise on a CUDA error."""
     q3 = ins[0]
     BH, T, D = q3.shape
-    # K1 and K3 copy rows in 16-byte pieces: a view that starts off a
+    # K1, K2 and K3 copy rows in 16-byte pieces: a view that starts off a
     # 16-byte boundary is copied to fresh (aligned) memory first
     ins = [t if t.data_ptr() % 16 == 0 else t.clone() for t in ins]
     mask, heads = None, 1

@@ -224,7 +224,9 @@ def test_backward_refuses_non_cpu_non_cuda_tensors():
 
 
 def test_backward_library_is_built_apart_and_named_by_its_hash(monkeypatch):
-    tag = hashlib.sha256(fa.BWD_SOURCE.read_bytes()).hexdigest()[:16]
+    h = hashlib.sha256(fa.BWD_SOURCE.read_bytes())
+    h.update((fa.BWD_SOURCE.parent / "hopper_mma.cuh").read_bytes())
+    tag = h.hexdigest()[:16]
     assert fa.bwd_library_path().name == f"libflash_attention_bwd_{tag}.so"
     assert fa.bwd_library_path().parent == nvcc.BUILD_DIR
     monkeypatch.setattr(nvcc.shutil, "which", lambda name: None)

@@ -1,5 +1,5 @@
-"""K1 (flash forward) and K3 (dk/dv) as redesigned for Hopper: how their
-sources are built and named, and what ``_launch`` hands them.
+"""K1 (flash forward), K2 (dq) and K3 (dk/dv) as redesigned for Hopper:
+how their sources are built and named, and what ``_launch`` hands them.
 
 The CUDA kernels run only on the card (``chip_smoke.py`` holds them against
 their plain versions there, and checks that the bf16 ones issue ``wgmma``);
@@ -34,9 +34,13 @@ def test_k3_library_is_built_apart_and_named_by_its_hash():
     h.update((CSRC / "hopper_mma.cuh").read_bytes())
     path = nvcc.library_path(fa.DKV_SOURCE)
     assert path.name == f"libflash_attention_bwd_dkv_{h.hexdigest()[:16]}.so"
-    # K2's library is named by its own source alone: it includes no header
-    tag = hashlib.sha256(fa.BWD_SOURCE.read_bytes()).hexdigest()[:16]
-    assert fa.bwd_library_path().name == f"libflash_attention_bwd_{tag}.so"
+    # K2's library is apart from K3's and named by its own source and the
+    # shared header it now includes
+    h2 = hashlib.sha256(fa.BWD_SOURCE.read_bytes())
+    h2.update((CSRC / "hopper_mma.cuh").read_bytes())
+    assert fa.bwd_library_path().name == \
+        f"libflash_attention_bwd_{h2.hexdigest()[:16]}.so"
+    assert fa.bwd_library_path() != path
 
 
 def test_each_entry_point_loads_from_its_own_library():
@@ -45,6 +49,7 @@ def test_each_entry_point_loads_from_its_own_library():
     assert entries["dl4j_flash_attention_bwd_dq"][0] is fa.build_bwd
     assert entries["dl4j_flash_attention_bwd_dkv"][0] is fa.build_bwd_dkv
     assert entries["dl4j_flash_attention_fwd_smem"][0] is fa.build
+    assert entries["dl4j_flash_attention_bwd_dq_smem"][0] is fa.build_bwd
     assert entries["dl4j_flash_attention_bwd_dkv_smem"][0] is \
         fa.build_bwd_dkv
     text = {p.name: p.read_text() for p in CSRC.glob("*.cu")}
@@ -52,6 +57,23 @@ def test_each_entry_point_loads_from_its_own_library():
                if "dl4j_flash_attention_bwd_dkv" in
                re.findall(r'extern "C" int (\w+)\(', t)}
     assert defined == {"flash_attention_bwd_dkv.cu"}
+
+
+def test_every_redesigned_kernel_reports_its_shared_memory(monkeypatch):
+    """``shared_memory_bytes`` reaches K1's, K2's and K3's ``_smem`` entry,
+    each from its own library, with (head dim, is_bf16)."""
+    calls = []
+
+    def fake_load(symbol, build, argtypes):
+        calls.append((symbol, build))
+        return lambda d, bf: 1000 * d + bf
+
+    monkeypatch.setattr(fa, "load_symbol", fake_load)
+    for symbol, build in (("dl4j_flash_attention_fwd", fa.build),
+                          ("dl4j_flash_attention_bwd_dq", fa.build_bwd),
+                          ("dl4j_flash_attention_bwd_dkv", fa.build_bwd_dkv)):
+        assert fa.shared_memory_bytes(symbol, 128, torch.bfloat16) == 128001
+        assert calls[-1] == (f"{symbol}_smem", build)
 
 
 def test_library_is_rebuilt_when_an_included_header_changes(tmp_path):
@@ -99,8 +121,8 @@ def test_cuda_tools_are_found_beside_nvcc(tmp_path, monkeypatch):
 
 
 def test_k1_and_k3_copy_misaligned_views_before_launch(monkeypatch):
-    """The kernels copy rows in 16-byte pieces; ``_launch`` hands them a
-    fresh copy of a view that starts off a 16-byte boundary."""
+    """The kernels (K2 too) copy rows in 16-byte pieces; ``_launch`` hands
+    them a fresh copy of a view that starts off a 16-byte boundary."""
     seen = []
 
     class FakeStream:
@@ -158,10 +180,12 @@ def test_kernels_equal_plain_at_tile_edges_on_the_card(card, dtype, BH, T,
     assert (o.float() - ro.float()).abs().max() <= tol
     assert (lse - rlse).abs().max() <= tol
     delta = (do.float() * o.float()).sum(dim=-1)
-    got = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal=True,
-                                     scale=scale)
-    want = fa.flash_attention_bwd_dkv_reference(q, k, v, do, lse, delta,
-                                                True, scale)
+    got = (fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, causal=True,
+                                     scale=scale),
+           *fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal=True,
+                                       scale=scale))
+    want = fa.flash_attention_bwd_reference(q, k, v, do, lse, delta, True,
+                                            scale)
     rel = 1e-4 if dtype == torch.float32 else 2e-2
     for g, w in zip(got, want):
         assert ((g.float() - w.float()).abs().max()
