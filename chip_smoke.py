@@ -85,11 +85,14 @@ Phases; any failure raises and exits non-zero before a result is printed:
    100 or 37, F 50; a view of x off a 16-byte boundary), two runs giving
    the same bits, each shape's tile plan (``tile_plan``) printed; the
    int8 matmul (``int8_matmul``)
-   bitwise against its plain version at the int8 serving net's shapes
-   (M 256, K 512, N 512 and 256) and at coverage shapes (M 1, 8, 33; K not
-   a multiple of 4; zero rows). Times each beside its plain version, the
-   library call (``relu(addmm)``; ``torch._int_mm``) and the bound; K7 and
-   ``relu(addmm)`` are also timed by device time in phase 19.
+   bitwise against its plain version at the int8 serving net's three
+   products at every served bucket (M 8, 32 and 256; K 512, N 512 and 256)
+   and at coverage shapes (M 1, 5, 17, 33, 300; K and N not multiples of
+   16; K 4096; zero rows), each shape's plan (``tile_plan``) printed. Times
+   each beside its plain version, the library call (``relu(addmm)``;
+   ``torch._int_mm``, recorded as null with its error where it refuses a
+   shape, as at M <= 16) and the bound; K7, ``relu(addmm)``, K8 and
+   ``_int_mm`` are also timed by device time in phase 19.
 11. Serve GoogLeNet: ``googlenet(1000)`` at 224x224x3, f32, random weights
    from a seed, behind ``InferenceEngine`` (buckets 1, 8, 32; a
    ``forward_fn`` returning the graph's one output) to 8 closed-loop
@@ -118,7 +121,8 @@ Phases; any failure raises and exits non-zero before a result is printed:
    t 128-2048, D 64-256, Tq != Tk, ragged lengths, the diagonal and the
    full hop: the normalised result acc / l at atol 2e-5 in float32, 2e-2
    in bfloat16. Times it at the ring's block (BH 8, t 2048, D 64) beside
-   the plain version and the bound. No PyTorch call takes or gives a carry.
+   the plain version and the bound (device time in phase 19). No PyTorch
+   call takes or gives a carry.
 16. Ring attention: ``ring_attention_sharded(mesh of 8, "seq",
    causal=True)`` on [1, 8, 16384, 64] (t_local 2048), forward and
    backward, float32 and bfloat16, against ``flash_attention`` on the
@@ -136,11 +140,16 @@ Phases; any failure raises and exits non-zero before a result is printed:
 18. CPU against card, the parallel layer: one fused ring forward at
    T 2048 on 4 workers (atol 2e-5) and one ``EncodedAccumulator.combine``
    (dense and topk) on the same gradients (bitwise).
-19. K7 and ``relu(addmm)`` by device time at GoogLeNet's shapes, and K2
-   and K3 at the ring's diagonal and full hops (the profiler's kernel
-   sums over 20 calls), which the host's enqueue does not reach: a loop
-   of these short calls times the host as much as the card. Its profiler
-   sessions come after every host-bound phase.
+19. Device time (the profiler's kernel sums over 20 calls), which the
+   host's enqueue does not reach: a loop of these short calls times the
+   host as much as the card. K7 and ``relu(addmm)`` at GoogLeNet's shapes;
+   K2 and K3 at the ring's diagonal and full hops; K8 and ``torch._int_mm``
+   at each served product, and the host time of one call of each (300
+   calls enqueued behind a sleep kernel); K4 at the ring's full and
+   diagonal hops, both dtypes (the median of three alternating rounds);
+   K5 at a decode step (T 1, B 8), two
+   prefills and the training chunk, K6 at the training chunk. Its
+   profiler sessions come after every host-bound phase.
 20. Report: JSON lines of per-shape kernel times, the serving and training
    metrics and the kernels, then last ``{"ok": true, "device": ...}``.
 """
@@ -275,7 +284,8 @@ BUILDS = {"flash_attention_fwd": fa.build,
 # instantiations must issue wgmma (HGMMA in the SASS), their f32 ones none
 REDESIGNED = {"flash_attention_fwd": "dl4j_flash_attention_fwd",
               "flash_attention_bwd": "dl4j_flash_attention_bwd_dq",
-              "flash_attention_bwd_dkv": "dl4j_flash_attention_bwd_dkv"}
+              "flash_attention_bwd_dkv": "dl4j_flash_attention_bwd_dkv",
+              "flash_block_update": "dl4j_flash_block_update"}
 
 
 def _ptxas_report(log_text):
@@ -336,8 +346,30 @@ def build_phase():
                 "spill_load_bytes": ld, "dynamic_smem_bytes": smem,
                 "hgmma": hgmma}
     report["conv1x1_tiles"] = _k7_instantiations(paths["conv1x1_bias_relu"])
+    report["int8_matmul"] = _k8_instantiations(paths["int8_matmul"])
     log("redesigned kernels:", json.dumps(report, indent=1))
     return report
+
+
+def _k8_instantiations(lib):
+    """K8's two instantiations (16-byte and byte-wise staging): registers,
+    spills, and their SASS, which must hold integer tensor-core products
+    (IMMA) and no __dp4a (IDP4A)."""
+    usage = _ptxas_report(lib.with_suffix(".log").read_text())
+    sass = _sass_functions(lib)
+    out = {}
+    for fn, (regs, st, ld) in sorted(usage.items()):
+        imma, dp4a = sass[fn].count("IMMA"), sass[fn].count("IDP4A")
+        if imma == 0 or dp4a:
+            raise AssertionError(f"{fn}: {imma} IMMA and {dp4a} IDP4A "
+                                 f"instructions in its SASS (K8 must run "
+                                 f"on the integer tensor cores)")
+        out[fn] = {"registers": regs, "spill_store_bytes": st,
+                   "spill_load_bytes": ld, "imma": imma, "idp4a": dp4a}
+    if len(out) != 2:
+        raise AssertionError(f"K8's library holds {sorted(out)}, not its two "
+                             f"instantiations")
+    return out
 
 
 def _demangle(names):
@@ -395,6 +427,36 @@ def _k7_instantiations(lib):
         raise AssertionError(f"K7 instantiations of no tile in k7.TILES: "
                              f"{sorted(found)}")
     return out
+
+
+SLEEP_CYCLES = int(2e8)           # ~0.1 s at the card's clock
+
+
+def _behind_sleep(enqueue, cycles=SLEEP_CYCLES):
+    """Run ``enqueue(record)`` while a sleep kernel of ``cycles`` holds the
+    current stream; ``record()`` records and returns a timing event.
+    Returns the host's ms for the enqueue. Raises if the card woke before
+    the host was done, since the events would then time the host."""
+    torch.cuda.synchronize()
+    start, woke = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    torch.cuda._sleep(cycles)
+    woke.record()
+    t0 = time.perf_counter()
+
+    def record():
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    enqueue(record)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    slept = start.elapsed_time(woke)
+    if slept <= host_ms:
+        raise RuntimeError(f"the sleep kernel ({slept:.1f} ms) ended before "
+                           f"the host had enqueued ({host_ms:.1f} ms)")
+    return host_ms
 
 
 def _time_ms(fn, iters=20, warmup=3) -> float:
@@ -1193,21 +1255,26 @@ def _roof_ms(flops, nbytes, peak):
                                        else "bytes")
 
 
-def _device_ms_per_call(fn, n=20, name=None, tries=3):
-    """Device time of one call of ``fn`` (ms): the profiler's kernel times
-    over ``n`` calls, divided by ``n``; only kernels whose name holds
-    ``name`` when it is given. A session that records no such kernel (the
-    profiler now and then returns none after many sessions) is taken
-    again, up to ``tries`` sessions; then this raises."""
+def _device_ms_per_call(fn, n=20, name=None, tries=3, per_call=1):
+    """Device time of one call of ``fn`` (ms) from the profiler's kernel
+    times over ``n`` calls. The profiler loses the records of a few
+    launches a session (2 of 20 on an H100 under torch 2.11), so the sum is
+    divided by the launches it did record: of the kernels whose name holds
+    ``name`` (``per_call`` of them a call), or, with no name, of the most
+    often recorded kernel (one launch of it a call). A session that records
+    no such kernel is taken again, up to ``tries`` sessions; then this
+    raises."""
     def many():
         for _ in range(n):
             fn()
     for _ in range(tries):
         top = _device_kernels(many, top=1000)["top"]
-        ms = sum(r["ms"] for r in top
-                 if name is None or name in r["kernel"]) / n
+        rows = [r for r in top if name is None or name in r["kernel"]]
+        ms = sum(r["ms"] for r in rows)
         if ms > 0:
-            return ms
+            if name is None:
+                return ms / max(r["calls"] for r in rows)
+            return ms / sum(r["calls"] for r in rows) * per_call
     raise AssertionError(f"{tries} profiler sessions recorded no kernel"
                          f"{'' if name is None else ' named ' + name} in "
                          f"{n} calls")
@@ -1344,6 +1411,74 @@ def ring_hop_device_time_phase(hops):
     log("ring hops by device time:", hops)
 
 
+def k4_device_time_phase(rows, rounds=3):
+    """K4's device time at the ring's full and diagonal hops (BH 8,
+    Tq = Tk 2048, D 64, from an earlier hop's carry), both dtypes, filled
+    into ``rows`` as "device_ms" beside the loop time ``k4_kernel_phase``
+    took, with the diagonal over the full hop. Each hop is timed in
+    ``rounds`` profiler sessions, the two hops of a dtype alternating and
+    each round reversing the order; "device_ms" is the median and
+    "device_ms_rounds" every reading."""
+    gen = torch.Generator().manual_seed(SEED + 29)
+    calls = []
+    for r in rows:
+        dtype = getattr(torch, r["dtype"].split(".")[1])
+        BH, Tq, Tk, D = r["BH"], r["Tq"], r["Tk"], r["D"]
+        q, k, v, kp, vp = (torch.randn(BH, t, D, generator=gen).to(dtype)
+                           .cuda() for t in (Tq, Tk, Tk, Tk, Tk))
+        scale = 1.0 / math.sqrt(D)
+        empty = (torch.zeros(BH, Tq, D, device="cuda"),
+                 torch.full((BH, Tq), -1e30, device="cuda"),
+                 torch.zeros(BH, Tq, device="cuda"))
+        carry = fa.flash_block_update_reference(*empty, q, kp, vp, False,
+                                                scale)
+        causal = r["hop"] == "diagonal"
+        calls.append(lambda carry=carry, q=q, k=k, v=v, causal=causal,
+                     scale=scale: fa.flash_block_update(
+                         *carry, q, k, v, causal=causal, scale=scale))
+        r["device_ms_rounds"] = []
+    for dtype in sorted({r["dtype"] for r in rows}):
+        pair = [i for i, r in enumerate(rows) if r["dtype"] == dtype]
+        for n in range(rounds):
+            for i in (pair if n % 2 == 0 else pair[::-1]):
+                rows[i]["device_ms_rounds"].append(_device_ms_per_call(
+                    calls[i], name="block_update"))
+    for r in rows:
+        r["device_ms"] = float(np.median(r["device_ms_rounds"]))
+    for r in rows:
+        full = next(f for f in rows if f["dtype"] == r["dtype"]
+                    and f["hop"] == "full")
+        r["over_full_device"] = r["device_ms"] / full["device_ms"]
+    log("K4 by device time:", rows)
+
+
+def lstm_device_time_phase():
+    """K5's device time at the shapes each path launches it with: a decode
+    step (T 1 at the 8 slots), a prefill (T 128 rung at B 4 and T 64 at B
+    1, masked) and the training chunk (T 64, B 32); K6 at the training
+    chunk. So a path's launches are charged at their own shapes."""
+    gen = torch.Generator().manual_seed(SEED + 30)
+    H = CHAR["hidden"]
+    out = {}
+    for tag, T, B, masked in (("decode_T1_B8", 1, 8, False),
+                              ("prefill_T128_B4", 128, 4, True),
+                              ("prefill_T64_B1", 64, 1, True),
+                              ("train_T64_B32", CHAR_T, CHAR_B, False)):
+        fwd, mask, peeps, (dhs, dhT, dcT) = _lstm_case(
+            gen, T, B, H, torch.float32, True, masked)
+        out[f"fwd_{tag}"] = _device_ms_per_call(
+            lambda: lstm.fused_lstm_fwd(*fwd, mask, peeps), name="lstm")
+        if tag.startswith("train"):
+            res = lstm.lstm_fwd_reference(*fwd, mask, peeps)[1:5]
+            bargs = (*res, dhs, fwd[3], dhT, dcT, mask, peeps)
+            # the reverse loop, then dR: two kernels a call
+            out[f"bwd_{tag}"] = _device_ms_per_call(
+                lambda: lstm.fused_lstm_bwd(*bargs), name="lstm",
+                per_call=2)
+    log("K5/K6 by device time:", out)
+    return out
+
+
 def conv_device_time_phase(rows):
     """K7 and ``relu(addmm)`` by device time at each GoogLeNet shape of
     ``rows`` (filled in as "ms" and "library_ms"), on fresh inputs; then
@@ -1370,10 +1505,30 @@ def conv_device_time_phase(rows):
     return total
 
 
+def int8_products(M):
+    """(M, K, N) of the three products of one int8 net forward at batch M."""
+    K, H, V = INT8_NET
+    return [(M, K, H), (M, H, H), (M, H, V)]
+
+
+def _int_mm_or_error(xq, wq):
+    """``torch._int_mm`` (the int32 product alone, cuBLASLt) as a callable,
+    or None and its error where it refuses the shape (it has required
+    M > 16 on CUDA): the yardstick is recorded as null, never padded."""
+    try:
+        torch._int_mm(xq, wq)
+        torch.cuda.synchronize()
+    except RuntimeError as e:
+        return None, str(e).splitlines()[0][:200]
+    return (lambda: torch._int_mm(xq, wq)), None
+
+
 def int8_kernel_phase():
-    """K8 bitwise against its plain version at the int8 net's shapes (M 256)
-    and coverage shapes; times beside the plain version, ``torch._int_mm``
-    (the int32 product alone, cuBLASLt) and the bound."""
+    """K8 bitwise against its plain version at the int8 net's products at
+    every served bucket (M 8, 32, 256) and at coverage shapes; loop times
+    beside the plain version, ``torch._int_mm`` (the int32 product alone,
+    cuBLASLt) and the bound. Device times and host times per call come in
+    phase 19 (``int8_device_time_phase``)."""
     gen = torch.Generator().manual_seed(SEED + 12)
 
     def case(M, K, N, zero_rows=()):
@@ -1384,9 +1539,10 @@ def int8_kernel_phase():
         x_q, x_s = k8.quantize_rows(x.cuda())
         return x_q.contiguous(), w_q.contiguous(), x_s, w_s
 
-    main = [(256, 512, 512), (256, 512, 512), (256, 512, 256)]
-    cover = [(1, 512, 512), (8, 512, 256), (33, 512, 512), (33, 37, 70),
-             (5, 515, 129), (64, 256, 256), (40, 512, 256, (0, 7, 39))]
+    main = [s for M in INT8_BUCKETS for s in int8_products(M)]
+    cover = [(1, 512, 512), (33, 512, 512), (33, 37, 70), (5, 515, 129),
+             (64, 256, 256), (40, 512, 256, (0, 7, 39)), (17, 1040, 24),
+             (300, 16, 8), (16, 4096, 40)]
     rows, max_err = [], 0.0
     for i, shape in enumerate(main + cover):
         M, K, N = shape[:3]
@@ -1403,20 +1559,57 @@ def int8_kernel_phase():
             continue
         flops, nbytes = k8.roofline(M, K, N)
         bound, by = _roof_ms(flops, nbytes, PEAK_INT8_OPS)
-        xq, wq = args[0], args[1]
+        lib, lib_err = _int_mm_or_error(args[0], args[1])
         rows.append({"shape": [M, K, N], "M": M, "K": K, "N": N,
-                     "ms": _time_ms(lambda: k8.int8_matmul_fused(*args)),
+                     "plan": list(k8.tile_plan(M, K, N)),
+                     "ms_loop": _time_ms(lambda: k8.int8_matmul_fused(*args)),
                      "plain_ms": _time_ms(lambda: k8.int8_matmul_plain(*args)),
-                     "library_ms": _time_ms(lambda: torch._int_mm(xq, wq)),
+                     "library_ms_loop": _time_ms(lib) if lib else None,
+                     "library_error": lib_err,
                      "bound_ms": bound, "bound_by": by})
-    # one forward of the int8 net at B 256: three products
+    log("K8 phase: bitwise at", len(main + cover), "shapes;", rows)
+    return rows, max_err
+
+
+def int8_device_time_phase(rows):
+    """K8 and ``torch._int_mm`` by device time (the profiler's kernel sums
+    over 20 calls) at each served product of ``rows`` (filled in as "ms"
+    and "library_ms"), and the host time of one call of each behind a
+    sleep kernel (300 calls enqueued while the card sleeps: the host alone;
+    "host_us" and "library_host_us"); then per forward at each bucket: the
+    three products summed."""
+    gen = torch.Generator().manual_seed(SEED + 28)
+    for r in rows:
+        x = torch.randn(r["M"], r["K"], generator=gen).cuda()
+        w = torch.randn(r["K"], r["N"], generator=gen).cuda()
+        (xq, xs), (wq, ws) = k8.quantize_rows(x), k8.quantize_weights(w)
+        xq, wq = xq.contiguous(), wq.contiguous()
+        call = lambda: k8.int8_matmul_fused(xq, wq, xs, ws)
+        lib, _ = _int_mm_or_error(xq, wq)
+        r["ms"] = _device_ms_per_call(call, name="int8")
+        r["library_ms"] = _device_ms_per_call(lib) if lib else None
+        for key, fn in (("host_us", call), ("library_host_us", lib)):
+            if fn is None:
+                r[key] = None
+                continue
+            fn()
+            r[key] = _behind_sleep(lambda record: [fn() for _ in range(300)]
+                                   ) / 300 * 1e3
     per = {(r["M"], r["K"], r["N"]): r for r in rows}
-    total = {k: sum(per[s[:3]][k] for s in main)
-             for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
-    total["bound_by"] = rows[0]["bound_by"]
-    log("K8 phase: bitwise at", len(main + cover), "shapes; per forward",
-        total)
-    return rows, total, max_err
+    totals = {}
+    for M in INT8_BUCKETS:
+        prods = [per[s] for s in int8_products(M)]
+        t = {"M": M}
+        for k in ("ms", "ms_loop", "plain_ms", "library_ms",
+                  "library_ms_loop", "bound_ms"):
+            vals = [p[k] for p in prods]
+            t[k] = None if None in vals else sum(vals)
+        t["bound_by"] = prods[0]["bound_by"]
+        t["host_us_per_call"] = [p["host_us"] for p in prods]
+        t["library_host_us_per_call"] = [p["library_host_us"] for p in prods]
+        totals[M] = t
+    log("K8 device time, per forward:", totals)
+    return totals
 
 
 # ----------------------------------------------------------------- phase 11
@@ -2016,7 +2209,7 @@ def main() -> int:
     char_train = char_train_phase()
     char_cross = char_cross_device_phase()
     k7_errs, k7_rows, k7_bf16_rows = conv_kernel_phase()
-    k8_rows, k8_total, k8_err = int8_kernel_phase()
+    k8_rows, k8_err = int8_kernel_phase()
     gnet, gserve = googlenet_serve_phase()
     mlp, i8serve = int8_serve_phase()
     cnn_cross = cnn_cross_device_phase(gnet, mlp)
@@ -2030,6 +2223,10 @@ def main() -> int:
     par_cross = parallel_cross_device_phase()
     k7_total = conv_device_time_phase(k7_rows)
     ring_hop_device_time_phase(ring_hops)
+    k8_totals = int8_device_time_phase(k8_rows)
+    k8_total = k8_totals[max(INT8_BUCKETS)]
+    k4_device_time_phase(k4_rows)
+    lstm_device = lstm_device_time_phase()
     top = next(r for r in rows if r["BH"] == 16 and r["T"] == 1024
                and r["dtype"] == str(torch.float32))
     serve_k1 = slice_row["flash_attention_launches"]
@@ -2094,7 +2291,10 @@ def main() -> int:
             "plain_ms": lstm_top[f"{kind}_plain_ms"],
             "bound_ms": lstm_top[f"{kind}_bound_ms"],
             "bound_by": lstm_top[f"{kind}_bound_by"],
-            "library_ms": lstm_top[f"{kind}_library_ms"]})
+            "library_ms": lstm_top[f"{kind}_library_ms"],
+            "device_ms_by_shape": {k.split("_", 1)[1]: v
+                                   for k, v in lstm_device.items()
+                                   if k.startswith(kind)}})
     kernels.append({
         "name": "conv1x1_bias_relu", "route": "cuda",
         "source": "deeplearning4j_tpu_torch/csrc/conv1x1_bias_relu.cu",
@@ -2118,10 +2318,14 @@ def main() -> int:
         "launches": i8serve["k8_launches"],
         "launches_by_path": {"serve_int8": i8serve["k8_launches"]},
         "max_abs_err": k8_err,
-        "shape": "the 3 products of one int8 net forward, M 256",
+        "shape": "the 3 products of one int8 net forward, M 256 (ms and "
+                 "library_ms: device time; _loop: timed loops of calls)",
         "ms": k8_total["ms"], "plain_ms": k8_total["plain_ms"],
         "bound_ms": k8_total["bound_ms"], "bound_by": k8_total["bound_by"],
-        "library_ms": k8_total["library_ms"]})
+        "library_ms": k8_total["library_ms"],
+        "ms_loop": k8_total["ms_loop"],
+        "library_ms_loop": k8_total["library_ms_loop"],
+        "per_bucket": k8_totals})
     k4_top = next(r for r in k4_rows if r["hop"] == "full"
                   and r["dtype"] == str(torch.float32))
     ring_k4 = sum(ring_row[d]["launches"]["flash_block_update"]
@@ -2134,10 +2338,16 @@ def main() -> int:
         "max_abs_err": k4_errs[torch.float32],
         "max_abs_err_f32": k4_errs[torch.float32],
         "max_abs_err_bf16": k4_errs[torch.bfloat16],
-        "shape": "one full hop: BH=8 Tq=Tk=2048 D=64 float32",
-        "ms": k4_top["ms"], "plain_ms": k4_top["plain_ms"],
+        "shape": "one full hop: BH=8 Tq=Tk=2048 D=64 float32 (ms: device "
+                 "time; ms_loop: a timed loop)",
+        "ms": k4_top["device_ms"], "ms_loop": k4_top["ms"],
+        "plain_ms": k4_top["plain_ms"],
         "bound_ms": k4_top["bound_ms"], "bound_by": k4_top["bound_by"],
-        "library_ms": None})
+        "library_ms": None,
+        "hops_device_ms": {f'{r["dtype"]} {r["hop"]}': r["device_ms"]
+                           for r in k4_rows},
+        "hops_device_ms_rounds": {f'{r["dtype"]} {r["hop"]}':
+                                  r["device_ms_rounds"] for r in k4_rows}})
     k9_top = next(r for r in k9_rows if r["n"] == n_params
                   and r["dtype"] == str(torch.float32))
     kernels.append({

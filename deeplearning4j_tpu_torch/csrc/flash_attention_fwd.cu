@@ -50,7 +50,10 @@
 // buffered at D 256, where two stages exceed 227 KB). P goes through shared
 // memory in f32, read back as float4 by the warp that wrote it.
 //
-// Both: causal query tiles are scheduled heaviest first (the grid walks
+// Both: the key loop (S, the online softmax, P.V) is csrc/flash_fwd_tile.cuh,
+// shared with the ring hop's carry kernel (csrc/flash_block_update.cu);
+// this file holds the scheduling, the empty start and the normalising
+// epilogue. Causal query tiles are scheduled heaviest first (the grid walks
 // query tiles from the last), and ragged edges are masked in the kernel.
 // Left for later: a producer warp with TMA and mbarriers (warp
 // specialisation), a persistent grid, larger key tiles, fp8.
@@ -58,32 +61,23 @@
 #include <cuda_bf16.h>
 #include <math.h>
 
+#include "flash_fwd_tile.cuh"
 #include "hopper_mma.cuh"
 
 namespace {
 
 using namespace dl4j_sm90;
+using dl4j_fwd::BK;
+using dl4j_fwd::NEG;
+using dl4j_fwd::THREADS;
 using bf16 = __nv_bfloat16;
-
-constexpr float NEG = -1e30f;
-constexpr int THREADS = 256;
-constexpr int BK = 64;                  // keys per streamed tile
-
-__device__ __forceinline__ float quad_max(float x) {
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-    return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-__device__ __forceinline__ float quad_sum(float x) {
-    x += __shfl_xor_sync(0xffffffffu, x, 1);
-    return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
 
 // ------------------------------------------------------------ bf16, wgmma
 template <int D> struct Bf16Cfg {
-    static constexpr int NC = (D + PANEL - 1) / PANEL;   // 64-column panels
+    static constexpr int NC = dl4j_fwd::Panels<D>::NC;   // 64-column panels
     static constexpr int BQ = 128;                       // two warpgroups
     static constexpr uint32_t Q_BYTES = NC * BQ * ROW_BYTES;
-    static constexpr uint32_t KV_BYTES = NC * BK * ROW_BYTES;
+    static constexpr uint32_t KV_BYTES = dl4j_fwd::Panels<D>::TILE_BYTES;
     static constexpr size_t SMEM = 1024 + Q_BYTES + 4 * (size_t)KV_BYTES;
 };
 
@@ -139,79 +133,10 @@ flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
         const int k0 = j * BK;
         if (skip_above && k0 > wg_last) continue;   // no visible pair
         const uint32_t sK = sKV + (j & 1) * 2 * C::KV_BYTES;
-        const uint32_t sV = sK + C::KV_BYTES;
-
-        float s[32];
-#pragma unroll
-        for (int i = 0; i < 32; ++i) s[i] = 0.f;
-        fence_regs(s);
-        wg_fence();
-#pragma unroll
-        for (int kk = 0; kk < NC * 4; ++kk) {
-            const uint32_t off = (uint32_t)(kk % 4) * 32;   // 16 columns
-            wgmma_ss(s,
-                     desc(sQ + (kk / 4) * (C::BQ * ROW_BYTES)
-                          + wg * 64 * ROW_BYTES + off, 16, 1024),
-                     desc(sK + (kk / 4) * (BK * ROW_BYTES) + off, 16, 1024),
-                     kk > 0);
-        }
-        wg_commit();
-        wg_wait<0>();
-        fence_regs(s);
-
-        // scores of rows r0 (s[4j + e]) and r1 (s[4j + 2 + e]), key
-        // k0 + 8j + 2c + e
-        float mx0 = NEG, mx1 = NEG;
-#pragma unroll
-        for (int i = 0; i < 32; ++i) {
-            const int row = (i & 2) ? r1 : r0;
-            const int key = k0 + 8 * (i / 4) + 2 * c + (i & 1);
-            float x = s[i] * scale;
-            if (key >= seq) {
-                x = -INFINITY;           // past the ragged edge: no key
-            } else {
-                if (causal && key > row) x = NEG;
-                if (mrow && !(mrow[key] > 0.f)) x = NEG;
-            }
-            s[i] = x;
-            if (i & 2) mx1 = fmaxf(mx1, x); else mx0 = fmaxf(mx0, x);
-        }
-        const float mn0 = fmaxf(m0, quad_max(mx0));
-        const float mn1 = fmaxf(m1, quad_max(mx1));
-        const float corr0 = expf(m0 - mn0), corr1 = expf(m1 - mn1);
-        float rs0 = 0.f, rs1 = 0.f;
-#pragma unroll
-        for (int i = 0; i < 32; ++i) {
-            const float p = expf(s[i] - ((i & 2) ? mn1 : mn0));
-            s[i] = p;
-            if (i & 2) rs1 += p; else rs0 += p;
-        }
-        l0 = l0 * corr0 + quad_sum(rs0);
-        l1 = l1 * corr1 + quad_sum(rs1);
-        m0 = mn0;
-        m1 = mn1;
-
-        uint32_t a[4][4];                // P in bf16, the A operand
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk) frag_to_a(s, kk, a[kk]);
-#pragma unroll
-        for (int n = 0; n < NC; ++n) {
-#pragma unroll
-            for (int i = 0; i < 32; ++i) acc[n][i] *= (i & 2) ? corr1 : corr0;
-            fence_regs(acc[n]);
-        }
-        wg_fence();
-#pragma unroll
-        for (int n = 0; n < NC; ++n)
-#pragma unroll
-            for (int kk = 0; kk < 4; ++kk)
-                wgmma_rs(acc[n], a[kk],
-                         desc(sV + n * (BK * ROW_BYTES) + kk * 16 * ROW_BYTES,
-                              BK * ROW_BYTES, 1024));
-        wg_commit();
-        wg_wait<0>();
-#pragma unroll
-        for (int n = 0; n < NC; ++n) fence_regs(acc[n]);
+        dl4j_fwd::bf16_key_tile<D>(acc, m0, m1, l0, l1,
+                                   sQ + wg * 64 * ROW_BYTES,
+                                   C::BQ * ROW_BYTES, sK, sK + C::KV_BYTES,
+                                   k0, r0, r1, c, seq, causal, mrow, scale);
     }
     cp_async_wait<0>();
 
@@ -239,16 +164,7 @@ flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // --------------------------------------------------- f32, register tiles
-template <int D> struct F32Cfg {
-    static constexpr int DP = F32Rows<D>::DP;   // padded head dim
-    static constexpr int LD = F32Rows<D>::LD;   // row stride, floats
-    static constexpr int LDP = BK + 4;      // P row stride
-    static constexpr int BQ = 64;
-    static constexpr int STAGES = DP > 128 ? 1 : 2;
-    static constexpr size_t SMEM =
-        ((size_t)(BQ + 2 * BK * STAGES) * LD + (size_t)BQ * LDP)
-        * sizeof(float);
-};
+template <int D> using F32Cfg = dl4j_fwd::F32Fwd<D>;
 
 template <int D>
 __global__ void __launch_bounds__(THREADS)
@@ -257,29 +173,16 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
               float* __restrict__ o, float* __restrict__ lse, int seq,
               int heads, int causal, float scale) {
     using C = F32Cfg<D>;
-    constexpr int LD = C::LD, LDP = C::LDP, NC = C::DP / 64;
+    constexpr int NC = C::NC;
     extern __shared__ __align__(16) float smf[];
-    float* sQ = smf;
-    float* sKV = sQ + C::BQ * LD;            // stage s: K at s*2*BK*LD
-    float* sP = sKV + 2 * BK * C::STAGES * LD;
 
     const int tid = threadIdx.x;
-    const int ty = tid / 16, tx = tid % 16;  // rows 4ty.., keys tx + 16j
+    const int ty = tid / 16, tx = tid % 16;  // rows 4ty.., columns 4tx..
     const int bh = blockIdx.x;
     const int q0 = (gridDim.y - 1 - blockIdx.y) * C::BQ;
     const size_t base = (size_t)bh * seq * D;
     const float* mrow = mask ? mask + (size_t)(bh / heads) * seq : nullptr;
     const int k_end = (causal && !mrow) ? min(seq, q0 + C::BQ) : seq;
-    const int ntiles = (k_end + BK - 1) / BK;
-
-    // K and V rows [t0, t0 + BK) into the stage at dst
-    auto load_kv = [&](float* dst, int t0) {
-        load_rows_f32<D, BK>(dst, k + base, t0, seq, tid, THREADS);
-        load_rows_f32<D, BK>(dst + BK * LD, v + base, t0, seq, tid, THREADS);
-    };
-    load_rows_f32<D, C::BQ>(sQ, q + base, q0, seq, tid, THREADS);
-    if constexpr (C::STAGES == 2) load_kv(sKV, 0);
-    cp_async_commit();
 
     float acc[4][NC][4];
 #pragma unroll
@@ -292,123 +195,8 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < 4; ++i) { m[i] = NEG; l[i] = 0.f; }
 
-    for (int j = 0; j < ntiles; ++j) {
-        __syncthreads();
-        const float* sK;
-        if constexpr (C::STAGES == 2) {
-            if (j + 1 < ntiles)
-                load_kv(sKV + ((j + 1) & 1) * 2 * BK * LD, (j + 1) * BK);
-            cp_async_commit();
-            cp_async_wait<1>();
-            sK = sKV + (j & 1) * 2 * BK * LD;
-        } else {
-            load_kv(sKV, j * BK);
-            cp_async_commit();
-            cp_async_wait<0>();
-            sK = sKV;
-        }
-        __syncthreads();
-        const float* sV = sK + BK * LD;
-        const int k0 = j * BK;
-
-        float s[4][4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int jj = 0; jj < 4; ++jj) s[i][jj] = 0.f;
-#pragma unroll 4
-        for (int d = 0; d < C::DP; d += 4) {
-            float4 qv[4], kv[4];
-#pragma unroll
-            for (int i = 0; i < 4; ++i)
-                qv[i] = ld4(sQ + (4 * ty + i) * LD + d);
-#pragma unroll
-            for (int jj = 0; jj < 4; ++jj)
-                kv[jj] = ld4(sK + (tx + 16 * jj) * LD + d);
-#pragma unroll
-            for (int i = 0; i < 4; ++i)
-#pragma unroll
-                for (int jj = 0; jj < 4; ++jj) {
-                    float t = s[i][jj];
-                    t = fmaf(qv[i].x, kv[jj].x, t);
-                    t = fmaf(qv[i].y, kv[jj].y, t);
-                    t = fmaf(qv[i].z, kv[jj].z, t);
-                    s[i][jj] = fmaf(qv[i].w, kv[jj].w, t);
-                }
-        }
-
-        float corr[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-            const int row = q0 + 4 * ty + i;
-            float mx = NEG;
-#pragma unroll
-            for (int jj = 0; jj < 4; ++jj) {
-                const int key = k0 + tx + 16 * jj;
-                float x = s[i][jj] * scale;
-                if (key >= seq) {
-                    x = -INFINITY;
-                } else {
-                    if (causal && key > row) x = NEG;
-                    if (mrow && !(mrow[key] > 0.f)) x = NEG;
-                }
-                s[i][jj] = x;
-                mx = fmaxf(mx, x);
-            }
-            // a row's 16 threads are lanes of one half-warp
-#pragma unroll
-            for (int w = 1; w < 16; w *= 2)
-                mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, w));
-            const float m_new = fmaxf(m[i], mx);
-            corr[i] = expf(m[i] - m_new);
-            float rs = 0.f;
-#pragma unroll
-            for (int jj = 0; jj < 4; ++jj) {
-                const float p = expf(s[i][jj] - m_new);
-                rs += p;
-                sP[(4 * ty + i) * LDP + tx + 16 * jj] = p;
-            }
-#pragma unroll
-            for (int w = 1; w < 16; w *= 2)
-                rs += __shfl_xor_sync(0xffffffffu, rs, w);
-            l[i] = l[i] * corr[i] + rs;
-            m[i] = m_new;
-        }
-        __syncwarp();                    // P rows, written by this half-warp
-
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int n = 0; n < NC; ++n)
-#pragma unroll
-                for (int e = 0; e < 4; ++e) acc[i][n][e] *= corr[i];
-#pragma unroll 2
-        for (int kk = 0; kk < BK; kk += 4) {
-            float4 pv[4];
-#pragma unroll
-            for (int i = 0; i < 4; ++i)
-                pv[i] = ld4(sP + (4 * ty + i) * LDP + kk);
-#pragma unroll
-            for (int n = 0; n < NC; ++n) {
-                float4 vv[4];
-#pragma unroll
-                for (int u = 0; u < 4; ++u)
-                    vv[u] = ld4(sV + (kk + u) * LD + n * 64 + 4 * tx);
-#pragma unroll
-                for (int i = 0; i < 4; ++i) {
-                    const float p4[4] = {pv[i].x, pv[i].y, pv[i].z, pv[i].w};
-#pragma unroll
-                    for (int u = 0; u < 4; ++u) {
-                        acc[i][n][0] = fmaf(p4[u], vv[u].x, acc[i][n][0]);
-                        acc[i][n][1] = fmaf(p4[u], vv[u].y, acc[i][n][1]);
-                        acc[i][n][2] = fmaf(p4[u], vv[u].z, acc[i][n][2]);
-                        acc[i][n][3] = fmaf(p4[u], vv[u].w, acc[i][n][3]);
-                    }
-                }
-            }
-        }
-    }
-    cp_async_wait<0>();
+    dl4j_fwd::f32_pass<D>(acc, m, l, smf, q + base, k + base, v + base, q0,
+                          seq, seq, k_end, causal, mrow, scale, tid);
 
 #pragma unroll
     for (int i = 0; i < 4; ++i) {

@@ -1,5 +1,5 @@
 // One ring-attention hop folded into a raw online-softmax carry, for Hopper
-// (sm_90a), plain CUDA C++ behind a C interface (loaded with ctypes by
+// (sm_90a), CUDA C++ behind a C interface (loaded with ctypes by
 // deeplearning4j_tpu_torch/ops/flash_attention.py).
 //
 // Replaces the TPU kernel deeplearning4j_tpu/ops/pallas_attention.py
@@ -19,216 +19,457 @@
 //   operands are bf16 with f32 accumulation and p is rounded to bf16 before
 //   the p . v product, as the TPU kernel's p.astype(v.dtype) does; the
 //   carry stays f32. The outputs are fresh arrays: the incoming carry is
-//   only read (a thread reads its own carry values before any write, so
-//   passing the same pointers for in and out would also be safe).
+//   only read.
 //
 // What bounds it on this card: 4 * D flops per visible query/key pair
 // (Tq * Tk pairs, about half on the diagonal hop) against q, k, v read once
 // and acc, m, l read and written once. At the ring's block (Tq = Tk = 2048,
 // D 64) that is 256 flops a byte in f32 against the card's balance of
 // 67 TFLOP/s / 3.35 TB/s = 20, so the hop is bound by operations in f32;
-// in bf16 (peak 989 TFLOP/s, balance 295) it is bound by bytes.
+// in bf16 (peak 989 TFLOP/s, balance 295) it is bound by bytes. The earlier
+// design (scalar FMAs, four threads a row, P through shared memory) took
+// the same time in both dtypes, 19 % of the f32 bound, and its diagonal
+// hop cost a full one.
 //
-// Design, and what it leaves for later: the tile loop of
-// flash_attention_fwd.cu (one thread block per (bh, 64-row query tile), 256
-// threads, four threads per query row, 64-key tiles of K and V staged in
-// shared memory, scalar FMAs, the row's four threads agreeing on max and
-// sum with warp shuffles, P through shared memory, a quarter of the row's
-// f32 accumulator in each thread's registers) with the running (acc, m, l)
-// loaded from the carry before the loop and stored raw after it. Causal
-// key tiles wholly above the diagonal are skipped. Ragged edges (Tq or Tk
-// not a multiple of 64) are masked in the kernel. Neither tensor cores
-// (wgmma) nor TMA, no overlap of loads with math: later work, shared with
-// the forward kernel.
+// Design: the forward's key loop (csrc/flash_fwd_tile.cuh, shared with
+// K1) with the carry loaded into the loop's state before it and stored raw
+// after it.
+// - A block owns 64 query rows at a time. At D 64 it holds two groups of
+//   256 threads that take alternate key tiles (bf16: chunks of two), each
+//   with its own copy of Q, its own stages and its own barrier; above D 64
+//   it is one group. Warpgroup 0 starts from the carry, the others empty;
+//   at the end the others hand their (acc, m, l) to it through shared
+//   memory, and it merges them (m = max, each part scaled by e^(m_i - m),
+//   always in the same order, so every run gives the same bits) and stores
+//   the carry.
+// - bf16: a group's two warpgroups share its Q, staged once into
+//   128-byte-swizzled panels, and split its key tiles, each step a
+//   two-stage ring of 16-byte cp.async copies bringing 128 keys of K and V
+//   (one stage at D 256); each runs the wgmma tile loop on its 64 keys.
+// - f32: K1's register-tiled FMA pass, one a group.
+// - Both: on the diagonal hop a block takes two query tiles, i and n-1-i
+//   (the heavier first), as the dq kernel (K2) pairs them, so every block
+//   does n+1 key tiles and the grid of n/2 pairs has no block that carries
+//   a whole row of key tiles while the others idle: the diagonal hop costs
+//   about half of a full one. Key tiles wholly above a query tile's
+//   diagonal are skipped; ragged Tq and Tk are masked in the kernel.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 
+#include "flash_fwd_tile.cuh"
+#include "hopper_mma.cuh"
+
 namespace {
 
-constexpr int BQ = 64;              // query rows per block
-constexpr int BK = 64;              // keys per tile
-constexpr int TPR = 4;              // threads per query row
-constexpr int THREADS = BQ * TPR;   // 256
-constexpr int KPT = BK / TPR;       // keys each thread scores per tile
-constexpr int LDP = BK + 1;         // padded row stride of the P tile
-constexpr float NEG = -1e30f;
+using namespace dl4j_sm90;
+using dl4j_fwd::BK;
+using dl4j_fwd::NEG;
+using bf16 = __nv_bfloat16;
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+constexpr int BQ = 64;                  // query rows a block owns at a time
 
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-    return __float2bfloat16(x);
+// The block's query tiles: tile `item`, or with causal attention the pair
+// (n-1-item, item), heavier first; returns the tile of `pass` or -1.
+__device__ __forceinline__ int query_tile(int pass, int item, int ntq,
+                                          int causal) {
+    if (!causal) return pass == 0 ? item : -1;
+    const int hi = ntq - 1 - item;
+    if (pass == 0) return hi;
+    return item < hi ? item : -1;
 }
 
-// Row stride in shared memory, in elements: an odd number of 32-bit words.
-template <typename T, int D> struct Stride {
-    static constexpr int value = D + (sizeof(T) == 4 ? 1 : 2);
+struct Args {
+    const void *q, *k, *v, *acc_in, *m_in, *l_in;
+    void *acc_out, *m_out, *l_out;
+    int bh, tq, tk, causal;
+    float scale;
+    cudaStream_t stream;
 };
 
-template <typename T, int D>
-constexpr size_t smem_bytes() {
-    return (size_t)(BQ + 2 * BK) * Stride<T, D>::value * sizeof(T)
-           + (size_t)BQ * LDP * sizeof(float);
-}
+// Groups: at D 64 (the ring's head dim) a block holds two independent
+// groups of 256 threads that take alternate chunks of key tiles, each with
+// its own copy of Q, its own ring of stages and its own barrier, so that
+// the diagonal hop's n/2 pair blocks keep as many warps busy on each SM as
+// the full hop's n blocks do; the groups' states are merged at the end of
+// each query tile. Above D 64 the accumulators need more than 128
+// registers a thread and a block is one group.
+template <int D> constexpr int groups_for() { return D == 64 ? 2 : 1; }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS)
-block_update_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const float* acc_in,
-                    const float* m_in, const float* l_in, float* acc_out,
-                    float* m_out, float* l_out, int tq, int tk, int causal,
-                    float scale) {
-    constexpr int LD = Stride<T, D>::value;
-    constexpr int DPT = D / TPR;    // accumulator columns per thread
-    extern __shared__ __align__(16) unsigned char smem_raw[];
-    T* sQ = reinterpret_cast<T*>(smem_raw);
-    T* sK = sQ + BQ * LD;
-    T* sV = sK + BK * LD;
-    float* sP = reinterpret_cast<float*>(sV + BK * LD);   // [BQ][LDP]
+// The other warpgroups' states (acc [WG-1][BQ][LDR], then m and l
+// [WG-1][BQ]) go through shared memory to warpgroup 0, which merges them
+// into its own in warpgroup order (m = max, each part scaled by
+// e^(m_i - m)), so every run gives the same bits.
+
+// ------------------------------------------------------------ bf16, wgmma
+template <int D> struct Bf16Cfg {
+    static constexpr int GROUPS = groups_for<D>();
+    static constexpr int WGG = 2;                  // warpgroups a group
+    static constexpr int WG = GROUPS * WGG;
+    static constexpr int THREADS = 128 * WG;
+    static constexpr int NC = dl4j_fwd::Panels<D>::NC;
+    static constexpr uint32_t TILE_BYTES = dl4j_fwd::Panels<D>::TILE_BYTES;
+    static constexpr int STAGES = NC > 2 ? 1 : 2;
+    // K and V, a 64-key tile of each for each warpgroup of a group
+    static constexpr uint32_t STAGE_BYTES = 2 * WGG * TILE_BYTES;
+    // a group's Q panels, then its stages
+    static constexpr uint32_t GROUP_BYTES = TILE_BYTES + STAGES * STAGE_BYTES;
+    static constexpr int LDR = NC * PANEL + 8;   // handed-over acc row, floats
+    static constexpr size_t SMEM = 1024 + (size_t)GROUPS * GROUP_BYTES;
+    static_assert((size_t)(WG - 1) * BQ * (LDR + 2) * sizeof(float)
+                      <= (size_t)GROUPS * GROUP_BYTES,
+                  "the other warpgroups' states must fit in shared memory");
+};
+
+template <int D>
+__global__ void __launch_bounds__(Bf16Cfg<D>::THREADS)
+block_update_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                  const bf16* __restrict__ v,
+                  const float* __restrict__ acc_in,
+                  const float* __restrict__ m_in,
+                  const float* __restrict__ l_in, float* __restrict__ acc_out,
+                  float* __restrict__ m_out, float* __restrict__ l_out,
+                  int tq, int tk, int causal, float scale) {
+    using C = Bf16Cfg<D>;
+    constexpr int NC = C::NC, WG = C::WG, WGG = C::WGG, GROUPS = C::GROUPS;
+    extern __shared__ __align__(1024) unsigned char smem_raw[];
+    const uint32_t sBase = (smem_u32(smem_raw) + 1023u) & ~1023u;
+    // after the key loop: the other warpgroups' states
+    float* sPart =
+        reinterpret_cast<float*>(smem_raw + (sBase - smem_u32(smem_raw)));
+    float* sM = sPart + (WG - 1) * BQ * C::LDR;
+    float* sL = sM + (WG - 1) * BQ;
 
     const int tid = threadIdx.x;
-    const int r = tid / TPR;        // query row within the tile
-    const int c = tid % TPR;        // this thread's share of the row
-    const int bh = blockIdx.y;
-    const int q0 = blockIdx.x * BQ;
-    const int qrow = q0 + r;
-    const bool live = qrow < tq;
-    const size_t qbase = (size_t)bh * tq * D;
-    const size_t kbase = (size_t)bh * tk * D;
-    const size_t row = (size_t)bh * tq + qrow;
-    const T zero = from_f<T>(0.f);
+    const int grp = tid / 256, gtid = tid % 256;   // group, thread in it
+    const int wg = tid / 128, wl = wg % WGG;       // warpgroup, in the group
+    const int warp = (tid % 128) / 32, lane = tid % 32;
+    const int g = lane / 4, c = lane % 4;
+    const int bar = 1 + grp;                       // the group's barrier
+    const uint32_t sQ = sBase + grp * C::GROUP_BYTES;
+    const uint32_t sSt = sQ + C::TILE_BYTES;
+    const int bh = blockIdx.x;
+    const int ntq = (tq + BQ - 1) / BQ;
+    const bf16* qb = q + (size_t)bh * tq * D;
+    const bf16* kb = k + (size_t)bh * tk * D;
+    const bf16* vb = v + (size_t)bh * tk * D;
 
-    for (int i = tid; i < BQ * D; i += THREADS) {
-        const int rr = i / D, dd = i % D;
-        const int t = q0 + rr;
-        sQ[rr * LD + dd] = t < tq ? q[qbase + (size_t)t * D + dd] : zero;
-    }
-
-    // the incoming carry of this row
-    float acc[DPT];
+    for (int pass = 0; pass < 2; ++pass) {
+        const int qt = query_tile(pass, blockIdx.y, ntq, causal);
+        if (qt < 0) break;
+        const int q0 = qt * BQ;
+        // keys [0, k_end): causal tiles above the diagonal hold no pair
+        const int k_end = causal ? min(tk, q0 + BQ) : tk;
+        // chunks of WGG key tiles; the group takes chunks grp, grp + GROUPS..
+        const int nchunks = (k_end + WGG * BK - 1) / (WGG * BK);
+        const int nsteps = nchunks > grp ? (nchunks - grp + GROUPS - 1)
+                                                / GROUPS : 0;
+        // K and V rows of chunk ch into a stage, zeros from k_end on
+        auto load_step = [&](uint32_t st, int ch) {
 #pragma unroll
-    for (int j = 0; j < DPT; ++j)
-        acc[j] = live ? acc_in[row * D + c + TPR * j] : 0.f;
-    float m = live ? m_in[row] : NEG;
-    float l = live ? l_in[row] : 0.f;
+            for (int w = 0; w < WGG; ++w) {
+                const int t0 = (ch * WGG + w) * BK;
+                load_panels<D, BK>(st + w * C::TILE_BYTES, kb, t0, k_end,
+                                   gtid, 256);
+                load_panels<D, BK>(st + (WGG + w) * C::TILE_BYTES, vb, t0,
+                                   k_end, gtid, 256);
+            }
+        };
+        __syncthreads();                 // the last pass is done with smem
+        load_panels<D, BQ>(sQ, qb, q0, tq, gtid, 256);
+        if constexpr (C::STAGES == 2)
+            if (nsteps > 0) load_step(sSt, grp);
+        cp_async_commit();
 
-    // causal: the tile holding the diagonal is the last one with a visible key
-    const int k_end = causal ? min(tk, q0 + BQ) : tk;
-    for (int k0 = 0; k0 < k_end; k0 += BK) {
-        __syncthreads();            // the previous tile is fully consumed
-        for (int i = tid; i < BK * D; i += THREADS) {
-            const int rr = i / D, dd = i % D;
-            const int t = k0 + rr;
-            const bool in = t < tk;
-            sK[rr * LD + dd] = in ? k[kbase + (size_t)t * D + dd] : zero;
-            sV[rr * LD + dd] = in ? v[kbase + (size_t)t * D + dd] : zero;
+        // this thread's fragment rows; warpgroup 0 starts from the carry,
+        // the others empty
+        const int lr0 = warp * 16 + g;
+        const int r0 = q0 + lr0, r1 = r0 + 8;
+        float acc[NC][32];
+        float m0 = NEG, m1 = NEG, l0 = 0.f, l1 = 0.f;
+#pragma unroll
+        for (int n = 0; n < NC; ++n)
+#pragma unroll
+            for (int i = 0; i < 32; ++i) acc[n][i] = 0.f;
+        if (wg == 0) {
+#pragma unroll
+            for (int hi = 0; hi < 2; ++hi) {
+                const int row = hi ? r1 : r0;
+                if (row >= tq) continue;
+                const size_t at = (size_t)bh * tq + row;
+#pragma unroll
+                for (int n = 0; n < NC; ++n)
+#pragma unroll
+                    for (int jj = 0; jj < 8; ++jj) {
+                        const int col = n * PANEL + 8 * jj + 2 * c;
+                        if (col < D) {
+                            const float2 a = *reinterpret_cast<const float2*>(
+                                acc_in + at * D + col);
+                            acc[n][4 * jj + 2 * hi] = a.x;
+                            acc[n][4 * jj + 2 * hi + 1] = a.y;
+                        }
+                    }
+                if (hi) { m1 = m_in[at]; l1 = l_in[at]; }
+                else { m0 = m_in[at]; l0 = l_in[at]; }
+            }
+        }
+
+        for (int s = 0; s < nsteps; ++s) {
+            const int ch = grp + s * GROUPS;
+            dl4j_fwd::group_sync(bar, 256);   // the stage to fill is consumed
+            uint32_t st;
+            if constexpr (C::STAGES == 2) {
+                if (s + 1 < nsteps)
+                    load_step(sSt + ((s + 1) & 1) * C::STAGE_BYTES,
+                              ch + GROUPS);
+                cp_async_commit();
+                cp_async_wait<1>();      // this thread's copies of step s
+                st = sSt + (s & 1) * C::STAGE_BYTES;
+            } else {
+                load_step(sSt, ch);
+                cp_async_commit();
+                cp_async_wait<0>();
+                st = sSt;
+            }
+            fence_async_shared();
+            dl4j_fwd::group_sync(bar, 256);   // the group's copies of step s
+            const int k0 = (ch * WGG + wl) * BK;   // this warpgroup's keys
+            if (k0 >= k_end) continue;
+            dl4j_fwd::bf16_key_tile<D>(acc, m0, m1, l0, l1, sQ,
+                                       BQ * ROW_BYTES,
+                                       st + wl * C::TILE_BYTES,
+                                       st + (WGG + wl) * C::TILE_BYTES, k0,
+                                       r0, r1, c, tk, causal, nullptr, scale);
+        }
+        cp_async_wait<0>();
+        __syncthreads();                 // every group is done with its smem
+
+        if (wg > 0) {
+            float* part = sPart + (wg - 1) * BQ * C::LDR;
+#pragma unroll
+            for (int hi = 0; hi < 2; ++hi) {
+                const int lr = lr0 + 8 * hi;
+#pragma unroll
+                for (int n = 0; n < NC; ++n)
+#pragma unroll
+                    for (int jj = 0; jj < 8; ++jj) {
+                        const int i = 4 * jj + 2 * hi;
+                        *reinterpret_cast<float2*>(
+                            part + lr * C::LDR + n * PANEL + 8 * jj + 2 * c) =
+                            make_float2(acc[n][i], acc[n][i + 1]);
+                    }
+                if (c == 0) {
+                    sM[(wg - 1) * BQ + lr] = hi ? m1 : m0;
+                    sL[(wg - 1) * BQ + lr] = hi ? l1 : l0;
+                }
+            }
         }
         __syncthreads();
-
-        float s[KPT];
+        if (wg == 0) {
 #pragma unroll
-        for (int jj = 0; jj < KPT; ++jj) s[jj] = 0.f;
-#pragma unroll 4
-        for (int d = 0; d < D; ++d) {
-            const float qd = to_f(sQ[r * LD + d]);
+            for (int hi = 0; hi < 2; ++hi) {
+                const int row = hi ? r1 : r0, lr = lr0 + 8 * hi;
+                if (row >= tq) continue;
+                const float mw = hi ? m1 : m0, lw = hi ? l1 : l0;
+                float mn = mw;
 #pragma unroll
-            for (int jj = 0; jj < KPT; ++jj)
-                s[jj] = fmaf(qd, to_f(sK[(c + TPR * jj) * LD + d]), s[jj]);
-        }
-
-        float mx = NEG;
+                for (int w = 1; w < WG; ++w)
+                    mn = fmaxf(mn, sM[(w - 1) * BQ + lr]);
+                const float a = expf(mw - mn);
+                float b[WG];                 // b[w]: warpgroup w's scale
+                float l = lw * a;
 #pragma unroll
-        for (int jj = 0; jj < KPT; ++jj) {
-            const int key = k0 + c + TPR * jj;
-            float x = s[jj] * scale;
-            if (key >= tk) x = -INFINITY;       // past the ragged edge: no key
-            else if (causal && key > qrow) x = NEG;
-            s[jj] = x;
-            mx = fmaxf(mx, x);
-        }
-        // the row's four threads are adjacent lanes of one warp
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-        const float m_new = fmaxf(m, mx);
-        const float corr = expf(m - m_new);     // 0 when m is the first hop's -1e30
-        float rs = 0.f;
+                for (int w = 1; w < WG; ++w) {
+                    b[w] = expf(sM[(w - 1) * BQ + lr] - mn);
+                    l += sL[(w - 1) * BQ + lr] * b[w];
+                }
+                const size_t at = (size_t)bh * tq + row;
 #pragma unroll
-        for (int jj = 0; jj < KPT; ++jj) {
-            const float p = expf(s[jj] - m_new);
-            rs += p;
-            // the P.V operand in the input dtype, as the TPU kernel rounds it
-            sP[r * LDP + c + TPR * jj] = to_f(from_f<T>(p));
-        }
-        rs += __shfl_xor_sync(0xffffffffu, rs, 1);
-        rs += __shfl_xor_sync(0xffffffffu, rs, 2);
-        l = l * corr + rs;
-        m = m_new;
-        __syncwarp();               // the row's P values, written by its own warp
-
+                for (int n = 0; n < NC; ++n)
 #pragma unroll
-        for (int j = 0; j < DPT; ++j) acc[j] *= corr;
-#pragma unroll 4
-        for (int kk = 0; kk < BK; ++kk) {
-            const float p = sP[r * LDP + kk];
-            const T* vrow = sV + kk * LD;
+                    for (int jj = 0; jj < 8; ++jj) {
+                        const int col = n * PANEL + 8 * jj + 2 * c;
+                        const int i = 4 * jj + 2 * hi;
+                        float x = acc[n][i] * a, y = acc[n][i + 1] * a;
 #pragma unroll
-            for (int j = 0; j < DPT; ++j)
-                acc[j] = fmaf(p, to_f(vrow[c + TPR * j]), acc[j]);
-        }
-    }
-
-    if (live) {
-#pragma unroll
-        for (int j = 0; j < DPT; ++j) acc_out[row * D + c + TPR * j] = acc[j];
-        if (c == 0) {
-            m_out[row] = m;
-            l_out[row] = l;
+                        for (int w = 1; w < WG; ++w) {
+                            const float2 o = *reinterpret_cast<const float2*>(
+                                sPart + ((w - 1) * BQ + lr) * C::LDR
+                                + n * PANEL + 8 * jj + 2 * c);
+                            x += o.x * b[w];
+                            y += o.y * b[w];
+                        }
+                        if (col < D)
+                            *reinterpret_cast<float2*>(acc_out + at * D + col) =
+                                make_float2(x, y);
+                    }
+                if (c == 0) {
+                    m_out[at] = mn;
+                    l_out[at] = l;
+                }
+            }
         }
     }
 }
 
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const void* acc_in, const void* m_in, const void* l_in,
-                   void* acc_out, void* m_out, void* l_out, int bh, int tq,
-                   int tk, int causal, float scale, cudaStream_t stream) {
-    constexpr size_t smem = smem_bytes<T, D>();
+// --------------------------------------------------- f32, register tiles
+template <int D> struct F32Cfg {
+    using P = dl4j_fwd::F32Fwd<D>;
+    static constexpr int GROUPS = groups_for<D>();
+    static constexpr int THREADS = 256 * GROUPS;
+    static constexpr int NC = P::NC;
+    static constexpr size_t SMEM = GROUPS * P::SMEM;   // a pass's each group
+    // group 1's state, thread-major: acc, then m and l
+    static constexpr int PART = 4 * NC * 4 + 8;
+    static_assert(GROUPS == 1 || (size_t)PART * 256 * sizeof(float)
+                                     <= P::SMEM, "group 1's state must fit");
+};
+
+template <int D>
+__global__ void __launch_bounds__(F32Cfg<D>::THREADS)
+block_update_f32(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v,
+                 const float* __restrict__ acc_in,
+                 const float* __restrict__ m_in,
+                 const float* __restrict__ l_in, float* __restrict__ acc_out,
+                 float* __restrict__ m_out, float* __restrict__ l_out,
+                 int tq, int tk, int causal, float scale) {
+    using C = F32Cfg<D>;
+    constexpr int NC = C::NC, GROUPS = C::GROUPS;
+    extern __shared__ __align__(16) float smf[];
+    const int tid = threadIdx.x;
+    const int grp = tid / 256, gtid = tid % 256;   // group, thread in it
+    const int ty = gtid / 16, tx = gtid % 16;      // rows 4ty.., cols 4tx..
+    float* sG = smf + grp * (C::P::SMEM / sizeof(float));   // the group's
+    float* sPart = smf + C::P::SMEM / sizeof(float);        // group 1's
+    const int bh = blockIdx.x;
+    const int ntq = (tq + BQ - 1) / BQ;
+
+    for (int pass = 0; pass < 2; ++pass) {
+        const int qt = query_tile(pass, blockIdx.y, ntq, causal);
+        if (qt < 0) break;
+        const int q0 = qt * BQ;
+        const int k_end = causal ? min(tk, q0 + BQ) : tk;
+        __syncthreads();                 // the last pass is done with smem
+
+        // group 0 starts from the incoming carry of its rows and columns,
+        // group 1 empty
+        float acc[4][NC][4], m[4], l[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+            const int row = q0 + 4 * ty + i;
+            const bool live = grp == 0 && row < tq;
+            const size_t at = (size_t)bh * tq + row;
+            m[i] = live ? m_in[at] : NEG;
+            l[i] = live ? l_in[at] : 0.f;
+#pragma unroll
+            for (int n = 0; n < NC; ++n) {
+                const int col = n * 64 + 4 * tx;
+                float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+                if (live && col < D)
+                    a = *reinterpret_cast<const float4*>(acc_in + at * D + col);
+                acc[i][n][0] = a.x;
+                acc[i][n][1] = a.y;
+                acc[i][n][2] = a.z;
+                acc[i][n][3] = a.w;
+            }
+        }
+
+        dl4j_fwd::f32_pass<D>(acc, m, l, sG, q + (size_t)bh * tq * D,
+                              k + (size_t)bh * tk * D,
+                              v + (size_t)bh * tk * D, q0, tq, tk, k_end,
+                              causal, nullptr, scale, gtid, 1 + grp, grp,
+                              GROUPS);
+
+        if constexpr (GROUPS == 2) {
+            // group 1 hands its state to group 0 through its own stages
+            dl4j_fwd::group_sync(1 + grp, 256);   // its smem is read
+            if (grp == 1) {
+#pragma unroll
+                for (int i = 0; i < 4; ++i) {
+#pragma unroll
+                    for (int n = 0; n < NC; ++n)
+#pragma unroll
+                        for (int e = 0; e < 4; ++e)
+                            sPart[((i * NC + n) * 4 + e) * 256 + gtid] =
+                                acc[i][n][e];
+                    sPart[(4 * NC * 4 + i) * 256 + gtid] = m[i];
+                    sPart[(4 * NC * 4 + 4 + i) * 256 + gtid] = l[i];
+                }
+            }
+            __syncthreads();
+            if (grp == 1) continue;
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+                const float mo = sPart[(4 * NC * 4 + i) * 256 + gtid];
+                const float lo = sPart[(4 * NC * 4 + 4 + i) * 256 + gtid];
+                const float mn = fmaxf(m[i], mo);
+                const float a = expf(m[i] - mn), b = expf(mo - mn);
+#pragma unroll
+                for (int n = 0; n < NC; ++n)
+#pragma unroll
+                    for (int e = 0; e < 4; ++e)
+                        acc[i][n][e] = acc[i][n][e] * a
+                            + sPart[((i * NC + n) * 4 + e) * 256 + gtid] * b;
+                m[i] = mn;
+                l[i] = l[i] * a + lo * b;
+            }
+        }
+
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+            const int row = q0 + 4 * ty + i;
+            if (row >= tq) continue;
+            const size_t at = (size_t)bh * tq + row;
+#pragma unroll
+            for (int n = 0; n < NC; ++n) {
+                const int col = n * 64 + 4 * tx;
+                if (col < D)
+                    *reinterpret_cast<float4*>(acc_out + at * D + col) =
+                        make_float4(acc[i][n][0], acc[i][n][1], acc[i][n][2],
+                                    acc[i][n][3]);
+            }
+            if (tx == 0) {
+                m_out[at] = m[i];
+                l_out[at] = l[i];
+            }
+        }
+    }
+}
+
+template <typename T, typename Kernel>
+cudaError_t launch(Kernel kernel, size_t smem, int threads, const Args& a) {
     cudaError_t err = cudaFuncSetAttribute(
-        block_update_kernel<T, D>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
-    const dim3 grid((tq + BQ - 1) / BQ, bh);
-    block_update_kernel<T, D><<<grid, THREADS, smem, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<const float*>(acc_in),
-        static_cast<const float*>(m_in), static_cast<const float*>(l_in),
-        static_cast<float*>(acc_out), static_cast<float*>(m_out),
-        static_cast<float*>(l_out), tq, tk, causal, scale);
+    const int ntq = (a.tq + BQ - 1) / BQ;
+    const dim3 grid(a.bh, a.causal ? (ntq + 1) / 2 : ntq);
+    kernel<<<grid, threads, smem, a.stream>>>(
+        static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+        static_cast<const T*>(a.v), static_cast<const float*>(a.acc_in),
+        static_cast<const float*>(a.m_in), static_cast<const float*>(a.l_in),
+        static_cast<float*>(a.acc_out), static_cast<float*>(a.m_out),
+        static_cast<float*>(a.l_out), a.tq, a.tk, a.causal, a.scale);
     return cudaGetLastError();
 }
 
 template <int D>
-cudaError_t dispatch(int is_bf16, const void* q, const void* k,
-                     const void* v, const void* acc_in, const void* m_in,
-                     const void* l_in, void* acc_out, void* m_out,
-                     void* l_out, int bh, int tq, int tk, int causal,
-                     float scale, cudaStream_t stream) {
-    if (is_bf16)
-        return launch<__nv_bfloat16, D>(q, k, v, acc_in, m_in, l_in, acc_out,
-                                        m_out, l_out, bh, tq, tk, causal,
-                                        scale, stream);
-    return launch<float, D>(q, k, v, acc_in, m_in, l_in, acc_out, m_out,
-                            l_out, bh, tq, tk, causal, scale, stream);
+cudaError_t dispatch(int is_bf16, const Args& a) {
+    if (is_bf16) {
+        using C = Bf16Cfg<D>;
+        static_assert(C::SMEM <= 232448, "bf16 tiles exceed a block's shared memory");
+        return launch<bf16>(block_update_bf16<D>, C::SMEM, C::THREADS, a);
+    }
+    using C = F32Cfg<D>;
+    static_assert(C::SMEM <= 232448, "f32 tiles exceed a block's shared memory");
+    return launch<float>(block_update_f32<D>, C::SMEM, C::THREADS, a);
 }
 
 }  // namespace
 
 // Launches the kernel on `stream` and returns cudaGetLastError() after the
 // launch (0 = launched). Head dims: 64, 96, 128, 256. `causal` needs
-// tq == tk.
+// tq == tk. q, k, v and acc_in/acc_out must start on a 16-byte boundary.
 extern "C" int dl4j_flash_block_update(const void* q, const void* k,
                                        const void* v, const void* acc_in,
                                        const void* m_in, const void* l_in,
@@ -236,21 +477,29 @@ extern "C" int dl4j_flash_block_update(const void* q, const void* k,
                                        void* l_out, int bh, int tq, int tk,
                                        int head_dim, int is_bf16, int causal,
                                        float scale, void* stream) {
-    if (bh < 1 || bh > 65535 || tq < 1 || tk < 1 || (causal && tq != tk))
+    if (bh < 1 || bh > 65535 || tq < 1 || tk < 1 || tq > 65535 * BQ ||
+        (causal && tq != tk))
         return (int)cudaErrorInvalidValue;
-    const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define DL4J_CASE(DIM)                                                        \
-    case DIM:                                                                 \
-        return (int)dispatch<DIM>(is_bf16, q, k, v, acc_in, m_in, l_in,       \
-                                  acc_out, m_out, l_out, bh, tq, tk, causal,  \
-                                  scale, s);
+    const Args a{q, k, v, acc_in, m_in, l_in, acc_out, m_out, l_out,
+                 bh, tq, tk, causal, scale,
+                 static_cast<cudaStream_t>(stream)};
     switch (head_dim) {
-        DL4J_CASE(64)
-        DL4J_CASE(96)
-        DL4J_CASE(128)
-        DL4J_CASE(256)
-        default:
-            return (int)cudaErrorInvalidValue;
+        case 64: return (int)dispatch<64>(is_bf16, a);
+        case 96: return (int)dispatch<96>(is_bf16, a);
+        case 128: return (int)dispatch<128>(is_bf16, a);
+        case 256: return (int)dispatch<256>(is_bf16, a);
+        default: return (int)cudaErrorInvalidValue;
     }
-#undef DL4J_CASE
+}
+
+// Dynamic shared memory a block of the kernel for (head_dim, dtype) takes,
+// in bytes (0 for a head dim it is not built for).
+extern "C" int dl4j_flash_block_update_smem(int head_dim, int is_bf16) {
+    switch (head_dim) {
+        case 64: return (int)(is_bf16 ? Bf16Cfg<64>::SMEM : F32Cfg<64>::SMEM);
+        case 96: return (int)(is_bf16 ? Bf16Cfg<96>::SMEM : F32Cfg<96>::SMEM);
+        case 128: return (int)(is_bf16 ? Bf16Cfg<128>::SMEM : F32Cfg<128>::SMEM);
+        case 256: return (int)(is_bf16 ? Bf16Cfg<256>::SMEM : F32Cfg<256>::SMEM);
+        default: return 0;
+    }
 }

@@ -14,8 +14,9 @@ Counterpart of ``deeplearning4j_tpu/ops/pallas_attention.py``:
 ``csrc/flash_attention_fwd.cu`` (K1), ``csrc/flash_attention_bwd.cu`` (K2),
 ``csrc/flash_attention_bwd_dkv.cu`` (K3) and ``csrc/flash_block_update.cu``
 (K4); each source says what it computes, what bounds it and what its
-design leaves for later. K1, K2 and K3 run bf16 on the tensor cores
-(``wgmma``, ``csrc/hopper_mma.cuh``) and f32 in full f32 FMAs.
+design leaves for later. K1, K2, K3 and K4 run bf16 on the tensor cores
+(``wgmma``, ``csrc/hopper_mma.cuh``) and f32 in full f32 FMAs; K1 and K4
+share the forward's key loop (``csrc/flash_fwd_tile.cuh``).
 
 Dispatch: each kernel wrapper (``flash_attention_fwd``,
 ``flash_attention_bwd_dq``, ``flash_attention_bwd_dkv``,
@@ -112,6 +113,7 @@ _ENTRIES = {
     "dl4j_flash_attention_bwd_dkv_smem": (build_bwd_dkv, [_I, _I]),
     "dl4j_flash_block_update":
         (build_block_update, [_P] * 9 + [_I] * 6 + [ctypes.c_float, _P]),
+    "dl4j_flash_block_update_smem": (build_block_update, [_I, _I]),
 }
 
 
@@ -122,9 +124,10 @@ def _kernel(symbol: str):
 def shared_memory_bytes(symbol: str, head_dim: int,
                         dtype: torch.dtype) -> int:
     """Dynamic shared memory a block of K1 (``"dl4j_flash_attention_fwd"``),
-    K2 (``"dl4j_flash_attention_bwd_dq"``) or K3
-    (``"dl4j_flash_attention_bwd_dkv"``) takes at this head dim and dtype,
-    as the kernel's source sizes it (builds the library)."""
+    K2 (``"dl4j_flash_attention_bwd_dq"``), K3
+    (``"dl4j_flash_attention_bwd_dkv"``) or K4
+    (``"dl4j_flash_block_update"``) takes at this head dim and dtype, as the
+    kernel's source sizes it (builds the library)."""
     return _kernel(f"{symbol}_smem")(head_dim, int(dtype == torch.bfloat16))
 
 
@@ -457,6 +460,10 @@ def flash_block_update(acc, m, l, q3, k3, v3, *, causal: bool, scale: float):
     _check_block_update(acc, m, l, q3, k3, v3, causal)
     BH, Tq, D = q3.shape
     Tk = k3.shape[1]
+    # the kernel copies q/k/v rows and reads the carry's acc in 16-byte
+    # pieces: a view off a 16-byte boundary is copied to fresh memory first
+    q3, k3, v3, acc = (t if t.data_ptr() % 16 == 0 else t.clone()
+                       for t in (q3, k3, v3, acc))
     outs = (torch.empty_like(acc), torch.empty_like(m), torch.empty_like(l))
     fn = _kernel("dl4j_flash_block_update")
     with torch.cuda.device(q3.device):

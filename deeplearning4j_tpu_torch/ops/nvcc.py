@@ -4,7 +4,8 @@ libraries with a plain C interface, loaded with ``ctypes``.
 The JAX package has no counterpart: its Pallas kernels compile inside XLA.
 Each source under ``csrc/`` becomes one library under ``ops/_build/``
 (git-ignored), named by the hash of the source and the local headers it
-includes (``#include "..."``), so an edited source or header rebuilds;
+includes (``#include "..."``, directly or through another local header),
+so an edited source or header rebuilds;
 nvcc's report (registers, shared memory, spills), preceded by the build's
 seconds, is kept beside it with the suffix ``.log``. Sources are built at
 first use, never at import.
@@ -50,9 +51,17 @@ def cuda_tool(name: str) -> str:
 
 
 def _local_headers(source: Path):
-    text = source.read_text()
-    return [source.parent / h for h in
-            re.findall(r'^#include "([^"]+)"', text, flags=re.M)]
+    """The local headers ``source`` includes, directly or through another
+    local header, each once, in the order first met."""
+    found, todo = [], [source]
+    while todo:
+        text = todo.pop(0).read_text()
+        for h in re.findall(r'^#include "([^"]+)"', text, flags=re.M):
+            path = source.parent / h
+            if path not in found:
+                found.append(path)
+                todo.append(path)
+    return found
 
 
 def library_path(source: Path) -> Path:

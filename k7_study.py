@@ -51,34 +51,8 @@ from deeplearning4j_tpu_torch.serving import InferenceEngine
 
 BATCHES = (1, 8, 32)              # the GoogLeNet serving buckets
 REPS = 20                         # calls a timed group
-SLEEP_CYCLES = int(2e8)           # ~0.1 s at the card's clock
-
-
-def _behind_sleep(enqueue, cycles=SLEEP_CYCLES):
-    """Run ``enqueue(record)`` while a sleep kernel of ``cycles`` holds the
-    current stream; ``record()`` records and returns a timing event.
-    Returns the host's ms for the enqueue. Raises if the card woke before
-    the host was done, since the events would then time the host."""
-    torch.cuda.synchronize()
-    start, woke = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    start.record()
-    torch.cuda._sleep(cycles)
-    woke.record()
-    t0 = time.perf_counter()
-
-    def record():
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        return ev
-
-    enqueue(record)
-    host_ms = (time.perf_counter() - t0) * 1e3
-    torch.cuda.synchronize()
-    slept = start.elapsed_time(woke)
-    if slept <= host_ms:
-        raise RuntimeError(f"the sleep kernel ({slept:.1f} ms) ended before "
-                           f"the host had enqueued ({host_ms:.1f} ms)")
-    return host_ms
+# the sleep that holds the stream while calls are enqueued
+SLEEP_CYCLES, _behind_sleep = cs.SLEEP_CYCLES, cs._behind_sleep
 
 
 def device_ms(calls, reps=REPS):

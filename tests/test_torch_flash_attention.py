@@ -193,9 +193,11 @@ def test_build_needs_nvcc(monkeypatch):
 
 def test_library_is_named_by_source_hash():
     import hashlib
-    # the source and the local header it includes (the wgmma helpers)
+    # the source and the local headers it includes (the key loop it shares
+    # with the ring hop's kernel, and the wgmma helpers)
     h = hashlib.sha256(fa.SOURCE.read_bytes())
-    h.update((fa.SOURCE.parent / "hopper_mma.cuh").read_bytes())
+    for header in ("flash_fwd_tile.cuh", "hopper_mma.cuh"):
+        h.update((fa.SOURCE.parent / header).read_bytes())
     tag = h.hexdigest()[:16]
     assert fa.library_path().name == f"libflash_attention_fwd_{tag}.so"
     assert fa.library_path().parent == nvcc.BUILD_DIR

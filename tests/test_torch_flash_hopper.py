@@ -1,5 +1,6 @@
-"""K1 (flash forward), K2 (dq) and K3 (dk/dv) as redesigned for Hopper:
-how their sources are built and named, and what ``_launch`` hands them.
+"""K1 (flash forward), K2 (dq), K3 (dk/dv) and K4 (the ring hop's carry
+update) as redesigned for Hopper: how their sources are built and named,
+and what ``_launch`` and K4's wrapper hand them.
 
 The CUDA kernels run only on the card (``chip_smoke.py`` holds them against
 their plain versions there, and checks that the bf16 ones issue ``wgmma``);
@@ -60,7 +61,7 @@ def test_each_entry_point_loads_from_its_own_library():
 
 
 def test_every_redesigned_kernel_reports_its_shared_memory(monkeypatch):
-    """``shared_memory_bytes`` reaches K1's, K2's and K3's ``_smem`` entry,
+    """``shared_memory_bytes`` reaches K1's, K2's, K3's and K4's ``_smem`` entry,
     each from its own library, with (head dim, is_bf16)."""
     calls = []
 
@@ -71,9 +72,94 @@ def test_every_redesigned_kernel_reports_its_shared_memory(monkeypatch):
     monkeypatch.setattr(fa, "load_symbol", fake_load)
     for symbol, build in (("dl4j_flash_attention_fwd", fa.build),
                           ("dl4j_flash_attention_bwd_dq", fa.build_bwd),
-                          ("dl4j_flash_attention_bwd_dkv", fa.build_bwd_dkv)):
+                          ("dl4j_flash_attention_bwd_dkv", fa.build_bwd_dkv),
+                          ("dl4j_flash_block_update",
+                           fa.build_block_update)):
         assert fa.shared_memory_bytes(symbol, 128, torch.bfloat16) == 128001
         assert calls[-1] == (f"{symbol}_smem", build)
+
+
+def test_k4_library_is_built_apart_and_named_by_its_source_and_headers():
+    """K4 and K1 include the forward's shared key loop and, through it and
+    directly, the wgmma header; each library is named by its source and
+    every local header it reaches."""
+    headers = ["flash_fwd_tile.cuh", "hopper_mma.cuh"]
+    for source, stem in ((fa.BLOCK_UPDATE_SOURCE, "flash_block_update"),
+                         (fa.SOURCE, "flash_attention_fwd")):
+        assert [p.name for p in nvcc._local_headers(source)] == headers
+        h = hashlib.sha256(source.read_bytes())
+        for name in headers:
+            h.update((CSRC / name).read_bytes())
+        assert nvcc.library_path(source).name == \
+            f"lib{stem}_{h.hexdigest()[:16]}.so"
+    assert nvcc.library_path(fa.BLOCK_UPDATE_SOURCE) != fa.library_path()
+    assert fa._ENTRIES["dl4j_flash_block_update"][0] is fa.build_block_update
+    assert fa._ENTRIES["dl4j_flash_block_update_smem"][0] is \
+        fa.build_block_update
+
+
+def test_k1_and_k4_share_one_copy_of_the_key_loop():
+    """The key loop's bodies are defined in the shared header alone, and
+    both kernels call them."""
+    loop = ("bf16_key_tile", "f32_pass")
+    for path in CSRC.glob("*.cu"):
+        text = path.read_text()
+        for name in loop:
+            assert not re.search(rf"void {name}\(", text), (path.name, name)
+    header = (CSRC / "flash_fwd_tile.cuh").read_text()
+    for name in loop:
+        assert re.search(rf"void {name}\(", header)
+        for source in (fa.SOURCE, fa.BLOCK_UPDATE_SOURCE):
+            assert f"dl4j_fwd::{name}<D>(" in source.read_text()
+
+
+def test_a_local_header_included_by_a_header_rebuilds(tmp_path):
+    src, outer, inner = (tmp_path / n for n in ("k.cu", "a.cuh", "b.cuh"))
+    src.write_text('#include "a.cuh"\nint x;\n')
+    outer.write_text('#pragma once\n#include "b.cuh"\n')
+    inner.write_text("// v1\n")
+    assert [p.name for p in nvcc._local_headers(src)] == ["a.cuh", "b.cuh"]
+    before = nvcc.library_path(src)
+    inner.write_text("// v2\n")
+    assert nvcc.library_path(src) != before
+
+
+def test_k4_wrapper_hands_the_kernel_its_arguments(monkeypatch):
+    """Pointers (a misaligned view copied first), BH, Tq, Tk, D, the dtype
+    and mode flags, the scale and the stream; the carry comes back in fresh
+    tensors."""
+    seen = []
+
+    class FakeStream:
+        cuda_stream = 99
+
+    def fake_kernel(*args):
+        seen.append(args)
+        return 0
+
+    monkeypatch.setattr(fa, "_on_cpu", lambda t: False)
+    monkeypatch.setattr(fa, "_kernel", lambda symbol: fake_kernel)
+    monkeypatch.setattr(fa.flash_block_update, "launches", 0)
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: _Null())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev=None: FakeStream())
+    BH, Tq, Tk, D = 2, 256, 384, 64
+    base = torch.zeros(BH * Tq * D + 1)
+    q = base[1:].view(BH, Tq, D)                   # 4 bytes off
+    k, v = torch.zeros(BH, Tk, D), torch.zeros(BH, Tk, D)
+    acc, m, l = (torch.zeros(BH, Tq, D), torch.full((BH, Tq), -1e30),
+                 torch.zeros(BH, Tq))
+    outs = fa.flash_block_update(acc, m, l, q, k, v, causal=False,
+                                 scale=0.125)
+    (args,) = seen
+    assert args[0] % 16 == 0 and args[0] != q.data_ptr()
+    assert args[1:6] == tuple(t.data_ptr() for t in (k, v, acc, m, l))
+    assert args[6:9] == tuple(t.data_ptr() for t in outs)
+    assert args[9:] == (BH, Tq, Tk, D, 0, 0, 0.125, 99)
+    assert [t.shape for t in outs] == [acc.shape, m.shape, l.shape]
+    assert fa.flash_block_update.launches == 1
+    with pytest.raises(ValueError, match="causal is the diagonal hop"):
+        fa.flash_block_update(acc, m, l, q, k, v, causal=True, scale=0.125)
 
 
 def test_library_is_rebuilt_when_an_included_header_changes(tmp_path):
@@ -190,3 +276,38 @@ def test_kernels_equal_plain_at_tile_edges_on_the_card(card, dtype, BH, T,
     for g, w in zip(got, want):
         assert ((g.float() - w.float()).abs().max()
                 / w.float().abs().max()) <= rel
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("BH, Tq, Tk, D, causal", [
+    (3, 320, 320, 64, True), (2, 200, 200, 96, True), (2, 130, 70, 128, False),
+    (3, 64, 192, 64, False), (1, 1000, 1000, 256, True),
+    (2, 128, 1000, 256, False), (8, 2048, 2048, 64, True)])
+def test_k4_equals_plain_at_tile_edges_on_the_card(card, dtype, BH, Tq, Tk,
+                                                    D, causal):
+    r = np.random.default_rng(BH + Tq + Tk + D)
+
+    def rnd(*shape):
+        return torch.from_numpy(r.normal(size=shape).astype(np.float32)).to(
+            dtype).to(card)
+
+    q, k, v, kp, vp = rnd(BH, Tq, D), rnd(BH, Tk, D), rnd(BH, Tk, D), \
+        rnd(BH, Tk, D), rnd(BH, Tk, D)
+    scale = 1.0 / math.sqrt(D)
+    empty = (torch.zeros(BH, Tq, D, device=card),
+             torch.full((BH, Tq), -1e30, device=card),
+             torch.zeros(BH, Tq, device=card))
+    earlier = fa.flash_block_update_reference(*empty, q, kp, vp, False, scale)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    for carry in (empty, earlier):
+        got = fa.flash_block_update(*carry, q, k, v, causal=causal,
+                                    scale=scale)
+        want = fa.flash_block_update_reference(*carry, q, k, v, causal, scale)
+        assert ((got[0] / got[2][..., None])
+                - (want[0] / want[2][..., None])).abs().max() <= tol
+        assert (got[1] - want[1]).abs().max() <= 1e-3
+        assert ((got[2] - want[2]).abs().max()
+                / want[2].abs().max()) <= (1e-4 if dtype == torch.float32
+                                           else 2e-2)
