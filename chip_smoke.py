@@ -17,8 +17,10 @@ Phases; any failure raises and exits non-zero before a result is printed:
    and K3) and checks their SASS: the bf16 ones must issue ``wgmma``
    (HGMMA), the f32 ones must not (no TF32); does the same for every tile
    instantiation of K7, none of which may issue HGMMA (f32 on full FMAs,
-   bf16 widened to f32), then holds each kernel against its plain PyTorch
-   version on the card:
+   bf16 widened to f32), and the same for K6's instantiations (one for
+   each pair of units a cluster and rows a thread it is compiled for, f32
+   and bf16; none may issue HGMMA), then holds each kernel against its
+   plain PyTorch version on the card:
    - K1, the flash-attention forward, at the shapes the serving path gives
      it (float32 at atol 2e-5, bfloat16 at atol 2e-2);
    - K2 and K3, the backward's dq and dk/dv kernels, at the training
@@ -56,9 +58,13 @@ Phases; any failure raises and exits non-zero before a result is printed:
 6. LSTM kernels: K5 (``lstm_fwd``) and K6 (``lstm_bwd``) against their
    plain versions at the char-RNN's training shapes (T 64 and its tBPTT
    chunks 50 and 14, B 32, H 512, float32, Graves peepholes) and at
-   coverage shapes (no peepholes, a mask, bfloat16, H 256, B 1/3/4/8,
-   T 1): forward atol 1e-5 (the reference's lstm pin), backward atol 3e-5,
-   bfloat16 2e-2. Times each with its plain version and cuDNN's LSTM
+   coverage shapes (no peepholes, a mask, bfloat16, H 256, H 1024 at B 32
+   and T 64, H 520 (a plan whose units do not divide H), B 1/3/4/8 and
+   B 96 (K6's rows in chunks), T 1): forward atol 1e-5 (the reference's
+   lstm pin), backward atol 3e-5, bfloat16 2e-2; K6 must give the same
+   bits in two runs at every shape, and its plan (``loop_plan``: blocks
+   a cluster, units a cluster, clusters, rows a chunk) is printed for
+   each. Times each with its plain version and cuDNN's LSTM
    (``torch.nn.LSTM(87, 512)``, forward and backward) at T 64, B 32.
 7. Serve the char-RNN: ``text_generation_lstm`` at bench.py ``bench_lstm``'s
    width (vocab 87, two GravesLSTM(512), T 64) with random weights from a
@@ -148,7 +154,8 @@ Phases; any failure raises and exits non-zero before a result is printed:
    calls enqueued behind a sleep kernel); K4 at the ring's full and
    diagonal hops, both dtypes (the median of three alternating rounds);
    K5 at a decode step (T 1, B 8), two
-   prefills and the training chunk, K6 at the training chunk. Its
+   prefills and the training chunk, K6 at the training chunk (T 64 and 14:
+   its microseconds a step) beside cuDNN's LSTM backward. Its
    profiler sessions come after every host-bound phase.
 20. Report: JSON lines of per-shape kernel times, the serving and training
    metrics and the kernels, then last ``{"ok": true, "device": ...}``.
@@ -347,6 +354,7 @@ def build_phase():
                 "hgmma": hgmma}
     report["conv1x1_tiles"] = _k7_instantiations(paths["conv1x1_bias_relu"])
     report["int8_matmul"] = _k8_instantiations(paths["int8_matmul"])
+    report["lstm_bwd"] = _k6_instantiations(paths["lstm_bwd"])
     log("redesigned kernels:", json.dumps(report, indent=1))
     return report
 
@@ -369,6 +377,30 @@ def _k8_instantiations(lib):
     if len(out) != 2:
         raise AssertionError(f"K8's library holds {sorted(out)}, not its two "
                              f"instantiations")
+    return out
+
+
+def _k6_instantiations(lib):
+    """K6's instantiations, one for each (units a cluster, rows a thread)
+    pair it is compiled for, f32 and bf16: registers, spills; none may
+    issue HGMMA (f32 FMAs, bf16 widened to f32). Shared memory is a plan's
+    (printed with each phase-6 shape)."""
+    usage = _ptxas_report(lib.with_suffix(".log").read_text())
+    sass = _sass_functions(lib)
+    plain = _demangle(fn for fn in usage if "lstm_bwd_kernel" in fn)
+    out = {}
+    for fn, text in plain.items():
+        regs, st, ld = usage[fn]
+        hgmma = sass[fn].count("HGMMA")
+        if hgmma:
+            raise AssertionError(f"{text}: {hgmma} HGMMA instructions in its "
+                                 f"SASS (K6 runs on FMAs)")
+        out[text.split(">(")[0] + ">"] = {"registers": regs,
+                                   "spill_store_bytes": st,
+                                   "spill_load_bytes": ld, "hgmma": hgmma}
+    if len(out) != 2 * len(lstm.LOOP_CANDIDATES):
+        raise AssertionError(f"K6's library holds {sorted(out)}, not one "
+                             f"instantiation a plan pair and dtype")
     return out
 
 
@@ -982,12 +1014,17 @@ def lstm_kernel_phase():
              (CHAR_T, CHAR_B, H, bf16, True, False),
              (CHAR_T, CHAR_B, H, bf16, False, True),
              (CHAR_T, 8, 256, f32, True, False),
+             (CHAR_T, CHAR_B, 1024, f32, True, False),
+             (CHAR_T, CHAR_B, 520, f32, True, True),
+             (CHAR_T, 8, 520, bf16, True, False),
+             (16, 96, H, f32, True, True),
              (128, 4, H, f32, True, True),
              (16, 3, H, f32, True, True),
              (1, 8, H, f32, True, False),
              (1, 1, H, f32, True, False),
              (1, 1, H, bf16, True, False)]
-    rows = []
+    rows, plans = [], {}
+    index = torch.cuda.current_device()
     for T, B, H_, dtype, peep, masked in main + cover:
         fwd, mask, peeps, (dhs, dhT, dcT) = _lstm_case(gen, T, B, H_, dtype,
                                                         peep, masked)
@@ -997,7 +1034,14 @@ def lstm_kernel_phase():
         res = want[1:5]
         bargs = (*res, dhs, fwd[3], dhT, dcT, mask, peeps)
         got_b = lstm.fused_lstm_bwd(*bargs)
+        again = lstm.fused_lstm_bwd(*bargs)
         torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got_b, again)):
+            raise AssertionError(f"K6 gave other bits in a second run at "
+                                 f"T={T} B={B} H={H_} {dtype}")
+        plan, layout = lstm._bwd_plan(index, H_, B, dtype)
+        plans[f"T{T} B{B} H{H_} {dtype}"] = {**plan._asdict(),
+                                             **layout._asdict()}
         want_b = lstm.lstm_bwd_reference(*bargs)
         for kind, g, w in (("fwd", got, want), ("bwd", got_b, want_b)):
             if not all(torch.isfinite(t.float()).all() for t in g):
@@ -1052,7 +1096,8 @@ def lstm_kernel_phase():
                      "fwd_bound_ms": bound, "fwd_bound_by": by})
     log("lstm kernel phase: max abs err", {f"{k}/{d}": e
                                            for (k, d), e in errs.items()})
-    return errs, rows, step_us
+    log("K6 plans:", json.dumps(plans))
+    return errs, rows, step_us, plans
 
 
 # ------------------------------------------------------------------ phase 7
@@ -1456,25 +1501,45 @@ def lstm_device_time_phase():
     """K5's device time at the shapes each path launches it with: a decode
     step (T 1 at the 8 slots), a prefill (T 128 rung at B 4 and T 64 at B
     1, masked) and the training chunk (T 64, B 32); K6 at the training
-    chunk. So a path's launches are charged at their own shapes."""
+    chunk and at T 14 (their difference over 50 steps is its microseconds
+    a step) beside cuDNN's LSTM backward at T 64. So a path's launches are
+    charged at their own shapes."""
     gen = torch.Generator().manual_seed(SEED + 30)
     H = CHAR["hidden"]
     out = {}
     for tag, T, B, masked in (("decode_T1_B8", 1, 8, False),
                               ("prefill_T128_B4", 128, 4, True),
                               ("prefill_T64_B1", 64, 1, True),
-                              ("train_T64_B32", CHAR_T, CHAR_B, False)):
+                              ("train_T64_B32", CHAR_T, CHAR_B, False),
+                              ("train_T14_B32", 14, CHAR_B, False)):
         fwd, mask, peeps, (dhs, dhT, dcT) = _lstm_case(
             gen, T, B, H, torch.float32, True, masked)
-        out[f"fwd_{tag}"] = _device_ms_per_call(
-            lambda: lstm.fused_lstm_fwd(*fwd, mask, peeps), name="lstm")
+        if tag != "train_T14_B32":
+            out[f"fwd_{tag}"] = _device_ms_per_call(
+                lambda: lstm.fused_lstm_fwd(*fwd, mask, peeps), name="lstm")
         if tag.startswith("train"):
             res = lstm.lstm_fwd_reference(*fwd, mask, peeps)[1:5]
             bargs = (*res, dhs, fwd[3], dhT, dcT, mask, peeps)
-            # the reverse loop, then dR: two kernels a call
+            # one kernel a call: the loop with dR folded in
             out[f"bwd_{tag}"] = _device_ms_per_call(
-                lambda: lstm.fused_lstm_bwd(*bargs), name="lstm",
-                per_call=2)
+                lambda: lstm.fused_lstm_bwd(*bargs), name="lstm_bwd",
+                per_call=1)
+    out["bwd_us_per_step"] = (out["bwd_train_T64_B32"]
+                              - out["bwd_train_T14_B32"]) / (CHAR_T - 14) * 1e3
+    # cuDNN's LSTM backward at T 64, B 32 (several kernels a call): the
+    # session's device time over the calls recorded, read from the kernels
+    # launched once a call
+    cud = torch.nn.LSTM(CHAR["vocab_size"], H).cuda()
+    xin = torch.randn(CHAR_T, CHAR_B, CHAR["vocab_size"],
+                      generator=gen).cuda().requires_grad_(True)
+    o, _ = cud(xin)
+    dout = torch.randn(CHAR_T, CHAR_B, H, generator=gen).cuda()
+    leaves = [xin, *cud.parameters()]
+    grad = lambda: torch.autograd.grad(o, leaves, dout, retain_graph=True)
+    grad()
+    rep = _device_kernels(lambda: [grad() for _ in range(20)], top=1000)
+    once = max(r["calls"] for r in rep["top"] if r["calls"] <= 20)
+    out["cudnn_bwd_train_T64_B32"] = rep["device_ms"] / once
     log("K5/K6 by device time:", out)
     return out
 
@@ -2204,7 +2269,7 @@ def main() -> int:
     slice_row = slice_phase()
     train_row = train_phase()
     cross_row = cross_device_phase()
-    lstm_errs, lstm_rows, lstm_step_us = lstm_kernel_phase()
+    lstm_errs, lstm_rows, lstm_step_us, k6_plans = lstm_kernel_phase()
     char_serve = char_serve_phase()
     char_train = char_train_phase()
     char_cross = char_cross_device_phase()
@@ -2294,7 +2359,9 @@ def main() -> int:
             "library_ms": lstm_top[f"{kind}_library_ms"],
             "device_ms_by_shape": {k.split("_", 1)[1]: v
                                    for k, v in lstm_device.items()
-                                   if k.startswith(kind)}})
+                                   if k.startswith(kind)},
+            "library_device_ms": lstm_device.get(
+                f"cudnn_{kind}_train_T64_B32")})
     kernels.append({
         "name": "conv1x1_bias_relu", "route": "cuda",
         "source": "deeplearning4j_tpu_torch/csrc/conv1x1_bias_relu.cu",
@@ -2365,6 +2432,7 @@ def main() -> int:
     print(json.dumps({"kernel_shapes": rows, "bwd_kernel_shapes": bwd_rows,
                       "lstm_kernel_shapes": lstm_rows,
                       "lstm_step_us": lstm_step_us,
+                      "k6_plans": k6_plans,
                       "conv1x1_shapes": k7_rows,
                       "conv1x1_bf16_shapes": k7_bf16_rows,
                       "int8_matmul_shapes": k8_rows,

@@ -21,43 +21,67 @@
 // What bounds it on this card: the two products (dz . R^T and h_prev^T . dz)
 // are 2 * 2*T*B*H*4H flops: 8.6 GFLOP at T 64, B 32, H 512 f32, bound by
 // operations (0.128 ms at 67 TFLOP/s). The dh chain is sequential: T steps,
-// one grid-wide barrier each, a floor of its own apart from the bound.
+// each one grid-wide barrier (~1.2 us on an H100) and a trip through L2, a
+// floor of its own apart from the bound.
 //
-// Design: one cooperative launch runs the reverse loop, then a second,
-// ordinary launch computes dR.
-// - The loop: a persistent grid of one block per 8 hidden units; a block
-//   keeps R's rows for its units ([8, 4H], 64 KB f32 at H 512) in shared
-//   memory. Each step has two phases and one grid.sync() between them:
-//   (a) each block computes dz for its own units (elementwise; it owns their
-//       dh and dc carries, kept in f32 scratch in device memory) and writes
-//       it into dx_proj[t], a separate buffer for every t;
-//   (b) after the barrier, each block computes dh_{t-1} for its own units
-//       as dz_t [B,4H] . R[own,:]^T, one warp per two batch rows (an R value
-//       read from shared memory serves both), reading dz_t from L2; its
-//       lanes sum strided columns and a butterfly of shuffles joins them,
-//       a fixed order: the same result every run.
-//   Peephole sums stay in each thread's registers (a thread always holds the
-//   same unit) and are joined in a fixed order after the loop.
-// - dR: h_prev viewed as [T*B, H] transposed times dx_proj [T*B, 4H], a
-//   64x64 output tile per block of 256 threads staged through shared memory
-//   in K-slices of 16, each output one sequential FMA chain over (t, b).
-// The grid of the loop (H/8 blocks) must be co-resident: the launch checks
-// occupancy x SM count and returns cudaErrorCooperativeLaunchTooLarge when it
-// is not. Neither part uses tensor cores or TMA; that is later work.
+// Design: ONE cooperative launch of thread-block clusters does the whole
+// call, dR included. The grid is a plan per shape (ops/lstm.py `loop_plan`):
+// P clusters of Q blocks; cluster p owns U hidden units, block (p, q) the
+// columns [q W, (q+1) W) of the 4H gate axis (W = 4H/Q). The plans take
+// Q = 2 (two gates a block): an H100 holds 30 clusters of 4 blocks at this
+// kernel's shared memory, too few for H 512 at 16 units a cluster, and 4
+// blocks of 20 units measured slower than 2 of 8. The block keeps R[p's
+// units, its columns] in shared memory for the whole call. Each step t:
+//   (a) the cluster's B x U cells, split over its Q blocks (a thread a
+//       cell), compute dz from residuals loaded before the previous barrier
+//       and from dh, dc carries that never leave the cluster; dz goes to
+//       dx_proj[t], the exchange buffer (one slice a step).
+//   One grid barrier (split: arrive, work, wait).
+//   (b) the block copies dz_t[:, its columns] from L2 into shared memory
+//       (16-byte cp.async in four column panels, the product starting on the
+//       first while the others land) and forms its partial dh[B, U] over its
+//       columns as register tiles (a thread 4 rows x U/4 units, each float4
+//       read from shared memory serving 4 FMAs a value; the 8 warps split
+//       the columns and are summed in warp order). The Q partials are added
+//       over distributed shared memory in rank order, each block for the
+//       cells it owns: the same bits every run.
+//   dR folded in: block (p, q) holds dz_t[:, its columns] and h_prev[t, :,
+//   p's units] in shared memory, so it adds their product to its dR rows
+//   (f32, shared memory or scratch) while the NEXT step's grid barrier is
+//   pending, and writes them once after the loop: no second launch, no
+//   second read of dx_proj and h_prev. Where B is too large for one chunk
+//   of rows in shared memory, rows go in chunks and dR is added per chunk.
+//   Peephole sums stay in each thread's registers (a thread always holds
+//   the same unit) and are joined in a fixed order after the loop.
+// The grid must be co-resident: the launch asks cudaOccupancyMaxActiveClusters
+// and returns cudaErrorCooperativeLaunchTooLarge (720) when the plan's
+// clusters do not fit. No tensor cores (f32 FMAs; bf16 widened to f32) and
+// no TMA: that is later work, as is a deeper overlap of the copy of dz_t.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <cooperative_groups.h>
 #include <math.h>
+#include <stdint.h>
+#include <utility>
+
+#include "hopper_mma.cuh"
 
 namespace cg = cooperative_groups;
+using dl4j_sm90::cp_async16;
+using dl4j_sm90::cp_async_commit;
+using dl4j_sm90::smem_u32;
 
 namespace {
 
-constexpr int U = 8;                    // hidden units per block of the loop
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
-constexpr int TILE = 64;                // dR output tile
-constexpr int KT = 16;                  // dR K-slice
+constexpr int PANELS = 4;               // column panels of a chunk's copy
+constexpr size_t SMEM_LIMIT = 232448;   // a block's opt-in shared memory
+// the points of a step block 0's thread 0 stamps when tracing: the step's
+// start, (a) done, the barrier's arrival and what it hides done, the wait
+// over, the copy issued, the partials reduced in the block, the cluster
+// barrier passed, the step's end
+constexpr int TRACE_MARKS = 8;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -68,306 +92,551 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
     return __float2bfloat16(x);
 }
 
-template <typename T>
-size_t loop_smem_bytes(int H) {
-    return (size_t)U * 4 * H * sizeof(T) + (size_t)3 * THREADS * sizeof(float);
+// four consecutive values from shared memory (16 bytes f32, 8 bytes bf16)
+__device__ __forceinline__ float4 ld4(const float* p) {
+    return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 ld4(const __nv_bfloat16* p) {
+    const uint2 v = *reinterpret_cast<const uint2*>(p);
+    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.x));
+    const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.y));
+    return make_float4(a.x, a.y, b.x, b.y);
 }
 
-template <typename T, bool PEEP, bool MASKED>
-__global__ void __launch_bounds__(THREADS)
-lstm_bwd_loop(const T* __restrict__ gates, const T* __restrict__ cs,
-              const T* __restrict__ cprev, const T* __restrict__ dhs,
-              const T* __restrict__ R, const T* __restrict__ dhT,
-              const T* __restrict__ dcT, const float* __restrict__ mask,
-              const T* __restrict__ pi, const T* __restrict__ pf,
-              const T* __restrict__ po, T* dxp, T* __restrict__ dh0,
-              T* __restrict__ dc0, T* __restrict__ dpi, T* __restrict__ dpf,
-              T* __restrict__ dpo, float* dh, float* dc, float* dhtot,
-              int seq, int batch, int H) {
-    cg::grid_group grid = cg::this_grid();
-    extern __shared__ __align__(16) unsigned char smem_raw[];
-    const size_t H4 = 4 * (size_t)H;
-    T* sR = reinterpret_cast<T*>(smem_raw);                        // [U][4H]
-    float* sP = reinterpret_cast<float*>(sR + (size_t)U * H4);     // [3][THREADS]
-
-    const int tid = threadIdx.x;
-    const int lane = tid % 32, warp = tid / 32;
-    const int u0 = blockIdx.x * U;
-    const size_t BH = (size_t)batch * H;
-    for (size_t i = tid; i < (size_t)U * H4; i += THREADS) {
-        const int j = (int)(i / H4);
-        sR[i] = u0 + j < H ? R[(size_t)(u0 + j) * H4 + i % H4] : from_f<T>(0.f);
+__device__ __forceinline__ void cp_async_wait_dyn(int n) {
+    switch (n) {
+    case 0: dl4j_sm90::cp_async_wait<0>(); break;
+    case 1: dl4j_sm90::cp_async_wait<1>(); break;
+    case 2: dl4j_sm90::cp_async_wait<2>(); break;
+    default: dl4j_sm90::cp_async_wait<3>(); break;
     }
+}
+
+// How a block of a plan lays out its shared memory; the host computes it
+// (make_layout) and hands it to the kernel.
+struct Layout {
+    int W;            // columns of the block's gate slice (4H / Q)
+    int ldw;          // row stride of sR and sZ (elements): 16 mod 128 bytes
+    int ng;           // groups of 4 columns (ceil(W / 4))
+    int bc;           // batch rows a chunk (a multiple of 8 RPT)
+    int nchunk;       // chunks of rows a step
+    int cpb;          // cells a block owns a chunk (bc U / Q <= THREADS)
+    int carry_smem;   // dh, dc, (1-m) dh_tot carries in shared memory (else scratch)
+    int dr_smem;      // the dR accumulator in shared memory (else scratch)
+    unsigned off_z, off_h, off_red, off_part, off_pp, off_carry, off_dr;
+    unsigned smem;    // dynamic shared memory bytes; 0: the plan does not fit
+    long long scratch;   // f32 scratch elements a block
+};
+
+struct Args {
+    const void *gates, *cs, *cprev, *hprev, *dhs, *R, *dhT, *dcT;
+    const float* mask;
+    const void *pi, *pf, *po;
+    void *dxp, *dh0, *dc0, *dR, *dpi, *dpf, *dpo;
+    float* scratch;
+    long long* trace;     // null, or [seq][TRACE_MARKS] clock64 of block 0
+    int seq, batch, H;
+};
+
+size_t up16(size_t x) { return (x + 15) & ~(size_t)15; }
+
+Layout make_layout(int H, int B, int Q, int U, int rg, int esize) {
+    Layout L = {};
+    L.W = 4 * H / Q;
+    L.ng = (L.W + 3) / 4;
+    const int align = 128 / esize;             // elements in 128 bytes
+    L.ldw = (L.W + align - 1) / align * align + 16 / esize;
+    const size_t sR = up16((size_t)U * L.ldw * esize);
+    const size_t pp = up16((size_t)(3 * THREADS + 3 * U) * 4);
+    auto rows_bytes = [&](int bc) {
+        return up16((size_t)bc * L.ldw * esize) + up16((size_t)bc * U * esize)
+             + up16((size_t)WARPS * bc * U * 4) + up16((size_t)bc * U * 4);
+    };
+    const int bpad = (B + rg - 1) / rg * rg;
+    int bc = (THREADS * Q / U) / rg * rg;       // at most a cell a thread
+    if (bc > bpad) bc = bpad;
+    while (bc >= rg && sR + rows_bytes(bc) + pp > SMEM_LIMIT) bc -= rg;
+    if (bc < rg) return L;                      // smem = 0: does not fit
+    L.nchunk = (B + bc - 1) / bc;
+    const int per = (B + L.nchunk - 1) / L.nchunk;
+    L.bc = (per + rg - 1) / rg * rg;
+    L.cpb = L.bc * U / Q;
+    size_t off = sR;
+    L.off_z = (unsigned)off;     off += up16((size_t)L.bc * L.ldw * esize);
+    L.off_h = (unsigned)off;     off += up16((size_t)L.bc * U * esize);
+    L.off_red = (unsigned)off;   off += up16((size_t)WARPS * L.bc * U * 4);
+    L.off_part = (unsigned)off;  off += up16((size_t)L.bc * U * 4);
+    L.off_pp = (unsigned)off;    off += pp;
+    const size_t carry = (size_t)3 * L.nchunk * L.cpb * 4;
+    const size_t dr = (size_t)U * L.ng * 4 * 4;
+    L.carry_smem = off + up16(carry) <= SMEM_LIMIT;
+    if (L.carry_smem) { L.off_carry = (unsigned)off; off += up16(carry); }
+    L.dr_smem = off + up16(dr) <= SMEM_LIMIT;
+    if (L.dr_smem) { L.off_dr = (unsigned)off; off += up16(dr); }
+    L.smem = (unsigned)off;
+    L.scratch = (L.carry_smem ? 0 : carry / 4) + (L.dr_smem ? 0 : dr / 4);
+    return L;
+}
+
+// a cell's residuals for one step
+struct Resid {
+    float i, f, o, g, c, cp, dhs, m;
+};
+
+template <typename T>
+__device__ __forceinline__ Resid load_resid(const Args& a, int t, int b, int u,
+                                            bool masked) {
+    const int H = a.H;
+    const size_t o1 = ((size_t)t * a.batch + b) * H + u;
+    const T* grow = static_cast<const T*>(a.gates)
+                    + ((size_t)t * a.batch + b) * 4 * (size_t)H;
+    Resid r;
+    r.i = to_f(grow[u]);
+    r.f = to_f(grow[H + u]);
+    r.o = to_f(grow[2 * (size_t)H + u]);
+    r.g = to_f(grow[3 * (size_t)H + u]);
+    r.c = to_f(static_cast<const T*>(a.cs)[o1]);
+    r.cp = to_f(static_cast<const T*>(a.cprev)[o1]);
+    r.dhs = to_f(static_cast<const T*>(a.dhs)[o1]);
+    r.m = masked ? a.mask[(size_t)t * a.batch + b] : 1.f;
+    return r;
+}
+
+template <typename T, int UPT, int RPT>
+__global__ void __launch_bounds__(THREADS, 1)
+lstm_bwd_kernel(Args a, Layout L, bool peep, bool masked) {
+    constexpr int U = 4 * UPT, RG = 8 * RPT;
+    cg::grid_group grid = cg::this_grid();
+    cg::cluster_group cluster = cg::this_cluster();
+    extern __shared__ __align__(16) unsigned char smem[];
+    const int Q = (int)cluster.num_blocks(), q = (int)cluster.block_rank();
+    const int H = a.H, B = a.batch, W = L.W, ldw = L.ldw, ng = L.ng;
+    const int bc = L.bc, nchunk = L.nchunk, cpb = L.cpb;
+    const size_t H4 = 4 * (size_t)H;
+    const int u0 = (int)(blockIdx.x / Q) * U, col0 = q * W;
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+
+    T* sR = reinterpret_cast<T*>(smem);                       // [U][ldw]
+    T* sZ = reinterpret_cast<T*>(smem + L.off_z);             // [bc][ldw]
+    T* sH = reinterpret_cast<T*>(smem + L.off_h);             // [bc][U]
+    float* red = reinterpret_cast<float*>(smem + L.off_red);  // [WARPS][bc][U]
+    float* part = reinterpret_cast<float*>(smem + L.off_part);   // [bc][U]
+    float* pp = reinterpret_cast<float*>(smem + L.off_pp);    // [3][THREADS] + [3][U]
+    float* scr = a.scratch + (size_t)blockIdx.x * L.scratch;
+    float* carry = L.carry_smem ? reinterpret_cast<float*>(smem + L.off_carry) : scr;
+    float* dracc = L.dr_smem ? reinterpret_cast<float*>(smem + L.off_dr)
+                             : scr + (L.carry_smem ? 0 : (size_t)3 * nchunk * cpb);
+    const int ldr = 4 * ng;                                   // dracc [U][ldr]
+    float* c_dh = carry;                                      // [nchunk][cpb] each
+    float* c_dc = carry + (size_t)nchunk * cpb;
+    float* c_ht = carry + (size_t)2 * nchunk * cpb;           // (1-m) dh_tot
+
+    auto mark = [&](int r, int k) {
+        if (a.trace != nullptr && tid == 0 && blockIdx.x == 0)
+            a.trace[(size_t)r * TRACE_MARKS + k] = clock64();
+    };
+    const T* R = static_cast<const T*>(a.R);
+    const T* hprev = static_cast<const T*>(a.hprev);
+    T* dxp = static_cast<T*>(a.dxp);
+
+    for (int i = tid; i < U * ldw; i += THREADS) {
+        const int j = i / ldw, k = i % ldw;
+        sR[i] = (k < W && u0 + j < H) ? R[(size_t)(u0 + j) * H4 + col0 + k]
+                                      : from_f<T>(0.f);
+    }
+    for (int i = tid; i < U * ldr; i += THREADS) dracc[i] = 0.f;
+
+    // the cell a thread owns in each chunk: row (q cpb + tid) / U of the
+    // chunk, unit tid % U (cpb is a multiple of U)
+    const bool owner = tid < cpb;
+    const int jo = tid % U, uo = u0 + jo;
+    const int ro = (q * cpb + tid) / U;
+    float p_i = 0.f, p_f = 0.f, p_o = 0.f;
+    if (peep && owner && uo < H) {
+        p_i = to_f(static_cast<const T*>(a.pi)[uo]);
+        p_f = to_f(static_cast<const T*>(a.pf)[uo]);
+        p_o = to_f(static_cast<const T*>(a.po)[uo]);
+    }
+    for (int ch = 0; ch < nchunk && owner; ++ch) {
+        const int b = ch * bc + ro;
+        const bool ok = b < B && uo < H;
+        c_dh[ch * cpb + tid] = ok ? to_f(static_cast<const T*>(a.dhT)[(size_t)b * H + uo]) : 0.f;
+        c_dc[ch * cpb + tid] = ok ? to_f(static_cast<const T*>(a.dcT)[(size_t)b * H + uo]) : 0.f;
+    }
+    Resid pre = {};
+    if (owner && ro < B && uo < H) pre = load_resid<T>(a, a.seq - 1, ro, uo, masked);
+    float acc_pi = 0.f, acc_pf = 0.f, acc_po = 0.f;
+    const bool vec = (reinterpret_cast<uintptr_t>(dxp) % 16 == 0)
+                     && (H4 * sizeof(T)) % 16 == 0
+                     && ((size_t)col0 * sizeof(T)) % 16 == 0
+                     && ((size_t)W * sizeof(T)) % 16 == 0;
+    // columns of panel s: [pc * s, min(W, pc * (s + 1))), pc a multiple of 8
+    const int pc = ((W + PANELS - 1) / PANELS + 7) / 8 * 8;
     __syncthreads();
 
-    // phase (a): THREADS is a multiple of U, so a thread keeps one unit
-    const int ja = tid % U, ua = u0 + ja;
-    float acc_pi = 0.f, acc_pf = 0.f, acc_po = 0.f;
-
-    for (int r = 0; r < seq; ++r) {
-        const int t = seq - 1 - r;
-        T* zt = dxp + (size_t)t * batch * H4;
-        if (ua < H) {
-            for (int b = tid / U; b < batch; b += THREADS / U) {
-                const size_t off = (size_t)b * H + ua;
-                const size_t o1 = (size_t)t * BH + off;
-                const T* grow = gates + (size_t)t * batch * H4 + (size_t)b * H4;
-                const float ig = to_f(grow[ua]), fg = to_f(grow[H + ua]);
-                const float og = to_f(grow[2 * (size_t)H + ua]);
-                const float gg = to_f(grow[3 * (size_t)H + ua]);
-                const float c = to_f(cs[o1]), c_prev = to_f(cprev[o1]);
-                const float tc = tanhf(c);
-                const float dh_tot =
-                    (r == 0 ? to_f(dhT[off]) : dh[off]) + to_f(dhs[o1]);
-                const float dc_tot = r == 0 ? to_f(dcT[off]) : dc[off];
-                float m = 1.f, dh_new = dh_tot, dc_in = dc_tot;
-                if (MASKED) {
-                    m = mask[(size_t)t * batch + b];
-                    dh_new = m * dh_tot;
-                    dc_in = m * dc_tot;
+    // dR rows of the block += sH^T . sZ over the first `rows` rows
+    auto dr_update = [&](int rows) {
+        for (int tile = tid; tile < UPT * ng; tile += THREADS) {
+            const int ju = tile % UPT, g = tile / UPT;
+            float acc[4][4] = {};
+#pragma unroll 4
+            for (int r = 0; r < rows; ++r) {
+                const float4 z = ld4(sZ + (size_t)r * ldw + 4 * g);
+                const float4 h = ld4(sH + r * U + 4 * ju);
+                const float hv[4] = {h.x, h.y, h.z, h.w};
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    acc[e][0] = fmaf(hv[e], z.x, acc[e][0]);
+                    acc[e][1] = fmaf(hv[e], z.y, acc[e][1]);
+                    acc[e][2] = fmaf(hv[e], z.z, acc[e][2]);
+                    acc[e][3] = fmaf(hv[e], z.w, acc[e][3]);
                 }
-                const float dzo = dh_new * tc * og * (1.f - og);
-                float dcv = dc_in + dh_new * og * (1.f - tc * tc);
-                if (PEEP) dcv = dcv + dzo * to_f(po[ua]);
-                const float dzi = dcv * gg * ig * (1.f - ig);
-                const float dzf = dcv * c_prev * fg * (1.f - fg);
-                const float dzg = dcv * ig * (1.f - gg * gg);
-                T* drow = zt + (size_t)b * H4;
-                drow[ua] = from_f<T>(dzi);
-                drow[H + ua] = from_f<T>(dzf);
-                drow[2 * (size_t)H + ua] = from_f<T>(dzo);
-                drow[3 * (size_t)H + ua] = from_f<T>(dzg);
-                float ndc = dcv * fg;
-                if (MASKED) ndc = ndc + (1.f - m) * dc_tot;
-                if (PEEP) {
-                    acc_pi += dzi * c_prev;
-                    acc_pf += dzf * c_prev;
-                    acc_po += dzo * c;
-                    ndc = ndc + dzi * to_f(pi[ua]) + dzf * to_f(pf[ua]);
-                }
-                dc[off] = ndc;
-                if (MASKED) dhtot[off] = dh_tot;
-                if (t == 0) dc0[off] = from_f<T>(ndc);
+            }
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                float4* d = reinterpret_cast<float4*>(dracc + (size_t)(4 * ju + e) * ldr + 4 * g);
+                float4 v = *d;
+                v.x += acc[e][0];
+                v.y += acc[e][1];
+                v.z += acc[e][2];
+                v.w += acc[e][3];
+                *d = v;
             }
         }
-        grid.sync();                    // dz_t is whole before (b) reads it
+    };
 
-        // phase (b): dh_{t-1}[b, own units] = dz_t[b, :] . R[own, :]^T, a
-        // warp taking rows b and b + WARPS together so that each R value
-        // read from shared memory serves both
-        for (int b = warp; b < batch; b += 2 * WARPS) {
-            const bool two = b + WARPS < batch;     // warp-uniform
-            float acc[2][U];
-#pragma unroll
-            for (int j = 0; j < U; ++j) acc[0][j] = acc[1][j] = 0.f;
-            const T* z0 = zt + (size_t)b * H4;
-            const T* z1 = zt + (size_t)(two ? b + WARPS : b) * H4;
-            for (size_t cc = lane; cc < H4; cc += 32) {
-                const float za = to_f(z0[cc]), zb = to_f(z1[cc]);
-#pragma unroll
-                for (int j = 0; j < U; ++j) {
-                    const float w = to_f(sR[j * H4 + cc]);
-                    acc[0][j] = fmaf(za, w, acc[0][j]);
-                    acc[1][j] = fmaf(zb, w, acc[1][j]);
-                }
+    for (int r = 0; r < a.seq; ++r) {
+        const int t = a.seq - 1 - r;
+        mark(r, 0);
+        // (a) dz for the cells this block owns
+        for (int ch = 0; ch < nchunk && owner; ++ch) {
+            const int b = ch * bc + ro;
+            if (b >= B || uo >= H) continue;
+            const Resid rs = ch == 0 ? pre : load_resid<T>(a, t, b, uo, masked);
+            const int ci = ch * cpb + tid;
+            const float tc = tanhf(rs.c);
+            const float dh_tot = c_dh[ci] + rs.dhs;
+            const float dc_tot = c_dc[ci];
+            float dh_new = dh_tot, dc_in = dc_tot;
+            if (masked) {
+                dh_new = rs.m * dh_tot;
+                dc_in = rs.m * dc_tot;
             }
-            for (int q = 0; q < (two ? 2 : 1); ++q) {
-                float mine = 0.f;
-#pragma unroll
-                for (int j = 0; j < U; ++j) {
-#pragma unroll
-                    for (int o = 16; o > 0; o >>= 1)
-                        acc[q][j] += __shfl_xor_sync(0xffffffffu, acc[q][j], o);
-                    if (lane == j) mine = acc[q][j];
+            const float dzo = dh_new * tc * rs.o * (1.f - rs.o);
+            float dcv = dc_in + dh_new * rs.o * (1.f - tc * tc);
+            if (peep) dcv = dcv + dzo * p_o;
+            const float dzi = dcv * rs.g * rs.i * (1.f - rs.i);
+            const float dzf = dcv * rs.cp * rs.f * (1.f - rs.f);
+            const float dzg = dcv * rs.i * (1.f - rs.g * rs.g);
+            T* drow = dxp + ((size_t)t * B + b) * H4;
+            drow[uo] = from_f<T>(dzi);
+            drow[H + uo] = from_f<T>(dzf);
+            drow[2 * (size_t)H + uo] = from_f<T>(dzo);
+            drow[3 * (size_t)H + uo] = from_f<T>(dzg);
+            float ndc = dcv * rs.f;
+            if (masked) {
+                ndc = ndc + (1.f - rs.m) * dc_tot;
+                c_ht[ci] = (1.f - rs.m) * dh_tot;
+            }
+            if (peep) {
+                acc_pi += dzi * rs.cp;
+                acc_pf += dzf * rs.cp;
+                acc_po += dzo * rs.c;
+                ndc = ndc + dzi * p_i + dzf * p_f;
+            }
+            c_dc[ci] = ndc;
+            if (t == 0) static_cast<T*>(a.dc0)[(size_t)b * H + uo] = from_f<T>(ndc);
+        }
+
+        // the grid barrier: dz_t is whole once every block has arrived; the
+        // wait hides the next residuals' loads and the last step's dR
+        mark(r, 1);
+        auto token = grid.barrier_arrive();
+        if (t > 0 && owner && ro < B && uo < H)
+            pre = load_resid<T>(a, t - 1, ro, uo, masked);
+        if (nchunk == 1 && r > 0) dr_update(B);
+        mark(r, 2);
+        grid.barrier_wait(std::move(token));
+        mark(r, 3);
+
+        // (b) dh_{t-1} for the cluster's cells: dz_t . R^T
+        for (int ch = 0; ch < nchunk; ++ch) {
+            const int b0 = ch * bc, rows = min(bc, B - b0);
+            const T* src = dxp + ((size_t)t * B + b0) * H4 + col0;
+            for (int s = 0; s < PANELS; ++s) {
+                const int k0 = min(W, s * pc), k1 = min(W, (s + 1) * pc);
+                if (vec) {
+                    constexpr int per = 16 / (int)sizeof(T);
+                    const int pieces = (k1 - k0) / per;
+                    for (int i = tid; i < rows * pieces; i += THREADS) {
+                        const int rr = i / pieces, k = k0 + (i % pieces) * per;
+                        cp_async16(smem_u32(sZ + (size_t)rr * ldw + k),
+                                   src + (size_t)rr * H4 + k, true);
+                    }
+                } else {
+                    // any alignment: element copies (through L2, not L1),
+                    // zeros in the last group's columns past W
+                    const int kend = s == PANELS - 1 ? 4 * ng : k1;
+                    const int wid = kend - k0;
+                    for (int i = tid; i < rows * wid; i += THREADS) {
+                        const int rr = i / wid, k = k0 + i % wid;
+                        sZ[(size_t)rr * ldw + k] =
+                            k < W ? __ldcg(src + (size_t)rr * H4 + k) : from_f<T>(0.f);
+                    }
                 }
-                const int bq = b + q * WARPS;
-                if (lane < U && u0 + lane < H) {
-                    const size_t off = (size_t)bq * H + u0 + lane;
-                    float nd = mine;
-                    if (MASKED)
-                        nd = nd + (1.f - mask[(size_t)t * batch + bq]) * dhtot[off];
-                    dh[off] = nd;
-                    if (t == 0) dh0[off] = from_f<T>(nd);
+                cp_async_commit();
+            }
+            for (int i = tid; i < bc * U; i += THREADS) {
+                const int rr = i / U, j = i % U;
+                sH[i] = (rr < rows && u0 + j < H)
+                            ? hprev[((size_t)t * B + b0 + rr) * H + u0 + j]
+                            : from_f<T>(0.f);
+            }
+            mark(r, 4);
+            // the product, a thread rows tr + 8i, units tu + 4j of a row
+            // group; warp w takes the column groups w, w + 8, ... of each
+            // panel
+            const int tr = lane & 7, tu = lane >> 3;
+            for (int g0 = 0; g0 < bc; g0 += RG) {
+                float acc[RPT][UPT];
+#pragma unroll
+                for (int i = 0; i < RPT; ++i)
+#pragma unroll
+                    for (int j = 0; j < UPT; ++j) acc[i][j] = 0.f;
+                for (int s = 0; s < PANELS; ++s) {
+                    if (g0 == 0) {
+                        cp_async_wait_dyn(PANELS - 1 - s);
+                        __syncthreads();
+                    }
+                    const int gs = min(W, s * pc) / 4;
+                    const int ge = s == PANELS - 1 ? ng : min(W, (s + 1) * pc) / 4;
+                    for (int g = gs + warp; g < ge; g += WARPS) {
+                        float4 z[RPT], w[UPT];
+#pragma unroll
+                        for (int i = 0; i < RPT; ++i)
+                            z[i] = ld4(sZ + (size_t)(g0 + tr + 8 * i) * ldw + 4 * g);
+#pragma unroll
+                        for (int j = 0; j < UPT; ++j)
+                            w[j] = ld4(sR + (size_t)(tu + 4 * j) * ldw + 4 * g);
+#pragma unroll
+                        for (int i = 0; i < RPT; ++i)
+#pragma unroll
+                            for (int j = 0; j < UPT; ++j) {
+                                float v = acc[i][j];
+                                v = fmaf(z[i].x, w[j].x, v);
+                                v = fmaf(z[i].y, w[j].y, v);
+                                v = fmaf(z[i].z, w[j].z, v);
+                                v = fmaf(z[i].w, w[j].w, v);
+                                acc[i][j] = v;
+                            }
+                    }
                 }
+#pragma unroll
+                for (int i = 0; i < RPT; ++i)
+#pragma unroll
+                    for (int j = 0; j < UPT; ++j)
+                        red[((size_t)warp * bc + g0 + tr + 8 * i) * U + tu + 4 * j] = acc[i][j];
+            }
+            __syncthreads();
+            for (int o = tid; o < bc * U; o += THREADS) {
+                float v = 0.f;
+#pragma unroll
+                for (int w = 0; w < WARPS; ++w) v += red[(size_t)w * bc * U + o];
+                part[o] = v;
+            }
+            mark(r, 5);
+            cluster.sync();             // every block's partial is whole
+            mark(r, 6);
+            if (owner) {
+                const int b = b0 + ro, ci = ch * cpb + tid, cell = q * cpb + tid;
+                float v = 0.f;
+                for (int s = 0; s < Q; ++s) v += cluster.map_shared_rank(part, s)[cell];
+                if (masked) v = v + c_ht[ci];
+                c_dh[ci] = v;
+                if (t == 0 && b < B && uo < H)
+                    static_cast<T*>(a.dh0)[(size_t)b * H + uo] = from_f<T>(v);
+            }
+            if (nchunk > 1) {
+                dr_update(rows);
+                cluster.sync();         // no block rewrites `part` while read
             }
         }
-        __syncthreads();                // (a) of the next step reads dh
+        mark(r, 7);
     }
-
-    if (PEEP) {
-        sP[tid] = acc_pi;
-        sP[THREADS + tid] = acc_pf;
-        sP[2 * THREADS + tid] = acc_po;
+    if (nchunk == 1) dr_update(B);
+    __syncthreads();
+    T* dR = static_cast<T*>(a.dR);
+    for (int i = tid; i < U * W; i += THREADS) {
+        const int j = i / W, k = i % W;
+        if (u0 + j < H) dR[(size_t)(u0 + j) * H4 + col0 + k] = from_f<T>(dracc[(size_t)j * ldr + k]);
+    }
+    if (peep) {
+        pp[tid] = acc_pi;
+        pp[THREADS + tid] = acc_pf;
+        pp[2 * THREADS + tid] = acc_po;
         __syncthreads();
-        if (tid < U && u0 + tid < H) {
+        float* blk = pp + 3 * THREADS;          // [3][U], read by rank 0
+        if (tid < U) {
             float s0 = 0.f, s1 = 0.f, s2 = 0.f;
-            for (int i = tid; i < THREADS; i += U) {
-                s0 += sP[i];
-                s1 += sP[THREADS + i];
-                s2 += sP[2 * THREADS + i];
+            for (int i = tid; i < cpb; i += U) {
+                s0 += pp[i];
+                s1 += pp[THREADS + i];
+                s2 += pp[2 * THREADS + i];
             }
-            dpi[u0 + tid] = from_f<T>(s0);
-            dpf[u0 + tid] = from_f<T>(s1);
-            dpo[u0 + tid] = from_f<T>(s2);
+            blk[tid] = s0;
+            blk[U + tid] = s1;
+            blk[2 * U + tid] = s2;
+        }
+        cluster.sync();
+        if (q == 0 && tid < U && u0 + tid < H) {
+            float s0 = 0.f, s1 = 0.f, s2 = 0.f;
+            for (int s = 0; s < Q; ++s) {
+                const float* o = cluster.map_shared_rank(blk, s);
+                s0 += o[tid];
+                s1 += o[U + tid];
+                s2 += o[2 * U + tid];
+            }
+            static_cast<T*>(a.dpi)[u0 + tid] = from_f<T>(s0);
+            static_cast<T*>(a.dpf)[u0 + tid] = from_f<T>(s1);
+            static_cast<T*>(a.dpo)[u0 + tid] = from_f<T>(s2);
         }
     }
+    cluster.sync();                     // no block leaves while read
 }
 
-// dR [H,4H] = hprev[N,H]^T . dz[N,4H], N = T*B, f32 sums in order of n.
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-lstm_bwd_dr(const T* __restrict__ hprev, const T* __restrict__ dz,
-            T* __restrict__ dR, int N, int H) {
-    __shared__ float sA[KT][TILE];
-    __shared__ float sZ[KT][TILE];
-    const size_t H4 = 4 * (size_t)H;
-    const int tid = threadIdx.x;
-    const int tx = tid % 16, ty = tid / 16;
-    const int i0 = blockIdx.y * TILE;           // rows of dR (units of h)
-    const size_t j0 = (size_t)blockIdx.x * TILE;   // columns of dR (gates)
-    float acc[4][4];
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[a][c] = 0.f;
-    for (int k0 = 0; k0 < N; k0 += KT) {
-        __syncthreads();
-        for (int i = tid; i < KT * TILE; i += THREADS) {
-            const int kk = i / TILE, x = i % TILE, k = k0 + kk;
-            sA[kk][x] = (k < N && i0 + x < H)
-                            ? to_f(hprev[(size_t)k * H + i0 + x]) : 0.f;
-            sZ[kk][x] = (k < N && j0 + x < H4)
-                            ? to_f(dz[(size_t)k * H4 + j0 + x]) : 0.f;
-        }
-        __syncthreads();
-#pragma unroll
-        for (int kk = 0; kk < KT; ++kk) {
-#pragma unroll
-            for (int a = 0; a < 4; ++a) {
-                const float av = sA[kk][ty + 16 * a];
-#pragma unroll
-                for (int c = 0; c < 4; ++c)
-                    acc[a][c] = fmaf(av, sZ[kk][tx + 16 * c], acc[a][c]);
-            }
-        }
-    }
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-        const int row = i0 + ty + 16 * a;
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-            const size_t cj = j0 + tx + 16 * c;
-            if (row < H && cj < H4) dR[(size_t)row * H4 + cj] = from_f<T>(acc[a][c]);
-        }
-    }
+// the compiled (units a cluster, rows a thread) pairs; a plan names U
+template <typename T, int UPT, int RPT>
+cudaLaunchConfig_t config(const Layout& L, int Q, int H, cudaLaunchAttribute* attr) {
+    const int P = (H + 4 * UPT - 1) / (4 * UPT);
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3((unsigned)(P * Q));
+    cfg.blockDim = dim3(THREADS);
+    cfg.dynamicSmemBytes = L.smem;
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = (unsigned)Q;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    attr[1].id = cudaLaunchAttributeCooperative;
+    attr[1].val.cooperative = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 2;
+    return cfg;
 }
 
-template <typename T, bool PEEP, bool MASKED>
-cudaError_t launch_loop(void** ptrs, float* dh, float* dc, float* dhtot,
-                        int seq, int batch, int H, cudaStream_t stream) {
-    auto kern = lstm_bwd_loop<T, PEEP, MASKED>;
-    const size_t smem = loop_smem_bytes<T>(H);
+// Fills out[0..5] = (dynamic shared bytes, f32 scratch elements for the
+// grid, the clusters of this shape that can be co-resident, rows a chunk,
+// chunks, blocks); shared bytes 0 when the plan does not fit a block.
+template <typename T, int UPT, int RPT>
+cudaError_t layout_of(int H, int B, int Q, long long* out) {
+    const Layout L = make_layout(H, B, Q, 4 * UPT, 8 * RPT, (int)sizeof(T));
+    const int P = (H + 4 * UPT - 1) / (4 * UPT);
+    out[0] = L.smem;
+    out[1] = L.scratch * P * Q;
+    out[2] = 0;
+    out[3] = L.bc;
+    out[4] = L.nchunk;
+    out[5] = (long long)P * Q;
+    if (L.smem == 0) return cudaSuccess;
+    auto kern = lstm_bwd_kernel<T, UPT, RPT>;
     cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.smem);
     if (err != cudaSuccess) return err;
-    int dev = 0, sms = 0, per_sm = 0;
-    if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
-    if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                      dev)) != cudaSuccess)
-        return err;
-    if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-             &per_sm, kern, THREADS, smem)) != cudaSuccess)
-        return err;
-    const int blocks = (H + U - 1) / U;
-    if (blocks > per_sm * sms) return cudaErrorCooperativeLaunchTooLarge;
+    cudaLaunchAttribute attr[2];
+    cudaLaunchConfig_t cfg = config<T, UPT, RPT>(L, Q, H, attr);
+    int n = 0;
+    err = cudaOccupancyMaxActiveClusters(&n, kern, &cfg);
+    out[2] = n;
+    return err;
+}
 
-    // ptrs: gates cs cprev dhs R dhT dcT mask pi pf po dxp dh0 dc0 dpi dpf dpo
-    const T* a_gates = static_cast<const T*>(ptrs[0]);
-    const T* a_cs = static_cast<const T*>(ptrs[1]);
-    const T* a_cprev = static_cast<const T*>(ptrs[2]);
-    const T* a_dhs = static_cast<const T*>(ptrs[3]);
-    const T* a_R = static_cast<const T*>(ptrs[4]);
-    const T* a_dhT = static_cast<const T*>(ptrs[5]);
-    const T* a_dcT = static_cast<const T*>(ptrs[6]);
-    const float* a_mask = static_cast<const float*>(ptrs[7]);
-    const T* a_pi = static_cast<const T*>(ptrs[8]);
-    const T* a_pf = static_cast<const T*>(ptrs[9]);
-    const T* a_po = static_cast<const T*>(ptrs[10]);
-    T* a_dxp = static_cast<T*>(ptrs[11]);
-    T* a_dh0 = static_cast<T*>(ptrs[12]);
-    T* a_dc0 = static_cast<T*>(ptrs[13]);
-    T* a_dpi = static_cast<T*>(ptrs[14]);
-    T* a_dpf = static_cast<T*>(ptrs[15]);
-    T* a_dpo = static_cast<T*>(ptrs[16]);
-    void* args[] = {&a_gates, &a_cs, &a_cprev, &a_dhs, &a_R, &a_dhT, &a_dcT,
-                    &a_mask, &a_pi, &a_pf, &a_po, &a_dxp, &a_dh0, &a_dc0,
-                    &a_dpi, &a_dpf, &a_dpo, &dh, &dc, &dhtot, &seq, &batch,
-                    &H};
-    err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kern),
-                                      dim3(blocks), dim3(THREADS), args, smem,
-                                      stream);
+template <typename T, int UPT, int RPT>
+cudaError_t launch(const Args& a, int Q, cudaStream_t stream) {
+    const Layout L = make_layout(a.H, a.batch, Q, 4 * UPT, 8 * RPT, (int)sizeof(T));
+    if (L.smem == 0) return cudaErrorInvalidConfiguration;
+    if (L.scratch > 0 && a.scratch == nullptr) return cudaErrorInvalidValue;
+    auto kern = lstm_bwd_kernel<T, UPT, RPT>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.smem);
+    if (err != cudaSuccess) return err;
+    cudaLaunchAttribute attr[2];
+    cudaLaunchConfig_t cfg = config<T, UPT, RPT>(L, Q, a.H, attr);
+    cfg.stream = stream;
+    int fit = 0;
+    if ((err = cudaOccupancyMaxActiveClusters(&fit, kern, &cfg)) != cudaSuccess)
+        return err;
+    if ((int)(cfg.gridDim.x / Q) > fit) return cudaErrorCooperativeLaunchTooLarge;
+    const bool peep = a.pi != nullptr, masked = a.mask != nullptr;
+    err = cudaLaunchKernelEx(&cfg, kern, a, L, peep, masked);
     if (err != cudaSuccess) return err;
     return cudaGetLastError();
 }
 
+// U = 8 with 32-row groups (H 512), U = 16 with 8-row groups (up to
+// H 1024, where R's slice leaves room for 8 rows of dz)
+#define DL4J_BY_UNITS(U_, CALL)                                              \
+    switch (U_) {                                                             \
+    case 8: return CALL(2, 4);                                                \
+    case 16: return CALL(4, 1);                                               \
+    default: return cudaErrorInvalidValue;                                    \
+    }
+
 template <typename T>
-cudaError_t run(void** ptrs, const void* hprev, void* dR, float* dh,
-                float* dc, float* dhtot, int seq, int batch, int H,
-                cudaStream_t s) {
-    const bool peep = ptrs[8] != nullptr, masked = ptrs[7] != nullptr;
-    cudaError_t err;
-    if (peep && masked)
-        err = launch_loop<T, true, true>(ptrs, dh, dc, dhtot, seq, batch, H, s);
-    else if (peep)
-        err = launch_loop<T, true, false>(ptrs, dh, dc, dhtot, seq, batch, H, s);
-    else if (masked)
-        err = launch_loop<T, false, true>(ptrs, dh, dc, dhtot, seq, batch, H, s);
-    else
-        err = launch_loop<T, false, false>(ptrs, dh, dc, dhtot, seq, batch, H, s);
-    if (err != cudaSuccess) return err;
-    const dim3 grid((unsigned)((4 * (size_t)H + TILE - 1) / TILE),
-                    (unsigned)((H + TILE - 1) / TILE));
-    lstm_bwd_dr<T><<<grid, THREADS, 0, s>>>(
-        static_cast<const T*>(hprev), static_cast<const T*>(ptrs[11]),
-        static_cast<T*>(dR), seq * batch, H);
-    return cudaGetLastError();
+cudaError_t layout_by_units(int H, int B, int Q, int U, long long* out) {
+#define DL4J_LAYOUT(UPT_, RPT_) layout_of<T, UPT_, RPT_>(H, B, Q, out)
+    DL4J_BY_UNITS(U, DL4J_LAYOUT)
+#undef DL4J_LAYOUT
+}
+
+template <typename T>
+cudaError_t launch_by_units(const Args& a, int Q, int U, cudaStream_t s) {
+#define DL4J_LAUNCH(UPT_, RPT_) launch<T, UPT_, RPT_>(a, Q, s)
+    DL4J_BY_UNITS(U, DL4J_LAUNCH)
+#undef DL4J_LAUNCH
 }
 
 }  // namespace
 
-// Runs the reverse loop (one cooperative launch) and then dR (one launch) on
-// `stream`; returns the CUDA error code (0 = both launched). `mask` may be
+// The layout of a plan (Q blocks a cluster, U units a cluster) at this
+// shape on the current device: out[6] as layout_of fills it. Returns the
+// CUDA error code.
+extern "C" int dl4j_lstm_bwd_layout(int hidden, int batch, int q, int u,
+                                    int is_bf16, long long* out) {
+    if (hidden < 1 || batch < 1 || (q != 2 && q != 4))
+        return (int)cudaErrorInvalidValue;
+    if (is_bf16)
+        return (int)layout_by_units<__nv_bfloat16>(hidden, batch, q, u, out);
+    return (int)layout_by_units<float>(hidden, batch, q, u, out);
+}
+
+// Runs the whole backward (one cooperative cluster launch) on `stream` with
+// the plan (q, u); returns the CUDA error code (0 = launched). `mask` may be
 // null; `pi/pf/po` and `dpi/dpf/dpo` are all null (plain LSTM) or all set.
-// `dh`, `dc`, `dhtot` are [B,H] f32 scratch the caller allocates.
+// `scratch` holds the f32 elements dl4j_lstm_bwd_layout asks for (may be
+// null when it asks for none). `trace` is null, or [seq][8] int64 that
+// block 0's thread 0 fills with clock64() at the points of each step
+// TRACE_MARKS names (a study of where a step's time goes).
 extern "C" int dl4j_lstm_bwd(const void* gates, const void* cs,
                              const void* cprev, const void* hprev,
                              const void* dhs, const void* R, const void* dhT,
                              const void* dcT, const void* mask,
                              const void* pi, const void* pf, const void* po,
                              void* dxp, void* dh0, void* dc0, void* dR,
-                             void* dpi, void* dpf, void* dpo, void* dh,
-                             void* dc, void* dhtot, int seq, int batch,
-                             int hidden, int is_bf16, void* stream) {
-    if (seq < 1 || batch < 1 || hidden < 1) return (int)cudaErrorInvalidValue;
+                             void* dpi, void* dpf, void* dpo, void* scratch,
+                             void* trace, int seq, int batch, int hidden,
+                             int is_bf16, int q, int u, void* stream) {
+    if (seq < 1 || batch < 1 || hidden < 1 || (q != 2 && q != 4))
+        return (int)cudaErrorInvalidValue;
     const bool peep = pi != nullptr;
-    if (pf == nullptr || po == nullptr || dpi == nullptr || dpf == nullptr ||
-        dpo == nullptr) {
-        if (peep || pf || po || dpi || dpf || dpo)
-            return (int)cudaErrorInvalidValue;
-    }
-    void* ptrs[] = {const_cast<void*>(gates), const_cast<void*>(cs),
-                    const_cast<void*>(cprev), const_cast<void*>(dhs),
-                    const_cast<void*>(R), const_cast<void*>(dhT),
-                    const_cast<void*>(dcT), const_cast<void*>(mask),
-                    const_cast<void*>(pi), const_cast<void*>(pf),
-                    const_cast<void*>(po), dxp, dh0, dc0, dpi, dpf, dpo};
+    if (peep != (pf != nullptr) || peep != (po != nullptr) ||
+        peep != (dpi != nullptr) || peep != (dpf != nullptr) ||
+        peep != (dpo != nullptr))
+        return (int)cudaErrorInvalidValue;
+    Args a = {gates, cs, cprev, hprev, dhs, R, dhT, dcT,
+              static_cast<const float*>(mask), pi, pf, po,
+              dxp, dh0, dc0, dR, dpi, dpf, dpo,
+              static_cast<float*>(scratch), static_cast<long long*>(trace),
+              seq, batch, hidden};
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    float* fdh = static_cast<float*>(dh);
-    float* fdc = static_cast<float*>(dc);
-    float* fht = static_cast<float*>(dhtot);
-    if (is_bf16)
-        return (int)run<__nv_bfloat16>(ptrs, hprev, dR, fdh, fdc, fht, seq,
-                                       batch, hidden, s);
-    return (int)run<float>(ptrs, hprev, dR, fdh, fdc, fht, seq, batch,
-                           hidden, s);
+    if (is_bf16) return (int)launch_by_units<__nv_bfloat16>(a, q, u, s);
+    return (int)launch_by_units<float>(a, q, u, s);
 }

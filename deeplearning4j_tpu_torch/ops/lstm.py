@@ -8,9 +8,15 @@ Counterpart of ``deeplearning4j_tpu/ops/pallas_lstm.py``:
 ``custom_vjp`` pairs ``_fused_lstm_m`` and ``_fused_lstm_pm``
 (``:332-388``) behind ``fused_lstm`` and ``fused_lstm_peephole``. The
 kernels are ``csrc/lstm_fwd.cu`` and ``csrc/lstm_bwd.cu``; each source
-says what it computes, what bounds it and what its simple design leaves for
-later. Gate order along the 4H axis is [i, f, o, g]; Graves peepholes let
-i and f peep at c_{t-1} and o at c_t.
+says what it computes, what bounds it and what its design leaves for later.
+Gate order along the 4H axis is [i, f, o, g]; Graves peepholes let i and f
+peep at c_{t-1} and o at c_t.
+
+K6 is one cooperative launch of thread-block clusters whose grid
+``loop_plan`` chooses on the host, per shape: Q blocks a cluster (each a
+slice of the gate axis) and U hidden units a cluster, among the pairs the
+kernel is compiled for, with no more clusters than the card can hold at
+once (``cudaOccupancyMaxActiveClusters``, asked through the library).
 
 Dispatch: each kernel wrapper (``fused_lstm_fwd``, ``fused_lstm_bwd``)
 computes its plain version on a CPU tensor and launches its kernel on a
@@ -20,18 +26,21 @@ Each launch adds one to the wrapper's ``launches``.
 from __future__ import annotations
 
 import ctypes
+import functools
 from pathlib import Path
-from typing import Optional, Sequence
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
 from .nvcc import PKG, build_library, load_symbol
 
 # The probe admits what the kernels take: f32 or bf16, tanh with sigmoid
-# gates, any batch, and H up to 1024 (a block keeps R's columns for 8 units,
-# [H, 32], and a tile of h_{t-1}, [16, H] f32, in shared memory: 194 KB at
-# H 1024 f32). The TPU probe also needs B % 8 (f32) or B % 16 (bf16),
-# H % 128 and H <= 512 (VMEM); those shapes take the kernels here too.
+# gates, any batch, and H up to 1024 (K5: a block keeps R's columns for 8
+# units, [H, 32], and a tile of h_{t-1}, [16, H] f32, in shared memory: 194
+# KB at H 1024 f32; K6: its (Q 2, U 16) plan keeps R[16 units, 2 gates],
+# 131 KB at H 1024 f32, beside 8-row chunks of dz). The TPU probe also
+# needs B % 8 (f32) or B % 16 (bf16), H % 128 and H <= 512 (VMEM); those
+# shapes take the kernels here too.
 MAX_H = 1024
 
 FWD_SOURCE = PKG / "csrc" / "lstm_fwd.cu"
@@ -60,15 +69,107 @@ def build_fwd() -> Path:
 
 
 def build_bwd() -> Path:
-    """Compile K6 (the reverse loop and its dR pass, one library)."""
+    """Compile K6 (the whole backward, one kernel) unless its library
+    exists."""
     return build_library(BWD_SOURCE)
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ENTRIES = {
     "dl4j_lstm_fwd": (build_fwd, [_P] * 17 + [_I] * 4 + [_P]),
-    "dl4j_lstm_bwd": (build_bwd, [_P] * 22 + [_I] * 4 + [_P]),
+    "dl4j_lstm_bwd": (build_bwd, [_P] * 21 + [_I] * 6 + [_P]),
+    "dl4j_lstm_bwd_layout": (build_bwd, [_I] * 5 + [_P]),
 }
+
+
+# ------------------------------------------------------------ K6's plan
+# (blocks a cluster Q, hidden units a cluster U) the kernel is compiled for
+# (csrc/lstm_bwd.cu DL4J_BY_UNITS), in the order a plan prefers them at a
+# tie: a block takes 4H / Q columns of the gate axis, two gates. (Four
+# blocks of one gate each fit 30 clusters on an H100, too few for H 512 at
+# 16 units; at 20 units they measured slower than 2 x 8, PERF.md §6.)
+LOOP_CANDIDATES = ((2, 8), (2, 16))
+
+
+class LoopPlan(NamedTuple):
+    """How K6 cuts one call: ``clusters`` clusters of ``q`` blocks; cluster
+    p owns hidden units [p u, (p + 1) u) (the last may hold fewer), its
+    block r the gate columns [r 4H/q, (r + 1) 4H/q)."""
+    q: int
+    u: int
+    clusters: int
+
+    @property
+    def blocks(self) -> int:
+        return self.q * self.clusters
+
+
+@functools.lru_cache(maxsize=1024)
+def loop_plan(H: int, B: int, sms: int,
+              max_clusters: Tuple[int, ...]) -> LoopPlan:
+    """K6's plan for hidden size H and batch B on a card of ``sms`` SMs;
+    ``max_clusters[i]`` is how many clusters of ``LOOP_CANDIDATES[i]`` the
+    card holds at once at this shape (0: it does not fit a block). Among
+    the pairs whose clusters all fit and whose blocks fit one an SM, the
+    plan with the most blocks; ties go to the earlier pair. Cached: a
+    layer asks for the same shape on every step. Raises ValueError when no
+    pair fits."""
+    if H < 1 or B < 1 or len(max_clusters) != len(LOOP_CANDIDATES):
+        raise ValueError(f"K6 plans 1 <= H, B with one cluster count for "
+                         f"each of {LOOP_CANDIDATES}; got H={H} B={B} "
+                         f"{max_clusters}")
+    best = None
+    for (q, u), fit in zip(LOOP_CANDIDATES, max_clusters):
+        plan = LoopPlan(q, u, -(-H // u))
+        if plan.clusters <= fit and plan.blocks <= sms and (
+                best is None or plan.blocks > best.blocks):
+            best = plan
+    if best is None:
+        raise ValueError(f"no K6 plan fits H={H} B={B} on {sms} SMs "
+                         f"(clusters that fit: {max_clusters})")
+    return best
+
+
+class LoopLayout(NamedTuple):
+    """What a plan takes at a shape (``dl4j_lstm_bwd_layout``): dynamic
+    shared memory a block (0: it does not fit), f32 scratch for the grid,
+    clusters the card holds at once, batch rows a chunk, chunks a step,
+    blocks."""
+    smem: int
+    scratch: int
+    max_clusters: int
+    rows: int
+    chunks: int
+    blocks: int
+
+
+@functools.lru_cache(maxsize=1024)
+def _layout(index: int, H: int, B: int, dtype, q: int,
+            u: int) -> LoopLayout:
+    """The library's layout of plan pair (q, u) at (H, B, dtype) on card
+    ``index``, its co-resident clusters included."""
+    fn = load_symbol("dl4j_lstm_bwd_layout", *_ENTRIES["dl4j_lstm_bwd_layout"])
+    out = (ctypes.c_longlong * 6)()
+    with torch.cuda.device(index):
+        err = fn(H, B, q, u, int(dtype == torch.bfloat16), out)
+    if err != 0:
+        raise RuntimeError(f"dl4j_lstm_bwd_layout failed with CUDA error "
+                           f"{err} (H={H}, B={B}, q={q}, u={u}, {dtype})")
+    return LoopLayout(*out)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=1024)
+def _bwd_plan(index: int, H: int, B: int, dtype):
+    """This card's plan for K6 at (H, B, dtype) and its layout."""
+    fits = tuple(_layout(index, H, B, dtype, q, u).max_clusters
+                 for q, u in LOOP_CANDIDATES)
+    plan = loop_plan(H, B, _sm_count(index), fits)
+    return plan, _layout(index, H, B, dtype, plan.q, plan.u)
 
 
 # ----------------------------------------------------------- plain versions
@@ -255,8 +356,8 @@ def fused_lstm_bwd(gates, cs, c_prev, h_prev, dhs, R, dhT, dcT, mask=None,
                    peep=None):
     """The ``_bwd_call`` counterpart (K6). Returns (dx_proj, dh0, dc0, dR
     [, dpi, dpf, dpo]) as ``lstm_bwd_reference`` does. CPU tensors take the
-    plain version; CUDA tensors launch the kernel (its reverse loop, then
-    its dR pass) on the current stream."""
+    plain version; CUDA tensors launch the kernel (one cooperative cluster
+    launch, this shape's ``loop_plan``) on the current stream."""
     if _on_cpu(gates):
         return lstm_bwd_reference(gates, cs, c_prev, h_prev, dhs, R, dhT,
                                   dcT, mask, peep)
@@ -271,18 +372,52 @@ def fused_lstm_bwd(gates, cs, c_prev, h_prev, dhs, R, dhT, dcT, mask=None,
                                              ("dhs", dhs))]
            + [("dhT", dhT, (B, H)), ("dcT", dcT, (B, H))],
            gates.dtype, gates.device)
+    out = _bwd_launch(gates, cs, c_prev, h_prev, dhs, R, dhT, dcT, mask,
+                      peep)
+    fused_lstm_bwd.launches += 1
+    return out
+
+
+def _bwd_launch(gates, cs, c_prev, h_prev, dhs, R, dhT, dcT, mask, peep,
+                plan=None, trace=None):
+    """Allocate K6's outputs (and scratch, where the plan's layout asks for
+    it) and launch it on the current stream of gates' card with ``plan``
+    (by default this card's ``loop_plan``); raise on a CUDA error, a grid
+    that cannot be co-resident (720) included. ``trace``, a [T, 8] int64
+    tensor on the card, receives block 0's clock at eight points of each
+    step (``csrc/lstm_bwd.cu`` TRACE_MARKS; ``lstm_study.py`` reads it)."""
+    index, current = gates.get_device(), torch._C._cuda_getDevice()
+    if index >= 0 and index != current:      # another card than the current
+        with torch.cuda.device(index):
+            return _bwd_launch(gates, cs, c_prev, h_prev, dhs, R, dhT, dcT,
+                               mask, peep, plan, trace)
+    T, B, H4 = gates.shape
+    H = H4 // 4
+    own, layout = _bwd_plan(current, H, B, gates.dtype)
+    if plan is None:
+        plan = own
+    elif plan != own:
+        layout = _layout(current, H, B, gates.dtype, plan.q, plan.u)
     new = lambda *shape, dtype=gates.dtype: torch.empty(
         shape, dtype=dtype, device=gates.device)
     dxp, dh0, dc0, dR = new(T, B, 4 * H), new(B, H), new(B, H), new(H, 4 * H)
     dps = tuple(new(1, H) for _ in range(3)) if peep is not None else None
-    scratch = [new(B, H, dtype=torch.float32) for _ in range(3)]
+    scratch = (new(layout.scratch, dtype=torch.float32) if layout.scratch
+               else None)
     pi, pf, po = peep if peep is not None else (None, None, None)
     dpi, dpf, dpo = dps if dps is not None else (None, None, None)
     ptrs = [_ptr(t) for t in (gates, cs, c_prev, h_prev, dhs, R, dhT, dcT,
                               mask, pi, pf, po, dxp, dh0, dc0, dR, dpi, dpf,
-                              dpo, *scratch)]
-    _launch("dl4j_lstm_bwd", ptrs, T, B, H, gates.dtype, gates.device)
-    fused_lstm_bwd.launches += 1
+                              dpo, scratch, trace)]
+    fn = load_symbol("dl4j_lstm_bwd", *_ENTRIES["dl4j_lstm_bwd"])
+    err = fn(*ptrs, T, B, H, int(gates.dtype == torch.bfloat16), plan.q,
+             plan.u, torch._C._cuda_getCurrentRawStream(current))
+    if err != 0:
+        why = (" (the plan's clusters cannot all be resident at once)"
+               if err == 720 else "")
+        raise RuntimeError(f"dl4j_lstm_bwd launch failed with CUDA error "
+                           f"{err}{why} (T={T}, B={B}, H={H}, "
+                           f"{gates.dtype}, {plan})")
     return (dxp, dh0, dc0, dR) + (dps if dps is not None else ())
 
 

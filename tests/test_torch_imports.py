@@ -1,6 +1,7 @@
 """The port stands alone: importing any module of deeplearning4j_tpu_torch
 pulls in neither jax nor the JAX package, and neither the package's source
-nor chip_smoke.py names them in an import."""
+nor the scripts that drive it on the card (chip_smoke.py, k7_study.py,
+lstm_study.py) name them in an import."""
 import pathlib
 import re
 import subprocess
@@ -55,7 +56,8 @@ def test_every_module_imports_without_jax():
 
 def test_sources_name_no_jax_import():
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                         ROOT / "k7_study.py"]
+                                         ROOT / "k7_study.py",
+                                         ROOT / "lstm_study.py"]
     assert len(files) > 20
     hits = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
             for f in files for m in _FORBIDDEN.finditer(f.read_text())]
