@@ -19,7 +19,8 @@ Phases; any failure raises and exits non-zero before a result is printed:
    instantiation of K7, none of which may issue HGMMA (f32 on full FMAs,
    bf16 widened to f32), and the same for K6's instantiations (one for
    each pair of units a cluster and rows a thread it is compiled for, f32
-   and bf16; none may issue HGMMA), then holds each kernel against its
+   and bf16) and K5's (one for each number of units a cluster, f32 and
+   bf16; none may issue HGMMA), then holds each kernel against its
    plain PyTorch version on the card:
    - K1, the flash-attention forward, at the shapes the serving path gives
      it (float32 at atol 2e-5, bfloat16 at atol 2e-2);
@@ -61,10 +62,11 @@ Phases; any failure raises and exits non-zero before a result is printed:
    coverage shapes (no peepholes, a mask, bfloat16, H 256, H 1024 at B 32
    and T 64, H 520 (a plan whose units do not divide H), B 1/3/4/8 and
    B 96 (K6's rows in chunks), T 1): forward atol 1e-5 (the reference's
-   lstm pin), backward atol 3e-5, bfloat16 2e-2; K6 must give the same
-   bits in two runs at every shape, and its plan (``loop_plan``: blocks
-   a cluster, units a cluster, clusters, rows a chunk) is printed for
-   each. Times each with its plain version and cuDNN's LSTM
+   lstm pin), backward atol 3e-5, bfloat16 2e-2; K5 and K6 must each give
+   the same bits in two runs at every shape, and their plans
+   (``fwd_plan``, ``loop_plan``: blocks a cluster, units a cluster,
+   clusters, and the layout's rows a chunk) are printed for each. Times
+   each with its plain version and cuDNN's LSTM
    (``torch.nn.LSTM(87, 512)``, forward and backward) at T 64, B 32.
 7. Serve the char-RNN: ``text_generation_lstm`` at bench.py ``bench_lstm``'s
    width (vocab 87, two GravesLSTM(512), T 64) with random weights from a
@@ -154,9 +156,11 @@ Phases; any failure raises and exits non-zero before a result is printed:
    calls enqueued behind a sleep kernel); K4 at the ring's full and
    diagonal hops, both dtypes (the median of three alternating rounds);
    K5 at a decode step (T 1, B 8), two
-   prefills and the training chunk, K6 at the training chunk (T 64 and 14:
-   its microseconds a step) beside cuDNN's LSTM backward. Its
-   profiler sessions come after every host-bound phase.
+   prefills (T 128 at B 4, T 64 at B 1) and the training chunks (T 64, 50
+   and 14 at B 32) beside cuDNN's LSTM forward at each, K6 at the
+   training chunk (T 64 and 14: its microseconds a step) beside cuDNN's
+   LSTM backward. Its profiler sessions come after every host-bound
+   phase.
 20. Report: JSON lines of per-shape kernel times, the serving and training
    metrics and the kernels, then last ``{"ok": true, "device": ...}``.
 """
@@ -354,7 +358,11 @@ def build_phase():
                 "hgmma": hgmma}
     report["conv1x1_tiles"] = _k7_instantiations(paths["conv1x1_bias_relu"])
     report["int8_matmul"] = _k8_instantiations(paths["int8_matmul"])
-    report["lstm_bwd"] = _k6_instantiations(paths["lstm_bwd"])
+    report["lstm_bwd"] = _lstm_instantiations(
+        paths["lstm_bwd"], "lstm_bwd_kernel", 2 * len(lstm.LOOP_CANDIDATES))
+    report["lstm_fwd"] = _lstm_instantiations(
+        paths["lstm_fwd"], "lstm_fwd_kernel",
+        2 * len({u for _, u in lstm.FWD_CANDIDATES}))
     log("redesigned kernels:", json.dumps(report, indent=1))
     return report
 
@@ -380,27 +388,28 @@ def _k8_instantiations(lib):
     return out
 
 
-def _k6_instantiations(lib):
-    """K6's instantiations, one for each (units a cluster, rows a thread)
-    pair it is compiled for, f32 and bf16: registers, spills; none may
-    issue HGMMA (f32 FMAs, bf16 widened to f32). Shared memory is a plan's
-    (printed with each phase-6 shape)."""
+def _lstm_instantiations(lib, kernel, count):
+    """An LSTM kernel's instantiations, ``count`` of them (K6: one for each
+    (units a cluster, rows a thread) pair it is compiled for; K5: one for
+    each number of units a cluster; f32 and bf16): registers, spills; none
+    may issue HGMMA (f32 FMAs, bf16 widened to f32). Shared memory is a
+    plan's (printed with each phase-6 shape)."""
     usage = _ptxas_report(lib.with_suffix(".log").read_text())
     sass = _sass_functions(lib)
-    plain = _demangle(fn for fn in usage if "lstm_bwd_kernel" in fn)
+    plain = _demangle(fn for fn in usage if kernel in fn)
     out = {}
     for fn, text in plain.items():
         regs, st, ld = usage[fn]
         hgmma = sass[fn].count("HGMMA")
         if hgmma:
             raise AssertionError(f"{text}: {hgmma} HGMMA instructions in its "
-                                 f"SASS (K6 runs on FMAs)")
+                                 f"SASS ({kernel} runs on FMAs)")
         out[text.split(">(")[0] + ">"] = {"registers": regs,
                                    "spill_store_bytes": st,
                                    "spill_load_bytes": ld, "hgmma": hgmma}
-    if len(out) != 2 * len(lstm.LOOP_CANDIDATES):
-        raise AssertionError(f"K6's library holds {sorted(out)}, not one "
-                             f"instantiation a plan pair and dtype")
+    if len(out) != count:
+        raise AssertionError(f"{kernel}'s library holds {sorted(out)}, not "
+                             f"its {count} instantiations")
     return out
 
 
@@ -1023,13 +1032,20 @@ def lstm_kernel_phase():
              (1, 8, H, f32, True, False),
              (1, 1, H, f32, True, False),
              (1, 1, H, bf16, True, False)]
-    rows, plans = [], {}
+    rows, plans, fwd_plans = [], {}, {}
     index = torch.cuda.current_device()
     for T, B, H_, dtype, peep, masked in main + cover:
         fwd, mask, peeps, (dhs, dhT, dcT) = _lstm_case(gen, T, B, H_, dtype,
                                                         peep, masked)
         got = lstm.fused_lstm_fwd(*fwd, mask, peeps)
+        again_f = lstm.fused_lstm_fwd(*fwd, mask, peeps)
         torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, again_f)):
+            raise AssertionError(f"K5 gave other bits in a second run at "
+                                 f"T={T} B={B} H={H_} {dtype}")
+        fplan, flayout = lstm._fwd_plan(index, H_, B, dtype)
+        fwd_plans[f"T{T} B{B} H{H_} {dtype}"] = {**fplan._asdict(),
+                                                 **flayout._asdict()}
         want = lstm.lstm_fwd_reference(*fwd, mask, peeps)
         res = want[1:5]
         bargs = (*res, dhs, fwd[3], dhT, dcT, mask, peeps)
@@ -1096,8 +1112,9 @@ def lstm_kernel_phase():
                      "fwd_bound_ms": bound, "fwd_bound_by": by})
     log("lstm kernel phase: max abs err", {f"{k}/{d}": e
                                            for (k, d), e in errs.items()})
+    log("K5 plans:", json.dumps(fwd_plans))
     log("K6 plans:", json.dumps(plans))
-    return errs, rows, step_us, plans
+    return errs, rows, step_us, {"fwd": fwd_plans, "bwd": plans}
 
 
 # ------------------------------------------------------------------ phase 7
@@ -1497,10 +1514,20 @@ def k4_device_time_phase(rows, rounds=3):
     log("K4 by device time:", rows)
 
 
+def _library_device_ms(fn, n=20):
+    """Device time of one call of a library call that launches several
+    kernels: the whole session over the calls recorded, read from the
+    kernels launched once a call (the profiler drops a few records)."""
+    rep = _device_kernels(lambda: [fn() for _ in range(n)], top=1000)
+    once = max(r["calls"] for r in rep["top"] if r["calls"] <= n)
+    return rep["device_ms"] / once
+
+
 def lstm_device_time_phase():
     """K5's device time at the shapes each path launches it with: a decode
     step (T 1 at the 8 slots), a prefill (T 128 rung at B 4 and T 64 at B
-    1, masked) and the training chunk (T 64, B 32); K6 at the training
+    1, masked) and the training chunks (T 64, 50 and 14 at B 32), each
+    beside cuDNN's LSTM forward at the same T and B; K6 at the training
     chunk and at T 14 (their difference over 50 steps is its microseconds
     a step) beside cuDNN's LSTM backward at T 64. So a path's launches are
     charged at their own shapes."""
@@ -1511,24 +1538,30 @@ def lstm_device_time_phase():
                               ("prefill_T128_B4", 128, 4, True),
                               ("prefill_T64_B1", 64, 1, True),
                               ("train_T64_B32", CHAR_T, CHAR_B, False),
+                              ("train_T50_B32", 50, CHAR_B, False),
                               ("train_T14_B32", 14, CHAR_B, False)):
         fwd, mask, peeps, (dhs, dhT, dcT) = _lstm_case(
             gen, T, B, H, torch.float32, True, masked)
-        if tag != "train_T14_B32":
-            out[f"fwd_{tag}"] = _device_ms_per_call(
-                lambda: lstm.fused_lstm_fwd(*fwd, mask, peeps), name="lstm")
-        if tag.startswith("train"):
+        out[f"fwd_{tag}"] = _device_ms_per_call(
+            lambda: lstm.fused_lstm_fwd(*fwd, mask, peeps), name="lstm")
+        # cuDNN's LSTM forward at the same T and B (the no-peephole
+        # recurrence and the 87 inputs' projection; several kernels a call)
+        cud = torch.nn.LSTM(CHAR["vocab_size"], H).cuda()
+        xin = torch.randn(T, B, CHAR["vocab_size"], generator=gen).cuda()
+        with torch.no_grad():
+            out[f"cudnn_fwd_{tag}"] = _library_device_ms(lambda: cud(xin))
+        if tag in ("train_T64_B32", "train_T14_B32"):
             res = lstm.lstm_fwd_reference(*fwd, mask, peeps)[1:5]
             bargs = (*res, dhs, fwd[3], dhT, dcT, mask, peeps)
             # one kernel a call: the loop with dR folded in
             out[f"bwd_{tag}"] = _device_ms_per_call(
                 lambda: lstm.fused_lstm_bwd(*bargs), name="lstm_bwd",
                 per_call=1)
-    out["bwd_us_per_step"] = (out["bwd_train_T64_B32"]
-                              - out["bwd_train_T14_B32"]) / (CHAR_T - 14) * 1e3
-    # cuDNN's LSTM backward at T 64, B 32 (several kernels a call): the
-    # session's device time over the calls recorded, read from the kernels
-    # launched once a call
+    for kind in ("fwd", "bwd"):
+        out[f"{kind}_us_per_step"] = (
+            out[f"{kind}_train_T64_B32"] - out[f"{kind}_train_T14_B32"]) \
+            / (CHAR_T - 14) * 1e3
+    # cuDNN's LSTM backward at T 64, B 32
     cud = torch.nn.LSTM(CHAR["vocab_size"], H).cuda()
     xin = torch.randn(CHAR_T, CHAR_B, CHAR["vocab_size"],
                       generator=gen).cuda().requires_grad_(True)
@@ -1537,9 +1570,7 @@ def lstm_device_time_phase():
     leaves = [xin, *cud.parameters()]
     grad = lambda: torch.autograd.grad(o, leaves, dout, retain_graph=True)
     grad()
-    rep = _device_kernels(lambda: [grad() for _ in range(20)], top=1000)
-    once = max(r["calls"] for r in rep["top"] if r["calls"] <= 20)
-    out["cudnn_bwd_train_T64_B32"] = rep["device_ms"] / once
+    out["cudnn_bwd_train_T64_B32"] = _library_device_ms(grad)
     log("K5/K6 by device time:", out)
     return out
 
@@ -2269,7 +2300,7 @@ def main() -> int:
     slice_row = slice_phase()
     train_row = train_phase()
     cross_row = cross_device_phase()
-    lstm_errs, lstm_rows, lstm_step_us, k6_plans = lstm_kernel_phase()
+    lstm_errs, lstm_rows, lstm_step_us, lstm_plans = lstm_kernel_phase()
     char_serve = char_serve_phase()
     char_train = char_train_phase()
     char_cross = char_cross_device_phase()
@@ -2361,7 +2392,10 @@ def main() -> int:
                                    for k, v in lstm_device.items()
                                    if k.startswith(kind)},
             "library_device_ms": lstm_device.get(
-                f"cudnn_{kind}_train_T64_B32")})
+                f"cudnn_{kind}_train_T64_B32"),
+            "library_device_ms_by_shape": {
+                k.split("_", 2)[2]: v for k, v in lstm_device.items()
+                if k.startswith(f"cudnn_{kind}")}})
     kernels.append({
         "name": "conv1x1_bias_relu", "route": "cuda",
         "source": "deeplearning4j_tpu_torch/csrc/conv1x1_bias_relu.cu",
@@ -2432,7 +2466,8 @@ def main() -> int:
     print(json.dumps({"kernel_shapes": rows, "bwd_kernel_shapes": bwd_rows,
                       "lstm_kernel_shapes": lstm_rows,
                       "lstm_step_us": lstm_step_us,
-                      "k6_plans": k6_plans,
+                      "k5_plans": lstm_plans["fwd"],
+                      "k6_plans": lstm_plans["bwd"],
                       "conv1x1_shapes": k7_rows,
                       "conv1x1_bf16_shapes": k7_bf16_rows,
                       "int8_matmul_shapes": k8_rows,

@@ -53,8 +53,9 @@ class NeuralNetConfiguration:
                  gradient_normalization: Optional[str] = None,
                  gradient_normalization_threshold: float = 1.0,
                  dtype: str = "float32", optimization_algorithm: str = "sgd",
+                 max_num_line_search_iterations: int = 5,
                  gradient_checkpointing: bool = False,
-                 compute_dtype: Optional[str] = None):
+                 compute_dtype: Optional[str] = None, **workspace_noops):
         if optimization_algorithm.lower() not in (
                 "sgd", "stochastic_gradient_descent"):
             raise NotImplementedError(
@@ -90,6 +91,9 @@ class NeuralNetConfiguration:
         self.gradient_normalization_threshold = \
             gradient_normalization_threshold
         self.dtype = dtype
+        # read by the second-order solvers (ROADMAP A5); the workspace and
+        # cache-mode keywords are accepted and ignored, as the reference's
+        self.max_num_line_search_iterations = max_num_line_search_iterations
 
     def _cascade(self, layer):
         """A copy of ``layer`` with its None fields set from the globals
@@ -121,6 +125,7 @@ class MultiLayerConfiguration:
     gradient_normalization: Optional[str] = None
     gradient_normalization_threshold: float = 1.0
     updater: Optional[Any] = None
+    max_num_line_search_iterations: int = 5
 
     def preprocessor(self, idx: int):
         return self.input_preprocessors.get(str(idx))
@@ -193,4 +198,5 @@ class ListBuilder:
             gradient_normalization=nc.gradient_normalization,
             gradient_normalization_threshold=(
                 nc.gradient_normalization_threshold),
-            updater=nc.updater)
+            updater=nc.updater,
+            max_num_line_search_iterations=nc.max_num_line_search_iterations)

@@ -35,6 +35,7 @@ class ComputationGraphConfiguration:
     gradient_normalization: Optional[str] = None
     gradient_normalization_threshold: float = 1.0
     updater: Optional[Any] = None
+    max_num_line_search_iterations: int = 5
 
 
 def topological_sort(names, inputs_of, network_inputs):
@@ -137,4 +138,5 @@ class GraphBuilder:
             gradient_normalization=nc.gradient_normalization,
             gradient_normalization_threshold=(
                 nc.gradient_normalization_threshold),
-            updater=nc.updater)
+            updater=nc.updater,
+            max_num_line_search_iterations=nc.max_num_line_search_iterations)

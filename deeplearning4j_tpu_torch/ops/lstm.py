@@ -12,11 +12,13 @@ says what it computes, what bounds it and what its design leaves for later.
 Gate order along the 4H axis is [i, f, o, g]; Graves peepholes let i and f
 peep at c_{t-1} and o at c_t.
 
-K6 is one cooperative launch of thread-block clusters whose grid
-``loop_plan`` chooses on the host, per shape: Q blocks a cluster (each a
-slice of the gate axis) and U hidden units a cluster, among the pairs the
-kernel is compiled for, with no more clusters than the card can hold at
-once (``cudaOccupancyMaxActiveClusters``, asked through the library).
+Each kernel is one cooperative launch of thread-block clusters whose grid
+a host plan chooses per shape: Q blocks a cluster and U hidden units a
+cluster, among the pairs the kernel is compiled for, with no more clusters
+than the card can hold at once (``cudaOccupancyMaxActiveClusters``, asked
+through the library). K6's blocks (``loop_plan``) each take a slice of the
+gate axis; K5's (``fwd_plan``) each a slice of the product's reduction
+axis, the k rows of R.
 
 Dispatch: each kernel wrapper (``fused_lstm_fwd``, ``fused_lstm_bwd``)
 computes its plain version on a CPU tensor and launches its kernel on a
@@ -35,10 +37,10 @@ import torch
 from .nvcc import PKG, build_library, load_symbol
 
 # The probe admits what the kernels take: f32 or bf16, tanh with sigmoid
-# gates, any batch, and H up to 1024 (K5: a block keeps R's columns for 8
-# units, [H, 32], and a tile of h_{t-1}, [16, H] f32, in shared memory: 194
-# KB at H 1024 f32; K6: its (Q 2, U 16) plan keeps R[16 units, 2 gates],
-# 131 KB at H 1024 f32, beside 8-row chunks of dz). The TPU probe also
+# gates, any batch, and H up to 1024 (K5: its (Q 2, U 16) plan keeps
+# R[512 k rows, 64 gate columns], 128 KB at H 1024 f32, beside 16-row
+# chunks of h; K6: its (Q 2, U 16) plan keeps R[16 units, 2 gates], 131 KB
+# at H 1024 f32, beside 8-row chunks of dz). The TPU probe also
 # needs B % 8 (f32) or B % 16 (bf16), H % 128 and H <= 512 (VMEM); those
 # shapes take the kernels here too.
 MAX_H = 1024
@@ -76,7 +78,8 @@ def build_bwd() -> Path:
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ENTRIES = {
-    "dl4j_lstm_fwd": (build_fwd, [_P] * 17 + [_I] * 4 + [_P]),
+    "dl4j_lstm_fwd": (build_fwd, [_P] * 18 + [_I] * 6 + [_P]),
+    "dl4j_lstm_fwd_layout": (build_fwd, [_I] * 5 + [_P]),
     "dl4j_lstm_bwd": (build_bwd, [_P] * 21 + [_I] * 6 + [_P]),
     "dl4j_lstm_bwd_layout": (build_bwd, [_I] * 5 + [_P]),
 }
@@ -114,27 +117,36 @@ def loop_plan(H: int, B: int, sms: int,
     plan with the most blocks; ties go to the earlier pair. Cached: a
     layer asks for the same shape on every step. Raises ValueError when no
     pair fits."""
-    if H < 1 or B < 1 or len(max_clusters) != len(LOOP_CANDIDATES):
-        raise ValueError(f"K6 plans 1 <= H, B with one cluster count for "
-                         f"each of {LOOP_CANDIDATES}; got H={H} B={B} "
+    return _most_blocks(H, B, sms, max_clusters, LOOP_CANDIDATES, LoopPlan,
+                        "K6")
+
+
+def _most_blocks(H, B, sms, max_clusters, candidates, make, kernel):
+    """Among the ``candidates`` pairs (q, u) whose clusters all fit
+    (``max_clusters``, one count a pair) and whose blocks fit one an SM,
+    the plan ``make(q, u, clusters)`` with the most blocks; ties go to the
+    earlier pair. Raises ValueError when no pair fits."""
+    if H < 1 or B < 1 or len(max_clusters) != len(candidates):
+        raise ValueError(f"{kernel} plans 1 <= H, B with one cluster count "
+                         f"for each of {candidates}; got H={H} B={B} "
                          f"{max_clusters}")
     best = None
-    for (q, u), fit in zip(LOOP_CANDIDATES, max_clusters):
-        plan = LoopPlan(q, u, -(-H // u))
+    for (q, u), fit in zip(candidates, max_clusters):
+        plan = make(q, u, -(-H // u))
         if plan.clusters <= fit and plan.blocks <= sms and (
                 best is None or plan.blocks > best.blocks):
             best = plan
     if best is None:
-        raise ValueError(f"no K6 plan fits H={H} B={B} on {sms} SMs "
+        raise ValueError(f"no {kernel} plan fits H={H} B={B} on {sms} SMs "
                          f"(clusters that fit: {max_clusters})")
     return best
 
 
 class LoopLayout(NamedTuple):
-    """What a plan takes at a shape (``dl4j_lstm_bwd_layout``): dynamic
-    shared memory a block (0: it does not fit), f32 scratch for the grid,
-    clusters the card holds at once, batch rows a chunk, chunks a step,
-    blocks."""
+    """What a plan takes at a shape (``dl4j_lstm_bwd_layout``,
+    ``dl4j_lstm_fwd_layout``): dynamic shared memory a block (0: it does
+    not fit), f32 scratch for the grid, clusters the card holds at once,
+    batch rows a chunk, chunks a step, blocks."""
     smem: int
     scratch: int
     max_clusters: int
@@ -143,19 +155,24 @@ class LoopLayout(NamedTuple):
     blocks: int
 
 
-@functools.lru_cache(maxsize=1024)
-def _layout(index: int, H: int, B: int, dtype, q: int,
-            u: int) -> LoopLayout:
-    """The library's layout of plan pair (q, u) at (H, B, dtype) on card
-    ``index``, its co-resident clusters included."""
-    fn = load_symbol("dl4j_lstm_bwd_layout", *_ENTRIES["dl4j_lstm_bwd_layout"])
+def _query_layout(symbol: str, index: int, H: int, B: int, dtype, q: int,
+                  u: int) -> LoopLayout:
+    fn = load_symbol(symbol, *_ENTRIES[symbol])
     out = (ctypes.c_longlong * 6)()
     with torch.cuda.device(index):
         err = fn(H, B, q, u, int(dtype == torch.bfloat16), out)
     if err != 0:
-        raise RuntimeError(f"dl4j_lstm_bwd_layout failed with CUDA error "
-                           f"{err} (H={H}, B={B}, q={q}, u={u}, {dtype})")
+        raise RuntimeError(f"{symbol} failed with CUDA error {err} (H={H}, "
+                           f"B={B}, q={q}, u={u}, {dtype})")
     return LoopLayout(*out)
+
+
+@functools.lru_cache(maxsize=1024)
+def _layout(index: int, H: int, B: int, dtype, q: int,
+            u: int) -> LoopLayout:
+    """The library's layout of K6's plan pair (q, u) at (H, B, dtype) on
+    card ``index``, its co-resident clusters included."""
+    return _query_layout("dl4j_lstm_bwd_layout", index, H, B, dtype, q, u)
 
 
 @functools.lru_cache(maxsize=None)
@@ -170,6 +187,65 @@ def _bwd_plan(index: int, H: int, B: int, dtype):
                  for q, u in LOOP_CANDIDATES)
     plan = loop_plan(H, B, _sm_count(index), fits)
     return plan, _layout(index, H, B, dtype, plan.q, plan.u)
+
+
+# ------------------------------------------------------------ K5's plan
+# (blocks a cluster Q, hidden units a cluster U) K5 is compiled for
+# (csrc/lstm_fwd.cu DL4J_BY_UNITS), in the order a plan prefers them at a
+# tie: a block keeps R[its k rows, the cluster's 4U gate columns]. (Four
+# blocks of 16 units fit 30 clusters on an H100, too few for H 512; one
+# block of 4 units, reading all of h, measured slower than 2 x 8 at every
+# path shape, PERF.md §6.)
+FWD_CANDIDATES = ((2, 8), (2, 16))
+
+
+class FwdPlan(NamedTuple):
+    """How K5 cuts one call: ``clusters`` clusters of ``q`` blocks; cluster
+    p owns hidden units [p u, (p + 1) u) (the last may hold fewer) and
+    their 4u gate columns, its block r the rows [r k, (r + 1) k) of R
+    below H, k = ``k_rows(H)`` (the last block's may be fewer, or none)."""
+    q: int
+    u: int
+    clusters: int
+
+    @property
+    def blocks(self) -> int:
+        return self.q * self.clusters
+
+    def k_rows(self, H: int) -> int:
+        """Rows of R a block keeps: ceil(H / q), rounded up to 4."""
+        return (-(-H // self.q) + 3) // 4 * 4
+
+
+@functools.lru_cache(maxsize=1024)
+def fwd_plan(H: int, B: int, sms: int,
+             max_clusters: Tuple[int, ...]) -> FwdPlan:
+    """K5's plan for hidden size H and batch B on a card of ``sms`` SMs;
+    ``max_clusters[i]`` is how many clusters of ``FWD_CANDIDATES[i]`` the
+    card holds at once at this shape (0: it does not fit a block). Among
+    the pairs whose clusters all fit and whose blocks fit one an SM, the
+    plan with the most blocks; ties go to the earlier pair. Cached: a
+    layer asks for the same shape on every step. Raises ValueError when no
+    pair fits."""
+    return _most_blocks(H, B, sms, max_clusters, FWD_CANDIDATES, FwdPlan,
+                        "K5")
+
+
+@functools.lru_cache(maxsize=1024)
+def _fwd_layout(index: int, H: int, B: int, dtype, q: int,
+                u: int) -> LoopLayout:
+    """The library's layout of K5's plan pair (q, u) at (H, B, dtype) on
+    card ``index``, its co-resident clusters included."""
+    return _query_layout("dl4j_lstm_fwd_layout", index, H, B, dtype, q, u)
+
+
+@functools.lru_cache(maxsize=1024)
+def _fwd_plan(index: int, H: int, B: int, dtype):
+    """This card's plan for K5 at (H, B, dtype) and its layout."""
+    fits = tuple(_fwd_layout(index, H, B, dtype, q, u).max_clusters
+                 for q, u in FWD_CANDIDATES)
+    plan = fwd_plan(H, B, _sm_count(index), fits)
+    return plan, _fwd_layout(index, H, B, dtype, plan.q, plan.u)
 
 
 # ----------------------------------------------------------- plain versions
@@ -308,17 +384,6 @@ def _check_common(x, T, B, H, R, mask, peep) -> None:
         _check([("mask", mask, (T, B))], torch.float32, x.device)
 
 
-def _launch(symbol: str, ptrs, T: int, B: int, H: int, dtype,
-            device) -> None:
-    fn = load_symbol(symbol, *_ENTRIES[symbol])
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(*ptrs, T, B, H, int(dtype == torch.bfloat16), stream)
-    if err != 0:
-        raise RuntimeError(f"{symbol} launch failed with CUDA error {err} "
-                           f"(T={T}, B={B}, H={H}, {dtype})")
-
-
 def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
@@ -326,8 +391,9 @@ def _ptr(t: Optional[torch.Tensor]):
 def fused_lstm_fwd(x_proj, h0, c0, R, mask=None, peep=None):
     """The ``_fwd_call`` counterpart (K5). Returns (hs, gates, cs, c_prev,
     h_prev, hT, cT) as ``lstm_fwd_reference`` does. CPU tensors take the
-    plain version; CUDA tensors launch the kernel on the current stream
-    (``mask`` is passed to it as [T,B] f32)."""
+    plain version; CUDA tensors launch the kernel (one cooperative cluster
+    launch, this shape's ``fwd_plan``) on the current stream (``mask`` is
+    passed to it as [T,B] f32)."""
     if _on_cpu(x_proj):
         return lstm_fwd_reference(x_proj, h0, c0, R, mask, peep)
     T, B, H4 = x_proj.shape
@@ -337,19 +403,57 @@ def fused_lstm_fwd(x_proj, h0, c0, R, mask=None, peep=None):
     _check_common(x_proj, T, B, H, R, mask, peep)
     _check([("x_proj", x_proj, (T, B, 4 * H)), ("h0", h0, (B, H)),
             ("c0", c0, (B, H))], x_proj.dtype, x_proj.device)
-    new = lambda *shape: torch.empty(shape, dtype=x_proj.dtype,
-                                     device=x_proj.device)
+    out = _fwd_launch(x_proj, h0, c0, R, mask, peep)
+    fused_lstm_fwd.launches += 1
+    return out
+
+
+def _fwd_launch(x_proj, h0, c0, R, mask, peep, plan=None, trace=None):
+    """Allocate K5's outputs, the exchange buffer of h (a call of more than
+    one step) and the scratch the plan's layout asks for, and launch it on
+    the current stream of x_proj's card with ``plan`` (by default this
+    card's ``fwd_plan``); raise on a CUDA error, a grid that cannot be
+    co-resident (720) included. ``trace``, a [T + 1, 8] int64 tensor on
+    the card, receives block 0's clock at eight points of each step and,
+    in its last row, at the kernel's start, the end of its prologue and
+    its end (``csrc/lstm_fwd.cu`` TRACE_MARKS; ``lstm_study.py`` reads
+    it)."""
+    index, current = x_proj.get_device(), torch._C._cuda_getDevice()
+    if index >= 0 and index != current:      # another card than the current
+        with torch.cuda.device(index):
+            return _fwd_launch(x_proj, h0, c0, R, mask, peep, plan, trace)
+    T, B, H4 = x_proj.shape
+    H = H4 // 4
+    own, layout = _fwd_plan(current, H, B, x_proj.dtype)
+    if plan is None:
+        plan = own
+    elif plan != own:
+        layout = _fwd_layout(current, H, B, x_proj.dtype, plan.q, plan.u)
+    new = lambda *shape, dtype=x_proj.dtype: torch.empty(
+        shape, dtype=dtype, device=x_proj.device)
     hs, cs, c_prev, h_prev = (new(T, B, H) for _ in range(4))
     gates = new(T, B, 4 * H)
     hT, cT = new(B, H), new(B, H)
-    hbuf = torch.empty((2, B, H), dtype=torch.float32, device=x_proj.device)
-    cbuf = torch.empty((B, H), dtype=torch.float32, device=x_proj.device)
+    hbuf = new(2, B, H, dtype=torch.float32) if T > 1 else None
+    scratch = (new(layout.scratch, dtype=torch.float32) if layout.scratch
+               else None)
     pi, pf, po = peep if peep is not None else (None, None, None)
     ptrs = [_ptr(t) for t in (x_proj, R, h0, c0, mask, pi, pf, po, hs, gates,
-                              cs, c_prev, h_prev, hT, cT, hbuf, cbuf)]
-    _launch("dl4j_lstm_fwd", ptrs, T, B, H, x_proj.dtype, x_proj.device)
-    fused_lstm_fwd.launches += 1
+                              cs, c_prev, h_prev, hT, cT, hbuf, scratch,
+                              trace)]
+    fn = load_symbol("dl4j_lstm_fwd", *_ENTRIES["dl4j_lstm_fwd"])
+    err = fn(*ptrs, T, B, H, int(x_proj.dtype == torch.bfloat16), plan.q,
+             plan.u, torch._C._cuda_getCurrentRawStream(current))
+    if err != 0:
+        raise RuntimeError(f"dl4j_lstm_fwd launch failed with CUDA error "
+                           f"{err}{_why(err)} (T={T}, B={B}, H={H}, "
+                           f"{x_proj.dtype}, {plan})")
     return hs, gates, cs, c_prev, h_prev, hT, cT
+
+
+def _why(err: int) -> str:
+    return (" (the plan's clusters cannot all be resident at once)"
+            if err == 720 else "")
 
 
 def fused_lstm_bwd(gates, cs, c_prev, h_prev, dhs, R, dhT, dcT, mask=None,
@@ -413,10 +517,8 @@ def _bwd_launch(gates, cs, c_prev, h_prev, dhs, R, dhT, dcT, mask, peep,
     err = fn(*ptrs, T, B, H, int(gates.dtype == torch.bfloat16), plan.q,
              plan.u, torch._C._cuda_getCurrentRawStream(current))
     if err != 0:
-        why = (" (the plan's clusters cannot all be resident at once)"
-               if err == 720 else "")
         raise RuntimeError(f"dl4j_lstm_bwd launch failed with CUDA error "
-                           f"{err}{why} (T={T}, B={B}, H={H}, "
+                           f"{err}{_why(err)} (T={T}, B={B}, H={H}, "
                            f"{gates.dtype}, {plan})")
     return (dxp, dh0, dc0, dR) + (dps if dps is not None else ())
 

@@ -306,7 +306,10 @@ def test_wrappers_check_their_inputs_and_devices():
 
 def test_build_needs_nvcc_and_names_libraries_by_hash(monkeypatch):
     import hashlib
-    tag = hashlib.sha256(tlstm.FWD_SOURCE.read_bytes()).hexdigest()[:16]
+    h = hashlib.sha256(tlstm.FWD_SOURCE.read_bytes())
+    for header in nvcc._local_headers(tlstm.FWD_SOURCE):
+        h.update(header.read_bytes())
+    tag = h.hexdigest()[:16]
     assert nvcc.library_path(tlstm.FWD_SOURCE).name == f"liblstm_fwd_{tag}.so"
     monkeypatch.setattr(nvcc.shutil, "which", lambda name: None)
     monkeypatch.setattr(nvcc.os.path, "exists", lambda p: False)

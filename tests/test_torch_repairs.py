@@ -1,4 +1,4 @@
-"""Three conventions the port broke against the reference, each pinned:
+"""Five conventions the port broke against the reference, each pinned:
 
 - ``ComputationGraph`` has every method of the reference's graph: the ones
   not ported yet raise ``NotImplementedError`` naming their ROADMAP item
@@ -10,6 +10,12 @@
 - The dense encoder's update and the plain encode's subtraction come from
   one function, ``ops.threshold_encode.threshold_update``; the combine
   that uses it stays bitwise equal to the reference's ``shard_map`` form.
+- The activation registry has the reference's 19 names, each equal to
+  the JAX function on the same inputs; an unknown name raises
+  ``ValueError``, as the reference's does.
+- ``NeuralNetConfiguration`` takes ``max_num_line_search_iterations``
+  (carried into the network's and the graph's configuration) and the
+  workspace and cache-mode keywords (ignored), as the reference does.
 """
 import importlib
 
@@ -20,11 +26,19 @@ import pytest
 import torch
 
 from deeplearning4j_tpu.models.zoo_extra import googlenet as jgooglenet
+from deeplearning4j_tpu.nn import activations as jact
+from deeplearning4j_tpu.nn import layers as jlayers
+from deeplearning4j_tpu.nn.conf.config import \
+    NeuralNetConfiguration as JConf
 from deeplearning4j_tpu.parallel import accumulation as jacc
 from deeplearning4j_tpu.parallel import mesh as jmesh
 from deeplearning4j_tpu_torch.device import torch_dtype
 from deeplearning4j_tpu_torch.interop.jax_params import load_jax_params
 from deeplearning4j_tpu_torch.models.zoo_extra import googlenet
+from deeplearning4j_tpu_torch.nn import activations as tact
+from deeplearning4j_tpu_torch.nn import layers as tlayers
+from deeplearning4j_tpu_torch.nn.conf.config import \
+    NeuralNetConfiguration as TConf
 from deeplearning4j_tpu_torch.ops.flash_attention import (
     fused_attention_applicable, fused_ring_applicable)
 from deeplearning4j_tpu_torch.ops.kernels.conv import \
@@ -172,3 +186,69 @@ def test_dense_combine_takes_its_update_from_the_op_module(monkeypatch):
             jnp.asarray(grads), jnp.asarray(state))
     np.testing.assert_array_equal(tu.numpy(), np.asarray(ju))
     np.testing.assert_array_equal(tns.numpy(), np.asarray(jns))
+
+
+# ------------------------------------------------------------------- C4
+def test_activation_names_equal_the_reference():
+    assert tact.activation_names() == jact.activation_names()
+    assert len(tact.activation_names()) == 19
+
+
+def _activation_inputs():
+    """Both signs, near 0 and beyond +-20, as [4, 16] f32 (rows for the
+    activations over the last axis)."""
+    r = np.random.default_rng(11)
+    x = np.concatenate([
+        r.normal(0, 3, 24), r.normal(0, 1e-3, 8), [0.0, -0.0, 1e-7, -1e-7],
+        [-40.0, -25.0, -20.5, -6.0, -3.0, 3.0, 6.0, 20.5, 25.0, 40.0],
+        r.uniform(-30, 30, 18)])
+    return x.astype(np.float32).reshape(4, 16)
+
+
+@pytest.mark.parametrize("name", jact.activation_names())
+def test_each_activation_equals_the_jax_function(name):
+    x = _activation_inputs()
+    want = np.asarray(jact.get_activation(name)(jnp.asarray(x)))
+    got = tact.get_activation(name)(torch.from_numpy(x)).numpy()
+    assert got.dtype == np.float32 and got.shape == x.shape
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+
+
+def test_an_unknown_activation_raises_value_error():
+    with pytest.raises(ValueError, match="Unknown activation 'swishy'"):
+        tact.get_activation("swishy")
+    with pytest.raises(ValueError):
+        jact.get_activation("swishy")
+    assert tact.get_activation("ReLU6") is tact.get_activation("relu6")
+
+
+def test_register_activation_adds_a_name(monkeypatch):
+    monkeypatch.setattr(tact, "_ACTIVATIONS", dict(tact._ACTIVATIONS))
+    fn = tact.register_activation("twice")(lambda x: 2 * x)
+    assert tact.get_activation("twice") is fn
+    assert "twice" in tact.activation_names()
+
+
+# ------------------------------------------------------------------- C5
+_C5 = dict(training_workspace_mode="single",
+           inference_workspace_mode="separate", cache_mode="device",
+           max_num_line_search_iterations=8)
+
+
+@pytest.mark.parametrize("conf, layers", [(JConf, jlayers),
+                                          (TConf, tlayers)],
+                         ids=["reference", "port"])
+def test_c5_keywords_build_and_reach_both_configurations(conf, layers):
+    nc = conf(seed=3, **_C5)
+    assert nc.max_num_line_search_iterations == 8
+    dense = lambda: layers.DenseLayer(n_in=4, n_out=3, activation="relu")
+    out = lambda: layers.OutputLayer(n_in=3, n_out=2, activation="softmax",
+                                     loss="mcxent")
+    net_conf = nc.list(dense(), out()).build()
+    graph_conf = (nc.graph_builder().add_inputs("in")
+                  .add_layer("d", dense(), "in")
+                  .add_layer("o", out(), "d").set_outputs("o").build())
+    assert net_conf.max_num_line_search_iterations == 8
+    assert graph_conf.max_num_line_search_iterations == 8
+    assert conf().list(dense(), out()).build() \
+        .max_num_line_search_iterations == 5
