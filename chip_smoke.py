@@ -47,7 +47,28 @@ Phases; any failure raises and exits non-zero before a result is printed:
    T 1024) with random weights from a seed, served by ``GenerationEngine``
    to 8 concurrent greedy requests of 300-900 prompt tokens and 32 new
    tokens each. One request's tokens must equal ``naive_generate``'s
-   token for token.
+   token for token; the decode step runs as the cohort's CUDA graph, one
+   replay a step.
+3b. Generation: the same model (f32, ``ENGINE``) through the rest of
+   paged generation, each case on its own engine: (a) the prefix cache —
+   one request of a 480-token block-aligned prompt, 7 more of it (hits:
+   a copy-on-write copy and one replayed token each), then 8 fresh
+   prompts; hit tokens must equal the miss's; (b) the int8 KV tier, the
+   same traffic, hit == miss, its bytes a token beside f32's; (c)
+   speculation with ``truncated_draft(net, 1)``, ``spec_k`` 4, on the
+   fresh prompts: tokens equal (a)'s plain greedy ones, acceptance and
+   tokens a target dispatch reported; (d) with the 12-block self-draft:
+   every proposal accepted; (e) with an LSTM draft
+   (``text_generation_lstm(4096, hidden 512, T 1024)``): tokens equal the
+   plain ones, and K5 launches 2 layers x (draft prefills + 5 x
+   proposals); (f) a same-architecture ``hot_swap`` while two requests
+   decode: they finish equal to the old weights' ``naive_generate``, two
+   admitted after equal the new weights'. Every case: no warm run and no
+   graph capture after warm-up beyond the cohorts it makes (one; two in
+   (f)), one graph replay a decode step, TTFT and decode-step p50/p99 and
+   decode tokens/s reported; a divergence names its step and the full
+   forward's top-2 logit margin there. (a) also profiles two replays of
+   the decode graph (its kernels and device time).
 4. Train: the same model in bfloat16 with ``Adam(3e-4)`` takes 6 steps of
    ``net.fit`` on one fixed batch of B 8 token sequences (bench.py
    ``bench_transformer_lm``'s feed). Each of K1, K2 and K3 must launch 12
@@ -74,7 +95,10 @@ Phases; any failure raises and exits non-zero before a result is printed:
    concurrent greedy requests of 40-160 prompt characters and 64 new
    tokens each. One request's tokens must equal ``naive_generate_lstm``'s
    (``rnn_time_step``); K5 must launch once per layer for every prefill
-   batch and decode step.
+   batch and decode step: the prefills' launches by the wrapper's count,
+   the decode steps' as the launches the decode graph's capture holds
+   times its replays (one a step); two replays under the profiler must
+   show 2 x 2 ``lstm_fwd`` kernels.
 8. Train the char-RNN: 6 ``net.fit`` calls with RmsProp(1e-3) on one batch
    of B 32 one-hot sequences of T 64 (two tBPTT chunks, 50 and 14 steps);
    K5 and K6 each launch 2 layers x 2 chunks = 4 times a fit; the loss is
@@ -114,9 +138,9 @@ Phases; any failure raises and exits non-zero before a result is printed:
    within rel 0.05 of the f32 forward.
 13. CPU against card: GoogLeNet at 224, B 2, every vertex's activation at
    rel-to-max 1e-4; the int8 forward at B 16 at atol 1e-6.
-   In phases 3, 4, 7, 8, 11, 12, 16 and 17 the launch counts are set to 0 just
-   before the path is driven and read just after; every kernel of the
-   path must launch.
+   In phases 3, 3b, 4, 7, 8, 11, 12, 16 and 17 the launch counts are set
+   to 0 just before the path is driven and read just after; every kernel
+   of the path must launch.
 14. K9 (``threshold_encode_fused``) bitwise against its plain version, in
    float32 and bfloat16, at n = 25,000,000 (bench.py:2222's ResNet-50
    scale), at the ``_TLM`` model's parameter count, at 65,536 + 777, on a
@@ -183,7 +207,8 @@ from deeplearning4j_tpu_torch.interop.jax_params import (load_jax_opt_state,
                                                          load_jax_params)
 from deeplearning4j_tpu_torch.models.decode import (TransformerDecodeSpec,
                                                     naive_generate,
-                                                    naive_generate_lstm)
+                                                    naive_generate_lstm,
+                                                    truncated_draft)
 from deeplearning4j_tpu_torch.models.zoo_extra import (googlenet,
                                                        text_generation_lstm,
                                                        transformer_lm)
@@ -795,6 +820,7 @@ def slice_phase():
     lens = rng.integers(300, 901, size=N_REQUESTS)
     prompts = [rng.integers(1, TLM["vocab_size"], size=int(n)).tolist()
                for n in lens]
+    rt = eng.runtime()
     try:
         fa.flash_attention.launches = 0          # the serving run's count
         t0 = time.perf_counter()
@@ -803,9 +829,15 @@ def slice_phase():
         results = [s.result() for s in streams]
         wall_s = time.perf_counter() - t0
         launches = fa.flash_attention.launches
+        if not rt.wait_idle(60):
+            raise AssertionError("serve: the runtime did not go idle")
         snap = eng.metrics()["default"]
+        graphs = rt.graph_stats()
     finally:
         eng.stop()
+    if graphs["replays"] != snap["decode_steps"] or graphs["captures"] != 1:
+        raise AssertionError(f"serve: {graphs} for {snap['decode_steps']} "
+                             f"decode steps")
     for i, (toks, reason) in enumerate(results):
         if len(toks) != MAX_TOKENS or reason != "length":
             raise AssertionError(f"request {i}: {len(toks)} tokens, "
@@ -839,7 +871,234 @@ def slice_phase():
             "ttft_ms_p99": snap["ttft_ms"]["p99"],
             "decode_step_ms_p50": snap["decode_step_ms"]["p50"],
             "decode_tokens_per_sec": snap["decode_tokens_per_sec"],
+            "graph_replays": graphs["replays"],
             "wall_s": wall_s, "flash_attention_launches": launches}
+
+
+# ----------------------------------------------------------------- phase 3b
+GEN_SHARED, GEN_PROMPT = 8, 480     # 8 requests of one 30-block prompt
+GEN_FRESH, GEN_FRESH_LENS = 8, (300, 901)   # then 8 of 300-900 tokens
+SPEC_K = 4
+# the LSTM draft: the char-RNN's layers at the transformer's vocabulary
+LSTM_DRAFT = dict(vocab_size=4096, hidden=512, max_length=1024)
+
+
+def _gen_engine(net, **kw):
+    """A warmed engine over ``net`` at phase 3's plan and what it had done
+    when it returned: its warm runs and its runtime's cohorts (graphs)."""
+    eng = GenerationEngine(net, **ENGINE, **kw)
+    rt = eng.runtime()
+    return eng, rt, {"warm_runs": eng.trace_count,
+                     "cohorts": rt.cohorts_made}
+
+
+def _logit_gaps(net, prompt, toks, step):
+    """At generated position ``step`` of the greedy stream ``toks``: the
+    full forward's top-1 minus top-2 logit and its two tokens (causal, so
+    one forward over the sequence gives every position)."""
+    cap = ENGINE["max_seq_len"]
+    seq = list(prompt) + list(toks[:step])
+    buf = torch.zeros((1, cap), dtype=torch.long, device=net.device)
+    buf[0, :len(seq)] = torch.as_tensor(seq)
+    logp = torch.log(net.output(buf)[0, len(seq) - 1].double())
+    top = torch.topk(logp, 2)
+    return {"top2_tokens": top.indices.tolist(),
+            "top2_margin": float(top.values[0] - top.values[1])}
+
+
+def _same_tokens(net, what, prompts, got, want):
+    """Raise at the first request whose tokens differ, with the step and
+    the full forward's top-2 logit margin there."""
+    for i, (p, a, b) in enumerate(zip(prompts, got, want)):
+        if a != b:
+            step = next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
+            raise AssertionError(
+                f"{what}: request {i} differs at step {step} ({a[step]} "
+                f"against {b[step]}): {_logit_gaps(net, p, b, step)}")
+
+
+def _drive(eng, prompts):
+    streams = [eng.generate(p, max_tokens=MAX_TOKENS, stream=True)
+               for p in prompts]
+    out = [s.result() for s in streams]
+    for i, (toks, reason) in enumerate(out):
+        if len(toks) != MAX_TOKENS or reason != "length":
+            raise AssertionError(f"request {i}: {len(toks)} tokens, "
+                                 f"finish reason {reason!r}")
+    return [t for t, _ in out]
+
+
+def _case_checks(name, eng, rt, base, cohorts_added=0):
+    """What every case holds: no warm run and no capture beyond the
+    cohorts it made, one graph replay a decode step; and its row."""
+    if not rt.wait_idle(60):
+        raise AssertionError(f"{name}: the runtime did not go idle")
+    snap = eng.metrics()["default"]
+    gs = rt.graph_stats()
+    if eng.trace_count != base["warm_runs"] or snap["decode_recompiles"]:
+        raise AssertionError(f"{name}: warm runs after warm-up "
+                             f"({eng.trace_count - base['warm_runs']})")
+    if rt.cohorts_made != base["cohorts"] + cohorts_added:
+        raise AssertionError(f"{name}: {rt.cohorts_made - base['cohorts']} "
+                             f"graphs captured after warm-up, "
+                             f"{cohorts_added} expected")
+    if gs["replays"] != snap["decode_steps"]:
+        raise AssertionError(f"{name}: {gs['replays']} graph replays for "
+                             f"{snap['decode_steps']} decode steps")
+    return {"ttft_ms_p50": snap["ttft_ms"]["p50"],
+            "ttft_ms_p99": snap["ttft_ms"]["p99"],
+            "decode_step_ms_p50": snap["decode_step_ms"]["p50"],
+            "decode_step_ms_p99": snap["decode_step_ms"]["p99"],
+            "decode_tokens_per_sec": snap["decode_tokens_per_sec"],
+            "prefills": snap["prefills"], "decode_steps": snap["decode_steps"],
+            "graph_replays": gs["replays"], "graph_captures": gs["captures"],
+            "prefix": snap["prefix"], "speculative": snap["speculative"],
+            "kv_bytes_per_token": snap["kv_bytes_per_token"]}
+
+
+def _graph_device_ms(rt):
+    """Two replays of the runtime's live decode graph under the profiler:
+    the kernels recorded and their device time a replay."""
+    g = rt.cohorts[-1].graph
+    prof = _device_kernels(lambda: (g.graph.replay(), g.graph.replay()),
+                           top=1000)
+    return {"kernels_per_replay": sum(r["calls"] for r in prof["top"]) / 2,
+            "device_ms_per_replay": prof["device_ms"] / 2,
+            "wall_ms_two_replays": prof["wall_ms"], "top": prof["top"]}
+
+
+def generation_phase():
+    """The rest of paged generation at the _TLM width, f32, random weights:
+    (a) the prefix cache, (b) the int8 KV tier, (c) speculation with a
+    1-block truncated draft, (d) with a 12-block self-draft, (e) with an
+    LSTM draft, (f) a same-architecture hot swap during decode."""
+    net = transformer_lm(**TLM, token_input=True).init(seed=SEED)
+    V = TLM["vocab_size"]
+    rng = np.random.default_rng(SEED + 30)
+    shared = rng.integers(1, V, size=GEN_PROMPT).tolist()
+    fresh = [rng.integers(1, V, size=int(n)).tolist()
+             for n in rng.integers(*GEN_FRESH_LENS, size=GEN_FRESH)]
+    rows, k1 = {}, {}
+
+    # (a) prefix: one miss, then 7 block-aligned hits (COW + one replayed
+    # token each), then 8 fresh misses; hit tokens == the miss's
+    eng, rt, base = _gen_engine(net)
+    try:
+        _reset_launches()
+        miss = _drive(eng, [shared])[0]
+        hits = _drive(eng, [shared] * (GEN_SHARED - 1))
+        plain = _drive(eng, fresh)
+        k1["prefix"] = fa.flash_attention.launches
+        row = _case_checks("prefix", eng, rt, base)
+        row["graph"] = _graph_device_ms(rt)
+    finally:
+        eng.stop()
+    _same_tokens(net, "prefix hit against miss", [shared] * len(hits), hits,
+                 [miss] * len(hits))
+    pre = row["prefix"]
+    if pre["hits"] != GEN_SHARED - 1 or pre["cow_copies"] != GEN_SHARED - 1:
+        raise AssertionError(f"prefix: {pre['hits']} hits and "
+                             f"{pre['cow_copies']} copies for "
+                             f"{GEN_SHARED - 1} repeats of the prompt")
+    if k1["prefix"] < TLM["n_blocks"] * row["prefills"]:
+        raise AssertionError(f"prefix: {k1['prefix']} K1 launches for "
+                             f"{row['prefills']} prefill batches")
+    rows["a_prefix"] = row
+
+    # (b) the int8 KV tier: hit == miss, bytes a token beside f32's
+    eng, rt, base = _gen_engine(net, kv_cache_dtype="int8")
+    try:
+        miss8 = _drive(eng, [shared])[0]
+        hits8 = _drive(eng, [shared] * (GEN_SHARED - 1))
+        plain8 = _drive(eng, fresh)
+        row = _case_checks("int8", eng, rt, base)
+    finally:
+        eng.stop()
+    _same_tokens(net, "int8 prefix hit against miss", [shared] * len(hits8),
+                 hits8, [miss8] * len(hits8))
+    row["kv_bytes_per_token_f32"] = rows["a_prefix"]["kv_bytes_per_token"]
+    row["tokens_equal_f32"] = sum(a == b for x, y in zip(plain8, plain)
+                                  for a, b in zip(x, y))
+    row["tokens"] = GEN_FRESH * MAX_TOKENS
+    rows["b_int8"] = row
+
+    # (c), (d), (e): speculation; tokens == the plain greedy of (a)
+    lstm_draft = text_generation_lstm(**LSTM_DRAFT).init(seed=SEED + 31)
+    n_lstm = sum(hasattr(l, "apply_with_final_state")
+                 for l in lstm_draft.layers)
+    for case, draft in (("c_spec_truncated_1", truncated_draft(net, 1)),
+                        ("d_spec_self",
+                         truncated_draft(net, TLM["n_blocks"])),
+                        ("e_spec_lstm", lstm_draft)):
+        eng, rt, base = _gen_engine(net, draft=draft, spec_k=SPEC_K)
+        try:
+            _reset_launches()
+            got = _drive(eng, fresh)
+            k5 = lstm.fused_lstm_fwd.launches
+            k1[case] = fa.flash_attention.launches
+            runs = dict(rt.active_ps.runs)
+            row = _case_checks(case, eng, rt, base)
+        finally:
+            eng.stop()
+        _same_tokens(net, f"{case} against plain greedy", fresh, got, plain)
+        sp = row["speculative"]
+        row["acceptance_rate"] = (sp["accepted"] / sp["proposed"]
+                                  if sp["proposed"] else 0.0)
+        row["tokens_per_target_dispatch"] = sp["accepted_tokens_per_verify"]
+        row["program_runs"] = runs
+        if not sp["verify_steps"]:
+            raise AssertionError(f"{case}: no verify window ran")
+        if case == "d_spec_self" and sp["accepted"] != sp["proposed"]:
+            raise AssertionError(f"self-draft accepted {sp['accepted']} of "
+                                 f"{sp['proposed']} proposals")
+        if case == "e_spec_lstm":
+            want = n_lstm * (runs.get("draft_prefill", 0)
+                             + (SPEC_K + 1) * runs.get("propose", 0))
+            if k5 != want or not k5:
+                raise AssertionError(
+                    f"LSTM draft: {k5} K5 launches; {runs} imply {want}")
+            row["k5_launches"] = k5
+        rows[case] = row
+
+    # (f) a same-architecture hot swap while two requests decode
+    net_b = transformer_lm(**TLM, token_input=True).init(seed=SEED + 32)
+    eng, rt, base = _gen_engine(net)
+    try:
+        old = [eng.generate(p, max_tokens=MAX_TOKENS, stream=True)
+               for p in fresh[:2]]
+        deadline = time.monotonic() + 60
+        while min(s.emitted for s in old) < 2:
+            if time.monotonic() > deadline:
+                raise AssertionError("hot swap: the first requests did not "
+                                     "start decoding")
+            time.sleep(0.001)
+        if eng.hot_swap("default", net_b) != 2:
+            raise AssertionError("hot swap: version is not 2")
+        new = _drive(eng, fresh[2:4])
+        old = [s.result()[0] for s in old]
+        row = _case_checks("hot_swap", eng, rt, base, cohorts_added=1)
+        live = len(rt.cohorts)
+    finally:
+        eng.stop()
+    cap = ENGINE["max_seq_len"]
+    _same_tokens(net, "hot swap, in flight against the old weights",
+                 fresh[:2], old, [naive_generate(net, p, MAX_TOKENS,
+                                                 pad_to=cap)
+                                  for p in fresh[:2]])
+    _same_tokens(net_b, "hot swap, admitted after against the new weights",
+                 fresh[2:4], new, [naive_generate(net_b, p, MAX_TOKENS,
+                                                  pad_to=cap)
+                                   for p in fresh[2:4]])
+    if live != 1:
+        raise AssertionError(f"hot swap: {live} cohorts live after the old "
+                             f"one drained")
+    rows["f_hot_swap"] = row
+    log("generation phase:", {k: {m: v for m, v in r.items()
+                                  if m in ("ttft_ms_p50",
+                                           "decode_step_ms_p50")}
+                              for k, r in rows.items()})
+    return {"cases": rows, "k1_launches": k1,
+            "prompt_lens": [len(p) for p in fresh]}
 
 
 # ------------------------------------------------------------------ phase 4
@@ -1126,6 +1385,7 @@ def char_serve_phase():
     lens = rng.integers(40, 161, size=CHAR_REQUESTS)
     V = CHAR["vocab_size"]
     prompts = [rng.integers(0, V, size=int(n)).tolist() for n in lens]
+    rt = eng.runtime()
     try:
         _reset_launches()                       # the serving run's count
         t0 = time.perf_counter()
@@ -1133,9 +1393,13 @@ def char_serve_phase():
                    for p in prompts]
         results = [s.result() for s in streams]
         wall_s = time.perf_counter() - t0
-        launches = _launches(LSTM_COUNTED)
+        if not rt.wait_idle(60):
+            raise AssertionError("char serve: the runtime did not go idle")
+        eager = _launches(LSTM_COUNTED)
         snap = eng.metrics()["default"]
+        graphs = rt.graph_stats()
         adapter = eng.models()["default"]["adapter"]
+        replay = _replay_kernels(rt, "lstm_fwd", 2 * n_layers)
     finally:
         eng.stop()
     if adapter != "state":
@@ -1147,12 +1411,22 @@ def char_serve_phase():
                                  f"finish reason {reason!r}")
         if not all(0 <= t < V for t in toks):
             raise AssertionError(f"char request {i}: token out of range")
+    # the prefills launch K5 eagerly; the decode steps replay the graph,
+    # whose capture holds one K5 launch a layer
     want = n_layers * (snap["prefills"] + snap["decode_steps"])
-    if launches != {"lstm_fwd": want, "lstm_bwd": 0}:
-        raise AssertionError(f"serving launched {launches}; {snap['prefills']}"
-                             f" prefill batches and {snap['decode_steps']} "
-                             f"decode steps of {n_layers} layers imply "
-                             f"{want} K5 launches")
+    if graphs["replays"] != snap["decode_steps"] or graphs["captures"] != 1:
+        raise AssertionError(f"char serve: {graphs} for "
+                             f"{snap['decode_steps']} decode steps")
+    launches = {"lstm_fwd": eager["lstm_fwd"]
+                + graphs["kernel_runs"].get("lstm_fwd", 0),
+                "lstm_bwd": eager["lstm_bwd"]}
+    if launches != {"lstm_fwd": want, "lstm_bwd": 0} \
+            or eager["lstm_fwd"] != n_layers * snap["prefills"]:
+        raise AssertionError(f"serving launched {eager} eagerly and "
+                             f"{graphs['kernel_runs']} in graph replays; "
+                             f"{snap['prefills']} prefill batches and "
+                             f"{snap['decode_steps']} decode steps of "
+                             f"{n_layers} layers imply {want} K5 launches")
     ref = naive_generate_lstm(net, prompts[0], CHAR_MAX_TOKENS)
     if ref != results[0][0]:
         first = next(i for i, (a, b) in enumerate(zip(ref, results[0][0]))
@@ -1167,7 +1441,33 @@ def char_serve_phase():
             "ttft_ms_p99": snap["ttft_ms"]["p99"],
             "decode_step_ms_p50": snap["decode_step_ms"]["p50"],
             "decode_tokens_per_sec": snap["decode_tokens_per_sec"],
+            "graph_replays": graphs["replays"],
+            "launches_eager": eager, "launches_in_replays":
+                graphs["kernel_runs"], "replay_profile": replay,
             "wall_s": wall_s, "launches": launches}
+
+
+def _replay_kernels(rt, name, want, tries=3):
+    """Two replays of the runtime's live decode graph under the profiler
+    must show ``want`` kernels whose name holds ``name``. The profiler
+    loses a few records a session (``_device_ms_per_call``), so up to
+    ``tries`` sessions are taken; none may show more."""
+    g = rt.cohorts[-1].graph
+    seen = []
+    for _ in range(tries):
+        prof = _device_kernels(lambda: (g.graph.replay(), g.graph.replay()),
+                               top=1000)
+        n = sum(r["calls"] for r in prof["top"] if name in r["kernel"])
+        seen.append(n)
+        if n > want:
+            break
+        if n == want:
+            return {"kernels": n, "sessions": seen,
+                    "device_ms_per_replay": prof["device_ms"] / 2,
+                    "kernels_per_replay": sum(r["calls"]
+                                              for r in prof["top"]) / 2}
+    raise AssertionError(f"two replays of the decode graph showed {seen} "
+                         f"{name} kernels in the profiler, not {want}")
 
 
 # ------------------------------------------------------------------ phase 8
@@ -2298,6 +2598,7 @@ def main() -> int:
     errs, rows = kernel_phase()
     bwd_errs, bwd_rows, sdpa_backends, ring_hops = bwd_kernel_phase()
     slice_row = slice_phase()
+    gen_row = generation_phase()
     train_row = train_phase()
     cross_row = cross_device_phase()
     lstm_errs, lstm_rows, lstm_step_us, lstm_plans = lstm_kernel_phase()
@@ -2326,6 +2627,8 @@ def main() -> int:
     top = next(r for r in rows if r["BH"] == 16 and r["T"] == 1024
                and r["dtype"] == str(torch.float32))
     serve_k1 = slice_row["flash_attention_launches"]
+    gen_k1 = sum(gen_row["k1_launches"].values())
+    lstm_draft_k5 = gen_row["cases"]["e_spec_lstm"]["k5_launches"]
     train_k = train_row["launches"]
     ring_dtypes = (str(torch.float32), str(torch.bfloat16))
     src = "deeplearning4j_tpu_torch/csrc/flash_attention_{}.cu"
@@ -2333,10 +2636,11 @@ def main() -> int:
     kernels = [{
         "name": "flash_attention_fwd", "route": "cuda",
         "source": src.format("fwd"), "replaces": ref.format(186),
-        "launches": serve_k1 + train_k["flash_attention_fwd"]
+        "launches": serve_k1 + gen_k1 + train_k["flash_attention_fwd"]
         + dp_row["launches"]["flash_attention_fwd"],
         "launches_by_path": {
-            "serve": serve_k1, "train": train_k["flash_attention_fwd"],
+            "serve": serve_k1, "serve_generation": gen_row["k1_launches"],
+            "train": train_k["flash_attention_fwd"],
             "train_data_parallel": dp_row["launches"]["flash_attention_fwd"]},
         "max_abs_err": errs[torch.float32],
         "max_abs_err_f32": errs[torch.float32],
@@ -2374,10 +2678,18 @@ def main() -> int:
     for kind, name, line in (("fwd", "lstm_fwd", 147), ("bwd", "lstm_bwd", 282)):
         serve_n = char_serve["launches"][name]
         train_n = char_train["launches"][name]
+        draft_n = lstm_draft_k5 if kind == "fwd" else 0
+        by_path = {"serve": serve_n, "train": train_n}
+        if kind == "fwd":
+            by_path.update(
+                serve_decode_graph_replays=char_serve[
+                    "launches_in_replays"].get(name, 0),
+                serve_lstm_draft=draft_n)
         kernels.append({
             "name": name, "route": "cuda", "source": lsrc.format(kind),
-            "replaces": lref.format(line), "launches": serve_n + train_n,
-            "launches_by_path": {"serve": serve_n, "train": train_n},
+            "replaces": lref.format(line),
+            "launches": serve_n + train_n + draft_n,
+            "launches_by_path": by_path,
             "max_abs_err": max(lstm_errs[(kind, torch.float32)],
                                lstm_errs[(kind, torch.bfloat16)]),
             "max_abs_err_f32": lstm_errs[(kind, torch.float32)],
@@ -2478,7 +2790,8 @@ def main() -> int:
                       "ring_hops_diagonal_vs_full": ring_hops,
                       "card": smi}),
           flush=True)
-    print(json.dumps({"slice": slice_row, "card": smi}), flush=True)
+    print(json.dumps({"slice": slice_row, "generation": gen_row,
+                      "card": smi}), flush=True)
     print(json.dumps({"train": train_row, "cross_device": cross_row,
                       "card": smi}), flush=True)
     print(json.dumps({"char_serve": char_serve, "char_train": char_train,

@@ -1,10 +1,13 @@
 """Cache-aware autoregressive decode for the transformer LM and the
 char-RNN.
 
-Counterpart of ``deeplearning4j_tpu/models/decode.py``:
+Counterpart of ``deeplearning4j_tpu/models/decode.py``: the ``KVStore``
+protocol (``:49``), ``window_attention`` (``:61``),
 ``TransformerDecodeSpec`` (``prefill_forward`` ``:167``, ``decode_step``
-``:194``, ``_block_step`` ``:214``), ``LSTMDecodeSpec`` (``:286-366``),
-``naive_generate`` (``:399``) and ``naive_generate_lstm`` (``:428-446``).
+``:194``, ``_block_step`` ``:214``, ``decode_window`` / ``_block_window``
+``:238-284``), ``LSTMDecodeSpec`` (``:286-366``), ``truncated_draft``
+(``:370``), ``naive_generate`` (``:399``) and ``naive_generate_lstm``
+(``:428-446``).
 
 - ``prefill_forward`` runs the graph's own ``apply_fn`` over the padded
   prompt, so its logits are those of a plain ``net.output`` (and its
@@ -14,6 +17,13 @@ Counterpart of ``deeplearning4j_tpu/models/decode.py``:
   paged ``serving.generation.kvcache.PagedStore``) and replays each layer's
   own math position by position; its attention row is the plain
   ``parallel.ring_attention.attention`` over the gathered context.
+- ``decode_window`` feeds W tokens per sequence in one pass (the
+  speculative verify and the int8 tier's prefill) through a window store;
+  every op is the batched form of ``decode_step``'s, and its attention is
+  ``window_attention``, ``attention``'s arithmetic with a mask per query
+  row.
+- ``truncated_draft`` builds a speculative-decoding draft from a target's
+  first blocks, its parameters copied by vertex name.
 - ``naive_generate`` is the cache-free greedy reference: one full forward
   per emitted token.
 - ``LSTMDecodeSpec`` serves a ``text_generation_lstm``-style
@@ -25,12 +35,13 @@ Counterpart of ``deeplearning4j_tpu/models/decode.py``:
   output are those at ``length - 1``. ``naive_generate_lstm`` is its greedy
   reference through the public ``rnn_time_step``.
 
-The speculative-decoding window and the draft builder come with a later
-slice (ROADMAP A2).
+Sharding the heads over a mesh (the reference's ``supports_head_sharding``)
+is ROADMAP A7b.
 """
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+import math
+from typing import Any, List, Optional, Protocol, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -42,6 +53,33 @@ from ..nn.layers import (DenseLayer, EmbeddingSequenceLayer,
                          SelfAttentionLayer)
 from ..nn.multilayer import MultiLayerNetwork
 from ..parallel.ring_attention import attention
+
+
+class KVStore(Protocol):
+    """What ``decode_step`` needs from a cache: write this step's K/V for
+    layer ``i``, read back the full (gathered) K/V context and key mask."""
+
+    def put_get(self, i: int, k_tok, v_tok) -> Tuple[Any, Any, Any]:
+        """k_tok/v_tok: [B,H,Dh] for the current position. Returns
+        (K [B,H,L,Dh], V [B,H,L,Dh], key_mask [B,L]) with the current
+        position already visible."""
+        ...
+
+
+def window_attention(q, k, v, row_mask):
+    """Row-masked softmax attention for a W-token decode window:
+    q [B,H,W,Dh], k/v [B,H,L,Dh], row_mask [B,W,L] (True = visible).
+
+    Mirrors ``parallel.ring_attention.attention``'s arithmetic (the same
+    scale, the same -1e30 fill, the same softmax axis) with a mask per
+    query row: row ``i`` seeing keys ``<= pos+i`` computes what the
+    one-token ``attention(..., key_mask=)`` row computes, which keeps a
+    batched speculative verify token for token with W decode steps."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    s = torch.matmul(q, k.transpose(-1, -2)) * scale
+    s = s.masked_fill(~row_mask[:, None, :, :], -1e30)
+    p = torch.softmax(s, dim=-1)
+    return torch.matmul(p, v)
 
 
 class TransformerDecodeSpec:
@@ -80,6 +118,7 @@ class TransformerDecodeSpec:
         self.d_model = attn0.n_out
         self.head_dim = self.d_model // self.n_heads
         self.vocab = self._layer["head"].n_out
+        self.max_length = self._layer["pos"].max_length
         self.dtype = net.dtype
 
     def _heads(self, x):
@@ -146,6 +185,76 @@ class TransformerDecodeSpec:
         f = self._layer[f"b{i}_ff2"](
             self._layer[f"b{i}_ff1"](self._layer[f"b{i}_ln2"](x)))
         return x + f                                           # b{i}_add2
+
+    # --------------------------------------------------------- decode window
+    @torch.inference_mode()
+    def decode_window(self, tokens, pos, store):
+        """W tokens per sequence in ONE pass — the speculative-verify
+        forward. ``tokens`` [B,W] are fed at positions ``pos .. pos+W-1``;
+        ``store`` is a window store (``put_get`` takes [B,W,H,Dh] and
+        returns per-row key masks). Every op is the [B,W,·] batched form
+        of ``decode_step``'s (all non-attention ops are position-wise;
+        attention rows carry their own masks). Returns pre-activation
+        logits [B,W,V]."""
+        B, W = tokens.shape
+        x = self._layer["embed"](self.graph_input(tokens))     # [B,W,d]
+        pos_layer = self._layer["pos"]
+        w_pos = (pos.long()[:, None]
+                 + torch.arange(W, device=tokens.device)[None, :])
+        x = pos_layer.act(
+            x + pos_layer.P[torch.clamp(w_pos, 0, pos_layer.P.shape[0] - 1)])
+        for i in range(self.n_blocks):
+            x = self._block_window(i, x, store)
+        y = self._layer["ln_f"](x)
+        return self._layer["head"].pre_output(y)
+
+    def _block_window(self, i, x, store):
+        h = x
+        y = self._layer[f"b{i}_ln1"](x)                        # [B,W,d]
+        attn = self._layer[f"b{i}_attn"]
+        B, W, _ = y.shape
+        q = self._heads(y @ attn.Wq)                           # [B,H,W,Dh]
+        k_win = (y @ attn.Wk).reshape(B, W, self.n_heads, self.head_dim)
+        v_win = (y @ attn.Wv).reshape(B, W, self.n_heads, self.head_dim)
+        K, V, row_mask = store.put_get(i, k_win, v_win)
+        out = window_attention(q, K, V, row_mask)
+        out = out.transpose(1, 2).reshape(B, W, self.d_model)
+        if attn.project_out:
+            out = out @ attn.Wo + attn.b
+        x = h + attn.act(out)
+        f = self._layer[f"b{i}_ff2"](
+            self._layer[f"b{i}_ff1"](self._layer[f"b{i}_ln2"](x)))
+        return x + f
+
+    def supports_head_sharding(self, m: int) -> bool:
+        raise NotImplementedError("sharding the paged pools' heads over a "
+                                  "mesh is not ported yet (ROADMAP A7b)")
+
+
+def truncated_draft(net, n_blocks: int = 1):
+    """A speculative-decoding draft made by TRUNCATING a
+    ``models.transformer_lm`` target: the same embed, positions, final
+    norm and head and the first ``n_blocks`` blocks, with the target's
+    weights copied by vertex name into a fresh graph on the target's
+    device (the draft shares no tensor with the target)."""
+    from .zoo_extra import transformer_lm
+
+    spec = TransformerDecodeSpec(net)
+    if not 1 <= n_blocks <= spec.n_blocks:
+        raise ValueError(f"draft n_blocks must be in 1..{spec.n_blocks}, "
+                         f"got {n_blocks}")
+    draft = transformer_lm(vocab_size=spec.vocab, d_model=spec.d_model,
+                           n_heads=spec.n_heads, n_blocks=n_blocks,
+                           max_length=spec.max_length,
+                           dtype=str(net.conf.dtype),
+                           token_input=spec.token_input,
+                           device=net.device).init()
+    src = net.param_dicts()
+    with torch.no_grad():
+        for name, params in draft.param_dicts().items():
+            for pname, p in params.items():
+                p.copy_(src[name][pname])
+    return draft
 
 
 @torch.inference_mode()

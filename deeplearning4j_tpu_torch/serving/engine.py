@@ -11,8 +11,8 @@ flight finishes on the old set, the next batch runs the new one.
 
 Left for later, each raising ``NotImplementedError`` that names its
 ROADMAP item: a hot swap from a path and ``reload_from_checkpoint`` (model
-zips, A2), ``publish_metrics`` (A8), a ``mesh`` (A7b). The HTTP front end
-comes with A2.
+zips, A2b), ``publish_metrics`` (A8), a ``mesh`` (A7b). The HTTP front end
+comes with A2b.
 """
 from __future__ import annotations
 

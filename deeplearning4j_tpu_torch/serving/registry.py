@@ -3,7 +3,7 @@
 Counterpart of ``deeplearning4j_tpu/serving/registry.py``. The reference
 loads a served model from a model zip or a checkpoint directory; model
 zips and checkpointing are not ported yet, so ``load_net`` raises
-``NotImplementedError`` naming ROADMAP A2.
+``NotImplementedError`` naming ROADMAP A2b.
 """
 from __future__ import annotations
 
@@ -16,7 +16,7 @@ from .errors import UnknownModelError
 def load_net(path: str):
     """Restore a network from a model zip or a checkpoint directory."""
     raise NotImplementedError(f"loading {path!r}: model zips and checkpoint "
-                              f"directories are not ported yet (ROADMAP A2); "
+                              f"directories are not ported yet (ROADMAP A2b); "
                               f"pass a network")
 
 

@@ -1,7 +1,7 @@
 """The port stands alone: importing any module of deeplearning4j_tpu_torch
 pulls in neither jax nor the JAX package, and neither the package's source
 nor the scripts that drive it on the card (chip_smoke.py, k7_study.py,
-lstm_study.py) name them in an import."""
+lstm_study.py, gen_study.py) name them in an import."""
 import pathlib
 import re
 import subprocess
@@ -35,7 +35,10 @@ _REQUIRED = {f"deeplearning4j_tpu_torch.{m}" for m in (
     "models.zoo", "serving.engine", "serving.batcher", "serving.programs",
     "ops.compression", "ops.threshold_encode", "parallel.mesh",
     "parallel.accumulation", "parallel.data_parallel",
-    "parallel.ring_attention")}
+    "parallel.ring_attention", "serving.generation.kvcache",
+    "serving.generation.prefix", "serving.generation.speculative",
+    "serving.generation.metrics", "serving.generation.engine",
+    "serving.generation.graphs", "serving.generation.sampling")}
 
 _FORBIDDEN = re.compile(
     r"^\s*(import\s+(jax|deeplearning4j_tpu)\b(?!_torch)"
@@ -57,8 +60,10 @@ def test_every_module_imports_without_jax():
 def test_sources_name_no_jax_import():
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
                                          ROOT / "k7_study.py",
-                                         ROOT / "lstm_study.py"]
+                                         ROOT / "lstm_study.py",
+                                         ROOT / "gen_study.py"]
     assert len(files) > 20
+    assert PKG / "serving" / "generation" / "graphs.py" in files
     hits = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
             for f in files for m in _FORBIDDEN.finditer(f.read_text())]
     assert hits == []
