@@ -138,9 +138,35 @@ Phases; any failure raises and exits non-zero before a result is printed:
    within rel 0.05 of the f32 forward.
 13. CPU against card: GoogLeNet at 224, B 2, every vertex's activation at
    rel-to-max 1e-4; the int8 forward at B 16 at atol 1e-6.
-   In phases 3, 3b, 4, 7, 8, 11, 12, 16 and 17 the launch counts are set
-   to 0 just before the path is driven and read just after; every kernel
-   of the path must launch.
+13b. Zip + HTTP: each served model goes through the port's model zip
+   (``util.serialization.write_model`` into a temporary directory, then
+   ``restore_model(device="cuda")``; the restored parameters must equal
+   the written ones bitwise) and is served behind ``ServingHTTPServer`` on
+   127.0.0.1 at an ephemeral port: (a) GoogLeNet (phase 11's, 224x224x3,
+   1000 classes) behind ``InferenceEngine``, 4 POST /predict of batch 2,
+   each response equal to the restored net's ``output`` at rel-to-max
+   1e-5, K7 37 launches a dispatched batch; (b) the int8 net (phase 12's)
+   with ``int8_forward_fn``, 4 POST /predict of batch 2 equal to the
+   direct int8 forward at rel-to-max 1e-5, K8 3 launches a batch; (c)
+   ``transformer_lm`` at the _TLM width, f32, behind ``GenerationEngine``
+   (prefix cache off, so every request prefills), 4 prompts of 300-900
+   tokens x 32 new, streamed then blocking: tokens equal the engine's
+   direct greedy tokens and ``naive_generate``'s; K1 must launch; (d)
+   POST /reload with a checkpoint directory of ``checkpoint_epoch1.zip``,
+   ``checkpoint_epoch2.zip`` (another seed) and a truncated
+   ``checkpoint_epoch3.zip``: version 2, and later streams equal the
+   epoch-2 weights' ``naive_generate``; (e) the char-RNN through a zip
+   and 4 streamed /generate requests of 40-160 characters x 64: tokens
+   equal ``naive_generate_lstm``'s, K5's launches (eager + graph replays)
+   equal 2 layers x (prefills + decode steps). The status taxonomy on the
+   card: a malformed body 400, an unknown model 404, draining 503.
+   Timed: ``write_model`` and ``restore_model`` seconds for GoogLeNet and
+   the _TLM, /predict p50 beside ``engine.predict`` p50 at the same batch
+   of 2 images, /generate time to first token p50 beside the direct
+   call's.
+   In phases 3, 3b, 4, 7, 8, 11, 12, 13b, 16 and 17 the launch counts are
+   set to 0 just before the path is driven and read just after; every
+   kernel of the path must launch.
 14. K9 (``threshold_encode_fused``) bitwise against its plain version, in
    float32 and bfloat16, at n = 25,000,000 (bench.py:2222's ResNet-50
    scale), at the ``_TLM`` model's parameter count, at 65,536 + 777, on a
@@ -193,9 +219,12 @@ from __future__ import annotations
 import importlib
 import json
 import math
+import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -225,8 +254,12 @@ from deeplearning4j_tpu_torch.parallel import ParallelWrapper, make_mesh
 from deeplearning4j_tpu_torch.parallel.accumulation import EncodedAccumulator
 from deeplearning4j_tpu_torch.parallel.ring_attention import \
     ring_attention_sharded
-from deeplearning4j_tpu_torch.serving import InferenceEngine
+from deeplearning4j_tpu_torch.serving import (InferenceEngine,
+                                              ServingHTTPServer)
 from deeplearning4j_tpu_torch.serving.generation import GenerationEngine
+from deeplearning4j_tpu_torch.util.httpjson import HTTPClient
+from deeplearning4j_tpu_torch.util.serialization import (restore_model,
+                                                         write_model)
 
 # the package exports the function ``ops.threshold_encode`` (as the
 # reference's does), which hides the kernel module of the same name from a
@@ -2208,6 +2241,375 @@ def cnn_cross_device_phase(gnet, mlp):
             "k7_launches": launches, "int8_max_abs_err": err8}
 
 
+# ----------------------------------------------------------------- phase 13b
+ZIP_HTTP_REQUESTS, ZIP_HTTP_B = 4, 2        # POST /predict of batch 2
+ZIP_TLM_PROMPTS = 4                         # 300-900 tokens x 32 new
+
+
+def _bitwise_same_params(a, b, what):
+    pa, pb = dict(a.named_parameters()), dict(b.named_parameters())
+    if sorted(pa) != sorted(pb):
+        raise AssertionError(f"{what}: restored parameters {sorted(pb)[:4]} "
+                             f"... differ in name from the written ones")
+    bad = [n for n in pa if pa[n].dtype != pb[n].dtype
+           or pa[n].device != pb[n].device or not torch.equal(pa[n], pb[n])]
+    if bad:
+        raise AssertionError(f"{what}: restored parameters differ from the "
+                             f"written ones: {bad[:4]}")
+
+
+def _zip_round_trip(net, path, what):
+    """write_model then restore_model(device="cuda"): the seconds of each,
+    the zip's bytes, and the restored network (bitwise the written one)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    write_model(net, path)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = restore_model(path, device="cuda")
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    _bitwise_same_params(net, back, what)
+    return back, {"write_s": write_s, "restore_s": restore_s,
+                  "zip_bytes": os.path.getsize(path),
+                  "params": net.num_params()}
+
+
+def _expect_status(client, method, url, want, what, body=None, **kw):
+    """One request (a JSON ``payload``, or raw ``body`` bytes) that must
+    answer ``want``; returns the parsed answer."""
+    if body is None:
+        status, body = client.request_json(method, url, **kw)
+    else:
+        status, _, data = client.request(
+            method, url, body=body,
+            headers={"Content-Type": "application/json"}, **kw)
+        body = json.loads(data)
+    if status != want:
+        raise AssertionError(f"{what}: HTTP {status} (want {want}): {body}")
+    return body
+
+
+def _predict_over_http(client, base, xs, what):
+    """POST /predict of each batch in ``xs`` (bodies encoded up front, so
+    the time is the round trip: the server's parse, the engine, the
+    response); returns the outputs and the per-request milliseconds."""
+    bodies = [json.dumps({"features": x.tolist()}).encode() for x in xs]
+    outs, ms = [], []
+    for body in bodies:
+        t0 = time.perf_counter()
+        status, _, data = client.request(
+            "POST", base + "/predict", body=body,
+            headers={"Content-Type": "application/json"}, timeout=120)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if status != 200:
+            raise AssertionError(f"{what}: /predict answered {status}: "
+                                 f"{data[:200]!r}")
+        outs.append(np.asarray(json.loads(data)["output"], np.float32))
+    return outs, ms
+
+
+def _stream_over_http(client, base, prompt, max_tokens):
+    """POST /generate streamed: the tokens, the done line and the
+    milliseconds to the first token line."""
+    body = json.dumps({"prompt": prompt, "max_tokens": max_tokens}).encode()
+    t0 = time.perf_counter()
+    toks, done, ttft = [], None, None
+    with client.stream("POST", base + "/generate", body=body,
+                       headers={"Content-Type": "application/json"},
+                       timeout=300) as resp:
+        if resp.status != 200:
+            raise AssertionError(f"/generate answered {resp.status}")
+        for line in resp:
+            if not line.strip():
+                continue
+            obj = json.loads(line)
+            if "token" in obj:
+                if ttft is None:
+                    ttft = (time.perf_counter() - t0) * 1e3
+                toks.append(obj["token"])
+            else:
+                done = obj
+    if done is None or not done.get("done") or done["tokens"] != len(toks):
+        raise AssertionError(f"/generate stream ended without a done line "
+                             f"for its {len(toks)} tokens: {done}")
+    return toks, done, ttft
+
+
+def _direct_ttft(eng, prompt, max_tokens):
+    t0 = time.perf_counter()
+    ts = eng.generate(prompt, max_tokens=max_tokens, stream=True)
+    toks, ttft = [], None
+    for tok in ts:
+        if ttft is None:
+            ttft = (time.perf_counter() - t0) * 1e3
+        toks.append(int(tok))
+    return toks, ttft
+
+
+def _first_diff(a, b):
+    return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                min(len(a), len(b)))
+
+
+def _zip_http_forward(gnet, mlp, tmp, client):
+    """(a) GoogLeNet and (b) the int8 net: zip, restore, /predict."""
+    fwd = lambda n, x: n._output_pure(x)[0]      # the graph's one output
+    rg, gzip = _zip_round_trip(gnet, f"{tmp}/googlenet.zip", "googlenet")
+    del gnet
+    eng = InferenceEngine(rg, feature_shape=(224, 224, 3),
+                          buckets=GNET_BUCKETS, forward_fn=fwd)
+    srv = ServingHTTPServer(eng)
+    base = f"http://127.0.0.1:{srv.start()}"
+    rng = np.random.default_rng(SEED + 40)
+    xs = [rng.standard_normal((ZIP_HTTP_B, 224, 224, 3)).astype(np.float32)
+          for _ in range(ZIP_HTTP_REQUESTS)]
+    try:
+        b0 = eng.metrics()["default"]["batches"]
+        k7.conv1x1_fused.launches = 0            # the HTTP path's count
+        outs, http_ms = _predict_over_http(client, base, xs, "googlenet")
+        k7_n = k7.conv1x1_fused.launches
+        batches = eng.metrics()["default"]["batches"] - b0
+        direct_ms = []
+        for x in xs:
+            t0 = time.perf_counter()
+            eng.predict(x, timeout=120)
+            direct_ms.append((time.perf_counter() - t0) * 1e3)
+        _expect_status(client, "POST", base + "/predict", 400,
+                       "googlenet malformed body", payload={"rows": [1]})
+        _expect_status(client, "POST", base + "/predict/ghost", 404,
+                       "googlenet unknown model",
+                       payload={"features": xs[0][:1].tolist()})
+    finally:
+        srv.stop()
+    if k7_n != 37 * batches or k7_n == 0:
+        raise AssertionError(f"K7 launched {k7_n} times over HTTP for "
+                             f"{batches} batches (37 each)")
+    errs = [_rel_to_max(torch.as_tensor(o), rg.output(x).cpu())
+            for o, x in zip(outs, xs)]
+    if max(errs) > 1e-5:
+        raise AssertionError(f"GoogLeNet over HTTP differs from the restored "
+                             f"net's output: rel-to-max {max(errs):.3g}")
+    del rg, eng
+    torch.cuda.empty_cache()
+    gzip.update({"model": "googlenet 1000 classes 224x224x3 f32",
+                 "requests": len(xs), "batch": ZIP_HTTP_B,
+                 "batches": batches, "k7_launches": k7_n,
+                 "max_rel_to_max": max(errs),
+                 "request_body_bytes": len(json.dumps(
+                     {"features": xs[0].tolist()})),
+                 "predict_http_ms": http_ms,
+                 "predict_http_ms_p50": float(np.median(http_ms)),
+                 "predict_direct_ms": direct_ms,
+                 "predict_direct_ms_p50": float(np.median(direct_ms))})
+
+    rm, izip = _zip_round_trip(mlp, f"{tmp}/int8.zip", "int8 net")
+    fwd8 = k8.int8_forward_fn(rm)
+    eng = InferenceEngine(rm, feature_shape=(INT8_NET[0],),
+                          buckets=INT8_BUCKETS, forward_fn=fwd8)
+    srv = ServingHTTPServer(eng)
+    base = f"http://127.0.0.1:{srv.start()}"
+    xi = [rng.standard_normal((ZIP_HTTP_B, INT8_NET[0])).astype(np.float32)
+          for _ in range(ZIP_HTTP_REQUESTS)]
+    try:
+        b0 = eng.metrics()["default"]["batches"]
+        k8.int8_matmul_fused.launches = 0        # the HTTP path's count
+        outs, http_ms = _predict_over_http(client, base, xi, "int8")
+        k8_n = k8.int8_matmul_fused.launches
+        batches = eng.metrics()["default"]["batches"] - b0
+        eng.stop(drain=True)
+        _expect_status(client, "POST", base + "/predict", 503,
+                       "int8 draining", payload={"features": xi[0].tolist()})
+        _expect_status(client, "GET", base + "/health", 503,
+                       "int8 draining health")
+    finally:
+        srv.stop()
+    if k8_n != 3 * batches or k8_n == 0:
+        raise AssertionError(f"K8 launched {k8_n} times over HTTP for "
+                             f"{batches} batches (3 each)")
+    with torch.inference_mode():
+        errs = [_rel_to_max(torch.as_tensor(o), fwd8(
+            rm, torch.as_tensor(x, device=rm.device)).cpu())
+            for o, x in zip(outs, xi)]
+    if max(errs) > 1e-5:
+        raise AssertionError(f"the int8 net over HTTP differs from its direct "
+                             f"forward: rel-to-max {max(errs):.3g}")
+    izip.update({"requests": len(xi), "batches": batches,
+                 "k8_launches": k8_n, "max_rel_to_max": max(errs),
+                 "predict_http_ms_p50": float(np.median(http_ms))})
+    return gzip, izip
+
+
+def _zip_http_tlm(tmp, client):
+    """(c) the _TLM through a zip and /generate; (d) /reload from a
+    checkpoint directory with a truncated newest zip."""
+    cap = ENGINE["max_seq_len"]
+    ck = f"{tmp}/checkpoints"
+    os.makedirs(ck)
+    net1 = transformer_lm(**TLM, token_input=True).init(seed=SEED + 41)
+    rnet, tzip = _zip_round_trip(net1, f"{ck}/checkpoint_epoch1.zip",
+                                 "_TLM")
+    rng = np.random.default_rng(SEED + 42)
+    lens = rng.integers(300, 901, size=ZIP_TLM_PROMPTS)
+    prompts = [rng.integers(1, TLM["vocab_size"], size=int(n)).tolist()
+               for n in lens]
+    # prefix cache off: every request prefills, so the streamed, blocking
+    # and direct runs of one prompt are alike and their TTFTs comparable
+    eng = GenerationEngine(rnet, prefix_cache=False, **ENGINE)
+    srv = ServingHTTPServer(generation=eng)
+    base = f"http://127.0.0.1:{srv.start()}"
+    row = dict(tzip, model="transformer_lm _TLM f32",
+               prompt_lens=[int(n) for n in lens], max_tokens=MAX_TOKENS)
+    try:
+        fa.flash_attention.launches = 0          # the HTTP path's count
+        p0 = eng.metrics()["default"]["prefills"]
+        streamed, ttft_http = [], []
+        for p in prompts:
+            toks, done, ttft = _stream_over_http(client, base, p, MAX_TOKENS)
+            if done["reason"] != "length":
+                raise AssertionError(f"_TLM stream ended {done}")
+            streamed.append(toks)
+            ttft_http.append(ttft)
+        blocking = [_expect_status(
+            client, "POST", base + "/generate", 200, "_TLM blocking",
+            payload={"prompt": p, "max_tokens": MAX_TOKENS,
+                     "stream": False})["tokens"] for p in prompts]
+        k1_n = fa.flash_attention.launches
+        prefills = eng.metrics()["default"]["prefills"] - p0
+        direct, ttft_direct = [], []
+        for p in prompts:
+            toks, ttft = _direct_ttft(eng, p, MAX_TOKENS)
+            direct.append(toks)
+            ttft_direct.append(ttft)
+        _expect_status(client, "POST", base + "/generate", 400,
+                       "_TLM malformed body", body=b"{not json")
+        _expect_status(client, "POST", base + "/generate/ghost", 404,
+                       "_TLM unknown model", payload={"prompt": [1]})
+        want = [naive_generate(net1, p, MAX_TOKENS, pad_to=cap)
+                for p in prompts]
+        for i in range(len(prompts)):
+            for what, got in (("streamed", streamed[i]),
+                              ("blocking", blocking[i]),
+                              ("direct", direct[i])):
+                if got != want[i]:
+                    raise AssertionError(
+                        f"_TLM prompt {i} {what} over HTTP differs from "
+                        f"naive_generate at step "
+                        f"{_first_diff(got, want[i])}")
+        if k1_n < TLM["n_blocks"] * prefills or k1_n == 0:
+            raise AssertionError(f"K1 launched {k1_n} times over HTTP for "
+                                 f"{prefills} prefill batches of "
+                                 f"{TLM['n_blocks']} blocks")
+        # (d): epoch 2 is another seed, epoch 3 a truncated copy
+        del rnet
+        net2 = transformer_lm(**TLM, token_input=True).init(seed=SEED + 43)
+        write_model(net2, f"{ck}/checkpoint_epoch2.zip")
+        with open(f"{ck}/checkpoint_epoch2.zip", "rb") as f:
+            head = f.read(40)
+        with open(f"{ck}/checkpoint_epoch3.zip", "wb") as f:
+            f.write(head)
+        t0 = time.perf_counter()
+        body = _expect_status(client, "POST", base + "/reload", 200,
+                              "_TLM reload",
+                              payload={"model": "default", "path": ck},
+                              timeout=300)
+        reload_s = time.perf_counter() - t0
+        if body.get("version") != 2:
+            raise AssertionError(f"/reload answered {body}, want version 2")
+        fa.flash_attention.launches = 0
+        after = [_stream_over_http(client, base, p, MAX_TOKENS)[0]
+                 for p in prompts[:2]]
+        k1_n += fa.flash_attention.launches
+        for i, got in enumerate(after):
+            ref = naive_generate(net2, prompts[i], MAX_TOKENS, pad_to=cap)
+            if got != ref:
+                raise AssertionError(
+                    f"after /reload, prompt {i} differs from the epoch-2 "
+                    f"weights' naive_generate at step {_first_diff(got, ref)}")
+        eng.stop(drain=True)
+        _expect_status(client, "POST", base + "/generate", 503,
+                       "_TLM draining", payload={"prompt": [1, 2],
+                                                 "max_tokens": 2})
+    finally:
+        srv.stop()
+    del net1, net2, eng
+    torch.cuda.empty_cache()
+    row.update({"k1_launches": k1_n, "prefill_batches": prefills,
+                "ttft_http_ms": ttft_http, "ttft_direct_ms": ttft_direct,
+                "ttft_http_ms_p50": float(np.median(ttft_http)),
+                "ttft_direct_ms_p50": float(np.median(ttft_direct)),
+                "reload_s": reload_s, "reload_version": 2})
+    return row
+
+
+def _zip_http_char(tmp, client):
+    """(e) the char-RNN through a zip and /generate (K5)."""
+    net = text_generation_lstm(**CHAR).init(seed=SEED + 44)
+    rnet, czip = _zip_round_trip(net, f"{tmp}/char.zip", "char-RNN")
+    n_layers = sum(hasattr(l, "apply_with_final_state") for l in rnet.layers)
+    eng = GenerationEngine(rnet, **CHAR_ENGINE)
+    srv = ServingHTTPServer(generation=eng)
+    base = f"http://127.0.0.1:{srv.start()}"
+    rng = np.random.default_rng(SEED + 45)
+    V = CHAR["vocab_size"]
+    prompts = [rng.integers(0, V, size=int(n)).tolist()
+               for n in rng.integers(40, 161, size=4)]
+    rt = eng.runtime()
+    try:
+        m0 = eng.metrics()["default"]
+        g0 = rt.graph_stats()["kernel_runs"].get("lstm_fwd", 0)
+        _reset_launches()                        # the HTTP path's count
+        got = [_stream_over_http(client, base, p, CHAR_MAX_TOKENS)[0]
+               for p in prompts]
+        if not rt.wait_idle(60):
+            raise AssertionError("char HTTP: the runtime did not go idle")
+        eager = lstm.fused_lstm_fwd.launches
+        m1 = eng.metrics()["default"]
+        replays = rt.graph_stats()["kernel_runs"].get("lstm_fwd", 0) - g0
+    finally:
+        srv.stop()
+    steps = (m1["prefills"] - m0["prefills"]) + \
+        (m1["decode_steps"] - m0["decode_steps"])
+    k5_n = eager + replays
+    if k5_n != n_layers * steps or eager == 0:
+        raise AssertionError(f"K5 launched {eager} eagerly and {replays} in "
+                             f"graph replays over HTTP for {steps} prefill "
+                             f"batches and decode steps of {n_layers} layers")
+    for i, p in enumerate(prompts):
+        ref = naive_generate_lstm(net, p, CHAR_MAX_TOKENS)
+        if got[i] != ref:
+            raise AssertionError(f"char prompt {i} over HTTP differs from "
+                                 f"naive_generate_lstm at step "
+                                 f"{_first_diff(got[i], ref)}")
+    czip.update({"requests": len(prompts), "k5_launches": k5_n,
+                 "k5_launches_eager": eager, "k5_launches_in_replays":
+                     replays})
+    return czip
+
+
+def zip_http_phase(gnet, mlp):
+    tmp = tempfile.mkdtemp(prefix="dl4j_zip_http_")
+    client = HTTPClient(timeout=300)
+    try:
+        gzip, izip = _zip_http_forward(gnet, mlp, tmp, client)
+        tlm = _zip_http_tlm(tmp, client)
+        char = _zip_http_char(tmp, client)
+    finally:
+        client.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    row = {"googlenet": gzip, "int8": izip, "tlm": tlm, "char": char,
+           "launches": {"conv1x1_bias_relu": gzip["k7_launches"],
+                        "int8_matmul": izip["k8_launches"],
+                        "flash_attention_fwd": tlm["k1_launches"],
+                        "lstm_fwd": char["k5_launches"]}}
+    log("zip + http phase:", {k: v for k, v in row.items()
+                              if k == "launches"},
+        "predict p50 http/direct ms", gzip["predict_http_ms_p50"],
+        gzip["predict_direct_ms_p50"], "ttft p50 http/direct ms",
+        tlm["ttft_http_ms_p50"], tlm["ttft_direct_ms_p50"])
+    return row
+
+
 # ----------------------------------------------------------------- phase 14
 def _bits_err(got, want) -> float:
     """Largest |got - want| over the entries whose bits differ (two NaNs
@@ -2610,6 +3012,7 @@ def main() -> int:
     gnet, gserve = googlenet_serve_phase()
     mlp, i8serve = int8_serve_phase()
     cnn_cross = cnn_cross_device_phase(gnet, mlp)
+    zip_http = zip_http_phase(gnet, mlp)
     del gnet, mlp
     torch.cuda.empty_cache()
     n_params = _tlm_f32(SEED + 24).num_params()
@@ -2633,15 +3036,18 @@ def main() -> int:
     ring_dtypes = (str(torch.float32), str(torch.bfloat16))
     src = "deeplearning4j_tpu_torch/csrc/flash_attention_{}.cu"
     ref = "deeplearning4j_tpu/ops/pallas_attention.py:{}"
+    http_n = zip_http["launches"]
     kernels = [{
         "name": "flash_attention_fwd", "route": "cuda",
         "source": src.format("fwd"), "replaces": ref.format(186),
         "launches": serve_k1 + gen_k1 + train_k["flash_attention_fwd"]
-        + dp_row["launches"]["flash_attention_fwd"],
+        + dp_row["launches"]["flash_attention_fwd"]
+        + http_n["flash_attention_fwd"],
         "launches_by_path": {
             "serve": serve_k1, "serve_generation": gen_row["k1_launches"],
             "train": train_k["flash_attention_fwd"],
-            "train_data_parallel": dp_row["launches"]["flash_attention_fwd"]},
+            "train_data_parallel": dp_row["launches"]["flash_attention_fwd"],
+            "http": http_n["flash_attention_fwd"]},
         "max_abs_err": errs[torch.float32],
         "max_abs_err_f32": errs[torch.float32],
         "max_abs_err_bf16": errs[torch.bfloat16],
@@ -2679,16 +3085,17 @@ def main() -> int:
         serve_n = char_serve["launches"][name]
         train_n = char_train["launches"][name]
         draft_n = lstm_draft_k5 if kind == "fwd" else 0
+        http_k5 = http_n["lstm_fwd"] if kind == "fwd" else 0
         by_path = {"serve": serve_n, "train": train_n}
         if kind == "fwd":
             by_path.update(
                 serve_decode_graph_replays=char_serve[
                     "launches_in_replays"].get(name, 0),
-                serve_lstm_draft=draft_n)
+                serve_lstm_draft=draft_n, http=http_k5)
         kernels.append({
             "name": name, "route": "cuda", "source": lsrc.format(kind),
             "replaces": lref.format(line),
-            "launches": serve_n + train_n + draft_n,
+            "launches": serve_n + train_n + draft_n + http_k5,
             "launches_by_path": by_path,
             "max_abs_err": max(lstm_errs[(kind, torch.float32)],
                                lstm_errs[(kind, torch.bfloat16)]),
@@ -2712,8 +3119,9 @@ def main() -> int:
         "name": "conv1x1_bias_relu", "route": "cuda",
         "source": "deeplearning4j_tpu_torch/csrc/conv1x1_bias_relu.cu",
         "replaces": "deeplearning4j_tpu/ops/kernels/conv.py:83",
-        "launches": gserve["k7_launches"],
-        "launches_by_path": {"serve_googlenet": gserve["k7_launches"]},
+        "launches": gserve["k7_launches"] + http_n["conv1x1_bias_relu"],
+        "launches_by_path": {"serve_googlenet": gserve["k7_launches"],
+                             "http": http_n["conv1x1_bias_relu"]},
         "max_abs_err": k7_errs["parity_abs"],
         "max_rel_to_max_err_f32": k7_errs["f32_rel"],
         "max_rel_to_max_err_bf16": k7_errs["bf16_rel"],
@@ -2728,8 +3136,9 @@ def main() -> int:
         "name": "int8_matmul", "route": "cuda",
         "source": "deeplearning4j_tpu_torch/csrc/int8_matmul.cu",
         "replaces": "deeplearning4j_tpu/ops/kernels/quantized.py:92",
-        "launches": i8serve["k8_launches"],
-        "launches_by_path": {"serve_int8": i8serve["k8_launches"]},
+        "launches": i8serve["k8_launches"] + http_n["int8_matmul"],
+        "launches_by_path": {"serve_int8": i8serve["k8_launches"],
+                             "http": http_n["int8_matmul"]},
         "max_abs_err": k8_err,
         "shape": "the 3 products of one int8 net forward, M 256 (ms and "
                  "library_ms: device time; _loop: timed loops of calls)",
@@ -2800,6 +3209,7 @@ def main() -> int:
     print(json.dumps({"googlenet_serve": gserve, "int8_serve": i8serve,
                       "cnn_cross_device": cnn_cross, "card": smi}),
           flush=True)
+    print(json.dumps({"zip_http": zip_http, "card": smi}), flush=True)
     print(json.dumps({"ring": ring_row, "data_parallel": dp_row,
                       "parallel_cross_device": par_cross, "card": smi}),
           flush=True)

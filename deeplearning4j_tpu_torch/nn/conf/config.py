@@ -8,15 +8,17 @@ NeuralNetConfiguration.java:604-608), the global updater (``Sgd`` at the
 given or default learning rate when none is named), l1/l2, per-parameter
 learning rates and gradient normalization; ``ListBuilder`` and
 ``MultiLayerConfiguration`` (``:27-64``, ``:144-236``): layers in order,
-``n_in`` inferred from the input type, the backprop type and the tBPTT
-length. JSON serde comes with ROADMAP A2.
+``n_in`` inferred from the input type, the input preprocessors the
+reference inserts where a layer family changes (keyed by layer index as a
+string), the backprop type and the tBPTT length, and JSON serde
+(``to_json`` / ``from_json``, ``nn/conf/serde.py``) with the reference's
+field names.
 
 Training takes the per-step SGD path only. Other optimization algorithms
 and layerwise pretraining (ROADMAP A5), gradient checkpointing and mixed
-precision (``compute_dtype``, ROADMAP A10) raise ``NotImplementedError``.
-No input preprocessor is ported yet (A5), so ``preprocessor(i)`` is None
-for every layer; ``_infer_n_in`` (``:231-236``) gives a CNN layer its
-input channels.
+precision (``compute_dtype``, ROADMAP A10) raise ``NotImplementedError``
+in the builder; a configuration read from JSON carries their fields, and
+the network refuses ``compute_dtype`` and the solver the others.
 """
 from __future__ import annotations
 
@@ -26,8 +28,9 @@ from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
 
 from ...optimize.updaters import Sgd, updater_from_name
-from ..inputs import (InputTypeConvolutional, InputTypeFeedForward,
-                      check_input_family)
+from ..inputs import InputTypeConvolutional, InputTypeFeedForward
+from ..preprocessors import auto_preprocessor
+from . import serde
 
 _CASCADED = ("activation", "weight_init", "distribution", "bias_init", "l1",
              "l2", "dropout", "bias_learning_rate")
@@ -91,6 +94,7 @@ class NeuralNetConfiguration:
         self.gradient_normalization_threshold = \
             gradient_normalization_threshold
         self.dtype = dtype
+        self.optimization_algorithm = optimization_algorithm.lower()
         # read by the second-order solvers (ROADMAP A5); the workspace and
         # cache-mode keywords are accepted and ignored, as the reference's
         self.max_num_line_search_iterations = max_num_line_search_iterations
@@ -112,6 +116,7 @@ class NeuralNetConfiguration:
         return GraphBuilder(self)
 
 
+@serde.register
 @dataclass
 class MultiLayerConfiguration:
     layers: List[Any] = field(default_factory=list)
@@ -122,10 +127,21 @@ class MultiLayerConfiguration:
     backprop_type: str = "standard"       # "standard" | "tbptt"
     tbptt_fwd_length: int = 20
     tbptt_bwd_length: int = 20
+    pretrain: bool = False                # layerwise pretraining (A5)
     gradient_normalization: Optional[str] = None
     gradient_normalization_threshold: float = 1.0
     updater: Optional[Any] = None
+    optimization_algorithm: str = "sgd"   # others: ROADMAP A5
     max_num_line_search_iterations: int = 5
+    gradient_checkpointing: bool = False  # ROADMAP A10
+    compute_dtype: Optional[str] = None   # mixed precision, ROADMAP A10
+
+    def to_json(self) -> str:
+        return serde.to_json(self)
+
+    @staticmethod
+    def from_json(s: str) -> "MultiLayerConfiguration":
+        return serde.from_json(s)
 
     def preprocessor(self, idx: int):
         return self.input_preprocessors.get(str(idx))
@@ -181,17 +197,20 @@ class ListBuilder:
             if n_in:
                 itype = InputTypeFeedForward(n_in)
                 self._input_type = itype
-        resolved = []
-        for layer in self.layers:
+        resolved, preprocs = [], {}
+        for i, layer in enumerate(self.layers):
             layer = nc._cascade(layer)
             if itype is not None:
-                check_input_family(itype, layer.expected_input)
+                pre, itype = auto_preprocessor(itype, layer.expected_input)
+                if pre is not None:
+                    preprocs[str(i)] = pre
                 if getattr(layer, "n_in", "absent") is None:
                     layer.n_in = _infer_n_in(layer, itype)
                 itype = layer.output_type(itype)
             resolved.append(layer)
         return MultiLayerConfiguration(
-            layers=resolved, input_type=self._input_type, seed=nc.seed,
+            layers=resolved, input_preprocessors=preprocs,
+            input_type=self._input_type, seed=nc.seed,
             dtype=nc.dtype, backprop_type=self._backprop_type,
             tbptt_fwd_length=self._tbptt_fwd,
             tbptt_bwd_length=self._tbptt_bwd,
@@ -199,4 +218,5 @@ class ListBuilder:
             gradient_normalization_threshold=(
                 nc.gradient_normalization_threshold),
             updater=nc.updater,
+            optimization_algorithm=nc.optimization_algorithm,
             max_num_line_search_iterations=nc.max_num_line_search_iterations)

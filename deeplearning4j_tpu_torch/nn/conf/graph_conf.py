@@ -5,12 +5,14 @@ Counterpart of ``deeplearning4j_tpu/nn/conf/graph_conf.py``
 The topological sort is the reference's Kahn's algorithm with the same tie
 order, so a graph's vertex order equals the JAX graph's, which is the
 order of its ``net.params``. Shape inference sets each layer's ``n_in``
-at build time. Automatic preprocessors and JSON serde come with later
-slices; the transformer LM needs neither. Truncated BPTT on a graph needs
-the graph's recurrent-state carry (``rnn_states``), which comes with the
-rest of the training engine (ROADMAP A10); it raises
-``NotImplementedError`` until then (a ``MultiLayerNetwork`` trains with
-tBPTT).
+at build time and gives a layer vertex the preprocessor the reference
+inserts where a layer family changes (or the one passed to
+``add_layer``). JSON serde (``to_json`` / ``from_json``) writes the
+reference's field names. Truncated BPTT on a graph needs the graph's
+recurrent-state carry (``rnn_states``), which comes with the rest of the
+training engine (ROADMAP A10): the builder refuses it, and the solver
+refuses a configuration read from JSON that asks for it (a
+``MultiLayerNetwork`` trains with tBPTT).
 """
 from __future__ import annotations
 
@@ -18,10 +20,12 @@ from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
 
 from ..graph.vertices import LayerVertex, VertexConf
-from ..inputs import check_input_family
+from ..preprocessors import auto_preprocessor
+from . import serde
 from .config import _infer_n_in
 
 
+@serde.register
 @dataclass
 class ComputationGraphConfiguration:
     network_inputs: List[str] = field(default_factory=list)
@@ -32,10 +36,23 @@ class ComputationGraphConfiguration:
     input_types: Optional[List[Any]] = None
     seed: int = 12345
     dtype: str = "float32"
+    backprop_type: str = "standard"       # "tbptt": ROADMAP A10
+    tbptt_fwd_length: int = 20
+    tbptt_bwd_length: int = 20
     gradient_normalization: Optional[str] = None
     gradient_normalization_threshold: float = 1.0
     updater: Optional[Any] = None
+    optimization_algorithm: str = "sgd"   # others: ROADMAP A5
     max_num_line_search_iterations: int = 5
+    gradient_checkpointing: bool = False  # ROADMAP A10
+    compute_dtype: Optional[str] = None   # mixed precision, ROADMAP A10
+
+    def to_json(self) -> str:
+        return serde.to_json(self)
+
+    @staticmethod
+    def from_json(s: str) -> "ComputationGraphConfiguration":
+        return serde.from_json(s)
 
 
 def topological_sort(names, inputs_of, network_inputs):
@@ -74,8 +91,10 @@ class GraphBuilder:
         self._inputs.extend(names)
         return self
 
-    def add_layer(self, name: str, layer, *inputs: str) -> "GraphBuilder":
-        self._vertices[name] = LayerVertex(self.nn_conf._cascade(layer))
+    def add_layer(self, name: str, layer, *inputs: str,
+                  preprocessor=None) -> "GraphBuilder":
+        self._vertices[name] = LayerVertex(self.nn_conf._cascade(layer),
+                                           preprocessor=preprocessor)
         self._vertex_inputs[name] = list(inputs)
         return self
 
@@ -119,11 +138,17 @@ class GraphBuilder:
                 in_types = [itypes[i] for i in self._vertex_inputs[name]]
                 try:
                     if isinstance(v, LayerVertex):
-                        check_input_family(in_types[0],
-                                           v.layer.expected_input)
+                        if v.preprocessor is None:
+                            pre, new_it = auto_preprocessor(
+                                in_types[0], v.layer.expected_input)
+                            v.preprocessor = pre
+                        else:
+                            new_it = v.preprocessor.output_type(in_types[0])
                         if getattr(v.layer, "n_in", "absent") is None:
-                            v.layer.n_in = _infer_n_in(v.layer, in_types[0])
-                    itypes[name] = v.output_type(in_types)
+                            v.layer.n_in = _infer_n_in(v.layer, new_it)
+                        itypes[name] = v.layer.output_type(new_it)
+                    else:
+                        itypes[name] = v.output_type(in_types)
                 except ValueError as e:
                     raise ValueError(
                         f"Invalid configuration at vertex {name!r} "
@@ -139,4 +164,5 @@ class GraphBuilder:
             gradient_normalization_threshold=(
                 nc.gradient_normalization_threshold),
             updater=nc.updater,
+            optimization_algorithm=nc.optimization_algorithm,
             max_num_line_search_iterations=nc.max_num_line_search_iterations)

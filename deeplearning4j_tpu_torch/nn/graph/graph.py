@@ -25,6 +25,7 @@ from ...device import DeviceLike, resolve_device, torch_dtype
 from ...optimize.solver import score_listeners
 from ...optimize.updaters import MultiLayerUpdater
 from ..conf.graph_conf import ComputationGraphConfiguration
+from ..multilayer import refuse_compute_dtype
 from .vertices import LayerVertex
 
 
@@ -40,6 +41,7 @@ class ComputationGraph(nn.Module):
     def __init__(self, conf: ComputationGraphConfiguration, *,
                  device: DeviceLike = None):
         super().__init__()
+        refuse_compute_dtype(conf)
         self.conf = conf
         self.device = resolve_device(device)
         self.dtype = torch_dtype(conf.dtype)
@@ -171,6 +173,9 @@ class ComputationGraph(nn.Module):
                         f"against labels")
                 continue
             feed = acts[self.conf.vertex_inputs[out_name][0]]
+            pre = self.vertices[out_name].preprocessor
+            if pre is not None:
+                feed = pre.apply(feed)
             per_ex = layer.compute_loss_per_example(
                 feed, labels[k], lmasks[k], train=train, gen=gen)
             lm = lmasks[k]
@@ -268,5 +273,4 @@ class ComputationGraph(nn.Module):
                                   "ported yet (ROADMAP A5)")
 
     def clone(self):
-        raise NotImplementedError("clone, checkpointing and model zips are "
-                                  "not ported yet (ROADMAP A10)")
+        raise NotImplementedError("clone is not ported yet (ROADMAP A10)")

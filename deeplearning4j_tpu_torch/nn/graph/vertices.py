@@ -2,10 +2,14 @@
 combination of inputs.
 
 Counterpart of ``LayerVertex``, ``MergeVertex`` (``:102-123``) and
-``ElementWiseVertex`` in ``deeplearning4j_tpu/nn/graph/vertices.py``. A vertex takes a LIST of input
-tensors; shape inference goes through ``output_type(input_types)``. A
-[B,T] feature mask reaches a layer only when the layer ``accepts_mask``
-and its input is a [B,T,F] sequence (``LayerVertex.apply`` ``:68-77``).
+``ElementWiseVertex`` in ``deeplearning4j_tpu/nn/graph/vertices.py``. A
+vertex takes a LIST of input tensors; shape inference goes through
+``output_type(input_types)``. A layer vertex applies its preprocessor, if
+any, before its layer. A [B,T] feature mask reaches a layer only when the
+layer ``accepts_mask`` and its input is a [B,T,F] sequence
+(``LayerVertex.apply`` ``:68-77``). Each vertex lists its JSON fields in
+``serde_fields`` (``nn/conf/serde.py``); the reference's other eleven
+vertices are ROADMAP A5.
 """
 from __future__ import annotations
 
@@ -14,12 +18,14 @@ from typing import Any, List
 import torch
 from torch import nn
 
+from ..conf.serde import register
 from ..inputs import (InputTypeConvolutional, InputTypeFeedForward,
                       InputTypeRecurrent)
 
 
 class VertexConf(nn.Module):
     """Base vertex: no parameters unless it wraps a layer."""
+    serde_fields = ()
 
     def output_type(self, itypes: List[Any]):
         return itypes[0]
@@ -31,24 +37,41 @@ class VertexConf(nn.Module):
         return {}
 
 
+@register
 class LayerVertex(VertexConf):
-    """Wraps one layer; its parameters are the layer's."""
+    """Wraps one layer (and an optional preprocessor before it); its
+    parameters are the layer's."""
+    serde_fields = ("layer_conf", "preprocessor")
 
-    def __init__(self, layer):
+    def __init__(self, layer_conf=None, preprocessor=None):
         super().__init__()
-        self.layer = layer
+        self.layer = layer_conf
+        self.preprocessor = preprocessor
+
+    @property
+    def layer_conf(self):
+        """The reference's field name for the wrapped layer."""
+        return self.layer
+
+    def _in_type(self, itypes):
+        it = itypes[0]
+        if self.preprocessor is not None and it is not None:
+            it = self.preprocessor.output_type(it)
+        return it
 
     def output_type(self, itypes):
-        return self.layer.output_type(itypes[0])
+        return self.layer.output_type(self._in_type(itypes))
 
     def init_params(self, itypes, dtype, device, gen):
-        self.layer.init_params(itypes[0], dtype, device, gen)
+        self.layer.init_params(self._in_type(itypes), dtype, device, gen)
 
     def param_dict(self) -> dict:
         return self.layer.param_dict()
 
     def forward(self, inputs, mask=None, *, train=False, gen=None):
         x = inputs[0]
+        if self.preprocessor is not None:
+            x = self.preprocessor.apply(x)
         kwargs = {}
         if mask is not None and getattr(self.layer, "accepts_mask", False) \
                 and x.dim() == 3:
@@ -56,6 +79,7 @@ class LayerVertex(VertexConf):
         return self.layer(x, train=train, gen=gen, **kwargs)
 
 
+@register
 class MergeVertex(VertexConf):
     """Concatenate along the last axis: the channels of NHWC maps (the
     reference's NCHW depth concat), or the features."""
@@ -81,10 +105,12 @@ class MergeVertex(VertexConf):
         return torch.cat(inputs, dim=-1)
 
 
+@register
 class ElementWiseVertex(VertexConf):
     """Elementwise combination of same-shaped inputs. The port has the
     ``add`` of residual connections; the reference's other ops come with
     the slices whose models use them."""
+    serde_fields = ("op",)
 
     def __init__(self, op: str = "add"):
         super().__init__()

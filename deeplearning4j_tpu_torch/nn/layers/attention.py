@@ -14,14 +14,18 @@ from typing import Optional
 
 from ...ops.flash_attention import flash_attention, fused_attention_applicable
 from ...parallel.ring_attention import attention
+from ..conf.serde import register
 from ..inputs import InputTypeRecurrent
 from .base import LayerConf, maybe_dropout, resolve_ff_size
 
 
+@register
 class SelfAttentionLayer(LayerConf):
     """[B,T,F] -> [B,T,n_out]; ``n_out`` divisible by ``n_heads``. With
     ``causal`` each position attends to itself and earlier steps; a [B,T]
     mask excludes padded timesteps as keys."""
+    serde_fields = LayerConf.serde_fields + (
+        "n_in", "n_out", "n_heads", "causal", "project_out")
     expected_input = "rnn"
     weight_param_names = ("Wq", "Wk", "Wv", "Wo")
     accepts_mask = True
@@ -43,7 +47,6 @@ class SelfAttentionLayer(LayerConf):
 
     def init_params(self, itype, dtype, device, gen):
         n_in = self.n_in or resolve_ff_size(itype)
-        self.n_in = n_in
         if self.n_out % self.n_heads:
             raise ValueError(f"n_out={self.n_out} must be divisible by "
                              f"n_heads={self.n_heads}")

@@ -8,9 +8,11 @@ holds its hyperparameters from construction and its parameters from
 [n_in, n_out], applied as ``x @ W``), so carrying weights across is a copy.
 
 Fields left None inherit the network-wide default when the configuration
-is built (``NeuralNetConfiguration._cascade``). The training fields (l1,
-l2, a per-layer updater and learning rates, ``frozen``) are the
-reference's. Dropout is inverted dropout on the layers the reference
+is built (``NeuralNetConfiguration._cascade``). Each layer class lists its
+JSON fields in ``serde_fields``, in the reference dataclass's order
+(``nn/conf/serde.py``); ``name`` is kept and written, as a no-op. The
+training fields (l1, l2, a per-layer updater and learning rates,
+``frozen``) are the reference's. Dropout is inverted dropout on the layers the reference
 applies it in; its mask draws from a ``torch.Generator`` that the graph
 passes down, so its bits differ from JAX's.
 """
@@ -22,8 +24,8 @@ import torch
 from torch import nn
 
 from ..activations import get_activation
-from ..inputs import (InputTypeConvolutional, InputTypeFeedForward,
-                      InputTypeRecurrent)
+from ..inputs import (InputTypeConvolutional, InputTypeConvolutionalFlat,
+                      InputTypeFeedForward, InputTypeRecurrent)
 from ..weights import init_weights
 
 
@@ -42,8 +44,13 @@ def maybe_dropout(x, retain_prob, gen: Optional[torch.Generator],
 class LayerConf(nn.Module):
     expected_input: str = "ff"      # the input family: "ff", "rnn" or "any"
     weight_param_names: Tuple[str, ...] = ("W",)   # what l1/l2 act on
+    serde_fields: Tuple[str, ...] = (
+        "name", "activation", "weight_init", "distribution", "bias_init",
+        "l1", "l2", "dropout", "updater", "learning_rate",
+        "bias_learning_rate", "frozen")
 
-    def __init__(self, *, activation: Optional[str] = None,
+    def __init__(self, *, name: Optional[str] = None,
+                 activation: Optional[str] = None,
                  weight_init: Optional[str] = None, distribution=None,
                  bias_init: Optional[float] = None,
                  l1: Optional[float] = None, l2: Optional[float] = None,
@@ -53,6 +60,7 @@ class LayerConf(nn.Module):
                  bias_learning_rate: Optional[float] = None,
                  frozen: bool = False):
         super().__init__()
+        self.name = name
         self.activation = activation
         self.weight_init = weight_init
         self.distribution = distribution
@@ -112,6 +120,7 @@ def resolve_ff_size(itype) -> int:
     """Feed-forward input width for a layer fed by ``itype``."""
     if isinstance(itype, (InputTypeFeedForward, InputTypeRecurrent)):
         return itype.size
-    if isinstance(itype, InputTypeConvolutional):
+    if isinstance(itype, (InputTypeConvolutional,
+                          InputTypeConvolutionalFlat)):
         return itype.flat_size()
     raise ValueError(f"Cannot infer feed-forward size from {itype}")

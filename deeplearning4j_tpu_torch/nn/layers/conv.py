@@ -29,6 +29,7 @@ import torch.nn.functional as F
 
 from ...ops.kernels.conv import (conv1x1_bias_relu,
                                  conv1x1_bias_relu_applicable)
+from ..conf.serde import register
 from ..inputs import (InputTypeConvolutional, InputTypeFeedForward,
                       InputTypeRecurrent)
 from .base import LayerConf, maybe_dropout
@@ -76,10 +77,14 @@ def _nhwc(x):
     return x.permute(0, 2, 3, 1)
 
 
+@register
 class ConvolutionLayer(LayerConf):
     """2-D convolution, NHWC in and out, ``W`` [kh, kw, C, F] and ``b``
     [F] (``has_bias``). ``convolution_mode`` is "truncate"/"strict"
     (explicit ``padding``) or "same"."""
+    serde_fields = LayerConf.serde_fields + (
+        "n_in", "n_out", "kernel_size", "stride", "padding",
+        "convolution_mode", "dilation", "cudnn_algo_mode", "has_bias")
     expected_input = "cnn"
     param_order = ("W", "b")
 
@@ -137,10 +142,14 @@ class ConvolutionLayer(LayerConf):
         return self.act(self.pre_output(x, train=train, gen=gen))
 
 
+@register
 class SubsamplingLayer(LayerConf):
     """Spatial pooling: max, avg, sum or pnorm. Average pooling divides by
     the full window (padding included), as the reference does, unless
     ``avg_pool_include_pad_in_divisor`` is False in "same" mode."""
+    serde_fields = LayerConf.serde_fields + (
+        "pooling_type", "kernel_size", "stride", "padding", "convolution_mode",
+        "pnorm", "avg_pool_include_pad_in_divisor")
     expected_input = "cnn"
 
     def __init__(self, pooling_type: str = "max", kernel_size=(2, 2),
@@ -193,9 +202,11 @@ class SubsamplingLayer(LayerConf):
         raise ValueError(f"Unknown pooling type {self.pooling_type!r}")
 
 
+@register
 class ZeroPaddingLayer(LayerConf):
     """Spatial zero padding: ``padding`` is (top, bottom, left, right) or
     (h, w)."""
+    serde_fields = LayerConf.serde_fields + ("padding",)
     expected_input = "cnn"
 
     def __init__(self, padding=(0, 0), **kw):
@@ -215,9 +226,12 @@ class ZeroPaddingLayer(LayerConf):
         return _pad_nhwc(x, self._pads())
 
 
+@register
 class GlobalPoolingLayer(LayerConf):
     """Global pooling over the spatial dims of [B,H,W,C] or the time dim of
     [B,T,F] (under an optional [B,T] mask): max, sum, avg or pnorm."""
+    serde_fields = LayerConf.serde_fields + (
+        "pooling_type", "pnorm", "collapse_dimensions")
     expected_input = "any"
     accepts_mask = True
 

@@ -16,14 +16,17 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ..conf.serde import register
 from ..inputs import InputTypeFeedForward, InputTypeRecurrent
 from ..losses import get_loss
 from .base import LayerConf, maybe_dropout, resolve_ff_size
 
 
+@register
 class DenseLayer(LayerConf):
     """Fully connected: ``x @ W + b`` with W [n_in, n_out], per timestep on
     [B,T,F] input."""
+    serde_fields = LayerConf.serde_fields + ("n_in", "n_out")
 
     def __init__(self, n_in: Optional[int] = None, n_out: int = 0, **kw):
         super().__init__(**kw)
@@ -49,6 +52,7 @@ class DenseLayer(LayerConf):
         return self.act(self.pre_output(x, train=train, gen=gen))
 
 
+@register
 class ActivationLayer(LayerConf):
     """The activation alone, on input of any family."""
     expected_input = "any"
@@ -70,8 +74,10 @@ class BaseOutputLayerMixin:
                                    mask)
 
 
+@register
 class OutputLayer(DenseLayer, BaseOutputLayerMixin):
     """A Dense layer scored by ``loss``."""
+    serde_fields = DenseLayer.serde_fields + ("loss",)
 
     def __init__(self, n_in: Optional[int] = None, n_out: int = 0,
                  loss: str = "mcxent", **kw):
@@ -79,8 +85,10 @@ class OutputLayer(DenseLayer, BaseOutputLayerMixin):
         self.loss = loss
 
 
+@register
 class EmbeddingSequenceLayer(LayerConf):
     """[B,T] (or [B,T,1]) int token ids -> [B,T,n_out]: one gather."""
+    serde_fields = LayerConf.serde_fields + ("n_in", "n_out")
     expected_input = "any"
 
     def __init__(self, n_in: Optional[int] = None, n_out: int = 0, **kw):
@@ -106,9 +114,11 @@ class EmbeddingSequenceLayer(LayerConf):
                                       train))
 
 
+@register
 class PositionalEmbeddingLayer(LayerConf):
     """Learned absolute positions added to [B,T,F]; ``max_length`` bounds T
     and shorter sequences use the table's prefix."""
+    serde_fields = LayerConf.serde_fields + ("n_out", "max_length")
     expected_input = "rnn"
     weight_param_names = ()          # no decay on positions
 
@@ -120,7 +130,6 @@ class PositionalEmbeddingLayer(LayerConf):
 
     def init_params(self, itype, dtype, device, gen):
         nf = self.n_out or resolve_ff_size(itype)
-        self.n_out = nf
         # small-scale normal init (transformer convention)
         P = 0.02 * torch.randn((self.max_length, nf), generator=gen,
                                dtype=torch.float32)
@@ -134,6 +143,7 @@ class PositionalEmbeddingLayer(LayerConf):
         return self.act(x + self.P[:T][None])
 
 
+@register
 class RnnOutputLayer(OutputLayer):
     """Time-distributed output layer for [B,T,F] activations, scored per
     timestep."""

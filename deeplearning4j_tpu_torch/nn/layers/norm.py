@@ -17,10 +17,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..conf.serde import register
 from .base import LayerConf
 
 
+@register
 class LayerNormalization(LayerConf):
+    serde_fields = LayerConf.serde_fields + ("n_out", "eps")
     expected_input = "any"
     weight_param_names = ()          # no l1/l2 on gain/bias
 
@@ -35,7 +38,6 @@ class LayerNormalization(LayerConf):
         if not nf:
             raise ValueError("LayerNormalization cannot infer its feature "
                              "count: set n_out or provide an input type")
-        self.n_out = nf
         self.gain = nn.Parameter(torch.ones(nf, dtype=dtype, device=device))
         self.bias = nn.Parameter(torch.zeros(nf, dtype=dtype, device=device))
 
@@ -47,9 +49,11 @@ class LayerNormalization(LayerConf):
         return self.act((x - mean) * inv * self.gain + self.bias)
 
 
+@register
 class LocalResponseNormalization(LayerConf):
     """Cross-channel LRN over NHWC (reference defaults k=2, n=5,
     alpha=1e-4, beta=0.75)."""
+    serde_fields = LayerConf.serde_fields + ("k", "n", "alpha", "beta")
     expected_input = "cnn"
 
     def __init__(self, k: float = 2.0, n: int = 5, alpha: float = 1e-4,

@@ -20,6 +20,7 @@ from torch import nn
 from ...ops.lstm import (fused_lstm, fused_lstm_applicable,
                          fused_lstm_peephole)
 from ..activations import get_activation
+from ..conf.serde import register
 from ..inputs import InputTypeFeedForward, InputTypeRecurrent
 from .base import LayerConf, maybe_dropout
 
@@ -77,8 +78,11 @@ def _time_mask(mask, dtype):
     return None if mask is None else mask.to(dtype).T[..., None]
 
 
+@register
 class LSTM(LayerConf):
     """Standard LSTM without peepholes (reference nn/conf/layers/LSTM.java)."""
+    serde_fields = LayerConf.serde_fields + (
+        "n_in", "n_out", "forget_gate_bias_init", "gate_activation")
     expected_input = "rnn"
     accepts_mask = True
     has_peepholes = False
@@ -142,6 +146,7 @@ class LSTM(LayerConf):
             initial_state=initial_state)[0]
 
 
+@register
 class GravesLSTM(LSTM):
     """LSTM with peephole connections (reference GravesLSTM.java:47,
     LSTMHelpers peephole terms)."""
@@ -149,9 +154,12 @@ class GravesLSTM(LSTM):
     param_order = ("W", "R", "b", "pi", "pf", "po")
 
 
+@register
 class GravesBidirectionalLSTM(LayerConf):
     """Bidirectional Graves LSTM; the forward and backward outputs are
     summed (reference GravesBidirectionalLSTM.activateOutput)."""
+    serde_fields = LayerConf.serde_fields + (
+        "n_in", "n_out", "forget_gate_bias_init", "gate_activation")
     expected_input = "rnn"
     accepts_mask = True
     param_order = ("Wf", "Rf", "bf", "pif", "pff", "pof",
@@ -209,6 +217,7 @@ class GravesBidirectionalLSTM(LayerConf):
         return out
 
 
+@register
 class LastTimeStepLayer(LayerConf):
     """[B,T,F] -> [B,F]: each sequence's last unmasked step (reference
     recurrent/LastTimeStep)."""

@@ -8,14 +8,17 @@ recurrent-state carry (``rnn_states`` / ``collect_rnn_states``,
 ``rnn_clear_previous_state`` (``:263-284``), ``params_flat`` /
 ``set_params_flat`` / ``num_params`` in the layers' ``param_order``, and
 ``fit`` (truncated BPTT when the configuration asks for it) with
-``set_listeners``.
+``set_listeners``. A layer's input preprocessor (``conf.preprocessor(i)``)
+runs before it, in the forward and in the loss, as the reference's walk
+runs it.
 
 The network is an ``nn.Module`` on one device, given at construction
 (default: the CUDA card); its layers live in ``self.layers`` and their
 parameters are the modules' own, so ``loss_fn`` takes none: gradients come
 from ``torch.autograd``. Parameters, updater state and gradients are keyed
 by layer index. ``evaluate`` and ``pretrain`` (ROADMAP A5), ``clone`` and
-checkpointing (A10) raise ``NotImplementedError``.
+a ``compute_dtype`` (A10) raise ``NotImplementedError``; model zips are
+``util/serialization.py``.
 """
 from __future__ import annotations
 
@@ -31,10 +34,20 @@ from ..optimize.updaters import MultiLayerUpdater
 from .conf.config import MultiLayerConfiguration
 
 
+def refuse_compute_dtype(conf) -> None:
+    """A configuration read from JSON may ask for mixed precision, which
+    changes the forward's numbers; the port has none yet."""
+    if getattr(conf, "compute_dtype", None):
+        raise NotImplementedError(
+            f"compute_dtype={conf.compute_dtype!r}: mixed precision is not "
+            f"ported yet (ROADMAP A10)")
+
+
 class MultiLayerNetwork(nn.Module):
     def __init__(self, conf: MultiLayerConfiguration, *,
                  device: DeviceLike = None):
         super().__init__()
+        refuse_compute_dtype(conf)
         self.conf = conf
         self.device = resolve_device(device)
         self.dtype = torch_dtype(conf.dtype)
@@ -57,7 +70,10 @@ class MultiLayerNetwork(nn.Module):
         gen = torch.Generator().manual_seed(
             self.conf.seed if seed is None else int(seed))
         itype = self.conf.input_type
-        for layer in self.layers:
+        for i, layer in enumerate(self.layers):
+            pre = self.conf.preprocessor(i)
+            if pre is not None and itype is not None:
+                itype = pre.output_type(itype)
             layer.init_params(itype, self.dtype, self.device, gen)
             if itype is not None:
                 itype = layer.output_type(itype)
@@ -120,6 +136,9 @@ class MultiLayerNetwork(nn.Module):
             m = features_mask.to(x.dtype)
             x = x * m.reshape(tuple(m.shape) + (1,) * (x.dim() - m.dim()))
         for i in range(n):
+            pre = self.conf.preprocessor(i)
+            if pre is not None:
+                x = pre.apply(x)
             layer = self.layers[i]
             kwargs = {}
             if getattr(layer, "accepts_mask", False) and cur_mask is not None \
@@ -163,6 +182,9 @@ class MultiLayerNetwork(nn.Module):
                 m = features_mask.to(x.dtype)
                 feed = feed * m.reshape(tuple(m.shape)
                                         + (1,) * (feed.dim() - m.dim()))
+        pre = self.conf.preprocessor(len(self.layers) - 1)
+        if pre is not None:
+            feed = pre.apply(feed)
         per_ex = out_layer.compute_loss_per_example(feed, labels, labels_mask,
                                                     train=train, gen=gen)
         if labels_mask is not None and per_ex.dim() == 1 and \
@@ -260,5 +282,4 @@ class MultiLayerNetwork(nn.Module):
                                   "ported yet (ROADMAP A5)")
 
     def clone(self):
-        raise NotImplementedError("clone, checkpointing and model zips are "
-                                  "not ported yet (ROADMAP A10)")
+        raise NotImplementedError("clone is not ported yet (ROADMAP A10)")

@@ -1,7 +1,8 @@
 """Weight initialization schemes.
 
 Counterpart of ``deeplearning4j_tpu/nn/weights.py`` (``init_weights``,
-``:50-93``, and the Normal/Uniform distributions). Sampling draws from an
+``:50-93``, and the Normal/Uniform distributions, registered for JSON
+serde; ``BinomialDistribution`` is ROADMAP A5). Sampling draws from an
 explicit ``torch.Generator`` on the CPU and then moves to the target device,
 so one seed gives the same weights on the CPU and on the card. A generator
 gives other numbers than ``jax.random`` from the same seed: weights cross
@@ -15,6 +16,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from .conf.serde import register
+
 
 def _normal(gen, shape, dtype):
     return torch.randn(shape, generator=gen, dtype=torch.float32).to(dtype)
@@ -25,6 +28,7 @@ def _uniform(gen, shape, dtype, lo, hi):
     return (lo + (hi - lo) * u).to(dtype)
 
 
+@register
 @dataclass(frozen=True)
 class NormalDistribution:
     mean: float = 0.0
@@ -35,6 +39,7 @@ class NormalDistribution:
                 ).to(dtype)
 
 
+@register
 @dataclass(frozen=True)
 class UniformDistribution:
     lower: float = -1.0

@@ -241,7 +241,8 @@ def int8_dense(params, x):
 
 def int8_forward_fn(net):
     """A ``ProgramSet`` forward_fn for a ``MultiLayerNetwork``: the
-    inference walk with every Dense-family matmul (DenseLayer,
+    inference walk (each layer's input preprocessor first, as in the
+    reference's walk ``:163``) with every Dense-family matmul (DenseLayer,
     OutputLayer) through ``int8_matmul`` and every other layer on its own
     forward. It is called as ``forward(net, x)`` with the program set's
     network, so the weights are quantized from that network's live
@@ -256,9 +257,9 @@ def int8_forward_fn(net):
 
     def forward(net_, x):
         for i, layer in enumerate(net_.layers):
-            if net_.conf.preprocessor(i) is not None:
-                raise NotImplementedError("input preprocessors are not "
-                                          "ported yet (ROADMAP A5)")
+            pre = net_.conf.preprocessor(i)
+            if pre is not None:
+                x = pre.apply(x)
             if isinstance(layer, DenseLayer):
                 x = layer.act(int8_dense(layer.param_dict(), x))
             else:

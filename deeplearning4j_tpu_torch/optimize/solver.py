@@ -97,6 +97,27 @@ def cast_feed(x, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     return t.to(device=device, dtype=None if keep else dtype)
 
 
+def _refuse_unported_training(net) -> None:
+    """What a configuration read from JSON may ask of training that the
+    port has not ported yet (the builders refuse these up front)."""
+    conf = net.conf
+    algo = str(getattr(conf, "optimization_algorithm", "sgd")).lower()
+    if algo not in ("sgd", "stochastic_gradient_descent"):
+        raise NotImplementedError(f"optimization_algorithm {algo!r}: the "
+                                  f"second-order solvers are not ported yet "
+                                  f"(ROADMAP A5)")
+    if getattr(conf, "pretrain", False):
+        raise NotImplementedError("layerwise pretraining is not ported yet "
+                                  "(ROADMAP A5)")
+    if getattr(conf, "gradient_checkpointing", False):
+        raise NotImplementedError("gradient checkpointing is not ported yet "
+                                  "(ROADMAP A10)")
+    if hasattr(conf, "vertex_names") and \
+            getattr(conf, "backprop_type", "standard") == "tbptt":
+        raise NotImplementedError("truncated BPTT on a ComputationGraph is "
+                                  "not ported yet (ROADMAP A10)")
+
+
 class Solver:
     def __init__(self, net):
         self.net = net
@@ -105,6 +126,7 @@ class Solver:
             iterator=None, dataset=None, async_prefetch: bool = False,
             steps_per_dispatch: int = 1):
         net = self.net
+        _refuse_unported_training(net)
         if steps_per_dispatch < 1:
             raise ValueError("steps_per_dispatch must be >= 1")
         if steps_per_dispatch > 1:

@@ -15,6 +15,8 @@ types and orders the arithmetic otherwise. ``MultiLayerUpdater.update``
 applies the result in place under ``torch.no_grad()``.
 
 Schedules take the iteration as a Python int and return a Python float.
+The rules and schedules are registered for JSON serde
+(``nn/conf/serde.py``) under the reference's names.
 """
 from __future__ import annotations
 
@@ -24,11 +26,14 @@ from typing import Any, Dict, Mapping, Optional
 
 import torch
 
+from ..nn.conf.serde import register
+
 
 # --------------------------------------------------------------------------
 # LR schedules
 # --------------------------------------------------------------------------
 
+@register
 @dataclass(frozen=True)
 class ExponentialSchedule:
     decay_rate: float = 0.99
@@ -37,6 +42,7 @@ class ExponentialSchedule:
         return base_lr * self.decay_rate ** step
 
 
+@register
 @dataclass(frozen=True)
 class InverseSchedule:
     gamma: float = 1e-3
@@ -46,6 +52,7 @@ class InverseSchedule:
         return base_lr / (1.0 + self.gamma * step) ** self.power
 
 
+@register
 @dataclass(frozen=True)
 class PolySchedule:
     power: float = 1.0
@@ -56,6 +63,7 @@ class PolySchedule:
         return base_lr * (1.0 - frac) ** self.power
 
 
+@register
 @dataclass(frozen=True)
 class SigmoidSchedule:
     gamma: float = 1e-2
@@ -65,6 +73,7 @@ class SigmoidSchedule:
         return base_lr / (1.0 + math.exp(-self.gamma * (step - self.step_size)))
 
 
+@register
 @dataclass(frozen=True)
 class StepSchedule:
     decay_rate: float = 0.1
@@ -74,6 +83,7 @@ class StepSchedule:
         return base_lr * self.decay_rate ** math.floor(step / self.step_size)
 
 
+@register
 @dataclass(frozen=True)
 class MapSchedule:
     """Explicit {iteration: lr} map (reference ``learningRateSchedule``)."""
@@ -107,12 +117,14 @@ class UpdaterConf:
         raise NotImplementedError
 
 
+@register
 @dataclass(frozen=True)
 class Sgd(UpdaterConf):
     def update_one(self, g, s, lr, step):
         return lr * g, s
 
 
+@register
 @dataclass(frozen=True)
 class NoOp(UpdaterConf):
     """Updater.NONE: raw gradient applied unscaled."""
@@ -120,6 +132,7 @@ class NoOp(UpdaterConf):
         return g, s
 
 
+@register
 @dataclass(frozen=True)
 class Adam(UpdaterConf):
     learning_rate: float = 1e-3
@@ -139,6 +152,7 @@ class Adam(UpdaterConf):
         return lr * mhat / (torch.sqrt(vhat) + self.epsilon), {"m": m, "v": v}
 
 
+@register
 @dataclass(frozen=True)
 class AdaMax(UpdaterConf):
     learning_rate: float = 1e-3
@@ -157,6 +171,7 @@ class AdaMax(UpdaterConf):
                 {"m": m, "u": u})
 
 
+@register
 @dataclass(frozen=True)
 class Nadam(UpdaterConf):
     learning_rate: float = 1e-3
@@ -178,6 +193,7 @@ class Nadam(UpdaterConf):
                 / (torch.sqrt(vhat) + self.epsilon), {"m": m, "v": v})
 
 
+@register
 @dataclass(frozen=True)
 class AdaDelta(UpdaterConf):
     rho: float = 0.95
@@ -195,6 +211,7 @@ class AdaDelta(UpdaterConf):
         return upd, {"msg": msg, "msdx": msdx}
 
 
+@register
 @dataclass(frozen=True)
 class Nesterovs(UpdaterConf):
     momentum: float = 0.9
@@ -209,6 +226,7 @@ class Nesterovs(UpdaterConf):
         return self.momentum * v_prev - (1 + self.momentum) * v, {"v": v}
 
 
+@register
 @dataclass(frozen=True)
 class AdaGrad(UpdaterConf):
     epsilon: float = 1e-6
@@ -221,6 +239,7 @@ class AdaGrad(UpdaterConf):
         return lr * g / (torch.sqrt(h) + self.epsilon), {"h": h}
 
 
+@register
 @dataclass(frozen=True)
 class RmsProp(UpdaterConf):
     decay: float = 0.95

@@ -53,6 +53,18 @@ def flat_param_order(net) -> List[Tuple[object, str, torch.nn.Parameter]]:
             for name in sorted(pd)]
 
 
+def flat_opt_state_order(net) -> List[Tuple[object, str, str,
+                                             torch.Tensor]]:
+    """(group, parameter name, state name, tensor) for the updater state
+    of ``net`` in ``jax.tree.leaves(opt_state)``'s order: the parameters
+    in ``flat_param_order``, each one's state names sorted (Adam:
+    ``W.m, W.v, b.m, b.v``). A rule without state (``Sgd``) gives none."""
+    state = net.opt_state
+    return [(group, name, sname, state[group][name][sname])
+            for group, name, _ in flat_param_order(net)
+            for sname in sorted(state[group][name])]
+
+
 class ParallelWrapper:
     """API analogue of the reference ``ParallelWrapper``:
 

@@ -9,10 +9,11 @@ unless the network lives elsewhere). The active set is read per
 dispatched batch, so a hot swap is one reference assignment: a batch in
 flight finishes on the old set, the next batch runs the new one.
 
-Left for later, each raising ``NotImplementedError`` that names its
-ROADMAP item: a hot swap from a path and ``reload_from_checkpoint`` (model
-zips, A2b), ``publish_metrics`` (A8), a ``mesh`` (A7b). The HTTP front end
-comes with A2b.
+A hot swap from a path and ``reload_from_checkpoint`` restore the model
+zip or the checkpoint directory's newest valid zip (``registry.load_net``)
+onto the device of the model being replaced. The HTTP front end is
+``serving/http.py``. Left for later, each raising ``NotImplementedError``
+that names its ROADMAP item: ``publish_metrics`` (A8), a ``mesh`` (A7b).
 """
 from __future__ import annotations
 
@@ -119,8 +120,8 @@ class InferenceEngine:
         cutover, so no request waits on a warm run or fails. Returns the
         new version number."""
         entry = self.registry.get(name)       # unknown name fails fast
-        net = load_net(net_or_path) if isinstance(net_or_path, str) \
-            else net_or_path
+        net = load_net(net_or_path, device=entry.active.net.device) \
+            if isinstance(net_or_path, str) else net_or_path
         with entry.swap_lock:
             old = entry.active
             try:
@@ -136,7 +137,9 @@ class InferenceEngine:
             return entry.version
 
     def reload_from_checkpoint(self, name: str, path: str) -> int:
-        return self.hot_swap(name, load_net(path))
+        """Swap in a model zip, or the newest valid checkpoint of a
+        directory."""
+        return self.hot_swap(name, path)
 
     # ------------------------------------------------------------ observability
     def models(self) -> Dict[str, dict]:

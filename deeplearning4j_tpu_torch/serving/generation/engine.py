@@ -19,9 +19,10 @@ every net (and draft) must live on that device. On the card each model's
 decode step runs as a CUDA graph captured after warm-up (``graphs.py``).
 ``adapter="auto"`` serves a transformer graph through the paged K/V cache
 and a recurrent MultiLayerNetwork (the char-RNN) through its recurrent
-state. Loading a net from a path (``hot_swap`` with a path,
-``reload_from_checkpoint``) is ROADMAP A2b; ``publish_metrics`` is A8; a
-mesh is A7b.
+state. ``hot_swap`` with a path and ``reload_from_checkpoint`` restore a
+model zip, or a checkpoint directory's newest valid zip, onto the
+engine's device (``serving.registry.load_net``). ``publish_metrics`` is
+ROADMAP A8; a mesh is A7b.
 """
 from __future__ import annotations
 
@@ -165,8 +166,8 @@ class GenerationEngine:
         new one is given); a changed architecture warms a full new program
         set BEFORE the cutover. Returns the new version."""
         rt = self._get(name)
-        net = load_net(net_or_path) if isinstance(net_or_path, str) \
-            else net_or_path
+        net = load_net(net_or_path, device=self.device) \
+            if isinstance(net_or_path, str) else net_or_path
         check_same_device("the net", net.device, self.device)
         if draft is not None:
             check_same_device("the draft", draft.device, self.device)
@@ -190,7 +191,9 @@ class GenerationEngine:
             return rt.version
 
     def reload_from_checkpoint(self, name: str, path: str) -> int:
-        return self.hot_swap(name, load_net(path))
+        """Swap in a model zip, or the newest valid checkpoint of a
+        directory, restored onto the engine's device."""
+        return self.hot_swap(name, path)
 
     # ---------------------------------------------------------- observability
     def metrics(self) -> Dict[str, dict]:

@@ -40,8 +40,11 @@ from .metrics import _record_warm_run
 def _describe(module) -> Tuple:
     """A layer or vertex by type and hyperparameters (its public
     attributes; parameters live in ``_parameters`` and are not among
-    them), with a vertex's layer inside."""
-    attrs = tuple(sorted((k, repr(v)) for k, v in vars(module).items()
+    them), with a vertex's layer inside. A list reads as a tuple: a
+    configuration read from JSON holds ``[3, 3]`` where a built one holds
+    ``(3, 3)``."""
+    attrs = tuple(sorted((k, repr(tuple(v) if isinstance(v, list) else v))
+                         for k, v in vars(module).items()
                          if not k.startswith("_") and k != "training"))
     layer = getattr(module, "layer", None)
     return (type(module).__name__, attrs,

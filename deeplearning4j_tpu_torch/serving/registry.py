@@ -1,23 +1,32 @@
 """Multi-model registry: named, versioned serving entries.
 
-Counterpart of ``deeplearning4j_tpu/serving/registry.py``. The reference
-loads a served model from a model zip or a checkpoint directory; model
-zips and checkpointing are not ported yet, so ``load_net`` raises
-``NotImplementedError`` naming ROADMAP A2b.
+Counterpart of ``deeplearning4j_tpu/serving/registry.py``. Models load from
+the training side's own persistence formats: a model zip
+(``util.serialization.restore_model``) or a checkpoint directory, whose
+newest valid ``checkpoint_epoch*.zip`` wins (``util.checkpointing``). The
+port's ``load_net`` also takes the ``device`` to restore onto (the CUDA
+card unless the caller names another): an engine passes its own.
 """
 from __future__ import annotations
 
+import os
 import threading
 from typing import Dict, List, Optional
 
+from ..device import DeviceLike
 from .errors import UnknownModelError
 
 
-def load_net(path: str):
-    """Restore a network from a model zip or a checkpoint directory."""
-    raise NotImplementedError(f"loading {path!r}: model zips and checkpoint "
-                              f"directories are not ported yet (ROADMAP A2b); "
-                              f"pass a network")
+def load_net(path: str, *, device: DeviceLike = None):
+    """Restore a network from a model zip OR a checkpoint directory."""
+    if os.path.isdir(path):
+        from ..util.checkpointing import latest_checkpoint
+        ckpt = latest_checkpoint(path)
+        if ckpt is None:
+            raise FileNotFoundError(f"no checkpoint_epoch*.zip in {path}")
+        path = ckpt
+    from ..util.serialization import restore_model
+    return restore_model(path, device=device)
 
 
 class _Entry:

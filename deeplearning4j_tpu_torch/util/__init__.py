@@ -1,0 +1,3 @@
+"""Counterpart of ``deeplearning4j_tpu/util``: model zips
+(``serialization``), the read side of checkpointing (``checkpointing``),
+and the stdlib-only ``retry`` and ``httpjson`` helpers."""

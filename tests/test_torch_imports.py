@@ -38,7 +38,10 @@ _REQUIRED = {f"deeplearning4j_tpu_torch.{m}" for m in (
     "parallel.ring_attention", "serving.generation.kvcache",
     "serving.generation.prefix", "serving.generation.speculative",
     "serving.generation.metrics", "serving.generation.engine",
-    "serving.generation.graphs", "serving.generation.sampling")}
+    "serving.generation.graphs", "serving.generation.sampling",
+    "util.retry", "util.httpjson", "util.serialization",
+    "util.checkpointing", "nn.conf.serde", "nn.preprocessors",
+    "nn.inputs", "serving.registry", "serving.http")}
 
 _FORBIDDEN = re.compile(
     r"^\s*(import\s+(jax|deeplearning4j_tpu)\b(?!_torch)"

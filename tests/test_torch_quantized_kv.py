@@ -6,6 +6,9 @@ int8 engine's (weights carried across with ``load_jax_params``), a prefix
 hit against a miss and speculation against plain decode under int8 (and
 all three together against the JAX engine), and the configuration's
 messages. f32 on the CPU."""
+import os
+import tempfile
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -300,12 +303,19 @@ def test_what_is_left_raises_naming_its_item(nets, ask, item):
         return
     eng = GenerationEngine(pnet, device="cpu", **ENG)
     try:
+        if ask in ("path", "reload"):
+            # A2b is ported: a model zip or a checkpoint directory swaps in
+            from deeplearning4j_tpu_torch.util.serialization import \
+                write_model
+            d = tempfile.mkdtemp()
+            write_model(pnet, os.path.join(d, "checkpoint_epoch1.zip"))
+            path = os.path.join(d, "checkpoint_epoch1.zip") \
+                if ask == "path" else d
+            swap = eng.hot_swap if ask == "path" else \
+                eng.reload_from_checkpoint
+            assert swap("default", path) == 2
+            return
         with pytest.raises(NotImplementedError, match=item):
-            if ask == "path":
-                eng.hot_swap("default", "/some/model.zip")
-            elif ask == "reload":
-                eng.reload_from_checkpoint("default", "/some/checkpoint")
-            else:
-                eng.publish_metrics(object())
+            eng.publish_metrics(object())
     finally:
         eng.stop()

@@ -373,13 +373,21 @@ def test_changed_architecture_hot_swap_warms_before_cutover():
         eng.stop()
 
 
-def test_the_parts_left_for_later_name_their_roadmap_item():
+def test_the_parts_left_for_later_name_their_roadmap_item(tmp_path):
+    from deeplearning4j_tpu_torch.util.serialization import write_model
     eng = InferenceEngine(_net(), feature_shape=(4,), buckets=(4,))
     try:
-        with pytest.raises(NotImplementedError, match="A2"):
-            eng.hot_swap("default", "/some/checkpoint/dir")
-        with pytest.raises(NotImplementedError, match="A2"):
-            eng.reload_from_checkpoint("default", "model.zip")
+        # a path (A2b, ported since): a model zip, then a checkpoint dir
+        other = _net(seed=21)
+        write_model(other, str(tmp_path / "model.zip"))
+        assert eng.hot_swap("default", str(tmp_path / "model.zip")) == 2
+        (tmp_path / "ck").mkdir()
+        write_model(other, str(tmp_path / "ck" / "checkpoint_epoch1.zip"))
+        assert eng.reload_from_checkpoint("default",
+                                          str(tmp_path / "ck")) == 3
+        x = _x(2)
+        np.testing.assert_allclose(eng.predict(x), other.output(x).numpy(),
+                                   atol=1e-6)
         with pytest.raises(NotImplementedError, match="A8"):
             eng.publish_metrics(object())
         with pytest.raises(UnknownModelError):
