@@ -73,6 +73,29 @@ Phases; any failure raises and exits non-zero before a result is printed:
    ``net.fit`` on one fixed batch of B 8 token sequences (bench.py
    ``bench_transformer_lm``'s feed). Each of K1, K2 and K3 must launch 12
    times a step; the loss must be finite every step and fall.
+4b. The rest of the training engine: (a) the same model with float32
+   master weights and bfloat16 compute (``compute_dtype`` set on the
+   built configuration) and ``Adam(3e-4)`` takes 16 seeded batches of B 8
+   (one-hot f32 labels, 134 MB a batch) through ``net.fit`` four times:
+   per step with no prefetch; per step with the default prefetch; with
+   ``steps_per_dispatch=8`` and the
+   default prefetch (each window's steps replays of one captured CUDA
+   graph: one capture, 15 replays); and so again with
+   ``gradient_checkpointing``. The other runs' parameters must equal
+   the first's (bitwise, else rel-to-max 1e-5), the loss fall, and
+   K1, K2 and K3 launch 12 times a step each (K1 24 under remat), counted
+   as eager launches plus the graph's captured launches times its
+   replays. Reports each run's step time after the first window,
+   tokens/s, peak memory, the prefetcher's wait, captures and replays,
+   and the profiler's device time a step over one more window. Then one
+   bf16-compute step of a 2-block model (d_model 512, T 1024, B 2) on
+   the card against the CPU: loss rel and gradients rel-to-max 2e-2, the
+   master gradients float32. (b) (run after phase 9) The char-RNN's
+   layers as a ``ComputationGraph`` (two GravesLSTM(512), vocab 87, T 64, tBPTT 50):
+   6 ``fit``s of B 32 (K5 and K6 24 each), one fit at B 8 against the
+   CPU's from the same weights and RmsProp state (rel-to-max 1e-4), then
+   ``rnn_time_step`` over 64 steps at B 8 against ``output`` on the whole
+   sequence (1e-5; K5 2 x 64 launches).
 5. Cross-device: one float32 step of a 2-block model at d_model 512,
    T 1024, B 2 on the card and on the CPU (plain versions) from the same
    weights: the loss at rel 1e-5, every gradient at rel-to-max 1e-4, and
@@ -164,7 +187,7 @@ Phases; any failure raises and exits non-zero before a result is printed:
    the _TLM, /predict p50 beside ``engine.predict`` p50 at the same batch
    of 2 images, /generate time to first token p50 beside the direct
    call's.
-   In phases 3, 3b, 4, 7, 8, 11, 12, 13b, 16 and 17 the launch counts are
+   In phases 3, 3b, 4, 4b, 7, 8, 11, 12, 13b, 16 and 17 the launch counts are
    set to 0 just before the path is driven and read just after; every
    kernel of the path must launch.
 14. K9 (``threshold_encode_fused``) bitwise against its plain version, in
@@ -232,6 +255,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from deeplearning4j_tpu_torch.datasets.dataset import (DataSet,
+                                                       ListDataSetIterator)
 from deeplearning4j_tpu_torch.interop.jax_params import (load_jax_opt_state,
                                                          load_jax_params)
 from deeplearning4j_tpu_torch.models.decode import (TransformerDecodeSpec,
@@ -242,14 +267,17 @@ from deeplearning4j_tpu_torch.models.zoo_extra import (googlenet,
                                                        text_generation_lstm,
                                                        transformer_lm)
 from deeplearning4j_tpu_torch.nn.conf.config import NeuralNetConfiguration
+from deeplearning4j_tpu_torch.nn.graph.graph import ComputationGraph
+from deeplearning4j_tpu_torch.nn.inputs import InputType
 from deeplearning4j_tpu_torch.nn.layers import (ConvolutionLayer, DenseLayer,
-                                                OutputLayer)
+                                                GravesLSTM, OutputLayer,
+                                                RnnOutputLayer)
 from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
 from deeplearning4j_tpu_torch.ops import flash_attention as fa
 from deeplearning4j_tpu_torch.ops import lstm, nvcc
 from deeplearning4j_tpu_torch.ops.kernels import conv as k7
 from deeplearning4j_tpu_torch.ops.kernels import quantized as k8
-from deeplearning4j_tpu_torch.optimize.updaters import Adam, Sgd
+from deeplearning4j_tpu_torch.optimize.updaters import Adam, RmsProp, Sgd
 from deeplearning4j_tpu_torch.parallel import ParallelWrapper, make_mesh
 from deeplearning4j_tpu_torch.parallel.accumulation import EncodedAccumulator
 from deeplearning4j_tpu_torch.parallel.ring_attention import \
@@ -1209,6 +1237,394 @@ def train_phase():
             "step_ms_p50_after_first": p50,
             "tokens_per_sec": TRAIN_B * T / (p50 / 1e3),
             "max_memory_allocated_bytes": peak, "launches": launches}
+
+
+# ----------------------------------------------------------------- phase 4b
+WINDOW_BATCHES, WINDOW_K = 16, 8     # bench.py's fit(steps_per_dispatch=8)
+CHAR_GRAPH_FITS, CHAR_STREAM_B = 6, 8
+
+
+class _WindowClock:
+    """A score callback: keeps each step's loss (a device tensor) and, at
+    the end of every k-th iteration, waits for the card and notes the
+    time."""
+
+    def __init__(self, k):
+        self.k, self.losses, self.t = k, [], []
+
+    def iteration_done(self, net, iteration, loss):
+        self.losses.append(loss)
+        if (iteration + 1) % self.k == 0:
+            torch.cuda.synchronize()
+            self.t.append(time.perf_counter())
+
+
+def _tlm_window_batches():
+    """16 seeded batches of B 8 token sequences with bench.py's labels (the
+    one-hot of each sequence rolled by one step, f32: 134 MB a batch)."""
+    V, T = TLM["vocab_size"], TLM["max_length"]
+    rng = np.random.default_rng(SEED + 40)
+    eye = np.eye(V, dtype=np.float32)
+    out = []
+    for _ in range(WINDOW_BATCHES):
+        ids = rng.integers(0, V, (TRAIN_B, T))
+        out.append(DataSet(ids, eye[np.roll(ids, 1, axis=1)]))
+    return out
+
+
+def _tlm_amp(remat=False, **kw):
+    """``_TLM`` with float32 master weights and bfloat16 compute, set on the
+    built configuration as a JSON configuration carries it."""
+    net = transformer_lm(**TLM, token_input=True, dtype="float32",
+                         updater=Adam(3e-4), **kw)
+    net.conf.compute_dtype = "bfloat16"
+    net.conf.gradient_checkpointing = remat
+    return net
+
+
+def _graph_counts(net):
+    """The solver's window graphs: captures, replays and each kernel's
+    launches made by replays (zeros before the first fit)."""
+    solver = getattr(net, "_solver_inst", None)
+    if solver is None:
+        return {"captures": 0, "replays": 0, "launches_in_replays": {}}
+    return solver.graph_stats()
+
+
+def _counted_run(net, fit, counted):
+    """``fit()`` with every count set to 0 just before it and read just
+    after: each counted kernel's eager launches plus its launches in the
+    window graphs' replays of this run."""
+    g0 = _graph_counts(net)
+    torch.cuda.synchronize()
+    _reset_launches()
+    fit()
+    torch.cuda.synchronize()
+    eager = _launches(counted)
+    g1 = _graph_counts(net)
+    replayed = {n: g1["launches_in_replays"].get(n, 0)
+                - g0["launches_in_replays"].get(n, 0) for n in counted}
+    return ({n: eager[n] + replayed[n] for n in counted},
+            {"eager": eager, "in_replays": replayed,
+             "captures": g1["captures"] - g0["captures"],
+             "replays": g1["replays"] - g0["replays"]})
+
+
+def _tlm_train_run(net, batches, what, **fit_kw):
+    """One fit of ``net`` over the 16 batches, counted and timed a window
+    (k steps) at a time; its losses as floats."""
+    clock = _WindowClock(WINDOW_K)
+    net.set_listeners(clock)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    launches, detail = _counted_run(
+        net, lambda: net.fit(iterator=ListDataSetIterator(batches),
+                             **fit_kw), COUNTED)
+    peak = torch.cuda.max_memory_allocated()
+    stamps = [t0] + clock.t
+    window_ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
+    losses = [float(v) for v in clock.losses]
+    if len(losses) != WINDOW_BATCHES or not all(math.isfinite(v)
+                                               for v in losses):
+        raise AssertionError(f"{what}: losses are not finite: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"{what}: the loss did not fall: {losses}")
+    step_ms = float(np.median(window_ms[1:])) / WINDOW_K
+    pre = net._solver_inst.prefetcher
+    T = TLM["max_length"]
+    return {"run": what, "fit": {k: v for k, v in fit_kw.items()},
+            "losses": losses, "window_ms": window_ms,
+            "step_ms_p50_after_first_window": step_ms,
+            "tokens_per_sec": TRAIN_B * T / (step_ms / 1e3),
+            "max_memory_allocated_bytes": peak,
+            "peak_above_start_bytes": peak - base,
+            "prefetch_wait_ms": (None if pre is None
+                                 else pre.total_wait_ms),
+            "launches": launches, "launches_detail": detail}
+
+
+def _params_vs(a, b):
+    """(bitwise, worst rel-to-max over the parameters, its name) of two
+    networks of one architecture."""
+    pa = dict(a.named_parameters())
+    worst, name, same = 0.0, None, True
+    for n, p in b.named_parameters():
+        same = same and torch.equal(p, pa[n])
+        r = _rel_to_max(pa[n].float(), p.float())
+        if r >= worst:
+            worst, name = r, n
+    return same, worst, name
+
+
+def _window_device_ms(net, batches, k1=1, tries=3, **fit_kw):
+    """The profiler's device time a step over one more fit of k batches
+    (kernel times summed, divided by k). The profile must show K1, K2 and
+    K3 ``n_blocks`` times a step each (K1 ``k1`` times that): in a window
+    fit they all come from graph replays. The profiler loses a few records
+    a session (``_replay_kernels``), so up to ``tries`` sessions are
+    taken; none may show more."""
+    blocks = TLM["n_blocks"] * WINDOW_K
+    want = {"flash_fwd_bf16": k1 * blocks, "flash_dq_bf16": blocks,
+            "flash_dkv_bf16": blocks}
+    seen = []
+    for _ in range(tries):
+        prof = _device_kernels(lambda: net.fit(
+            iterator=ListDataSetIterator(batches[:WINDOW_K]), **fit_kw),
+            top=1000)
+        got = {n: sum(r["calls"] for r in prof["top"]
+                      if f"::{n}<" in r["kernel"]) for n in want}
+        seen.append(got)
+        if any(got[n] > want[n] for n in want):
+            break
+        if got == want:
+            break
+    if seen[-1] != want:
+        raise AssertionError(f"the profiled fit of {WINDOW_K} batches "
+                             f"showed {seen}, not {want}")
+    return {"device_ms_per_step": prof["device_ms"] / WINDOW_K,
+            "wall_ms_per_step": prof["wall_ms"] / WINDOW_K,
+            "kernels_per_step": sum(r["calls"] for r in prof["top"])
+            / WINDOW_K,
+            "flash_kernels_seen": got, "profile_sessions": len(seen),
+            "top_kernels_ms_per_step": [
+                {"kernel": r["kernel"], "calls": r["calls"] / WINDOW_K,
+                 "ms": r["ms"] / WINDOW_K} for r in prof["top"][:12]]}
+
+
+def train_window_phase():
+    """``_TLM`` with f32 master weights and bf16 compute, Adam(3e-4): 16
+    seeded batches through ``net.fit`` per step with no prefetch, per step
+    with the default prefetch, with ``steps_per_dispatch=8`` and the
+    default prefetch (the window as a CUDA graph), then the window again
+    with gradient checkpointing. All end with the per-step run's
+    parameters; K1-K3 are counted with the graphs' replays."""
+    batches = _tlm_window_batches()
+    runs, nets = {}, {}
+    for what, remat, kw in (("per_step", False,
+                             dict(async_prefetch=False)),
+                            ("per_step_prefetch", False, {}),
+                            ("window", False,
+                             dict(steps_per_dispatch=WINDOW_K)),
+                            ("window_remat", True,
+                             dict(steps_per_dispatch=WINDOW_K))):
+        net = _tlm_amp(remat).init(seed=SEED + 41)
+        runs[what] = _tlm_train_run(net, batches, what, **kw)
+        runs[what]["graph"] = _graph_counts(net)
+        nets[what] = net
+    blocks = TLM["n_blocks"]
+    for what, k1 in (("per_step", 1), ("per_step_prefetch", 1), ("window", 1),
+                     ("window_remat", 2)):
+        want = {"flash_attention_fwd": k1 * blocks * WINDOW_BATCHES,
+                "flash_attention_bwd_dq": blocks * WINDOW_BATCHES,
+                "flash_attention_bwd_dkv": blocks * WINDOW_BATCHES}
+        if runs[what]["launches"] != want:
+            raise AssertionError(f"{what} launched {runs[what]['launches']},"
+                                 f" not {want}")
+    for what in ("window", "window_remat"):
+        g = runs[what]["launches_detail"]
+        if (g["captures"], g["replays"]) != (1, WINDOW_BATCHES - 1):
+            raise AssertionError(f"{what}: {g['captures']} captures and "
+                                 f"{g['replays']} replays, not 1 and "
+                                 f"{WINDOW_BATCHES - 1}")
+    same = {}
+    for what in ("per_step_prefetch", "window", "window_remat"):
+        bitwise, rel, name = _params_vs(nets["per_step"], nets[what])
+        same[what] = {"bitwise": bitwise, "param_rel_to_max": rel,
+                      "worst_param": name}
+        if not (bitwise or rel <= 1e-5):
+            raise AssertionError(f"{what}: parameter {name} after "
+                                 f"{WINDOW_BATCHES} steps differs from the "
+                                 f"per-step run's: rel-to-max {rel:.3g}")
+    for what, k1, kw in (("per_step", 1, dict(async_prefetch=False)),
+                         ("per_step_prefetch", 1, {}),
+                         ("window", 1, dict(steps_per_dispatch=WINDOW_K)),
+                         ("window_remat", 2,
+                          dict(steps_per_dispatch=WINDOW_K))):
+        g0 = _graph_counts(nets[what])
+        runs[what]["profiled"] = _window_device_ms(nets[what], batches, k1,
+                                                   **kw)
+        g1 = _graph_counts(nets[what])
+        if what.startswith("window") and (
+                g1["captures"] != g0["captures"]
+                or g1["replays"] - g0["replays"]
+                != WINDOW_K * runs[what]["profiled"]["profile_sessions"]):
+            raise AssertionError(f"{what}: the profiled fits were not all "
+                                 f"replays: {g0} -> {g1}")
+    nets.clear()
+    torch.cuda.empty_cache()
+    return {"model": "transformer_lm _TLM f32 master, bf16 compute, "
+                     "Adam(3e-4)", "batch": TRAIN_B,
+            "seq_len": TLM["max_length"], "steps": WINDOW_BATCHES,
+            "k": WINDOW_K, "runs": runs, "vs_per_step": same}
+
+
+def _amp_readings(seed, truth=False):
+    """One bf16-compute step's loss and gradients (f32 master) of a 2-block
+    model at d_model 512, T 1024, B 2, on the card and on the CPU, from
+    the same weights (``seed``): the loss rel and the worst gradient
+    rel-to-max between them. ``truth``: also the CPU's float32 step, and
+    each bf16 step's worst gradient rel-to-max from it, overall and on
+    the tensor where card and CPU differ most."""
+    cfg = dict(TLM, n_blocks=2)
+    V, T = cfg["vocab_size"], cfg["max_length"]
+    gpu = transformer_lm(**cfg, token_input=True).init(seed=seed)
+    cpu = transformer_lm(**cfg, token_input=True, device="cpu").init()
+    for n in (gpu, cpu):
+        n.conf.compute_dtype = "bfloat16"
+    load_jax_params(cpu, [{k: v.detach().cpu().numpy()
+                           for k, v in gpu.vertices[n].param_dict().items()}
+                          for n in gpu.vertex_names])
+    ids = np.random.default_rng(seed + 1).integers(0, V, (2, T))
+
+    def loss_and_grads(net):
+        x = torch.as_tensor(ids, device=net.device)
+        loss = net.loss_fn(x, _one_hot_prev(x, V, torch.float32))
+        named = [(f"{n}.{k}", p) for n, pd in net.param_dicts().items()
+                 for k, p in pd.items()]
+        grads = torch.autograd.grad(loss, [p for _, p in named])
+        if any(g.dtype != torch.float32 for g in grads):
+            raise AssertionError("a master gradient is not float32")
+        return loss.item(), {name: g.cpu()
+                             for (name, _), g in zip(named, grads)}
+
+    def worst(a, b):
+        name = max(a, key=lambda n: _rel_to_max(a[n], b[n]))
+        return _rel_to_max(a[name], b[name]), name
+
+    _reset_launches()
+    l_gpu, g_gpu = loss_and_grads(gpu)
+    launches = _launches()
+    l_cpu, g_cpu = loss_and_grads(cpu)
+    grad_rel, name = worst(g_gpu, g_cpu)
+    row = {"seed": seed, "loss_rel": abs(l_gpu - l_cpu) / abs(l_cpu),
+           "grad_rel_to_max": grad_rel, "worst_grad": name,
+           "launches": launches}
+    if truth:
+        cpu.conf.compute_dtype = None
+        _, g_f32 = loss_and_grads(cpu)
+        row["card_bf16_vs_cpu_f32"] = worst(g_gpu, g_f32)
+        row["cpu_bf16_vs_cpu_f32"] = worst(g_cpu, g_f32)
+        row["on_worst_grad"] = {
+            "card_bf16_vs_cpu_f32": _rel_to_max(g_gpu[name], g_f32[name]),
+            "cpu_bf16_vs_cpu_f32": _rel_to_max(g_cpu[name], g_f32[name])}
+    return row
+
+
+def amp_cross_device_phase():
+    """``_amp_readings`` on the phase's seed: loss rel 2e-2, gradients
+    rel-to-max 2e-2 (bf16), K1-K3 launched once a block."""
+    row = _amp_readings(SEED + 42)
+    if row["launches"] != {name: 2 for name in COUNTED}:
+        raise AssertionError(f"bf16-compute step launched {row['launches']}")
+    if row["loss_rel"] > TOL[torch.bfloat16] \
+            or row["grad_rel_to_max"] > BWD_TOL[torch.bfloat16]:
+        raise AssertionError(f"bf16 compute on the card vs the CPU: loss "
+                             f"rel {row['loss_rel']:.3g}, gradient "
+                             f"{row['worst_grad']} rel-to-max "
+                             f"{row['grad_rel_to_max']:.3g}")
+    return row
+
+
+def amp_seed_study(n: int):
+    """``_amp_readings`` with the f32 step on ``n`` weight and input seeds,
+    the first the phase's own; yields each row as it is read."""
+    for i in range(n):
+        yield _amp_readings(SEED + 42 + 2 * i, truth=True)
+
+
+def char_graph(seed, device=None):
+    """The char-RNN's layers (bench.py ``bench_lstm``'s width) as a
+    ``ComputationGraph``: two GravesLSTM(512) and a softmax head, l2 1e-3,
+    RmsProp(1e-3), tBPTT 50."""
+    V, H, T = CHAR["vocab_size"], CHAR["hidden"], CHAR["max_length"]
+    g = (NeuralNetConfiguration(seed=seed, updater=RmsProp(1e-3), l2=1e-3,
+                                weight_init="xavier")
+         .graph_builder().add_inputs("chars")
+         .add_layer("lstm1", GravesLSTM(n_out=H, activation="tanh"), "chars")
+         .add_layer("lstm2", GravesLSTM(n_out=H, activation="tanh"), "lstm1")
+         .add_layer("out", RnnOutputLayer(n_out=V, activation="softmax",
+                                          loss="mcxent"), "lstm2")
+         .set_outputs("out").set_input_types(InputType.recurrent(V, T))
+         .tbptt_length(50))
+    return ComputationGraph(g.build(), device=device)
+
+
+def char_graph_phase():
+    """The char-RNN graph: 6 tBPTT fits of B 32 (K5 and K6 2 layers x 2
+    chunks a fit), one fit on the card against the CPU from the same
+    weights and RmsProp state, then ``rnn_time_step`` over 64 steps at B 8
+    against ``output`` on the whole sequence (K5's pin, 1e-5)."""
+    net = char_graph(SEED + 50).init()
+    x_np, y_np = _char_batch(SEED + 51, CHAR_B, CHAR_T)
+    x = torch.as_tensor(x_np, device=net.device)
+    y = torch.as_tensor(y_np, device=net.device)
+    rec = _Losses()
+    net.set_listeners(rec)
+    step_ms = []
+    _reset_launches()
+    for _ in range(CHAR_GRAPH_FITS):
+        t0 = time.perf_counter()
+        net.fit(x, y, batch_size=CHAR_B)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = _launches(LSTM_COUNTED)
+    want = 2 * 2 * CHAR_GRAPH_FITS
+    if launches != {name: want for name in LSTM_COUNTED}:
+        raise AssertionError(f"graph tBPTT launched {launches}, not {want} "
+                             f"of each")
+    if net.iteration_count != 2 * CHAR_GRAPH_FITS:
+        raise AssertionError(f"{net.iteration_count} tBPTT iterations")
+    losses = [float(v) for v in rec.losses]
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"graph tBPTT losses: {losses}")
+    # one fit on the card against the CPU from the same weights and state
+    cpu = char_graph(SEED + 50, device="cpu").init()
+    load_jax_params(cpu, [{n: p.detach().cpu().numpy()
+                           for n, p in pd.items()}
+                          for pd in net.param_dicts().values()])
+    load_jax_opt_state(cpu, [{n: {s: t.cpu().numpy() for s, t in st.items()}
+                              for n, st in v.items()}
+                             for v in net.opt_state.values()],
+                       iteration_count=net.iteration_count)
+    xb, yb = _char_batch(SEED + 52, CHAR_STREAM_B, CHAR_T)
+    net.fit(xb, yb, batch_size=CHAR_STREAM_B)
+    cpu.fit(xb, yb, batch_size=CHAR_STREAM_B)
+    pairs = [(f"{v}.{n}", p.detach().cpu(), cpu.param_dicts()[v][n].detach())
+             for v, pd in net.param_dicts().items() for n, p in pd.items()]
+    worst = max(pairs, key=lambda t: _rel_to_max(t[1], t[2]))
+    param_rel = _rel_to_max(worst[1], worst[2])
+    if param_rel > 1e-4:
+        raise AssertionError(f"graph tBPTT: parameter {worst[0]} after a fit "
+                             f"differs from the CPU's: rel-to-max "
+                             f"{param_rel:.3g}")
+    # streaming: one step at a time equals the whole sequence
+    xs = torch.as_tensor(xb, device=net.device)
+    whole = net.output(xs)
+    net.rnn_clear_previous_state()
+    _reset_launches()
+    steps = torch.stack([net.rnn_time_step(xs[:, t])
+                         for t in range(CHAR_T)], dim=1)
+    torch.cuda.synchronize()
+    stream_launches = _launches(LSTM_COUNTED)["lstm_fwd"]
+    stream_err = float((steps - whole).abs().max())
+    if stream_launches != 2 * CHAR_T:
+        raise AssertionError(f"rnn_time_step launched K5 {stream_launches} "
+                             f"times, not {2 * CHAR_T}")
+    if stream_err > LSTM_TOL[("fwd", torch.float32)]:
+        raise AssertionError(f"graph rnn_time_step vs output: {stream_err}")
+    p50 = float(np.median(step_ms[1:]))
+    return {"model": "char-RNN layers as a ComputationGraph, vocab 87, 2 x "
+                     "GravesLSTM(512), f32, RmsProp(1e-3), tBPTT 50",
+            "batch": CHAR_B, "seq_len": CHAR_T, "fits": CHAR_GRAPH_FITS,
+            "losses": losses, "step_ms": step_ms,
+            "step_ms_p50_after_first": p50,
+            "tokens_per_sec": CHAR_B * CHAR_T / (p50 / 1e3),
+            "param_rel_to_max_vs_cpu": param_rel, "worst_param": worst[0],
+            "rnn_time_step_max_abs_err": stream_err,
+            "rnn_time_step_k5_launches": stream_launches,
+            "launches": launches}
 
 
 # ------------------------------------------------------------------ phase 5
@@ -3002,11 +3418,14 @@ def main() -> int:
     slice_row = slice_phase()
     gen_row = generation_phase()
     train_row = train_phase()
+    window_row = train_window_phase()
+    amp_cross = amp_cross_device_phase()
     cross_row = cross_device_phase()
     lstm_errs, lstm_rows, lstm_step_us, lstm_plans = lstm_kernel_phase()
     char_serve = char_serve_phase()
     char_train = char_train_phase()
     char_cross = char_cross_device_phase()
+    char_graph_row = char_graph_phase()
     k7_errs, k7_rows, k7_bf16_rows = conv_kernel_phase()
     k8_rows, k8_err = int8_kernel_phase()
     gnet, gserve = googlenet_serve_phase()
@@ -3033,6 +3452,12 @@ def main() -> int:
     gen_k1 = sum(gen_row["k1_launches"].values())
     lstm_draft_k5 = gen_row["cases"]["e_spec_lstm"]["k5_launches"]
     train_k = train_row["launches"]
+    win = {what: window_row["runs"][what]["launches"]
+           for what in ("per_step", "per_step_prefetch", "window",
+                        "window_remat")}
+    win_sum = {n: sum(w[n] for w in win.values()) for n in COUNTED}
+    amp_step = {n: win["per_step"][n] + win["per_step_prefetch"][n]
+                for n in COUNTED}
     ring_dtypes = (str(torch.float32), str(torch.bfloat16))
     src = "deeplearning4j_tpu_torch/csrc/flash_attention_{}.cu"
     ref = "deeplearning4j_tpu/ops/pallas_attention.py:{}"
@@ -3041,11 +3466,15 @@ def main() -> int:
         "name": "flash_attention_fwd", "route": "cuda",
         "source": src.format("fwd"), "replaces": ref.format(186),
         "launches": serve_k1 + gen_k1 + train_k["flash_attention_fwd"]
+        + win_sum["flash_attention_fwd"]
         + dp_row["launches"]["flash_attention_fwd"]
         + http_n["flash_attention_fwd"],
         "launches_by_path": {
             "serve": serve_k1, "serve_generation": gen_row["k1_launches"],
             "train": train_k["flash_attention_fwd"],
+            "train_amp": amp_step["flash_attention_fwd"],
+            "train_window": win["window"]["flash_attention_fwd"],
+            "train_remat": win["window_remat"]["flash_attention_fwd"],
             "train_data_parallel": dp_row["launches"]["flash_attention_fwd"],
             "http": http_n["flash_attention_fwd"]},
         "max_abs_err": errs[torch.float32],
@@ -3063,10 +3492,14 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": src.format("bwd" if kind == "dq" else "bwd_dkv"),
             "replaces": ref.format(line),
-            "launches": train_k[name] + dp_row["launches"][name]
+            "launches": train_k[name] + win_sum[name]
+            + dp_row["launches"][name]
             + sum(ring_row[d]["launches"][name] for d in ring_dtypes),
             "launches_by_path": {
                 "train": train_k[name],
+                "train_amp": amp_step[name],
+                "train_window": win["window"][name],
+                "train_remat": win["window_remat"][name],
                 "train_data_parallel": dp_row["launches"][name],
                 "ring": sum(ring_row[d]["launches"][name]
                             for d in ring_dtypes)},
@@ -3084,9 +3517,15 @@ def main() -> int:
     for kind, name, line in (("fwd", "lstm_fwd", 147), ("bwd", "lstm_bwd", 282)):
         serve_n = char_serve["launches"][name]
         train_n = char_train["launches"][name]
+        graph_n = char_graph_row["launches"][name]
+        stream_n = (char_graph_row["rnn_time_step_k5_launches"]
+                    if kind == "fwd" else 0)
         draft_n = lstm_draft_k5 if kind == "fwd" else 0
         http_k5 = http_n["lstm_fwd"] if kind == "fwd" else 0
-        by_path = {"serve": serve_n, "train": train_n}
+        by_path = {"serve": serve_n, "train": train_n,
+                   "char_graph_tbptt": graph_n}
+        if kind == "fwd":
+            by_path["char_graph_rnn_time_step"] = stream_n
         if kind == "fwd":
             by_path.update(
                 serve_decode_graph_replays=char_serve[
@@ -3095,7 +3534,8 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": lsrc.format(kind),
             "replaces": lref.format(line),
-            "launches": serve_n + train_n + draft_n + http_k5,
+            "launches": serve_n + train_n + graph_n + stream_n + draft_n
+            + http_k5,
             "launches_by_path": by_path,
             "max_abs_err": max(lstm_errs[(kind, torch.float32)],
                                lstm_errs[(kind, torch.bfloat16)]),
@@ -3202,7 +3642,10 @@ def main() -> int:
     print(json.dumps({"slice": slice_row, "generation": gen_row,
                       "card": smi}), flush=True)
     print(json.dumps({"train": train_row, "cross_device": cross_row,
-                      "card": smi}), flush=True)
+                      "train_window": window_row,
+                      "amp_cross_device": amp_cross,
+                      "char_graph": char_graph_row, "card": smi}),
+          flush=True)
     print(json.dumps({"char_serve": char_serve, "char_train": char_train,
                       "char_cross_device": char_cross, "card": smi}),
           flush=True)
@@ -3221,4 +3664,10 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--amp-seeds"]:
+        # the bf16-compute card-vs-CPU check on several seeds (PERF.md)
+        device_phase()
+        for row in amp_seed_study(int(sys.argv[2])):
+            print(json.dumps(row, default=str), flush=True)
+        sys.exit(0)
     sys.exit(main())

@@ -1,13 +1,15 @@
-"""DataSet container and the in-memory iterator.
+"""DataSet container, the in-memory iterator and the host prefetch wrapper.
 
-A copy of ``DataSet``, ``DataSetIterator`` and ``ListDataSetIterator``
-from ``deeplearning4j_tpu/datasets/dataset.py``, which is numpy-only; the
-port keeps its own copy instead of importing the JAX package. Device
-prefetch (``DataSetIterator.prefetch``) and ``AsyncDataSetIterator`` come
-with a later slice.
+A copy of ``DataSet``, ``DataSetIterator``, ``ListDataSetIterator`` and
+``AsyncDataSetIterator`` from ``deeplearning4j_tpu/datasets/dataset.py``,
+which is numpy-only; the port keeps its own copy instead of importing the
+JAX package. ``DataSetIterator.prefetch`` (reference ``:42-50``) wraps an
+iterator in the port's ``datasets/prefetch.py`` ``DevicePrefetchIterator``.
 """
 from __future__ import annotations
 
+import queue
+import threading
 from dataclasses import dataclass
 from typing import Iterator, List, Optional, Sequence
 
@@ -38,6 +40,16 @@ class DataSetIterator:
     def reset(self):
         pass
 
+    def prefetch(self, depth: int = 2, *, device=None, dtype=None):
+        """Wrap this iterator in a ``DevicePrefetchIterator``: a background
+        thread stages each batch and copies it to ``device`` (default: the
+        CUDA card) so the copy overlaps the previous step's compute;
+        floating arrays take ``dtype`` when given. See
+        ``datasets/prefetch.py``."""
+        from .prefetch import DevicePrefetchIterator
+        return DevicePrefetchIterator(self, depth, device=device,
+                                      dtype=dtype)
+
 
 class ListDataSetIterator(DataSetIterator):
     """Batches an in-memory dataset (reference ListDataSetIterator)."""
@@ -61,3 +73,41 @@ class ListDataSetIterator(DataSetIterator):
             self._rng.shuffle(order)
         for i in order:
             yield self.data[i]
+
+
+class AsyncDataSetIterator(DataSetIterator):
+    """Background-thread prefetch wrapper (reference AsyncDataSetIterator):
+    overlaps host-side batch preparation (decoding, augmentation) with the
+    consumer; ``DevicePrefetchIterator`` also overlaps the copy to the
+    device."""
+
+    def __init__(self, base: DataSetIterator, queue_size: int = 4):
+        self.base = base
+        self.queue_size = queue_size
+
+    def __iter__(self):
+        q: "queue.Queue" = queue.Queue(maxsize=self.queue_size)
+        _SENTINEL = object()
+        err: List[BaseException] = []
+
+        def producer():
+            try:
+                for ds in self.base:
+                    q.put(ds)
+            except BaseException as e:   # surfaced on the consumer side
+                err.append(e)
+            finally:
+                q.put(_SENTINEL)
+
+        t = threading.Thread(target=producer, daemon=True)
+        t.start()
+        while True:
+            item = q.get()
+            if item is _SENTINEL:
+                if err:
+                    raise err[0]
+                return
+            yield item
+
+    def reset(self):
+        self.base.reset()

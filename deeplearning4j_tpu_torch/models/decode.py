@@ -87,6 +87,10 @@ class TransformerDecodeSpec:
     incremental decode path."""
 
     def __init__(self, net):
+        if getattr(net.conf, "compute_dtype", None):
+            raise ValueError("decode path does not support mixed "
+                             "compute_dtype nets (params are served in "
+                             "their stored dtype)")
         self.net = net
         names = list(net.vertex_names)
         for required in ("embed", "pos", "ln_f", "head"):
@@ -294,6 +298,9 @@ class LSTMDecodeSpec:
             raise ValueError("LSTMDecodeSpec supports MultiLayerNetwork "
                              "stacks (ComputationGraph transformers take "
                              "TransformerDecodeSpec)")
+        if getattr(net.conf, "compute_dtype", None):
+            raise ValueError("decode path does not support mixed "
+                             "compute_dtype nets")
         last = net.layers[-1]
         if not isinstance(last, RnnOutputLayer):
             raise ValueError("LSTM decode requires an RnnOutputLayer head")

@@ -14,11 +14,13 @@ string), the backprop type and the tBPTT length, and JSON serde
 (``to_json`` / ``from_json``, ``nn/conf/serde.py``) with the reference's
 field names.
 
-Training takes the per-step SGD path only. Other optimization algorithms
-and layerwise pretraining (ROADMAP A5), gradient checkpointing and mixed
-precision (``compute_dtype``, ROADMAP A10) raise ``NotImplementedError``
-in the builder; a configuration read from JSON carries their fields, and
-the network refuses ``compute_dtype`` and the solver the others.
+Gradient checkpointing (each layer's forward recomputed in the backward)
+and mixed precision (``compute_dtype``: master parameters and updater
+state in ``dtype``, the forward and backward in ``compute_dtype``) are the
+reference's (``:44-53, 112-121``) and reach the network through both
+configurations. Other optimization algorithms and layerwise pretraining
+(ROADMAP A5) raise ``NotImplementedError`` in the builder; a configuration
+read from JSON carries their fields, and the solver refuses them.
 """
 from __future__ import annotations
 
@@ -27,6 +29,7 @@ import dataclasses
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
 
+from ...device import torch_dtype
 from ...optimize.updaters import Sgd, updater_from_name
 from ..inputs import InputTypeConvolutional, InputTypeFeedForward
 from ..preprocessors import auto_preprocessor
@@ -65,12 +68,13 @@ class NeuralNetConfiguration:
                 f"optimization_algorithm {optimization_algorithm!r}: the "
                 f"second-order solvers are not ported yet (ROADMAP A5); "
                 f"only 'sgd' trains")
-        if gradient_checkpointing:
-            raise NotImplementedError("gradient checkpointing is not ported "
-                                      "yet (ROADMAP A10)")
         if compute_dtype is not None:
-            raise NotImplementedError("mixed precision (compute_dtype) is "
-                                      "not ported yet (ROADMAP A10)")
+            try:
+                torch_dtype(compute_dtype)
+            except ValueError as e:
+                raise ValueError(
+                    f"Unknown compute_dtype {compute_dtype!r} (expected a "
+                    f"dtype name like 'bfloat16' or 'float32')") from e
         if updater is None:
             updater = Sgd(learning_rate=learning_rate
                           if learning_rate is not None else 0.1)
@@ -98,6 +102,8 @@ class NeuralNetConfiguration:
         # read by the second-order solvers (ROADMAP A5); the workspace and
         # cache-mode keywords are accepted and ignored, as the reference's
         self.max_num_line_search_iterations = max_num_line_search_iterations
+        self.gradient_checkpointing = gradient_checkpointing
+        self.compute_dtype = compute_dtype
 
     def _cascade(self, layer):
         """A copy of ``layer`` with its None fields set from the globals
@@ -133,8 +139,12 @@ class MultiLayerConfiguration:
     updater: Optional[Any] = None
     optimization_algorithm: str = "sgd"   # others: ROADMAP A5
     max_num_line_search_iterations: int = 5
-    gradient_checkpointing: bool = False  # ROADMAP A10
-    compute_dtype: Optional[str] = None   # mixed precision, ROADMAP A10
+    # recompute each layer's forward in the backward instead of keeping
+    # its activations (memory for compute)
+    gradient_checkpointing: bool = False
+    # mixed precision: master parameters and updater state stay ``dtype``;
+    # the forward and backward run in this dtype (e.g. "bfloat16")
+    compute_dtype: Optional[str] = None
 
     def to_json(self) -> str:
         return serde.to_json(self)
@@ -219,4 +229,6 @@ class ListBuilder:
                 nc.gradient_normalization_threshold),
             updater=nc.updater,
             optimization_algorithm=nc.optimization_algorithm,
-            max_num_line_search_iterations=nc.max_num_line_search_iterations)
+            max_num_line_search_iterations=nc.max_num_line_search_iterations,
+            gradient_checkpointing=nc.gradient_checkpointing,
+            compute_dtype=nc.compute_dtype)

@@ -8,11 +8,10 @@ order of its ``net.params``. Shape inference sets each layer's ``n_in``
 at build time and gives a layer vertex the preprocessor the reference
 inserts where a layer family changes (or the one passed to
 ``add_layer``). JSON serde (``to_json`` / ``from_json``) writes the
-reference's field names. Truncated BPTT on a graph needs the graph's
-recurrent-state carry (``rnn_states``), which comes with the rest of the
-training engine (ROADMAP A10): the builder refuses it, and the solver
-refuses a configuration read from JSON that asks for it (a
-``MultiLayerNetwork`` trains with tBPTT).
+reference's field names. ``tbptt_length(fwd, bwd)`` and
+``backprop_type("tbptt")`` (reference ``:88-111``) make the solver train
+in chunks carrying each recurrent vertex's state, as a
+``MultiLayerNetwork`` does.
 """
 from __future__ import annotations
 
@@ -36,7 +35,7 @@ class ComputationGraphConfiguration:
     input_types: Optional[List[Any]] = None
     seed: int = 12345
     dtype: str = "float32"
-    backprop_type: str = "standard"       # "tbptt": ROADMAP A10
+    backprop_type: str = "standard"       # "standard" | "tbptt"
     tbptt_fwd_length: int = 20
     tbptt_bwd_length: int = 20
     gradient_normalization: Optional[str] = None
@@ -44,8 +43,8 @@ class ComputationGraphConfiguration:
     updater: Optional[Any] = None
     optimization_algorithm: str = "sgd"   # others: ROADMAP A5
     max_num_line_search_iterations: int = 5
-    gradient_checkpointing: bool = False  # ROADMAP A10
-    compute_dtype: Optional[str] = None   # mixed precision, ROADMAP A10
+    gradient_checkpointing: bool = False  # see MultiLayerConfiguration
+    compute_dtype: Optional[str] = None   # see MultiLayerConfiguration
 
     def to_json(self) -> str:
         return serde.to_json(self)
@@ -86,6 +85,27 @@ class GraphBuilder:
         self._vertices: Dict[str, VertexConf] = {}
         self._vertex_inputs: Dict[str, List[str]] = {}
         self._input_types: Optional[List[Any]] = None
+        self._backprop_type = "standard"
+        self._tbptt_fwd = 20
+        self._tbptt_bwd = 20
+
+    def backprop_type(self, bp: str) -> "GraphBuilder":
+        self._backprop_type = bp
+        return self
+
+    def tbptt_length(self, fwd: int, bwd: Optional[int] = None
+                     ) -> "GraphBuilder":
+        """Truncated BPTT in chunks of ``fwd`` steps. Each chunk's step
+        backpropagates through the whole chunk, so bwd != fwd is refused,
+        as the reference refuses it."""
+        self._backprop_type = "tbptt"
+        if bwd is not None and bwd != fwd:
+            raise ValueError(
+                "tbptt bwd length must equal fwd length: the chunk step "
+                "computes exact gradients over the full chunk")
+        self._tbptt_fwd = fwd
+        self._tbptt_bwd = fwd
+        return self
 
     def add_inputs(self, *names: str) -> "GraphBuilder":
         self._inputs.extend(names)
@@ -103,11 +123,6 @@ class GraphBuilder:
         self._vertices[name] = vertex
         self._vertex_inputs[name] = list(inputs)
         return self
-
-    def tbptt_length(self, fwd: int, bwd: Optional[int] = None):
-        raise NotImplementedError("truncated BPTT on a ComputationGraph is "
-                                  "not ported yet (ROADMAP A10); a "
-                                  "MultiLayerNetwork trains with it")
 
     def set_outputs(self, *names: str) -> "GraphBuilder":
         self._outputs = list(names)
@@ -160,9 +175,14 @@ class GraphBuilder:
             vertex_names=order, vertices=dict(self._vertices),
             vertex_inputs=dict(self._vertex_inputs),
             input_types=self._input_types, seed=nc.seed, dtype=nc.dtype,
+            backprop_type=self._backprop_type,
+            tbptt_fwd_length=self._tbptt_fwd,
+            tbptt_bwd_length=self._tbptt_bwd,
             gradient_normalization=nc.gradient_normalization,
             gradient_normalization_threshold=(
                 nc.gradient_normalization_threshold),
             updater=nc.updater,
             optimization_algorithm=nc.optimization_algorithm,
-            max_num_line_search_iterations=nc.max_num_line_search_iterations)
+            max_num_line_search_iterations=nc.max_num_line_search_iterations,
+            gradient_checkpointing=nc.gradient_checkpointing,
+            compute_dtype=nc.compute_dtype)

@@ -1,12 +1,18 @@
 """ComputationGraph: the DAG executor, its loss and its training loop.
 
 Counterpart of ``deeplearning4j_tpu/nn/graph/graph.py``: ``init``, the
-topological forward ``apply_fn`` with its feature-mask flow (``:91-176``),
-``loss_fn`` (``:178-241``), ``output`` / ``_output_pure`` /
-``feed_forward`` (``:249-263``), ``score`` (``:265-273``),
-``params_flat`` / ``set_params_flat`` (``:305-334``), ``num_params`` and
-``fit`` (``:350-370``) with the updater state (``opt_state``) and
-``iteration_count`` the net carries.
+topological forward ``apply_fn`` with its feature-mask flow and the
+recurrent-state carry (``rnn_states`` / ``collect_rnn_states``,
+``:91-176``), ``loss_fn`` (``:178-241``), ``output`` / ``_output_pure`` /
+``feed_forward`` (``:249-263``), ``score`` (``:265-273``), the streaming
+``rnn_time_step`` and ``rnn_clear_previous_state`` (``:276-301``),
+``params_flat`` / ``set_params_flat`` (``:305-334``), ``num_params``,
+``fit`` (``:350-370``; tBPTT when the configuration asks for it) with the
+updater state (``opt_state``) and ``iteration_count`` the net carries, and
+``clone`` (``:418``). Mixed precision and gradient checkpointing are the
+``MultiLayerNetwork``'s (``nn/multilayer.py`` ``run_layer``), per layer
+vertex; the final recurrent states are indexed by vertex, in topological
+order.
 
 The graph is an ``nn.Module`` on one device, given at construction; its
 vertices live in ``self.vertices`` under their configuration names, in
@@ -15,6 +21,7 @@ none: gradients come from ``torch.autograd`` over the graph's parameters.
 """
 from __future__ import annotations
 
+import copy
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -25,7 +32,8 @@ from ...device import DeviceLike, resolve_device, torch_dtype
 from ...optimize.solver import score_listeners
 from ...optimize.updaters import MultiLayerUpdater
 from ..conf.graph_conf import ComputationGraphConfiguration
-from ..multilayer import refuse_compute_dtype
+from ..multilayer import (cast_floats, compute_dtype_of, copy_state,
+                          run_layer)
 from .vertices import LayerVertex
 
 
@@ -41,7 +49,6 @@ class ComputationGraph(nn.Module):
     def __init__(self, conf: ComputationGraphConfiguration, *,
                  device: DeviceLike = None):
         super().__init__()
-        refuse_compute_dtype(conf)
         self.conf = conf
         self.device = resolve_device(device)
         self.dtype = torch_dtype(conf.dtype)
@@ -57,6 +64,7 @@ class ComputationGraph(nn.Module):
         self.iteration_count = 0
         self.listeners: List = []
         self.initialized = False
+        self._rnn_state: Optional[list] = None
 
     # ------------------------------------------------------------------ init
     def init(self, seed: Optional[int] = None) -> "ComputationGraph":
@@ -119,52 +127,96 @@ class ComputationGraph(nn.Module):
             off += n
 
     # ------------------------------------------------------------ forward
-    def apply_fn(self, inputs, *, train: bool = False,
+    def _forward(self, inputs, *, train: bool = False,
                  gen: Optional[torch.Generator] = None,
-                 features_masks=None) -> Dict[str, torch.Tensor]:
-        """Forward in topological order. ``inputs``: one tensor per network
-        input (a bare tensor for a single input). Returns every vertex's
-        activation by name. A [B,T] feature mask per network input flows
-        vertex to vertex: a vertex's mask is its first masked input's, and
-        is dropped once the time axis changes length."""
+                 features_masks=None, rnn_states=None,
+                 collect_rnn_states: bool = False):
+        """The forward in the compute dtype (see ``apply_fn``): every
+        vertex's activation by name and each recurrent vertex's final
+        (h, c) by vertex index, None for the others."""
         if not self.initialized:
             raise RuntimeError("call init() before running the graph")
-        acts = dict(zip(self.conf.network_inputs, _as_list(inputs)))
+        inputs = _as_list(inputs)
+        cd = compute_dtype_of(self.conf)
+        remat = getattr(self.conf, "gradient_checkpointing", False)
+        if cd is not None:
+            inputs = cast_floats(inputs, cd)
+            rnn_states = cast_floats(rnn_states, cd)
+        acts = dict(zip(self.conf.network_inputs, inputs))
         masks: Dict[str, torch.Tensor] = {}
         if features_masks is not None:
             masks.update((k, m) for k, m in zip(self.conf.network_inputs,
                                                 _as_list(features_masks))
                          if m is not None)
-        for name in self.vertex_names:
+        rnn_out = [None] * len(self.vertex_names)
+        for idx, name in enumerate(self.vertex_names):
             in_names = self.conf.vertex_inputs[name]
             vin = [acts[i] for i in in_names]
             in_mask = next((masks[i] for i in in_names if i in masks), None)
             v = self.vertices[name]
-            if isinstance(v, LayerVertex):
-                out = v(vin, in_mask, train=train, gen=gen)
+            init = rnn_states[idx] if rnn_states is not None else None
+            if isinstance(v, LayerVertex) and v.recurrent and \
+                    (collect_rnn_states or init is not None):
+                out, rnn_out[idx] = run_layer(
+                    v, lambda *xs, _v=v, _m=in_mask, _init=init:
+                    _v.apply_with_final_state(list(xs), _m, train=train,
+                                              gen=gen, initial_state=_init),
+                    vin, compute_dtype=cd)
+            elif isinstance(v, LayerVertex):
+                out = run_layer(v, lambda *xs, _v=v, _m=in_mask:
+                                _v(list(xs), _m, train=train, gen=gen),
+                                vin, compute_dtype=cd, remat=remat)
             else:
                 out = v(vin)
             acts[name] = out
             if in_mask is not None and out.dim() == 3 and \
                     out.shape[1] == in_mask.shape[1]:
                 masks[name] = in_mask
-        return acts
+        return acts, rnn_out
+
+    def apply_fn(self, inputs, *, train: bool = False,
+                 gen: Optional[torch.Generator] = None,
+                 features_masks=None, rnn_states=None,
+                 collect_rnn_states: bool = False):
+        """Forward in topological order. ``inputs``: one tensor per network
+        input (a bare tensor for a single input). Returns every vertex's
+        activation by name and, with ``collect_rnn_states``, each
+        recurrent vertex's final (h, c) by vertex index (the tBPTT and
+        streaming carry); a recurrent vertex starts from
+        ``rnn_states[idx]`` when given. A [B,T] feature mask per network
+        input flows vertex to vertex: a vertex's mask is its first masked
+        input's, and is dropped once the time axis changes length. Under a
+        compute dtype the activations and states come back in the master
+        dtype."""
+        acts, rnn_out = self._forward(
+            inputs, train=train, gen=gen, features_masks=features_masks,
+            rnn_states=rnn_states, collect_rnn_states=collect_rnn_states)
+        if compute_dtype_of(self.conf) is not None:
+            acts = cast_floats(acts, self.dtype)
+            rnn_out = cast_floats(rnn_out, self.dtype)
+        return (acts, rnn_out) if collect_rnn_states else acts
 
     def loss_fn(self, x, labels, *, train: bool = True,
                 gen: Optional[torch.Generator] = None, labels_mask=None,
-                features_mask=None) -> torch.Tensor:
-        """Sum of the output layers' losses plus regularization: each
-        output's per-example loss is averaged over the batch, or summed
-        and divided by max(sum(labels mask), 1) under a [B,T] labels
-        mask."""
-        inputs = _as_list(x)
+                features_mask=None, rnn_states=None,
+                collect_rnn_states: bool = False):
+        """Sum of the output layers' losses plus regularization on the
+        master parameters: each output's per-example loss is averaged over
+        the batch, or summed and divided by max(sum(labels mask), 1) under
+        a [B,T] labels mask. With ``collect_rnn_states`` it returns (loss,
+        final recurrent states in the master dtype). Under a compute dtype
+        each head runs in it and its per-example loss is reduced in the
+        master dtype."""
         labels = _as_list(labels)
         lmasks = _as_list(labels_mask) or [None] * len(labels)
-        acts = self.apply_fn(inputs, train=train, gen=gen,
-                             features_masks=features_mask)
+        cd = compute_dtype_of(self.conf)
+        acts, rnn_out = self._forward(
+            x, train=train, gen=gen, features_masks=features_mask,
+            rnn_states=rnn_states, collect_rnn_states=collect_rnn_states)
         total = 0.0
         for k, out_name in enumerate(self.conf.network_outputs):
-            layer = getattr(self.vertices[out_name], "layer", None)
+            v = self.vertices[out_name]
+            layer = getattr(v, "layer", None)
             if not hasattr(layer, "compute_loss_per_example"):
                 if k < len(labels) and labels[k] is not None:
                     raise ValueError(
@@ -173,11 +225,14 @@ class ComputationGraph(nn.Module):
                         f"against labels")
                 continue
             feed = acts[self.conf.vertex_inputs[out_name][0]]
-            pre = self.vertices[out_name].preprocessor
-            if pre is not None:
-                feed = pre.apply(feed)
-            per_ex = layer.compute_loss_per_example(
-                feed, labels[k], lmasks[k], train=train, gen=gen)
+            if v.preprocessor is not None:
+                feed = v.preprocessor.apply(feed)
+            per_ex = run_layer(
+                layer, lambda f, _l=layer, _y=labels[k], _m=lmasks[k]:
+                _l.compute_loss_per_example(f, _y, _m, train=train, gen=gen),
+                (feed,), compute_dtype=cd)
+            if cd is not None:
+                per_ex = per_ex.to(self.dtype)      # reduced at master dtype
             lm = lmasks[k]
             if lm is not None and per_ex.dim() == 1 and lm.dim() >= 2:
                 total = total + per_ex.sum() / torch.clamp(lm.sum(), min=1.0)
@@ -187,7 +242,11 @@ class ComputationGraph(nn.Module):
             layer = getattr(self.vertices[name], "layer", None)
             if layer is not None:
                 total = total + layer.regularization()
-        return total
+        if not collect_rnn_states:
+            return total
+        if cd is not None:
+            rnn_out = cast_floats(rnn_out, self.dtype)
+        return total, rnn_out
 
     # ---------------------------------------------------------- inference
     def _as_input(self, x) -> torch.Tensor:
@@ -237,33 +296,48 @@ class ComputationGraph(nn.Module):
 
     def fit(self, data=None, labels=None, *, epochs: int = 1,
             batch_size: Optional[int] = None, iterator=None, dataset=None,
-            async_prefetch: bool = False,
-            steps_per_dispatch: int = 1) -> "ComputationGraph":
-        """Train with the per-step SGD path of ``optimize.solver.Solver``:
-        on arrays or tensors (batched by ``batch_size``), a ``DataSet`` or
-        an iterator of them. Device prefetch
-        (``async_prefetch``) and fused multi-step windows
-        (``steps_per_dispatch > 1``) are not ported yet (ROADMAP A10)."""
+            async_prefetch: bool = True, prefetch_depth: int = 2,
+            steps_per_dispatch: int = 1,
+            skip_first_batches: int = 0) -> "ComputationGraph":
+        """Train with ``optimize.solver.Solver`` on arrays or tensors
+        (batched by ``batch_size``), a ``DataSet``, lists of arrays (one
+        per network input and output, fed whole) or an iterator of
+        ``DataSet``s or ``MultiDataSet``s; the options are
+        ``MultiLayerNetwork.fit``'s (multi-input batches run per step)."""
         if not hasattr(self, "_solver_inst"):
             from ...optimize.solver import Solver
             self._solver_inst = Solver(self)
         self._solver_inst.fit(data=data, labels=labels, epochs=epochs,
                               batch_size=batch_size, iterator=iterator,
                               dataset=dataset, async_prefetch=async_prefetch,
-                              steps_per_dispatch=steps_per_dispatch)
+                              prefetch_depth=prefetch_depth,
+                              steps_per_dispatch=steps_per_dispatch,
+                              skip_first_batches=skip_first_batches)
         return self
 
-    # ------------------------------------------------- not ported yet
+    # ---------------------------------------------------------- streaming
+    @torch.inference_mode()
     def rnn_time_step(self, *inputs):
-        raise NotImplementedError("streaming inference through a graph "
-                                  "(rnn_time_step) is not ported yet "
-                                  "(ROADMAP A10)")
+        """Stateful streaming inference (reference ``rnnTimeStep``): feed
+        [B,F] one step (or [B,T,F] a chunk) per network input; each
+        recurrent vertex's state carries between calls until
+        ``rnn_clear_previous_state``. Returns the network output(s) for the
+        fed step(s)."""
+        xs = [self._as_input(x).to(self.dtype) for x in inputs]
+        single = all(x.dim() == 2 for x in xs)
+        if single:
+            xs = [x[:, None, :] for x in xs]
+        acts, self._rnn_state = self.apply_fn(
+            xs, rnn_states=self._rnn_state, collect_rnn_states=True)
+        outs = [acts[o] for o in self.conf.network_outputs]
+        if single:
+            outs = [o[:, -1] if o.dim() == 3 else o for o in outs]
+        return outs[0] if len(outs) == 1 else outs
 
-    def rnn_clear_previous_state(self):
-        raise NotImplementedError("streaming inference through a graph "
-                                  "(rnn_clear_previous_state) is not ported "
-                                  "yet (ROADMAP A10)")
+    def rnn_clear_previous_state(self) -> None:
+        self._rnn_state = None
 
+    # ------------------------------------------------- not ported yet
     def pretrain(self, iterator, epochs: int = 1):
         raise NotImplementedError("layerwise pretraining is not ported yet "
                                   "(ROADMAP A5)")
@@ -272,5 +346,16 @@ class ComputationGraph(nn.Module):
         raise NotImplementedError("evaluation (eval/Evaluation) is not "
                                   "ported yet (ROADMAP A5)")
 
-    def clone(self):
-        raise NotImplementedError("clone is not ported yet (ROADMAP A10)")
+    # ---------------------------------------------------------------- misc
+    def clone(self) -> "ComputationGraph":
+        """A graph of a deep copy of the configuration on the same device,
+        with real copies of the parameters (the vertices are the
+        configuration's modules) and the updater state. As the
+        reference's, the iteration count and the listeners are not
+        carried."""
+        other = ComputationGraph(copy.deepcopy(self.conf),
+                                 device=self.device)
+        if self.initialized:
+            other.opt_state = copy_state(self.opt_state)
+            other.initialized = True
+        return other

@@ -68,7 +68,7 @@ class LayerVertex(VertexConf):
     def param_dict(self) -> dict:
         return self.layer.param_dict()
 
-    def forward(self, inputs, mask=None, *, train=False, gen=None):
+    def _prepare(self, inputs, mask):
         x = inputs[0]
         if self.preprocessor is not None:
             x = self.preprocessor.apply(x)
@@ -76,7 +76,26 @@ class LayerVertex(VertexConf):
         if mask is not None and getattr(self.layer, "accepts_mask", False) \
                 and x.dim() == 3:
             kwargs["mask"] = mask
+        return x, kwargs
+
+    def forward(self, inputs, mask=None, *, train=False, gen=None):
+        x, kwargs = self._prepare(inputs, mask)
         return self.layer(x, train=train, gen=gen, **kwargs)
+
+    @property
+    def recurrent(self) -> bool:
+        """Does the wrapped layer carry a recurrent state (reference
+        ``LayerVertex.recurrent``)?"""
+        return hasattr(self.layer, "apply_with_final_state")
+
+    def apply_with_final_state(self, inputs, mask=None, *, train=False,
+                               gen=None, initial_state=None):
+        """The recurrent layer's output and final (h, c), from
+        ``initial_state`` when given: the tBPTT and streaming carry
+        (reference ``LayerVertex.apply_with_final_state``)."""
+        x, kwargs = self._prepare(inputs, mask)
+        return self.layer.apply_with_final_state(
+            x, train=train, gen=gen, initial_state=initial_state, **kwargs)
 
 
 @register

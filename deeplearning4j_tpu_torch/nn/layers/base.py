@@ -18,7 +18,9 @@ passes down, so its bits differ from JAX's.
 """
 from __future__ import annotations
 
-from typing import Any, Optional, Tuple
+import contextlib
+import threading
+from typing import Any, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -29,6 +31,25 @@ from ..inputs import (InputTypeConvolutional, InputTypeConvolutionalFlat,
 from ..weights import init_weights
 
 
+_tape = threading.local()
+
+
+@contextlib.contextmanager
+def dropout_masks(masks: List[torch.Tensor], replay: bool):
+    """Within the block, the dropout masks this thread draws are appended
+    to ``masks`` (``replay`` False) or, with ``replay``, taken from it in
+    order instead of drawn. Gradient checkpointing's recompute replays the
+    first forward's masks this way (``nn/multilayer.py`` ``run_layer``):
+    ``torch.utils.checkpoint`` restores only the global generators, not
+    the explicit one dropout draws from."""
+    prev = getattr(_tape, "state", None)
+    _tape.state = (masks, replay, [0])
+    try:
+        yield
+    finally:
+        _tape.state = prev
+
+
 def maybe_dropout(x, retain_prob, gen: Optional[torch.Generator],
                   train: bool):
     """Inverted dropout on a layer's input: ``retain_prob`` is the RETAIN
@@ -37,7 +58,16 @@ def maybe_dropout(x, retain_prob, gen: Optional[torch.Generator],
     if not train or retain_prob is None or retain_prob <= 0 \
             or retain_prob >= 1:
         return x
-    keep = torch.rand(x.shape, generator=gen, device=x.device) < retain_prob
+    tape = getattr(_tape, "state", None)
+    if tape is not None and tape[1]:
+        masks, _, at = tape
+        keep = masks[at[0]]
+        at[0] += 1
+    else:
+        keep = torch.rand(x.shape, generator=gen,
+                          device=x.device) < retain_prob
+        if tape is not None:
+            tape[0].append(keep)
     return torch.where(keep, x / retain_prob, 0.0).to(x.dtype)
 
 

@@ -1,53 +1,123 @@
 """MultiLayerNetwork: the sequential-stack executor.
 
-Counterpart of ``deeplearning4j_tpu/nn/multilayer.py`` (``:43-322``):
+Counterpart of ``deeplearning4j_tpu/nn/multilayer.py`` (``:43-393``):
 ``init``, the forward ``apply_fn`` with its feature-mask flow and the
 recurrent-state carry (``rnn_states`` / ``collect_rnn_states``,
 ``:80-163``), ``loss_fn`` with the chunk carry (``:165-222``), ``output``,
 ``feed_forward``, ``score``, the streaming ``rnn_time_step`` and
 ``rnn_clear_previous_state`` (``:263-284``), ``params_flat`` /
-``set_params_flat`` / ``num_params`` in the layers' ``param_order``, and
-``fit`` (truncated BPTT when the configuration asks for it) with
-``set_listeners``. A layer's input preprocessor (``conf.preprocessor(i)``)
-runs before it, in the forward and in the loss, as the reference's walk
-runs it.
+``set_params_flat`` / ``num_params`` in the layers' ``param_order``,
+``fit`` (``:332-353``; truncated BPTT when the configuration asks for it)
+with ``set_listeners``, and ``clone`` (``:383-393``). A layer's input
+preprocessor (``conf.preprocessor(i)``) runs before it, in the forward and
+in the loss, as the reference's walk runs it.
+
+Mixed precision and gradient checkpointing (``:100-147``) are read from
+the configuration at every forward, so a caller may set
+``conf.compute_dtype`` on a built network, as a JSON configuration
+carries it. Under ``compute_dtype`` (``cast_floats``, ``run_layer``) each
+layer reads its parameters as casts to the compute dtype, inputs and
+carried recurrent states are cast down, and activations, final recurrent
+states and the per-example loss come back in the master dtype, so the
+gradients reach the master parameters in their own dtype through the
+casts' backward. With ``gradient_checkpointing`` each layer without a
+state carry runs under ``torch.utils.checkpoint`` and its dropout masks
+are replayed in the recompute.
 
 The network is an ``nn.Module`` on one device, given at construction
 (default: the CUDA card); its layers live in ``self.layers`` and their
 parameters are the modules' own, so ``loss_fn`` takes none: gradients come
 from ``torch.autograd``. Parameters, updater state and gradients are keyed
-by layer index. ``evaluate`` and ``pretrain`` (ROADMAP A5), ``clone`` and
-a ``compute_dtype`` (A10) raise ``NotImplementedError``; model zips are
-``util/serialization.py``.
+by layer index. ``evaluate`` and ``pretrain`` raise naming ROADMAP A5;
+model zips are ``util/serialization.py``.
 """
 from __future__ import annotations
 
+import contextlib
+import copy
 from typing import List, Optional
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..device import DeviceLike, resolve_device, torch_dtype
 from ..optimize.solver import score_listeners
 from ..optimize.updaters import MultiLayerUpdater
 from .conf.config import MultiLayerConfiguration
+from .layers.base import dropout_masks
 
 
-def refuse_compute_dtype(conf) -> None:
-    """A configuration read from JSON may ask for mixed precision, which
-    changes the forward's numbers; the port has none yet."""
-    if getattr(conf, "compute_dtype", None):
-        raise NotImplementedError(
-            f"compute_dtype={conf.compute_dtype!r}: mixed precision is not "
-            f"ported yet (ROADMAP A10)")
+def cast_floats(tree, dtype):
+    """Cast every floating tensor of a nest of lists, tuples and dicts to
+    ``dtype`` (the mixed-precision boundary; integer tensors, token ids,
+    and None pass through)."""
+    if isinstance(tree, torch.Tensor):
+        return tree.to(dtype) if tree.is_floating_point() else tree
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(cast_floats(t, dtype) for t in tree)
+    if isinstance(tree, dict):
+        return {k: cast_floats(v, dtype) for k, v in tree.items()}
+    return tree
+
+
+def compute_dtype_of(conf) -> Optional[torch.dtype]:
+    """The configuration's compute dtype, or None without mixed
+    precision."""
+    cd = getattr(conf, "compute_dtype", None)
+    return torch_dtype(cd) if cd else None
+
+
+@contextlib.contextmanager
+def params_as(module: nn.Module, dtype: Optional[torch.dtype]):
+    """Within the block, every floating parameter of ``module`` (and its
+    children) reads as its cast to ``dtype``, a differentiable copy;
+    nothing changes when ``dtype`` is None."""
+    swaps = [] if dtype is None else [
+        (m, n, p) for m in module.modules()
+        for n, p in m._parameters.items()
+        if p is not None and p.is_floating_point() and p.dtype != dtype]
+    for m, n, p in swaps:
+        m._parameters[n] = p.to(dtype)
+    try:
+        yield
+    finally:
+        for m, n, p in swaps:
+            m._parameters[n] = p
+
+
+def run_layer(layer: nn.Module, call, inputs, *,
+              compute_dtype: Optional[torch.dtype] = None,
+              remat: bool = False):
+    """``call(*inputs)``, a call of ``layer``, under the network's policy:
+    the layer's parameters cast to ``compute_dtype`` (``params_as``) and,
+    with ``remat``, under ``torch.utils.checkpoint`` (non-reentrant, no
+    global generator state kept: the layers draw from an explicit one), so
+    its activations are recomputed in the backward instead of kept. The
+    first forward's dropout masks are kept and replayed in the recompute
+    (``layers.base.dropout_masks``), so the recompute computes what the
+    forward did."""
+    def body(*xs):
+        with params_as(layer, compute_dtype):
+            return call(*xs)
+    if not remat:
+        return body(*inputs)
+    masks, runs = [], [0]
+
+    def recomputable(*xs):
+        replay = runs[0] > 0
+        runs[0] += 1
+        with dropout_masks(masks, replay):
+            return body(*xs)
+    return checkpoint(recomputable, *inputs, use_reentrant=False,
+                      preserve_rng_state=False)
 
 
 class MultiLayerNetwork(nn.Module):
     def __init__(self, conf: MultiLayerConfiguration, *,
                  device: DeviceLike = None):
         super().__init__()
-        refuse_compute_dtype(conf)
         self.conf = conf
         self.device = resolve_device(device)
         self.dtype = torch_dtype(conf.dtype)
@@ -117,19 +187,21 @@ class MultiLayerNetwork(nn.Module):
             off += n
 
     # --------------------------------------------------------------- forward
-    def apply_fn(self, x, *, train: bool = False,
+    def _forward(self, x, *, train: bool = False,
                  gen: Optional[torch.Generator] = None,
                  to_layer: Optional[int] = None, features_mask=None,
                  rnn_states=None, collect_rnn_states: bool = False):
-        """Forward through layers 0..``to_layer`` (default: all). Returns
-        the list of layer outputs, and with ``collect_rnn_states`` also
-        each recurrent layer's final (h, c) (None for other layers). A
-        recurrent layer starts from ``rnn_states[i]`` when given. A [B,T]
-        feature mask multiplies the input and reaches mask-aware layers
-        until the time axis collapses."""
+        """The forward in the compute dtype (see ``apply_fn``): the layer
+        outputs and each recurrent layer's final (h, c), None for the
+        others."""
         if not self.initialized:
             raise RuntimeError("call init() before running the network")
         n = len(self.layers) if to_layer is None else to_layer + 1
+        cd = compute_dtype_of(self.conf)
+        remat = getattr(self.conf, "gradient_checkpointing", False)
+        if cd is not None:
+            x = cast_floats(x, cd)
+            rnn_states = cast_floats(rnn_states, cd)
         acts, rnn_out = [], [None] * len(self.layers)
         cur_mask = features_mask
         if features_mask is not None:
@@ -140,20 +212,45 @@ class MultiLayerNetwork(nn.Module):
             if pre is not None:
                 x = pre.apply(x)
             layer = self.layers[i]
-            kwargs = {}
+            kw = {}
             if getattr(layer, "accepts_mask", False) and cur_mask is not None \
                     and cur_mask.dim() == 2 and x.dim() == 3:
-                kwargs["mask"] = cur_mask
+                kw["mask"] = cur_mask
             init = rnn_states[i] if rnn_states is not None else None
             if hasattr(layer, "apply_with_final_state") and \
                     (collect_rnn_states or init is not None):
-                x, rnn_out[i] = layer.apply_with_final_state(
-                    x, train=train, gen=gen, initial_state=init, **kwargs)
+                x, rnn_out[i] = run_layer(
+                    layer, lambda xx, _l=layer, _kw=kw, _init=init:
+                    _l.apply_with_final_state(xx, train=train, gen=gen,
+                                              initial_state=_init, **_kw),
+                    (x,), compute_dtype=cd)
             else:
-                x = layer(x, train=train, gen=gen, **kwargs)
+                x = run_layer(layer, lambda xx, _l=layer, _kw=kw:
+                              _l(xx, train=train, gen=gen, **_kw),
+                              (x,), compute_dtype=cd, remat=remat)
             acts.append(x)
             if x.dim() < 3:
                 cur_mask = None           # the time axis collapsed
+        return acts, rnn_out
+
+    def apply_fn(self, x, *, train: bool = False,
+                 gen: Optional[torch.Generator] = None,
+                 to_layer: Optional[int] = None, features_mask=None,
+                 rnn_states=None, collect_rnn_states: bool = False):
+        """Forward through layers 0..``to_layer`` (default: all). Returns
+        the list of layer outputs, and with ``collect_rnn_states`` also
+        each recurrent layer's final (h, c) (None for other layers). A
+        recurrent layer starts from ``rnn_states[i]`` when given. A [B,T]
+        feature mask multiplies the input and reaches mask-aware layers
+        until the time axis collapses. Under a compute dtype the outputs
+        and final states come back in the master dtype."""
+        acts, rnn_out = self._forward(
+            x, train=train, gen=gen, to_layer=to_layer,
+            features_mask=features_mask, rnn_states=rnn_states,
+            collect_rnn_states=collect_rnn_states)
+        if compute_dtype_of(self.conf) is not None:
+            acts = cast_floats(acts, self.dtype)
+            rnn_out = cast_floats(rnn_out, self.dtype)
         return (acts, rnn_out) if collect_rnn_states else acts
 
     def loss_fn(self, x, labels, *, train: bool = True,
@@ -161,32 +258,39 @@ class MultiLayerNetwork(nn.Module):
                 features_mask=None, rnn_states=None,
                 collect_rnn_states: bool = False):
         """Mean per-example loss (or the sum over a [B,T] labels mask's
-        active steps) plus regularization. With ``collect_rnn_states`` it
-        returns (loss, final recurrent states): the tBPTT chunk carry."""
+        active steps) plus regularization on the master parameters. With
+        ``collect_rnn_states`` it returns (loss, final recurrent states in
+        the master dtype): the tBPTT chunk carry. Under a compute dtype the
+        head runs in it and the per-example loss is reduced in the master
+        dtype."""
         out_layer = self.layers[-1]
         if not hasattr(out_layer, "compute_loss_per_example"):
             raise ValueError("Last layer must be an output layer to compute "
                              "loss")
+        cd = compute_dtype_of(self.conf)
         rnn_out = [None] * len(self.layers)
         if len(self.layers) > 1:
-            res = self.apply_fn(x, train=train, gen=gen,
-                                to_layer=len(self.layers) - 2,
-                                features_mask=features_mask,
-                                rnn_states=rnn_states,
-                                collect_rnn_states=collect_rnn_states)
-            acts, rnn_out = res if collect_rnn_states else (res, rnn_out)
+            acts, rnn_out = self._forward(
+                x, train=train, gen=gen, to_layer=len(self.layers) - 2,
+                features_mask=features_mask, rnn_states=rnn_states,
+                collect_rnn_states=collect_rnn_states)
             feed = acts[-1]
         else:
-            feed = x
+            feed = x if cd is None else cast_floats(x, cd)
             if features_mask is not None:
-                m = features_mask.to(x.dtype)
+                m = features_mask.to(feed.dtype)
                 feed = feed * m.reshape(tuple(m.shape)
                                         + (1,) * (feed.dim() - m.dim()))
         pre = self.conf.preprocessor(len(self.layers) - 1)
         if pre is not None:
             feed = pre.apply(feed)
-        per_ex = out_layer.compute_loss_per_example(feed, labels, labels_mask,
-                                                    train=train, gen=gen)
+        per_ex = run_layer(
+            out_layer, lambda f: out_layer.compute_loss_per_example(
+                f, labels, labels_mask, train=train, gen=gen),
+            (feed,), compute_dtype=cd)
+        if cd is not None:
+            per_ex = per_ex.to(self.dtype)          # reduced at master dtype
+            rnn_out = cast_floats(rnn_out, self.dtype)
         if labels_mask is not None and per_ex.dim() == 1 and \
                 labels_mask.dim() >= 2:
             score = per_ex.sum() / torch.clamp(labels_mask.sum(), min=1.0)
@@ -258,19 +362,28 @@ class MultiLayerNetwork(nn.Module):
 
     def fit(self, data=None, labels=None, *, epochs: int = 1,
             batch_size: Optional[int] = None, iterator=None, dataset=None,
-            async_prefetch: bool = False,
-            steps_per_dispatch: int = 1) -> "MultiLayerNetwork":
-        """Train with the per-step SGD path of ``optimize.solver.Solver``,
-        in tBPTT chunks when the configuration's backprop type is
-        ``"tbptt"``. Device prefetch and fused multi-step windows are not
-        ported yet (ROADMAP A10)."""
+            async_prefetch: bool = True, prefetch_depth: int = 2,
+            steps_per_dispatch: int = 1,
+            skip_first_batches: int = 0) -> "MultiLayerNetwork":
+        """Train with ``optimize.solver.Solver``, in tBPTT chunks when the
+        configuration's backprop type is ``"tbptt"``. ``async_prefetch`` /
+        ``prefetch_depth``: iterator feeds run through a
+        ``DevicePrefetchIterator`` (batch N+1 is staged and copied to the
+        device while step N computes). ``steps_per_dispatch=K``: windows of
+        K same-shape batches run as one program (a CUDA graph of the step
+        replayed K times on the card), equal to K single steps; tBPTT and
+        ragged windows run per step. ``skip_first_batches=S``: the first S
+        batches of the first epoch are consumed, not trained (the
+        mid-epoch resume)."""
         if not hasattr(self, "_solver_inst"):
             from ..optimize.solver import Solver
             self._solver_inst = Solver(self)
         self._solver_inst.fit(data=data, labels=labels, epochs=epochs,
                               batch_size=batch_size, iterator=iterator,
                               dataset=dataset, async_prefetch=async_prefetch,
-                              steps_per_dispatch=steps_per_dispatch)
+                              prefetch_depth=prefetch_depth,
+                              steps_per_dispatch=steps_per_dispatch,
+                              skip_first_batches=skip_first_batches)
         return self
 
     def pretrain(self, iterator, epochs: int = 1):
@@ -281,5 +394,22 @@ class MultiLayerNetwork(nn.Module):
         raise NotImplementedError("evaluation (eval/Evaluation) is not "
                                   "ported yet (ROADMAP A5)")
 
-    def clone(self):
-        raise NotImplementedError("clone is not ported yet (ROADMAP A10)")
+    def clone(self) -> "MultiLayerNetwork":
+        """A network of a deep copy of the configuration on the same
+        device, with real copies of the parameters and the updater state
+        (the layers are the configuration's modules, so copying it copies
+        them). As the reference's, the iteration count and the listeners
+        are not carried."""
+        other = MultiLayerNetwork(copy.deepcopy(self.conf),
+                                  device=self.device)
+        if self.initialized:
+            other.opt_state = copy_state(self.opt_state)
+            other.initialized = True
+        return other
+
+
+def copy_state(state):
+    """A real copy of a nest of dicts of tensors (the updater state)."""
+    if isinstance(state, torch.Tensor):
+        return state.detach().clone()
+    return {k: copy_state(v) for k, v in state.items()}

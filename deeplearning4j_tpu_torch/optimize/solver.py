@@ -1,27 +1,44 @@
-"""Solver: the training loop's per-step SGD path and truncated BPTT.
+"""Solver: the training loop.
 
 Counterpart of ``deeplearning4j_tpu/optimize/solver.py``:
 ``train_step_math`` (``:33-74``) as loss -> ``torch.autograd.grad`` ->
 updater, the tBPTT chunk step and loop (``_get_tbptt_step`` /
-``_fit_tbptt_batch``, ``:168-247``), and ``Solver.fit``'s per-step branch
-(``:250-304``, ``:508-581``) with its iteration counter and ``cast_feed``
-(``:725-750``), which keeps integer token ids and casts float features,
+``_fit_tbptt_batch``, ``:168-247``), ``Solver.fit`` and ``_fit_epoch``
+(``:250-597``) and the feed casts (``_is_multi``, ``cast_feed``,
+``:718-750``), which keep integer token ids and cast float features,
 labels and masks to the net's dtype. It trains a ``ComputationGraph`` or a
 ``MultiLayerNetwork``: the updater's layers are keyed by vertex name or by
 layer index.
 
-Each step runs eagerly: the forward, the backward (through the flash or
-LSTM kernels on the card) and the in-place updater. Under tBPTT
-(``backprop_type == "tbptt"``) a batch's time-series features, labels and
-masks are cut into chunks of ``tbptt_fwd_length`` steps; each chunk is one
-iteration, and each recurrent layer's final (h, c) carries into the next
-chunk detached, as the reference's ``stop_gradient``. Dropout draws from
-one ``torch.Generator`` on the net's device, reseeded every iteration from
-the configuration's seed and the iteration count, as the reference folds
-the iteration into its key. Fused multi-step windows, device prefetch
-(ROADMAP A10), tBPTT on a ComputationGraph (A10), second-order solvers
-(A5), multi-input feeds and the mid-epoch resume (``skip_first_batches``,
-with checkpointing, A10) are not ported.
+- **The step.** The forward, the backward (through the flash or LSTM
+  kernels on the card) and the in-place updater at the iteration, which is
+  a 0-dim integer tensor on the net's device filled before each step
+  (``optimize/updaters.py``). Dropout draws from one ``torch.Generator``
+  on the net's device, reseeded every iteration from the configuration's
+  seed and the iteration count, as the reference folds the iteration into
+  its key.
+- **Feeds.** Iterator feeds run through a ``DevicePrefetchIterator`` by
+  default (``async_prefetch=True, prefetch_depth=2``, as the reference's),
+  so batch N+1 is staged and copied while step N computes. Lists of arrays
+  (``MultiDataSet``s) feed a multi-input, multi-output graph.
+- **Windows.** ``steps_per_dispatch=K`` groups the batches into windows of
+  K same-shape batches (``iter_windows``, after ``skip_first_batches``).
+  On the card a window's steps are replays of one captured step
+  (``optimize/step_graph.py``), so its host cost is K copies and replays;
+  on the CPU they run eagerly. Either way a step is ``train_step_math`` at
+  the step's iteration and seed, so a window equals K single steps. Its
+  losses are device tensors handed to the listeners after the window
+  (the reference's deferred-score protocol: no host read a step). A
+  ragged tail or an unstackable group runs per step; tBPTT ignores K.
+- **tBPTT** (``backprop_type == "tbptt"``), on either network kind: a
+  batch's time-series features, labels and masks are cut into chunks of
+  ``tbptt_fwd_length`` steps; each chunk is one iteration, and each
+  recurrent layer's final (h, c) carries into the next chunk detached, as
+  the reference's ``stop_gradient``.
+
+Second-order solvers and layerwise pretraining (ROADMAP A5), the
+telemetry spans, perf accounting and training watch inside ``fit`` (A8)
+are not ported.
 """
 from __future__ import annotations
 
@@ -30,10 +47,13 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..datasets.dataset import ListDataSetIterator
+from ..datasets.dataset import DataSet, ListDataSetIterator
+from ..datasets.prefetch import (BatchWindow, DevicePrefetchIterator,
+                                 iter_windows, skip_batches)
+from .step_graph import TrainStepGraph, binding, feed_signature
 
 
-def _descend(net, loss, it: int) -> None:
+def _descend(net, loss, it: torch.Tensor) -> None:
     """Gradients of ``loss`` with respect to every parameter of a layer
     that is not frozen, then the updater in place at iteration ``it``."""
     params = net.param_dicts()
@@ -50,9 +70,10 @@ def _descend(net, loss, it: int) -> None:
 
 def train_step_math(net, x, y, lmask=None, fmask=None, *,
                     gen: Optional[torch.Generator] = None,
-                    it: int) -> torch.Tensor:
-    """One step: the loss at the current parameters, then ``_descend``.
-    Returns the loss (detached)."""
+                    it: torch.Tensor) -> torch.Tensor:
+    """The single-step update every SGD path runs: the loss at the current
+    parameters, then ``_descend`` at the iteration tensor ``it``. Returns
+    the loss (detached)."""
     loss = net.loss_fn(x, y, train=True, gen=gen, labels_mask=lmask,
                        features_mask=fmask)
     _descend(net, loss, it)
@@ -60,7 +81,8 @@ def train_step_math(net, x, y, lmask=None, fmask=None, *,
 
 
 def tbptt_step_math(net, x, y, lmask, fmask, rnn_states, *,
-                    gen: Optional[torch.Generator] = None, it: int):
+                    gen: Optional[torch.Generator] = None,
+                    it: torch.Tensor):
     """One tBPTT chunk: the loss from the carried ``rnn_states`` (None on
     the first chunk: zero states), then ``_descend``. Returns the loss and
     each recurrent layer's final (h, c), both detached."""
@@ -88,13 +110,32 @@ def score_listeners(listeners) -> list:
     return list(listeners)
 
 
+def _is_multi(x) -> bool:
+    """True for MultiDataSet-style lists of per-input arrays (a plain
+    nested list of numbers is single-input data)."""
+    return (isinstance(x, (list, tuple)) and len(x) > 0
+            and isinstance(x[0], (np.ndarray, torch.Tensor)))
+
+
 def cast_feed(x, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
-    """The feed-boundary cast: onto ``device``; integer arrays (token ids)
-    keep their type, everything else takes ``dtype``."""
+    """The feed-boundary cast: onto ``device`` (a tensor already there is
+    not copied); integer arrays (token ids) keep their type, everything
+    else takes ``dtype``."""
     t = x if isinstance(x, torch.Tensor) else torch.as_tensor(np.asarray(x))
     keep = not (t.is_floating_point() or t.is_complex()
                 or t.dtype == torch.bool)
     return t.to(device=device, dtype=None if keep else dtype)
+
+
+def cast_any(x, dtype: torch.dtype, device: torch.device):
+    """``cast_feed`` of one array or of a list of them (a MultiDataSet's
+    features, labels or masks; None entries stay None)."""
+    if x is None:
+        return None
+    if isinstance(x, (list, tuple)):
+        return [None if v is None else cast_feed(v, dtype, device)
+                for v in x]
+    return cast_feed(x, dtype, device)
 
 
 def _refuse_unported_training(net) -> None:
@@ -109,38 +150,61 @@ def _refuse_unported_training(net) -> None:
     if getattr(conf, "pretrain", False):
         raise NotImplementedError("layerwise pretraining is not ported yet "
                                   "(ROADMAP A5)")
-    if getattr(conf, "gradient_checkpointing", False):
-        raise NotImplementedError("gradient checkpointing is not ported yet "
-                                  "(ROADMAP A10)")
-    if hasattr(conf, "vertex_names") and \
-            getattr(conf, "backprop_type", "standard") == "tbptt":
-        raise NotImplementedError("truncated BPTT on a ComputationGraph is "
-                                  "not ported yet (ROADMAP A10)")
 
 
 class Solver:
     def __init__(self, net):
         self.net = net
+        self._gen: Optional[torch.Generator] = None
+        self._it: Optional[torch.Tensor] = None
+        self._graphs = {}              # feed signature -> TrainStepGraph
+        self._made = []                # every graph made (released ones too)
+        # the last fit's DevicePrefetchIterator (its waits), or None
+        self.prefetcher: Optional[DevicePrefetchIterator] = None
 
+    # -------------------------------------------------------- the step
+    def _at(self, it: int) -> torch.Tensor:
+        """Set the dropout generator's seed and the iteration tensor for
+        iteration ``it``; returns the tensor."""
+        net = self.net
+        if self._gen is None:
+            self._gen = torch.Generator(device=net.device)
+            self._it = torch.zeros((), dtype=torch.int64, device=net.device)
+        self._gen.manual_seed(((net.conf.seed + 7919) << 32) + it)
+        self._it.fill_(it)
+        return self._it
+
+    def _feed(self, ds):
+        """A batch's (x, y, labels mask, features mask) on the device."""
+        net = self.net
+        return [cast_any(v, net.dtype, net.device)
+                for v in (ds.features, ds.labels, ds.labels_mask,
+                          ds.features_mask)]
+
+    def _step(self, feed, it: int) -> torch.Tensor:
+        """One eager step at iteration ``it``; returns its loss."""
+        it = self._at(it)
+        return train_step_math(self.net, *feed, gen=self._gen, it=it)
+
+    # ------------------------------------------------------------- fit
     def fit(self, data=None, labels=None, *, epochs=1, batch_size=None,
-            iterator=None, dataset=None, async_prefetch: bool = False,
-            steps_per_dispatch: int = 1):
+            iterator=None, dataset=None, async_prefetch: bool = True,
+            prefetch_depth: int = 2, steps_per_dispatch: int = 1,
+            skip_first_batches: int = 0):
         net = self.net
         _refuse_unported_training(net)
         if steps_per_dispatch < 1:
             raise ValueError("steps_per_dispatch must be >= 1")
-        if steps_per_dispatch > 1:
-            raise NotImplementedError("fused multi-step windows "
-                                      "(steps_per_dispatch > 1) are not "
-                                      "ported yet (ROADMAP A10)")
-        if async_prefetch:
-            raise NotImplementedError("device prefetch (async_prefetch) is "
-                                      "not ported yet (ROADMAP A10)")
+        if skip_first_batches < 0:
+            raise ValueError("skip_first_batches must be >= 0")
         if not net.initialized:
             net.init()
         if iterator is None:
             if dataset is not None:
                 iterator = ListDataSetIterator([dataset])
+            elif _is_multi(data) or _is_multi(labels):
+                # multi-input / multi-output: one batch, fed whole
+                iterator = ListDataSetIterator([DataSet(data, labels)])
             else:
                 if not isinstance(data, torch.Tensor):
                     data = np.asarray(data)
@@ -149,60 +213,148 @@ class Solver:
                 iterator = ListDataSetIterator(
                     features=data, labels=labels,
                     batch_size=batch_size or data.shape[0])
-        gen = torch.Generator(device=net.device)
-        base_seed = net.conf.seed + 7919
-        dtype, device = net.dtype, net.device
+        if isinstance(iterator, DevicePrefetchIterator):
+            feed = iterator
+        elif async_prefetch and prefetch_depth >= 1:
+            feed = DevicePrefetchIterator(iterator, prefetch_depth,
+                                          device=net.device, dtype=net.dtype)
+        else:       # prefetch_depth < 1 opts out, as async_prefetch=False
+            feed = iterator
+        self.prefetcher = (feed if isinstance(feed, DevicePrefetchIterator)
+                           else None)
         tbptt = getattr(net.conf, "backprop_type", "standard") == "tbptt"
-        for _ in range(epochs):
-            for ds in iterator:
-                x = cast_feed(ds.features, dtype, device)
-                y = cast_feed(ds.labels, dtype, device)
-                lmask = None if ds.labels_mask is None \
-                    else cast_feed(ds.labels_mask, dtype, device)
-                fmask = None if ds.features_mask is None \
-                    else cast_feed(ds.features_mask, dtype, device)
-                if tbptt:
-                    loss = self._fit_tbptt_batch(x, y, lmask, fmask, gen,
-                                                 base_seed)
-                    done = net.iteration_count - 1
-                else:
-                    gen.manual_seed((base_seed << 32) + net.iteration_count)
-                    loss = train_step_math(net, x, y, lmask, fmask, gen=gen,
-                                           it=net.iteration_count)
-                    done = net.iteration_count
-                    net.iteration_count += 1
-                for lis in net.listeners:
-                    lis.iteration_done(net, done, loss)
-            if hasattr(iterator, "reset"):
-                iterator.reset()
+        k = 1 if tbptt else steps_per_dispatch   # tBPTT runs per step
+        for epoch in range(epochs):
+            self._fit_epoch(feed, iterator, k, tbptt,
+                            skip_first_batches if epoch == 0 else 0)
         return net
 
-    def _fit_tbptt_batch(self, x, y, lmask, fmask, gen, base_seed):
-        """Chunked tBPTT over the time axis: [B,T,F] features and labels
-        and [B,T] masks are cut into chunks of ``tbptt_fwd_length`` steps,
-        one iteration each; static 2-D arrays feed every chunk whole.
-        Returns the last chunk's loss."""
+    def _fit_epoch(self, feed, iterator, k: int, tbptt: bool,
+                   skip: int) -> None:
         net = self.net
-        time_lens = {v.shape[1] for v in (x, y) if v.dim() == 3}
+        # the mid-epoch resume: the first ``skip`` batches were trained by
+        # the run that wrote the checkpoint (iteration_count covers them),
+        # so they are consumed here, before windowing
+        src = skip_batches(feed, skip) if skip else iter(feed)
+        for item in (iter_windows(src, k) if k > 1 else src):
+            if isinstance(item, BatchWindow):
+                losses = self._window([self._feed(ds)
+                                       for ds in item.datasets])
+                # listeners after the window: losses[i] is a device slice
+                for i in range(len(item)):
+                    for lis in net.listeners:
+                        lis.iteration_done(net, net.iteration_count,
+                                           losses[i])
+                    net.iteration_count += 1
+                continue
+            x, y, lmask, fmask = self._feed(item)
+            if tbptt:
+                loss = self._fit_tbptt_batch(x, y, lmask, fmask)
+                done = net.iteration_count - 1
+            else:
+                loss = self._step([x, y, lmask, fmask], net.iteration_count)
+                done = net.iteration_count
+                net.iteration_count += 1
+            for lis in net.listeners:
+                lis.iteration_done(net, done, loss)
+        if hasattr(iterator, "reset"):
+            iterator.reset()
+
+    # ---------------------------------------------------------- windows
+    def _window(self, feeds) -> torch.Tensor:
+        """Run the K steps of a window from iteration
+        ``net.iteration_count`` on (without advancing it); returns their
+        losses [K]. On the card: the window's graph, captured after its
+        first step when this feed signature has none yet."""
+        net = self.net
+        it0 = net.iteration_count
+        if net.device.type != "cuda":
+            return torch.stack([self._step(feed, it0 + i)
+                                for i, feed in enumerate(feeds)])
+        key = feed_signature(feeds[0]) + (
+            getattr(net.conf, "compute_dtype", None),
+            bool(getattr(net.conf, "gradient_checkpointing", False)))
+        graph = self._graphs.get(key)
+        if graph is not None and graph.binding != binding(net):
+            graph.release()           # the network's tensors were replaced
+            graph = None
+        out, start = None, 0
+        if graph is None:
+            # a stream of its own for each capture, as the decode graph's
+            side = torch.cuda.Stream(device=net.device)
+            cur = torch.cuda.current_stream(net.device)
+            side.wait_stream(cur)
+            with torch.cuda.stream(side):      # the warm step: step 0
+                loss = self._step(feeds[0], it0)
+            cur.wait_stream(side)
+            out = torch.empty((len(feeds),), dtype=loss.dtype,
+                              device=net.device)
+            out[0].copy_(loss)
+            graph = TrainStepGraph(
+                net, feeds[1], lambda f: train_step_math(
+                    net, *f, gen=self._gen, it=self._it),
+                self._gen, side)
+            self._graphs[key] = graph
+            self._made.append(graph)
+            start = 1
+        for i in range(start, len(feeds)):
+            self._at(it0 + i)
+            loss = graph.run(feeds[i])
+            if out is None:
+                out = torch.empty((len(feeds),), dtype=loss.dtype,
+                                  device=net.device)
+            out[i].copy_(loss)
+        return out
+
+    def graph_stats(self) -> dict:
+        """The window graphs' captures and replays so far, released graphs
+        included, and each counted kernel's launches made by replays (its
+        captured launches times the replays)."""
+        launches = {}
+        for g in self._made:
+            for name, n in g.launches.items():
+                launches[name] = launches.get(name, 0) + n * g.replays
+        return {"captures": len(self._made),
+                "replays": sum(g.replays for g in self._made),
+                "launches_in_replays": launches}
+
+    # ------------------------------------------------------------ tBPTT
+    def _fit_tbptt_batch(self, x, y, lmask, fmask):
+        """Chunked tBPTT over the time axis for one network input and label
+        or a list of them (a graph's): [B,T,F] time series and [B,T] masks
+        are cut into chunks of ``tbptt_fwd_length`` steps, one iteration
+        each; static 2-D arrays feed every chunk whole. Returns the last
+        chunk's loss."""
+        net = self.net
+        seqs = lambda v: [u for u in (v if isinstance(v, list) else [v])
+                          if u is not None and u.dim() == 3]
+        time_lens = {v.shape[1] for v in seqs(x) + seqs(y)}
         if not time_lens:
             raise ValueError("tBPTT requires a [B,T,F] time-series input or "
                              "label")
         if len(time_lens) > 1:
-            raise ValueError(f"tBPTT requires the time-series input and "
+            raise ValueError(f"tBPTT requires the time-series inputs and "
                              f"labels to share one sequence length, got "
                              f"{sorted(time_lens)}")
         T = time_lens.pop()
         k = net.conf.tbptt_fwd_length
-        cut3 = lambda v, t0, t1: v[:, t0:t1] if v.dim() == 3 else v
-        cut2 = lambda m, t0, t1: (m[:, t0:t1] if m is not None
-                                  and m.dim() == 2 else m)
+
+        def cut3(v, t0, t1):
+            if isinstance(v, list):
+                return [cut3(u, t0, t1) for u in v]
+            return v[:, t0:t1] if v is not None and v.dim() == 3 else v
+
+        def cut2(m, t0, t1):
+            if isinstance(m, list):
+                return [cut2(u, t0, t1) for u in m]
+            return m[:, t0:t1] if m is not None and m.dim() == 2 else m
+
         rnn_states, loss = None, None
         for t0 in range(0, T, k):
             t1 = min(t0 + k, T)
-            gen.manual_seed((base_seed << 32) + net.iteration_count)
+            it = self._at(net.iteration_count)
             loss, rnn_states = tbptt_step_math(
                 net, cut3(x, t0, t1), cut3(y, t0, t1), cut2(lmask, t0, t1),
-                cut2(fmask, t0, t1), rnn_states, gen=gen,
-                it=net.iteration_count)
+                cut2(fmask, t0, t1), rnn_states, gen=self._gen, it=it)
             net.iteration_count += 1
         return loss

@@ -14,19 +14,37 @@ bf16 net), which is why ``torch.optim`` is not used: it keeps other state
 types and orders the arithmetic otherwise. ``MultiLayerUpdater.update``
 applies the result in place under ``torch.no_grad()``.
 
-Schedules take the iteration as a Python int and return a Python float.
+The iteration is a tensor, as the reference traces ``it`` as an int32
+scalar in one program for the per-step and the window path
+(``deeplearning4j_tpu/optimize/solver.py:33-74, 110-166``): the solver
+passes a 0-dim integer tensor on the network's device, and every term that
+depends on it (a schedule's learning rate, Adam's ``beta ** t``) is a
+float64 0-dim tensor computed on that device, never a Python number. So a
+captured training step (``optimize/step_graph.py``) reads the iteration
+of each replay, not the one of its capture, and a window is K single steps
+by construction. A float64 term meets a float32 (or bf16) tensor as a
+scalar: it is rounded to the tensor's type, as the reference's weakly
+typed float64 scalars are under x64. A Python int is accepted too (it
+becomes a CPU tensor), which is how the parity tests call a rule alone.
 The rules and schedules are registered for JSON serde
 (``nn/conf/serde.py``) under the reference's names.
 """
 from __future__ import annotations
 
-import math
 from dataclasses import dataclass, field
 from typing import Any, Dict, Mapping, Optional
 
 import torch
 
 from ..nn.conf.serde import register
+
+
+def step_tensor(step) -> torch.Tensor:
+    """The iteration as a float64 0-dim tensor, on the device of ``step``
+    when it is a tensor (on the CPU for a Python int)."""
+    if isinstance(step, torch.Tensor):
+        return step.to(torch.float64)
+    return torch.tensor(float(step), dtype=torch.float64)
 
 
 # --------------------------------------------------------------------------
@@ -39,7 +57,7 @@ class ExponentialSchedule:
     decay_rate: float = 0.99
 
     def __call__(self, base_lr, step):
-        return base_lr * self.decay_rate ** step
+        return base_lr * self.decay_rate ** step_tensor(step)
 
 
 @register
@@ -49,7 +67,7 @@ class InverseSchedule:
     power: float = 1.0
 
     def __call__(self, base_lr, step):
-        return base_lr / (1.0 + self.gamma * step) ** self.power
+        return base_lr / (1.0 + self.gamma * step_tensor(step)) ** self.power
 
 
 @register
@@ -59,7 +77,7 @@ class PolySchedule:
     max_iter: int = 10000
 
     def __call__(self, base_lr, step):
-        frac = min(step / self.max_iter, 1.0)
+        frac = torch.clamp(step_tensor(step) / self.max_iter, max=1.0)
         return base_lr * (1.0 - frac) ** self.power
 
 
@@ -70,7 +88,8 @@ class SigmoidSchedule:
     step_size: int = 1000
 
     def __call__(self, base_lr, step):
-        return base_lr / (1.0 + math.exp(-self.gamma * (step - self.step_size)))
+        return base_lr / (1.0 + torch.exp(
+            -self.gamma * (step_tensor(step) - self.step_size)))
 
 
 @register
@@ -80,7 +99,8 @@ class StepSchedule:
     step_size: int = 1000
 
     def __call__(self, base_lr, step):
-        return base_lr * self.decay_rate ** math.floor(step / self.step_size)
+        return base_lr * self.decay_rate ** torch.floor(
+            step_tensor(step) / self.step_size)
 
 
 @register
@@ -90,10 +110,11 @@ class MapSchedule:
     schedule: Dict[str, float] = field(default_factory=dict)
 
     def __call__(self, base_lr, step):
-        lr = base_lr
+        step = step_tensor(step)
+        lr = torch.full_like(step, base_lr)
         for k in sorted(self.schedule, key=lambda s: int(s)):
-            if step >= int(k):
-                lr = self.schedule[k]
+            lr = torch.where(step >= int(k),
+                             torch.full_like(step, self.schedule[k]), lr)
         return lr
 
 
@@ -110,17 +131,29 @@ class UpdaterConf:
         base = self.learning_rate * lr_mult
         return self.schedule(base, step) if self.schedule is not None else base
 
+    def step_terms(self, step) -> dict:
+        """The rule's terms that depend on the iteration alone (float64
+        0-dim tensors), computed once a step for all the parameters the
+        rule updates."""
+        return {}
+
     def init_one(self, p):
         return {}
 
-    def update_one(self, g, s, lr, step):
+    def update_one(self, g, s, lr, step, terms=None):
         raise NotImplementedError
+
+
+def _bias_terms(beta1, beta2, step) -> dict:
+    """1 - beta1 ** t and 1 - beta2 ** t at t = step + 1."""
+    t = step_tensor(step) + 1
+    return {"c1": 1 - beta1 ** t, "c2": 1 - beta2 ** t}
 
 
 @register
 @dataclass(frozen=True)
 class Sgd(UpdaterConf):
-    def update_one(self, g, s, lr, step):
+    def update_one(self, g, s, lr, step, terms=None):
         return lr * g, s
 
 
@@ -128,7 +161,7 @@ class Sgd(UpdaterConf):
 @dataclass(frozen=True)
 class NoOp(UpdaterConf):
     """Updater.NONE: raw gradient applied unscaled."""
-    def update_one(self, g, s, lr, step):
+    def update_one(self, g, s, lr, step, terms=None):
         return g, s
 
 
@@ -143,12 +176,15 @@ class Adam(UpdaterConf):
     def init_one(self, p):
         return {"m": torch.zeros_like(p), "v": torch.zeros_like(p)}
 
-    def update_one(self, g, s, lr, step):
-        t = step + 1
+    def step_terms(self, step):
+        return _bias_terms(self.beta1, self.beta2, step)
+
+    def update_one(self, g, s, lr, step, terms=None):
+        c = terms or self.step_terms(step)
         m = self.beta1 * s["m"] + (1 - self.beta1) * g
         v = self.beta2 * s["v"] + (1 - self.beta2) * g * g
-        mhat = m / (1 - self.beta1 ** t)
-        vhat = v / (1 - self.beta2 ** t)
+        mhat = m / c["c1"]
+        vhat = v / c["c2"]
         return lr * mhat / (torch.sqrt(vhat) + self.epsilon), {"m": m, "v": v}
 
 
@@ -163,12 +199,14 @@ class AdaMax(UpdaterConf):
     def init_one(self, p):
         return {"m": torch.zeros_like(p), "u": torch.zeros_like(p)}
 
-    def update_one(self, g, s, lr, step):
-        t = step + 1
+    def step_terms(self, step):
+        return _bias_terms(self.beta1, self.beta2, step)
+
+    def update_one(self, g, s, lr, step, terms=None):
+        c = terms or self.step_terms(step)
         m = self.beta1 * s["m"] + (1 - self.beta1) * g
         u = torch.maximum(self.beta2 * s["u"], torch.abs(g))
-        return (lr / (1 - self.beta1 ** t) * m / (u + self.epsilon),
-                {"m": m, "u": u})
+        return (lr / c["c1"] * m / (u + self.epsilon), {"m": m, "u": u})
 
 
 @register
@@ -182,13 +220,16 @@ class Nadam(UpdaterConf):
     def init_one(self, p):
         return {"m": torch.zeros_like(p), "v": torch.zeros_like(p)}
 
-    def update_one(self, g, s, lr, step):
-        t = step + 1
+    def step_terms(self, step):
+        return _bias_terms(self.beta1, self.beta2, step)
+
+    def update_one(self, g, s, lr, step, terms=None):
+        c = terms or self.step_terms(step)
         m = self.beta1 * s["m"] + (1 - self.beta1) * g
         v = self.beta2 * s["v"] + (1 - self.beta2) * g * g
-        mhat = m / (1 - self.beta1 ** t)
-        vhat = v / (1 - self.beta2 ** t)
-        nudge = (1 - self.beta1) * g / (1 - self.beta1 ** t)
+        mhat = m / c["c1"]
+        vhat = v / c["c2"]
+        nudge = (1 - self.beta1) * g / c["c1"]
         return (lr * (self.beta1 * mhat + nudge)
                 / (torch.sqrt(vhat) + self.epsilon), {"m": m, "v": v})
 
@@ -202,7 +243,7 @@ class AdaDelta(UpdaterConf):
     def init_one(self, p):
         return {"msg": torch.zeros_like(p), "msdx": torch.zeros_like(p)}
 
-    def update_one(self, g, s, lr, step):
+    def update_one(self, g, s, lr, step, terms=None):
         # lr is unused (the reference's AdaDelta has no learning rate)
         msg = self.rho * s["msg"] + (1 - self.rho) * g * g
         upd = (g * torch.sqrt(s["msdx"] + self.epsilon)
@@ -219,7 +260,7 @@ class Nesterovs(UpdaterConf):
     def init_one(self, p):
         return {"v": torch.zeros_like(p)}
 
-    def update_one(self, g, s, lr, step):
+    def update_one(self, g, s, lr, step, terms=None):
         # v' = mu*v - lr*g; the applied update is mu*v - (1+mu)*v'
         v_prev = s["v"]
         v = self.momentum * v_prev - lr * g
@@ -234,7 +275,7 @@ class AdaGrad(UpdaterConf):
     def init_one(self, p):
         return {"h": torch.zeros_like(p)}
 
-    def update_one(self, g, s, lr, step):
+    def update_one(self, g, s, lr, step, terms=None):
         h = s["h"] + g * g
         return lr * g / (torch.sqrt(h) + self.epsilon), {"h": h}
 
@@ -248,7 +289,7 @@ class RmsProp(UpdaterConf):
     def init_one(self, p):
         return {"h": torch.zeros_like(p)}
 
-    def update_one(self, g, s, lr, step):
+    def update_one(self, g, s, lr, step, terms=None):
         h = self.decay * s["h"] + (1 - self.decay) * g * g
         return lr * g / torch.sqrt(h + self.epsilon), {"h": h}
 
@@ -351,21 +392,31 @@ class MultiLayerUpdater:
                 for name, p in params.items()}
 
     @torch.no_grad()
-    def update(self, grads, opt_state, params, step: int) -> None:
+    def update(self, grads, opt_state, params, step) -> None:
         """One step in place: ``params`` and ``opt_state`` are updated from
-        ``grads`` (a frozen layer's entry may be missing or empty)."""
+        ``grads`` (a frozen layer's entry may be missing or empty) at
+        iteration ``step``, a 0-dim integer tensor (see the module
+        docstring). Each rule's iteration terms and each (rule, multiplier)
+        learning rate are computed once a call."""
         names = list(params)
         normed = normalize_gradients(tuple(grads.get(n, {}) for n in names),
                                      self.grad_norm, self.grad_norm_threshold)
+        step = step_tensor(step)
+        terms, lrs = {}, {}
         for name, g in zip(names, normed):
             conf = self.layer_confs[name]
             if getattr(conf, "frozen", False):
                 continue    # reference FrozenLayer: no updates
             rule = self.rule_for(conf)
+            if id(rule) not in terms:
+                terms[id(rule)] = rule.step_terms(step)
             for k, p in params[name].items():
                 s = opt_state[name][k]
-                lr = rule.lr(step, self._lr_mult(conf, k))
-                upd, new_s = rule.update_one(g[k], s, lr, step)
+                key = (id(rule), self._lr_mult(conf, k))
+                if key not in lrs:
+                    lrs[key] = rule.lr(step, key[1])
+                upd, new_s = rule.update_one(g[k], s, lrs[key], step,
+                                             terms[id(rule)])
                 p.sub_(upd.to(p.dtype))
                 for sk, sv in new_s.items():
                     s[sk].copy_(sv)

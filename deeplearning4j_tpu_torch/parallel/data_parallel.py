@@ -26,10 +26,12 @@ gives them. A port network carries no non-parameter state, so only the loss
 is averaged where the reference averages state and loss. Not ported yet,
 each raising ``NotImplementedError`` that names its ROADMAP item: K-step
 parameter averaging, ``steps_per_dispatch > 1``, ``overlap_sync``,
-``zero_stage``, a model axis and ``step_callback`` (A7b); device prefetch,
-``prefetch_buffer >= 1`` (A10: the default here is 0, batches are fed as
-they come); epoch and performance listeners (A8, refused by
-``set_listeners``).
+``zero_stage``, a model axis and ``step_callback`` (A7b); epoch and
+performance listeners (A8, refused by ``set_listeners``). Feeds run
+through a ``DevicePrefetchIterator`` of ``prefetch_buffer`` batches (the
+reference's default of 2; 0 feeds batches as they come), and
+``skip_first_batches`` consumes the first batches of the first epoch
+without training them (the mid-epoch resume, reference ``:659-760``).
 """
 from __future__ import annotations
 
@@ -37,6 +39,7 @@ from typing import List, Optional, Tuple
 
 import torch
 
+from ..datasets.prefetch import DevicePrefetchIterator, skip_batches
 from ..optimize.solver import cast_feed
 from .mesh import Mesh, axis_size, data_sharding, make_mesh, pmean
 
@@ -81,7 +84,7 @@ class ParallelWrapper:
                  workers: Optional[int] = None,
                  averaging_frequency: int = 1,
                  training_mode: str = "shared_gradients",
-                 average_updaters: bool = True, prefetch_buffer: int = 0,
+                 average_updaters: bool = True, prefetch_buffer: int = 2,
                  report_score_after_averaging: bool = True,
                  gradient_accumulator=None, steps_per_dispatch: int = 1,
                  overlap_sync: bool = False,
@@ -192,10 +195,6 @@ class ParallelWrapper:
             if asked:
                 raise NotImplementedError(f"{what} is not ported yet "
                                           f"(ROADMAP A7b)")
-        if prefetch_buffer >= 1:
-            raise NotImplementedError(
-                "device prefetch (prefetch_buffer >= 1) is not ported yet "
-                "(ROADMAP A10); the default 0 feeds batches as they come")
 
     # -------------------------------------------------------------- the steps
     def _worker_grads(self, x, y, gen, seed) -> Tuple[torch.Tensor,
@@ -221,8 +220,9 @@ class ParallelWrapper:
                           for g, p in zip(grads, leaves)])
         return loss.detach(), flat
 
-    def _apply(self, flat: torch.Tensor, it: int) -> None:
-        """One updater step on the flat combined gradient ``[P]``."""
+    def _apply(self, flat: torch.Tensor, it: torch.Tensor) -> None:
+        """One updater step on the flat combined gradient ``[P]`` at the
+        iteration tensor ``it``."""
         net = self.net
         grads, off = {}, 0
         for group, name, p in flat_param_order(net):
@@ -274,29 +274,37 @@ class ParallelWrapper:
         net = self.net
         if skip_first_batches < 0:
             raise ValueError("skip_first_batches must be >= 0")
-        if skip_first_batches:
-            raise NotImplementedError("the mid-epoch resume "
-                                      "(skip_first_batches) is not ported "
-                                      "yet (ROADMAP A10)")
         if not net.initialized:
             net.init()
         axis_size(self.mesh, "data")
+        if isinstance(iterator, DevicePrefetchIterator):
+            feed = iterator
+        elif self.prefetch_buffer >= 1:
+            feed = DevicePrefetchIterator(iterator, self.prefetch_buffer,
+                                          device=net.device, dtype=net.dtype)
+        else:
+            feed = iterator
         gen = torch.Generator(device=net.device)
-        for _ in range(epochs):
-            self._fit_epoch(iterator, gen)
+        it = torch.zeros((), dtype=torch.int64, device=net.device)
+        for epoch in range(epochs):
+            self._fit_epoch(feed, iterator, gen, it,
+                            skip_first_batches if epoch == 0 else 0)
         return net
 
-    def _fit_epoch(self, iterator, gen) -> None:
+    def _fit_epoch(self, feed, iterator, gen, it, skip: int) -> None:
         net = self.net
         base_seed = net.conf.seed + 31337
-        for ds in iterator:
+        # the mid-epoch resume: batches the checkpointed run trained are
+        # consumed, not trained (see Solver._fit_epoch)
+        for ds in (skip_batches(feed, skip) if skip else feed):
             # historical ParallelWrapper semantics: everything to the
             # net's dtype but integer token ids, which an embedding reads
             x = cast_feed(ds.features, net.dtype, net.device)
             y = cast_feed(ds.labels, net.dtype, net.device)
+            it.fill_(net.iteration_count)
             loss = self._sync_step(x, y, gen,
                                    (base_seed << 32) + net.iteration_count,
-                                   net.iteration_count)
+                                   it)
             self._notify(loss)
             net.iteration_count += 1
         if hasattr(iterator, "reset"):

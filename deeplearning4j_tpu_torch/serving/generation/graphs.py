@@ -21,37 +21,34 @@ K/V store's scatter and gather, and sampling) is captured once into a
   kernels are built and their plans cached, so no plan query or build runs
   inside the capture): one eager run on the capture stream (lazy
   per-thread and per-stream set-up, such as cuBLAS's, happens there), then
-  the capture, in ``thread_local`` mode because another model's dispatch
-  thread may be using the card, one capture at a time in the process. The
-  sampling generator is registered with the graph, so each replay draws
-  fresh numbers from it, as the eager step does.
+  the capture through ``util/graph_capture.capture``, the routine the
+  training step's graph uses too: ``thread_local`` mode because another
+  model's dispatch thread may be using the card, one capture at a time in
+  the process, the garbage collector off. The sampling generator is
+  registered with the graph, so each replay draws fresh numbers from it,
+  as the eager step does.
 - **No fallback.** A capture that fails (a kernel whose C entry refuses
   inside it, its 720 included) raises with its reason; nothing retries
   eagerly. The CPU has no graphs: a cohort on the CPU runs the eager step,
   which is the tests' path.
 - **Launch counts.** A kernel wrapper's ``launches`` counts its Python
-  calls, and a replay makes none. The graph records, per kernel, the
-  launches its capture enqueued (``launches``) and the number of
-  ``replays``, so a caller counts a kernel's runs as the wrapper's count
-  plus ``launches[name] * replays``.
+  calls, and a replay makes none. The capture puts the counts back, and
+  the graph records, per kernel, the launches its capture holds
+  (``launches``) and the number of ``replays``, so a caller counts a
+  kernel's runs as the wrapper's count plus ``launches[name] * replays``.
 """
 from __future__ import annotations
-
-import threading
-from typing import Dict
 
 import numpy as np
 import torch
 
 from ...ops import lstm
+from ...util.graph_capture import capture
 
 # the kernel wrappers a decode step calls (the transformer's decode step
 # runs none: its attention is the plain one); their ``launches`` counts
 # are compared around the capture
 _COUNTED = {"lstm_fwd": lstm.fused_lstm_fwd}
-
-# CUDA allows one stream capture at a time per process
-_capture_lock = threading.Lock()
 
 
 class DecodeGraph:
@@ -81,7 +78,6 @@ class DecodeGraph:
                                      pin_memory=True)
         self._done = torch.cuda.Event()
         self.replays = 0
-        self.launches: Dict[str, int] = {}
         self.graph = torch.cuda.CUDAGraph()
         self._capture(ps, cache, gen)
 
@@ -92,34 +88,15 @@ class DecodeGraph:
 
     def _capture(self, ps, cache, gen) -> None:
         side = torch.cuda.Stream(device=ps.device)
-        wrappers = _COUNTED
-        with _capture_lock, torch.cuda.device(ps.device):
+        with torch.cuda.device(ps.device):
             side.wait_stream(torch.cuda.current_stream())
             with torch.cuda.stream(side):
                 self._step(ps, cache, gen)     # per-thread/stream set-up
             side.synchronize()
-            self.graph.register_generator_state(gen)
-            before = {n: w.launches for n, w in wrappers.items()}
-            with torch.cuda.stream(side):
-                self.graph.capture_begin(capture_error_mode="thread_local")
-                try:
-                    self._out = self._step(ps, cache, gen)
-                except Exception as e:
-                    try:
-                        self.graph.capture_end()
-                    except Exception:          # the capture is void anyway
-                        pass
-                    raise RuntimeError(f"capturing the decode step failed: "
-                                       f"{e}") from e
-                try:
-                    self.graph.capture_end()
-                except Exception as e:
-                    raise RuntimeError(f"capturing the decode step failed: "
-                                       f"{e}") from e
-            torch.cuda.current_stream().wait_stream(side)
-        self.launches = {n: w.launches - before[n]
-                         for n, w in wrappers.items()
-                         if w.launches != before[n]}
+        self._out, self.launches = capture(
+            self.graph, lambda: self._step(ps, cache, gen), stream=side,
+            device=ps.device, gen=gen, counted=_COUNTED,
+            what="the decode step")
 
     def run(self, tokens, pos, tables, active, temp, topk) -> np.ndarray:
         """Copy the step's inputs in, replay, and return the next tokens

@@ -8,9 +8,11 @@ truncated newest zip falls back to the one before it). Serving's
 ``load_net`` reads a checkpoint directory through it.
 
 The write side needs the training listeners: ``CheckpointListener`` and
-``ProfilerListener`` need ``optimize/listeners.py`` (ROADMAP A8), and
-``fit_with_checkpointing`` the mid-epoch resume (A10). They raise
-``NotImplementedError`` naming their item.
+``ProfilerListener`` need ``optimize/listeners.py`` (ROADMAP A8), and so
+does ``fit_with_checkpointing``, which writes through
+``CheckpointListener`` (the mid-epoch resume it drives,
+``skip_first_batches``, is ported). They raise ``NotImplementedError``
+naming their item.
 """
 from __future__ import annotations
 
@@ -100,5 +102,6 @@ class ProfilerListener:
 
 def fit_with_checkpointing(net, iterator, **kwargs):
     raise NotImplementedError("fit_with_checkpointing (the resumable "
-                              "training loop and its mid-epoch resume) is "
-                              "not ported yet (ROADMAP A10)")
+                              "training loop) writes through "
+                              "CheckpointListener, which needs the training "
+                              "listeners: not ported yet (ROADMAP A8)")

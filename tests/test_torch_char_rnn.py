@@ -310,15 +310,36 @@ def test_what_the_slice_leaves_raises_not_implemented(nets, ask):
             finally:
                 eng.stop()
         return
+    if ask == "clone":
+        # ported (ROADMAP A10): real copies, equal to the reference's clone
+        # before training and independent of the source after it
+        jnet, _ = nets
+        x, y, _ = _batch(31, n=2)
+        jc, pc = jnet.clone(), pnet.clone()
+        np.testing.assert_allclose(pc.output(x).numpy(),
+                                   np.asarray(jc.output(x)), atol=1e-6)
+        before = pnet.params_flat().clone()
+        pc.fit(x, y, batch_size=2)
+        jc.fit(x, y, batch_size=2)
+        np.testing.assert_allclose(pc.params_flat().numpy(),
+                                   np.asarray(jc.params_flat()), atol=1e-6)
+        assert torch.equal(pnet.params_flat(), before)
+        assert not torch.equal(pc.params_flat(), before)
+        return
+    if ask == "graph_tbptt":
+        # ported (ROADMAP A10): the graph builder takes the chunk length
+        # and refuses bwd != fwd, as the reference's does
+        g = NeuralNetConfiguration().graph_builder().tbptt_length(8)
+        assert (g._backprop_type, g._tbptt_fwd, g._tbptt_bwd) == \
+            ("tbptt", 8, 8)
+        with pytest.raises(ValueError, match="bwd"):
+            NeuralNetConfiguration().graph_builder().tbptt_length(8, 4)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP A"):
         if ask == "evaluate":
             pnet.evaluate(np.zeros((1, 2, V), np.float32))
-        elif ask == "pretrain":
-            pnet.pretrain(None)
-        elif ask == "clone":
-            pnet.clone()
         else:
-            NeuralNetConfiguration().graph_builder().tbptt_length(8)
+            pnet.pretrain(None)
 
 
 def test_configuration_checks():

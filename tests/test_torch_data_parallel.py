@@ -433,6 +433,15 @@ def test_constructor_refusals_are_the_references(kwargs, match):
     (dict(prefetch_buffer=2), "A10")])
 def test_unported_modes_raise_naming_their_roadmap_item(kwargs, item):
     _, pnet = _mlp_pair()
+    if item == "A10":
+        # device prefetch is ported (ROADMAP A10): the reference's default
+        # of 2 batches in flight, and a fit through it trains
+        assert ParallelWrapper(pnet).prefetch_buffer == 2
+        pw = ParallelWrapper(pnet, workers=2, **kwargs)
+        x, y = _mlp_data(16)
+        pw.fit(ListDataSetIterator(features=x, labels=y, batch_size=8))
+        assert pnet.iteration_count == 2
+        return
     with pytest.raises(NotImplementedError, match=item):
         ParallelWrapper(pnet, **kwargs)
 
@@ -444,8 +453,12 @@ def test_fit_refusals_and_listeners():
     it = ListDataSetIterator(features=x, labels=y, batch_size=8)
     with pytest.raises(ValueError, match="skip_first_batches"):
         pw.fit(it, skip_first_batches=-1)
-    with pytest.raises(NotImplementedError, match="A10"):
-        pw.fit(it, skip_first_batches=1)
+    # the mid-epoch resume (ROADMAP A10): the skipped batch is consumed,
+    # not trained
+    before = pnet.params_flat().clone()
+    pw.fit(it, skip_first_batches=1)
+    assert pnet.iteration_count == 0
+    assert torch.equal(pnet.params_flat(), before)
     with pytest.raises(NotImplementedError, match="A8"):
         pnet.set_listeners(type("Perf", (), {
             "iteration_done": lambda *a: None,

@@ -41,7 +41,9 @@ _REQUIRED = {f"deeplearning4j_tpu_torch.{m}" for m in (
     "serving.generation.graphs", "serving.generation.sampling",
     "util.retry", "util.httpjson", "util.serialization",
     "util.checkpointing", "nn.conf.serde", "nn.preprocessors",
-    "nn.inputs", "serving.registry", "serving.http")}
+    "nn.inputs", "serving.registry", "serving.http",
+    "optimize.step_graph", "optimize.updaters", "datasets.dataset",
+    "datasets.prefetch", "datasets.iterators", "util.graph_capture")}
 
 _FORBIDDEN = re.compile(
     r"^\s*(import\s+(jax|deeplearning4j_tpu)\b(?!_torch)"

@@ -196,8 +196,14 @@ def test_int8_forward_fn_rejects_a_compute_dtype_net(bench_nets):
     with pytest.raises(ValueError, match="full-precision"):
         tq.int8_forward_fn(_Net())
     tq.int8_forward_fn(pnet)                # no compute_dtype: accepted
-    with pytest.raises(NotImplementedError, match="compute_dtype"):
+    # a real mixed-precision network (ROADMAP A10) is refused alike
+    amp = MultiLayerNetwork(
         NeuralNetConfiguration(compute_dtype="bfloat16")
+        .list(DenseLayer(n_in=4, n_out=4),
+              OutputLayer(n_out=2, loss="mcxent", activation="softmax"))
+        .build(), device="cpu")
+    with pytest.raises(ValueError, match="full-precision"):
+        tq.int8_forward_fn(amp)
 
 
 def test_probe_and_wrapper_checks(monkeypatch):

@@ -2,7 +2,9 @@
 
 - ``ComputationGraph`` has every method of the reference's graph: the ones
   not ported yet raise ``NotImplementedError`` naming their ROADMAP item
-  (as ``MultiLayerNetwork``'s do), and ``output`` takes ``train``.
+  (as ``MultiLayerNetwork``'s do; ``rnn_time_step``,
+  ``rnn_clear_previous_state`` and ``clone`` are ported since), and
+  ``output`` takes ``train``.
 - ``dtype="float64"`` builds a network whose loss and gradients equal the
   reference's float64 network's (x64 is on in the tests); the kernels'
   probes refuse float64, so a float64 tensor takes the plain paths by the
@@ -66,10 +68,33 @@ def gnet():
     ("clone", (), "A10")])
 def test_graph_methods_not_ported_raise_naming_their_item(gnet, method, args,
                                                           item):
+    """The A5 methods still raise naming their item; the A10 ones are
+    ported (ROADMAP A10): on GoogLeNet, which has no recurrent vertex,
+    ``rnn_time_step`` is the plain forward and ``clone`` a real copy."""
     jnet = jgooglenet(**CFG)
     assert callable(getattr(jnet, method))          # the reference has it
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        getattr(gnet, method)(*args)
+    if item != "A10":
+        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+            getattr(gnet, method)(*args)
+        return
+    x = np.random.default_rng(6).normal(size=(1, 32, 32, 3)).astype(
+        np.float32)
+    if method == "rnn_time_step":
+        torch.testing.assert_close(gnet.rnn_time_step(x), gnet.output(x),
+                                   rtol=0, atol=0)
+        assert gnet._rnn_state == [None] * len(gnet.vertex_names)
+    elif method == "rnn_clear_previous_state":
+        gnet.rnn_time_step(x)
+        assert gnet.rnn_clear_previous_state() is None
+        assert gnet._rnn_state is None
+    else:
+        other = gnet.clone()
+        torch.testing.assert_close(other.output(x), gnet.output(x),
+                                   rtol=0, atol=0)
+        mine = dict(gnet.named_parameters())
+        for name, p in other.named_parameters():
+            assert torch.equal(p, mine[name])
+            assert p.data_ptr() != mine[name].data_ptr()
 
 
 def test_graph_output_takes_the_train_keyword(gnet):

@@ -311,7 +311,7 @@ def test_what_the_port_cannot_read_yet_names_its_item(tmp_path):
     for call, item in ((lambda: TCheckpointListener(str(tmp_path)), "A8"),
                        (lambda: fit_with_checkpointing(None, None, epochs=1,
                                                        checkpoint_dir="x"),
-                        "A10")):
+                        "A8")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
             call()
 

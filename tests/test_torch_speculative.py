@@ -192,6 +192,22 @@ def _spec_streams(eng, n_new=14):
     return [eng.generate(p, max_tokens=n_new)[0] for p in PROMPTS]
 
 
+def _settled_spec(eng):
+    """The engine's speculative counters once its dispatch thread has
+    recorded the last window. Both schedulers emit a window's tokens (which
+    can complete a request) before they record the window, so a read right
+    after the last result may miss it; the counters are read until two
+    reads 50 ms apart agree."""
+    prev = None
+    for _ in range(40):
+        cur = eng.metrics()["default"]["speculative"]
+        if cur == prev:
+            break
+        prev = cur
+        time.sleep(0.05)
+    return cur
+
+
 def test_spec_streams_equal_the_jax_engine_with_a_transformer_draft(
         nets, plain_refs):
     jnet, pnet = nets
@@ -199,7 +215,7 @@ def test_spec_streams_equal_the_jax_engine_with_a_transformer_draft(
                    spec_k=3, **ENG)
     try:
         jgot = _spec_streams(jeng)
-        jsp = jeng.metrics()["default"]["speculative"]
+        jsp = _settled_spec(jeng)
     finally:
         jeng.stop()
     eng = GenerationEngine(pnet, device="cpu", draft=truncated_draft(pnet, 1),
@@ -208,7 +224,7 @@ def test_spec_streams_equal_the_jax_engine_with_a_transformer_draft(
         assert eng.models()["default"]["speculative"] == {
             "enabled": True, "k": 3, "draft_adapter": "dense"}
         got = _spec_streams(eng)
-        sp = eng.metrics()["default"]["speculative"]
+        sp = _settled_spec(eng)
     finally:
         eng.stop()
     assert jgot == plain_refs and got == plain_refs
@@ -224,7 +240,7 @@ def test_spec_streams_equal_the_jax_engine_with_an_lstm_draft(
     jeng = JEngine(jnet, model_name="default", draft=jd, spec_k=3, **ENG)
     try:
         jgot = _spec_streams(jeng)
-        jsp = jeng.metrics()["default"]["speculative"]
+        jsp = _settled_spec(jeng)
     finally:
         jeng.stop()
     eng = GenerationEngine(pnet, device="cpu", draft=pd, spec_k=3, **ENG)
@@ -232,7 +248,7 @@ def test_spec_streams_equal_the_jax_engine_with_an_lstm_draft(
         assert eng.models()["default"]["speculative"]["draft_adapter"] == \
             "state"
         got = _spec_streams(eng)
-        sp = eng.metrics()["default"]["speculative"]
+        sp = _settled_spec(eng)
     finally:
         eng.stop()
     assert jgot == plain_refs and got == plain_refs
@@ -255,7 +271,7 @@ def test_stop_token_and_length_mid_window(nets):
         toks, reason = eng.generate(p, max_tokens=14, stop=[stop])
         assert (toks, reason) == (greedy[:j], "stop")
         assert eng.generate(p, max_tokens=7) == (greedy[:7], "length")
-        sp = eng.metrics()["default"]["speculative"]
+        sp = _settled_spec(eng)
     finally:
         eng.stop()
     assert sp["accepted"] == sp["proposed"] > 0
