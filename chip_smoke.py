@@ -159,6 +159,41 @@ Phases; any failure raises and exits non-zero before a result is printed:
    ``int8_forward_fn``, 8 clients of 16 requests of 1-32 rows. K8 must
    launch 3 times per dispatched batch; at B 256 the int8 forward stays
    within rel 0.05 of the f32 forward.
+12b. ResNet-50 at its full width: ``resnet50(1000)`` at 224x224x3, f32,
+   ``Adam(1e-3)``, 16 seeded batches of B 32 (one-hot labels) through
+   ``fit`` per step, per step again, in windows of 8 (a CUDA graph of
+   the step: 1 capture, 15 replays) and in windows with gradient
+   checkpointing (whose recompute must not move the statistics twice)
+   from one seed, with
+   ``torch.backends.cudnn.deterministic`` set for these fits and restored
+   after: parameters and BatchNorm running statistics must be bitwise
+   the per-step run's (or, if two per-step runs already differ, within
+   rel-to-max 1e-6). ``evaluate`` on 4 held-out batches must give the
+   confusion matrix numpy builds from ``output``; the trained network
+   through a zip (``state.bin`` holds every running statistic) answers
+   bitwise as before; ``InferenceEngine`` (buckets 1, 8, 32) answers as
+   ``net.output`` at atol 1e-5. One step of ``resnet50(10)`` at 64x64,
+   B 4, on the card and on the CPU from the same weights: float64 loss at
+   rel 1e-5, every gradient and new running statistic at rel-to-max
+   1e-4; the float32 readings are reported beside the CPU's float32 vs
+   float64 distance (see ``_resnet_cross_device``). Step p50 per step and
+   in windows and peak memory are reported; device time a step in phase
+   19.
+12c. GoogLeNet transfer learning, K7's training path: ``googlenet(1000)``
+   from a seed through ``TransferLearningGraph`` (frozen up to avg3, a new
+   10-class xavier head, ``Adam(1e-3)``) under ``EarlyStoppingTrainer``
+   (``MaxEpochsTerminationCondition(3)``,
+   ``ScoreImprovementEpochTerminationCondition(1)``, a
+   ``DataSetLossCalculator`` over the 8 training batches of B 32,
+   ``InMemoryModelSaver``): every frozen parameter bitwise unchanged, the
+   score falls, K7 launches 37 times a forward (training steps,
+   validation scores and the best model's ``evaluate``, each counted from
+   0), and K7 equals its plain version at all 37 1x1 convs of one
+   frozen-trunk batch at rel-to-max 1e-5 (phase 10's pin at these
+   shapes; the absolute error, at outputs up to ~100, is reported).
+   Step p50 reported; device time a step,
+   K7's share of it and the convolution-backward kernels a step (whether
+   a backward runs through the frozen trunk) in phase 19.
 13. CPU against card: GoogLeNet at 224, B 2, every vertex's activation at
    rel-to-max 1e-4; the int8 forward at B 16 at atol 1e-6.
 13b. Zip + HTTP: each served model goes through the port's model zip
@@ -187,7 +222,8 @@ Phases; any failure raises and exits non-zero before a result is printed:
    the _TLM, /predict p50 beside ``engine.predict`` p50 at the same batch
    of 2 images, /generate time to first token p50 beside the direct
    call's.
-   In phases 3, 3b, 4, 4b, 7, 8, 11, 12, 13b, 16 and 17 the launch counts are
+   In phases 3, 3b, 4, 4b, 7, 8, 11, 12, 12c, 13b, 16 and 17 the launch
+   counts are
    set to 0 just before the path is driven and read just after; every
    kernel of the path must launch.
 14. K9 (``threshold_encode_fused``) bitwise against its plain version, in
@@ -232,8 +268,9 @@ Phases; any failure raises and exits non-zero before a result is printed:
    prefills (T 128 at B 4, T 64 at B 1) and the training chunks (T 64, 50
    and 14 at B 32) beside cuDNN's LSTM forward at each, K6 at the
    training chunk (T 64 and 14: its microseconds a step) beside cuDNN's
-   LSTM backward. Its profiler sessions come after every host-bound
-   phase.
+   LSTM backward; a ResNet-50 step per step and in windows (replays
+   only) and a GoogLeNet transfer step with K7's share of it. Its
+   profiler sessions come after every host-bound phase.
 20. Report: JSON lines of per-shape kernel times, the serving and training
    metrics and the kernels, then last ``{"ok": true, "device": ...}``.
 """
@@ -249,6 +286,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import zipfile
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -257,12 +295,17 @@ import torch.nn.functional as F
 
 from deeplearning4j_tpu_torch.datasets.dataset import (DataSet,
                                                        ListDataSetIterator)
+from deeplearning4j_tpu_torch.earlystopping import (
+    DataSetLossCalculator, EarlyStoppingConfiguration, EarlyStoppingTrainer,
+    InMemoryModelSaver, MaxEpochsTerminationCondition,
+    ScoreImprovementEpochTerminationCondition)
 from deeplearning4j_tpu_torch.interop.jax_params import (load_jax_opt_state,
                                                          load_jax_params)
 from deeplearning4j_tpu_torch.models.decode import (TransformerDecodeSpec,
                                                     naive_generate,
                                                     naive_generate_lstm,
                                                     truncated_draft)
+from deeplearning4j_tpu_torch.models.zoo import resnet50
 from deeplearning4j_tpu_torch.models.zoo_extra import (googlenet,
                                                        text_generation_lstm,
                                                        transformer_lm)
@@ -273,6 +316,9 @@ from deeplearning4j_tpu_torch.nn.layers import (ConvolutionLayer, DenseLayer,
                                                 GravesLSTM, OutputLayer,
                                                 RnnOutputLayer)
 from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+from deeplearning4j_tpu_torch.nn.tape import collect_state
+from deeplearning4j_tpu_torch.nn.transfer import (FineTuneConfiguration,
+                                                  TransferLearningGraph)
 from deeplearning4j_tpu_torch.ops import flash_attention as fa
 from deeplearning4j_tpu_torch.ops import lstm, nvcc
 from deeplearning4j_tpu_torch.ops.kernels import conv as k7
@@ -2619,6 +2665,404 @@ def int8_serve_phase():
     return net, row
 
 
+# ----------------------------------------------------------------- phase 12b
+# zoo.resnet50 at its full width: 224x224x3, 1000 classes, f32, Adam(1e-3)
+RESNET = dict(n_classes=1000, height=224, width=224, channels=3)
+RESNET_B, RESNET_BATCHES, RESNET_K, RESNET_EVAL = 32, 16, 8, 4
+RESNET_BUCKETS, RESNET_SIZES = (1, 8, 32), (1, 3, 8, 13, 32)
+# the card-vs-CPU step at a reduced size
+RESNET_SMALL = dict(n_classes=10, height=64, width=64, channels=3)
+RESNET_SMALL_B = 4
+
+
+def _resnet_batches(n, seed, n_classes=None, size=None, b=None):
+    """``n`` seeded batches of ``b`` NHWC images and one-hot labels
+    (default: ResNet-50's full-width batch)."""
+    n_classes = n_classes or RESNET["n_classes"]
+    size, b = size or RESNET["height"], b or RESNET_B
+    rng = np.random.default_rng(seed)
+    eye = np.eye(n_classes, dtype=np.float32)
+    return [DataSet(rng.standard_normal((b, size, size, 3),
+                                        dtype=np.float32),
+                    eye[rng.integers(0, n_classes, b)]) for _ in range(n)]
+
+
+def _state_vs(a, b):
+    """(bitwise, worst rel-to-max over the layer state, its name) of two
+    networks of one architecture."""
+    sa = {(g, k): t for g, sd in a.state_dicts().items()
+          for k, t in sd.items()}
+    worst, name, same = 0.0, None, True
+    for g, sd in b.state_dicts().items():
+        for k, t in sd.items():
+            same = same and torch.equal(t, sa[(g, k)])
+            r = _rel_to_max(sa[(g, k)], t)
+            if r >= worst:
+                worst, name = r, f"{g}.{k}"
+    return same, worst, name
+
+
+def _resnet_fit(batches, what, remat=False, **fit_kw):
+    """A ResNet-50 from the phase's seed (with gradient checkpointing
+    under ``remat``), fitted once over ``batches``, each step (per step)
+    or window (in windows) timed to the card's end; returns (net, row)."""
+    net = resnet50(**RESNET, updater=Adam(1e-3)).init(seed=SEED + 50)
+    net.conf.gradient_checkpointing = remat
+    k = fit_kw.get("steps_per_dispatch", 1)
+    clock = _WindowClock(k)
+    net.set_listeners(clock)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    net.fit(iterator=ListDataSetIterator(batches), **fit_kw)
+    peak = torch.cuda.max_memory_allocated()
+    stamps = [t0] + clock.t
+    ms = [(b - a) * 1e3 / k for a, b in zip(stamps, stamps[1:])]
+    losses = [float(v) for v in clock.losses]
+    if len(losses) != len(batches) or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"resnet50 {what}: losses {losses}")
+    net.set_listeners()
+    return net, {"run": what, "losses": losses, "step_ms": ms,
+                 "step_ms_p50_after_first": float(np.median(ms[1:])),
+                 "images_per_s": RESNET_B / (float(np.median(ms[1:])) / 1e3),
+                 "max_memory_allocated_bytes": peak,
+                 "graph": _graph_counts(net)}
+
+
+def _step_readings(net, x, y):
+    """A training forward and backward of ``net`` on (x, y), nothing
+    written: the loss, every parameter's gradient and the new layer
+    state, as CPU float64 tensors by name."""
+    with collect_state({}) as sink:
+        loss = net.loss_fn(net._as_input(x), net._as_input(y), train=True)
+    names = [n for n, _ in net.named_parameters()]
+    grads = torch.autograd.grad(loss, [p for _, p in net.named_parameters()])
+    by_layer = {id(layer): name for name, v in net.vertices.items()
+                for layer in [getattr(v, "layer", None)] if layer is not None}
+    state = {f"{by_layer[id(layer)]}.{k}": t.detach().double().cpu()
+             for layer, st in sink.items() for k, t in st.items()}
+    return (float(loss.detach()),
+            {n: g.double().cpu() for n, g in zip(names, grads)},
+            state)
+
+
+def _readings_vs(a, b):
+    """(loss rel, worst gradient rel-to-max and its name, worst state
+    rel-to-max and its name) between two ``_step_readings``."""
+    (la, ga, sa), (lb, gb, sb) = a, b
+    g = max((_rel_to_max(ga[n], gb[n]), n) for n in gb)
+    s = max((_rel_to_max(sa[n], sb[n]), n) for n in sb)
+    return {"loss_rel": abs(la - lb) / abs(lb), "grad_rel_to_max": g[0],
+            "worst_grad": g[1], "state_rel_to_max": s[0],
+            "worst_state": s[1]}
+
+
+def _resnet_cross_device():
+    """One training step of ``resnet50`` at 64x64, 10 classes, B 4 on the
+    card and on the CPU from the same weights. Gated in float64 (loss rel
+    1e-5, every gradient and new running statistic rel-to-max 1e-4). In
+    float32 the readings are reported beside the CPU's float32-vs-float64
+    distance: a random-init ResNet-50's gradients grow toward the stem
+    through 53 BatchNorms whose var = E[x²] - E[x]² cancels, so float32
+    carries only ~1e-2 of them (both devices alike), and the max pool's
+    near-ties (gaps below float32 noise) route a gradient differently on
+    either."""
+    x, y = (lambda ds: (ds.features, ds.labels))(_resnet_batches(
+        1, SEED + 53, RESNET_SMALL["n_classes"], RESNET_SMALL["height"],
+        RESNET_SMALL_B)[0])
+    out = {}
+    for dtype in ("float64", "float32"):
+        card = resnet50(**RESNET_SMALL, dtype=dtype,
+                        updater=Sgd(0.1)).init(seed=SEED + 54)
+        cpu = resnet50(**RESNET_SMALL, dtype=dtype, updater=Sgd(0.1),
+                       device="cpu").init(seed=SEED + 54)
+        cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+        out[dtype] = (_step_readings(card, x, y), _step_readings(cpu, x, y))
+        del card, cpu
+    row = {d: _readings_vs(*out[d]) for d in out}
+    row["float32_cpu_vs_float64_cpu"] = _readings_vs(out["float32"][1],
+                                                     out["float64"][1])
+    r = row["float64"]
+    if not (r["loss_rel"] <= 1e-5 and r["grad_rel_to_max"] <= 1e-4
+            and r["state_rel_to_max"] <= 1e-4):
+        raise AssertionError(f"resnet50 float64 step, card vs CPU: {r}")
+    if not all(math.isfinite(v) for v in row["float32"].values()
+               if isinstance(v, float)):
+        raise AssertionError(f"resnet50 float32 step: {row['float32']}")
+    return row
+
+
+def resnet_phase():
+    """ResNet-50 at full width: 16 seeded batches of B 32 through ``fit``
+    per step twice and in windows of 8 (a CUDA graph of the step) from
+    the same start, with cuDNN's deterministic algorithms for the check;
+    ``evaluate`` on 4 held-out batches against numpy; a zip round trip;
+    the forward ``InferenceEngine``; the card-vs-CPU step. Returns the row
+    and the per-step and window networks (phase 19 profiles them)."""
+    batches = _resnet_batches(RESNET_BATCHES + RESNET_EVAL, SEED + 51)
+    train, held = batches[:RESNET_BATCHES], batches[RESNET_BATCHES:]
+    det = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    try:
+        a, run_a = _resnet_fit(train, "per_step", async_prefetch=False)
+        a2, run_a2 = _resnet_fit(train, "per_step_again",
+                                 async_prefetch=False)
+        w, run_w = _resnet_fit(train, "window", steps_per_dispatch=RESNET_K)
+        wr, run_wr = _resnet_fit(train, "window_remat", remat=True,
+                                 steps_per_dispatch=RESNET_K)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+            det
+    for r in (run_w, run_wr):
+        g = r["graph"]
+        if (g["captures"], g["replays"]) != (1, RESNET_BATCHES - 1):
+            raise AssertionError(f"resnet50 {r['run']}: {g['captures']} "
+                                 f"captures and {g['replays']} replays, not "
+                                 f"1 and {RESNET_BATCHES - 1}")
+    vs = {}
+    for what, other in (("per_step_again", a2), ("window", w),
+                        ("window_remat", wr)):
+        pb, pr, pn = _params_vs(a, other)
+        sb, sr, sn = _state_vs(a, other)
+        vs[what] = {"params_bitwise": pb, "param_rel_to_max": pr,
+                    "worst_param": pn, "state_bitwise": sb,
+                    "state_rel_to_max": sr, "worst_state": sn}
+    run_to_run = vs["per_step_again"]
+    for what in ("window", "window_remat"):
+        win = vs[what]
+        if run_to_run["params_bitwise"] and run_to_run["state_bitwise"]:
+            if not (win["params_bitwise"] and win["state_bitwise"]):
+                raise AssertionError(f"resnet50 {what} of {RESNET_K} is not "
+                                     f"bitwise the per-step fit: {win}")
+        elif max(win["param_rel_to_max"], win["state_rel_to_max"]) > 1e-6:
+            raise AssertionError(f"resnet50 {what} vs per step {win} (two "
+                                 f"per-step runs: {run_to_run})")
+    del a2, wr
+    # evaluate: its confusion matrix against numpy's of output(train=False)
+    ev = w.evaluate(ListDataSetIterator(held))
+    want = np.zeros((RESNET["n_classes"],) * 2, np.int64)
+    for ds in held:
+        out = w.output(ds.features).float().cpu().numpy()
+        np.add.at(want, (ds.labels.argmax(1), out.argmax(1)), 1)
+    if not np.array_equal(ev.confusion, want) or \
+            ev.confusion.sum() != RESNET_EVAL * RESNET_B:
+        raise AssertionError("resnet50 evaluate's confusion matrix differs "
+                             "from numpy's")
+    x = held[0].features
+    # the zip: state.bin holds every running mean and variance
+    tmp = tempfile.mkdtemp()
+    try:
+        path = os.path.join(tmp, "resnet50.zip")
+        back, zrow = _zip_round_trip(w, path, "resnet50")
+        with zipfile.ZipFile(path) as z:
+            n_state = len(z.read("state.bin")) // 4
+        want_state = sum(t.numel() for sd in w.state_dicts().values()
+                         for t in sd.values())
+        if n_state != want_state or n_state == 0:
+            raise AssertionError(f"resnet50 zip: state.bin holds {n_state} "
+                                 f"values, the network {want_state}")
+        if not torch.equal(back.output(x), w.output(x)):
+            raise AssertionError("resnet50 restored from its zip answers "
+                                 "otherwise")
+        zrow["state_values"] = n_state
+        del back
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    # served by the forward engine
+    fwd = lambda n, xx: n._output_pure(xx)[0]     # the graph's one output
+    t0 = time.perf_counter()
+    eng = InferenceEngine(w, feature_shape=(RESNET["height"],
+                                            RESNET["width"],
+                                            RESNET["channels"]),
+                          buckets=RESNET_BUCKETS, forward_fn=fwd)
+    warm_s = time.perf_counter() - t0
+    pool = np.concatenate([ds.features for ds in held])
+    try:
+        lat, wall = _serve_closed_loop(eng, pool, RESNET_SIZES, 4, 4)
+        snap = eng.metrics()["default"]
+        got = eng.predict(pool[:5])
+    finally:
+        eng.stop()
+    serve_err = float((torch.as_tensor(got) - w.output(pool[:5]).cpu())
+                      .abs().max())
+    if serve_err > 1e-5:
+        raise AssertionError(f"resnet50 served response vs net.output: "
+                             f"{serve_err:.3g}")
+    serve = _latency_stats(lat, wall, sum(
+        RESNET_SIZES[(c + i) % len(RESNET_SIZES)] for c in range(4)
+        for i in range(4)), snap)
+    serve.update({"buckets": list(RESNET_BUCKETS), "warm_s": warm_s,
+                  "response_max_abs_err": serve_err})
+    row = {"model": "resnet50 1000 classes 224x224x3 f32, Adam(1e-3)",
+           "batch": RESNET_B, "steps": RESNET_BATCHES, "k": RESNET_K,
+           "cudnn_deterministic_for_the_check": True,
+           "runs": {r["run"]: r for r in (run_a, run_a2, run_w, run_wr)},
+           "vs_per_step": vs, "evaluate_examples": int(ev.confusion.sum()),
+           "zip": zrow, "serve": serve,
+           "cross_device": _resnet_cross_device()}
+    return row, {"per_step": a, "window": w, "batches": train[:RESNET_K]}
+
+
+# ----------------------------------------------------------------- phase 12c
+# GoogLeNet (phase 11's width) fine-tuned on 10 new classes, its trunk up
+# to avg3 frozen; 8 seeded batches of B 32 train and score
+TRANSFER_CLASSES, TRANSFER_BATCHES, TRANSFER_B = 10, 8, 32
+
+
+def googlenet_transfer_phase():
+    """``TransferLearningGraph`` over a GoogLeNet from a seed (frozen up to
+    avg3, a new 10-class head, Adam(1e-3)) under ``EarlyStoppingTrainer``
+    (at most 3 epochs, patience 1, a ``DataSetLossCalculator`` over the
+    training batches, the best model kept in memory): the frozen
+    parameters bitwise unchanged, K7 launched 37 times a forward (training
+    steps, validation scores, the best model's ``evaluate``), K7 against
+    its plain version at every 1x1 conv of one frozen-trunk batch. Returns
+    the row and the trained network (phase 19 profiles its step)."""
+    src = googlenet(**GNET).init(seed=SEED + 60)
+    net = (TransferLearningGraph(src).set_feature_extractor("avg3")
+           .n_out_replace("output", TRANSFER_CLASSES, weight_init="xavier")
+           .fine_tune_configuration(FineTuneConfiguration(updater=Adam(1e-3)))
+           .build())
+    del src
+    batches = _resnet_batches(TRANSFER_BATCHES, SEED + 61, TRANSFER_CLASSES,
+                              GNET["height"], TRANSFER_B)
+    frozen = {n: {k: p.detach().clone() for k, p in pd.items()}
+              for n, pd in net.param_dicts().items()
+              if getattr(getattr(net.vertices[n], "layer", None), "frozen",
+                         False)}
+    cfg = EarlyStoppingConfiguration(
+        score_calculator=DataSetLossCalculator(ListDataSetIterator(batches)),
+        model_saver=InMemoryModelSaver(),
+        epoch_termination_conditions=[
+            MaxEpochsTerminationCondition(3),
+            ScoreImprovementEpochTerminationCondition(1)])
+    clock = _WindowClock(1)
+    net.set_listeners(clock)
+    torch.cuda.synchronize()
+    k7.conv1x1_fused.launches = 0
+    t0 = time.perf_counter()
+    res = EarlyStoppingTrainer(cfg, net,
+                               ListDataSetIterator(batches)).fit()
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    fit_launches = k7.conv1x1_fused.launches
+    steps = net.iteration_count
+    scored = len(res.score_vs_epoch) * TRANSFER_BATCHES
+    if fit_launches != 37 * (steps + scored) or steps == 0:
+        raise AssertionError(f"K7 launched {fit_launches} times for {steps} "
+                             f"steps and {scored} scored batches (37 each)")
+    bad = [f"{n}.{k}" for n, pd in frozen.items() for k, p in pd.items()
+           if not torch.equal(net.param_dicts()[n][k], p)]
+    if bad or not frozen:
+        raise AssertionError(f"frozen parameters moved: {bad[:4]}")
+    k7.conv1x1_fused.launches = 0
+    ev = res.best_model.evaluate(ListDataSetIterator(batches))
+    eval_launches = k7.conv1x1_fused.launches
+    if eval_launches != 37 * TRANSFER_BATCHES or \
+            ev.confusion.sum() != TRANSFER_BATCHES * TRANSFER_B:
+        raise AssertionError(f"the best model's evaluate: {eval_launches} "
+                             f"K7 launches, {ev.confusion.sum()} examples")
+    scores = list(res.score_vs_epoch.values())
+    if not all(map(math.isfinite, scores)) or not min(scores) < scores[0]:
+        raise AssertionError(f"transfer scores did not fall: "
+                             f"{res.score_vs_epoch}")
+    # K7 against its plain version at each 1x1 conv of one trunk batch
+    # (these launches are not the path's): rel-to-max 1e-5, as phase 10
+    # holds it at GoogLeNet's shapes (the outputs reach ~100 here, where
+    # 1e-5 is an ulp); the absolute error is reported
+    with torch.inference_mode():
+        acts = net.feed_forward(batches[0].features)
+        err, rel, n_convs = 0.0, 0.0, 0
+        for name in net.vertex_names:
+            layer = getattr(net.vertices[name], "layer", None)
+            if not isinstance(layer, ConvolutionLayer) or \
+                    tuple(layer.kernel_size) != (1, 1):
+                continue
+            xin = acts[net.conf.vertex_inputs[name][0]]
+            xm = xin.reshape(-1, xin.shape[-1]).contiguous()
+            wm = layer.W.reshape(layer.W.shape[-2], -1).contiguous()
+            got = k7.conv1x1_fused(xm, wm, layer.b)
+            want = k7._conv1x1_plain(xm, wm, layer.b)
+            err = max(err, float((got - want).abs().max()))
+            rel = max(rel, _rel_to_max(got, want))
+            n_convs += 1
+    if n_convs != 37 or rel > 1e-5:
+        raise AssertionError(f"K7 vs plain on the frozen trunk: rel-to-max "
+                             f"{rel:.3g} over {n_convs} convs")
+    step_ms = [(b - a) * 1e3 for a, b in zip([t0] + clock.t, clock.t)]
+    net.set_listeners()
+    row = {"model": "googlenet 224x224x3 f32, trunk frozen to avg3, "
+                    "10-class head, Adam(1e-3)",
+           "batch": TRANSFER_B, "batches": TRANSFER_BATCHES,
+           "score_vs_epoch": res.score_vs_epoch,
+           "best_model_epoch": res.best_model_epoch,
+           "termination": [res.termination_reason,
+                           res.termination_details],
+           "total_epochs": res.total_epochs, "steps": steps,
+           "fit_s": fit_s, "step_ms": step_ms,
+           "step_ms_p50_after_first": float(np.median(step_ms[1:])),
+           "k7_launches_fit": fit_launches,
+           "k7_launches_evaluate": eval_launches,
+           "k7_launches": fit_launches + eval_launches,
+           "forwards": steps + scored + TRANSFER_BATCHES,
+           "k7_vs_plain_max_abs_err": err,
+           "k7_vs_plain_rel_to_max": rel, "frozen_parameters_checked":
+               sum(len(pd) for pd in frozen.values()),
+           "evaluate_accuracy": ev.accuracy()}
+    return row, {"net": net, "batches": batches[:4]}
+
+
+def cnn_train_device_time_phase(rctx, gctx):
+    """Phase 19 for the CNN training paths: the profiler's device time a
+    step of ResNet-50 per step and in windows (replays only) and of the
+    GoogLeNet transfer step, K7's share of it and the convolution
+    backward kernels it ran (none, if no backward runs through the frozen
+    trunk)."""
+    out = {}
+    for what, net, kw in (("resnet50_per_step", rctx["per_step"],
+                           dict(async_prefetch=False)),
+                          ("resnet50_window", rctx["window"],
+                           dict(steps_per_dispatch=RESNET_K))):
+        g0 = _graph_counts(net)
+        prof = _device_kernels(lambda: net.fit(
+            iterator=ListDataSetIterator(rctx["batches"]), **kw), top=1000)
+        g1 = _graph_counts(net)
+        if what == "resnet50_window" and (
+                g1["captures"] != g0["captures"]
+                or g1["replays"] - g0["replays"] != RESNET_K):
+            raise AssertionError(f"the profiled resnet50 windows were not "
+                                 f"all replays: {g0} -> {g1}")
+        out[what] = {"device_ms_per_step": prof["device_ms"] / RESNET_K,
+                     "wall_ms_per_step": prof["wall_ms"] / RESNET_K,
+                     "top_kernels_ms_per_step": [
+                         {"kernel": r["kernel"], "calls": r["calls"]
+                          / RESNET_K, "ms": r["ms"] / RESNET_K}
+                         for r in prof["top"][:10]]}
+    net, bs = gctx["net"], gctx["batches"]
+    prof = _device_kernels(lambda: net.fit(
+        iterator=ListDataSetIterator(bs), async_prefetch=False), top=1000)
+    n = len(bs)
+    if prof["device_ms"] <= 0:
+        raise AssertionError("the profiler recorded no device time for the "
+                             "GoogLeNet transfer steps")
+    k7_ms = sum(r["ms"] for r in prof["top"] if "conv1x1" in r["kernel"])
+    backward = re.compile(r"dgrad|wgrad|max_pool.*backward|"
+                          r"conv.*backward|col2im", re.I)
+    out["googlenet_transfer"] = {
+        "device_ms_per_step": prof["device_ms"] / n,
+        "wall_ms_per_step": prof["wall_ms"] / n,
+        "k7_ms_per_step": k7_ms / n,
+        "k7_share_of_device_time": k7_ms / prof["device_ms"],
+        "trunk_backward_kernels_per_step": sum(
+            r["calls"] for r in prof["top"] if backward.search(r["kernel"]))
+        / n,
+        "top_kernels_ms_per_step": [
+            {"kernel": r["kernel"], "calls": r["calls"] / n,
+             "ms": r["ms"] / n} for r in prof["top"][:10]]}
+    return out
+
+
 # ----------------------------------------------------------------- phase 13
 def cnn_cross_device_phase(gnet, mlp):
     """GoogLeNet at 224 B 2, every vertex, and the int8 forward at B 16, on
@@ -3330,7 +3774,7 @@ def dp_phase():
     # the share of entries a step ships (an entry ships when its residual
     # clears the threshold): of a fresh gradient alone, as the first step
     # saw it, and of the carried residual plus a gradient, as the next would
-    _, flat = pw._worker_grads(x, y, torch.Generator(device="cuda"), 0)
+    _, flat, _ = pw._worker_grads(x, y, torch.Generator(device="cuda"), 0)
     q = torch.quantile(flat[0].abs()[::64].float(),
                        torch.tensor([0.5, 0.9, 0.99], device="cuda"))
     row["grad_abs_quantiles_50_90_99"] = [float(v) for v in q]
@@ -3430,6 +3874,8 @@ def main() -> int:
     k8_rows, k8_err = int8_kernel_phase()
     gnet, gserve = googlenet_serve_phase()
     mlp, i8serve = int8_serve_phase()
+    resnet_row, resnet_ctx = resnet_phase()
+    transfer_row, transfer_ctx = googlenet_transfer_phase()
     cnn_cross = cnn_cross_device_phase(gnet, mlp)
     zip_http = zip_http_phase(gnet, mlp)
     del gnet, mlp
@@ -3446,6 +3892,8 @@ def main() -> int:
     k8_total = k8_totals[max(INT8_BUCKETS)]
     k4_device_time_phase(k4_rows)
     lstm_device = lstm_device_time_phase()
+    cnn_train_device = cnn_train_device_time_phase(resnet_ctx, transfer_ctx)
+    del resnet_ctx, transfer_ctx
     top = next(r for r in rows if r["BH"] == 16 and r["T"] == 1024
                and r["dtype"] == str(torch.float32))
     serve_k1 = slice_row["flash_attention_launches"]
@@ -3559,9 +4007,12 @@ def main() -> int:
         "name": "conv1x1_bias_relu", "route": "cuda",
         "source": "deeplearning4j_tpu_torch/csrc/conv1x1_bias_relu.cu",
         "replaces": "deeplearning4j_tpu/ops/kernels/conv.py:83",
-        "launches": gserve["k7_launches"] + http_n["conv1x1_bias_relu"],
+        "launches": gserve["k7_launches"] + http_n["conv1x1_bias_relu"]
+        + transfer_row["k7_launches"],
         "launches_by_path": {"serve_googlenet": gserve["k7_launches"],
-                             "http": http_n["conv1x1_bias_relu"]},
+                             "http": http_n["conv1x1_bias_relu"],
+                             "transfer_googlenet":
+                                 transfer_row["k7_launches"]},
         "max_abs_err": k7_errs["parity_abs"],
         "max_rel_to_max_err_f32": k7_errs["f32_rel"],
         "max_rel_to_max_err_bf16": k7_errs["bf16_rel"],
@@ -3653,6 +4104,10 @@ def main() -> int:
                       "cnn_cross_device": cnn_cross, "card": smi}),
           flush=True)
     print(json.dumps({"zip_http": zip_http, "card": smi}), flush=True)
+    print(json.dumps({"resnet50": resnet_row,
+                      "googlenet_transfer": transfer_row,
+                      "cnn_train_device_time": cnn_train_device,
+                      "card": smi}, default=str), flush=True)
     print(json.dumps({"ring": ring_row, "data_parallel": dp_row,
                       "parallel_cross_device": par_cross, "card": smi}),
           flush=True)

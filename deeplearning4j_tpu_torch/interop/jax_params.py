@@ -10,7 +10,9 @@ the caller turns those arrays into numpy first, e.g.
 ``[{k: np.asarray(v) for k, v in p.items()} for p in jax_net.params]``.
 The updater state (``net.opt_state``) has one more level, the state name
 (Adam's ``m`` and ``v``, RmsProp's ``h``), so a parity test can start both
-packages from one mid-training state. A ``ParallelWrapper``'s accumulator
+packages from one mid-training state. The layer state (``net.state``: a
+BatchNormalization's running ``mean`` and ``var``, float32) is grouped as
+the parameters are. A ``ParallelWrapper``'s accumulator
 carry (``_acc_state``, ``[n, num_params]``) crosses both ways too.
 """
 from __future__ import annotations
@@ -74,6 +76,34 @@ def load_jax_params(net, params: Sequence[Mapping[str, np.ndarray]],
     with torch.no_grad():
         for p, arr in pairs:
             p.copy_(torch.tensor(arr, dtype=p.dtype))
+
+
+def load_jax_state(net, state: Sequence[Mapping[str, np.ndarray]],
+                   vertex_names: Optional[Sequence[str]] = None) -> None:
+    """Copy a JAX network's layer state (``net.state`` as numpy: one dict
+    per vertex or layer, in the order ``load_jax_params`` takes) into the
+    port network's buffers, in place, matching by vertex name (or layer
+    index) and state name. Every name and shape is checked before
+    anything is copied."""
+    src = _groups(net, "layer state", state, vertex_names)
+    pairs = []
+    for name, own in net.state_dicts().items():
+        theirs = src[name]
+        if set(own) != set(theirs):
+            raise ValueError(
+                f"vertex {name!r}: layer state {sorted(theirs)} does not "
+                f"match the port's {sorted(own)}")
+        for sname, t in own.items():
+            arr = np.asarray(theirs[sname])
+            if tuple(arr.shape) != tuple(t.shape):
+                raise ValueError(
+                    f"vertex {name!r} state {sname!r}: shape "
+                    f"{tuple(arr.shape)} does not match the port's "
+                    f"{tuple(t.shape)}")
+            pairs.append((t, arr))
+    with torch.no_grad():
+        for t, arr in pairs:
+            t.copy_(torch.tensor(arr, dtype=t.dtype))
 
 
 def load_jax_opt_state(net, opt_state, *, iteration_count: int,

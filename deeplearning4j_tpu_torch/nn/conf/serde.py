@@ -33,15 +33,15 @@ CONFIG_FORMAT_VERSION = 2
 
 # the reference's registered classes that have no port yet, by ROADMAP item
 NOT_PORTED: Dict[str, str] = dict.fromkeys((
-    "BatchNormalization", "DropoutLayer", "EmbeddingLayer", "LossLayer",
-    "AutoEncoder", "CenterLossOutputLayer", "VariationalAutoencoder", "RBM",
+    "DropoutLayer", "EmbeddingLayer", "LossLayer", "AutoEncoder",
+    "VariationalAutoencoder", "RBM",
     "Convolution1DLayer", "Subsampling1DLayer", "ZeroPadding1DLayer",
     "BernoulliReconstructionDistribution",
     "GaussianReconstructionDistribution",
     "ExponentialReconstructionDistribution",
     "CompositeReconstructionDistribution", "LossFunctionWrapper",
-    "BinomialDistribution", "ScaleVertex", "ShiftVertex", "L2Vertex",
-    "L2NormalizeVertex", "StackVertex", "UnstackVertex", "SubsetVertex",
+    "BinomialDistribution", "ShiftVertex", "L2Vertex",
+    "StackVertex", "UnstackVertex", "SubsetVertex",
     "PreprocessorVertex", "PoolHelperVertex", "LastTimeStepVertex",
     "DuplicateToTimeSeriesVertex"), "A5")
 

@@ -8,16 +8,19 @@ recurrent-state carry (``rnn_states`` / ``collect_rnn_states``,
 ``rnn_time_step`` and ``rnn_clear_previous_state`` (``:276-301``),
 ``params_flat`` / ``set_params_flat`` (``:305-334``), ``num_params``,
 ``fit`` (``:350-370``; tBPTT when the configuration asks for it) with the
-updater state (``opt_state``) and ``iteration_count`` the net carries, and
-``clone`` (``:418``). Mixed precision and gradient checkpointing are the
+updater state (``opt_state``) and ``iteration_count`` the net carries,
+``evaluate`` (``:379``) and ``clone`` (``:418``). Mixed precision and gradient checkpointing are the
 ``MultiLayerNetwork``'s (``nn/multilayer.py`` ``run_layer``), per layer
 vertex; the final recurrent states are indexed by vertex, in topological
 order.
 
 The graph is an ``nn.Module`` on one device, given at construction; its
 vertices live in ``self.vertices`` under their configuration names, in
-topological order. Parameters are the modules' own, so ``loss_fn`` takes
-none: gradients come from ``torch.autograd`` over the graph's parameters.
+topological order. Parameters and layer state (``state_dicts``, in
+vertex order) are the modules' own, so ``loss_fn`` takes none: gradients
+come from ``torch.autograd`` over the graph's parameters, and a training
+step writes the new layer state once (``nn/tape.py``
+``record_state``).
 """
 from __future__ import annotations
 
@@ -33,7 +36,7 @@ from ...optimize.solver import score_listeners
 from ...optimize.updaters import MultiLayerUpdater
 from ..conf.graph_conf import ComputationGraphConfiguration
 from ..multilayer import (cast_floats, compute_dtype_of, copy_state,
-                          run_layer)
+                          run_layer, to_numpy)
 from .vertices import LayerVertex
 
 
@@ -91,6 +94,12 @@ class ComputationGraph(nn.Module):
     def param_dicts(self) -> Dict[str, Dict[str, nn.Parameter]]:
         """Every vertex's parameters by reference name, in vertex order."""
         return {n: self.vertices[n].param_dict() for n in self.vertex_names}
+
+    def state_dicts(self) -> Dict[str, Dict[str, torch.Tensor]]:
+        """Every vertex's non-parameter state by reference name (a
+        BatchNormalization's ``mean`` and ``var``; empty for most), in
+        vertex order: the reference's ``net.state``."""
+        return {n: self.vertices[n].layer_state() for n in self.vertex_names}
 
     def num_params(self) -> int:
         return int(sum(p.numel() for p in self.parameters()))
@@ -342,17 +351,56 @@ class ComputationGraph(nn.Module):
         raise NotImplementedError("layerwise pretraining is not ported yet "
                                   "(ROADMAP A5)")
 
+    # ---------------------------------------------------------------- eval
     def evaluate(self, iterator_or_x, y=None):
-        raise NotImplementedError("evaluation (eval/Evaluation) is not "
-                                  "ported yet (ROADMAP A5)")
+        """Classification evaluation of the eval forward: one
+        ``eval.Evaluation`` for a single-output graph, a list (one per
+        network output, in order) otherwise. Takes features and labels
+        (a list of one per output for several; None skips an output) or
+        an iterator of ``DataSet``s or ``MultiDataSet``s, whose labels
+        masks and per-example ``metadata`` reach ``Evaluation.eval`` (not
+        for [B,T,C] labels)."""
+        from ...eval.evaluation import Evaluation
+        n_out = len(self.conf.network_outputs)
+        evals = [Evaluation() for _ in range(n_out)]
+
+        def eval_batch(features, labels, lmask, metadata=None):
+            outs = self.output(*_as_list(features))
+            outs = outs if isinstance(outs, list) else [outs]
+            labels_l = _as_list(labels)
+            if len(labels_l) != n_out:
+                raise ValueError(
+                    f"evaluate() got {len(labels_l)} label array(s) for a "
+                    f"{n_out}-output graph ({self.conf.network_outputs}); "
+                    f"pass one per output (None to skip an output)")
+            masks_l = _as_list(lmask) if lmask is not None else [None] * n_out
+            if len(masks_l) != n_out:
+                raise ValueError(
+                    f"evaluate() got {len(masks_l)} label mask(s) for a "
+                    f"{n_out}-output graph; pass one per output (None for "
+                    f"unmasked outputs)")
+            for e, o, lab, m in zip(evals, outs, labels_l, masks_l):
+                if lab is not None:
+                    lab = to_numpy(lab)
+                    md = metadata if lab.ndim != 3 else None
+                    e.eval(lab, to_numpy(o), mask=to_numpy(m),
+                           record_meta_data=md)
+
+        if y is not None:
+            eval_batch(iterator_or_x, y, None)
+        else:
+            for ds in iterator_or_x:
+                eval_batch(ds.features, ds.labels, ds.labels_mask,
+                           metadata=getattr(ds, "metadata", None))
+        return evals[0] if n_out == 1 else evals
 
     # ---------------------------------------------------------------- misc
     def clone(self) -> "ComputationGraph":
         """A graph of a deep copy of the configuration on the same device,
-        with real copies of the parameters (the vertices are the
-        configuration's modules) and the updater state. As the
-        reference's, the iteration count and the listeners are not
-        carried."""
+        with real copies of the parameters and the layer state (the
+        vertices are the configuration's modules) and of the updater
+        state. As the reference's, the iteration count and the listeners
+        are not carried."""
         other = ComputationGraph(copy.deepcopy(self.conf),
                                  device=self.device)
         if self.initialized:

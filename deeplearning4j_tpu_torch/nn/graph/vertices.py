@@ -1,15 +1,17 @@
-"""Graph vertices: a layer, a channel concatenation, or an elementwise
-combination of inputs.
+"""Graph vertices: a layer, a channel concatenation, an elementwise
+combination of inputs, a constant scale and an L2 normalization.
 
-Counterpart of ``LayerVertex``, ``MergeVertex`` (``:102-123``) and
-``ElementWiseVertex`` in ``deeplearning4j_tpu/nn/graph/vertices.py``. A
+Counterpart of ``LayerVertex``, ``MergeVertex`` (``:102-123``),
+``ElementWiseVertex``, ``ScaleVertex`` (``:232``) and
+``L2NormalizeVertex`` (``:250``) in
+``deeplearning4j_tpu/nn/graph/vertices.py``. A
 vertex takes a LIST of input tensors; shape inference goes through
 ``output_type(input_types)``. A layer vertex applies its preprocessor, if
 any, before its layer. A [B,T] feature mask reaches a layer only when the
 layer ``accepts_mask`` and its input is a [B,T,F] sequence
 (``LayerVertex.apply`` ``:68-77``). Each vertex lists its JSON fields in
-``serde_fields`` (``nn/conf/serde.py``); the reference's other eleven
-vertices are ROADMAP A5.
+``serde_fields`` (``nn/conf/serde.py``); the reference's other nine
+vertices are ROADMAP A5 (``serde.NOT_PORTED``).
 """
 from __future__ import annotations
 
@@ -34,6 +36,9 @@ class VertexConf(nn.Module):
         pass
 
     def param_dict(self) -> dict:
+        return {}
+
+    def layer_state(self) -> dict:
         return {}
 
 
@@ -67,6 +72,9 @@ class LayerVertex(VertexConf):
 
     def param_dict(self) -> dict:
         return self.layer.param_dict()
+
+    def layer_state(self) -> dict:
+        return self.layer.layer_state()
 
     def _prepare(self, inputs, mask):
         x = inputs[0]
@@ -126,9 +134,9 @@ class MergeVertex(VertexConf):
 
 @register
 class ElementWiseVertex(VertexConf):
-    """Elementwise combination of same-shaped inputs. The port has the
-    ``add`` of residual connections; the reference's other ops come with
-    the slices whose models use them."""
+    """Elementwise combination of same-shaped inputs (sequences, features
+    or NHWC maps). The port has the ``add`` of residual connections; the
+    reference's other ops come with the slices whose models use them."""
     serde_fields = ("op",)
 
     def __init__(self, op: str = "add"):
@@ -139,10 +147,15 @@ class ElementWiseVertex(VertexConf):
         self.op = op
 
     def output_type(self, itypes):
+        # every input must agree: conv inputs on the whole (h, w, c), the
+        # others on their width (reference ``:132-147``)
         def sig(it):
+            if isinstance(it, InputTypeConvolutional):
+                return ("cnn", it.height, it.width, it.channels)
             if isinstance(it, InputTypeRecurrent):
                 return ("rnn", it.size)
-            return ("flat", it.size)
+            return ("flat", it.flat_size() if hasattr(it, "flat_size")
+                    else it.size)
         if len({sig(i) for i in itypes}) > 1:
             raise ValueError(
                 f"ElementWiseVertex({self.op}) requires same-shaped inputs; "
@@ -151,3 +164,33 @@ class ElementWiseVertex(VertexConf):
 
     def forward(self, inputs):
         return sum(inputs[1:], inputs[0])
+
+
+@register
+class ScaleVertex(VertexConf):
+    """Its input times the constant ``scale_factor`` (the Inception-ResNet
+    blocks' residual scale)."""
+    serde_fields = ("scale_factor",)
+
+    def __init__(self, scale_factor: float = 1.0):
+        super().__init__()
+        self.scale_factor = scale_factor
+
+    def forward(self, inputs):
+        return inputs[0] * self.scale_factor
+
+
+@register
+class L2NormalizeVertex(VertexConf):
+    """Its input divided by sqrt(Σx² + eps) over the last axis (the
+    embedding vertex of the face-recognition zoo models)."""
+    serde_fields = ("eps",)
+
+    def __init__(self, eps: float = 1e-8):
+        super().__init__()
+        self.eps = eps
+
+    def forward(self, inputs):
+        x = inputs[0]
+        return x / torch.sqrt(torch.sum(x * x, dim=-1, keepdim=True)
+                              + self.eps)

@@ -4,15 +4,18 @@ from .base import LayerConf
 from .conv import (Convolution1DLayer, ConvolutionLayer, GlobalPoolingLayer,
                    Subsampling1DLayer, SubsamplingLayer, ZeroPadding1DLayer,
                    ZeroPaddingLayer)
-from .core import (ActivationLayer, DenseLayer, EmbeddingSequenceLayer,
-                   OutputLayer, PositionalEmbeddingLayer, RnnOutputLayer)
-from .norm import LayerNormalization, LocalResponseNormalization
+from .core import (ActivationLayer, CenterLossOutputLayer, DenseLayer,
+                   EmbeddingSequenceLayer, OutputLayer,
+                   PositionalEmbeddingLayer, RnnOutputLayer)
+from .norm import (BatchNormalization, LayerNormalization,
+                   LocalResponseNormalization)
 from .recurrent import (GravesBidirectionalLSTM, GravesLSTM, LastTimeStepLayer,
                         LSTM)
 
 __all__ = ["LayerConf", "DenseLayer", "ActivationLayer", "OutputLayer",
            "EmbeddingSequenceLayer", "PositionalEmbeddingLayer",
-           "RnnOutputLayer", "LayerNormalization",
+           "RnnOutputLayer", "CenterLossOutputLayer", "BatchNormalization",
+           "LayerNormalization",
            "LocalResponseNormalization", "SelfAttentionLayer", "LSTM",
            "GravesLSTM", "GravesBidirectionalLSTM", "LastTimeStepLayer",
            "ConvolutionLayer", "SubsamplingLayer", "ZeroPaddingLayer",

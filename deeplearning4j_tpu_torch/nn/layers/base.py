@@ -15,39 +15,30 @@ training fields (l1, l2, a per-layer updater and learning rates,
 ``frozen``) are the reference's. Dropout is inverted dropout on the layers the reference
 applies it in; its mask draws from a ``torch.Generator`` that the graph
 passes down, so its bits differ from JAX's.
+
+Non-parameter layer state (a BatchNormalization's running ``mean`` and
+``var``) is the layer's buffers under the reference's names
+(``layer_state``). The reference's ``apply`` returns the new state beside
+the output and ``train_step_math`` carries it; here a training forward
+hands its new state to ``record_state``, which puts it into the sink of
+the enclosing ``collect_state`` block (none: it is dropped, as the
+reference's ``output(train=True)`` drops it), and the step writes it
+into the buffers once, after the backward (``commit_state``; all three in
+``nn/tape.py``). So a forward that is replayed (gradient checkpointing's
+recompute) or run once per logical worker updates nothing by itself.
 """
 from __future__ import annotations
 
-import contextlib
-import threading
-from typing import Any, List, Optional, Tuple
+from typing import Any, Optional, Tuple
 
 import torch
 from torch import nn
 
 from ..activations import get_activation
+from ..tape import mask_tape
 from ..inputs import (InputTypeConvolutional, InputTypeConvolutionalFlat,
                       InputTypeFeedForward, InputTypeRecurrent)
 from ..weights import init_weights
-
-
-_tape = threading.local()
-
-
-@contextlib.contextmanager
-def dropout_masks(masks: List[torch.Tensor], replay: bool):
-    """Within the block, the dropout masks this thread draws are appended
-    to ``masks`` (``replay`` False) or, with ``replay``, taken from it in
-    order instead of drawn. Gradient checkpointing's recompute replays the
-    first forward's masks this way (``nn/multilayer.py`` ``run_layer``):
-    ``torch.utils.checkpoint`` restores only the global generators, not
-    the explicit one dropout draws from."""
-    prev = getattr(_tape, "state", None)
-    _tape.state = (masks, replay, [0])
-    try:
-        yield
-    finally:
-        _tape.state = prev
 
 
 def maybe_dropout(x, retain_prob, gen: Optional[torch.Generator],
@@ -58,7 +49,7 @@ def maybe_dropout(x, retain_prob, gen: Optional[torch.Generator],
     if not train or retain_prob is None or retain_prob <= 0 \
             or retain_prob >= 1:
         return x
-    tape = getattr(_tape, "state", None)
+    tape = mask_tape()
     if tape is not None and tape[1]:
         masks, _, at = tape
         keep = masks[at[0]]
@@ -114,6 +105,12 @@ class LayerConf(nn.Module):
     def param_dict(self) -> dict:
         """Parameters by their reference names."""
         return dict(self.named_parameters(recurse=False))
+
+    def layer_state(self) -> dict:
+        """Non-parameter state (buffers) by their reference names, e.g. a
+        BatchNormalization's ``mean`` and ``var``; empty for most
+        layers."""
+        return dict(self.named_buffers(recurse=False))
 
     def regularization(self):
         """0.5*l2*||W||^2 + l1*|W| over the weight parameters only

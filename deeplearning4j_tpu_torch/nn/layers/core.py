@@ -3,9 +3,9 @@ and the Output and time-distributed RnnOutput heads.
 
 Counterpart of ``deeplearning4j_tpu/nn/layers/core.py`` (``DenseLayer``
 ``:34``, ``ActivationLayer`` ``:60``, ``EmbeddingSequenceLayer`` ``:106``,
-``PositionalEmbeddingLayer`` ``:144``, ``OutputLayer`` ``:189`` and
-``RnnOutputLayer`` ``:209`` with the loss of ``BaseOutputLayerMixin``
-``:175-184``). Parameter names and layouts are the
+``PositionalEmbeddingLayer`` ``:144``, ``OutputLayer`` ``:189``,
+``RnnOutputLayer`` ``:209`` and ``CenterLossOutputLayer`` ``:222-248``,
+with the loss of ``BaseOutputLayerMixin`` ``:175-184``). Parameter names and layouts are the
 reference's, and so are the places dropout applies: a Dense layer's input,
 an embedding's output.
 """
@@ -153,3 +153,37 @@ class RnnOutputLayer(OutputLayer):
         t = itype.timestep_length if isinstance(itype, InputTypeRecurrent) \
             else -1
         return InputTypeRecurrent(self.n_out, t)
+
+
+@register
+class CenterLossOutputLayer(OutputLayer):
+    """An output layer with center loss: ``lambda_ * ||f - c_y||²`` pulls
+    the features toward their class's center and ``alpha`` moves the
+    per-class ``centers`` [n_out, n_in], a parameter the updater moves,
+    toward the features. Each term is one-sided (a ``.detach()`` where the
+    reference's ``stop_gradient`` is), so plain SGD on the ``alpha`` term
+    is the reference's moving-average center update."""
+    serde_fields = OutputLayer.serde_fields + ("alpha", "lambda_")
+    param_order = ("W", "b", "centers")
+
+    def __init__(self, n_in: Optional[int] = None, n_out: int = 0,
+                 loss: str = "mcxent", alpha: float = 0.05,
+                 lambda_: float = 2e-4, **kw):
+        super().__init__(n_in=n_in, n_out=n_out, loss=loss, **kw)
+        self.alpha = alpha
+        self.lambda_ = lambda_
+
+    def init_params(self, itype, dtype, device, gen):
+        super().init_params(itype, dtype, device, gen)
+        n_in = self.n_in or resolve_ff_size(itype)
+        self.centers = nn.Parameter(torch.zeros((self.n_out, n_in),
+                                                dtype=dtype, device=device))
+
+    def compute_loss_per_example(self, x, labels, mask=None, *, train=False,
+                                 gen=None):
+        base = super().compute_loss_per_example(x, labels, mask, train=train,
+                                                gen=gen)
+        centers_batch = labels @ self.centers      # one-hot labels: [B, n_in]
+        pull = torch.sum((x - centers_batch.detach()) ** 2, dim=-1)
+        chase = torch.sum((x.detach() - centers_batch) ** 2, dim=-1)
+        return base + 0.5 * self.lambda_ * pull + 0.5 * self.alpha * chase

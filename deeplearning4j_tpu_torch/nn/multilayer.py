@@ -8,7 +8,8 @@ recurrent-state carry (``rnn_states`` / ``collect_rnn_states``,
 ``rnn_clear_previous_state`` (``:263-284``), ``params_flat`` /
 ``set_params_flat`` / ``num_params`` in the layers' ``param_order``,
 ``fit`` (``:332-353``; truncated BPTT when the configuration asks for it)
-with ``set_listeners``, and ``clone`` (``:383-393``). A layer's input
+with ``set_listeners``, ``evaluate`` (``:364-380``) and ``clone``
+(``:383-393``). A layer's input
 preprocessor (``conf.preprocessor(i)``) runs before it, in the forward and
 in the loss, as the reference's walk runs it.
 
@@ -27,9 +28,11 @@ are replayed in the recompute.
 The network is an ``nn.Module`` on one device, given at construction
 (default: the CUDA card); its layers live in ``self.layers`` and their
 parameters are the modules' own, so ``loss_fn`` takes none: gradients come
-from ``torch.autograd``. Parameters, updater state and gradients are keyed
-by layer index. ``evaluate`` and ``pretrain`` raise naming ROADMAP A5;
-model zips are ``util/serialization.py``.
+from ``torch.autograd``. Parameters, layer state (``state_dicts``: a
+BatchNormalization's running statistics, which a training step moves
+once, ``nn/tape.py`` ``record_state``), updater state and gradients
+are keyed by layer index. ``pretrain`` raises naming ROADMAP A5; model
+zips are ``util/serialization.py``.
 """
 from __future__ import annotations
 
@@ -46,7 +49,7 @@ from ..device import DeviceLike, resolve_device, torch_dtype
 from ..optimize.solver import score_listeners
 from ..optimize.updaters import MultiLayerUpdater
 from .conf.config import MultiLayerConfiguration
-from .layers.base import dropout_masks
+from .tape import dropout_masks
 
 
 def cast_floats(tree, dtype):
@@ -96,7 +99,7 @@ def run_layer(layer: nn.Module, call, inputs, *,
     global generator state kept: the layers draw from an explicit one), so
     its activations are recomputed in the backward instead of kept. The
     first forward's dropout masks are kept and replayed in the recompute
-    (``layers.base.dropout_masks``), so the recompute computes what the
+    (``nn/tape.py`` ``dropout_masks``), so the recompute computes what the
     forward did."""
     def body(*xs):
         with params_as(layer, compute_dtype):
@@ -154,6 +157,12 @@ class MultiLayerNetwork(nn.Module):
     def param_dicts(self):
         """Every layer's parameters by reference name, keyed by index."""
         return {i: layer.param_dict() for i, layer in enumerate(self.layers)}
+
+    def state_dicts(self):
+        """Every layer's non-parameter state by reference name (a
+        BatchNormalization's ``mean`` and ``var``; empty for most), keyed
+        by index: the reference's ``net.state``."""
+        return {i: layer.layer_state() for i, layer in enumerate(self.layers)}
 
     def num_params(self) -> int:
         return int(sum(p.numel() for p in self.parameters()))
@@ -391,21 +400,50 @@ class MultiLayerNetwork(nn.Module):
                                   "(ROADMAP A5)")
 
     def evaluate(self, iterator_or_x, y=None):
-        raise NotImplementedError("evaluation (eval/Evaluation) is not "
-                                  "ported yet (ROADMAP A5)")
+        """Classification evaluation (``eval.Evaluation``) of the eval
+        forward: on features and labels, or on an iterator of
+        ``DataSet``s, whose labels masks and per-example ``metadata`` (the
+        prediction-record workflow; not for [B,T,C] labels, which flatten
+        to N·T rows) reach ``Evaluation.eval``."""
+        from ..eval.evaluation import Evaluation
+        e = Evaluation()
+        if y is not None:
+            e.eval(to_numpy(y), to_numpy(self.output(iterator_or_x)))
+            return e
+        for ds in iterator_or_x:
+            out = to_numpy(self.output(ds.features))
+            labels = to_numpy(ds.labels)
+            md = (getattr(ds, "metadata", None) if labels.ndim != 3
+                  else None)
+            e.eval(labels, out, mask=to_numpy(ds.labels_mask),
+                   record_meta_data=md)
+        return e
 
     def clone(self) -> "MultiLayerNetwork":
         """A network of a deep copy of the configuration on the same
-        device, with real copies of the parameters and the updater state
-        (the layers are the configuration's modules, so copying it copies
-        them). As the reference's, the iteration count and the listeners
-        are not carried."""
+        device, with real copies of the parameters, the layer state and
+        the updater state (the layers are the configuration's modules, so
+        copying it copies them). As the reference's, the iteration count
+        and the listeners are not carried."""
         other = MultiLayerNetwork(copy.deepcopy(self.conf),
                                   device=self.device)
         if self.initialized:
             other.opt_state = copy_state(self.opt_state)
             other.initialized = True
         return other
+
+
+def to_numpy(v):
+    """A tensor (any device; bf16 widened to float32), array or None as a
+    numpy array or None: what the numpy-only ``eval`` classes take."""
+    if v is None:
+        return None
+    if isinstance(v, torch.Tensor):
+        v = v.detach()
+        if v.dtype == torch.bfloat16:
+            v = v.float()
+        return v.cpu().numpy()
+    return np.asarray(v)
 
 
 def copy_state(state):

@@ -13,7 +13,10 @@ layer index.
 - **The step.** The forward, the backward (through the flash or LSTM
   kernels on the card) and the in-place updater at the iteration, which is
   a 0-dim integer tensor on the net's device filled before each step
-  (``optimize/updaters.py``). Dropout draws from one ``torch.Generator``
+  (``optimize/updaters.py``), then the layer state the forward computed
+  (a BatchNormalization's running statistics) written into the layers'
+  buffers once (``nn/tape.py`` ``collect_state``): a remat
+  recompute or a CUDA graph's replay writes it no second time. Dropout draws from one ``torch.Generator``
   on the net's device, reseeded every iteration from the configuration's
   seed and the iteration count, as the reference folds the iteration into
   its key.
@@ -50,6 +53,7 @@ import torch
 from ..datasets.dataset import DataSet, ListDataSetIterator
 from ..datasets.prefetch import (BatchWindow, DevicePrefetchIterator,
                                  iter_windows, skip_batches)
+from ..nn.tape import collect_state, commit_state
 from .step_graph import TrainStepGraph, binding, feed_signature
 
 
@@ -72,11 +76,14 @@ def train_step_math(net, x, y, lmask=None, fmask=None, *,
                     gen: Optional[torch.Generator] = None,
                     it: torch.Tensor) -> torch.Tensor:
     """The single-step update every SGD path runs: the loss at the current
-    parameters, then ``_descend`` at the iteration tensor ``it``. Returns
-    the loss (detached)."""
-    loss = net.loss_fn(x, y, train=True, gen=gen, labels_mask=lmask,
-                       features_mask=fmask)
+    parameters, then ``_descend`` at the iteration tensor ``it``, then the
+    forward's new layer state into the layers. Returns the loss
+    (detached)."""
+    with collect_state({}) as new_state:
+        loss = net.loss_fn(x, y, train=True, gen=gen, labels_mask=lmask,
+                           features_mask=fmask)
     _descend(net, loss, it)
+    commit_state(new_state)
     return loss.detach()
 
 
@@ -86,10 +93,13 @@ def tbptt_step_math(net, x, y, lmask, fmask, rnn_states, *,
     """One tBPTT chunk: the loss from the carried ``rnn_states`` (None on
     the first chunk: zero states), then ``_descend``. Returns the loss and
     each recurrent layer's final (h, c), both detached."""
-    loss, rnn_out = net.loss_fn(x, y, train=True, gen=gen, labels_mask=lmask,
-                                features_mask=fmask, rnn_states=rnn_states,
-                                collect_rnn_states=True)
+    with collect_state({}) as new_state:
+        loss, rnn_out = net.loss_fn(
+            x, y, train=True, gen=gen, labels_mask=lmask,
+            features_mask=fmask, rnn_states=rnn_states,
+            collect_rnn_states=True)
     _descend(net, loss, it)
+    commit_state(new_state)
     carry = [None if s is None else tuple(v.detach() for v in s)
              for s in rnn_out]
     return loss.detach(), carry

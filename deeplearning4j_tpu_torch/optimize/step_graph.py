@@ -9,13 +9,14 @@ the in-place updater at the iteration tensor) is captured once into a
 model is ``serving/generation/graphs.py``'s decode graph:
 
 - **What it binds.** The graph holds the addresses it was captured over:
-  the network's parameters and updater state (updated in place, so their
-  addresses stay), the solver's iteration tensor and dropout generator, and
-  its own static input buffers. So one graph serves one (feed shapes and
-  dtypes, mask presence, compute dtype, gradient checkpointing) of one
-  network; ``binding`` fingerprints the parameter and state tensors, and
-  the solver captures anew when a network's tensors were replaced
-  (``init``, a restore).
+  the network's parameters, layer state (a BatchNormalization's running
+  statistics, written in place once a step) and updater state (all
+  updated in place, so their addresses stay), the solver's iteration
+  tensor and dropout generator, and its own static input buffers. So one
+  graph serves one (feed shapes and dtypes, mask presence, compute dtype,
+  gradient checkpointing) of one network; ``binding`` fingerprints the
+  parameter and state tensors, and the solver captures anew when a
+  network's tensors were replaced (``init``, a restore).
 - **A step.** The batch (already on the device) is copied into the static
   buffers, the iteration tensor is filled with the step's iteration and
   the dropout generator is reseeded with the step's seed, as the eager step
@@ -63,10 +64,12 @@ def feed_signature(feed: Sequence) -> tuple:
 
 
 def binding(net) -> tuple:
-    """The addresses of the network's parameters and updater state, which a
-    captured step reads and writes."""
+    """The addresses of the network's parameters, layer state and updater
+    state, which a captured step reads and writes."""
     ptrs = [p.data_ptr() for pd in net.param_dicts().values()
             for p in pd.values()]
+    ptrs += [t.data_ptr() for sd in net.state_dicts().values()
+             for t in sd.values()]
     ptrs += [s.data_ptr() for layer in net.opt_state.values()
              for st in layer.values() for s in st.values()]
     return tuple(ptrs)

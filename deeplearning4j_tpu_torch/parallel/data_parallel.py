@@ -22,8 +22,20 @@ It wraps a ``MultiLayerNetwork`` or a ``ComputationGraph``. The workers are
 the rows of ``parallel/mesh.py``'s logical mesh on one device: their
 forward and backward passes run one after the other, every worker drawing
 the same dropout numbers on its shard, as the reference's replicated key
-gives them. A port network carries no non-parameter state, so only the loss
-is averaged where the reference averages state and loss. Not ported yet,
+gives them.
+
+Layer state (a BatchNormalization's running statistics) follows the
+reference's programs. The accumulator step is a ``shard_map`` there: each
+worker normalizes by its own shard's statistics and computes its new
+state from the same starting state, and ``fused_pmean`` averages the new
+states with the loss (``:585``). Here each worker's forward records its
+new state without writing it (``nn/tape.py``), so the workers, which run
+one after another on one network, do not chain their moving averages;
+the states are averaged in worker order (``pmean``) and written once. The
+plain sync step is one GSPMD program over the global batch there
+(``:308-327``), so its batch statistics are the whole batch's: a network
+with layer state takes that step on the whole batch here, as the
+remainder batch does. Not ported yet,
 each raising ``NotImplementedError`` that names its ROADMAP item: K-step
 parameter averaging, ``steps_per_dispatch > 1``, ``overlap_sync``,
 ``zero_stage``, a model axis and ``step_callback`` (A7b); epoch and
@@ -40,6 +52,7 @@ from typing import List, Optional, Tuple
 import torch
 
 from ..datasets.prefetch import DevicePrefetchIterator, skip_batches
+from ..nn.tape import collect_state, commit_state
 from ..optimize.solver import cast_feed
 from .mesh import Mesh, axis_size, data_sharding, make_mesh, pmean
 
@@ -197,28 +210,34 @@ class ParallelWrapper:
                                           f"(ROADMAP A7b)")
 
     # -------------------------------------------------------------- the steps
-    def _worker_grads(self, x, y, gen, seed) -> Tuple[torch.Tensor,
-                                                      torch.Tensor]:
-        """Each worker's loss and flat gradient on its shard: ``[n]`` and
-        ``[n, P]``. Every worker reseeds ``gen`` alike."""
+    def _worker_grads(self, x, y, gen, seed):
+        """Each worker's loss, flat gradient and new layer state on its
+        shard: ``[n]``, ``[n, P]`` and the mean of the new states over the
+        workers (``pmean``, worker order; {} for a stateless network).
+        Every worker reseeds ``gen`` alike."""
         sh = data_sharding(self.mesh)
         xs, ys = sh.split(x), sh.split(y)
-        pairs = [self._loss_and_flat_grad(xs[i], ys[i], gen, seed)
-                 for i in range(self.n)]
-        return (torch.stack([loss for loss, _ in pairs]),
-                torch.stack([flat for _, flat in pairs]))
+        runs = [self._loss_and_flat_grad(xs[i], ys[i], gen, seed)
+                for i in range(self.n)]
+        new_state = {
+            layer: {k: pmean(torch.stack([r[2][layer][k] for r in runs]),
+                             self.mesh, "data")[0] for k in st}
+            for layer, st in runs[0][2].items()}
+        return (torch.stack([r[0] for r in runs]),
+                torch.stack([r[1] for r in runs]), new_state)
 
     def _loss_and_flat_grad(self, x, y, gen, seed):
-        """The loss on (x, y) and its gradient as one flat vector in
+        """The loss on (x, y), its gradient as one flat vector in
         ``flat_param_order`` (zeros for a parameter the loss does not
-        reach)."""
+        reach) and the forward's new layer state, not yet written."""
         leaves = [p for _, _, p in flat_param_order(self.net)]
         gen.manual_seed(seed)
-        loss = self.net.loss_fn(x, y, train=True, gen=gen)
+        with collect_state({}) as new_state:
+            loss = self.net.loss_fn(x, y, train=True, gen=gen)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         flat = torch.cat([(torch.zeros_like(p) if g is None else g).reshape(-1)
                           for g, p in zip(grads, leaves)])
-        return loss.detach(), flat
+        return loss.detach(), flat, new_state
 
     def _apply(self, flat: torch.Tensor, it: torch.Tensor) -> None:
         """One updater step on the flat combined gradient ``[P]`` at the
@@ -252,12 +271,18 @@ class ParallelWrapper:
                     f"{self.n} workers of the data axis, and the "
                     f"GradientsAccumulator path has no replicated step: its "
                     f"carry is per worker")
-            # remainder batch: every worker would compute the same
-            # whole-batch gradient, so it is computed once
-            loss, flat = self._loss_and_flat_grad(x, y, gen, seed)
+        if x.shape[0] % self.n or (acc is None and any(
+                net.state_dicts().values())):
+            # the remainder batch, where every worker would compute the
+            # same whole-batch gradient, and the plain sync step of a
+            # network with layer state, whose batch statistics the
+            # reference's GSPMD program takes over the whole batch: one
+            # step on the whole batch
+            loss, flat, new_state = self._loss_and_flat_grad(x, y, gen, seed)
             self._apply(flat, it)
+            commit_state(new_state)
             return loss
-        losses, flat = self._worker_grads(x, y, gen, seed)
+        losses, flat, new_state = self._worker_grads(x, y, gen, seed)
         if acc is None:
             combined = pmean(flat, self.mesh, "data")
         else:
@@ -267,6 +292,7 @@ class ParallelWrapper:
                                                     self.mesh, axis="data")
         # the combined gradient is the same on every worker: one update
         self._apply(combined[0], it)
+        commit_state(new_state)
         return pmean(losses, self.mesh, "data")[0]
 
     # ------------------------------------------------------------------- fit

@@ -9,8 +9,9 @@ five entries, as the reference's does:
   flat_param_order``);
 - ``updaterState.bin``: the updater state the same way, each parameter's
   state names sorted (``flat_opt_state_order``);
-- ``state.bin``: functional layer state (batch-norm's running statistics
-  in the reference), empty for every network the port builds;
+- ``state.bin``: the layer state (a BatchNormalization's running ``mean``
+  and ``var``) the same way (``flat_state_order``), empty for a network
+  without any;
 - ``manifest.json``: the format, the model class, the sizes and the
   iteration count.
 
@@ -40,6 +41,15 @@ STATE_ENTRY = "state.bin"
 MANIFEST_ENTRY = "manifest.json"
 
 _HDF5_MAGIC = b"\x89HDF\r\n\x1a\n"
+
+
+def flat_state_order(net):
+    """(group, state name, tensor) for the layer state of ``net`` in
+    ``jax.tree.leaves(net.state)``'s order: vertices or layers in order,
+    each one's state names sorted (``mean``, ``var``)."""
+    return [(group, name, sd[name])
+            for group, sd in net.state_dicts().items()
+            for name in sorted(sd)]
 
 
 def _flat_bytes(tensors) -> bytes:
@@ -79,14 +89,15 @@ def write_model(net, path: str, save_updater: bool = True,
     manifest (the reference's checkpointing stores its resume position
     there)."""
     params = [p for _, _, p in flat_param_order(net)]
+    states = [t for _, _, t in flat_state_order(net)]
     with zipfile.ZipFile(path, "w", zipfile.ZIP_DEFLATED) as z:
         z.writestr(CONFIG_ENTRY, net.conf.to_json())
         z.writestr(PARAMS_ENTRY, _flat_bytes(params))
-        z.writestr(STATE_ENTRY, b"")
+        z.writestr(STATE_ENTRY, _flat_bytes(states))
         manifest = {"format": "deeplearning4j_tpu-model", "version": 1,
                     "model_class": type(net).__name__,
                     "n_params": int(sum(p.numel() for p in params)),
-                    "n_state": 0,
+                    "n_state": int(sum(t.numel() for t in states)),
                     "iteration_count": getattr(net, "iteration_count", 0),
                     "has_updater": bool(save_updater
                                         and net.opt_state is not None)}
@@ -100,16 +111,18 @@ def write_model(net, path: str, save_updater: bool = True,
 
 
 def _restore(path: str, load_updater: bool, device: DeviceLike, make):
+    """Rebuild a network from a zip's configuration, then overwrite its
+    parameters, layer state and (with ``load_updater``) updater state from
+    the flat buffers."""
     with zipfile.ZipFile(path, "r") as z:
         net = make(z.read(CONFIG_ENTRY).decode(), device)
         manifest = json.loads(z.read(MANIFEST_ENTRY).decode())
-        if STATE_ENTRY in z.namelist() and z.read(STATE_ENTRY):
-            raise NotImplementedError(
-                f"{path}: the zip holds functional layer state (batch-norm "
-                f"running statistics), whose layers are not ported yet "
-                f"(ROADMAP A5)")
         _load_flat([p for _, _, p in flat_param_order(net)],
                    z.read(PARAMS_ENTRY), PARAMS_ENTRY)
+        state = z.read(STATE_ENTRY) if STATE_ENTRY in z.namelist() else b""
+        if state:        # an empty entry keeps the initial state
+            _load_flat([t for _, _, t in flat_state_order(net)], state,
+                       STATE_ENTRY)
         if load_updater and manifest.get("has_updater") and \
                 UPDATER_ENTRY in z.namelist():
             _load_flat([t for *_, t in flat_opt_state_order(net)],
@@ -134,8 +147,7 @@ def _graph(text: str, device: DeviceLike):
 
 def restore_multilayer_network(path: str, load_updater: bool = True, *,
                                device: DeviceLike = None):
-    """Rebuild a ``MultiLayerNetwork`` from the configuration JSON, then
-    overwrite its parameters and updater state from the flat buffers."""
+    """Rebuild a ``MultiLayerNetwork`` from a model zip (``_restore``)."""
     return _restore(path, load_updater, device, _multilayer)
 
 

@@ -335,11 +335,18 @@ def test_what_the_slice_leaves_raises_not_implemented(nets, ask):
         with pytest.raises(ValueError, match="bwd"):
             NeuralNetConfiguration().graph_builder().tbptt_length(8, 4)
         return
+    if ask == "evaluate":
+        # ported (ROADMAP A5): the reference's time-series evaluation,
+        # [B,T,V] labels flattened to B·T rows
+        jnet, _ = nets
+        x, y, _ = _batch(31, n=2)
+        t, j = pnet.evaluate(x, y), jnet.evaluate(x, y)
+        np.testing.assert_array_equal(t.confusion, j.confusion)
+        assert t.confusion.sum() == y.shape[0] * y.shape[1]
+        assert t.stats() == j.stats()
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP A"):
-        if ask == "evaluate":
-            pnet.evaluate(np.zeros((1, 2, V), np.float32))
-        else:
-            pnet.pretrain(None)
+        pnet.pretrain(None)
 
 
 def test_configuration_checks():

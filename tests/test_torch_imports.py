@@ -43,7 +43,12 @@ _REQUIRED = {f"deeplearning4j_tpu_torch.{m}" for m in (
     "util.checkpointing", "nn.conf.serde", "nn.preprocessors",
     "nn.inputs", "serving.registry", "serving.http",
     "optimize.step_graph", "optimize.updaters", "datasets.dataset",
-    "datasets.prefetch", "datasets.iterators", "util.graph_capture")}
+    "datasets.prefetch", "datasets.iterators", "util.graph_capture",
+    "nn.tape", "nn.layers.norm", "nn.layers.core", "nn.graph.vertices",
+    "nn.transfer", "models.lenet", "eval", "eval.evaluation", "eval.binary",
+    "eval.roc", "eval.regression", "eval.meta", "eval.tools",
+    "earlystopping", "earlystopping.early_stopping",
+    "earlystopping.parallel_trainer")}
 
 _FORBIDDEN = re.compile(
     r"^\s*(import\s+(jax|deeplearning4j_tpu)\b(?!_torch)"

@@ -68,11 +68,22 @@ def gnet():
     ("clone", (), "A10")])
 def test_graph_methods_not_ported_raise_naming_their_item(gnet, method, args,
                                                           item):
-    """The A5 methods still raise naming their item; the A10 ones are
-    ported (ROADMAP A10): on GoogLeNet, which has no recurrent vertex,
-    ``rnn_time_step`` is the plain forward and ``clone`` a real copy."""
+    """``pretrain`` still raises naming A5; the others are ported: the A10
+    ones (on GoogLeNet, which has no recurrent vertex, ``rnn_time_step``
+    is the plain forward and ``clone`` a real copy) and ``evaluate`` (A5's
+    first half), whose confusion matrix is the output's argmax against
+    the labels'."""
     jnet = jgooglenet(**CFG)
     assert callable(getattr(jnet, method))          # the reference has it
+    if method == "evaluate":
+        x = np.random.default_rng(7).normal(size=(6, 32, 32, 3)).astype(
+            np.float32)
+        y = np.eye(10, dtype=np.float32)[[0, 3, 3, 9, 1, 5]]
+        e = gnet.evaluate(x, y)
+        want = np.zeros((10, 10), np.int64)
+        np.add.at(want, (y.argmax(1), gnet.output(x).numpy().argmax(1)), 1)
+        np.testing.assert_array_equal(e.confusion, want)
+        return
     if item != "A10":
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
             getattr(gnet, method)(*args)

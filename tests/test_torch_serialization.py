@@ -7,12 +7,14 @@ against the JAX package's.
   the restored ``mln_cnn`` with its Adam state takes one ``fit`` step equal
   to the JAX package's restored step (loss rel 1e-5, parameters 1e-5).
 - For ``transformer_lm`` (2 blocks, d 32), ``text_generation_lstm``
-  (hidden 16), ``googlenet`` at 32x32 and 10 classes, and the ``cg_merge``
-  graph: JAX ``write_model`` -> port ``restore_model`` and port
-  ``write_model`` -> JAX ``restore_model`` give equal outputs at 1e-5, and
-  the two packages write equal ``coefficients.bin`` and
-  ``updaterState.bin`` bytes (the JAX updater state is filled with seeded
-  random numbers first, so the order of every leaf shows).
+  (hidden 16), ``googlenet`` at 32x32 and 10 classes, the ``cg_merge``
+  graph and ``resnet50`` at 32x32 and 10 classes: JAX ``write_model`` ->
+  port ``restore_model`` and port ``write_model`` -> JAX
+  ``restore_model`` give equal outputs at 1e-5, and the two packages
+  write equal ``coefficients.bin``, ``updaterState.bin`` and
+  ``state.bin`` bytes (the JAX updater state and ResNet-50's running
+  statistics are filled with seeded random numbers first, so the order
+  of every leaf shows).
 - A frozen layer, ``Sgd`` (no updater state) and a per-layer updater each
   give the JAX package's bytes and counts.
 - ``latest_checkpoint`` skips a truncated newest zip, as in the JAX
@@ -30,6 +32,7 @@ import torch
 from deeplearning4j_tpu import MultiLayerNetwork as JMLN
 from deeplearning4j_tpu import NeuralNetConfiguration as JConf
 from deeplearning4j_tpu.models import zoo_extra as jzoo
+from deeplearning4j_tpu.models import zoo as jzoo_cnn
 from deeplearning4j_tpu.nn import layers as jl
 from deeplearning4j_tpu.optimize import updaters as ju
 from deeplearning4j_tpu.util import serialization as jser
@@ -122,6 +125,10 @@ MODELS = {
         lambda: jzoo.googlenet(n_classes=10, height=32, width=32).init(),
         (2, 32, 32, 3)),
     "cg_merge": (_cg_merge, (3, 5)),
+    # running statistics in state.bin
+    "resnet50": (
+        lambda: jzoo_cnn.resnet50(n_classes=10, height=32, width=32).init(),
+        (2, 32, 32, 3)),
 }
 
 
@@ -130,6 +137,10 @@ def _fill_updater_state(jnet, seed):
     jnet.opt_state = jax.tree.map(
         lambda a: jax.numpy.asarray(rng.standard_normal(a.shape), a.dtype),
         jnet.opt_state)
+    # a running state away from its initial zeros and ones
+    jnet.state = jax.tree.map(
+        lambda a: jax.numpy.asarray(rng.uniform(0.5, 2.0, a.shape), a.dtype),
+        jnet.state)
     jnet.iteration_count = 5
 
 
@@ -157,6 +168,9 @@ def test_zips_cross_both_ways_with_equal_bytes(model, tmp_path,
     assert set(je) == set(te)
     for entry in ("coefficients.bin", "updaterState.bin", "state.bin"):
         assert te[entry] == je[entry], entry
+    n_state = sum(int(np.prod(a.shape)) for a in jax.tree.leaves(jnet.state))
+    assert len(te["state.bin"]) == 4 * n_state
+    assert (n_state > 0) == (model == "resnet50")
     assert json.loads(te["manifest.json"]) == json.loads(je["manifest.json"])
     assert json.loads(te["configuration.json"]) == \
         json.loads(je["configuration.json"])
@@ -301,12 +315,15 @@ def test_what_the_port_cannot_read_yet_names_its_item(tmp_path):
     with pytest.raises(ValueError, match="Cannot determine"):
         tser.restore_model(str(junk), device="cpu")
     src = os.path.join(FIXTURES, "regression_v1_mln_lstm.zip")
+    # layer state restores since ROADMAP A5 (the zips test above); a
+    # state.bin the network has no room for fails as the reference's
+    # restore does, naming the entry
     stateful = str(tmp_path / "state.zip")
     with zipfile.ZipFile(src) as zin, zipfile.ZipFile(stateful, "w") as zout:
         for n in zin.namelist():
             zout.writestr(n, zin.read(n) if n != "state.bin"
                           else np.ones(4, np.float32).tobytes())
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
+    with pytest.raises(ValueError, match="state.bin"):
         tser.restore_model(stateful, device="cpu")
     for call, item in ((lambda: TCheckpointListener(str(tmp_path)), "A8"),
                        (lambda: fit_with_checkpointing(None, None, epochs=1,
