@@ -194,6 +194,35 @@ Phases; any failure raises and exits non-zero before a result is printed:
    Step p50 reported; device time a step,
    K7's share of it and the convolution-backward kernels a step (whether
    a backward runs through the frozen trunk) in phase 19.
+12d. The rest of the nn engine: (a) DL4J's Word2VecSentimentRNN at its
+   width, ids [B,T,1] -> ``EmbeddingLayer(30000, 300)`` (behind an
+   explicit ``RnnToFeedForwardPreProcessor``) -> ``GravesLSTM(256)``
+   (behind ``FeedForwardToRnnPreProcessor(256)``) ->
+   ``LastTimeStepVertex(mask_input="in")`` -> a 2-class softmax, f32,
+   Adam(2e-2), l2 1e-5, element-wise clipping at 1.0; 16 seeded batches
+   of B 64 reviews of 32-256 steps (a [B,T] features mask) through
+   ``fit`` per step and in windows of 8 (a CUDA graph: 1 capture, 15
+   replays) from one seed, under ``torch.use_deterministic_algorithms``
+   (set for the two fits and restored after: the embedding's backward
+   adds by a sort, not by atomics): parameters bitwise equal; K5 and K6
+   launch once a step in each (eager plus captured x replays), K5 once
+   an evaluated batch; ``evaluate`` on 4 held-out batches gives numpy's
+   confusion matrix of ``output`` (no features mask, as the reference's);
+   K5 and K6 against their plain versions at T 256 B 64 H 256 with
+   peepholes, unmasked and under a batch's mask (1e-5 / 3e-5), their
+   plans printed; one f32 step at V 500, T 32, B 8 on the card and on the
+   CPU (loss rel 1e-5, gradients rel-to-max 1e-4); ``check_gradients``
+   in float64 on the card over 400 of its parameters (float64 is outside
+   K5's probe: the plain recurrence). (b) ``examples/seq2seq_tbptt.py``'s
+   graph (LSTM 32, T 20, tBPTT 5): 3 fits and 3 ``rnn_time_step`` steps
+   on the card and on the CPU from the same weights (atol 1e-5); K5 and
+   K6 24 launches in the fits, K5 6 in the steps; the first streamed step
+   equals a full forward of that step. (c) One layerwise ``pretrain``
+   epoch of a VAE at DL4J's VariationalAutoEncoderExample width (784 ->
+   (256, 256) -> 2 -> (256, 256), Bernoulli, RMSProp(1e-2), l2 1e-4, B
+   128, the same noise on both devices) and 8 LBFGS iterations of a small
+   MLP, float64, card against CPU: parameters at rel-to-max 1e-9.
+   Step p50, peak memory; device time in phase 19.
 13. CPU against card: GoogLeNet at 224, B 2, every vertex's activation at
    rel-to-max 1e-4; the int8 forward at B 16 at atol 1e-6.
 13b. Zip + HTTP: each served model goes through the port's model zip
@@ -222,8 +251,8 @@ Phases; any failure raises and exits non-zero before a result is printed:
    the _TLM, /predict p50 beside ``engine.predict`` p50 at the same batch
    of 2 images, /generate time to first token p50 beside the direct
    call's.
-   In phases 3, 3b, 4, 4b, 7, 8, 11, 12, 12c, 13b, 16 and 17 the launch
-   counts are
+   In phases 3, 3b, 4, 4b, 7, 8, 11, 12, 12c, 12d, 13b, 16 and 17 the
+   launch counts are
    set to 0 just before the path is driven and read just after; every
    kernel of the path must launch.
 14. K9 (``threshold_encode_fused``) bitwise against its plain version, in
@@ -269,13 +298,17 @@ Phases; any failure raises and exits non-zero before a result is printed:
    and 14 at B 32) beside cuDNN's LSTM forward at each, K6 at the
    training chunk (T 64 and 14: its microseconds a step) beside cuDNN's
    LSTM backward; a ResNet-50 step per step and in windows (replays
-   only) and a GoogLeNet transfer step with K7's share of it. Its
-   profiler sessions come after every host-bound phase.
+   only) and a GoogLeNet transfer step with K7's share of it; the
+   sentiment classifier's step in windows (replays only) with K5's and
+   K6's shares, and K5, K6 and cuDNN's ``nn.LSTM(300, 256)`` forward and
+   backward at its shape (T 256, B 64). Its profiler sessions come after
+   every host-bound phase.
 20. Report: JSON lines of per-shape kernel times, the serving and training
    metrics and the kernels, then last ``{"ok": true, "device": ...}``.
 """
 from __future__ import annotations
 
+import contextlib
 import importlib
 import json
 import math
@@ -312,10 +345,15 @@ from deeplearning4j_tpu_torch.models.zoo_extra import (googlenet,
 from deeplearning4j_tpu_torch.nn.conf.config import NeuralNetConfiguration
 from deeplearning4j_tpu_torch.nn.graph.graph import ComputationGraph
 from deeplearning4j_tpu_torch.nn.inputs import InputType
-from deeplearning4j_tpu_torch.nn.layers import (ConvolutionLayer, DenseLayer,
-                                                GravesLSTM, OutputLayer,
-                                                RnnOutputLayer)
+from deeplearning4j_tpu_torch.nn.graph.vertices import (
+    DuplicateToTimeSeriesVertex, LastTimeStepVertex)
+from deeplearning4j_tpu_torch.nn.layers import (
+    LSTM, BernoulliReconstructionDistribution, ConvolutionLayer, DenseLayer,
+    EmbeddingLayer, GravesLSTM, OutputLayer, RnnOutputLayer,
+    VariationalAutoencoder)
 from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+from deeplearning4j_tpu_torch.nn.preprocessors import (
+    FeedForwardToRnnPreProcessor, RnnToFeedForwardPreProcessor)
 from deeplearning4j_tpu_torch.nn.tape import collect_state
 from deeplearning4j_tpu_torch.nn.transfer import (FineTuneConfiguration,
                                                   TransferLearningGraph)
@@ -331,6 +369,7 @@ from deeplearning4j_tpu_torch.parallel.ring_attention import \
 from deeplearning4j_tpu_torch.serving import (InferenceEngine,
                                               ServingHTTPServer)
 from deeplearning4j_tpu_torch.serving.generation import GenerationEngine
+from deeplearning4j_tpu_torch.util.gradcheck import check_gradients
 from deeplearning4j_tpu_torch.util.httpjson import HTTPClient
 from deeplearning4j_tpu_torch.util.serialization import (restore_model,
                                                          write_model)
@@ -790,6 +829,12 @@ def _bwd_case(gen, BH, T, D, dtype, causal, masked, B=None, ring_hop=False):
 def _rel_to_max(got, want) -> float:
     return ((got.float() - want.float()).abs().max()
             / want.float().abs().max().clamp_min(1e-30)).item()
+
+
+def _rel_to_max_f64(got, want) -> float:
+    """``_rel_to_max`` in float64, for the float64 runs' pins."""
+    return ((got.double() - want.double()).abs().max()
+            / want.double().abs().max().clamp_min(1e-300)).item()
 
 
 def bwd_kernel_phase():
@@ -1948,12 +1993,13 @@ def _replay_kernels(rt, name, want, tries=3):
     loses a few records a session (``_device_ms_per_call``), so up to
     ``tries`` sessions are taken; none may show more."""
     g = rt.cohorts[-1].graph
-    seen = []
+    seen, tallies = [], []
     for _ in range(tries):
         prof = _device_kernels(lambda: (g.graph.replay(), g.graph.replay()),
                                top=1000)
         n = sum(r["calls"] for r in prof["top"] if name in r["kernel"])
         seen.append(n)
+        tallies.append({r["kernel"][:60]: r["calls"] for r in prof["top"]})
         if n > want:
             break
         if n == want:
@@ -1962,7 +2008,8 @@ def _replay_kernels(rt, name, want, tries=3):
                     "kernels_per_replay": sum(r["calls"]
                                               for r in prof["top"]) / 2}
     raise AssertionError(f"two replays of the decode graph showed {seen} "
-                         f"{name} kernels in the profiler, not {want}")
+                         f"{name} kernels in the profiler, not {want}; "
+                         f"the sessions' kernels: {json.dumps(tallies)}")
 
 
 # ------------------------------------------------------------------ phase 8
@@ -2312,10 +2359,13 @@ def k4_device_time_phase(rows, rounds=3):
 def _library_device_ms(fn, n=20):
     """Device time of one call of a library call that launches several
     kernels: the whole session over the calls recorded, read from the
-    kernels launched once a call (the profiler drops a few records)."""
+    kernels launched once a call (the profiler drops a few records); a
+    call whose every kernel launches many times (cuDNN's LSTM at T 256,
+    hundreds of launches a call) is the session over ``n``, the dropped
+    records a negligible share of it."""
     rep = _device_kernels(lambda: [fn() for _ in range(n)], top=1000)
-    once = max(r["calls"] for r in rep["top"] if r["calls"] <= n)
-    return rep["device_ms"] / once
+    once = [r["calls"] for r in rep["top"] if r["calls"] <= n]
+    return rep["device_ms"] / (max(once) if once else n)
 
 
 def lstm_device_time_phase():
@@ -2539,18 +2589,29 @@ def _latency_stats(lat, wall, n_rows, snap):
             "batch_occupancy": snap["batch_occupancy"]}
 
 
+# host time left idle at each end of a profiler session: the profiler
+# keeps only the device records that fall inside its window on the host's
+# clock, so work launched at its very start or ending at its very end can
+# fall outside it when the device's clock and the host's disagree by a few
+# microseconds
+PROFILE_PAD_S = 0.01
+
+
 def _device_kernels(fn, top=15):
     """One call of ``fn`` under ``torch.profiler``: the device time of each
     kernel (profiler entries with device time and no host time of their
-    own), the top ``top`` by time, and their sum against the wall time."""
+    own), the top ``top`` by time, and their sum against the wall time.
+    The call sits ``PROFILE_PAD_S`` inside each end of the session."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_PAD_S)
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+        time.sleep(PROFILE_PAD_S)
     rows = []
     for ev in prof.key_averages():
         dev = getattr(ev, "self_device_time_total",
@@ -3060,6 +3121,454 @@ def cnn_train_device_time_phase(rctx, gctx):
         "top_kernels_ms_per_step": [
             {"kernel": r["kernel"], "calls": r["calls"] / n,
              "ms": r["ms"] / n} for r in prof["top"][:10]]}
+    return out
+
+
+# ----------------------------------------------------------------- phase 12d
+# DL4J's Word2VecSentimentRNN example at its width (dl4j-examples,
+# recurrent/word2vecsentiment): 300-wide word vectors, GravesLSTM(256,
+# tanh), a 2-class softmax with MCXENT, reviews cut to 256 steps, batches
+# of 64, Adam(2e-2), l2 1e-5, xavier, element-wise clipping at 1.0; an
+# EmbeddingLayer of a 30,000-word vocabulary from a seed stands in for the
+# pretrained GoogleNews vectors
+SENT = dict(vocab=30000, embed=300, hidden=256, T=256)
+SENT_B, SENT_BATCHES, SENT_K, SENT_EVAL = 64, 16, 8, 4
+SENT_MIN_LEN = 32
+SENT_SMALL = dict(vocab=500, embed=300, hidden=256, T=32)   # card vs CPU
+SENT_SMALL_B, SENT_GRADCHECK_SUBSET = 8, 400
+# DL4J's VariationalAutoEncoderExample: 784 -> (256, 256) -> 2 -> (256,
+# 256), Bernoulli reconstruction, RMSProp(1e-2), l2 1e-4, B 128
+VAE = dict(n_in=784, n_out=2, encoder_layer_sizes=(256, 256),
+           decoder_layer_sizes=(256, 256))
+VAE_B, VAE_BATCHES = 128, 4
+
+
+def sentiment_graph(seed, vocab, embed, hidden, T, device=None,
+                    dtype="float32"):
+    """The sentiment classifier: [B,T,1] float ids -> EmbeddingLayer
+    (behind an explicit ``RnnToFeedForwardPreProcessor``) -> GravesLSTM
+    (behind ``FeedForwardToRnnPreProcessor(T)``) ->
+    ``LastTimeStepVertex(mask_input="in")`` -> a 2-class softmax."""
+    g = (NeuralNetConfiguration(
+            seed=seed, updater=Adam(2e-2), l2=1e-5, weight_init="xavier",
+            dtype=dtype,
+            gradient_normalization="clipelementwiseabsolutevalue",
+            gradient_normalization_threshold=1.0)
+         .graph_builder().add_inputs("in")
+         .add_layer("emb", EmbeddingLayer(n_in=vocab, n_out=embed,
+                                          activation="identity"), "in",
+                    preprocessor=RnnToFeedForwardPreProcessor())
+         .add_layer("lstm", GravesLSTM(n_out=hidden, activation="tanh"),
+                    "emb", preprocessor=FeedForwardToRnnPreProcessor(
+                        timestep_length=T))
+         .add_vertex("last", LastTimeStepVertex(mask_input="in"), "lstm")
+         .add_layer("out", OutputLayer(n_out=2, activation="softmax",
+                                       loss="mcxent"), "last")
+         .set_outputs("out").set_input_types(InputType.recurrent(1, T)))
+    return ComputationGraph(g.build(), device=device)
+
+
+def _sentiment_batches(n, seed, vocab, T, b, min_len):
+    """``n`` seeded batches of ``b`` reviews: ids [b,T,1], each review's
+    length drawn from min_len..T as a [b,T] features mask, a one-hot
+    sentiment [b,2]."""
+    rng = np.random.default_rng(seed)
+    eye = np.eye(2, dtype=np.float32)
+    out = []
+    for _ in range(n):
+        ids = rng.integers(0, vocab, (b, T, 1)).astype(np.float32)
+        lens = rng.integers(min_len, T + 1, b)
+        mask = (np.arange(T)[None] < lens[:, None]).astype(np.float32)
+        out.append(DataSet(ids, eye[rng.integers(0, 2, b)],
+                           features_mask=mask))
+    return out
+
+
+@contextlib.contextmanager
+def _deterministic_algorithms():
+    """``torch.use_deterministic_algorithms(True)`` for the block, restored
+    after (the embedding's backward then adds by a sort, not by atomics;
+    cuBLAS takes the workspace that mode asks for)."""
+    was = torch.are_deterministic_algorithms_enabled()
+    env = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was)
+        if env is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = env
+
+
+def _sentiment_fit(batches, what, **fit_kw):
+    """The classifier from the phase's seed, fitted once over ``batches``,
+    counted (K5, K6) and timed a step (per step) or a window; returns (net,
+    row)."""
+    net = sentiment_graph(SEED + 70, **SENT).init()
+    k = fit_kw.get("steps_per_dispatch", 1)
+    clock = _WindowClock(k)
+    net.set_listeners(clock)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    launches, detail = _counted_run(
+        net, lambda: net.fit(iterator=ListDataSetIterator(batches), **fit_kw),
+        LSTM_COUNTED)
+    peak = torch.cuda.max_memory_allocated()
+    stamps = [t0] + clock.t
+    ms = [(b - a) * 1e3 / k for a, b in zip(stamps, stamps[1:])]
+    losses = [float(v) for v in clock.losses]
+    if len(losses) != len(batches) or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"sentiment {what}: losses {losses}")
+    want = {"lstm_fwd": len(batches), "lstm_bwd": len(batches)}
+    if launches != want:
+        raise AssertionError(f"sentiment {what} launched {launches} "
+                             f"({detail}), not {want}")
+    net.set_listeners()
+    p50 = float(np.median(ms[1:]))
+    return net, {"run": what, "losses": losses, "step_ms": ms,
+                 "step_ms_p50_after_first": p50,
+                 "reviews_per_s": SENT_B / (p50 / 1e3),
+                 "max_memory_allocated_bytes": peak, "launches": launches,
+                 "launches_detail": detail, "graph": _graph_counts(net)}
+
+
+def _sentiment_kernels(mask_bt):
+    """K5 and K6 against their plain versions at the classifier's shape (T
+    256, B 64, H 256, f32, peepholes), unmasked as the classifier runs
+    them and under a batch's [B,T] mask; K6 from the plain forward's
+    residuals. Times each beside its plain version and the bound."""
+    gen = torch.Generator().manual_seed(SEED + 72)
+    T, B, H = SENT["T"], SENT_B, SENT["hidden"]
+    out, index = {}, torch.cuda.current_device()
+    for masked in (False, True):
+        fwd, _, peeps, (dhs, dhT, dcT) = _lstm_case(gen, T, B, H,
+                                                    torch.float32, True,
+                                                    False)
+        mask = (torch.as_tensor(mask_bt).t().contiguous().cuda()
+                if masked else None)
+        got = lstm.fused_lstm_fwd(*fwd, mask, peeps)
+        want = lstm.lstm_fwd_reference(*fwd, mask, peeps)
+        bargs = (*want[1:5], dhs, fwd[3], dhT, dcT, mask, peeps)
+        got_b = lstm.fused_lstm_bwd(*bargs)
+        want_b = lstm.lstm_bwd_reference(*bargs)
+        torch.cuda.synchronize()
+        tag = "masked" if masked else "unmasked"
+        for kind, g, w in (("fwd", got, want), ("bwd", got_b, want_b)):
+            err = _max_err(g, w)
+            if not all(torch.isfinite(t.float()).all() for t in g) or \
+                    err > LSTM_TOL[(kind, torch.float32)]:
+                raise AssertionError(
+                    f"lstm {kind} kernel at the classifier's shape ({tag}): "
+                    f"{err:.3g} > {LSTM_TOL[(kind, torch.float32)]}")
+            out[f"{kind}_max_abs_err_{tag}"] = err
+        if masked:
+            continue
+        out["fwd_plan"] = lstm._fwd_plan(index, H, B, torch.float32)[0]._asdict()
+        out["bwd_plan"] = lstm._bwd_plan(index, H, B, torch.float32)[0]._asdict()
+        out["fwd_ms"] = _time_ms(lambda: lstm.fused_lstm_fwd(*fwd, None,
+                                                             peeps))
+        out["bwd_ms"] = _time_ms(lambda: lstm.fused_lstm_bwd(*bargs))
+        out["fwd_plain_ms"] = _time_ms(lambda: lstm.lstm_fwd_reference(
+            *fwd, None, peeps), iters=3, warmup=1)
+        out["bwd_plain_ms"] = _time_ms(lambda: lstm.lstm_bwd_reference(
+            *bargs), iters=3, warmup=1)
+        for kind in ("fwd", "bwd"):
+            out[f"{kind}_bound_ms"], out[f"{kind}_bound_by"] = _lstm_bound(
+                kind, T, B, H, torch.float32, True, False)
+    log("K5/K6 at the classifier's shape:", out)
+    return out
+
+
+def _sentiment_readings(net, ds):
+    """A training forward and backward of ``net`` on a masked batch,
+    nothing written: the loss and every parameter's gradient (CPU
+    float64)."""
+    x, y, m = (torch.as_tensor(v, device=net.device)
+               for v in (ds.features, ds.labels, ds.features_mask))
+    loss = net.loss_fn([x], [y], train=True, features_mask=[m])
+    names = [n for n, _ in net.named_parameters()]
+    grads = torch.autograd.grad(loss, [p for _, p in net.named_parameters()])
+    return float(loss.detach()), {n: g.double().cpu()
+                                  for n, g in zip(names, grads)}
+
+
+def _sentiment_cross_device():
+    """One f32 step of the classifier at V 500, T 32, B 8 (E 300, H 256) on
+    the card (K5, K6) and on the CPU (the plain recurrence) from the same
+    weights: loss rel 1e-5, every gradient rel-to-max 1e-4; then
+    ``check_gradients`` in float64 on the card (the GravesLSTM takes its
+    plain recurrence there: float64 is outside K5's probe) over the
+    reference's random subset of parameters."""
+    ds = _sentiment_batches(1, SEED + 73, SENT_SMALL["vocab"],
+                            SENT_SMALL["T"], SENT_SMALL_B, 4)[0]
+    card = sentiment_graph(SEED + 74, **SENT_SMALL).init()
+    cpu = sentiment_graph(SEED + 74, **SENT_SMALL, device="cpu").init()
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    _reset_launches()
+    (lc, gc), (lp, gp) = _sentiment_readings(card, ds), \
+        _sentiment_readings(cpu, ds)
+    launches = _launches(LSTM_COUNTED)
+    worst = max((_rel_to_max(gc[n], gp[n]), n) for n in gp)
+    row = {"loss_rel": abs(lc - lp) / abs(lp), "grad_rel_to_max": worst[0],
+           "worst_grad": worst[1], "launches": launches}
+    if row["loss_rel"] > 1e-5 or worst[0] > 1e-4 or \
+            launches != {"lstm_fwd": 1, "lstm_bwd": 1}:
+        raise AssertionError(f"sentiment step, card vs CPU: {row}")
+    net64 = sentiment_graph(SEED + 74, **SENT_SMALL, dtype="float64").init()
+    _reset_launches()
+    t0 = time.perf_counter()
+    ok = check_gradients(net64, [ds.features], [ds.labels],
+                         features_mask=[ds.features_mask],
+                         subset=SENT_GRADCHECK_SUBSET, seed=1)
+    row["gradcheck_float64_s"] = time.perf_counter() - t0
+    row["gradcheck_params"] = [SENT_GRADCHECK_SUBSET, net64.num_params()]
+    if not ok or _launches(LSTM_COUNTED) != {"lstm_fwd": 0, "lstm_bwd": 0}:
+        raise AssertionError("check_gradients failed on the card (float64)")
+    return row
+
+
+def sentiment_phase():
+    """Phase 12d, part 1: the sentiment classifier at DL4J's example width,
+    16 masked batches of B 64 per step and in windows of 8 (a CUDA graph
+    of the step) from one seed, bitwise, under deterministic algorithms;
+    ``evaluate`` on 4 held-out batches against numpy; K5 and K6 against
+    their plain versions at this shape; the card-vs-CPU step and the
+    float64 gradient check. Returns the row and what phase 19 profiles."""
+    batches = _sentiment_batches(SENT_BATCHES + SENT_EVAL, SEED + 71,
+                                 SENT["vocab"], SENT["T"], SENT_B,
+                                 SENT_MIN_LEN)
+    train, held = batches[:SENT_BATCHES], batches[SENT_BATCHES:]
+    with _deterministic_algorithms():
+        a, run_a = _sentiment_fit(train, "per_step", async_prefetch=False)
+        w, run_w = _sentiment_fit(train, "window",
+                                  steps_per_dispatch=SENT_K)
+    g = run_w["graph"]
+    if (g["captures"], g["replays"]) != (1, SENT_BATCHES - 1):
+        raise AssertionError(f"sentiment windows: {g['captures']} captures "
+                             f"and {g['replays']} replays")
+    same, rel, name = _params_vs(a, w)
+    if not same:
+        raise AssertionError(f"sentiment windows of {SENT_K} are not bitwise "
+                             f"the per-step fit: {name} rel-to-max {rel:.3g}")
+    del a
+    # evaluate: the reference's takes no features mask, so the last step
+    # is each padded sequence's literal last one, in ``output`` as here
+    _reset_launches()
+    ev = w.evaluate(ListDataSetIterator(held))
+    eval_launches = _launches(LSTM_COUNTED)
+    want = np.zeros((2, 2), np.int64)
+    for ds in held:
+        out = w.output(ds.features).cpu().numpy()
+        np.add.at(want, (ds.labels.argmax(1), out.argmax(1)), 1)
+    if not np.array_equal(ev.confusion, want) or \
+            eval_launches != {"lstm_fwd": SENT_EVAL, "lstm_bwd": 0}:
+        raise AssertionError(f"sentiment evaluate: {ev.confusion} against "
+                             f"{want}, launches {eval_launches}")
+    row = {"model": "Word2VecSentimentRNN width: Embedding(30000, 300) -> "
+                    "GravesLSTM(256) -> LastTimeStepVertex -> softmax(2), "
+                    "f32, Adam(2e-2), l2 1e-5, clip 1.0",
+           "batch": SENT_B, "seq_len": SENT["T"], "steps": SENT_BATCHES,
+           "k": SENT_K, "deterministic_algorithms_for_the_check": True,
+           "runs": {"per_step": run_a, "window": run_w},
+           "window_params_bitwise": same,
+           "evaluate_confusion": ev.confusion.tolist(),
+           "evaluate_launches": eval_launches,
+           "kernels": _sentiment_kernels(train[0].features_mask),
+           "cross_device": _sentiment_cross_device()}
+    return row, {"window": w, "batches": train[:SENT_K]}
+
+
+def seq2seq_graph(device=None):
+    """``examples/seq2seq_tbptt.py``'s graph as the example builds it:
+    encoder LSTM(32) -> LastTimeStepVertex -> DuplicateToTimeSeriesVertex
+    -> decoder LSTM(32) -> a 3-class softmax, T 20, tBPTT 5, Adam(5e-3)."""
+    g = (NeuralNetConfiguration(seed=5, updater=Adam(5e-3)).graph_builder()
+         .add_inputs("in")
+         .add_layer("enc", LSTM(n_out=32, activation="tanh"), "in")
+         .add_vertex("last", LastTimeStepVertex(mask_input="in"), "enc")
+         .add_vertex("dup", DuplicateToTimeSeriesVertex(
+             reference_input="in"), "last")
+         .add_layer("dec", LSTM(n_out=32, activation="tanh"), "dup")
+         .add_layer("out", RnnOutputLayer(n_out=3, activation="softmax",
+                                          loss="mcxent"), "dec")
+         .set_outputs("out").set_input_types(InputType.recurrent(4, 20))
+         .tbptt_length(5))
+    return ComputationGraph(g.build(), device=device)
+
+
+def seq2seq_phase():
+    """Phase 12d, part 2: the example's graph on its data (32 sequences of
+    20 steps), 3 tBPTT fits and 3 ``rnn_time_step`` steps on the card and
+    on the CPU from the same weights (atol 1e-5). K5 and K6 launch 2
+    layers x 4 chunks a fit; K5 2 a streamed step. A streamed first step
+    equals a full forward of that one step; later ones cannot (a full
+    forward repeats the encoder's last step over the whole sequence, a
+    stream feeds the decoder each step's), so they are held against the
+    CPU's stream."""
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(32, 20, 4)).astype(np.float32)
+    csum = np.cumsum(x.sum(-1), 1)
+    y = np.eye(3, dtype=np.float32)[(csum > 0).astype(int)
+                                    + (csum > 3).astype(int)]
+    card, cpu = seq2seq_graph().init(), seq2seq_graph(device="cpu").init()
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    _reset_launches()
+    for _ in range(3):
+        card.fit(x, y, batch_size=32)
+    fit_launches = _launches(LSTM_COUNTED)
+    for _ in range(3):
+        cpu.fit(x, y, batch_size=32)
+    out_err = float((card.output(x).cpu() - cpu.output(x)).abs().max())
+    card.rnn_clear_previous_state()
+    cpu.rnn_clear_previous_state()
+    _reset_launches()
+    steps = [card.rnn_time_step(x[:2, t]).cpu() for t in range(3)]
+    stream_launches = _launches(LSTM_COUNTED)["lstm_fwd"]
+    cpu_steps = [cpu.rnn_time_step(x[:2, t]) for t in range(3)]
+    stream_err = max(float((a - b).abs().max())
+                     for a, b in zip(steps, cpu_steps))
+    first_err = float((steps[0] - card.output(x[:2, :1])[:, -1].cpu())
+                      .abs().max())
+    row = {"fit_launches": fit_launches, "stream_k5_launches": stream_launches,
+           "output_max_abs_err_vs_cpu": out_err,
+           "stream_max_abs_err_vs_cpu": stream_err,
+           "first_step_vs_full_forward": first_err,
+           "iterations": card.iteration_count}
+    if fit_launches != {"lstm_fwd": 24, "lstm_bwd": 24} or \
+            stream_launches != 6 or card.iteration_count != 12 or \
+            max(out_err, stream_err, first_err) > 1e-5:
+        raise AssertionError(f"seq2seq on the card: {row}")
+    return row
+
+
+class _NoiseFrom:
+    """A layer's ``pretrain_noise`` drawn from a CPU generator seeded by
+    the call count and moved to the input's device: one noise for the
+    card's and the CPU's run."""
+
+    def __init__(self, draw, seed):
+        self.draw, self.seed, self.calls = draw, seed, 0
+
+    def __call__(self, x, gen):
+        cpu = torch.Generator().manual_seed(self.seed + self.calls)
+        self.calls += 1
+        return self.draw(x.cpu(), cpu).to(x.device)
+
+
+def _vae_net(device=None):
+    conf = NeuralNetConfiguration(
+        seed=SEED + 75, updater=RmsProp(1e-2), l2=1e-4, weight_init="xavier",
+        activation="leakyrelu", dtype="float64").list(VariationalAutoencoder(
+            **VAE, reconstruction_distribution=(
+                BernoulliReconstructionDistribution()))).build()
+    return MultiLayerNetwork(conf, device=device)
+
+
+def _lbfgs_net(device=None):
+    conf = (NeuralNetConfiguration(seed=SEED + 76, updater=Sgd(0.1),
+                                   dtype="float64",
+                                   optimization_algorithm="lbfgs",
+                                   max_num_line_search_iterations=8)
+            .list(DenseLayer(n_in=4, n_out=12, activation="tanh"),
+                  OutputLayer(n_out=3, activation="softmax", loss="mcxent"))
+            .build())
+    return MultiLayerNetwork(conf, device=device)
+
+
+def nn_engine_cross_device_phase():
+    """Phase 12d, part 3: one layerwise ``pretrain`` epoch of a VAE at
+    DL4J's example width (float64, the same noise on both devices) and
+    eight LBFGS outer iterations of a small MLP (float64), each on the card
+    and on the CPU from the same weights: parameters at rel-to-max 1e-9."""
+    rng = np.random.default_rng(SEED + 77)
+    x = (rng.random((VAE_B * VAE_BATCHES, VAE["n_in"])) > 0.7).astype(
+        np.float64)
+    out = {}
+    nets = {"cuda": _vae_net().init(), "cpu": _vae_net(device="cpu").init()}
+    nets["cpu"].load_state_dict({k: v.cpu() for k, v in
+                                 nets["cuda"].state_dict().items()})
+    start = nets["cpu"].params_flat().clone()
+    for dev, net in nets.items():
+        layer = net.layers[0]
+        layer.pretrain_noise = _NoiseFrom(layer.pretrain_noise, SEED + 78)
+        t0 = time.perf_counter()
+        net.pretrain(ListDataSetIterator(features=x, labels=x,
+                                         batch_size=VAE_B))
+        torch.cuda.synchronize()
+        out[f"vae_pretrain_s_{dev}"] = time.perf_counter() - t0
+    out["vae_param_rel_to_max"] = _rel_to_max_f64(
+        nets["cuda"].params_flat().cpu(), nets["cpu"].params_flat())
+    out["vae_params"] = nets["cpu"].num_params()
+    moved = _rel_to_max_f64(nets["cpu"].params_flat(), start)
+    xy = np.random.default_rng(SEED + 79).normal(size=(120, 4))
+    yi = (xy[:, 0] + xy[:, 1] > 0).astype(int) + (xy[:, 2] > 0.5).astype(int)
+    y = np.eye(3)[yi]
+    lb = {"cuda": _lbfgs_net().init(), "cpu": _lbfgs_net(device="cpu").init()}
+    lb["cpu"].load_state_dict({k: v.cpu() for k, v in
+                               lb["cuda"].state_dict().items()})
+    for net in lb.values():
+        net.fit(xy, y, epochs=8, batch_size=120)
+    out["lbfgs_param_rel_to_max"] = _rel_to_max_f64(
+        lb["cuda"].params_flat().cpu(), lb["cpu"].params_flat())
+    out["lbfgs_score"] = [lb[d].score(xy, y) for d in ("cuda", "cpu")]
+    if out["vae_param_rel_to_max"] > 1e-9 or moved == 0 or \
+            out["lbfgs_param_rel_to_max"] > 1e-9:
+        raise AssertionError(f"pretrain / LBFGS, card vs CPU: {out}")
+    return out
+
+
+def sentiment_device_time_phase(sctx):
+    """Phase 19 for the classifier: the profiler's device time a step over
+    one window of 8 (replays only) with K5's and K6's shares, and K5, K6
+    and cuDNN's ``nn.LSTM(300, 256)`` forward and backward by device time
+    at the classifier's shape (T 256, B 64)."""
+    net, bs = sctx["window"], sctx["batches"]
+    g0 = _graph_counts(net)
+    prof = _device_kernels(lambda: net.fit(
+        iterator=ListDataSetIterator(bs), steps_per_dispatch=SENT_K),
+        top=1000)
+    g1 = _graph_counts(net)
+    if g1["captures"] != g0["captures"] or \
+            g1["replays"] - g0["replays"] != SENT_K:
+        raise AssertionError(f"the profiled sentiment window was not all "
+                             f"replays: {g0} -> {g1}")
+    k = len(bs)
+    share = lambda n: sum(r["ms"] for r in prof["top"] if n in r["kernel"])
+    out = {"device_ms_per_step": prof["device_ms"] / k,
+           "wall_ms_per_step": prof["wall_ms"] / k,
+           "k5_ms_per_step": share("lstm_fwd_kernel") / k,
+           "k6_ms_per_step": share("lstm_bwd_kernel") / k,
+           "top_kernels_ms_per_step": [
+               {"kernel": r["kernel"], "calls": r["calls"] / k,
+                "ms": r["ms"] / k} for r in prof["top"][:10]]}
+    for n in ("k5", "k6"):
+        out[f"{n}_share_of_device_time"] = out[f"{n}_ms_per_step"] / \
+            out["device_ms_per_step"]
+    gen = torch.Generator().manual_seed(SEED + 80)
+    T, B, H = SENT["T"], SENT_B, SENT["hidden"]
+    fwd, _, peeps, (dhs, dhT, dcT) = _lstm_case(gen, T, B, H, torch.float32,
+                                                True, False)
+    res = lstm.lstm_fwd_reference(*fwd, None, peeps)[1:5]
+    bargs = (*res, dhs, fwd[3], dhT, dcT, None, peeps)
+    out["k5_device_ms"] = _device_ms_per_call(
+        lambda: lstm.fused_lstm_fwd(*fwd, None, peeps), name="lstm_fwd")
+    out["k6_device_ms"] = _device_ms_per_call(
+        lambda: lstm.fused_lstm_bwd(*bargs), name="lstm_bwd")
+    cud = torch.nn.LSTM(SENT["embed"], H).cuda()
+    xin = torch.randn(T, B, SENT["embed"], generator=gen).cuda()
+    with torch.no_grad():
+        out["cudnn_fwd_device_ms"] = _library_device_ms(lambda: cud(xin))
+    xin.requires_grad_(True)
+    o, _ = cud(xin)
+    dout = torch.randn(T, B, H, generator=gen).cuda()
+    leaves = [xin, *cud.parameters()]
+    out["cudnn_bwd_device_ms"] = _library_device_ms(
+        lambda: torch.autograd.grad(o, leaves, dout, retain_graph=True))
+    log("sentiment by device time:", out)
     return out
 
 
@@ -3876,6 +4385,9 @@ def main() -> int:
     mlp, i8serve = int8_serve_phase()
     resnet_row, resnet_ctx = resnet_phase()
     transfer_row, transfer_ctx = googlenet_transfer_phase()
+    sent_row, sent_ctx = sentiment_phase()
+    s2s_row = seq2seq_phase()
+    nn_cross = nn_engine_cross_device_phase()
     cnn_cross = cnn_cross_device_phase(gnet, mlp)
     zip_http = zip_http_phase(gnet, mlp)
     del gnet, mlp
@@ -3893,7 +4405,8 @@ def main() -> int:
     k4_device_time_phase(k4_rows)
     lstm_device = lstm_device_time_phase()
     cnn_train_device = cnn_train_device_time_phase(resnet_ctx, transfer_ctx)
-    del resnet_ctx, transfer_ctx
+    sent_device = sentiment_device_time_phase(sent_ctx)
+    del resnet_ctx, transfer_ctx, sent_ctx
     top = next(r for r in rows if r["BH"] == 16 and r["T"] == 1024
                and r["dtype"] == str(torch.float32))
     serve_k1 = slice_row["flash_attention_launches"]
@@ -3970,8 +4483,15 @@ def main() -> int:
                     if kind == "fwd" else 0)
         draft_n = lstm_draft_k5 if kind == "fwd" else 0
         http_k5 = http_n["lstm_fwd"] if kind == "fwd" else 0
+        runs = sent_row["runs"]
+        sent_n = (runs["per_step"]["launches"][name]
+                  + runs["window"]["launches"][name]
+                  + sent_row["evaluate_launches"][name])
+        s2s_n = s2s_row["fit_launches"][name] + (
+            s2s_row["stream_k5_launches"] if kind == "fwd" else 0)
         by_path = {"serve": serve_n, "train": train_n,
-                   "char_graph_tbptt": graph_n}
+                   "char_graph_tbptt": graph_n, "seq_classifier": sent_n,
+                   "seq2seq": s2s_n}
         if kind == "fwd":
             by_path["char_graph_rnn_time_step"] = stream_n
         if kind == "fwd":
@@ -3983,7 +4503,7 @@ def main() -> int:
             "name": name, "route": "cuda", "source": lsrc.format(kind),
             "replaces": lref.format(line),
             "launches": serve_n + train_n + graph_n + stream_n + draft_n
-            + http_k5,
+            + http_k5 + sent_n + s2s_n,
             "launches_by_path": by_path,
             "max_abs_err": max(lstm_errs[(kind, torch.float32)],
                                lstm_errs[(kind, torch.bfloat16)]),
@@ -4002,7 +4522,22 @@ def main() -> int:
                 f"cudnn_{kind}_train_T64_B32"),
             "library_device_ms_by_shape": {
                 k.split("_", 2)[2]: v for k, v in lstm_device.items()
-                if k.startswith(f"cudnn_{kind}")}})
+                if k.startswith(f"cudnn_{kind}")},
+            "seq_classifier_shape": {
+                "shape": "T=256 B=64 H=256 float32 peepholes (ms and "
+                         "library_ms: device time; library: cuDNN "
+                         "nn.LSTM(300, 256))",
+                "ms": sent_device[f"k{5 if kind == 'fwd' else 6}_device_ms"],
+                "ms_loop": sent_row["kernels"][f"{kind}_ms"],
+                "plain_ms": sent_row["kernels"][f"{kind}_plain_ms"],
+                "bound_ms": sent_row["kernels"][f"{kind}_bound_ms"],
+                "bound_by": sent_row["kernels"][f"{kind}_bound_by"],
+                "library_ms": sent_device[f"cudnn_{kind}_device_ms"],
+                "max_abs_err_unmasked":
+                    sent_row["kernels"][f"{kind}_max_abs_err_unmasked"],
+                "max_abs_err_masked":
+                    sent_row["kernels"][f"{kind}_max_abs_err_masked"],
+                "plan": sent_row["kernels"][f"{kind}_plan"]}})
     kernels.append({
         "name": "conv1x1_bias_relu", "route": "cuda",
         "source": "deeplearning4j_tpu_torch/csrc/conv1x1_bias_relu.cu",
@@ -4108,6 +4643,10 @@ def main() -> int:
                       "googlenet_transfer": transfer_row,
                       "cnn_train_device_time": cnn_train_device,
                       "card": smi}, default=str), flush=True)
+    print(json.dumps({"sentiment": sent_row, "seq2seq": s2s_row,
+                      "nn_engine_cross_device": nn_cross,
+                      "sentiment_device_time": sent_device, "card": smi},
+                     default=str), flush=True)
     print(json.dumps({"ring": ring_row, "data_parallel": dp_row,
                       "parallel_cross_device": par_cross, "card": smi}),
           flush=True)

@@ -18,9 +18,9 @@ Gradient checkpointing (each layer's forward recomputed in the backward)
 and mixed precision (``compute_dtype``: master parameters and updater
 state in ``dtype``, the forward and backward in ``compute_dtype``) are the
 reference's (``:44-53, 112-121``) and reach the network through both
-configurations. Other optimization algorithms and layerwise pretraining
-(ROADMAP A5) raise ``NotImplementedError`` in the builder; a configuration
-read from JSON carries their fields, and the solver refuses them.
+configurations, and so do ``optimization_algorithm`` (the second-order
+solvers, ``optimize/second_order.py``) with
+``max_num_line_search_iterations``, and the ``pretrain`` flag.
 """
 from __future__ import annotations
 
@@ -62,12 +62,6 @@ class NeuralNetConfiguration:
                  max_num_line_search_iterations: int = 5,
                  gradient_checkpointing: bool = False,
                  compute_dtype: Optional[str] = None, **workspace_noops):
-        if optimization_algorithm.lower() not in (
-                "sgd", "stochastic_gradient_descent"):
-            raise NotImplementedError(
-                f"optimization_algorithm {optimization_algorithm!r}: the "
-                f"second-order solvers are not ported yet (ROADMAP A5); "
-                f"only 'sgd' trains")
         if compute_dtype is not None:
             try:
                 torch_dtype(compute_dtype)
@@ -99,8 +93,8 @@ class NeuralNetConfiguration:
             gradient_normalization_threshold
         self.dtype = dtype
         self.optimization_algorithm = optimization_algorithm.lower()
-        # read by the second-order solvers (ROADMAP A5); the workspace and
-        # cache-mode keywords are accepted and ignored, as the reference's
+        # read by the second-order solvers; the workspace and cache-mode
+        # keywords are accepted and ignored, as the reference's
         self.max_num_line_search_iterations = max_num_line_search_iterations
         self.gradient_checkpointing = gradient_checkpointing
         self.compute_dtype = compute_dtype
@@ -133,11 +127,12 @@ class MultiLayerConfiguration:
     backprop_type: str = "standard"       # "standard" | "tbptt"
     tbptt_fwd_length: int = 20
     tbptt_bwd_length: int = 20
-    pretrain: bool = False                # layerwise pretraining (A5)
+    pretrain: bool = False                # carried, as the reference's
     gradient_normalization: Optional[str] = None
     gradient_normalization_threshold: float = 1.0
     updater: Optional[Any] = None
-    optimization_algorithm: str = "sgd"   # others: ROADMAP A5
+    # or "line_gradient_descent", "conjugate_gradient", "lbfgs"
+    optimization_algorithm: str = "sgd"
     max_num_line_search_iterations: int = 5
     # recompute each layer's forward in the backward instead of keeping
     # its activations (memory for compute)
@@ -165,6 +160,7 @@ class ListBuilder:
         self._backprop_type = "standard"
         self._tbptt_fwd = 20
         self._tbptt_bwd = 20
+        self._pretrain = False
 
     def layer(self, layer_or_idx, maybe_layer=None) -> "ListBuilder":
         self.layers.append(maybe_layer if maybe_layer is not None
@@ -194,9 +190,9 @@ class ListBuilder:
         return self
 
     def pretrain(self, flag: bool) -> "ListBuilder":
-        if flag:
-            raise NotImplementedError("layerwise pretraining is not ported "
-                                      "yet (ROADMAP A5)")
+        """The configuration's ``pretrain`` flag, carried as the
+        reference carries it (``net.pretrain`` runs the pretraining)."""
+        self._pretrain = flag
         return self
 
     def build(self) -> MultiLayerConfiguration:
@@ -223,7 +219,7 @@ class ListBuilder:
             input_type=self._input_type, seed=nc.seed,
             dtype=nc.dtype, backprop_type=self._backprop_type,
             tbptt_fwd_length=self._tbptt_fwd,
-            tbptt_bwd_length=self._tbptt_bwd,
+            tbptt_bwd_length=self._tbptt_bwd, pretrain=self._pretrain,
             gradient_normalization=nc.gradient_normalization,
             gradient_normalization_threshold=(
                 nc.gradient_normalization_threshold),

@@ -41,7 +41,7 @@ class ComputationGraphConfiguration:
     gradient_normalization: Optional[str] = None
     gradient_normalization_threshold: float = 1.0
     updater: Optional[Any] = None
-    optimization_algorithm: str = "sgd"   # others: ROADMAP A5
+    optimization_algorithm: str = "sgd"   # see MultiLayerConfiguration
     max_num_line_search_iterations: int = 5
     gradient_checkpointing: bool = False  # see MultiLayerConfiguration
     compute_dtype: Optional[str] = None   # see MultiLayerConfiguration

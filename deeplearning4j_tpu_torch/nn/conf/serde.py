@@ -31,19 +31,9 @@ _REGISTRY: Dict[str, Type] = {}
 # without it reads with the default, True (the reference's contract)
 CONFIG_FORMAT_VERSION = 2
 
-# the reference's registered classes that have no port yet, by ROADMAP item
-NOT_PORTED: Dict[str, str] = dict.fromkeys((
-    "DropoutLayer", "EmbeddingLayer", "LossLayer", "AutoEncoder",
-    "VariationalAutoencoder", "RBM",
-    "Convolution1DLayer", "Subsampling1DLayer", "ZeroPadding1DLayer",
-    "BernoulliReconstructionDistribution",
-    "GaussianReconstructionDistribution",
-    "ExponentialReconstructionDistribution",
-    "CompositeReconstructionDistribution", "LossFunctionWrapper",
-    "BinomialDistribution", "ShiftVertex", "L2Vertex",
-    "StackVertex", "UnstackVertex", "SubsetVertex",
-    "PreprocessorVertex", "PoolHelperVertex", "LastTimeStepVertex",
-    "DuplicateToTimeSeriesVertex"), "A5")
+# the reference's registered classes that have no port yet, by ROADMAP
+# item (none since A5's second half)
+NOT_PORTED: Dict[str, str] = {}
 
 # the modules whose classes register themselves on import
 _MODULES = ("deeplearning4j_tpu_torch.nn.inputs",

@@ -9,10 +9,14 @@ recurrent-state carry (``rnn_states`` / ``collect_rnn_states``,
 ``params_flat`` / ``set_params_flat`` (``:305-334``), ``num_params``,
 ``fit`` (``:350-370``; tBPTT when the configuration asks for it) with the
 updater state (``opt_state``) and ``iteration_count`` the net carries,
-``evaluate`` (``:379``) and ``clone`` (``:418``). Mixed precision and gradient checkpointing are the
-``MultiLayerNetwork``'s (``nn/multilayer.py`` ``run_layer``), per layer
-vertex; the final recurrent states are indexed by vertex, in topological
-order.
+``pretrain`` (``:372``), ``evaluate`` (``:379``) and ``clone``
+(``:418``). The executor hands ``LastTimeStepVertex`` the mask of its
+``mask_input`` (else its input's; none where the time axis changed
+length) and ``DuplicateToTimeSeriesVertex`` the length of its
+``reference_input`` (``:128-140``). Mixed precision and gradient
+checkpointing are the ``MultiLayerNetwork``'s (``nn/multilayer.py``
+``run_layer``), per layer vertex; the final recurrent states are indexed
+by vertex, in topological order.
 
 The graph is an ``nn.Module`` on one device, given at construction; its
 vertices live in ``self.vertices`` under their configuration names, in
@@ -37,7 +41,8 @@ from ...optimize.updaters import MultiLayerUpdater
 from ..conf.graph_conf import ComputationGraphConfiguration
 from ..multilayer import (cast_floats, compute_dtype_of, copy_state,
                           run_layer, to_numpy)
-from .vertices import LayerVertex
+from .vertices import (DuplicateToTimeSeriesVertex, LastTimeStepVertex,
+                       LayerVertex)
 
 
 def _as_list(x):
@@ -175,6 +180,15 @@ class ComputationGraph(nn.Module):
                 out = run_layer(v, lambda *xs, _v=v, _m=in_mask:
                                 _v(list(xs), _m, train=train, gen=gen),
                                 vin, compute_dtype=cd, remat=remat)
+            elif isinstance(v, LastTimeStepVertex):
+                mask = masks.get(v.mask_input) if v.mask_input else in_mask
+                if mask is not None and vin[0].dim() == 3 and \
+                        mask.shape[1] != vin[0].shape[1]:
+                    mask = None       # the sequence length changed upstream
+                out = v(vin, mask)
+            elif isinstance(v, DuplicateToTimeSeriesVertex):
+                out = v(vin, None if v.reference_input is None
+                        else acts[v.reference_input].shape[1])
             else:
                 out = v(vin)
             acts[name] = out
@@ -346,10 +360,15 @@ class ComputationGraph(nn.Module):
     def rnn_clear_previous_state(self) -> None:
         self._rnn_state = None
 
-    # ------------------------------------------------- not ported yet
-    def pretrain(self, iterator, epochs: int = 1):
-        raise NotImplementedError("layerwise pretraining is not ported yet "
-                                  "(ROADMAP A5)")
+    def pretrain(self, iterator, epochs: int = 1) -> "ComputationGraph":
+        """Layerwise unsupervised pretraining of every layer vertex whose
+        layer has a ``pretrain_loss`` (``optimize.solver.Solver.pretrain``):
+        its input vertex's activations are its data."""
+        if not hasattr(self, "_solver_inst"):
+            from ...optimize.solver import Solver
+            self._solver_inst = Solver(self)
+        self._solver_inst.pretrain(iterator, epochs=epochs)
+        return self
 
     # ---------------------------------------------------------------- eval
     def evaluate(self, iterator_or_x, y=None):

@@ -1,21 +1,26 @@
 """Graph vertices: a layer, a channel concatenation, an elementwise
-combination of inputs, a constant scale and an L2 normalization.
+combination of inputs, and the reshaping, slicing and arithmetic vertices.
 
-Counterpart of ``LayerVertex``, ``MergeVertex`` (``:102-123``),
-``ElementWiseVertex``, ``ScaleVertex`` (``:232``) and
-``L2NormalizeVertex`` (``:250``) in
-``deeplearning4j_tpu/nn/graph/vertices.py``. A
-vertex takes a LIST of input tensors; shape inference goes through
-``output_type(input_types)``. A layer vertex applies its preprocessor, if
-any, before its layer. A [B,T] feature mask reaches a layer only when the
-layer ``accepts_mask`` and its input is a [B,T,F] sequence
-(``LayerVertex.apply`` ``:68-77``). Each vertex lists its JSON fields in
-``serde_fields`` (``nn/conf/serde.py``); the reference's other nine
-vertices are ROADMAP A5 (``serde.NOT_PORTED``).
+Counterpart of ``deeplearning4j_tpu/nn/graph/vertices.py``:
+``LayerVertex``, ``MergeVertex`` (``:102-123``), ``ElementWiseVertex``,
+``PoolHelperVertex`` (``:172``), ``SubsetVertex`` (``:189``),
+``StackVertex`` (``:206``), ``UnstackVertex`` (``:216``),
+``ScaleVertex`` (``:232``), ``ShiftVertex`` (``:241``),
+``L2NormalizeVertex`` (``:250``), ``L2Vertex`` (``:261``),
+``PreprocessorVertex`` (``:274``), and the recurrent pair
+``LastTimeStepVertex`` (``:286``) and ``DuplicateToTimeSeriesVertex``
+(``:304``). A vertex takes a LIST of input tensors; shape inference goes
+through ``output_type(input_types)``. A layer vertex applies its
+preprocessor, if any, before its layer. A [B,T] feature mask reaches a
+layer only when the layer ``accepts_mask`` and its input is a [B,T,F]
+sequence (``LayerVertex.apply`` ``:68-77``). The graph's executor hands
+``LastTimeStepVertex`` its mask and ``DuplicateToTimeSeriesVertex`` its
+length (``nn/graph/graph.py``). Each vertex lists its JSON fields in
+``serde_fields`` (``nn/conf/serde.py``).
 """
 from __future__ import annotations
 
-from typing import Any, List
+from typing import Any, List, Optional
 
 import torch
 from torch import nn
@@ -194,3 +199,160 @@ class L2NormalizeVertex(VertexConf):
         x = inputs[0]
         return x / torch.sqrt(torch.sum(x * x, dim=-1, keepdim=True)
                               + self.eps)
+
+
+@register
+class PoolHelperVertex(VertexConf):
+    """Drops the first row and column of an NHWC map (the off-by-one
+    pooling of Caffe-trained inception models)."""
+
+    def output_type(self, itypes):
+        it = itypes[0]
+        if not isinstance(it, InputTypeConvolutional):
+            raise ValueError(f"PoolHelperVertex expects convolutional input, "
+                             f"got {it}")
+        return InputTypeConvolutional(it.height - 1, it.width - 1,
+                                      it.channels)
+
+    def forward(self, inputs):
+        return inputs[0][:, 1:, 1:, :]
+
+
+@register
+class SubsetVertex(VertexConf):
+    """The features [from_idx, to_idx], both ends included."""
+    serde_fields = ("from_idx", "to_idx")
+
+    def __init__(self, from_idx: int = 0, to_idx: int = 0):
+        super().__init__()
+        self.from_idx = from_idx
+        self.to_idx = to_idx
+
+    def output_type(self, itypes):
+        n = self.to_idx - self.from_idx + 1
+        it = itypes[0]
+        if isinstance(it, InputTypeRecurrent):
+            return InputTypeRecurrent(n, it.timestep_length)
+        return InputTypeFeedForward(n)
+
+    def forward(self, inputs):
+        return inputs[0][..., self.from_idx:self.to_idx + 1]
+
+
+@register
+class StackVertex(VertexConf):
+    """Its inputs stacked along the batch axis (one layer shared by
+    several inputs)."""
+
+    def forward(self, inputs):
+        return torch.cat(inputs, dim=0)
+
+
+@register
+class UnstackVertex(VertexConf):
+    """Slice ``from_idx`` of ``stack_size`` equal slices of the batch
+    axis: the inverse of ``StackVertex``."""
+    serde_fields = ("from_idx", "stack_size")
+
+    def __init__(self, from_idx: int = 0, stack_size: int = 1):
+        super().__init__()
+        self.from_idx = from_idx
+        self.stack_size = stack_size
+
+    def forward(self, inputs):
+        x = inputs[0]
+        step = x.shape[0] // self.stack_size
+        return x[self.from_idx * step:(self.from_idx + 1) * step]
+
+
+@register
+class ShiftVertex(VertexConf):
+    """Its input plus the constant ``shift_factor``."""
+    serde_fields = ("shift_factor",)
+
+    def __init__(self, shift_factor: float = 0.0):
+        super().__init__()
+        self.shift_factor = shift_factor
+
+    def forward(self, inputs):
+        return inputs[0] + self.shift_factor
+
+
+@register
+class L2Vertex(VertexConf):
+    """The L2 distance of two inputs over the last axis, sqrt(Σd² + eps),
+    [B, 1]."""
+    serde_fields = ("eps",)
+
+    def __init__(self, eps: float = 1e-8):
+        super().__init__()
+        self.eps = eps
+
+    def output_type(self, itypes):
+        return InputTypeFeedForward(1)
+
+    def forward(self, inputs):
+        d = inputs[0] - inputs[1]
+        return torch.sqrt(torch.sum(d * d, dim=-1, keepdim=True) + self.eps)
+
+
+@register
+class PreprocessorVertex(VertexConf):
+    """A preprocessor (``nn/preprocessors.py``) as a vertex of its own."""
+    serde_fields = ("preprocessor",)
+
+    def __init__(self, preprocessor=None):
+        super().__init__()
+        self.preprocessor = preprocessor
+
+    def output_type(self, itypes):
+        return self.preprocessor.output_type(itypes[0])
+
+    def forward(self, inputs):
+        return self.preprocessor.apply(inputs[0])
+
+
+@register
+class LastTimeStepVertex(VertexConf):
+    """[B,T,F] -> [B,F] at each sequence's last unmasked step under a
+    [B,T] mask (the mask of the vertex or network input named
+    ``mask_input``, else its input's), else the literal last step. The
+    index is computed on the device from the mask (a gather: no host
+    read)."""
+    serde_fields = ("mask_input",)
+
+    def __init__(self, mask_input: Optional[str] = None):
+        super().__init__()
+        self.mask_input = mask_input
+
+    def output_type(self, itypes):
+        return InputTypeFeedForward(itypes[0].size)
+
+    def forward(self, inputs, mask=None):
+        x = inputs[0]
+        if mask is None:
+            return x[:, -1]
+        idx = torch.clamp(mask.to(torch.int64).sum(dim=1) - 1, min=0)
+        return x[torch.arange(x.shape[0], device=x.device), idx]
+
+
+@register
+class DuplicateToTimeSeriesVertex(VertexConf):
+    """[B,F] -> [B,T,F], the same features at every step; T is the length
+    of ``reference_input``'s activation when the executor passes it, else
+    ``timestep_length``."""
+    serde_fields = ("reference_input", "timestep_length")
+
+    def __init__(self, reference_input: Optional[str] = None,
+                 timestep_length: int = -1):
+        super().__init__()
+        self.reference_input = reference_input
+        self.timestep_length = timestep_length
+
+    def output_type(self, itypes):
+        return InputTypeRecurrent(itypes[0].size, self.timestep_length)
+
+    def forward(self, inputs, timesteps=None):
+        x = inputs[0]
+        t = timesteps if timesteps is not None else self.timestep_length
+        return x[:, None, :].expand(x.shape[0], t, x.shape[-1])

@@ -4,13 +4,19 @@ from .base import LayerConf
 from .conv import (Convolution1DLayer, ConvolutionLayer, GlobalPoolingLayer,
                    Subsampling1DLayer, SubsamplingLayer, ZeroPadding1DLayer,
                    ZeroPaddingLayer)
-from .core import (ActivationLayer, CenterLossOutputLayer, DenseLayer,
-                   EmbeddingSequenceLayer, OutputLayer,
+from .core import (ActivationLayer, AutoEncoder, CenterLossOutputLayer,
+                   DenseLayer, DropoutLayer, EmbeddingLayer,
+                   EmbeddingSequenceLayer, LossLayer, OutputLayer,
                    PositionalEmbeddingLayer, RnnOutputLayer)
 from .norm import (BatchNormalization, LayerNormalization,
                    LocalResponseNormalization)
 from .recurrent import (GravesBidirectionalLSTM, GravesLSTM, LastTimeStepLayer,
                         LSTM)
+from .variational import (RBM, BernoulliReconstructionDistribution,
+                          CompositeReconstructionDistribution,
+                          ExponentialReconstructionDistribution,
+                          GaussianReconstructionDistribution,
+                          LossFunctionWrapper, VariationalAutoencoder)
 
 __all__ = ["LayerConf", "DenseLayer", "ActivationLayer", "OutputLayer",
            "EmbeddingSequenceLayer", "PositionalEmbeddingLayer",
@@ -20,4 +26,9 @@ __all__ = ["LayerConf", "DenseLayer", "ActivationLayer", "OutputLayer",
            "GravesLSTM", "GravesBidirectionalLSTM", "LastTimeStepLayer",
            "ConvolutionLayer", "SubsamplingLayer", "ZeroPaddingLayer",
            "GlobalPoolingLayer", "Convolution1DLayer", "Subsampling1DLayer",
-           "ZeroPadding1DLayer"]
+           "ZeroPadding1DLayer", "DropoutLayer", "EmbeddingLayer",
+           "LossLayer", "AutoEncoder", "VariationalAutoencoder", "RBM",
+           "GaussianReconstructionDistribution",
+           "BernoulliReconstructionDistribution",
+           "ExponentialReconstructionDistribution",
+           "CompositeReconstructionDistribution", "LossFunctionWrapper"]

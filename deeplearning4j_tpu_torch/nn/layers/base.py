@@ -35,7 +35,7 @@ import torch
 from torch import nn
 
 from ..activations import get_activation
-from ..tape import mask_tape
+from ..tape import taped
 from ..inputs import (InputTypeConvolutional, InputTypeConvolutionalFlat,
                       InputTypeFeedForward, InputTypeRecurrent)
 from ..weights import init_weights
@@ -49,16 +49,8 @@ def maybe_dropout(x, retain_prob, gen: Optional[torch.Generator],
     if not train or retain_prob is None or retain_prob <= 0 \
             or retain_prob >= 1:
         return x
-    tape = mask_tape()
-    if tape is not None and tape[1]:
-        masks, _, at = tape
-        keep = masks[at[0]]
-        at[0] += 1
-    else:
-        keep = torch.rand(x.shape, generator=gen,
-                          device=x.device) < retain_prob
-        if tape is not None:
-            tape[0].append(keep)
+    keep = taped(lambda: torch.rand(x.shape, generator=gen,
+                                    device=x.device) < retain_prob)
     return torch.where(keep, x / retain_prob, 0.0).to(x.dtype)
 
 

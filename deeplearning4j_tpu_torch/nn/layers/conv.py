@@ -3,8 +3,10 @@
 Counterpart of ``deeplearning4j_tpu/nn/layers/conv.py``:
 ``conv_output_size`` (``:40``), ``ConvolutionLayer`` (``:48-114``, with
 the fused 1x1 conv + bias + relu seam at ``:101-114``),
-``SubsamplingLayer`` (``:161-214``), ``ZeroPaddingLayer`` (``:266``) and
-``GlobalPoolingLayer`` (``:318-361``). Activations are NHWC and ``W`` is
+``SubsamplingLayer`` (``:161-214``), ``ZeroPaddingLayer`` (``:266``),
+``GlobalPoolingLayer`` (``:318-361``) and the 1-D layers over [B,T,F]
+``Convolution1DLayer`` (``:117-156``), ``Subsampling1DLayer``
+(``:217-261``) and ``ZeroPadding1DLayer`` (``:289-313``). Activations are NHWC and ``W`` is
 HWIO [kh, kw, C, F], as in the reference, so weights carry across as a
 copy. The stock paths hand ``F.conv2d`` and the pooling functions NCHW
 views of the NHWC tensors (``permute``, so the memory stays channels-last)
@@ -15,9 +17,9 @@ Padding follows ``lax``: "same" pads each spatial dim by
 rest high (asymmetric at stride 2); "truncate"/"strict" pad
 ``padding`` on both sides. The padding is explicit (``F.pad``): zeros for
 the conv and for sum/avg/pnorm pooling, -inf for max pooling, the
-``reduce_window`` init values. The 1-D layers (``Convolution1DLayer``,
-``Subsampling1DLayer``, ``ZeroPadding1DLayer``) raise
-``NotImplementedError`` until ROADMAP A5.
+``reduce_window`` init values. The 1-D layers pad the time axis by the
+same rules; their pooling takes the padded sequence's windows
+(``unfold``). None of them reaches K7: the reference's are XLA.
 """
 from __future__ import annotations
 
@@ -229,11 +231,12 @@ class ZeroPaddingLayer(LayerConf):
 @register
 class GlobalPoolingLayer(LayerConf):
     """Global pooling over the spatial dims of [B,H,W,C] or the time dim of
-    [B,T,F] (under an optional [B,T] mask): max, sum, avg or pnorm."""
+    [B,T,F] (under a [B,T] mask when called with one): max, sum, avg or
+    pnorm. The networks hand it no mask: as the reference's, it does not
+    ``accepts_mask``."""
     serde_fields = LayerConf.serde_fields + (
         "pooling_type", "pnorm", "collapse_dimensions")
     expected_input = "any"
-    accepts_mask = True
 
     def __init__(self, pooling_type: str = "max", pnorm: int = 2,
                  collapse_dimensions: bool = True, **kw):
@@ -272,19 +275,145 @@ class GlobalPoolingLayer(LayerConf):
         raise ValueError(f"Unknown pooling type {self.pooling_type!r}")
 
 
-class _NotPorted(LayerConf):
-    def __init__(self, *a, **kw):
-        raise NotImplementedError(f"{type(self).__name__} is not ported yet "
-                                  f"(ROADMAP A5)")
+@register
+class Convolution1DLayer(LayerConf):
+    """Temporal convolution over [B,T,F]: ``W`` [k, C, F] (WIO), ``b``
+    [F]; "same" pads as ``lax`` does (the dilated kernel's extent), the
+    other modes ``padding`` on both sides. A stride above 1 shortens T,
+    so a graph drops the [B,T] mask after it."""
+    serde_fields = LayerConf.serde_fields + (
+        "n_in", "n_out", "kernel_size", "stride", "padding",
+        "convolution_mode", "dilation")
+    expected_input = "rnn"
+    param_order = ("W", "b")
+
+    def __init__(self, n_in: Optional[int] = None, n_out: int = 0,
+                 kernel_size: int = 3, stride: int = 1, padding: int = 0,
+                 convolution_mode: str = "same", dilation: int = 1, **kw):
+        super().__init__(**kw)
+        self.n_in = n_in
+        self.n_out = n_out
+        self.kernel_size = kernel_size
+        self.stride = stride
+        self.padding = padding
+        self.convolution_mode = convolution_mode
+        self.dilation = dilation
+
+    def output_type(self, itype):
+        t = itype.timestep_length
+        if t and t > 0:
+            t = conv_output_size(t, self.kernel_size, self.stride,
+                                 self.padding, self.convolution_mode)
+        return InputTypeRecurrent(self.n_out, t)
+
+    def init_params(self, itype, dtype, device, gen):
+        k = self.kernel_size
+        c_in = self.n_in if self.n_in else itype.size
+        self.W = self._winit(gen, (k, c_in, self.n_out), k * c_in,
+                             k * self.n_out, dtype, device)
+        self.b = self._binit((self.n_out,), dtype, device)
+
+    def pre_output(self, x, *, train=False, gen=None):
+        x = maybe_dropout(x, self.dropout, gen, train)
+        lo, hi = (same_padding(x.shape[1], self.kernel_size, self.stride,
+                               self.dilation)
+                  if self.convolution_mode == "same"
+                  else (self.padding, self.padding))
+        x = F.pad(x, (0, 0, lo, hi))
+        y = F.conv1d(x.transpose(1, 2), self.W.permute(2, 1, 0),
+                     stride=self.stride, dilation=self.dilation)
+        return y.transpose(1, 2) + self.b
+
+    def forward(self, x, *, train=False, gen=None):
+        return self.act(self.pre_output(x, train=train, gen=gen))
 
 
-class Convolution1DLayer(_NotPorted):
-    """Temporal convolution over [B,T,F] (reference ``:117-156``)."""
+def _time_windows(x, k, s, lo, hi, value):
+    """[B,T,F] padded by (lo, hi) steps of ``value`` -> its windows
+    [B, T', F, k]."""
+    if lo or hi:
+        x = F.pad(x, (0, 0, lo, hi), value=value)
+    return x.unfold(1, k, s)
 
 
-class Subsampling1DLayer(_NotPorted):
-    """Temporal pooling over [B,T,F] (reference ``:217-261``)."""
+@register
+class Subsampling1DLayer(LayerConf):
+    """Temporal pooling over [B,T,F]: max, avg, sum or pnorm, padded as
+    ``SubsamplingLayer`` pads (average pooling divides by the window,
+    padding included, unless ``avg_pool_include_pad_in_divisor`` is False
+    in "same" mode)."""
+    serde_fields = LayerConf.serde_fields + (
+        "pooling_type", "kernel_size", "stride", "padding", "convolution_mode",
+        "pnorm", "avg_pool_include_pad_in_divisor")
+    expected_input = "rnn"
+
+    def __init__(self, pooling_type: str = "max", kernel_size: int = 2,
+                 stride: int = 2, padding: int = 0,
+                 convolution_mode: str = "truncate", pnorm: int = 2,
+                 avg_pool_include_pad_in_divisor: bool = True, **kw):
+        super().__init__(**kw)
+        self.pooling_type = pooling_type
+        self.kernel_size = kernel_size
+        self.stride = stride
+        self.padding = padding
+        self.convolution_mode = convolution_mode
+        self.pnorm = pnorm
+        self.avg_pool_include_pad_in_divisor = avg_pool_include_pad_in_divisor
+
+    def output_type(self, itype):
+        t = itype.timestep_length
+        if t and t > 0:
+            t = conv_output_size(t, self.kernel_size, self.stride,
+                                 self.padding, self.convolution_mode)
+        return InputTypeRecurrent(itype.size, t)
+
+    def forward(self, x, *, train=False, gen=None):
+        k, s = self.kernel_size, self.stride
+        same = self.convolution_mode == "same"
+        lo, hi = (same_padding(x.shape[1], k, s) if same
+                  else (self.padding, self.padding))
+        pt = self.pooling_type.lower()
+        if pt == "max":
+            return _time_windows(x, k, s, lo, hi, float("-inf")).amax(-1)
+        if pt in ("avg", "sum"):
+            y = _time_windows(x, k, s, lo, hi, 0.0).sum(-1)
+            if pt == "sum":
+                return y
+            if same and not self.avg_pool_include_pad_in_divisor:
+                ones = torch.ones(x.shape[:2] + (1,), dtype=x.dtype,
+                                  device=x.device)
+                return y / _time_windows(ones, k, s, lo, hi, 0.0).sum(-1)
+            return y / k
+        if pt == "pnorm":
+            p = float(self.pnorm)
+            return _time_windows(torch.abs(x) ** p, k, s, lo, hi,
+                                 0.0).sum(-1) ** (1.0 / p)
+        raise ValueError(f"Unknown pooling type {self.pooling_type!r}")
 
 
-class ZeroPadding1DLayer(_NotPorted):
-    """Temporal zero padding over [B,T,F] (reference ``:289-313``)."""
+@register
+class ZeroPadding1DLayer(LayerConf):
+    """Temporal zero padding over [B,T,F]: ``padding`` is an int (both
+    sides), (both,) or (left, right)."""
+    serde_fields = LayerConf.serde_fields + ("padding",)
+    expected_input = "rnn"
+
+    def __init__(self, padding=(0, 0), **kw):
+        super().__init__(**kw)
+        self.padding = padding
+
+    def _pads(self):
+        p = self.padding
+        if isinstance(p, int):
+            return (p, p)
+        p = tuple(int(v) for v in p)
+        return (p[0], p[0]) if len(p) == 1 else p
+
+    def output_type(self, itype):
+        lo, hi = self._pads()
+        t = itype.timestep_length
+        return InputTypeRecurrent(itype.size,
+                                  t + lo + hi if t and t > 0 else t)
+
+    def forward(self, x, *, train=False, gen=None):
+        return F.pad(x, (0, 0, *self._pads()))

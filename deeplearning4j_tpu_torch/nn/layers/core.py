@@ -1,13 +1,25 @@
-"""Core layers: Dense, Activation, EmbeddingSequence, Positional embedding,
-and the Output and time-distributed RnnOutput heads.
+"""Core layers: Dense, Activation, Dropout, Embedding, EmbeddingSequence,
+Positional embedding, the Output, Loss and time-distributed RnnOutput
+heads, and the denoising AutoEncoder.
 
 Counterpart of ``deeplearning4j_tpu/nn/layers/core.py`` (``DenseLayer``
-``:34``, ``ActivationLayer`` ``:60``, ``EmbeddingSequenceLayer`` ``:106``,
+``:34``, ``ActivationLayer`` ``:60``, ``DropoutLayer`` ``:69``,
+``EmbeddingLayer`` ``:78``, ``EmbeddingSequenceLayer`` ``:106``,
 ``PositionalEmbeddingLayer`` ``:144``, ``OutputLayer`` ``:189``,
-``RnnOutputLayer`` ``:209`` and ``CenterLossOutputLayer`` ``:222-248``,
-with the loss of ``BaseOutputLayerMixin`` ``:175-184``). Parameter names and layouts are the
-reference's, and so are the places dropout applies: a Dense layer's input,
-an embedding's output.
+``LossLayer`` ``:195``, ``RnnOutputLayer`` ``:209``,
+``CenterLossOutputLayer`` ``:222-248`` and ``AutoEncoder`` ``:251-287``,
+with the loss of ``BaseOutputLayerMixin`` ``:175-184``). Parameter names
+and layouts are the reference's, and so are the places dropout applies: a
+Dense layer's input, an embedding's output.
+
+An ``EmbeddingLayer`` takes one id a row, float or integer ([B] or
+[B,1]), cast to int64 (the reference casts to int32); its backward is
+torch's gather backward, an index_put with accumulation (atomics on the
+card, so two runs may differ in the last bits unless
+``torch.use_deterministic_algorithms`` is on). The AutoEncoder's
+corruption is a draw (``pretrain_noise``, through ``nn/tape.py``) and a
+plain function of it (``pretrain_loss_given``), so a test can hand it the
+reference's own mask.
 """
 from __future__ import annotations
 
@@ -19,6 +31,7 @@ from torch import nn
 from ..conf.serde import register
 from ..inputs import InputTypeFeedForward, InputTypeRecurrent
 from ..losses import get_loss
+from ..tape import taped
 from .base import LayerConf, maybe_dropout, resolve_ff_size
 
 
@@ -61,6 +74,45 @@ class ActivationLayer(LayerConf):
         return self.act(x)
 
 
+@register
+class DropoutLayer(LayerConf):
+    """Dropout alone (``dropout`` is the retain probability), on input of
+    any family; the identity outside training."""
+    expected_input = "any"
+
+    def forward(self, x, *, train=False, gen=None):
+        return maybe_dropout(x, self.dropout, gen, train)
+
+
+@register
+class EmbeddingLayer(LayerConf):
+    """One id a row -> ``act(W[id] + b)``: ids [B] or [B,1], float or
+    integer, W [n_in (the vocabulary), n_out]."""
+    serde_fields = LayerConf.serde_fields + ("n_in", "n_out")
+    expected_input = "any"
+    param_order = ("W", "b")
+
+    def __init__(self, n_in: Optional[int] = None, n_out: int = 0, **kw):
+        super().__init__(**kw)
+        self.n_in = n_in
+        self.n_out = n_out
+
+    def output_type(self, itype):
+        return InputTypeFeedForward(self.n_out)
+
+    def init_params(self, itype, dtype, device, gen):
+        n_in = self.n_in or resolve_ff_size(itype)
+        self.W = self._winit(gen, (n_in, self.n_out), n_in, self.n_out,
+                             dtype, device)
+        self.b = self._binit((self.n_out,), dtype, device)
+
+    def forward(self, x, *, train=False, gen=None):
+        idx = x.long()
+        if idx.dim() == 2 and idx.shape[-1] == 1:
+            idx = idx[..., 0]
+        return self.act(self.W[idx] + self.b)
+
+
 class BaseOutputLayerMixin:
     """The output layers' loss, taken on the pre-activation so softmax
     cross-entropy takes ``log_softmax``."""
@@ -83,6 +135,23 @@ class OutputLayer(DenseLayer, BaseOutputLayerMixin):
                  loss: str = "mcxent", **kw):
         super().__init__(n_in=n_in, n_out=n_out, **kw)
         self.loss = loss
+
+
+@register
+class LossLayer(LayerConf, BaseOutputLayerMixin):
+    """A loss on the incoming activations; no parameters."""
+    serde_fields = LayerConf.serde_fields + ("loss",)
+    expected_input = "any"
+
+    def __init__(self, loss: str = "mcxent", **kw):
+        super().__init__(**kw)
+        self.loss = loss
+
+    def pre_output(self, x, *, train=False, gen=None):
+        return x
+
+    def forward(self, x, *, train=False, gen=None):
+        return self.act(x)
 
 
 @register
@@ -187,3 +256,60 @@ class CenterLossOutputLayer(OutputLayer):
         pull = torch.sum((x - centers_batch.detach()) ** 2, dim=-1)
         chase = torch.sum((x.detach() - centers_batch) ** 2, dim=-1)
         return base + 0.5 * self.lambda_ * pull + 0.5 * self.alpha * chase
+
+
+@register
+class AutoEncoder(LayerConf):
+    """Denoising autoencoder: as a layer it is ``encode``, ``act(x @ W +
+    b)``; its pretraining loss reconstructs the input from a corrupted copy
+    (each entry zeroed with probability ``corruption_level``) through the
+    tied ``W.T`` and the visible bias ``vb``."""
+    serde_fields = LayerConf.serde_fields + ("n_in", "n_out",
+                                             "corruption_level", "loss")
+    param_order = ("W", "b", "vb")
+
+    def __init__(self, n_in: Optional[int] = None, n_out: int = 0,
+                 corruption_level: float = 0.3, loss: str = "mse", **kw):
+        super().__init__(**kw)
+        self.n_in = n_in
+        self.n_out = n_out
+        self.corruption_level = corruption_level
+        self.loss = loss
+
+    def output_type(self, itype):
+        return InputTypeFeedForward(self.n_out)
+
+    def init_params(self, itype, dtype, device, gen):
+        n_in = self.n_in or resolve_ff_size(itype)
+        self.W = self._winit(gen, (n_in, self.n_out), n_in, self.n_out,
+                             dtype, device)
+        self.b = self._binit((self.n_out,), dtype, device)
+        self.vb = self._binit((n_in,), dtype, device)
+
+    def encode(self, x):
+        return self.act(x @ self.W + self.b)
+
+    def decode(self, h):
+        return self.act(h @ self.W.T + self.vb)
+
+    def forward(self, x, *, train=False, gen=None):
+        return self.encode(maybe_dropout(x, self.dropout, gen, train))
+
+    def pretrain_noise(self, x, gen):
+        """The corruption: a keep mask, True with probability 1 -
+        ``corruption_level``."""
+        return taped(lambda: torch.rand(
+            x.shape, generator=gen, device=x.device,
+            dtype=x.dtype) < 1.0 - self.corruption_level)
+
+    def pretrain_loss_given(self, x, keep):
+        """The mean reconstruction loss of ``x`` from its entries where
+        ``keep`` (zero elsewhere)."""
+        corrupted = torch.where(keep, x, torch.zeros((), dtype=x.dtype,
+                                                     device=x.device))
+        recon_pre = self.encode(corrupted) @ self.W.T + self.vb
+        return get_loss(self.loss)(x, recon_pre, self.activation
+                                   or "identity", None).mean()
+
+    def pretrain_loss(self, x, gen):
+        return self.pretrain_loss_given(x, self.pretrain_noise(x, gen))

@@ -8,8 +8,8 @@ recurrent-state carry (``rnn_states`` / ``collect_rnn_states``,
 ``rnn_clear_previous_state`` (``:263-284``), ``params_flat`` /
 ``set_params_flat`` / ``num_params`` in the layers' ``param_order``,
 ``fit`` (``:332-353``; truncated BPTT when the configuration asks for it)
-with ``set_listeners``, ``evaluate`` (``:364-380``) and ``clone``
-(``:383-393``). A layer's input
+with ``set_listeners``, ``pretrain`` (``:359``), ``evaluate``
+(``:364-380``) and ``clone`` (``:383-393``). A layer's input
 preprocessor (``conf.preprocessor(i)``) runs before it, in the forward and
 in the loss, as the reference's walk runs it.
 
@@ -31,8 +31,7 @@ parameters are the modules' own, so ``loss_fn`` takes none: gradients come
 from ``torch.autograd``. Parameters, layer state (``state_dicts``: a
 BatchNormalization's running statistics, which a training step moves
 once, ``nn/tape.py`` ``record_state``), updater state and gradients
-are keyed by layer index. ``pretrain`` raises naming ROADMAP A5; model
-zips are ``util/serialization.py``.
+are keyed by layer index. Model zips are ``util/serialization.py``.
 """
 from __future__ import annotations
 
@@ -395,9 +394,14 @@ class MultiLayerNetwork(nn.Module):
                               skip_first_batches=skip_first_batches)
         return self
 
-    def pretrain(self, iterator, epochs: int = 1):
-        raise NotImplementedError("layerwise pretraining is not ported yet "
-                                  "(ROADMAP A5)")
+    def pretrain(self, iterator, epochs: int = 1) -> "MultiLayerNetwork":
+        """Layerwise unsupervised pretraining of every layer with a
+        ``pretrain_loss`` (``optimize.solver.Solver.pretrain``)."""
+        if not hasattr(self, "_solver_inst"):
+            from ..optimize.solver import Solver
+            self._solver_inst = Solver(self)
+        self._solver_inst.pretrain(iterator, epochs=epochs)
+        return self
 
     def evaluate(self, iterator_or_x, y=None):
         """Classification evaluation (``eval.Evaluation``) of the eval

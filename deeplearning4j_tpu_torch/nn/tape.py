@@ -7,9 +7,11 @@ state, which ``train_step_math`` carries. The port's layers draw dropout
 masks from an explicit generator and hold their state in buffers, so
 what a forward drew or computed is kept here:
 
-- ``dropout_masks``: gradient checkpointing's recompute replays the first
-  forward's masks (``nn/multilayer.py`` ``run_layer``);
-  ``torch.utils.checkpoint`` restores only the global generators;
+- ``dropout_masks`` / ``taped``: gradient checkpointing's recompute
+  replays the first forward's random draws (dropout masks, a denoising
+  autoencoder's corruption, a VAE's or RBM's noise; ``nn/multilayer.py``
+  ``run_layer``); ``torch.utils.checkpoint`` restores only the global
+  generators;
 - ``collect_state`` / ``record_state`` / ``commit_state``: a training
   forward hands its new layer state (a BatchNormalization's running
   statistics) to the enclosing sink, and the step writes it into the
@@ -48,6 +50,22 @@ def dropout_masks(masks: List[torch.Tensor], replay: bool):
         yield
     finally:
         _tape.state = prev
+
+
+def taped(draw):
+    """``draw()``, a random draw of a layer's forward, through this
+    thread's tape: inside a ``dropout_masks`` block it is recorded, or in
+    a replay the recorded draw is returned in its place; outside one it is
+    ``draw()``."""
+    tape = mask_tape()
+    if tape is not None and tape[1]:
+        masks, _, at = tape
+        at[0] += 1
+        return masks[at[0] - 1]
+    out = draw()
+    if tape is not None:
+        tape[0].append(out)
+    return out
 
 
 @contextlib.contextmanager

@@ -1,8 +1,8 @@
 """Weight initialization schemes.
 
 Counterpart of ``deeplearning4j_tpu/nn/weights.py`` (``init_weights``,
-``:50-93``, and the Normal/Uniform distributions, registered for JSON
-serde; ``BinomialDistribution`` is ROADMAP A5). Sampling draws from an
+``:50-93``, and the Normal, Uniform and Binomial distributions,
+registered for JSON serde). Sampling draws from an
 explicit ``torch.Generator`` on the CPU and then moves to the target device,
 so one seed gives the same weights on the CPU and on the card. A generator
 gives other numbers than ``jax.random`` from the same seed: weights cross
@@ -47,6 +47,19 @@ class UniformDistribution:
 
     def sample(self, gen, shape, dtype):
         return _uniform(gen, shape, dtype, self.lower, self.upper)
+
+
+@register
+@dataclass(frozen=True)
+class BinomialDistribution:
+    """Counts of successes in ``trials`` draws of probability ``p``."""
+    trials: int = 1
+    p: float = 0.5
+
+    def sample(self, gen, shape, dtype):
+        n = torch.full(shape, float(self.trials), dtype=torch.float32)
+        return torch.binomial(n, torch.full_like(n, self.p),
+                              generator=gen).to(dtype)
 
 
 def init_weights(gen: torch.Generator, shape: Tuple[int, ...],

@@ -4,11 +4,11 @@ Counterpart of ``deeplearning4j_tpu/optimize/solver.py``:
 ``train_step_math`` (``:33-74``) as loss -> ``torch.autograd.grad`` ->
 updater, the tBPTT chunk step and loop (``_get_tbptt_step`` /
 ``_fit_tbptt_batch``, ``:168-247``), ``Solver.fit`` and ``_fit_epoch``
-(``:250-597``) and the feed casts (``_is_multi``, ``cast_feed``,
-``:718-750``), which keep integer token ids and cast float features,
-labels and masks to the net's dtype. It trains a ``ComputationGraph`` or a
-``MultiLayerNetwork``: the updater's layers are keyed by vertex name or by
-layer index.
+(``:250-597``), ``Solver.pretrain`` (``:599-716``) and the feed casts
+(``_is_multi``, ``cast_feed``, ``:718-750``), which keep integer token
+ids and cast float features, labels and masks to the net's dtype. It
+trains a ``ComputationGraph`` or a ``MultiLayerNetwork``: the updater's
+layers are keyed by vertex name or by layer index.
 
 - **The step.** The forward, the backward (through the flash or LSTM
   kernels on the card) and the in-place updater at the iteration, which is
@@ -39,9 +39,20 @@ layer index.
   recurrent layer's final (h, c) carries into the next chunk detached, as
   the reference's ``stop_gradient``.
 
-Second-order solvers and layerwise pretraining (ROADMAP A5), the
-telemetry spans, perf accounting and training watch inside ``fit`` (A8)
-are not ported.
+- **Second-order solvers** (``optimization_algorithm`` other than
+  "sgd"): one outer iteration of ``optimize/second_order.py``'s solver a
+  batch, per step (no windows, no CUDA graph: its line search reads each
+  trial's score on the host), refused under tBPTT, as the reference's.
+- **Layerwise pretraining** (``pretrain``, ``:599-716``): each layer with
+  a ``pretrain_loss``, in order, is fed the data forward through the
+  earlier layers (no gradient; a graph's layer vertex takes its input
+  vertex's activations) and trained on that loss with its own rule and
+  updater state, from iteration 0; its noise draws from a generator
+  reseeded with the iteration and the layer's index, as the reference
+  folds ``it * 1000 + index`` into its key.
+
+The telemetry spans, perf accounting and training watch inside ``fit``
+(A8) are not ported.
 """
 from __future__ import annotations
 
@@ -65,10 +76,14 @@ def _descend(net, loss, it: torch.Tensor) -> None:
                  if not getattr(net.updater.layer_confs[name], "frozen",
                                 False)
                  for k, p in pd.items()]
-    gs = torch.autograd.grad(loss, [p for _, _, p in trainable])
+    gs = torch.autograd.grad(loss, [p for _, _, p in trainable],
+                             allow_unused=True)
     grads = {}
-    for (name, k, _), g in zip(trainable, gs):
-        grads.setdefault(name, {})[k] = g
+    for (name, k, p), g in zip(trainable, gs):
+        # a parameter the loss does not use (a VAE's decoder in a
+        # supervised stack) has a zero gradient, as in the reference
+        grads.setdefault(name, {})[k] = torch.zeros_like(p) if g is None \
+            else g
     net.updater.update(grads, net.opt_state, params, it)
 
 
@@ -148,18 +163,23 @@ def cast_any(x, dtype: torch.dtype, device: torch.device):
     return cast_feed(x, dtype, device)
 
 
-def _refuse_unported_training(net) -> None:
-    """What a configuration read from JSON may ask of training that the
-    port has not ported yet (the builders refuse these up front)."""
-    conf = net.conf
-    algo = str(getattr(conf, "optimization_algorithm", "sgd")).lower()
-    if algo not in ("sgd", "stochastic_gradient_descent"):
-        raise NotImplementedError(f"optimization_algorithm {algo!r}: the "
-                                  f"second-order solvers are not ported yet "
-                                  f"(ROADMAP A5)")
-    if getattr(conf, "pretrain", False):
-        raise NotImplementedError("layerwise pretraining is not ported yet "
-                                  "(ROADMAP A5)")
+def _pretrain_step(layer, rule, opt_state, feed, gen, it) -> torch.Tensor:
+    """One update of ``layer``'s parameters on its ``pretrain_loss`` at
+    ``feed``: its own rule at iteration ``it`` (a 0-dim tensor) with the
+    rule's base learning rate, in place. Returns the loss (detached)."""
+    params = layer.param_dict()
+    names = list(params)
+    loss = layer.pretrain_loss(feed, gen)
+    grads = torch.autograd.grad(loss, [params[k] for k in names],
+                                allow_unused=True)
+    lr = rule.lr(it)
+    with torch.no_grad():
+        for k, g in zip(names, grads):
+            p = params[k]
+            upd, opt_state[k] = rule.update_one(
+                torch.zeros_like(p) if g is None else g, opt_state[k], lr, it)
+            p.sub_(upd.to(p.dtype))
+    return loss.detach()
 
 
 class Solver:
@@ -202,7 +222,6 @@ class Solver:
             prefetch_depth: int = 2, steps_per_dispatch: int = 1,
             skip_first_batches: int = 0):
         net = self.net
-        _refuse_unported_training(net)
         if steps_per_dispatch < 1:
             raise ValueError("steps_per_dispatch must be >= 1")
         if skip_first_batches < 0:
@@ -233,14 +252,34 @@ class Solver:
         self.prefetcher = (feed if isinstance(feed, DevicePrefetchIterator)
                            else None)
         tbptt = getattr(net.conf, "backprop_type", "standard") == "tbptt"
-        k = 1 if tbptt else steps_per_dispatch   # tBPTT runs per step
+        second_order = self._second_order_solver(tbptt)
+        # tBPTT and the second-order solvers run per step
+        k = 1 if tbptt or second_order else steps_per_dispatch
         for epoch in range(epochs):
             self._fit_epoch(feed, iterator, k, tbptt,
-                            skip_first_batches if epoch == 0 else 0)
+                            skip_first_batches if epoch == 0 else 0,
+                            second_order)
         return net
 
+    def _second_order_solver(self, tbptt: bool):
+        """The configuration's second-order solver (made once), or None
+        for "sgd"."""
+        conf = self.net.conf
+        algo = str(getattr(conf, "optimization_algorithm", "sgd")).lower()
+        if algo in ("sgd", "stochastic_gradient_descent"):
+            return None
+        if tbptt:
+            raise ValueError("tBPTT is an SGD-path feature; second-order "
+                             "solvers run full-sequence batches")
+        if getattr(self, "_second_order", None) is None:
+            from .second_order import make_optimizer
+            self._second_order = make_optimizer(
+                algo, self.net,
+                getattr(conf, "max_num_line_search_iterations", 5))
+        return self._second_order
+
     def _fit_epoch(self, feed, iterator, k: int, tbptt: bool,
-                   skip: int) -> None:
+                   skip: int, second_order=None) -> None:
         net = self.net
         # the mid-epoch resume: the first ``skip`` batches were trained by
         # the run that wrote the checkpoint (iteration_count covers them),
@@ -258,7 +297,11 @@ class Solver:
                     net.iteration_count += 1
                 continue
             x, y, lmask, fmask = self._feed(item)
-            if tbptt:
+            if second_order is not None:
+                loss = second_order.step(x, y, lmask, fmask)
+                done = net.iteration_count
+                net.iteration_count += 1
+            elif tbptt:
                 loss = self._fit_tbptt_batch(x, y, lmask, fmask)
                 done = net.iteration_count - 1
             else:
@@ -368,3 +411,60 @@ class Solver:
                 cut2(fmask, t0, t1), rnn_states, gen=self._gen, it=it)
             net.iteration_count += 1
         return loss
+
+    # -------------------------------------------------------- pretrain
+    def pretrain(self, iterator, epochs: int = 1):
+        """Layerwise unsupervised pretraining: each layer (a graph's layer
+        vertex) with a ``pretrain_loss``, in order, takes ``epochs`` passes
+        over ``iterator``, fed through the earlier layers without a
+        gradient, with its own updater state and its iteration from 0."""
+        net = self.net
+        if not net.initialized:
+            net.init()
+        graph = hasattr(net, "vertex_names")
+        keys = net.vertex_names if graph else range(len(net.layers))
+        gen = torch.Generator(device=net.device)
+        it = torch.zeros((), dtype=torch.int64, device=net.device)
+        base = (net.conf.seed + 104729) << 32
+        for idx, key in enumerate(keys):
+            layer = (getattr(net.vertices[key], "layer", None) if graph
+                     else net.layers[key])
+            if not hasattr(layer, "pretrain_loss"):
+                continue
+            rule = net.updater.rule_for(layer)
+            opt_state = {k: rule.init_one(p.detach())
+                         for k, p in layer.param_dict().items()}
+            count = 0
+            for _ in range(epochs):
+                for ds in iterator:
+                    feats = (cast_any(ds.features, net.dtype, net.device)
+                             if graph else cast_feed(ds.features, net.dtype,
+                                                     net.device))
+                    with torch.no_grad():
+                        feed = self._pretrain_feed(key, idx, feats)
+                    gen.manual_seed(base + count * 1000 + idx)
+                    it.fill_(count)
+                    _pretrain_step(layer, rule, opt_state, feed, gen, it)
+                    count += 1
+                if hasattr(iterator, "reset"):
+                    iterator.reset()
+        return net
+
+    def _pretrain_feed(self, key, idx: int, feats):
+        """What layer ``key`` (index ``idx``) is pretrained on: the data
+        through the layers before it, then its preprocessor."""
+        net = self.net
+        if hasattr(net, "vertex_names"):
+            feats = feats if isinstance(feats, list) else [feats]
+            in_name = net.conf.vertex_inputs[key][0]
+            if in_name in net.conf.network_inputs:
+                feed = feats[net.conf.network_inputs.index(in_name)]
+            else:
+                feed = net.apply_fn(feats, train=False)[in_name]
+            pre = getattr(net.vertices[key], "preprocessor", None)
+        else:
+            feed = (feats if idx == 0
+                    else net.apply_fn(feats, train=False,
+                                      to_layer=idx - 1)[-1])
+            pre = net.conf.preprocessor(idx)
+        return feed if pre is None else pre.apply(feed)

@@ -1,3 +1,5 @@
 """Counterpart of ``deeplearning4j_tpu/util``: model zips
 (``serialization``), the read side of checkpointing (``checkpointing``),
-and the stdlib-only ``retry`` and ``httpjson`` helpers."""
+gradient checking (``gradcheck``), the time-series helpers
+(``timeseries``), and the stdlib-only ``retry`` and ``httpjson``
+helpers."""

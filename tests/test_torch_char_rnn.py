@@ -27,6 +27,7 @@ from deeplearning4j_tpu.nn.conf.config import (
 from deeplearning4j_tpu.nn.inputs import InputType as JInputType
 from deeplearning4j_tpu.nn.multilayer import MultiLayerNetwork as JMLN
 from deeplearning4j_tpu.optimize import updaters as jupd
+from deeplearning4j_tpu_torch.datasets.dataset import ListDataSetIterator
 from deeplearning4j_tpu_torch.interop.jax_params import (load_jax_opt_state,
                                                          load_jax_params)
 from deeplearning4j_tpu_torch.models.decode import (LSTMDecodeSpec,
@@ -345,8 +346,16 @@ def test_what_the_slice_leaves_raises_not_implemented(nets, ask):
         assert t.confusion.sum() == y.shape[0] * y.shape[1]
         assert t.stats() == j.stats()
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP A"):
-        pnet.pretrain(None)
+    # ported (ROADMAP A5): the char-RNN has no layer with a pretraining
+    # loss, so pretraining leaves it as it is, as the reference's does
+    jnet, _ = nets
+    x, y, _ = _batch(31, n=2)
+    it = ListDataSetIterator(features=x, labels=y, batch_size=2)
+    jbefore, before = np.asarray(jnet.params_flat()), pnet.params_flat()
+    assert pnet.pretrain(it) is pnet
+    jnet.pretrain(it)
+    assert torch.equal(pnet.params_flat(), before)
+    np.testing.assert_array_equal(np.asarray(jnet.params_flat()), jbefore)
 
 
 def test_configuration_checks():

@@ -366,7 +366,12 @@ def test_k7_on_the_card_matches_its_plain_version():
 
 
 def test_one_d_layers_name_their_roadmap_item():
-    for cls in (tconv.Convolution1DLayer, tconv.Subsampling1DLayer,
-                tconv.ZeroPadding1DLayer):
-        with pytest.raises(NotImplementedError, match="A5"):
-            cls()
+    """Their item, A5, is done: each builds and runs (its parity with the
+    JAX package is ``tests/test_torch_conv1d.py``)."""
+    x = torch.zeros(2, 6, 3)
+    for layer in (tconv.Convolution1DLayer(n_out=4),
+                  tconv.Subsampling1DLayer(), tconv.ZeroPadding1DLayer(1)):
+        layer.init_params(InputType.recurrent(3, 6), torch.float32,
+                          torch.device("cpu"), torch.Generator())
+        it = layer.output_type(InputType.recurrent(3, 6))
+        assert tuple(layer(x).shape) == (2, it.timestep_length, it.size)

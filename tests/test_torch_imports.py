@@ -48,7 +48,9 @@ _REQUIRED = {f"deeplearning4j_tpu_torch.{m}" for m in (
     "nn.transfer", "models.lenet", "eval", "eval.evaluation", "eval.binary",
     "eval.roc", "eval.regression", "eval.meta", "eval.tools",
     "earlystopping", "earlystopping.early_stopping",
-    "earlystopping.parallel_trainer")}
+    "earlystopping.parallel_trainer", "nn.layers.variational",
+    "optimize.second_order", "util.gradcheck", "util.timeseries",
+    "graft_entry")}
 
 _FORBIDDEN = re.compile(
     r"^\s*(import\s+(jax|deeplearning4j_tpu)\b(?!_torch)"

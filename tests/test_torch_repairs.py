@@ -1,10 +1,9 @@
 """Five conventions the port broke against the reference, each pinned:
 
-- ``ComputationGraph`` has every method of the reference's graph: the ones
-  not ported yet raise ``NotImplementedError`` naming their ROADMAP item
-  (as ``MultiLayerNetwork``'s do; ``rnn_time_step``,
-  ``rnn_clear_previous_state`` and ``clone`` are ported since), and
-  ``output`` takes ``train``.
+- ``ComputationGraph`` has every method of the reference's graph (all
+  ported since: ``rnn_time_step``, ``rnn_clear_previous_state``,
+  ``clone``, ``evaluate`` and ``pretrain``), and ``output`` takes
+  ``train``.
 - ``dtype="float64"`` builds a network whose loss and gradients equal the
   reference's float64 network's (x64 is on in the tests); the kernels'
   probes refuse float64, so a float64 tensor takes the plain paths by the
@@ -68,8 +67,8 @@ def gnet():
     ("clone", (), "A10")])
 def test_graph_methods_not_ported_raise_naming_their_item(gnet, method, args,
                                                           item):
-    """``pretrain`` still raises naming A5; the others are ported: the A10
-    ones (on GoogLeNet, which has no recurrent vertex, ``rnn_time_step``
+    """All are ported: ``pretrain`` (A5's second half; GoogLeNet has
+    nothing to pretrain), the A10 ones (on GoogLeNet, which has no recurrent vertex, ``rnn_time_step``
     is the plain forward and ``clone`` a real copy) and ``evaluate`` (A5's
     first half), whose confusion matrix is the output's argmax against
     the labels'."""
@@ -84,9 +83,12 @@ def test_graph_methods_not_ported_raise_naming_their_item(gnet, method, args,
         np.add.at(want, (y.argmax(1), gnet.output(x).numpy().argmax(1)), 1)
         np.testing.assert_array_equal(e.confusion, want)
         return
-    if item != "A10":
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-            getattr(gnet, method)(*args)
+    if method == "pretrain":
+        # ported (A5's second half): GoogLeNet has no layer with a
+        # pretraining loss, so pretraining leaves it as it is
+        before = gnet.params_flat()
+        assert gnet.pretrain(*args) is gnet
+        assert torch.equal(gnet.params_flat(), before)
         return
     x = np.random.default_rng(6).normal(size=(1, 32, 32, 3)).astype(
         np.float32)

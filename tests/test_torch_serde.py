@@ -222,10 +222,43 @@ def test_registered_port_class_round_trips_with_non_defaults(name):
         assert a == b, (name, f, a, b)
 
 
-@pytest.mark.parametrize("name", LACKING)
-def test_a_class_the_port_lacks_raises_naming_its_item(name):
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A\d"):
+# the classes ROADMAP A5's second half took out of ``NOT_PORTED``, which
+# left it empty
+PORTED_IN_A5_SECOND_HALF = (
+    "DropoutLayer", "EmbeddingLayer", "LossLayer", "AutoEncoder",
+    "VariationalAutoencoder", "RBM", "Convolution1DLayer",
+    "Subsampling1DLayer", "ZeroPadding1DLayer",
+    "BernoulliReconstructionDistribution",
+    "GaussianReconstructionDistribution",
+    "ExponentialReconstructionDistribution",
+    "CompositeReconstructionDistribution", "LossFunctionWrapper",
+    "BinomialDistribution", "ShiftVertex", "L2Vertex", "StackVertex",
+    "UnstackVertex", "SubsetVertex", "PreprocessorVertex",
+    "PoolHelperVertex", "LastTimeStepVertex", "DuplicateToTimeSeriesVertex")
+
+
+@pytest.mark.parametrize("name", PORTED_IN_A5_SECOND_HALF)
+def test_a_class_the_port_lacks_raises_naming_its_item(name, monkeypatch):
+    """No registered class of the reference is lacking any more; the
+    lookup still names the item of a class listed in ``NOT_PORTED`` (each
+    former one, taken out of the registry for the check)."""
+    assert name in T and name not in tserde.NOT_PORTED
+    monkeypatch.delitem(tserde._REGISTRY, name)
+    monkeypatch.setitem(tserde.NOT_PORTED, name, "A5")
+    monkeypatch.setattr(tserde, "_load_all", lambda: None)
+    with pytest.raises(NotImplementedError, match=r"ROADMAP A5"):
         tserde.from_dict({"@class": name})
+
+
+@pytest.mark.parametrize("name", PORTED_IN_A5_SECOND_HALF)
+def test_a_class_ported_in_a5_second_half_round_trips_the_jax_json(name):
+    assert name in T and name not in tserde.NOT_PORTED
+    payload = jserde.to_json(_jax_instance(name))
+    obj = tserde.from_json(payload)
+    assert type(obj) is T[name]
+    assert json.loads(tserde.to_json(obj)) == json.loads(payload)
+    back = jserde.from_json(tserde.to_json(obj))
+    assert json.loads(jserde.to_json(back)) == json.loads(payload)
 
 
 # the classes ROADMAP A5's first half took out of ``NOT_PORTED``
@@ -245,10 +278,16 @@ def test_a_class_ported_in_a5_round_trips_the_jax_json(name):
 
 
 def test_the_classes_left_of_a5_raise_naming_it():
-    assert set(tserde.NOT_PORTED.values()) == {"A5"}
-    for name in tserde.NOT_PORTED:
-        with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-            tserde.from_dict({"@class": name})
+    """None is left: no entry of ``NOT_PORTED`` names A5, and no raise in
+    the port names it."""
+    assert "A5" not in set(tserde.NOT_PORTED.values())
+    import pathlib
+    import re
+    pkg = pathlib.Path(tserde.__file__).resolve().parents[2]
+    hits = [f"{f.name}:{i}" for f in pkg.rglob("*.py")
+            for i, line in enumerate(f.read_text().splitlines(), 1)
+            if re.search(r"ROADMAP A5\b", line)]
+    assert hits == []
 
 
 def test_the_lacking_classes_are_the_listed_ones():

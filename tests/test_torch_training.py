@@ -20,6 +20,7 @@ from deeplearning4j_tpu.datasets.dataset import (DataSet as JDataSet,
                                                  ListDataSetIterator as JIter)
 from deeplearning4j_tpu.models.zoo_extra import transformer_lm as jtransformer_lm
 from deeplearning4j_tpu.nn import layers as jl
+from deeplearning4j_tpu.nn.conf.config import NeuralNetConfiguration as JConf
 from deeplearning4j_tpu.nn.inputs import InputType as JInputType
 from deeplearning4j_tpu.optimize import updaters as jupd
 from deeplearning4j_tpu_torch.datasets.dataset import (DataSet,
@@ -235,8 +236,9 @@ def test_fit_goes_through_the_flash_function(monkeypatch):
                                  "compute_dtype", "checkpointing",
                                  "multilayer", "epoch_listener"])
 def test_what_this_slice_leaves_raises_not_implemented(ask):
-    """What training still leaves raises naming its ROADMAP item (the
-    second-order solvers, pretraining, epoch listeners); the A10 asks are
+    """What training still leaves raises naming its ROADMAP item (epoch
+    listeners); the second-order solvers and pretraining (A5) and the A10
+    asks are
     ported since and checked for what they do here (their parity with the
     JAX package is ``tests/test_torch_{prefetch,scan_window,
     mixed_precision,remat,graph_recurrent}.py``)."""
@@ -287,13 +289,26 @@ def test_what_this_slice_leaves_raises_not_implemented(ask):
             with pytest.raises(ValueError, match="compute_dtype"):
                 NeuralNetConfiguration(compute_dtype="float8")
         return
+    if ask in ("second_order", "multilayer"):
+        # ported (ROADMAP A5): the builders carry both, as the reference's
+        # do (their training is tests/test_torch_second_order.py and
+        # tests/test_torch_variational.py)
+        layers = lambda L: [L.DenseLayer(n_in=4, n_out=3),
+                            L.OutputLayer(n_out=2)]
+        kw = (dict(optimization_algorithm="lbfgs",
+                   max_num_line_search_iterations=3)
+              if ask == "second_order" else {})
+        b = NeuralNetConfiguration(**kw).list(*layers(tl))
+        jb = JConf(**kw).list(*layers(jl))
+        if ask == "multilayer":
+            b, jb = b.pretrain(True), jb.pretrain(True)
+        conf, jconf = b.build(), jb.build()
+        assert (conf.optimization_algorithm, conf.pretrain) == (
+            jconf.optimization_algorithm, jconf.pretrain)
+        assert conf.pretrain == (ask == "multilayer")
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP A"):
-        if ask == "second_order":
-            NeuralNetConfiguration(optimization_algorithm="lbfgs")
-        elif ask == "multilayer":
-            NeuralNetConfiguration().list().pretrain(True)
-        else:
-            pnet.set_listeners(EpochListener())
+        pnet.set_listeners(EpochListener())
     assert pnet.iteration_count == 0
 
 

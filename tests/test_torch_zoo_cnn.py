@@ -177,3 +177,18 @@ def test_one_float64_fit_step_matches_jax(name):
 def test_digits_cnn_pretrained_names_its_item():
     with pytest.raises(NotImplementedError, match="ROADMAP A9"):
         tlenet.digits_cnn(pretrained=True, device="cpu")
+
+
+def test_graft_entry_is_resnet50s_eval_forward():
+    """The port's counterpart of ``__graft_entry__.entry()``: ResNet-50 at
+    its full width, B 8 at 224x224x3, its eval forward on the images
+    alone."""
+    from deeplearning4j_tpu_torch.graft_entry import entry
+    forward, args = entry(device="cpu")
+    (x,) = args
+    assert tuple(x.shape) == (8, 224, 224, 3) and x.dtype == torch.float32
+    out = forward(x)
+    assert tuple(out.shape) == (8, 1000)
+    torch.testing.assert_close(out.sum(-1), torch.ones(8), rtol=0,
+                               atol=1e-5)
+    torch.testing.assert_close(out, forward.net.output(x), rtol=0, atol=0)
