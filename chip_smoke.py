@@ -251,10 +251,30 @@ Phases; any failure raises and exits non-zero before a result is printed:
    the _TLM, /predict p50 beside ``engine.predict`` p50 at the same batch
    of 2 images, /generate time to first token p50 beside the direct
    call's.
-   In phases 3, 3b, 4, 4b, 7, 8, 11, 12, 12c, 12d, 13b, 16 and 17 the
+   In phases 3, 3b, 4, 4b, 7, 8, 11, 12, 12c, 12d, 13b, 12e, 16, 17 and
+   17b the
    launch counts are
    set to 0 just before the path is driven and read just after; every
    kernel of the path must launch.
+12e. Listeners and the resumable fit (run after phase 19, with 17b, both
+   last: ahead of it they pushed phase 19's short profiler sessions ~2
+   minutes later in the run, where many recorded no kernel): ``_TLM`` with f32
+   masters and bf16 compute (phase 4b's), B 8, under deterministic
+   algorithms, through ``fit_with_checkpointing``: per step over 16
+   batches with saves every 4 (keep 2), and the same fit stopped by an
+   iterator that raises after batch 10, resumed in a fresh network from
+   the newest zip (step 8); then in windows of 4 over 2 epochs with
+   epoch saves, stopped in epoch 2 and resumed from epoch 1. Each resumed
+   run must equal the uninterrupted one bitwise (parameters, updater
+   state, layer state, iteration count); K1-K3 12 launches a step (eager
+   plus captured x replays; one capture a network). The windowed fit
+   carries a ``PerformanceListener(frequency=4)`` (reports on window
+   ends, 4.0 steps a dispatch, the prefetcher's wait) and a
+   ``ProfilerListener``, whose Chrome trace must hold K1's kernel.
+   ResNet-50 (phase 12b's, f32, B 32, cuDNN deterministic) over 6 batches
+   with saves every 2, stopped after 4 and resumed: ``state.bin`` too.
+   Times one stored checkpoint write of each model and deflate's rate
+   (the reference's zips) on 64 MB of its coefficients.
 14. K9 (``threshold_encode_fused``) bitwise against its plain version, in
    float32 and bfloat16, at n = 25,000,000 (bench.py:2222's ResNet-50
    scale), at the ``_TLM`` model's parameter count, at 65,536 + 777, on a
@@ -283,6 +303,26 @@ Phases; any failure raises and exits non-zero before a result is printed:
    falls; ``_acc_state`` is [4, num_params] and finite. Times a step
    beside the plain sync path's and a single worker's ``fit`` on the same
    batch.
+17b. The data-parallel options at the same width (f32, 4 logical
+   workers, B 8, 8 batches, under deterministic algorithms): ZeRO stages
+   1 and 2 and ``overlap_sync`` (the default bucket and a 64 KB one) must
+   end with the plain sync wrapper's parameters and (gathered) updater
+   state bitwise; the updater state's bytes a worker, replicated against
+   ZeRO; ``steps_per_dispatch=4`` on plain sync and ZeRO-2 (the wrapper's
+   step captured once and replayed) bitwise their per-step runs, step ms
+   in windows beside per step; an ``AsyncCheckpointWriter`` submitting
+   the ZeRO state every 2 steps, a crash after step 5, the newest
+   complete save (step 4) restored into a fresh wrapper and trained to
+   step 8, bitwise the uninterrupted run; the save re-sharded onto 2
+   workers with the same gathered state. K1-K3 must launch 12 times a
+   worker a step (eager plus captured x replays). Then K-step averaging
+   (``averaging_frequency=3``, ``average_updaters``) of the char-RNN
+   (phase 8's width) on 4 workers over 6 whole-sequence batches, once
+   with Sgd(1e-3) and once with its own RmsProp(1e-3), whose state is
+   averaged: K5 and K6 96 launches each, parameters and updater state
+   within rel-to-max 1e-5 (Sgd) and 1e-4 (RmsProp, phase 9's pin) of the
+   CPU's plain runs from the same weights; the RmsProp case also against
+   a float64 CPU run.
 18. CPU against card, the parallel layer: one fused ring forward at
    T 2048 on 4 workers (atol 2e-5) and one ``EncodedAccumulator.combine``
    (dense and topk) on the same gradients (bitwise).
@@ -302,7 +342,8 @@ Phases; any failure raises and exits non-zero before a result is printed:
    sentiment classifier's step in windows (replays only) with K5's and
    K6's shares, and K5, K6 and cuDNN's ``nn.LSTM(300, 256)`` forward and
    backward at its shape (T 256, B 64). Its profiler sessions come after
-   every host-bound phase.
+   every host-bound phase but 12e and 17b. A kernel that three sessions
+   did not record fails the phase.
 20. Report: JSON lines of per-shape kernel times, the serving and training
    metrics and the kernels, then last ``{"ok": true, "device": ...}``.
 """
@@ -361,6 +402,7 @@ from deeplearning4j_tpu_torch.ops import flash_attention as fa
 from deeplearning4j_tpu_torch.ops import lstm, nvcc
 from deeplearning4j_tpu_torch.ops.kernels import conv as k7
 from deeplearning4j_tpu_torch.ops.kernels import quantized as k8
+from deeplearning4j_tpu_torch.optimize.listeners import PerformanceListener
 from deeplearning4j_tpu_torch.optimize.updaters import Adam, RmsProp, Sgd
 from deeplearning4j_tpu_torch.parallel import ParallelWrapper, make_mesh
 from deeplearning4j_tpu_torch.parallel.accumulation import EncodedAccumulator
@@ -369,6 +411,9 @@ from deeplearning4j_tpu_torch.parallel.ring_attention import \
 from deeplearning4j_tpu_torch.serving import (InferenceEngine,
                                               ServingHTTPServer)
 from deeplearning4j_tpu_torch.serving.generation import GenerationEngine
+from deeplearning4j_tpu_torch.util.checkpointing import (
+    CheckpointListener, ProfilerListener, fit_with_checkpointing,
+    latest_checkpoint, read_checkpoint_manifest)
 from deeplearning4j_tpu_torch.util.gradcheck import check_gradients
 from deeplearning4j_tpu_torch.util.httpjson import HTTPClient
 from deeplearning4j_tpu_torch.util.serialization import (restore_model,
@@ -4283,7 +4328,10 @@ def dp_phase():
     # the share of entries a step ships (an entry ships when its residual
     # clears the threshold): of a fresh gradient alone, as the first step
     # saw it, and of the carried residual plus a gradient, as the next would
-    _, flat, _ = pw._worker_grads(x, y, torch.Generator(device="cuda"), 0)
+    pw._at(0)
+    _, rows, _ = pw._worker_grads(x, y)
+    flat = torch.cat([r.reshape(DP_WORKERS, -1) for r in rows], dim=1)
+    del rows
     q = torch.quantile(flat[0].abs()[::64].float(),
                        torch.tensor([0.5, 0.9, 0.99], device="cuda"))
     row["grad_abs_quantiles_50_90_99"] = [float(v) for v in q]
@@ -4316,6 +4364,609 @@ def dp_phase():
                     float(np.median(ms3[1:]))})
     log("data-parallel phase:", row)
     return row
+
+
+# ----------------------------------------------------------------- phase 12e
+RESUME_EVERY, RESUME_STOP, RESUME_K = 4, 10, 4
+RESNET_RESUME_BATCHES, RESNET_RESUME_EVERY, RESNET_RESUME_STOP = 6, 2, 4
+
+
+class _StopAfter:
+    """The batches of a list, pass after pass (``reset`` starts the next),
+    raising ``Crash`` when batch ``n`` of pass ``epoch`` is asked for: a
+    fit that dies after its first ``n`` batches of that epoch."""
+
+    class Crash(RuntimeError):
+        pass
+
+    def __init__(self, batches, n, epoch=0):
+        self.batches, self.n, self.epoch, self.passes = batches, n, epoch, 0
+
+    def __iter__(self):
+        for i, ds in enumerate(self.batches):
+            if self.passes == self.epoch and i == self.n:
+                raise self.Crash(f"stopped before batch {i} of pass "
+                                 f"{self.passes}")
+            yield ds
+
+    def reset(self):
+        self.passes += 1
+
+
+def _opt_tensors(net):
+    """The updater state's tensors, in either format."""
+    from deeplearning4j_tpu_torch.util.distributed_checkpoint import \
+        tree_flatten
+    return tree_flatten(net.opt_state)[0]
+
+
+def _run_vs(a, b):
+    """What a resumed run must equal bitwise: parameters, updater state,
+    layer state and the iteration count, each (bitwise, worst rel-to-max
+    or count)."""
+    p_same, p_rel, p_name = _params_vs(a, b)
+    oa, ob = _opt_tensors(a), _opt_tensors(b)
+    o_same = len(oa) == len(ob) and all(torch.equal(u, v)
+                                        for u, v in zip(oa, ob))
+    o_rel = max((_rel_to_max(u.float(), v.float()) for u, v in zip(oa, ob)),
+                default=0.0)
+    s_same, s_rel, _ = _state_vs(a, b)
+    return {"params_bitwise": p_same, "params_rel_to_max": p_rel,
+            "worst_param": p_name, "updater_bitwise": o_same,
+            "updater_rel_to_max": o_rel, "state_bitwise": s_same,
+            "state_rel_to_max": s_rel,
+            "iterations": [a.iteration_count, b.iteration_count]}
+
+
+def _resume_case(make, batches, what, epochs, stop_n, stop_epoch=0,
+                 counted=COUNTED, listeners=(), **kw):
+    """Three fits of ``make()`` through ``fit_with_checkpointing``: one
+    uninterrupted (with ``listeners``), one that dies after batch
+    ``stop_n`` of epoch ``stop_epoch``, then a fresh network resumed from
+    the newest checkpoint the second wrote. The resumed run must equal the
+    uninterrupted one bitwise. Returns (row, the uninterrupted net)."""
+    tmp = tempfile.mkdtemp(prefix="dl4j_resume_")
+    row = {"run": what, "fit": dict(kw, epochs=epochs)}
+    try:
+        a = make()
+        a.set_listeners(*listeners)
+        t0 = time.perf_counter()
+        row["launches_uninterrupted"], row["graph_uninterrupted"] = \
+            _counted_run(a, lambda: fit_with_checkpointing(
+                a, ListDataSetIterator(batches), epochs=epochs,
+                checkpoint_dir=os.path.join(tmp, "a"), keep_last=2, **kw),
+                counted)
+        row["uninterrupted_s"] = time.perf_counter() - t0
+        row["uninterrupted_kept"] = sorted(os.listdir(os.path.join(tmp,
+                                                                   "a")))
+        a.set_listeners()
+        b = make()
+        try:
+            fit_with_checkpointing(b, _StopAfter(batches, stop_n, stop_epoch),
+                                   epochs=epochs, keep_last=2,
+                                   checkpoint_dir=os.path.join(tmp, "b"),
+                                   **kw)
+        except _StopAfter.Crash:
+            pass
+        else:
+            raise AssertionError(f"{what}: the stopped fit ran to its end")
+        row["stopped_at_iteration"] = b.iteration_count
+        newest = latest_checkpoint(os.path.join(tmp, "b"))
+        row["resumed_from"] = os.path.basename(newest)
+        row["resumed_from_manifest"] = {
+            k: v for k, v in read_checkpoint_manifest(newest).items()
+            if k in ("epochs_done", "step_within_epoch", "iterations_done")}
+        del b
+        torch.cuda.empty_cache()
+        c = make()
+        t0 = time.perf_counter()
+        row["launches_resumed"], row["graph_resumed"] = _counted_run(
+            c, lambda: fit_with_checkpointing(
+                c, ListDataSetIterator(batches), epochs=epochs,
+                checkpoint_dir=os.path.join(tmp, "b"), keep_last=2, **kw),
+            counted)
+        row["resumed_s"] = time.perf_counter() - t0
+        row["vs_uninterrupted"] = cmp = _run_vs(a, c)
+        if not (cmp["params_bitwise"] and cmp["updater_bitwise"]
+                and cmp["state_bitwise"]
+                and a.iteration_count == c.iteration_count):
+            raise AssertionError(f"{what}: the resumed fit differs from the "
+                                 f"uninterrupted one: {cmp}")
+        # one checkpoint write of the final network by a listener (a
+        # stored zip), and deflate's rate on the first 64 MB of its
+        # coefficients (the reference's setting)
+        timed = CheckpointListener(os.path.join(tmp, "timed"))
+        torch.cuda.synchronize()
+        timed.on_epoch_end(a)
+        path = latest_checkpoint(timed.directory)
+        row["checkpoint_write_s"] = timed.write_s[-1]
+        row["checkpoint_bytes"] = os.path.getsize(path)
+        with zipfile.ZipFile(path) as z:
+            raw = z.read("coefficients.bin")[:64 << 20]
+        t0 = time.perf_counter()
+        import zlib
+        zlib.compress(raw, 6)
+        row["deflate_mb_per_s"] = len(raw) / 1e6 / (time.perf_counter() - t0)
+        del c
+        return row, a
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _want_flash(steps, k1=1):
+    blocks = TLM["n_blocks"]
+    return {"flash_attention_fwd": k1 * blocks * steps,
+            "flash_attention_bwd_dq": blocks * steps,
+            "flash_attention_bwd_dkv": blocks * steps}
+
+
+def listeners_resume_phase():
+    """Phase 12e: training listeners and the resumable fit at full width.
+    ``_TLM`` (f32 masters, bf16 compute, Adam(3e-4), B 8) through
+    ``fit_with_checkpointing``: per step with saves every 4 batches over
+    16, stopped after batch 10 and resumed from step 8; in windows of 4
+    over 2 epochs with epoch saves, stopped in epoch 2 and resumed; a
+    ``PerformanceListener`` and a ``ProfilerListener`` on the windowed
+    fit. ResNet-50 (phase 12b's, f32, B 32) over 6 batches with saves
+    every 2, stopped after 4 and resumed: its ``state.bin`` too. Every
+    resumed run is bitwise the uninterrupted one (deterministic
+    algorithms; cuDNN's for ResNet-50)."""
+    batches = _tlm_window_batches()
+    make = lambda: _tlm_amp().init(seed=SEED + 41)
+    out = {}
+    with _deterministic_algorithms():
+        perf1 = PerformanceListener(frequency=RESUME_EVERY)
+        row, _ = _resume_case(make, batches, "tlm_per_step", 1, RESUME_STOP,
+                              listeners=(perf1,),
+                              every_n_iterations=RESUME_EVERY)
+        # each report's interval holds the save of the step before it
+        row["performance_records"] = perf1.history
+        steps = {"launches_uninterrupted": WINDOW_BATCHES,
+                 "launches_resumed": WINDOW_BATCHES - 2 * RESUME_EVERY}
+        for key, n in steps.items():
+            if row[key] != _want_flash(n):
+                raise AssertionError(f"tlm_per_step {key}: {row[key]}, not "
+                                     f"{_want_flash(n)}")
+        if row["resumed_from"] != "checkpoint_epoch0_step8.zip":
+            raise AssertionError(f"resumed from {row['resumed_from']}")
+        out["tlm_per_step"] = row
+        perf = PerformanceListener(frequency=RESUME_K)
+        trace_dir = tempfile.mkdtemp(prefix="dl4j_trace_")
+        prof = ProfilerListener(trace_dir, start_iteration=RESUME_K,
+                                n_iterations=RESUME_K)
+        try:
+            row, a = _resume_case(make, batches, "tlm_windows", 2, 6,
+                                  stop_epoch=1, listeners=(perf, prof),
+                                  steps_per_dispatch=RESUME_K)
+            for key, n in (("launches_uninterrupted", 2 * WINDOW_BATCHES),
+                           ("launches_resumed", WINDOW_BATCHES)):
+                if row[key] != _want_flash(n):
+                    raise AssertionError(f"tlm_windows {key}: {row[key]}, "
+                                         f"not {_want_flash(n)}")
+                g = row[key.replace("launches", "graph")]
+                if (g["captures"], g["replays"]) != (1, n - 1):
+                    raise AssertionError(f"tlm_windows {key}: {g}")
+            if row["resumed_from"] != "checkpoint_epoch1.zip":
+                raise AssertionError(f"resumed from {row['resumed_from']}")
+            pre = a._solver_inst.prefetcher
+            row["performance_records"] = perf.history
+            row["prefetch_total_wait_ms_last_epoch"] = pre.total_wait_ms
+            row["prefetch_etl_wait_ms_per_batch"] = \
+                pre.etl_wait_ms_per_batch()
+            its = [r["iteration"] for r in perf.history]
+            if not perf.history or any(i % RESUME_K != RESUME_K - 1
+                                       for i in its) or any(
+                    r["steps_per_dispatch"] != float(RESUME_K)
+                    for r in perf.history) or not all(
+                    math.isfinite(r["etl_wait_ms_per_iteration"])
+                    and r["etl_wait_ms_per_iteration"] >= 0
+                    for r in perf.history):
+                raise AssertionError(f"performance records: {perf.history}")
+            if prof.trace_path is None:
+                raise AssertionError("the ProfilerListener wrote no trace")
+            with open(prof.trace_path) as f:
+                events = json.load(f).get("traceEvents", [])
+            flash = [e for e in events if "flash_fwd" in str(e.get("name"))]
+            row["profiler_trace_events"] = len(events)
+            row["profiler_flash_fwd_events"] = len(flash)
+            row["profiler_trace_bytes"] = os.path.getsize(prof.trace_path)
+            if not flash:
+                raise AssertionError("the ProfilerListener's trace holds no "
+                                     "flash_attention_fwd kernel")
+            del a
+        finally:
+            shutil.rmtree(trace_dir, ignore_errors=True)
+        out["tlm_windows"] = row
+    torch.cuda.empty_cache()
+    rbatches = _resnet_batches(RESNET_RESUME_BATCHES, SEED + 80)
+    det = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    try:
+        row, _ = _resume_case(
+            lambda: resnet50(**RESNET, updater=Adam(1e-3)).init(
+                seed=SEED + 50), rbatches, "resnet50", 1, RESNET_RESUME_STOP,
+            counted={}, every_n_iterations=RESNET_RESUME_EVERY)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+            det
+    if row["resumed_from"] != "checkpoint_epoch0_step4.zip":
+        raise AssertionError(f"resnet50 resumed from {row['resumed_from']}")
+    out["resnet50"] = row
+    torch.cuda.empty_cache()
+    out["launches"] = {n: sum(out[r][k][n] for r in ("tlm_per_step",
+                                                     "tlm_windows")
+                              for k in ("launches_uninterrupted",
+                                        "launches_resumed"))
+                       for n in COUNTED}
+    for r in (out["tlm_per_step"], out["tlm_windows"]):
+        r["ms_a_step_by_report"] = [
+            (h["iteration"], 1e3 / h["batches_per_sec"],
+             h["etl_wait_ms_per_iteration"], h["steps_per_dispatch"])
+            for h in r["performance_records"]]
+    log("listeners + resume phase:", {
+        k: {m: v for m, v in r.items() if m != "performance_records"}
+        for k, r in out.items() if isinstance(r, dict) and "run" in r})
+    return out
+
+
+# ----------------------------------------------------------------- phase 17b
+DP_OPT_BATCHES, DP_OPT_K, DP_SMALL_BUCKET = 8, 4, 1 << 16
+AVG_WORKERS, AVG_FREQ, AVG_BATCHES = 4, 3, 6
+# the averaging run is held to the CPU twice: with Sgd(1e-3), which has no
+# updater state, at 1e-5; and with the char-RNN's own RmsProp(1e-3), whose
+# state average_updaters averages, at phase 9's pin for the same model and
+# updater, 1e-4. RmsProp divides a gradient by its running rms, so an
+# element whose gradient is float noise moves by ~lr in the noise's
+# direction (the first card-vs-CPU reading was 2.41e-5, on a peephole
+# vector); a float64 CPU run of that case shows how far each float32 run
+# is from it
+AVG_LR, AVG_TOL, AVG_RMS_TOL = 1e-3, 1e-5, 1e-4
+
+
+def _dp_batches(n, seed):
+    """``n`` seeded batches of B 8 token sequences on the card with
+    bench.py's labels."""
+    V, T = TLM["vocab_size"], TLM["max_length"]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    out = []
+    for _ in range(n):
+        x = torch.randint(0, V, (TRAIN_B, T), device="cuda", generator=gen)
+        out.append(DataSet(x, _one_hot_prev(x, V, torch.float32)))
+    return out
+
+
+def _dp_run(batches, what, net=None, skip=0, **kw):
+    """``_TLM`` f32 (phase 17's) on ``DP_WORKERS`` logical workers through
+    ``ParallelWrapper(**kw).fit`` over ``batches``, counted (eager launches
+    plus captured x replays) and timed a dispatch; returns (net, wrapper,
+    row)."""
+    net = net if net is not None else _tlm_f32(SEED + 24)
+    pw = ParallelWrapper(net, mesh=make_mesh((DP_WORKERS,), ("data",)),
+                         **kw)
+    k = kw.get("steps_per_dispatch", 1)
+    clock = _WindowClock(k)
+    net.set_listeners(clock)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    g0 = pw.graph_stats()
+    _reset_launches()
+    pw.fit(ListDataSetIterator(batches), skip_first_batches=skip)
+    torch.cuda.synchronize()
+    eager, g1 = _launches(), pw.graph_stats()
+    launches = {n: eager[n] + g1["launches_in_replays"].get(n, 0)
+                - g0["launches_in_replays"].get(n, 0) for n in COUNTED}
+    stamps = [t0] + clock.t
+    ms = [(b - a) * 1e3 / k for a, b in zip(stamps, stamps[1:])]
+    net.set_listeners()
+    losses = [float(v) for v in clock.losses]
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError(f"{what}: losses {losses}")
+    return net, pw, {"run": what, "options": {k: v for k, v in kw.items()
+                                              if k != "step_callback"},
+                     "losses": losses, "step_ms": ms,
+                     "step_ms_p50": float(np.median(ms[1:] or ms)),
+                     "launches": launches, "graph": g1}
+
+
+def _want_dp(steps):
+    n = TLM["n_blocks"] * DP_WORKERS * steps
+    return {name: n for name in COUNTED}
+
+
+def _zero_tree(net):
+    return {"params": net.param_dicts(), "state": net.state_dicts(),
+            "opt": net.opt_state}
+
+
+def _avg_char_run(device, batches, updater, weights=None,
+                  dtype="float32"):
+    """The char-RNN (phase 8's width) with ``updater`` under K-step
+    averaging on ``AVG_WORKERS`` logical workers on ``device``, from
+    ``weights`` (the card's seeded init when None); returns the net, the
+    losses the listener saw and the starting weights."""
+    net = text_generation_lstm(**CHAR, device=device, updater=updater,
+                               dtype=dtype).init(seed=SEED + 90)
+    if weights is not None:
+        load_jax_params(net, weights)
+    weights = [{n: p.detach().cpu().clone().numpy() for n, p in pd.items()}
+               for pd in net.param_dicts().values()]
+    pw = ParallelWrapper(net, mesh=make_mesh((AVG_WORKERS,), ("data",),
+                                             device),
+                         training_mode="averaging",
+                         averaging_frequency=AVG_FREQ, average_updaters=True)
+    rec = _Losses()
+    net.set_listeners(rec)
+    pw.fit(ListDataSetIterator(batches))
+    net.set_listeners()
+    return net, [float(v) for v in rec.losses], weights
+
+
+def dp_options_phase():
+    """Phase 17b: the data-parallel options at ``_TLM``'s width (f32,
+    Adam(3e-4), 4 logical workers, B 8): ZeRO stages 1 and 2 and
+    ``overlap_sync`` (the default bucket and a 64 KB one) bitwise the plain
+    sync wrapper over 8 batches, parameters and gathered updater state;
+    the updater state's bytes a worker; ``steps_per_dispatch=4`` (the
+    wrapper's step as a CUDA graph) on plain sync and ZeRO-2 bitwise their
+    per-step runs; an ``AsyncCheckpointWriter`` submitting the ZeRO state
+    every 2 steps, a crash after step 5, the newest complete save restored
+    into a fresh wrapper and trained to step 8, bitwise the uninterrupted
+    ZeRO-2 run; that save re-sharded onto 2 workers (``make_zero_resharder``)
+    with the same gathered state. Then K-step averaging (K 3) of the
+    char-RNN on 4 workers over 6 batches (K5, K6), with Sgd and with
+    RmsProp, against the CPU's plain versions from the same weights."""
+    from deeplearning4j_tpu_torch.parallel.data_parallel import \
+        flat_opt_state_order
+    from deeplearning4j_tpu_torch.parallel.zero import (ZeroUpdateEngine,
+                                                        make_zero_resharder)
+    from deeplearning4j_tpu_torch.util.async_checkpoint import \
+        AsyncCheckpointWriter
+    from deeplearning4j_tpu_torch.util.distributed_checkpoint import (
+        latest_sharded_step, restore_latest_sharded_checkpoint,
+        tree_flatten)
+    batches = _dp_batches(DP_OPT_BATCHES, SEED + 60)
+    out, runs = {}, {}
+
+    def snap(net):
+        return ([p.detach().clone() for p in net.parameters()],
+                [t.clone() for *_, t in flat_opt_state_order(net)])
+
+    def same(got, want):
+        return len(got) == len(want) and all(torch.equal(u, v)
+                                             for u, v in zip(got, want))
+
+    with _deterministic_algorithms():
+        net, _, runs["plain_sync"] = _dp_run(batches, "plain_sync")
+        plain = snap(net)
+        del net
+        for what, kw in (("zero1", dict(zero_stage=1)),
+                         ("zero2", dict(zero_stage=2)),
+                         ("overlap", dict(overlap_sync=True)),
+                         ("overlap_64k", dict(overlap_sync=True,
+                                              bucket_bytes=DP_SMALL_BUCKET))):
+            net, pw, row = _dp_run(batches, what, **kw)
+            if kw.get("zero_stage"):
+                eng = pw._zero()
+                row["updater_bytes_a_worker"] = {
+                    "replicated": eng.replicated_state_bytes,
+                    "zero": eng.shard_state_bytes,
+                    "ratio": eng.replicated_state_bytes
+                    / eng.shard_state_bytes}
+                row["groups"], row["buckets"] = (len(eng.groups),
+                                                 eng.num_reduce_launches)
+                if what == "zero2":
+                    zero2 = ([p.detach().clone() for p in net.parameters()],
+                             [t.clone() for t in _opt_tensors(net)])
+                pw.gather_opt_state()
+            else:
+                row["buckets"] = len(pw._grad_schedule())
+            got = snap(net)
+            row["params_bitwise_plain"] = same(got[0], plain[0])
+            row["updater_bitwise_plain"] = same(got[1], plain[1])
+            runs[what] = row
+            if not (row["params_bitwise_plain"]
+                    and row["updater_bitwise_plain"]):
+                raise AssertionError(f"{what} differs from plain sync: "
+                                     f"{row}")
+            del net, pw
+            torch.cuda.empty_cache()
+        ratio = runs["zero2"]["updater_bytes_a_worker"]["ratio"]
+        if not 0.9 * DP_WORKERS <= ratio <= DP_WORKERS:
+            raise AssertionError(f"ZeRO's updater bytes a worker: {ratio}x")
+        for what, kw, want in (
+                ("plain_sync_windows", dict(steps_per_dispatch=DP_OPT_K),
+                 plain),
+                ("zero2_windows", dict(zero_stage=2,
+                                       steps_per_dispatch=DP_OPT_K), None)):
+            net, pw, row = _dp_run(batches, what, **kw)
+            g = row["graph"]
+            if (g["captures"], g["replays"]) != (1, DP_OPT_BATCHES - 1):
+                raise AssertionError(f"{what}: graphs {g}")
+            if want is None:
+                row["params_bitwise_per_step"] = same(
+                    [p.detach() for p in net.parameters()], zero2[0])
+                row["updater_bitwise_per_step"] = same(
+                    _opt_tensors(net), zero2[1])
+            else:
+                got = snap(net)
+                row["params_bitwise_per_step"] = same(got[0], want[0])
+                row["updater_bitwise_per_step"] = same(got[1], want[1])
+            runs[what] = row
+            if not (row["params_bitwise_per_step"]
+                    and row["updater_bitwise_per_step"]):
+                raise AssertionError(f"{what} differs from its per-step run")
+            del net, pw
+            torch.cuda.empty_cache()
+        for what, row in runs.items():
+            if row["launches"] != _want_dp(DP_OPT_BATCHES):
+                raise AssertionError(f"{what} launched {row['launches']}, "
+                                     f"not {_want_dp(DP_OPT_BATCHES)}")
+        # asynchronous checkpoints of the ZeRO-2 run and a crash
+        tmp = tempfile.mkdtemp(prefix="dl4j_async_")
+        try:
+            writer = AsyncCheckpointWriter(tmp, keep_last=2)
+            submitted = []
+
+            def callback(net, k):
+                if net.iteration_count % 2 == 0:
+                    eng = cb_pw._zero()
+                    submitted.append((net.iteration_count, writer.submit(
+                        net.iteration_count, _zero_tree(net),
+                        extra={"iterations_done": net.iteration_count},
+                        sharding=eng.sharding_meta())))
+                if net.iteration_count == 5:
+                    raise _StopAfter.Crash("stopped after step 5")
+
+            b = _tlm_f32(SEED + 24)
+            cb_pw = ParallelWrapper(b, mesh=make_mesh((DP_WORKERS,),
+                                                      ("data",)),
+                                    zero_stage=2, step_callback=callback)
+            _reset_launches()
+            try:
+                cb_pw.fit(ListDataSetIterator(batches))
+            except _StopAfter.Crash:
+                pass
+            else:
+                raise AssertionError("the ZeRO fit did not stop")
+            torch.cuda.synchronize()
+            stopped = _launches()
+            t0 = time.perf_counter()
+            writer.flush()
+            flush_s = time.perf_counter() - t0
+            writer.close()
+            if writer.last_error is not None:
+                raise AssertionError(f"async write: {writer.last_error}")
+            step = latest_sharded_step(tmp)
+            del b, cb_pw
+            torch.cuda.empty_cache()
+            c = _tlm_f32(SEED + 99)
+            pw_c = ParallelWrapper(c, mesh=make_mesh((DP_WORKERS,),
+                                                     ("data",)),
+                                   zero_stage=2)
+            c.opt_state = pw_c._zero().init_opt_state()
+            got_step, tree, extra = restore_latest_sharded_checkpoint(
+                tmp, _zero_tree(c))
+            with torch.no_grad():
+                for u, v in zip(tree_flatten(_zero_tree(c))[0],
+                                tree_flatten(tree)[0]):
+                    u.copy_(v)
+            c.iteration_count = int(extra["iterations_done"])
+            _, _, row = _dp_run(batches, "zero2_async_resumed", net=c,
+                                skip=c.iteration_count, zero_stage=2)
+            row.update({"submitted": submitted, "newest_complete": step,
+                        "restored_step": got_step,
+                        "write_ms": writer.write_ms, "flush_s": flush_s,
+                        "stopped_run_launches": stopped,
+                        "save_bytes": sum(
+                            os.path.getsize(os.path.join(tmp, f))
+                            for f in os.listdir(tmp)
+                            if f.startswith(f"ckpt_step{step}_"))})
+            row["params_bitwise_uninterrupted"] = same(
+                [p.detach() for p in c.parameters()], zero2[0])
+            row["updater_bitwise_uninterrupted"] = same(_opt_tensors(c),
+                                                        zero2[1])
+            if not (row["params_bitwise_uninterrupted"]
+                    and row["updater_bitwise_uninterrupted"]
+                    and got_step == step == 4 and c.iteration_count
+                    == DP_OPT_BATCHES
+                    and row["launches"] == _want_dp(DP_OPT_BATCHES - 4)
+                    and stopped == _want_dp(5)):
+                raise AssertionError(f"async checkpoint resume: {row}")
+            # the same save re-sharded onto 2 workers
+            eng4 = pw_c._zero()
+            _, tree4, _ = restore_latest_sharded_checkpoint(
+                tmp, dict(_zero_tree(c), opt=eng4.init_opt_state()))
+            eng2 = ZeroUpdateEngine.from_net(c, make_mesh((2,), ("data",)),
+                                             stage=2)
+            step2, tree2, _ = restore_latest_sharded_checkpoint(
+                tmp, dict(_zero_tree(c), opt=eng2.init_opt_state()),
+                resharder=make_zero_resharder(eng2))
+            eng2.check_state(tree2["opt"])
+            a4 = tree_flatten(eng4.unshard_opt_state(tree4["opt"]))[0]
+            a2 = tree_flatten(eng2.unshard_opt_state(tree2["opt"]))[0]
+            row["reshard_to_2_bitwise"] = same(a2, a4)
+            if not row["reshard_to_2_bitwise"] or step2 != 4:
+                raise AssertionError("the 2-worker reshard differs")
+            runs["zero2_async_resumed"] = row
+            del c, pw_c, tree, tree4, tree2
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    # K-step averaging of the char-RNN, card (K5, K6) against the CPU,
+    # with Sgd and with RmsProp
+    cbatches = [DataSet(*_char_batch(SEED + 91 + i, CHAR_B, CHAR_T))
+                for i in range(AVG_BATCHES)]
+    updaters = {"sgd": lambda: Sgd(AVG_LR), "rmsprop": lambda: RmsProp(AVG_LR)}
+    _reset_launches()
+    gpu = {k: _avg_char_run("cuda", cbatches, u()) for k, u in
+           updaters.items()}
+    torch.cuda.synchronize()
+    avg_launches = _launches(LSTM_COUNTED)
+    want_lstm = 2 * AVG_WORKERS * AVG_BATCHES * len(updaters)
+    out["averaging"] = {
+        "model": "text_generation_lstm vocab 87 hidden 512 f32, 4 workers, "
+                 "averaging_frequency 3, average_updaters",
+        "batches": AVG_BATCHES, "batch": CHAR_B, "seq_len": CHAR_T,
+        "launches": avg_launches}
+    named = lambda net: {f"{i}.{n}": p.detach().cpu()
+                         for i, pd in net.param_dicts().items()
+                         for n, p in pd.items()}
+    bad = avg_launches != {n: want_lstm for n in LSTM_COUNTED}
+    for key, make in updaters.items():
+        g_net, gl, weights = gpu[key]
+        t0 = time.perf_counter()
+        c_net, cl, _ = _avg_char_run("cpu", cbatches, make(), weights)
+        cpu_s = time.perf_counter() - t0
+        g, c = named(g_net), named(c_net)
+        worst = max(g, key=lambda n: _rel_to_max(g[n], c[n]))
+        opt = [(u.cpu(), v) for (*_, u), (*_, v) in zip(
+            flat_opt_state_order(g_net), flat_opt_state_order(c_net))]
+        row = {"updater": f"{type(make()).__name__}({AVG_LR})",
+               "losses_card": gl, "losses_cpu": cl, "cpu_s": cpu_s,
+               "param_rel_to_max": _rel_to_max(g[worst], c[worst]),
+               "worst_param": worst,
+               "updater_state_rel_to_max": max(
+                   (_rel_to_max(u, v) for u, v in opt), default=0.0),
+               "iterations": g_net.iteration_count}
+        tol = AVG_TOL if key == "sgd" else AVG_RMS_TOL
+        row["tolerance"] = tol
+        if key == "rmsprop":
+            # the cause of the gap: the float64 run, and the element that
+            # differs most, from its start
+            t0 = time.perf_counter()
+            d_net, _, _ = _avg_char_run("cpu", cbatches, make(), weights,
+                                        dtype="float64")
+            row["cpu_f64_s"] = time.perf_counter() - t0
+            d = named(d_net)
+            row["card_vs_f64_rel_to_max"] = max(
+                _rel_to_max_f64(g[n], d[n]) for n in g)
+            row["cpu_vs_f64_rel_to_max"] = max(
+                _rel_to_max_f64(c[n], d[n]) for n in g)
+            w = weights[int(worst.split(".")[0])][worst.split(".")[1]]
+            k = int((g[worst] - c[worst]).abs().argmax())
+            row["worst_element"] = {
+                "index": k, "start": float(w.reshape(-1)[k]),
+                "card": float(g[worst].reshape(-1)[k]),
+                "cpu": float(c[worst].reshape(-1)[k]),
+                "cpu_f64": float(d[worst].reshape(-1)[k])}
+            del d_net
+        out["averaging"][key] = row
+        bad = bad or (row["param_rel_to_max"] > tol
+                      or row["updater_state_rel_to_max"] > tol
+                      or row["iterations"] != AVG_BATCHES)
+        del g_net, c_net
+    if bad:
+        raise AssertionError(f"K-step averaging: {out['averaging']}")
+    del gpu
+    out["runs"] = runs
+    out["launches"] = {n: sum(r["launches"][n] for r in runs.values())
+                       + runs["zero2_async_resumed"][
+                           "stopped_run_launches"][n] for n in COUNTED}
+    log("data-parallel options phase:", {
+        k: {m: v for m, v in r.items() if m not in ("losses", "step_ms")}
+        for k, r in runs.items()}, out["averaging"])
+    return out
 
 
 # ----------------------------------------------------------------- phase 18
@@ -4407,6 +5058,11 @@ def main() -> int:
     cnn_train_device = cnn_train_device_time_phase(resnet_ctx, transfer_ctx)
     sent_device = sentiment_device_time_phase(sent_ctx)
     del resnet_ctx, transfer_ctx, sent_ctx
+    torch.cuda.empty_cache()
+    # after phase 19: with these two before it, many of its short profiler
+    # sessions recorded no kernel at all, later in a longer run
+    resume = listeners_resume_phase()
+    dp_opt = dp_options_phase()
     top = next(r for r in rows if r["BH"] == 16 and r["T"] == 1024
                and r["dtype"] == str(torch.float32))
     serve_k1 = slice_row["flash_attention_launches"]
@@ -4429,7 +5085,9 @@ def main() -> int:
         "launches": serve_k1 + gen_k1 + train_k["flash_attention_fwd"]
         + win_sum["flash_attention_fwd"]
         + dp_row["launches"]["flash_attention_fwd"]
-        + http_n["flash_attention_fwd"],
+        + http_n["flash_attention_fwd"]
+        + resume["launches"]["flash_attention_fwd"]
+        + dp_opt["launches"]["flash_attention_fwd"],
         "launches_by_path": {
             "serve": serve_k1, "serve_generation": gen_row["k1_launches"],
             "train": train_k["flash_attention_fwd"],
@@ -4437,7 +5095,9 @@ def main() -> int:
             "train_window": win["window"]["flash_attention_fwd"],
             "train_remat": win["window_remat"]["flash_attention_fwd"],
             "train_data_parallel": dp_row["launches"]["flash_attention_fwd"],
-            "http": http_n["flash_attention_fwd"]},
+            "http": http_n["flash_attention_fwd"],
+            "train_resume": resume["launches"]["flash_attention_fwd"],
+            "train_dp_options": dp_opt["launches"]["flash_attention_fwd"]},
         "max_abs_err": errs[torch.float32],
         "max_abs_err_f32": errs[torch.float32],
         "max_abs_err_bf16": errs[torch.bfloat16],
@@ -4454,7 +5114,8 @@ def main() -> int:
             "source": src.format("bwd" if kind == "dq" else "bwd_dkv"),
             "replaces": ref.format(line),
             "launches": train_k[name] + win_sum[name]
-            + dp_row["launches"][name]
+            + dp_row["launches"][name] + resume["launches"][name]
+            + dp_opt["launches"][name]
             + sum(ring_row[d]["launches"][name] for d in ring_dtypes),
             "launches_by_path": {
                 "train": train_k[name],
@@ -4462,6 +5123,8 @@ def main() -> int:
                 "train_window": win["window"][name],
                 "train_remat": win["window_remat"][name],
                 "train_data_parallel": dp_row["launches"][name],
+                "train_resume": resume["launches"][name],
+                "train_dp_options": dp_opt["launches"][name],
                 "ring": sum(ring_row[d]["launches"][name]
                             for d in ring_dtypes)},
             "max_abs_err": max(e[0] for e in bwd_errs[kind].values()),
@@ -4489,9 +5152,10 @@ def main() -> int:
                   + sent_row["evaluate_launches"][name])
         s2s_n = s2s_row["fit_launches"][name] + (
             s2s_row["stream_k5_launches"] if kind == "fwd" else 0)
+        avg_n = dp_opt["averaging"]["launches"][name]
         by_path = {"serve": serve_n, "train": train_n,
                    "char_graph_tbptt": graph_n, "seq_classifier": sent_n,
-                   "seq2seq": s2s_n}
+                   "seq2seq": s2s_n, "train_averaging": avg_n}
         if kind == "fwd":
             by_path["char_graph_rnn_time_step"] = stream_n
         if kind == "fwd":
@@ -4503,7 +5167,7 @@ def main() -> int:
             "name": name, "route": "cuda", "source": lsrc.format(kind),
             "replaces": lref.format(line),
             "launches": serve_n + train_n + graph_n + stream_n + draft_n
-            + http_k5 + sent_n + s2s_n,
+            + http_k5 + sent_n + s2s_n + avg_n,
             "launches_by_path": by_path,
             "max_abs_err": max(lstm_errs[(kind, torch.float32)],
                                lstm_errs[(kind, torch.bfloat16)]),
@@ -4650,6 +5314,9 @@ def main() -> int:
     print(json.dumps({"ring": ring_row, "data_parallel": dp_row,
                       "parallel_cross_device": par_cross, "card": smi}),
           flush=True)
+    print(json.dumps({"listeners_resume": resume,
+                      "data_parallel_options": dp_opt, "card": smi},
+                     default=str), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,9 +4,9 @@ Counterpart of ``deeplearning4j_tpu/datasets/prefetch.py``:
 ``DevicePrefetchIterator`` (``:119-398``), its staging pool
 (``_StagingPool`` and ``_definitely_copied``, ``:44-116``), ``BatchWindow``,
 ``_window_stackable``, ``skip_batches`` and ``iter_windows``
-(``:401-486``). The reference's ``etl_wait_ms_per_batch`` and
-``windows`` serve its performance listener (ROADMAP A8) and stacked
-windows; the port reads ``total_wait_ms`` and calls ``iter_windows``.
+(``:401-486``) and ``etl_wait_ms_per_batch`` (``:362``), which the
+performance listener's wait reads. The reference's ``windows`` serves its
+stacked windows; the port calls ``iter_windows``.
 
 ``DevicePrefetchIterator`` wraps any ``DataSetIterator`` and keeps
 ``depth`` batches in flight on the device. A producer thread pulls host
@@ -250,6 +250,11 @@ class DevicePrefetchIterator(DataSetIterator):
                 except queue.Empty:
                     break
             t.join(timeout=1.0)
+
+    def etl_wait_ms_per_batch(self) -> float:
+        """Mean consumer-side wait a batch over the current or last
+        epoch."""
+        return self.total_wait_ms / self.batches if self.batches else 0.0
 
     def reset(self):
         if hasattr(self.base, "reset"):

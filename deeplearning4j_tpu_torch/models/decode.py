@@ -36,7 +36,7 @@ protocol (``:49``), ``window_attention`` (``:61``),
   reference through the public ``rnn_time_step``.
 
 Sharding the heads over a mesh (the reference's ``supports_head_sharding``)
-is ROADMAP A7b.
+is ROADMAP A7b-2.
 """
 from __future__ import annotations
 
@@ -232,7 +232,7 @@ class TransformerDecodeSpec:
 
     def supports_head_sharding(self, m: int) -> bool:
         raise NotImplementedError("sharding the paged pools' heads over a "
-                                  "mesh is not ported yet (ROADMAP A7b)")
+                                  "mesh is not ported yet (ROADMAP A7b-2)")
 
 
 def truncated_draft(net, n_blocks: int = 1):

@@ -36,7 +36,7 @@ import torch
 from torch import nn
 
 from ...device import DeviceLike, resolve_device, torch_dtype
-from ...optimize.solver import score_listeners
+from ...optimize.solver import check_listeners
 from ...optimize.updaters import MultiLayerUpdater
 from ..conf.graph_conf import ComputationGraphConfiguration
 from ..multilayer import (cast_floats, compute_dtype_of, copy_state,
@@ -311,10 +311,11 @@ class ComputationGraph(nn.Module):
 
     # ---------------------------------------------------------------- train
     def set_listeners(self, *listeners) -> "ComputationGraph":
-        """Score callbacks: each is called as
-        ``listener.iteration_done(net, iteration, loss)`` after every step.
-        Epoch and performance listeners come with telemetry (ROADMAP A8)."""
-        self.listeners = score_listeners(listeners)
+        """Training listeners (``optimize/listeners.py``) or bare score
+        callbacks: each is called as ``listener.iteration_done(net,
+        iteration, loss)`` after every step, and its epoch hooks and
+        ``note_window`` / ``note_batch`` where it has them."""
+        self.listeners = check_listeners(listeners)
         return self
 
     def fit(self, data=None, labels=None, *, epochs: int = 1,

@@ -45,7 +45,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..device import DeviceLike, resolve_device, torch_dtype
-from ..optimize.solver import score_listeners
+from ..optimize.solver import check_listeners
 from ..optimize.updaters import MultiLayerUpdater
 from .conf.config import MultiLayerConfiguration
 from .tape import dropout_masks
@@ -364,8 +364,8 @@ class MultiLayerNetwork(nn.Module):
 
     # ----------------------------------------------------------------- train
     def set_listeners(self, *listeners) -> "MultiLayerNetwork":
-        """Score callbacks, as ``ComputationGraph.set_listeners``."""
-        self.listeners = score_listeners(listeners)
+        """Training listeners, as ``ComputationGraph.set_listeners``."""
+        self.listeners = check_listeners(listeners)
         return self
 
     def fit(self, data=None, labels=None, *, epochs: int = 1,

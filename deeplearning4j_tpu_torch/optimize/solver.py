@@ -51,11 +51,22 @@ layers are keyed by vertex name or by layer index.
   reseeded with the iteration and the layer's index, as the reference
   folds ``it * 1000 + index`` into its key.
 
+- **Listeners** (``optimize/listeners.py``; reference ``:305, 370-372,
+  487-497, 561-584``): ``on_epoch_start`` / ``on_epoch_end`` around each
+  epoch of ``fit`` on every listener that has them, ``note_window(k)``
+  before a window's K-step fan-out and ``note_batch(n, etl_wait_ms=...,
+  device_ms=...)`` a batch on each listener that has them, then
+  ``iteration_done`` with the iteration just run, before the count moves
+  past it (``notify_window`` / ``notify_batch``, which ``ParallelWrapper``
+  shares). The wait is the prefetcher's (``EtlClock``). ``pretrain``
+  fires no epoch hooks, as the reference's does not.
+
 The telemetry spans, perf accounting and training watch inside ``fit``
-(A8) are not ported.
+(ROADMAP A8, part 2) are not ported.
 """
 from __future__ import annotations
 
+import time
 from typing import Optional
 
 import numpy as np
@@ -65,7 +76,7 @@ from ..datasets.dataset import DataSet, ListDataSetIterator
 from ..datasets.prefetch import (BatchWindow, DevicePrefetchIterator,
                                  iter_windows, skip_batches)
 from ..nn.tape import collect_state, commit_state
-from .step_graph import TrainStepGraph, binding, feed_signature
+from .step_graph import WindowGraphs
 
 
 def _descend(net, loss, it: torch.Tensor) -> None:
@@ -120,19 +131,88 @@ def tbptt_step_math(net, x, y, lmask, fmask, rnn_states, *,
     return loss.detach(), carry
 
 
-def score_listeners(listeners) -> list:
-    """Check that each listener is a score callback,
-    ``listener.iteration_done(net, iteration, loss)``. Epoch and performance
-    listeners come with telemetry (ROADMAP A8)."""
+def check_listeners(listeners) -> list:
+    """The listeners ``set_listeners`` takes: each has
+    ``iteration_done(net, iteration, loss)`` (a ``TrainingListener``, or a
+    bare score callback); the epoch hooks and ``note_window`` /
+    ``note_batch`` are called where a listener has them."""
     for lis in listeners:
         if not hasattr(lis, "iteration_done"):
             raise TypeError(f"{type(lis).__name__} has no "
                             f"iteration_done(net, iteration, loss)")
-        if hasattr(lis, "on_epoch_start") or hasattr(lis, "note_batch"):
-            raise NotImplementedError(
-                f"{type(lis).__name__}: epoch and performance listeners "
-                f"are not ported yet (ROADMAP A8)")
     return list(listeners)
+
+
+def epoch_hook(listeners, hook: str, net) -> None:
+    """``on_epoch_start`` / ``on_epoch_end`` on every listener that has
+    it."""
+    for lis in listeners:
+        fn = getattr(lis, hook, None)
+        if fn is not None:
+            fn(net)
+
+
+def notify_batch(net, ds, loss, etl_ms: float = 0.0,
+                 device_ms: float = 0.0, done: Optional[int] = None) -> None:
+    """One batch's fan-out: ``note_batch`` on every listener that has it
+    (``PerformanceListener``), then ``iteration_done`` at ``done`` (by
+    default the count, before it moves past the batch)."""
+    for lis in net.listeners:
+        fn = getattr(lis, "note_batch", None)
+        if fn is not None:
+            fn(ds.num_examples(), etl_wait_ms=etl_ms, device_ms=device_ms)
+    it = net.iteration_count if done is None else done
+    for lis in net.listeners:
+        lis.iteration_done(net, it, loss)
+
+
+def notify_window(net, datasets, losses, etl_ms: float = 0.0,
+                  device_ms: float = 0.0) -> None:
+    """A window's fan-out after it ran: ``note_window(k)`` on every
+    listener that has it, then ``notify_batch`` a batch with an equal share
+    of the window's wait and device time, the count moving past each.
+    ``losses[i]`` is batch i's (a device slice: no host read)."""
+    k = len(datasets)
+    for lis in net.listeners:
+        fn = getattr(lis, "note_window", None)
+        if fn is not None:
+            fn(k)
+    for ds, loss in zip(datasets, losses):
+        notify_batch(net, ds, loss, etl_ms / k, device_ms / k)
+        net.iteration_count += 1
+
+
+class EtlClock:
+    """The input pipeline's wait and the rest of each dispatch's wall time,
+    as the reference's fit loop measures them (``optimize/solver.py``
+    ``:381-392, 431-441, 556-569``): with a prefetcher, the growth of its
+    ``total_wait_ms`` (the time the loop blocked for a batch); without one,
+    the time since the last dispatch ended."""
+
+    def __init__(self, prefetcher):
+        self.prefetcher = prefetcher
+        self.t0 = time.perf_counter()
+        self.prev = 0.0
+
+    def skipped(self) -> None:
+        """After a resume's skipped batches: they are not this epoch's
+        wait."""
+        self.t0 = time.perf_counter()
+        if self.prefetcher is not None:
+            self.prev = self.prefetcher.total_wait_ms
+
+    def etl_ms(self) -> float:
+        if self.prefetcher is not None:
+            ms = self.prefetcher.total_wait_ms - self.prev
+            self.prev = self.prefetcher.total_wait_ms
+            return ms
+        return (time.perf_counter() - self.t0) * 1e3
+
+    def device_ms(self, etl_ms: float) -> float:
+        return max((time.perf_counter() - self.t0) * 1e3 - etl_ms, 0.0)
+
+    def restart(self) -> None:
+        self.t0 = time.perf_counter()
 
 
 def _is_multi(x) -> bool:
@@ -187,8 +267,10 @@ class Solver:
         self.net = net
         self._gen: Optional[torch.Generator] = None
         self._it: Optional[torch.Tensor] = None
-        self._graphs = {}              # feed signature -> TrainStepGraph
-        self._made = []                # every graph made (released ones too)
+        self._windows = WindowGraphs(
+            net, self._step, lambda f: train_step_math(
+                net, *f, gen=self._gen, it=self._it),
+            self._at, lambda: self._gen)
         # the last fit's DevicePrefetchIterator (its waits), or None
         self.prefetcher: Optional[DevicePrefetchIterator] = None
 
@@ -281,95 +363,47 @@ class Solver:
     def _fit_epoch(self, feed, iterator, k: int, tbptt: bool,
                    skip: int, second_order=None) -> None:
         net = self.net
+        epoch_hook(net.listeners, "on_epoch_start", net)
+        clock = EtlClock(self.prefetcher)
         # the mid-epoch resume: the first ``skip`` batches were trained by
         # the run that wrote the checkpoint (iteration_count covers them),
         # so they are consumed here, before windowing
         src = skip_batches(feed, skip) if skip else iter(feed)
+        if skip:
+            clock.skipped()
         for item in (iter_windows(src, k) if k > 1 else src):
+            etl_ms = clock.etl_ms()
             if isinstance(item, BatchWindow):
-                losses = self._window([self._feed(ds)
-                                       for ds in item.datasets])
-                # listeners after the window: losses[i] is a device slice
-                for i in range(len(item)):
-                    for lis in net.listeners:
-                        lis.iteration_done(net, net.iteration_count,
-                                           losses[i])
-                    net.iteration_count += 1
+                losses = self._windows.run([self._feed(ds)
+                                            for ds in item.datasets])
+                notify_window(net, item.datasets, losses, etl_ms,
+                              clock.device_ms(etl_ms))
+                clock.restart()
                 continue
             x, y, lmask, fmask = self._feed(item)
             if second_order is not None:
                 loss = second_order.step(x, y, lmask, fmask)
-                done = net.iteration_count
-                net.iteration_count += 1
             elif tbptt:
                 loss = self._fit_tbptt_batch(x, y, lmask, fmask)
-                done = net.iteration_count - 1
             else:
                 loss = self._step([x, y, lmask, fmask], net.iteration_count)
-                done = net.iteration_count
+            # the listeners see the last iteration run, before the count
+            # moves past it, as the reference's (a tBPTT batch has moved it
+            # once a chunk already)
+            notify_batch(net, item, loss, etl_ms, clock.device_ms(etl_ms),
+                         done=net.iteration_count - 1 if tbptt else None)
+            if not tbptt:
                 net.iteration_count += 1
-            for lis in net.listeners:
-                lis.iteration_done(net, done, loss)
+            clock.restart()
+        epoch_hook(net.listeners, "on_epoch_end", net)
         if hasattr(iterator, "reset"):
             iterator.reset()
 
-    # ---------------------------------------------------------- windows
-    def _window(self, feeds) -> torch.Tensor:
-        """Run the K steps of a window from iteration
-        ``net.iteration_count`` on (without advancing it); returns their
-        losses [K]. On the card: the window's graph, captured after its
-        first step when this feed signature has none yet."""
-        net = self.net
-        it0 = net.iteration_count
-        if net.device.type != "cuda":
-            return torch.stack([self._step(feed, it0 + i)
-                                for i, feed in enumerate(feeds)])
-        key = feed_signature(feeds[0]) + (
-            getattr(net.conf, "compute_dtype", None),
-            bool(getattr(net.conf, "gradient_checkpointing", False)))
-        graph = self._graphs.get(key)
-        if graph is not None and graph.binding != binding(net):
-            graph.release()           # the network's tensors were replaced
-            graph = None
-        out, start = None, 0
-        if graph is None:
-            # a stream of its own for each capture, as the decode graph's
-            side = torch.cuda.Stream(device=net.device)
-            cur = torch.cuda.current_stream(net.device)
-            side.wait_stream(cur)
-            with torch.cuda.stream(side):      # the warm step: step 0
-                loss = self._step(feeds[0], it0)
-            cur.wait_stream(side)
-            out = torch.empty((len(feeds),), dtype=loss.dtype,
-                              device=net.device)
-            out[0].copy_(loss)
-            graph = TrainStepGraph(
-                net, feeds[1], lambda f: train_step_math(
-                    net, *f, gen=self._gen, it=self._it),
-                self._gen, side)
-            self._graphs[key] = graph
-            self._made.append(graph)
-            start = 1
-        for i in range(start, len(feeds)):
-            self._at(it0 + i)
-            loss = graph.run(feeds[i])
-            if out is None:
-                out = torch.empty((len(feeds),), dtype=loss.dtype,
-                                  device=net.device)
-            out[i].copy_(loss)
-        return out
-
     def graph_stats(self) -> dict:
         """The window graphs' captures and replays so far, released graphs
-        included, and each counted kernel's launches made by replays (its
-        captured launches times the replays)."""
-        launches = {}
-        for g in self._made:
-            for name, n in g.launches.items():
-                launches[name] = launches.get(name, 0) + n * g.replays
-        return {"captures": len(self._made),
-                "replays": sum(g.replays for g in self._made),
-                "launches_in_replays": launches}
+        included, and each counted kernel's launches made by replays
+        (``WindowGraphs.stats``)."""
+        return self._windows.stats()
 
     # ------------------------------------------------------------ tBPTT
     def _fit_tbptt_batch(self, x, y, lmask, fmask):

@@ -34,12 +34,18 @@ model is ``serving/generation/graphs.py``'s decode graph:
   and its ``replays``: a kernel ran its wrapper's count plus
   ``launches[name] * replays`` times.
 - **The feed.** A window holds single-array batches only (multi-input
-  batches run per step), so a step's feed is the flat ``[x, y, labels
-  mask, features mask]``, a mask None when absent.
+  batches run per step), so a step's feed is a flat sequence of tensors
+  (``Solver``'s ``[x, y, labels mask, features mask]``, a mask None when
+  absent; ``ParallelWrapper``'s ``(x, y)``).
+- **Windows.** ``WindowGraphs`` is the window runner ``Solver`` and
+  ``ParallelWrapper`` share: one graph per key (the feed's signature, the
+  trainer's own key fields, the compute dtype and gradient checkpointing),
+  recaptured when ``binding`` changed, and the counts ``graph_stats``
+  reports.
 """
 from __future__ import annotations
 
-from typing import Callable, Sequence
+from typing import Callable, Sequence, Tuple
 
 import torch
 
@@ -63,15 +69,27 @@ def feed_signature(feed: Sequence) -> tuple:
                  for t in feed)
 
 
+def _tensors(tree):
+    """The tensors of nested dicts, lists and tuples, in order."""
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _tensors(v)
+
+
 def binding(net) -> tuple:
     """The addresses of the network's parameters, layer state and updater
-    state, which a captured step reads and writes."""
+    state (the per-layer format or the ZeRO sharded one), which a captured
+    step reads and writes."""
     ptrs = [p.data_ptr() for pd in net.param_dicts().values()
             for p in pd.values()]
     ptrs += [t.data_ptr() for sd in net.state_dicts().values()
              for t in sd.values()]
-    ptrs += [s.data_ptr() for layer in net.opt_state.values()
-             for st in layer.values() for s in st.values()]
+    ptrs += [s.data_ptr() for s in _tensors(net.opt_state)]
     return tuple(ptrs)
 
 
@@ -79,10 +97,12 @@ class TrainStepGraph:
     """One training step as a CUDA graph (see the module docstring).
     ``step(feed)`` is the eager step on a feed of tensors; it is captured
     over static copies of ``feed``'s tensors on ``stream``, after the
-    caller's warm eager step there."""
+    caller's warm eager step there. ``gen``: the generator the step draws
+    dropout from, or a sequence of them (``ParallelWrapper``'s, one a
+    worker)."""
 
     def __init__(self, net, feed: Sequence, step: Callable,
-                 gen: torch.Generator, stream: torch.cuda.Stream):
+                 gen, stream: torch.cuda.Stream):
         if net.device.type != "cuda":
             raise ValueError(f"a CUDA graph needs a CUDA device, not "
                              f"{net.device}")
@@ -113,3 +133,75 @@ class TrainStepGraph:
         self.graph.reset()
         self._loss = None
         self._static = None
+
+
+class WindowGraphs:
+    """The K steps of a window, as replays of one captured step on the
+    card and eagerly on the CPU (see the module docstring). The trainer
+    gives ``warm(feed, it)``, its eager step at iteration ``it``;
+    ``step(feed)``, the step to capture, which reads the iteration tensor
+    and generators that ``at(it)`` fills; and ``gens()``, the generators
+    to register with a graph (made by the first ``at``)."""
+
+    def __init__(self, net, warm: Callable, step: Callable, at: Callable,
+                 gens: Callable):
+        self.net = net
+        self._warm, self._step, self._at, self._gens = warm, step, at, gens
+        self.graphs = {}               # key -> TrainStepGraph
+        self._made = []                # every graph made (released ones too)
+
+    def run(self, feeds, key: Tuple = ()) -> torch.Tensor:
+        """Run the window's steps from iteration ``net.iteration_count`` on
+        (without advancing it); returns their losses [K]. ``key``: the
+        trainer's fields that change the captured step. On the card the
+        window's first step runs eagerly on a capture stream of its own
+        (as the decode graph's) when this key has no graph yet, and is
+        then captured."""
+        net = self.net
+        it0 = net.iteration_count
+        if net.device.type != "cuda":
+            return torch.stack([self._warm(feed, it0 + i)
+                                for i, feed in enumerate(feeds)])
+        key = feed_signature(feeds[0]) + tuple(key) + (
+            getattr(net.conf, "compute_dtype", None),
+            bool(getattr(net.conf, "gradient_checkpointing", False)))
+        graph = self.graphs.get(key)
+        if graph is not None and graph.binding != binding(net):
+            graph.release()           # the network's tensors were replaced
+            graph = None
+        out, start = None, 0
+        if graph is None:
+            side = torch.cuda.Stream(device=net.device)
+            cur = torch.cuda.current_stream(net.device)
+            side.wait_stream(cur)
+            with torch.cuda.stream(side):      # the warm step: step 0
+                loss = self._warm(feeds[0], it0)
+            cur.wait_stream(side)
+            out = torch.empty((len(feeds),), dtype=loss.dtype,
+                              device=net.device)
+            out[0].copy_(loss)
+            graph = TrainStepGraph(net, feeds[1], self._step, self._gens(),
+                                   side)
+            self.graphs[key] = graph
+            self._made.append(graph)
+            start = 1
+        for i in range(start, len(feeds)):
+            self._at(it0 + i)
+            loss = graph.run(feeds[i])
+            if out is None:
+                out = torch.empty((len(feeds),), dtype=loss.dtype,
+                                  device=net.device)
+            out[i].copy_(loss)
+        return out
+
+    def stats(self) -> dict:
+        """The graphs' captures and replays so far, released graphs
+        included, and each counted kernel's launches made by replays (its
+        captured launches times the replays)."""
+        launches = {}
+        for g in self._made:
+            for name, n in g.launches.items():
+                launches[name] = launches.get(name, 0) + n * g.replays
+        return {"captures": len(self._made),
+                "replays": sum(g.replays for g in self._made),
+                "launches_in_replays": launches}

@@ -9,7 +9,8 @@ names its axes, their sizes and ONE ``torch.device``; a per-worker value is
 a tensor with the worker axis leading (``[n, ...]``), row ``i`` being what
 ``shard_map`` with ``P(axis)`` hands worker ``i``. The collectives the
 parallel layer needs are plain functions on such tensors: ``pmean``,
-``ppermute_next`` and ``axis_index``. ``Sharding.split`` / ``gather`` cut a
+``ppermute_next``, ``axis_index``, ``psum_scatter`` and ``all_gather``
+(the ZeRO update's, ``parallel/zero.py``). ``Sharding.split`` / ``gather`` cut a
 global array into the rows and join them again. Nothing else of
 ``shard_map`` is rebuilt.
 
@@ -101,6 +102,30 @@ def pmean(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
     for i in range(1, n):
         total = total + x[i]
     return (total / n).unsqueeze(0).expand_as(x)
+
+
+def psum_scatter(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
+    """``lax.psum_scatter(x, axis, scatter_dimension=0, tiled=False)`` on
+    per-worker values ``[n, n, ...]`` (each worker's row cut into n
+    parts): worker k gets the sum over the workers of part k, ``[n, ...]``
+    out. The rows are added in worker order, as ``pmean`` adds them."""
+    n = _check_rows(x, mesh, axis)
+    if x.dim() < 2 or x.shape[1] != n:
+        raise ValueError(f"psum_scatter cuts each worker's row into {n} "
+                         f"parts: expected [{n}, {n}, ...], got "
+                         f"{tuple(x.shape)}")
+    total = x[0]
+    for i in range(1, n):
+        total = total + x[i]
+    return total
+
+
+def all_gather(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
+    """``lax.all_gather(x, axis, axis=0, tiled=False)``: every worker gets
+    all the rows, ``[n, ...]`` in and ``[n, n, ...]`` out (a broadcast
+    view, not n copies)."""
+    n = _check_rows(x, mesh, axis)
+    return x.unsqueeze(0).expand((n,) + tuple(x.shape))
 
 
 def ppermute_next(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:

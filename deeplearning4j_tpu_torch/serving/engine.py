@@ -13,7 +13,7 @@ A hot swap from a path and ``reload_from_checkpoint`` restore the model
 zip or the checkpoint directory's newest valid zip (``registry.load_net``)
 onto the device of the model being replaced. The HTTP front end is
 ``serving/http.py``. Left for later, each raising ``NotImplementedError``
-that names its ROADMAP item: ``publish_metrics`` (A8), a ``mesh`` (A7b).
+that names its ROADMAP item: ``publish_metrics`` (A8), a ``mesh`` (A7b-2).
 """
 from __future__ import annotations
 
@@ -41,12 +41,12 @@ class InferenceEngine:
                  forward_fn: Optional[Callable] = None):
         if mesh is not None:
             raise NotImplementedError("mesh-sharded serving is not ported "
-                                      "yet (ROADMAP A7b)")
+                                      "yet (ROADMAP A7b-2)")
         self.registry = ModelRegistry()
         self.buckets = tuple(buckets)
         self.dtype = dtype
         self.mesh = None
-        self.data_axis = data_axis     # the mesh's batch axis, with A7b
+        self.data_axis = data_axis     # the mesh's batch axis, with A7b-2
         self.batch_window_ms = batch_window_ms
         self.queue_limit = queue_limit
         self.default_timeout_s = default_timeout_s

@@ -22,7 +22,7 @@ and a recurrent MultiLayerNetwork (the char-RNN) through its recurrent
 state. ``hot_swap`` with a path and ``reload_from_checkpoint`` restore a
 model zip, or a checkpoint directory's newest valid zip, onto the
 engine's device (``serving.registry.load_net``). ``publish_metrics`` is
-ROADMAP A8; a mesh is A7b.
+ROADMAP A8; a mesh is A7b-2.
 """
 from __future__ import annotations
 
@@ -44,7 +44,7 @@ class GenerationEngine:
                  mesh=None, device: DeviceLike = None, **config_kwargs):
         if mesh is not None:
             raise NotImplementedError("head-sharded generation over a mesh "
-                                      "is not ported yet (ROADMAP A7b)")
+                                      "is not ported yet (ROADMAP A7b-2)")
         self.device = resolve_device(device)
         self._models: Dict[str, ModelRuntime] = {}
         self._default: Optional[str] = None
@@ -70,7 +70,7 @@ class GenerationEngine:
         ``kv_cache_dtype="int8"`` stores the K/V pools as int8."""
         if mesh is not None:
             raise NotImplementedError("head-sharded generation over a mesh "
-                                      "is not ported yet (ROADMAP A7b)")
+                                      "is not ported yet (ROADMAP A7b-2)")
         check_same_device("the net", net.device, self.device)
         if draft is not None:
             check_same_device("the draft", draft.device, self.device)

@@ -28,7 +28,7 @@ of each cohort then runs as a CUDA graph (``graphs.py``), captured from
 ``decode_tensors``; the other programs run eagerly (ROADMAP A2a-rest). The
 caches are updated in place.
 
-``mesh=`` (head-sharded decode across cards) is ROADMAP A7b.
+``mesh=`` (head-sharded decode across cards) is ROADMAP A7b-2.
 """
 from __future__ import annotations
 
@@ -143,7 +143,7 @@ class GenerationProgramSet:
                  mesh=None):
         if mesh is not None:
             raise NotImplementedError("head-sharded decode over a mesh is "
-                                      "not ported yet (ROADMAP A7b)")
+                                      "not ported yet (ROADMAP A7b-2)")
         self.net = net
         self.config = config
         self._trace_hook = trace_hook
@@ -263,7 +263,7 @@ class GenerationProgramSet:
 
     def kv_pool_bytes_per_chip(self, cache=None) -> int:
         """Device bytes of the cache on the one card it lives on (the
-        reference divides a head-sharded pool over its mesh, A7b)."""
+        reference divides a head-sharded pool over its mesh, A7b-2)."""
         cache = cache if cache is not None else self.make_cache()
         if self.adapter == "paged":
             return pool_bytes(cache[0]) + pool_bytes(cache[1])

@@ -1,5 +1,8 @@
 """Counterpart of ``deeplearning4j_tpu/util``: model zips
-(``serialization``), the read side of checkpointing (``checkpointing``),
+(``serialization``), checkpoint directories and the resumable fit
+(``checkpointing``), sharded and background checkpoints
+(``distributed_checkpoint``, ``async_checkpoint``), CUDA-graph capture
+(``graph_capture``),
 gradient checking (``gradcheck``), the time-series helpers
 (``timeseries``), and the stdlib-only ``retry`` and ``httpjson``
 helpers."""

@@ -16,8 +16,9 @@ or per batch. Both go through ``capture``, so they keep one set of rules:
 - **``thread_local`` mode, on the caller's side stream.** Another thread
   may be using the card (another model's dispatch thread, a prefetcher's
   copies); the caller replays on the thread that captured.
-- **The generator is registered** with the graph, so each replay draws
-  from the state the caller set before it, as the eager step does.
+- **The generators are registered** with the graph (one, or a
+  data-parallel step's one a worker), so each replay draws from the state
+  the caller set before it, as the eager step does.
 - **No fallback.** A capture that fails raises with its reason; nothing
   retries eagerly.
 - **Launch counts.** A kernel wrapper's ``launches`` counts its Python
@@ -32,7 +33,7 @@ from __future__ import annotations
 import contextlib
 import gc
 import threading
-from typing import Callable, Dict, Mapping, Optional, Tuple
+from typing import Callable, Dict, Mapping, Sequence, Tuple, Union
 
 import torch
 
@@ -56,7 +57,8 @@ def _no_collection():
 
 def capture(graph: torch.cuda.CUDAGraph, fn: Callable, *,
             stream: torch.cuda.Stream, device: torch.device,
-            gen: Optional[torch.Generator] = None,
+            gen: Union[None, torch.Generator,
+                       Sequence[torch.Generator]] = None,
             counted: Mapping[str, object] = (), what: str = "the step"
             ) -> Tuple[object, Dict[str, int]]:
     """Capture ``fn()`` into ``graph`` on ``stream`` (the caller has run
@@ -68,8 +70,9 @@ def capture(graph: torch.cuda.CUDAGraph, fn: Callable, *,
     before = {n: w.launches for n, w in counted.items()}
     with _lock, torch.cuda.device(device), _no_collection():
         stream.wait_stream(torch.cuda.current_stream(device))
-        if gen is not None:
-            graph.register_generator_state(gen)
+        for g in ([] if gen is None else
+                  [gen] if isinstance(gen, torch.Generator) else gen):
+            graph.register_generator_state(g)
         with torch.cuda.stream(stream):
             graph.capture_begin(capture_error_mode="thread_local")
             try:

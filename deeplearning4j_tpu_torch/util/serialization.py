@@ -20,8 +20,12 @@ bytes. Everything is written as float32; a restored network takes its
 configuration's dtype and lives on ``device`` (the CUDA card unless the
 caller names another). ``restore_model`` sniffs a model zip or a bare
 configuration JSON; a Java DL4J zip and a Keras HDF5 file are ROADMAP A9.
-The reference's ZeRO and ``host_gather`` branches of ``write_model`` have
-no counterpart yet (ROADMAP A7b): a network here lives on one device.
+``write_model`` refuses updater state in the ZeRO sharded format
+(``parallel/zero.py``), as the reference's does: a zip holds the per-leaf
+state, so ``ParallelWrapper.gather_opt_state()`` comes first (or
+``save_updater=False``). The reference's ``host_gather`` of
+tensor-parallel leaves has no counterpart (ROADMAP A7b-2): a network here
+lives on one device.
 """
 from __future__ import annotations
 
@@ -33,6 +37,7 @@ import torch
 
 from ..device import DeviceLike
 from ..parallel.data_parallel import flat_opt_state_order, flat_param_order
+from ..parallel.zero import is_zero_state
 
 CONFIG_ENTRY = "configuration.json"
 PARAMS_ENTRY = "coefficients.bin"
@@ -88,9 +93,24 @@ def write_model(net, path: str, save_updater: bool = True,
     zip. ``extra_manifest``: JSON-serializable keys merged into the
     manifest (the reference's checkpointing stores its resume position
     there)."""
+    _write_zip(net, path, save_updater, extra_manifest, zipfile.ZIP_DEFLATED)
+
+
+def _write_zip(net, path: str, save_updater: bool,
+              extra_manifest: Optional[dict], method: int) -> None:
+    """``write_model`` with the zip's ``method``: ``CheckpointListener``
+    stores its entries (``ZIP_STORED``) where ``write_model`` deflates
+    them; the entries are the same and either package reads both."""
+    if save_updater and is_zero_state(net.opt_state):
+        # a sharded flat state would be written in the wrong layout
+        raise ValueError(
+            "net.opt_state is in the ZeRO sharded format; call "
+            "ParallelWrapper.gather_opt_state() (or "
+            "ZeroUpdateEngine.unshard_opt_state) before writing a model "
+            "zip, or pass save_updater=False")
     params = [p for _, _, p in flat_param_order(net)]
     states = [t for _, _, t in flat_state_order(net)]
-    with zipfile.ZipFile(path, "w", zipfile.ZIP_DEFLATED) as z:
+    with zipfile.ZipFile(path, "w", method) as z:
         z.writestr(CONFIG_ENTRY, net.conf.to_json())
         z.writestr(PARAMS_ENTRY, _flat_bytes(params))
         z.writestr(STATE_ENTRY, _flat_bytes(states))

@@ -432,7 +432,27 @@ def test_constructor_refusals_are_the_references(kwargs, match):
     (dict(step_callback=lambda net, k: None), "A7b"),
     (dict(prefetch_buffer=2), "A10")])
 def test_unported_modes_raise_naming_their_roadmap_item(kwargs, item):
+    """The modes that raised until their item was ported now train (A10,
+    and the A7b-1 options: averaging, windows, overlap, ZeRO,
+    ``step_callback``; their parity is ``tests/test_torch_zero.py`` and
+    ``tests/test_torch_overlap.py``); a model axis still raises naming
+    A7b-2."""
     _, pnet = _mlp_pair()
+    if item == "A7b" and "mesh_shape" not in kwargs:
+        seen = []
+        kw = dict(kwargs)
+        if "step_callback" in kw:
+            kw["step_callback"] = lambda net, k: seen.append(
+                (net.iteration_count, k))
+        pw = ParallelWrapper(pnet, workers=2, **kw)
+        x, y = _mlp_data(48)
+        before = pnet.params_flat().clone()
+        pw.fit(ListDataSetIterator(features=x, labels=y, batch_size=8))
+        assert pnet.iteration_count == 6
+        assert not torch.equal(pnet.params_flat(), before)
+        if "step_callback" in kw:
+            assert seen == [(i, 1) for i in range(1, 7)]
+        return
     if item == "A10":
         # device prefetch is ported (ROADMAP A10): the reference's default
         # of 2 batches in flight, and a fit through it trains
@@ -442,7 +462,7 @@ def test_unported_modes_raise_naming_their_roadmap_item(kwargs, item):
         pw.fit(ListDataSetIterator(features=x, labels=y, batch_size=8))
         assert pnet.iteration_count == 2
         return
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(NotImplementedError, match="A7b-2"):
         ParallelWrapper(pnet, **kwargs)
 
 
@@ -459,10 +479,16 @@ def test_fit_refusals_and_listeners():
     pw.fit(it, skip_first_batches=1)
     assert pnet.iteration_count == 0
     assert torch.equal(pnet.params_flat(), before)
-    with pytest.raises(NotImplementedError, match="A8"):
-        pnet.set_listeners(type("Perf", (), {
-            "iteration_done": lambda *a: None,
-            "note_batch": lambda *a: None})())
+    # performance listeners are ported (ROADMAP A8, part 1): the
+    # wrapper's fit counts its batches through note_batch
+    noted = []
+    pnet.set_listeners(type("Perf", (), {
+        "iteration_done": lambda *a: None,
+        "note_batch": lambda self, n, **kw: noted.append(n)})())
+    pw.fit(it)
+    assert noted == [8] and pnet.iteration_count == 1
+    with pytest.raises(TypeError, match="iteration_done"):
+        pnet.set_listeners(object())
     with pytest.raises(ValueError, match="lives on"):
         ParallelWrapper(pnet, mesh=make_mesh((2,), ("data",), "meta"))
 

@@ -50,7 +50,8 @@ _REQUIRED = {f"deeplearning4j_tpu_torch.{m}" for m in (
     "earlystopping", "earlystopping.early_stopping",
     "earlystopping.parallel_trainer", "nn.layers.variational",
     "optimize.second_order", "util.gradcheck", "util.timeseries",
-    "graft_entry")}
+    "graft_entry", "optimize.listeners", "parallel.overlap", "parallel.zero",
+    "util.distributed_checkpoint", "util.async_checkpoint")}
 
 _FORBIDDEN = re.compile(
     r"^\s*(import\s+(jax|deeplearning4j_tpu)\b(?!_torch)"

@@ -290,3 +290,35 @@ def test_c5_keywords_build_and_reach_both_configurations(conf, layers):
     assert graph_conf.max_num_line_search_iterations == 8
     assert conf().list(dense(), out()).build() \
         .max_num_line_search_iterations == 5
+
+
+# ------------------------------------------------ A7b-1 / A8 part 1 raises
+@pytest.mark.parametrize("call, item", [
+    (lambda: _dp().ParallelWrapper(_tiny(), mesh_shape=(2, 2)), "A7b-2"),
+    (lambda: importlib.import_module(
+        "deeplearning4j_tpu_torch.parallel.overlap").profile_schedule(
+        make_mesh((2,), ("data",), "cpu"), None), "A8, part 2"),
+    (lambda: importlib.import_module(
+        "deeplearning4j_tpu_torch.parallel.zero").ZeroUpdateEngine.from_net(
+        _tiny(), make_mesh((2,), ("data",), "cpu")).profile(), "A8, part 2")],
+    ids=["model_axis", "profile_schedule", "zero_profile"])
+def test_what_the_parallel_slice_leaves_names_its_item(call, item):
+    """What ROADMAP A7b-1 and A8's first part leave still raises, naming
+    the item that brings it; the options they port no longer raise
+    (tests/test_torch_zero.py, tests/test_torch_overlap.py,
+    tests/test_torch_checkpointing.py, tests/test_torch_listeners.py)."""
+    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+        call()
+
+
+def _dp():
+    return importlib.import_module(
+        "deeplearning4j_tpu_torch.parallel.data_parallel")
+
+
+def _tiny():
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    conf = TConf(seed=1).list(
+        tlayers.DenseLayer(n_in=3, n_out=4, activation="tanh"),
+        tlayers.OutputLayer(n_out=2, activation="softmax")).build()
+    return MultiLayerNetwork(conf, device="cpu").init()

@@ -122,7 +122,7 @@ def test_second_order_fit_runs_per_step():
     x, y = _data(40)
     pnet.fit(x, y, batch_size=10, steps_per_dispatch=4)
     assert pnet.iteration_count == 4
-    assert pnet._solver_inst._graphs == {}
+    assert pnet._solver_inst.graph_stats()["captures"] == 0
     with pytest.raises(ValueError, match="tBPTT"):
         pnet.conf.backprop_type = "tbptt"
         pnet._solver_inst._second_order_solver(True)

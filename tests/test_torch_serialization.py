@@ -325,12 +325,21 @@ def test_what_the_port_cannot_read_yet_names_its_item(tmp_path):
                           else np.ones(4, np.float32).tobytes())
     with pytest.raises(ValueError, match="state.bin"):
         tser.restore_model(stateful, device="cpu")
-    for call, item in ((lambda: TCheckpointListener(str(tmp_path)), "A8"),
-                       (lambda: fit_with_checkpointing(None, None, epochs=1,
-                                                       checkpoint_dir="x"),
-                        "A8")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-            call()
+    # the write side is ported (ROADMAP A8, part 1): the listener makes
+    # its directory, and a resumable fit with nothing to resume from trains
+    # and writes a checkpoint (tests/test_torch_checkpointing.py)
+    lis = TCheckpointListener(str(tmp_path / "ck"))
+    assert os.path.isdir(lis.directory) and lis.keep_last == 3
+    net = _mlp("torch")
+    x = np.random.default_rng(9).standard_normal((16, 4)).astype(np.float32)
+    y = np.eye(3, dtype=np.float32)[np.arange(16) % 3]
+    from deeplearning4j_tpu_torch.datasets.dataset import (
+        ListDataSetIterator as TIt)
+    _, ran = fit_with_checkpointing(
+        net, TIt(features=x, labels=y, batch_size=8), epochs=1,
+        checkpoint_dir=str(tmp_path / "ck"))
+    assert ran == 1 and net.iteration_count == 2
+    assert os.path.exists(str(tmp_path / "ck" / "checkpoint_epoch1.zip"))
 
 
 # ------------------------------------------------------------ checkpoints

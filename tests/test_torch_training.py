@@ -307,9 +307,15 @@ def test_what_this_slice_leaves_raises_not_implemented(ask):
             jconf.optimization_algorithm, jconf.pretrain)
         assert conf.pretrain == (ask == "multilayer")
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP A"):
-        pnet.set_listeners(EpochListener())
-    assert pnet.iteration_count == 0
+    # epoch listeners are ported (ROADMAP A8, part 1): the hooks fire
+    # around each epoch of the fit
+    calls = []
+    EpochListener.on_epoch_start = lambda self, net: calls.append("start")
+    EpochListener.on_epoch_end = lambda self, net: calls.append("end")
+    pnet.set_listeners(EpochListener())
+    pnet.fit(ids, y, batch_size=B, epochs=2)
+    assert calls == ["start", "end", "start", "end"]
+    assert pnet.iteration_count == 2 * (len(ids) // B)
 
 
 @pytest.mark.parametrize("kind", ["dense", "attention", "norm"])
