@@ -323,9 +323,40 @@ Phases; any failure raises and exits non-zero before a result is printed:
    within rel-to-max 1e-5 (Sgd) and 1e-4 (RmsProp, phase 9's pin) of the
    CPU's plain runs from the same weights; the RmsProp case also against
    a float64 CPU run.
+17c. The model axis (run after phase 19, as 12e and 17b are): (a) the
+   _TLM (f32, Adam(3e-4), B 8, 8 batches, deterministic algorithms)
+   through ``ParallelWrapper(mesh_shape=(2, 2))`` per step, in windows of
+   4 (the wrapper's step as a CUDA graph) and with ZeRO-2 over the data
+   axis, each against the ``(4,)`` plain sync run from the same start
+   (losses rel 1e-5 a step; the parameters after 8 steps in float64 at
+   rel-to-max 1e-4), ``(4, 1)`` bitwise ``(4,)``, the windows and ZeRO-2
+   bitwise their per-step run, one rank's parameter and Adam bytes exact,
+   K1-K3 24 launches a step; the same 8 batches in float32 with
+   Sgd(1e-4) on ``(2, 2)`` against ``(4,)``: the parameters at rel-to-max
+   1e-5 and each parameter's update at 1e-4; (b) phase
+   3's 8 greedy requests through an unsharded engine and a head-sharded
+   one on a ``(1, 2)`` mesh: tokens equal up to a near tie (unsharded
+   top-2 margin under 1e-4 relative, where both logit rows agree at
+   rel-to-max 1e-5), the pools a rank half, the decode step a CUDA graph,
+   its p50 beside the unsharded one's, K1 launched; (c) phase 11's
+   GoogLeNet behind ``InferenceEngine(mesh=make_mesh((4,)))``, buckets (8,
+   32): responses equal ``net.output`` at atol 1e-6, K7 37 launches a
+   worker a batch, a ladder with 1 refused; (d) ``pipeline_apply`` of 4
+   _TLM-width blocks (B 8 in 4 microbatches, T 1024): forward and
+   gradients against the blocks run one after another (rel-to-max 1e-4),
+   K1-K3 16 launches each; (e) the char-RNN (phase 8's width, Sgd(1e-3))
+   on ``(2, 2)`` against ``(4,)`` over 4 batches (rel-to-max 1e-5), K5/K6
+   launched; (f) ``expert_parallel_apply``, top-2 over 8 experts (512 ->
+   2048 -> 512) of 4096 tokens: at capacity factor 4 (no token dropped)
+   against the dense top-2 evaluation, and at capacity factor 1 (experts
+   overflow: tokens re-routed and dropped) against the same call on the
+   CPU; output rel-to-max 1e-5, the router's gradient 1e-4.
 18. CPU against card, the parallel layer: one fused ring forward at
    T 2048 on 4 workers (atol 2e-5) and one ``EncodedAccumulator.combine``
-   (dense and topk) on the same gradients (bitwise).
+   (dense and topk) on the same gradients (bitwise); one float32 ``(2,
+   2)`` step of a 2-block _TLM (Sgd; the loss at rel 1e-5 and the applied
+   gradient at rel-to-max 1e-4, phase 5's pins) and one head-sharded
+   decode step of it (the logits at rel-to-max 2e-5).
 19. Device time (the profiler's kernel sums over 20 calls), which the
    host's enqueue does not reach: a loop of these short calls times the
    host as much as the card. K7 and ``relu(addmm)`` at GoogLeNet's shapes;
@@ -406,6 +437,8 @@ from deeplearning4j_tpu_torch.optimize.listeners import PerformanceListener
 from deeplearning4j_tpu_torch.optimize.updaters import Adam, RmsProp, Sgd
 from deeplearning4j_tpu_torch.parallel import ParallelWrapper, make_mesh
 from deeplearning4j_tpu_torch.parallel.accumulation import EncodedAccumulator
+from deeplearning4j_tpu_torch.parallel.tensor_parallel import (
+    full, held_specs, host_gather, per_replica_bytes, tree_specs)
 from deeplearning4j_tpu_torch.parallel.ring_attention import \
     ring_attention_sharded
 from deeplearning4j_tpu_torch.serving import (InferenceEngine,
@@ -4636,14 +4669,14 @@ def _dp_batches(n, seed):
     return out
 
 
-def _dp_run(batches, what, net=None, skip=0, **kw):
-    """``_TLM`` f32 (phase 17's) on ``DP_WORKERS`` logical workers through
-    ``ParallelWrapper(**kw).fit`` over ``batches``, counted (eager launches
-    plus captured x replays) and timed a dispatch; returns (net, wrapper,
-    row)."""
+def _dp_run(batches, what, net=None, skip=0, shape=None, **kw):
+    """``_TLM`` f32 (phase 17's) on ``DP_WORKERS`` logical workers (or a
+    ``mesh_shape``, ``shape``) through ``ParallelWrapper(**kw).fit`` over
+    ``batches``, counted (eager launches plus captured x replays) and
+    timed a dispatch; returns (net, wrapper, row)."""
     net = net if net is not None else _tlm_f32(SEED + 24)
-    pw = ParallelWrapper(net, mesh=make_mesh((DP_WORKERS,), ("data",)),
-                         **kw)
+    pw = ParallelWrapper(net, mesh_shape=shape, **kw) if shape else \
+        ParallelWrapper(net, mesh=make_mesh((DP_WORKERS,), ("data",)), **kw)
     k = kw.get("steps_per_dispatch", 1)
     clock = _WindowClock(k)
     net.set_listeners(clock)
@@ -4969,6 +5002,556 @@ def dp_options_phase():
     return out
 
 
+# ----------------------------------------------------------------- phase 17c
+# the model axis at _TLM's width: (2, 2) against (4,) plain sync, 8 batches
+TP_BATCHES, TP_K = 8, 4
+# what one rank holds at _TLM on (2, 2): 37,773,312 of the 42,533,888
+# parameters fall under the rules, so a rank holds 23,647,232 of them
+TP_PARAM_BYTES = 4 * (42_533_888 - 37_773_312 // 2)
+TP_ADAM_BYTES = 2 * TP_PARAM_BYTES
+TP_LOSS_TOL, TP_PARAM_TOL = 1e-5, 1e-4
+# the parameters after 8 Adam steps are gated in float64: in float32 the
+# (2, 2) run's GEMMs round other than (4,)'s and the two runs' Adam
+# parameters part by 5.16e-3 rel-to-max on the card (the float32 distance
+# is reported beside the float64 one). The float32 kernel path is held
+# under a parameter gate by Sgd, whose update is -lr times the summed
+# gradients: the same 8 batches, parameters at 1e-5 and each parameter's
+# summed applied gradient at 1e-4
+TP_SGD_LR, TP_SGD_PARAM_TOL, TP_SGD_UPDATE_TOL = 1e-4, 1e-5, 1e-4
+# head-sharded generation: phase 3's net and requests on a (1, 2) mesh;
+# a step whose unsharded top-2 margin is under 1e-4 relative is a tie
+TP_TIE, TP_LOGIT_TOL = 1e-4, 1e-5
+# GoogLeNet (phase 11's) served on 4 data workers
+TP_SERVE_BUCKETS, TP_SERVE_SIZES = (8, 32), (3, 8, 20, 32)
+# GPipe: 4 _TLM-width blocks, B 8 in 4 microbatches of 2 at T 1024
+PIPE_STAGES, PIPE_MICRO, PIPE_TOL = 4, 4, 1e-4
+# the char-RNN (phase 8's width) on a model axis, 4 batches, Sgd
+TP_CHAR_BATCHES, TP_CHAR_TOL = 4, 1e-5
+# experts: top-2 over 8 experts of width 512/2048 on 4096 tokens; at a
+# capacity factor of 4 (4096 slots an expert) no token is dropped, at 1
+# (1024 slots, the mean load) the experts overflow
+EXPERTS = dict(n=8, d=512, d_ff=2048, tokens=4096, top_k=2,
+               capacity_factor=4.0)
+EXPERT_TIGHT_CAPACITY = 1.0
+EXPERT_TOL, EXPERT_GRAD_TOL = 1e-5, 1e-4
+
+
+def _tp_flat(net):
+    """Every parameter as its global tensor on the host, in
+    ``flat_param_order``."""
+    from deeplearning4j_tpu_torch.parallel.data_parallel import \
+        flat_param_order
+    tree = net.param_dicts()
+    whole = host_gather(tree, tree_specs(net, tree))
+    return [whole[g][k] for g, k, _ in flat_param_order(net)]
+
+
+def _tp_opt(net):
+    """Every updater-state leaf as its global tensor on the host, in
+    ``flat_opt_state_order`` (after a ZeRO state was gathered)."""
+    from deeplearning4j_tpu_torch.parallel.data_parallel import \
+        flat_opt_state_order
+    whole = host_gather(net.opt_state, tree_specs(net, net.opt_state))
+    return [whole[g][k][sk] for g, k, sk, _ in flat_opt_state_order(net)]
+
+
+def _tp_rows(net):
+    """How many of ``net``'s parameters are held as a model axis' rows."""
+    return sum(bool(s) for sd in held_specs(net).values()
+               for s in sd.values())
+
+
+def _tp_vs(got, want, rel=None):
+    """The worst parameter's rel-to-max between two ``_tp_flat`` lists."""
+    return max((rel or _rel_to_max)(a, b) for a, b in zip(got, want))
+
+
+def _tp_names(net):
+    """``group.name`` of every parameter, in ``flat_param_order``."""
+    from deeplearning4j_tpu_torch.parallel.data_parallel import \
+        flat_param_order
+    return [f"{g}.{k}" for g, k, _ in flat_param_order(net)]
+
+
+def _tp_worst(got, want, names):
+    """(rel-to-max, name) of the parameter where two ``_tp_flat`` lists
+    differ most."""
+    return max((_rel_to_max(a, b), n) for a, b, n in zip(got, want, names))
+
+
+def _tp_train(batches):
+    """(a) ``_TLM`` f32 through ``ParallelWrapper(mesh_shape=(2, 2))``: per
+    step, in windows of 4 (the wrapper's step as a CUDA graph) and with
+    ZeRO-2 over the data axis, each against the ``(4,)`` plain sync run
+    from the same start; ``(4, 1)`` bitwise ``(4,)``; the windows bitwise
+    their per-step ``(2, 2)`` run; one rank's bytes of the parameters and
+    of the Adam state."""
+    runs = {}
+
+    def same(got, want):
+        return len(got) == len(want) and all(
+            torch.equal(a, b) for a, b in zip(got, want))
+    with _deterministic_algorithms():
+        net, _, runs["plain_4"] = _dp_run(batches, "plain_4", shape=(4,))
+        base = _tp_flat(net)
+        del net
+        net, _, runs["mesh_4x1"] = _dp_run(batches, "mesh_4x1",
+                                           shape=(4, 1))
+        runs["mesh_4x1"]["bitwise_plain_4"] = same(_tp_flat(net), base)
+        del net
+        net, _, row = _dp_run(batches, "mesh_2x2", shape=(2, 2))
+        per_step = (_tp_flat(net), _tp_opt(net))
+        params, opt = net.param_dicts(), net.opt_state
+        row["param_bytes_a_rank"] = per_replica_bytes(
+            params, tree_specs(net, params))
+        row["adam_bytes_a_rank"] = per_replica_bytes(
+            opt, tree_specs(net, opt))
+        row["sharded_leaves"] = _tp_rows(net)
+        runs["mesh_2x2"] = row
+        del net, params, opt
+        net, _, row = _dp_run(batches, "mesh_2x2_windows", shape=(2, 2),
+                              steps_per_dispatch=TP_K)
+        row["bitwise_per_step"] = same(_tp_flat(net), per_step[0]) \
+            and same(_tp_opt(net), per_step[1])
+        runs["mesh_2x2_windows"] = row
+        del net
+        net, pw, row = _dp_run(batches, "mesh_2x2_zero2", shape=(2, 2),
+                               zero_stage=2)
+        pw.gather_opt_state()
+        zero = _tp_flat(net)
+        row["bitwise_per_step"] = same(zero, per_step[0]) \
+            and same(_tp_opt(net), per_step[1])
+        runs["mesh_2x2_zero2"] = row
+        names = _tp_names(net)
+        runs["mesh_2x2"]["worst_param_float32"] = _tp_worst(per_step[0],
+                                                            base, names)
+        del net, pw
+        # float32 Sgd, whose update is -lr times the summed gradients:
+        # (2, 2) against (4,), the parameters and each parameter's summed
+        # applied gradient (the update without the parameters' rounding)
+        sgd = {}
+        for what, shape in (("sgd_4", (4,)), ("sgd_2x2", (2, 2))):
+            net = transformer_lm(**TLM, token_input=True,
+                                 updater=Sgd(TP_SGD_LR)).init(seed=SEED + 24)
+            summed, apply = {}, net.updater.update
+
+            def update(grads, opt_state, params, it, apply=apply,
+                       summed=summed, net=net):
+                held = held_specs(net)
+                for g, gd in grads.items():
+                    for k, v in gd.items():
+                        t = full(v, held[g][k]).detach()
+                        key = f"{g}.{k}"
+                        summed[key] = summed[key] + t if key in summed \
+                            else t.clone()
+                return apply(grads, opt_state, params, it)
+            net.updater.update = update
+            net, _, runs[what] = _dp_run(batches, what, net=net, shape=shape)
+            net.updater.update = apply
+            sgd[what] = (_tp_flat(net), summed)
+            del net, update
+        # the same 8 steps in float64, (2, 2) against (4,)
+        f64 = {}
+        for shape in ((4,), (2, 2)):
+            net = transformer_lm(**TLM, token_input=True, dtype="float64",
+                                 updater=Adam(3e-4)).init(seed=SEED + 24)
+            ParallelWrapper(net, mesh_shape=shape).fit(
+                ListDataSetIterator(batches))
+            f64[shape] = _tp_flat(net)
+            del net
+    torch.cuda.empty_cache()
+    want = {n: TLM["n_blocks"] * 2 * TP_BATCHES for n in COUNTED}
+    bad = []
+    pairs = [(w, "plain_4") for w in ("mesh_2x2", "mesh_2x2_windows",
+                                      "mesh_2x2_zero2")]
+    for what, ref in pairs + [("sgd_2x2", "sgd_4")]:
+        r = runs[what]
+        r["loss_rel_" + ref] = max(
+            abs(a - b) / abs(b) for a, b in zip(r["losses"],
+                                                runs[ref]["losses"]))
+        if r["launches"] != want:
+            bad.append(f"{what} launched {r['launches']}, not {want}")
+        if r["loss_rel_" + ref] > TP_LOSS_TOL:
+            bad.append(f"{what}: losses rel {r['loss_rel_' + ref]:.3g}")
+    for what, got in (("mesh_2x2", per_step[0]), ("mesh_2x2_zero2", zero)):
+        runs[what]["param_rel_to_max_plain_4_float32"] = _tp_vs(got, base)
+    runs["float64"] = {"param_rel_to_max_2x2_vs_4": _tp_vs(
+        f64[(2, 2)], f64[(4,)], _rel_to_max_f64), "tolerance": TP_PARAM_TOL}
+    if runs["float64"]["param_rel_to_max_2x2_vs_4"] > TP_PARAM_TOL:
+        bad.append(f"float64 parameters: {runs['float64']}")
+    r = runs["sgd_2x2"]
+    r["param_rel_to_max_sgd_4"] = _tp_vs(sgd["sgd_2x2"][0], sgd["sgd_4"][0])
+    keys = sorted(sgd["sgd_4"][1])
+    r["update_worst_sgd_4"] = _tp_worst(
+        [sgd["sgd_2x2"][1][k] for k in keys],
+        [sgd["sgd_4"][1][k] for k in keys], keys)
+    r["tolerance"] = {"param": TP_SGD_PARAM_TOL,
+                      "update": TP_SGD_UPDATE_TOL}
+    if r["param_rel_to_max_sgd_4"] > TP_SGD_PARAM_TOL or \
+            r["update_worst_sgd_4"][0] > TP_SGD_UPDATE_TOL:
+        bad.append(f"float32 Sgd (2, 2) vs (4,): parameters "
+                   f"{r['param_rel_to_max_sgd_4']:.3g}, update "
+                   f"{r['update_worst_sgd_4']}")
+    del sgd
+    g = runs["mesh_2x2_windows"]["graph"]
+    if (g["captures"], g["replays"]) != (1, TP_BATCHES - 1):
+        bad.append(f"windows: graphs {g}")
+    if not runs["mesh_4x1"]["bitwise_plain_4"]:
+        bad.append("(4, 1) is not bitwise (4,)")
+    for what in ("mesh_2x2_windows", "mesh_2x2_zero2"):
+        if not runs[what]["bitwise_per_step"]:
+            bad.append(f"{what} is not bitwise its per-step (2, 2) run")
+    r = runs["mesh_2x2"]
+    if (r["param_bytes_a_rank"], r["adam_bytes_a_rank"]) != (
+            TP_PARAM_BYTES, TP_ADAM_BYTES):
+        bad.append(f"bytes a rank {r['param_bytes_a_rank']}, "
+                   f"{r['adam_bytes_a_rank']}")
+    if bad:
+        raise AssertionError(f"tensor-parallel training: {bad}")
+    return runs
+
+
+def _tp_generation():
+    """(b) phase 3's ``_TLM`` (f32) and 8 greedy requests through an
+    unsharded engine and a head-sharded one on a (1, 2) mesh: tokens equal
+    up to a near tie (and there the two logit rows agree), the pools a
+    rank half, the decode step a CUDA graph in both."""
+    net = transformer_lm(**TLM, token_input=True).init(seed=SEED)
+    rng = np.random.default_rng(SEED)
+    lens = rng.integers(300, 901, size=N_REQUESTS)
+    prompts = [rng.integers(1, TLM["vocab_size"], size=int(n)).tolist()
+               for n in lens]
+    out = {}
+    for what, mesh in (("unsharded", None),
+                       ("head_sharded", make_mesh((1, 2),
+                                                  ("data", "model")))):
+        eng = GenerationEngine(net, **ENGINE, mesh=mesh)
+        rt = eng.runtime()
+        try:
+            fa.flash_attention.launches = 0
+            toks = _drive(eng, prompts)
+            k1 = fa.flash_attention.launches
+            if not rt.wait_idle(60):
+                raise AssertionError(f"{what}: the runtime did not go idle")
+            snap = eng.metrics()["default"]
+            graphs = rt.graph_stats()
+            ps = rt.active_ps
+            out[what] = {"tokens": toks, "k1_launches": k1,
+                         "kv_pool_chip_bytes": ps.kv_pool_chip_bytes,
+                         "model_shards": ps.model_shards,
+                         "decode_steps": snap["decode_steps"],
+                         "decode_step_ms_p50":
+                             snap["decode_step_ms"]["p50"],
+                         "decode_step_ms_p99":
+                             snap["decode_step_ms"]["p99"],
+                         "ttft_ms_p50": snap["ttft_ms"]["p50"],
+                         "graph": graphs}
+            served = ps.served
+        finally:
+            eng.stop()
+        if graphs["replays"] != snap["decode_steps"] or \
+                graphs["captures"] != 1:
+            raise AssertionError(f"{what}: {graphs} for "
+                                 f"{snap['decode_steps']} decode steps")
+    sh, un = out["head_sharded"], out["unsharded"]
+    ties = []
+    cap = ENGINE["max_seq_len"]
+    for i, (p, a, b) in enumerate(zip(prompts, sh["tokens"], un["tokens"])):
+        if a == b:
+            continue
+        step = next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
+        seq = list(p) + list(b[:step])
+        buf = torch.zeros((1, cap), dtype=torch.long, device="cuda")
+        buf[0, :len(seq)] = torch.as_tensor(seq)
+        with torch.inference_mode():
+            lu = net.output(buf)[0, len(seq) - 1].double().log()
+            ls = served.output(buf)[0, len(seq) - 1].double().log()
+        top = torch.topk(lu, 2).values
+        margin = float((top[0] - top[1]) / top[0].abs())
+        rel = _rel_to_max_f64(ls, lu)
+        ties.append({"request": i, "step": step, "margin_rel": margin,
+                     "logits_rel_to_max": rel})
+        if margin >= TP_TIE or rel > TP_LOGIT_TOL:
+            raise AssertionError(f"head-sharded request {i} differs at step "
+                                 f"{step}: {ties[-1]}")
+    if sh["kv_pool_chip_bytes"] * 2 != un["kv_pool_chip_bytes"]:
+        raise AssertionError(f"pool bytes a rank {sh['kv_pool_chip_bytes']} "
+                             f"vs {un['kv_pool_chip_bytes']}")
+    if sh["k1_launches"] == 0 or sh["model_shards"] != 2:
+        raise AssertionError(f"head-sharded generation: {sh}")
+    for r in out.values():
+        r["tokens_equal"] = r is un or not ties
+        del r["tokens"]
+    out["ties"] = ties
+    return out
+
+
+def _tp_serve():
+    """(c) phase 11's GoogLeNet served on a mesh of 4 data workers: each
+    response equals ``net.output`` of its rows at atol 1e-6, K7 launched
+    37 times a worker a batch; a ladder with a rung of 1 refused."""
+    net = googlenet(**GNET).init(seed=SEED + 13)
+    fwd = lambda n, x: n._output_pure(x)[0]
+    mesh = make_mesh((4,), ("data",))
+    refused = False
+    try:
+        InferenceEngine(net, feature_shape=(224, 224, 3),
+                        buckets=(1,) + TP_SERVE_BUCKETS, forward_fn=fwd,
+                        mesh=mesh)
+    except ValueError as e:
+        refused = "not divisible" in str(e)
+    if not refused:
+        raise AssertionError("a ladder with a rung of 1 was not refused on "
+                             "a mesh of 4")
+    pool = np.random.default_rng(SEED + 14).standard_normal(
+        (32, 224, 224, 3)).astype(np.float32)
+    eng = InferenceEngine(net, feature_shape=(224, 224, 3),
+                          buckets=TP_SERVE_BUCKETS, forward_fn=fwd, mesh=mesh)
+    errs = []
+    try:
+        k7.conv1x1_fused.launches = 0
+        t0 = time.perf_counter()
+        got = [eng.predict(pool[:n]) for n in TP_SERVE_SIZES]
+        wall_s = time.perf_counter() - t0
+        launches = k7.conv1x1_fused.launches
+        batches = eng.metrics()["default"]["batches"]
+    finally:
+        eng.stop()
+    for n, g in zip(TP_SERVE_SIZES, got):
+        want = net.output(pool[:n]).cpu()
+        errs.append(float((torch.as_tensor(g) - want).abs().max()))
+    if max(errs) > 1e-6 or launches != 37 * 4 * batches or launches == 0:
+        raise AssertionError(f"mesh-sharded serving: errors {errs}, K7 "
+                             f"{launches} for {batches} batches")
+    return {"sizes": list(TP_SERVE_SIZES), "abs_err": errs,
+            "k7_launches": launches, "batches": batches, "wall_s": wall_s,
+            "ladder_with_1_refused": refused}
+
+
+def _pipe_block(p, x):
+    """One ``_TLM``-width pre-norm block (causal attention through the
+    flash kernels, a gelu MLP) as a function of its parameters."""
+    d, H = TLM["d_model"], TLM["n_heads"]
+    B, T, _ = x.shape
+    heads = lambda y: y.view(B, T, H, d // H).transpose(1, 2)
+    h = F.layer_norm(x, (d,), p["g1"], p["c1"])
+    o = fa.flash_attention(heads(h @ p["Wq"]), heads(h @ p["Wk"]),
+                           heads(h @ p["Wv"]), causal=True)
+    x = x + o.transpose(1, 2).reshape(B, T, d) @ p["Wo"] + p["bo"]
+    h = F.layer_norm(x, (d,), p["g2"], p["c2"])
+    return x + F.gelu(h @ p["W1"] + p["b1"]) @ p["W2"] + p["b2"]
+
+
+def _tp_pipeline():
+    """(d) 4 blocks through ``pipeline_apply`` on a mesh of 4 stages (B 8
+    in 4 microbatches, T 1024): forward and gradients against the same
+    blocks run one after another, rel-to-max 1e-4; K1-K3 launched."""
+    from deeplearning4j_tpu_torch.parallel.pipeline import (
+        pipeline_apply, stack_stage_params)
+    d, T = TLM["d_model"], TLM["max_length"]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 70)
+    r = lambda *s, sc=1.0: torch.randn(*s, generator=gen,
+                                       device="cuda") * sc
+    stages = [{"Wq": r(d, d, sc=d ** -0.5), "Wk": r(d, d, sc=d ** -0.5),
+               "Wv": r(d, d, sc=d ** -0.5), "Wo": r(d, d, sc=d ** -0.5),
+               "bo": r(d, sc=0.02), "g1": 1 + r(d, sc=0.1),
+               "c1": r(d, sc=0.1), "g2": 1 + r(d, sc=0.1),
+               "c2": r(d, sc=0.1), "W1": r(d, 4 * d, sc=d ** -0.5),
+               "b1": r(4 * d, sc=0.02), "W2": r(4 * d, d, sc=(4 * d) ** -0.5),
+               "b2": r(d, sc=0.02)} for _ in range(PIPE_STAGES)]
+    for st in stages:
+        for t in st.values():
+            t.requires_grad_(True)
+    x = r(PIPE_MICRO, TRAIN_B // PIPE_MICRO, T, d)
+    fn = pipeline_apply(_pipe_block, make_mesh((PIPE_STAGES,), ("pipe",)),
+                        "pipe")
+    leaves = [t for st in stages for t in st.values()]
+
+    def piped():
+        y = fn(stack_stage_params(stages), x)
+        return y, torch.autograd.grad((y ** 2).mean(), leaves)
+
+    def sequential():
+        y = x.reshape(TRAIN_B, T, d)
+        for st in stages:
+            y = _pipe_block(st, y)
+        y = y.reshape(x.shape)
+        return y, torch.autograd.grad((y ** 2).mean(), leaves)
+
+    _reset_launches()
+    y_p, g_p = piped()
+    torch.cuda.synchronize()
+    launches = _launches()
+    y_s, g_s = sequential()
+    out_rel = _rel_to_max(y_p, y_s)
+    grad_rel = max(_rel_to_max(a, b) for a, b in zip(g_p, g_s))
+    ms = [_time_ms(piped, iters=3, warmup=1), _time_ms(sequential, iters=3,
+                                                       warmup=1)]
+    want = {n: PIPE_STAGES * PIPE_MICRO for n in COUNTED}
+    if out_rel > PIPE_TOL or grad_rel > PIPE_TOL or launches != want:
+        raise AssertionError(f"pipeline: out {out_rel:.3g}, gradients "
+                             f"{grad_rel:.3g}, launches {launches}")
+    return {"stages": PIPE_STAGES, "microbatches": PIPE_MICRO,
+            "micro_batch": TRAIN_B // PIPE_MICRO, "seq_len": T,
+            "out_rel_to_max": out_rel, "grad_rel_to_max": grad_rel,
+            "launches": launches, "fwd_bwd_ms": ms[0],
+            "sequential_fwd_bwd_ms": ms[1]}
+
+
+def _tp_char():
+    """(e) the char-RNN (phase 8's width) with Sgd(1e-3) on (2, 2) against
+    (4,), 4 whole-sequence batches: its W/R/b rows are joined before K5
+    and K6 run (whole gate blocks cut no unit), so the two runs differ
+    only in the data axis' sum; rel-to-max 1e-5."""
+    cb = [DataSet(*_char_batch(SEED + 95 + i, CHAR_B, CHAR_T))
+          for i in range(TP_CHAR_BATCHES)]
+    nets, launches = {}, {}
+    for shape in ((4,), (2, 2)):
+        net = text_generation_lstm(**CHAR, updater=Sgd(1e-3)).init(
+            seed=SEED + 96)
+        _reset_launches()
+        ParallelWrapper(net, mesh_shape=shape).fit(ListDataSetIterator(cb))
+        torch.cuda.synchronize()
+        launches[str(shape)] = _launches(LSTM_COUNTED)
+        nets[shape] = net
+    rel = _tp_vs(_tp_flat(nets[(2, 2)]), _tp_flat(nets[(4,)]))
+    rows = _tp_rows(nets[(2, 2)])
+    if rel > TP_CHAR_TOL or not all(v > 0 for v in launches["(2, 2)"]
+                                    .values()) or rows == 0:
+        raise AssertionError(f"char-RNN on (2, 2): rel-to-max {rel:.3g}, "
+                             f"launches {launches}, rows leaves {rows}")
+    return {"param_rel_to_max": rel, "launches": launches,
+            "rows_leaves": rows, "batches": TP_CHAR_BATCHES}
+
+
+def _tp_experts():
+    """(f) top-2 routing over 8 experts (512 -> 2048 -> 512, gelu) of 4096
+    tokens through ``expert_parallel_apply``: with room for every token,
+    against every token's two experts run densely with the same weights;
+    at capacity factor 1, where experts overflow (first choices re-routed
+    to their second, tokens dropped), against the same call on the CPU.
+    The output and the router's gradient each time."""
+    from deeplearning4j_tpu_torch.parallel.expert_parallel import (
+        expert_parallel_apply, load_balancing_loss)
+    E, d, f, N = (EXPERTS[k] for k in ("n", "d", "d_ff", "tokens"))
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 80)
+    r = lambda *s, sc=1.0: torch.randn(*s, generator=gen,
+                                       device="cuda") * sc
+    stacked = {"W1": r(E, d, f, sc=d ** -0.5), "b1": r(E, f, sc=0.02),
+               "W2": r(E, f, d, sc=f ** -0.5), "b2": r(E, d, sc=0.02)}
+    tokens, logits = r(N, d), r(N, E)
+    expert = lambda p, x: F.gelu(x @ p["W1"] + p["b1"]) @ p["W2"] + p["b2"]
+    fn = expert_parallel_apply(expert, make_mesh((E,), ("expert",)),
+                               "expert",
+                               capacity_factor=EXPERTS["capacity_factor"],
+                               top_k=EXPERTS["top_k"])
+
+    def dense(lg):
+        probs = torch.softmax(lg, -1)
+        top_p, top_e = torch.topk(probs, EXPERTS["top_k"], -1)
+        w = top_p / top_p.sum(-1, keepdim=True)
+        every = torch.stack([expert({k: v[e] for k, v in stacked.items()},
+                                    tokens) for e in range(E)])  # [E, N, d]
+        rows = torch.arange(N, device="cuda")
+        return sum(every[top_e[:, c], rows] * w[:, c:c + 1]
+                   for c in range(EXPERTS["top_k"]))
+
+    got = {}
+    for what, run in (("expert_parallel", lambda lg: fn(stacked, tokens, lg)),
+                      ("dense", dense)):
+        lg = logits.clone().requires_grad_(True)
+        t0 = time.perf_counter()
+        y = run(lg)
+        g, = torch.autograd.grad((y ** 2).mean(), lg)
+        torch.cuda.synchronize()
+        got[what] = (y.detach(), g, (time.perf_counter() - t0) * 1e3)
+    out_rel = _rel_to_max(got["expert_parallel"][0], got["dense"][0])
+    grad_rel = _rel_to_max(got["expert_parallel"][1], got["dense"][1])
+    if out_rel > EXPERT_TOL or grad_rel > EXPERT_GRAD_TOL or not float(
+            got["expert_parallel"][1].abs().max()) > 0:
+        raise AssertionError(f"experts: out {out_rel:.3g}, router gradient "
+                             f"{grad_rel:.3g}")
+    tight = _tp_experts_tight(expert, stacked, tokens, logits)
+    return {"config": EXPERTS, "out_rel_to_max": out_rel,
+            "router_grad_rel_to_max": grad_rel,
+            "fwd_bwd_ms_first": got["expert_parallel"][2],
+            "dense_fwd_bwd_ms_first": got["dense"][2],
+            "load_balancing_loss": float(load_balancing_loss(
+                logits, EXPERTS["top_k"])), "tight_capacity": tight}
+
+
+def _tp_experts_tight(expert, stacked, tokens, logits):
+    """(f) at ``EXPERT_TIGHT_CAPACITY``: the card's ``expert_parallel_apply``
+    against the CPU's on the same inputs (the routing's overflow, re-route
+    and drop branches run on both); how many choices overflowed, counted
+    apart from the routing code (an expert's choices beyond its slots)."""
+    from deeplearning4j_tpu_torch.parallel.expert_parallel import \
+        expert_parallel_apply
+    E, N, k = EXPERTS["n"], EXPERTS["tokens"], EXPERTS["top_k"]
+    cap = math.ceil(EXPERT_TIGHT_CAPACITY * k * N / E)
+    top_e = torch.topk(logits, k, -1).indices          # softmax is monotone
+    per_expert = torch.bincount(top_e.flatten(), minlength=E)
+    overflow = int((per_expert - cap).clamp_min(0).sum())
+    got = {}
+    for dev in ("cuda", "cpu"):
+        fn = expert_parallel_apply(
+            expert, make_mesh((E,), ("expert",), dev), "expert",
+            capacity_factor=EXPERT_TIGHT_CAPACITY, top_k=k)
+        lg = logits.to(dev).clone().requires_grad_(True)
+        t0 = time.perf_counter()
+        y = fn({n: v.to(dev) for n, v in stacked.items()}, tokens.to(dev),
+               lg)
+        g, = torch.autograd.grad((y ** 2).mean(), lg)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        got[dev] = (y.detach().cpu(), g.cpu(),
+                    (time.perf_counter() - t0) * 1e3)
+    out_rel = _rel_to_max(got["cuda"][0], got["cpu"][0])
+    grad_rel = _rel_to_max(got["cuda"][1], got["cpu"][1])
+    zero_rows = int((got["cuda"][0].abs().amax(-1) == 0).sum())
+    row = {"capacity_factor": EXPERT_TIGHT_CAPACITY, "slots": cap,
+           "choices_over_capacity": overflow, "tokens_dropped": zero_rows,
+           "out_rel_to_max_cpu": out_rel,
+           "router_grad_rel_to_max_cpu": grad_rel,
+           "fwd_bwd_ms_first": got["cuda"][2],
+           "cpu_fwd_bwd_ms": got["cpu"][2]}
+    if out_rel > EXPERT_TOL or grad_rel > EXPERT_GRAD_TOL or overflow == 0:
+        raise AssertionError(f"experts at a tight capacity: {row}")
+    return row
+
+
+def model_axis_phase():
+    """Phase 17c: the model axis on the card (a) to (f) (see the module
+    docstring); returns every part's row and the launches on its paths."""
+    out = {}
+    for part, run in (
+            ("train", lambda: _tp_train(_dp_batches(TP_BATCHES, SEED + 61))),
+            ("generation", _tp_generation), ("serve", _tp_serve),
+            ("pipeline", _tp_pipeline), ("char", _tp_char),
+            ("experts", _tp_experts)):
+        t0 = time.perf_counter()
+        out[part] = run()
+        out[part + "_s"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    tr = out["train"]
+    out["launches"] = {
+        n: sum(r["launches"][n] for r in tr.values() if "launches" in r)
+        + out["pipeline"]["launches"][n] for n in COUNTED}
+    out["launches"]["flash_attention_fwd"] += \
+        out["generation"]["head_sharded"]["k1_launches"] \
+        + out["generation"]["unsharded"]["k1_launches"]
+    out["launches"].update({n: sum(v[n] for v in
+                                   out["char"]["launches"].values())
+                            for n in LSTM_COUNTED})
+    out["launches"]["conv1x1_bias_relu"] = out["serve"]["k7_launches"]
+    log("model axis phase:", {
+        "train": {w: {k: v for k, v in r.items()
+                      if k not in ("losses", "step_ms", "graph")}
+                  for w, r in tr.items()},
+        **{k: v for k, v in out.items() if k != "train"}})
+    return out
+
+
 # ----------------------------------------------------------------- phase 18
 def parallel_cross_device_phase():
     """One fused ring forward at T 2048 on 4 workers and one
@@ -5010,6 +5593,87 @@ def parallel_cross_device_phase():
                                  f"the CPU's (pinned bitwise)")
     if out["dense_k9_launches"] != n or out["topk_k9_launches"] != 0:
         raise AssertionError(f"combine launched K9 {out}")
+    out.update(_tp_cross_device())
+    return out
+
+
+def _tp_cross_device():
+    """One float32 ``(2, 2)`` step of a 2-block ``_TLM`` (Sgd) and one
+    head-sharded decode step of it, on the card and on the CPU from the
+    same weights: the step's loss and applied gradient (what the updater
+    is handed, joined from its rows) at phase 5's pins, the decode step's
+    logits at rel-to-max 2e-5."""
+    from deeplearning4j_tpu_torch.serving.generation.kvcache import \
+        PagedStore
+    from deeplearning4j_tpu_torch.serving.generation.programs import (
+        GenerationConfig, GenerationProgramSet)
+    cfg = dict(TLM, n_blocks=2)
+    V, T = cfg["vocab_size"], cfg["max_length"]
+    gpu = transformer_lm(**cfg, token_input=True,
+                         updater=Sgd(1e-3)).init(seed=SEED + 26)
+    cpu = transformer_lm(**cfg, token_input=True, updater=Sgd(1e-3),
+                         device="cpu").init()
+    load_jax_params(cpu, [{k: v.detach().cpu().numpy()
+                           for k, v in gpu.vertices[n].param_dict().items()}
+                          for n in gpu.vertex_names])
+    ids = np.random.default_rng(SEED + 27).integers(0, V, (4, T))
+    step = {}
+    for net in (gpu, cpu):
+        seen, apply = [], net.updater.update
+
+        def update(grads, opt_state, params, it, apply=apply, seen=seen,
+                   net=net):
+            held = held_specs(net)
+            seen.append({f"{g}.{k}": full(v, held[g][k]).detach().cpu()
+                         for g, gd in grads.items() for k, v in gd.items()})
+            return apply(grads, opt_state, params, it)
+        net.updater.update = update
+        rec = _Losses()
+        net.set_listeners(rec)
+        x = torch.as_tensor(ids, device=net.device)
+        ParallelWrapper(net, mesh_shape=(2, 2)).fit(ListDataSetIterator(
+            [DataSet(x, _one_hot_prev(x, V, torch.float32))]))
+        net.set_listeners()
+        step[net.device.type] = (float(rec.losses[0]), seen[0])
+    (l_gpu, g_gpu), (l_cpu, g_cpu) = step["cuda"], step["cpu"]
+    loss_rel = abs(l_gpu - l_cpu) / abs(l_cpu)
+    worst = max(g_gpu, key=lambda n: _rel_to_max(g_gpu[n], g_cpu[n]))
+    grad_rel = _rel_to_max(g_gpu[worst], g_cpu[worst])
+    if loss_rel > 1e-5 or grad_rel > 1e-4 or not all(
+            float(g_gpu[f"b{b}_attn.{w}"].abs().max()) > 0
+            for b in range(2) for w in ("Wq", "Wk", "Wv")):
+        raise AssertionError(f"(2, 2) step on the card vs CPU: loss rel "
+                             f"{loss_rel:.3g}, {worst} rel-to-max "
+                             f"{grad_rel:.3g}")
+    out = {"tp_step_loss_rel": loss_rel, "tp_step_grad_rel_to_max": grad_rel,
+           "tp_step_worst_grad": worst}
+    logits = {}
+    conf = GenerationConfig(block_len=16, max_seq_len=256, decode_slots=2,
+                            prefill_batches=(1,), prompt_rungs=(256,))
+    prompt = np.zeros((1, 256), np.int64)
+    prompt[0, :200] = ids[0, :200]
+    tables = np.arange(1, 17, dtype=np.int64)[None, :].repeat(2, 0)
+    tables[1] = 0
+    for net in (gpu, cpu):
+        dev = net.device
+        ps = GenerationProgramSet(net, config=conf, mesh=make_mesh(
+            (1, 2), ("data", "model"), dev)).warm()
+        cache, g = ps.make_cache(), ps.fresh_generator()
+        first = ps.run_prefill(cache, prompt, np.array([200]), tables[:1],
+                               np.array([0]), g, np.zeros(1, np.float32),
+                               np.zeros(1, np.int64))
+        t = lambda a: torch.as_tensor(a, device=dev)
+        tok, pos = t([int(first[0]), 0]), t([200, 0])
+        act, tab = t([True, False]), t(tables)
+        with torch.inference_mode():
+            logits[dev.type] = ps.spec.decode_step(tok, pos, ps._stores(
+                lambda k, v: PagedStore(k, v, tab, pos, act, 16),
+                cache))[0].cpu()
+    out["head_sharded_decode_logits_rel_to_max"] = _rel_to_max(
+        logits["cuda"], logits["cpu"])
+    if out["head_sharded_decode_logits_rel_to_max"] > 2e-5:
+        raise AssertionError(f"head-sharded decode step on the card vs CPU: "
+                             f"{out}")
     return out
 
 
@@ -5063,6 +5727,8 @@ def main() -> int:
     # sessions recorded no kernel at all, later in a longer run
     resume = listeners_resume_phase()
     dp_opt = dp_options_phase()
+    model_axis = model_axis_phase()
+    tp_n = model_axis["launches"]
     top = next(r for r in rows if r["BH"] == 16 and r["T"] == 1024
                and r["dtype"] == str(torch.float32))
     serve_k1 = slice_row["flash_attention_launches"]
@@ -5087,7 +5753,8 @@ def main() -> int:
         + dp_row["launches"]["flash_attention_fwd"]
         + http_n["flash_attention_fwd"]
         + resume["launches"]["flash_attention_fwd"]
-        + dp_opt["launches"]["flash_attention_fwd"],
+        + dp_opt["launches"]["flash_attention_fwd"]
+        + tp_n["flash_attention_fwd"],
         "launches_by_path": {
             "serve": serve_k1, "serve_generation": gen_row["k1_launches"],
             "train": train_k["flash_attention_fwd"],
@@ -5097,7 +5764,8 @@ def main() -> int:
             "train_data_parallel": dp_row["launches"]["flash_attention_fwd"],
             "http": http_n["flash_attention_fwd"],
             "train_resume": resume["launches"]["flash_attention_fwd"],
-            "train_dp_options": dp_opt["launches"]["flash_attention_fwd"]},
+            "train_dp_options": dp_opt["launches"]["flash_attention_fwd"],
+            "model_axis": tp_n["flash_attention_fwd"]},
         "max_abs_err": errs[torch.float32],
         "max_abs_err_f32": errs[torch.float32],
         "max_abs_err_bf16": errs[torch.bfloat16],
@@ -5115,7 +5783,7 @@ def main() -> int:
             "replaces": ref.format(line),
             "launches": train_k[name] + win_sum[name]
             + dp_row["launches"][name] + resume["launches"][name]
-            + dp_opt["launches"][name]
+            + dp_opt["launches"][name] + tp_n[name]
             + sum(ring_row[d]["launches"][name] for d in ring_dtypes),
             "launches_by_path": {
                 "train": train_k[name],
@@ -5125,6 +5793,7 @@ def main() -> int:
                 "train_data_parallel": dp_row["launches"][name],
                 "train_resume": resume["launches"][name],
                 "train_dp_options": dp_opt["launches"][name],
+                "model_axis": tp_n[name],
                 "ring": sum(ring_row[d]["launches"][name]
                             for d in ring_dtypes)},
             "max_abs_err": max(e[0] for e in bwd_errs[kind].values()),
@@ -5153,9 +5822,11 @@ def main() -> int:
         s2s_n = s2s_row["fit_launches"][name] + (
             s2s_row["stream_k5_launches"] if kind == "fwd" else 0)
         avg_n = dp_opt["averaging"]["launches"][name]
+        tp_lstm = tp_n[name]
         by_path = {"serve": serve_n, "train": train_n,
                    "char_graph_tbptt": graph_n, "seq_classifier": sent_n,
-                   "seq2seq": s2s_n, "train_averaging": avg_n}
+                   "seq2seq": s2s_n, "train_averaging": avg_n,
+                   "train_model_axis": tp_lstm}
         if kind == "fwd":
             by_path["char_graph_rnn_time_step"] = stream_n
         if kind == "fwd":
@@ -5167,7 +5838,7 @@ def main() -> int:
             "name": name, "route": "cuda", "source": lsrc.format(kind),
             "replaces": lref.format(line),
             "launches": serve_n + train_n + graph_n + stream_n + draft_n
-            + http_k5 + sent_n + s2s_n + avg_n,
+            + http_k5 + sent_n + s2s_n + avg_n + tp_lstm,
             "launches_by_path": by_path,
             "max_abs_err": max(lstm_errs[(kind, torch.float32)],
                                lstm_errs[(kind, torch.bfloat16)]),
@@ -5207,11 +5878,13 @@ def main() -> int:
         "source": "deeplearning4j_tpu_torch/csrc/conv1x1_bias_relu.cu",
         "replaces": "deeplearning4j_tpu/ops/kernels/conv.py:83",
         "launches": gserve["k7_launches"] + http_n["conv1x1_bias_relu"]
-        + transfer_row["k7_launches"],
+        + transfer_row["k7_launches"] + tp_n["conv1x1_bias_relu"],
         "launches_by_path": {"serve_googlenet": gserve["k7_launches"],
                              "http": http_n["conv1x1_bias_relu"],
                              "transfer_googlenet":
-                                 transfer_row["k7_launches"]},
+                                 transfer_row["k7_launches"],
+                             "serve_googlenet_mesh":
+                                 tp_n["conv1x1_bias_relu"]},
         "max_abs_err": k7_errs["parity_abs"],
         "max_rel_to_max_err_f32": k7_errs["f32_rel"],
         "max_rel_to_max_err_bf16": k7_errs["bf16_rel"],
@@ -5317,6 +5990,8 @@ def main() -> int:
     print(json.dumps({"listeners_resume": resume,
                       "data_parallel_options": dp_opt, "card": smi},
                      default=str), flush=True)
+    print(json.dumps({"model_axis": model_axis, "card": smi}, default=str),
+          flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

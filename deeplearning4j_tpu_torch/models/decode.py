@@ -4,9 +4,10 @@ char-RNN.
 Counterpart of ``deeplearning4j_tpu/models/decode.py``: the ``KVStore``
 protocol (``:49``), ``window_attention`` (``:61``),
 ``TransformerDecodeSpec`` (``prefill_forward`` ``:167``, ``decode_step``
-``:194``, ``_block_step`` ``:214``, ``decode_window`` / ``_block_window``
-``:238-284``), ``LSTMDecodeSpec`` (``:286-366``), ``truncated_draft``
-(``:370``), ``naive_generate`` (``:399``) and ``naive_generate_lstm``
+``:194``, ``decode_window`` ``:238``; the reference's ``_block_step``
+``:214`` and ``_block_window`` are one ``_block`` here),
+``LSTMDecodeSpec`` (``:286-366``), ``truncated_draft`` (``:370``),
+``naive_generate`` (``:399``) and ``naive_generate_lstm``
 (``:428-446``).
 
 - ``prefill_forward`` runs the graph's own ``apply_fn`` over the padded
@@ -35,8 +36,20 @@ protocol (``:49``), ``window_attention`` (``:61``),
   output are those at ``length - 1``. ``naive_generate_lstm`` is its greedy
   reference through the public ``rnn_time_step``.
 
-Sharding the heads over a mesh (the reference's ``supports_head_sharding``)
-is ROADMAP A7b-2.
+**Head-sharded decode** (the reference's ``supports_head_sharding``,
+``:127``, ``:312``): a spec over a network laid out on a model axis of m
+(``parallel/tensor_parallel.py`` ``place_net``) has ``model_shards`` m.
+Rank r owns heads ``[r H/m, (r+1) H/m)``: its Q/K/V come from its column
+rows, its K/V live in its own pools (``[m, n_layers, nb, blk, H/m, Dh]``,
+``serving/generation/kvcache.py``), so ``decode_step`` and
+``decode_window`` take one store a rank; each rank attends over its own
+heads, its output block times its rows of Wo is a partial, and the
+partials are added in rank order before the bias. It is the one block
+path: unsharded, the whole weights and the one store are a single
+rank's, and every step is the plain product. The prefill runs the
+network's own Megatron forward (the flash kernel over every rank's heads)
+and returns each rank's K/V. Token for token this is the unsharded decode:
+attention is head-local.
 """
 from __future__ import annotations
 
@@ -53,6 +66,7 @@ from ..nn.layers import (DenseLayer, EmbeddingSequenceLayer,
                          SelfAttentionLayer)
 from ..nn.multilayer import MultiLayerNetwork
 from ..parallel.ring_attention import attention
+from ..parallel.tensor_parallel import column, join_blocks, partial_sum
 
 
 class KVStore(Protocol):
@@ -124,6 +138,12 @@ class TransformerDecodeSpec:
         self.vocab = self._layer["head"].n_out
         self.max_length = self._layer["pos"].max_length
         self.dtype = net.dtype
+        self.model_shards = attn0.model_shards()
+        for i in range(self.n_blocks):
+            if self._layer[f"b{i}_attn"].model_shards() != self.model_shards:
+                raise ValueError(f"b{i}_attn is laid out unlike b0_attn: "
+                                 f"head-sharded decode needs every block's "
+                                 f"heads split the same way")
 
     def _heads(self, x):
         """[B,T,d] -> [B,H,T,Dh] (SelfAttentionLayer._heads layout)."""
@@ -142,18 +162,18 @@ class TransformerDecodeSpec:
         """Full forward over the padded prompt [B,L] through the graph's
         ``apply_fn``, plus the per-layer K/V for the cache. Returns
         (logits [B,L,V] pre-activation, ks, vs) with ks[i]/vs[i]
-        [B,L,H,Dh]."""
+        [B,L,H,Dh], or each rank's ``[m,B,L,H/m,Dh]`` head-sharded."""
         acts = self.net.apply_fn(self.graph_input(tokens))
         logits = self._layer["head"].pre_output(acts["ln_f"])
         ks, vs = [], []
         for i in range(self.n_blocks):
-            attn = self._layer[f"b{i}_attn"]
+            m, _, Wk, Wv, _ = self._layer[f"b{i}_attn"].rank_weights()
             y = acts[f"b{i}_ln1"]
             B, L, _ = y.shape
-            ks.append((y @ attn.Wk).reshape(B, L, self.n_heads,
-                                            self.head_dim))
-            vs.append((y @ attn.Wv).reshape(B, L, self.n_heads,
-                                            self.head_dim))
+            shape = (m, B, L, self.n_heads // m, self.head_dim)
+            k, v = column(y, Wk).reshape(shape), column(y, Wv).reshape(shape)
+            ks.append(k[0] if m == 1 else k)
+            vs.append(v[0] if m == 1 else v)
         return logits, ks, vs
 
     # ---------------------------------------------------------- decode step
@@ -163,32 +183,16 @@ class TransformerDecodeSpec:
         [B]. ``store.put_get(i, k_tok, v_tok)`` writes layer ``i``'s K/V
         ([B,H,Dh]) for this position, then returns the gathered,
         position-ordered context (K, V [B,H,L,Dh]) and its key mask [B,L].
-        Returns pre-activation logits [B,V]."""
+        Head-sharded (``model_shards`` m > 1), ``store`` is a list of m
+        stores, rank r's over its heads. Returns pre-activation logits
+        [B,V]."""
         x = self._layer["embed"](self.graph_input(tokens[:, None]))  # [B,1,d]
         pos_layer = self._layer["pos"]
         x = pos_layer.act(x + pos_layer.P[pos.long()][:, None, :])
         for i in range(self.n_blocks):
-            x = self._block_step(i, x, store)
+            x = self._block(i, x, _ranks(store), window=False)
         y = self._layer["ln_f"](x)
         return self._layer["head"].pre_output(y)[:, 0, :]
-
-    def _block_step(self, i, x, store):
-        h = x
-        y = self._layer[f"b{i}_ln1"](x)                        # [B,1,d]
-        attn = self._layer[f"b{i}_attn"]
-        B = y.shape[0]
-        q = self._heads(y @ attn.Wq)                           # [B,H,1,Dh]
-        k_tok = (y @ attn.Wk).reshape(B, self.n_heads, self.head_dim)
-        v_tok = (y @ attn.Wv).reshape(B, self.n_heads, self.head_dim)
-        K, V, key_mask = store.put_get(i, k_tok, v_tok)
-        out = attention(q, K, V, causal=False, key_mask=key_mask)
-        out = out.transpose(1, 2).reshape(B, 1, self.d_model)
-        if attn.project_out:
-            out = out @ attn.Wo + attn.b
-        x = h + attn.act(out)                                  # b{i}_add1
-        f = self._layer[f"b{i}_ff2"](
-            self._layer[f"b{i}_ff1"](self._layer[f"b{i}_ln2"](x)))
-        return x + f                                           # b{i}_add2
 
     # --------------------------------------------------------- decode window
     @torch.inference_mode()
@@ -208,31 +212,55 @@ class TransformerDecodeSpec:
         x = pos_layer.act(
             x + pos_layer.P[torch.clamp(w_pos, 0, pos_layer.P.shape[0] - 1)])
         for i in range(self.n_blocks):
-            x = self._block_window(i, x, store)
+            x = self._block(i, x, _ranks(store), window=True)
         y = self._layer["ln_f"](x)
         return self._layer["head"].pre_output(y)
 
-    def _block_window(self, i, x, store):
-        h = x
-        y = self._layer[f"b{i}_ln1"](x)                        # [B,W,d]
+    def _block(self, i, x, stores, window: bool):
+        """Block ``i`` of ``decode_step`` (``window`` False: x [B,1,d]) or
+        of ``decode_window`` ([B,W,d]) over one store a rank: each rank's
+        heads from its Q/K/V columns attend over its own cache, and the
+        ranks' Wo partials are added in rank order before the bias. Whole
+        weights and one store are one rank's: every step is then the
+        plain product."""
         attn = self._layer[f"b{i}_attn"]
+        m, Wq, Wk, Wv, Wo = attn.rank_weights()
+        Hm, Dh = self.n_heads // m, self.head_dim
+        h = x
+        y = self._layer[f"b{i}_ln1"](x)
         B, W, _ = y.shape
-        q = self._heads(y @ attn.Wq)                           # [B,H,W,Dh]
-        k_win = (y @ attn.Wk).reshape(B, W, self.n_heads, self.head_dim)
-        v_win = (y @ attn.Wv).reshape(B, W, self.n_heads, self.head_dim)
-        K, V, row_mask = store.put_get(i, k_win, v_win)
-        out = window_attention(q, K, V, row_mask)
-        out = out.transpose(1, 2).reshape(B, W, self.d_model)
-        if attn.project_out:
-            out = out @ attn.Wo + attn.b
-        x = h + attn.act(out)
+        q, k, v = (column(y, w).reshape(m, B, W, Hm, Dh)
+                   for w in (Wq, Wk, Wv))
+        outs = []
+        for r in range(m):
+            qr = q[r].transpose(1, 2)                          # [B,Hm,W,Dh]
+            if window:
+                K, V, row_mask = stores[r].put_get(i, k[r], v[r])
+                o = window_attention(qr, K, V, row_mask)
+            else:
+                K, V, key_mask = stores[r].put_get(i, k[r][:, 0], v[r][:, 0])
+                o = attention(qr, K, V, causal=False, key_mask=key_mask)
+            outs.append(o.transpose(1, 2).reshape(B, W, Hm * Dh))
+        out = torch.stack(outs)                              # [m,B,W,d/m]
+        out = (partial_sum(out, Wo) + attn.b if attn.project_out
+               else join_blocks(out))
+        x = h + attn.act(out)                                  # b{i}_add1
         f = self._layer[f"b{i}_ff2"](
             self._layer[f"b{i}_ff1"](self._layer[f"b{i}_ln2"](x)))
-        return x + f
+        return x + f                                           # b{i}_add2
 
     def supports_head_sharding(self, m: int) -> bool:
-        raise NotImplementedError("sharding the paged pools' heads over a "
-                                  "mesh is not ported yet (ROADMAP A7b-2)")
+        """Whether the paged pools (and the Q/K/V/O projections) can split
+        their heads m ways: attention is head-local, so an even split keeps
+        every head on one rank and decode token for token the unsharded
+        one's."""
+        return m >= 1 and self.n_heads % m == 0
+
+
+def _ranks(store) -> list:
+    """The stores of a head-sharded decode (a list, one a rank), or one
+    store as the list of one rank."""
+    return store if isinstance(store, (list, tuple)) else [store]
 
 
 def truncated_draft(net, n_blocks: int = 1):
@@ -310,6 +338,11 @@ class LSTMDecodeSpec:
         self.vocab = last.n_out
         self.dtype = net.dtype
         self.token_input = False          # char-LM contract: one-hot input
+
+    def supports_head_sharding(self, m: int) -> bool:
+        """The recurrent-state cache has no head axis to shard: only the
+        degenerate m = 1 split."""
+        return m == 1
 
     def init_states(self, batch: int):
         """Zero (h, c) for ``batch`` sequences per recurrent layer, None for

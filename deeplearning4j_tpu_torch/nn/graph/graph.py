@@ -122,7 +122,10 @@ class ComputationGraph(nn.Module):
     def params_flat(self) -> torch.Tensor:
         """All parameters as one 1-D vector: vertices in topological
         order, each layer's in its ``param_order`` (reference ``:305-315``)."""
-        leaves = [p.detach().reshape(-1) for p in self._ordered_params()]
+        from ...parallel.tensor_parallel import full, specs_by_id
+        specs = specs_by_id(self)         # a model axis' rows are joined
+        leaves = [full(p, specs[id(p)]).detach().reshape(-1)
+                  for p in self._ordered_params()]
         if not leaves:
             return torch.zeros(0, dtype=self.dtype, device=self.device)
         return torch.cat(leaves)
@@ -135,9 +138,13 @@ class ComputationGraph(nn.Module):
             raise ValueError(f"Expected flat parameter vector of length "
                              f"{expected}, got shape {tuple(flat.shape)}")
         off = 0
+        from ...parallel.tensor_parallel import (global_shape, place_like,
+                                                 specs_by_id)
+        specs = specs_by_id(self)         # a model axis' rows take their cut
         for p in self._ordered_params():
             n = p.numel()
-            p.copy_(flat[off:off + n].reshape(p.shape).to(p.dtype))
+            v = flat[off:off + n].reshape(global_shape(p, specs[id(p)]))
+            p.copy_(place_like(v.to(p.dtype), p))
             off += n
 
     # ------------------------------------------------------------ forward

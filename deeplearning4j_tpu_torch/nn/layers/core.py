@@ -12,6 +12,15 @@ with the loss of ``BaseOutputLayerMixin`` ``:175-184``). Parameter names
 and layouts are the reference's, and so are the places dropout applies: a
 Dense layer's input, an embedding's output.
 
+A Dense layer runs one forward for every layout
+(``parallel/tensor_parallel.py``): column-parallel, each rank's output
+columns from its rows of ``W`` with its bias rows added and the blocks
+laid side by side (an elementwise activation, gelu in ff1, then acts on
+each rank's block as it would on that rank; a whole ``W`` is one rank's,
+the plain ``x @ W + b``), unless ``W`` is row rows, then row-parallel:
+each rank multiplies its block of the input, the partials are added in
+rank order, then the replicated bias (the MLP's ff1 and ff2).
+
 An ``EmbeddingLayer`` takes one id a row, float or integer ([B] or
 [B,1]), cast to int64 (the reference casts to int32); its backward is
 torch's gather backward, an index_put with accumulation (atomics on the
@@ -31,6 +40,9 @@ from torch import nn
 from ..conf.serde import register
 from ..inputs import InputTypeFeedForward, InputTypeRecurrent
 from ..losses import get_loss
+from ...parallel.tensor_parallel import (VECTOR, column, is_rows,
+                                         join_blocks, partial_sum,
+                                         rank_blocks)
 from ..tape import taped
 from .base import LayerConf, maybe_dropout, resolve_ff_size
 
@@ -59,7 +71,16 @@ class DenseLayer(LayerConf):
 
     def pre_output(self, x, *, train=False, gen=None):
         x = maybe_dropout(x, self.dropout, gen, train)
-        return x @ self.W + self.b
+        W = self.W
+        if W.dim() == 3 and W.shape[1] != x.shape[-1]:
+            # row rows [m, n_in/m, n_out]: partials in rank order, then bias
+            return partial_sum(rank_blocks(x, W.shape[0]), W) + self.b
+        # column rows [m, n_in, n_out/m] (a whole W is one rank's) with
+        # each rank's bias block
+        b = self.b if is_rows(self.b, VECTOR) else self.b.view(1, -1)
+        h = column(x, W)
+        return join_blocks(h + b.view((b.shape[0],) + (1,) * (h.dim() - 2)
+                                      + (b.shape[1],)))
 
     def forward(self, x, *, train=False, gen=None):
         return self.act(self.pre_output(x, train=train, gen=gen))

@@ -9,6 +9,12 @@ and ``Wb/.../pob``) and sums the two directions' outputs. Gate order along
 the 4H axis is [i, f, o, g]. The input projection ``x @ W + b`` of every
 step is one matmul outside the time loop; ``_lstm_scan`` runs the loop.
 Layout: [B, T, F], batch-major. Masked steps carry state through.
+
+On a model axis (``parallel/tensor_parallel.py``) ``W/R/b`` are column rows
+over 4H, which cut whole gate blocks rather than units, so no rank can
+step a unit from its own rows: the layer joins them in rank order
+(``full``) before it runs, and the gradient goes back to the rows as a
+slice (memory sharded at rest, the compute replicated, as GSPMD gives).
 """
 from __future__ import annotations
 
@@ -21,6 +27,7 @@ from ...ops.lstm import (fused_lstm, fused_lstm_applicable,
                          fused_lstm_peephole)
 from ..activations import get_activation
 from ..conf.serde import register
+from ...parallel.tensor_parallel import COLUMN, VECTOR, full
 from ..inputs import InputTypeFeedForward, InputTypeRecurrent
 from .base import LayerConf, maybe_dropout
 
@@ -127,12 +134,13 @@ class LSTM(LayerConf):
         x = maybe_dropout(x, self.dropout, gen, train)
         B = x.shape[0]
         H = self.n_out
-        x_proj = (x @ self.W + self.b).transpose(0, 1)          # [T,B,4H]
+        x_proj = (x @ full(self.W, COLUMN)
+                  + full(self.b, VECTOR)).transpose(0, 1)     # [T,B,4H]
         if initial_state is None:
             zero = torch.zeros((B, H), dtype=x.dtype, device=x.device)
             initial_state = (zero, zero)
         hs, final = _lstm_scan(
-            x_proj, initial_state[0], initial_state[1], self.R,
+            x_proj, initial_state[0], initial_state[1], full(self.R, COLUMN),
             get_activation(self.activation),
             get_activation(self.gate_activation), self._peepholes(),
             _time_mask(mask, x.dtype),

@@ -68,8 +68,18 @@ batches (0 feeds batches as they come) on every path; the reference's
 averaging path keeps a host-side prefetcher instead, since it stacks host
 batches. ``skip_first_batches`` consumes the first batches of the first
 epoch without training them (the mid-epoch resume, reference
-``:659-760``). A model axis (``mesh_shape=(d, m)`` with m > 1) raises
-``NotImplementedError`` naming ROADMAP A7b-2.
+``:659-760``).
+
+**A model axis** (``mesh_shape=(d, m)`` or a mesh with a ``model`` axis,
+reference ``:126-173, 259-360``): on entry to ``fit`` the network's
+parameters and updater state are laid out by ``tensor_parallel``'s rules
+(``place_net``): a leaf the rules shard becomes its m per-rank rows, and
+every forward runs the layers' Megatron path over them. The data axis
+works as on a 1-D mesh (the feed cut over its d workers, ``pmean``, ZeRO
+over it, windows, ``overlap_sync``); K-step averaging and a
+``GradientsAccumulator`` are refused with the reference's messages. At
+m = 1 the spec table is empty and nothing is laid out, so ``(d, 1)`` is
+bitwise ``(d,)``.
 """
 from __future__ import annotations
 
@@ -86,9 +96,8 @@ from ..optimize.step_graph import WindowGraphs
 from .mesh import Mesh, axis_size, data_sharding, make_mesh, pmean
 from .overlap import (DEFAULT_BUCKET_BYTES, bucketed_pmean,
                       build_bucket_schedule)
+from .tensor_parallel import MODEL_AXIS, model_axis_size, place_net
 from .zero import ZeroUpdateEngine, is_zero_state
-
-MODEL_AXIS = "model"
 
 
 def flat_param_order(net) -> List[Tuple[object, str, torch.nn.Parameter]]:
@@ -155,7 +164,7 @@ class ParallelWrapper:
                              f"network on {net.device}")
         # batch divisibility and worker accounting follow the data axis only
         self.n = int(self.mesh.shape.get("data", self.mesh.size))
-        self.m = int(self.mesh.shape.get(MODEL_AXIS, 1))
+        self.m = model_axis_size(self.mesh)
         self.averaging_frequency = max(1, averaging_frequency)
         self.training_mode = training_mode.lower()
         self.average_updaters = average_updaters
@@ -234,9 +243,6 @@ class ParallelWrapper:
             lambda: self._gens)
         self._worker_opt = None           # averaging without updater mean
         self.prefetcher: Optional[DevicePrefetchIterator] = None
-        if self.m > 1:
-            raise NotImplementedError("a model axis (tensor parallelism) is "
-                                      "not ported yet (ROADMAP A7b-2)")
 
     # ------------------------------------------------------ per worker
     def _at(self, it: int) -> torch.Tensor:
@@ -486,6 +492,9 @@ class ParallelWrapper:
         axis_size(self.mesh, "data")
         sync = (self.training_mode == "shared_gradients"
                 or self.averaging_frequency == 1)
+        # the model axis' layout (tensor_parallel rules; nothing at m = 1
+        # on a network that holds no rows), then the ZeRO layout over it
+        place_net(net, self.m)
         if sync and self.zero_stage:
             # the engine owns the updater state's format: a replicated
             # state is sharded on entry, a sharded one checked

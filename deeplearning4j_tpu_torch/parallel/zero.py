@@ -48,7 +48,7 @@ updated parameters are then gathered back to every worker.
 The reference's ``zero.*`` gauges and ``profile`` (collective timing and
 trace spans) are telemetry (ROADMAP A8, part 2): dropped here, and
 ``profile`` raises naming it. Elastic use (``ElasticTrainer``, faults) is
-ROADMAP A7b-2.
+ROADMAP A7b-3.
 """
 from __future__ import annotations
 
@@ -529,6 +529,7 @@ def make_zero_resharder(engine: ZeroUpdateEngine):
         from ..util.distributed_checkpoint import (load_checkpoint_arrays,
                                                    tree_flatten,
                                                    tree_unflatten)
+        from .tensor_parallel import fits, place_like
         meta = (manifest or {}).get("sharding")
         if not meta or meta.get("format") != "zero-flat":
             return None
@@ -554,19 +555,18 @@ def make_zero_resharder(engine: ZeroUpdateEngine):
                     for _ in g.state_keys]
         out, zi = [], 0
         for arr, lk in zip(saved, like_leaves):
-            shape = tuple(lk.shape)
-            if tuple(arr.shape) != shape:
+            if not fits(lk.shape, arr.shape):
                 if zi >= len(expected):
                     raise ValueError(
                         f"unexpected shape mismatch: checkpoint "
-                        f"{tuple(arr.shape)} vs like {shape}")
+                        f"{tuple(arr.shape)} vs like {tuple(lk.shape)}")
                 arr = engine.reshard_state_leaf(expected[zi], arr, old_n)
                 zi += 1
-                if tuple(arr.shape) != shape:
+                if not fits(lk.shape, arr.shape):
                     raise ValueError(
                         f"re-sharded state {tuple(arr.shape)} still does "
-                        f"not match like {shape}")
-            out.append(arr.to(device=lk.device, dtype=lk.dtype))
+                        f"not match like {tuple(lk.shape)}")
+            out.append(place_like(arr.to(dtype=lk.dtype), lk))
         return tree_unflatten(spec, out)
 
     return _reshard

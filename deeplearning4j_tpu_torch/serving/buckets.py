@@ -6,8 +6,8 @@ in the smallest ladder rung that fits the merged rows; the pad-to-rung
 waste is the price of running only shapes that were warmed (kernels built,
 cuDNN algorithms chosen) before traffic. The ladder is the only set of
 batch shapes that exist after warm-up, which is what makes the
-no-re-warm guarantee checkable. ``validate_for_mesh`` comes with
-mesh-sharded serving (ROADMAP A7b-2).
+no-re-warm guarantee checkable. ``validate_for_mesh`` is mesh-sharded
+serving's check that every rung divides over the mesh's data axis.
 """
 from __future__ import annotations
 
@@ -40,6 +40,15 @@ class BucketLadder:
         """Wasted fraction of the padded batch: (bucket - n) / bucket."""
         b = self.bucket_for(n)
         return (b - n) / b
+
+    def validate_for_mesh(self, mesh, axis: str = "data") -> None:
+        """Mesh-sharded serving lands the merged batch on the data axis, so
+        every rung must divide evenly across it."""
+        size = mesh.shape[axis]
+        bad = [b for b in self.rungs if b % size]
+        if bad:
+            raise ValueError(
+                f"buckets {bad} not divisible by mesh '{axis}' axis ({size})")
 
     def __repr__(self):
         return f"BucketLadder{self.rungs}"

@@ -12,8 +12,11 @@ flight finishes on the old set, the next batch runs the new one.
 A hot swap from a path and ``reload_from_checkpoint`` restore the model
 zip or the checkpoint directory's newest valid zip (``registry.load_net``)
 onto the device of the model being replaced. The HTTP front end is
-``serving/http.py``. Left for later, each raising ``NotImplementedError``
-that names its ROADMAP item: ``publish_metrics`` (A8), a ``mesh`` (A7b-2).
+``serving/http.py``. ``mesh=`` (a logical mesh, reference ``:31-64,
+127``) serves every model mesh-sharded over its ``data_axis``
+(``programs.py``): a ladder whose rungs do not divide over that axis is
+refused, and a hot swap keeps the mesh. ``publish_metrics`` raises
+``NotImplementedError`` naming ROADMAP A8.
 """
 from __future__ import annotations
 
@@ -39,14 +42,11 @@ class InferenceEngine:
                  batch_window_ms: float = 2.0, queue_limit: int = 256,
                  default_timeout_s: float = 30.0, warm: bool = True,
                  forward_fn: Optional[Callable] = None):
-        if mesh is not None:
-            raise NotImplementedError("mesh-sharded serving is not ported "
-                                      "yet (ROADMAP A7b-2)")
         self.registry = ModelRegistry()
         self.buckets = tuple(buckets)
         self.dtype = dtype
-        self.mesh = None
-        self.data_axis = data_axis     # the mesh's batch axis, with A7b-2
+        self.mesh = mesh
+        self.data_axis = data_axis     # the mesh's batch axis
         self.batch_window_ms = batch_window_ms
         self.queue_limit = queue_limit
         self.default_timeout_s = default_timeout_s
@@ -71,7 +71,8 @@ class InferenceEngine:
         ladder = BucketLadder(buckets or self.buckets)
         metrics = ServingMetrics(name=name)
         ps = ProgramSet(net, feature_shape=feature_shape, ladder=ladder,
-                        dtype=dtype or self.dtype, forward_fn=forward_fn,
+                        dtype=dtype or self.dtype, mesh=self.mesh,
+                        data_axis=self.data_axis, forward_fn=forward_fn,
                         trace_hook=self._on_trace)
         entry_box = {}
 
@@ -129,7 +130,8 @@ class InferenceEngine:
             except ValueError:
                 new_set = ProgramSet(
                     net, feature_shape=old.feature_shape, ladder=old.ladder,
-                    dtype=old.dtype, forward_fn=old._custom_fwd,
+                    dtype=old.dtype, mesh=old.mesh, data_axis=old.data_axis,
+                    forward_fn=old._custom_fwd,
                     trace_hook=self._on_trace).warm()     # warm BEFORE swap
             entry.active = new_set                        # atomic cutover
             entry.version += 1

@@ -21,8 +21,11 @@ decode step runs as a CUDA graph captured after warm-up (``graphs.py``).
 and a recurrent MultiLayerNetwork (the char-RNN) through its recurrent
 state. ``hot_swap`` with a path and ``reload_from_checkpoint`` restore a
 model zip, or a checkpoint directory's newest valid zip, onto the
-engine's device (``serving.registry.load_net``). ``publish_metrics`` is
-ROADMAP A8; a mesh is A7b-2.
+engine's device (``serving.registry.load_net``). ``mesh=`` (a logical
+mesh with a ``model`` axis, on the engine or per model; reference
+``:33-72, 166``) serves a model head-sharded over that axis
+(``programs.py``); a hot swap keeps the model's mesh. ``publish_metrics``
+is ROADMAP A8.
 """
 from __future__ import annotations
 
@@ -42,10 +45,8 @@ class GenerationEngine:
                  config: Optional[GenerationConfig] = None,
                  adapter: str = "auto", warm: bool = True, draft=None,
                  mesh=None, device: DeviceLike = None, **config_kwargs):
-        if mesh is not None:
-            raise NotImplementedError("head-sharded generation over a mesh "
-                                      "is not ported yet (ROADMAP A7b-2)")
         self.device = resolve_device(device)
+        self.mesh = mesh            # the default for every model
         self._models: Dict[str, ModelRuntime] = {}
         self._default: Optional[str] = None
         self._lock = threading.Lock()
@@ -53,7 +54,7 @@ class GenerationEngine:
         self._trace_count = 0
         if net is not None:
             self.add_model(model_name, net, config=config, adapter=adapter,
-                           warm=warm, default=True, draft=draft,
+                           warm=warm, default=True, draft=draft, mesh=mesh,
                            **config_kwargs)
 
     # ------------------------------------------------------------------ models
@@ -67,10 +68,12 @@ class GenerationEngine:
         target or an LSTM char model; the config's ``spec_k`` proposals per
         verify window, default 4); ``prefix_cache=`` disables or forces
         prompt-prefix K/V sharing (default: on for transformer models);
-        ``kv_cache_dtype="int8"`` stores the K/V pools as int8."""
+        ``kv_cache_dtype="int8"`` stores the K/V pools as int8; ``mesh=``
+        (default: the engine's) shards the model's heads over its
+        ``model`` axis."""
+        mesh = mesh if mesh is not None else self.mesh
         if mesh is not None:
-            raise NotImplementedError("head-sharded generation over a mesh "
-                                      "is not ported yet (ROADMAP A7b-2)")
+            check_same_device("the mesh", mesh.device, self.device)
         check_same_device("the net", net.device, self.device)
         if draft is not None:
             check_same_device("the draft", draft.device, self.device)
@@ -83,7 +86,7 @@ class GenerationEngine:
         try:
             ps = GenerationProgramSet(net, config=cfg, adapter=adapter,
                                       draft_net=draft,
-                                      trace_hook=self._on_trace)
+                                      trace_hook=self._on_trace, mesh=mesh)
             if warm:
                 ps.warm()
         finally:
@@ -182,7 +185,7 @@ class GenerationEngine:
                         net, config=old.config, adapter="auto",
                         draft_net=(old.draft_net if draft is None
                                    else draft),
-                        trace_hook=self._on_trace).warm()
+                        trace_hook=self._on_trace, mesh=old.mesh).warm()
                 finally:
                     self._resume_watch()
             rt.active_ps = new_ps         # atomic: the next admission cohort

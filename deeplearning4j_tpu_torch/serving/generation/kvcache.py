@@ -12,7 +12,12 @@ cache is one pair of pool tensors per model —
     k_pool / v_pool : [n_layers, num_blocks, block_len, n_heads, head_dim]
 
 — or, on the int8 tier, one ``QuantizedPool`` (int8 codes of that shape
-plus one f32 scale per token and head) each. A sequence's cache is the set
+plus one f32 scale per token and head) each. Head-sharded over a model
+axis of m (``make_pools(..., shards=m)``), each pool is
+``[m, n_layers, num_blocks, block_len, n_heads/m, head_dim]``: rank r's
+heads in row r, whose view (``rank_pool``) has the unsharded layout, so
+every store and scatter below runs on it unchanged (``rank_stores``: one
+store a rank). A sequence's cache is the set
 of blocks its host-side table points at. Block 0 is the reserved TRASH
 block: idle decode slots and the unused tail of a prefill's table point at
 it, so every scatter has a legal destination and garbage lands where
@@ -144,10 +149,15 @@ def kv_dequantize(q, scale, dtype):
 
 def make_pools(n_layers: int, num_blocks: int, block_len: int,
                n_heads: int, head_dim: int, dtype: torch.dtype,
-               device: torch.device, quantized: bool = False) -> Tuple:
+               device: torch.device, quantized: bool = False,
+               shards: int = 1) -> Tuple:
     """Zero-filled (k_pool, v_pool): plain tensors, or ``QuantizedPool``
-    pairs when ``quantized`` (the kv_cache_dtype="int8" tier)."""
+    pairs when ``quantized`` (the kv_cache_dtype="int8" tier); with
+    ``shards`` m > 1 the heads are split over m rows, rank-major."""
     shape = (n_layers, num_blocks, block_len, n_heads, head_dim)
+    if shards > 1:
+        shape = (shards, n_layers, num_blocks, block_len,
+                 n_heads // shards, head_dim)
     if quantized:
         def qp():
             return QuantizedPool(
@@ -156,6 +166,23 @@ def make_pools(n_layers: int, num_blocks: int, block_len: int,
         return qp(), qp()
     return (torch.zeros(shape, dtype=dtype, device=device),
             torch.zeros(shape, dtype=dtype, device=device))
+
+
+def rank_pool(pool, r: int):
+    """Rank r's view of a head-sharded pool (plain or ``QuantizedPool``):
+    the unsharded layout over its heads; writes go through to the pool."""
+    if isinstance(pool, QuantizedPool):
+        return QuantizedPool(pool.q[r], pool.scale[r])
+    return pool[r]
+
+
+def rank_stores(m: int, make, k_pool, v_pool):
+    """``make(k_pool, v_pool)``, a store over the pools; over head-sharded
+    pools (m > 1) a list of one a rank, over each rank's views."""
+    if m == 1:
+        return make(k_pool, v_pool)
+    return [make(rank_pool(k_pool, r), rank_pool(v_pool, r))
+            for r in range(m)]
 
 
 def _leaves(pool) -> Tuple[torch.Tensor, ...]:
@@ -169,11 +196,13 @@ def pool_bytes(pool) -> int:
 
 def cow_copy(k_pool, v_pool, src: int, dst: int) -> None:
     """Copy block ``src``'s content (every layer, K and V; codes and scales
-    on the int8 tier) to block ``dst`` in place — the copy-on-write
-    primitive for prefix sharing."""
+    on the int8 tier; every rank of a head-sharded pool) to block ``dst``
+    in place — the copy-on-write primitive for prefix sharing."""
     for pool in (k_pool, v_pool):
+        # the block axis: 1, or 2 behind a head-sharded pool's rank axis
+        axis = 2 if _leaves(pool)[0].dim() == 6 else 1
         for t in _leaves(pool):
-            t[:, dst] = t[:, src]
+            t.select(axis, dst).copy_(t.select(axis, src))
 
 
 def _scatter(pool, i: int, idx: Tuple, tok) -> None:

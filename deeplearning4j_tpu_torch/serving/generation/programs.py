@@ -28,7 +28,20 @@ of each cohort then runs as a CUDA graph (``graphs.py``), captured from
 ``decode_tensors``; the other programs run eagerly (ROADMAP A2a-rest). The
 caches are updated in place.
 
-``mesh=`` (head-sharded decode across cards) is ROADMAP A7b-2.
+**Head-sharded decode** (``mesh=`` with a ``model`` axis of m > 1, the
+reference's ``:156-235, 262-300``): the set serves a copy of the network
+laid out on the model axis (``parallel/tensor_parallel.py`` ``place_net``)
+and keeps its paged pools head-sharded, ``[m, n_layers, nb, blk, H/m,
+Dh]``: every program runs one store a rank (``TransformerDecodeSpec``'s
+sharded path), so ``kv_pool_chip_bytes`` is one rank's bytes, 1/m of the
+unsharded pools'. The host side (block tables, allocator, prefix cache)
+indexes blocks, which keep their ids. Only the paged adapter shards, and
+only a head count the axis divides (both refused otherwise, with the
+reference's messages). A transformer draft whose heads divide is sharded
+the same way, any other draft stays replicated. The mesh is part of the
+``signature``; ``with_params_from`` keeps it and the warmed programs. A
+head-sharded cohort's decode step is captured as a CUDA graph like any
+other.
 """
 from __future__ import annotations
 
@@ -41,9 +54,11 @@ import numpy as np
 import torch
 
 from ...models.decode import LSTMDecodeSpec, TransformerDecodeSpec
+from ...parallel.tensor_parallel import (held_specs, model_axis_size,
+                                        place_net)
 from ..errors import ServingError
 from .kvcache import (PagedStore, QuantSimStore, cow_copy, make_pools,
-                      pool_bytes, prefill_scatter)
+                      pool_bytes, prefill_scatter, rank_pool, rank_stores)
 from .sampling import sample_tokens
 
 
@@ -141,15 +156,31 @@ class GenerationProgramSet:
                  adapter: str = "auto", draft_net=None,
                  trace_hook: Optional[Callable[[], None]] = None,
                  mesh=None):
-        if mesh is not None:
-            raise NotImplementedError("head-sharded decode over a mesh is "
-                                      "not ported yet (ROADMAP A7b-2)")
         self.net = net
         self.config = config
         self._trace_hook = trace_hook
-        self.mesh = None
-        self.model_shards = 1
         self.adapter = self._resolve_adapter(net, adapter)
+        self.model_shards = model_axis_size(mesh)
+        self.mesh = mesh if self.model_shards > 1 else None
+        if self.model_shards > 1:
+            if self.adapter != "paged":
+                raise ValueError(
+                    "model-sharded decode requires the paged (transformer) "
+                    "adapter — the recurrent-state cache has no head axis "
+                    "to split")
+            heads = TransformerDecodeSpec(net)
+            if not heads.supports_head_sharding(self.model_shards):
+                raise ValueError(
+                    f"n_heads={heads.n_heads} does not divide by the "
+                    f"model axis ({self.model_shards}) — the paged pools "
+                    f"shard whole heads")
+            if mesh.device != net.device:
+                raise ValueError(f"the mesh lives on {mesh.device}, the "
+                                 f"network on {net.device}")
+        if self.adapter == "paged" and (self.model_shards > 1
+                                        or _holds_rows(net)):
+            net = _sharded_copy(net, self.model_shards)
+        self.served = net       # the network the programs run
         self.spec = (TransformerDecodeSpec(net) if self.adapter == "paged"
                      else LSTMDecodeSpec(net))
         self.device = net.device
@@ -181,6 +212,14 @@ class GenerationProgramSet:
             self.spec_k = int(config.spec_k) or 4
             da = self._resolve_adapter(draft_net, "auto")
             self.draft_adapter = "dense" if da == "paged" else "state"
+            if da == "paged":
+                # a draft whose heads divide shards as the target does;
+                # any other stays replicated
+                dm = self.model_shards if TransformerDecodeSpec(
+                    draft_net).supports_head_sharding(self.model_shards) \
+                    else 1
+                if dm > 1 or _holds_rows(draft_net):
+                    draft_net = _sharded_copy(draft_net, dm)
             self.draft_spec = (TransformerDecodeSpec(draft_net)
                                if da == "paged" else LSTMDecodeSpec(draft_net))
             if self.draft_spec.vocab != self.vocab:
@@ -193,12 +232,14 @@ class GenerationProgramSet:
         draft_sig = None if draft_net is None else (
             _param_signature(draft_net), _arch_key(draft_net),
             self.draft_adapter, self.spec_k)
-        self.signature = (_param_signature(net), _arch_key(net),
+        mesh_sig = None if self.mesh is None else (
+            self.mesh.axis_names, self.mesh.axis_sizes, str(self.mesh.device))
+        self.signature = (_param_signature(self.net), _arch_key(self.net),
                           self.adapter, config.block_len, config.capacity,
                           config.decode_slots, config.prefill_batches,
                           config.prompt_rungs, config.num_blocks,
                           self.prefix_enabled, config.kv_cache_dtype,
-                          draft_sig)
+                          mesh_sig, draft_sig)
         self._warmed: Set[Tuple] = set()
         self.kv_pool_chip_bytes: Optional[int] = None     # set by warm()
         # eager program runs since warm-up, by program ("prefill",
@@ -229,7 +270,8 @@ class GenerationProgramSet:
             return s.init_states(c.decode_slots + 1)
         return make_pools(s.n_blocks, c.num_blocks, c.block_len, s.n_heads,
                           s.head_dim, self.dtype, self.device,
-                          quantized=self.kv_quantized)
+                          quantized=self.kv_quantized,
+                          shards=self.model_shards)
 
     def fresh_generator(self) -> torch.Generator:
         return torch.Generator(device=self.device).manual_seed(
@@ -262,16 +304,22 @@ class GenerationProgramSet:
         return self.draft_spec.init_states(c.decode_slots + 1)
 
     def kv_pool_bytes_per_chip(self, cache=None) -> int:
-        """Device bytes of the cache on the one card it lives on (the
-        reference divides a head-sharded pool over its mesh, A7b-2)."""
+        """Device bytes of the cache one rank holds: all of it unsharded,
+        one rank's heads (1/m) of a head-sharded pool."""
         cache = cache if cache is not None else self.make_cache()
         if self.adapter == "paged":
-            return pool_bytes(cache[0]) + pool_bytes(cache[1])
+            return (pool_bytes(cache[0]) + pool_bytes(cache[1])) \
+                // self.model_shards
         return sum(pool_bytes(t) for c in cache if c is not None for t in c)
 
     # -------------------------------------------------------------- programs
     def _t(self, a) -> torch.Tensor:
         return torch.as_tensor(a, device=self.device)
+
+    def _stores(self, make, cache):
+        """``make(k_pool, v_pool)`` over the cache's pools, one a rank when
+        they are head-sharded (``kvcache.rank_stores``)."""
+        return rank_stores(self.model_shards, make, cache[0], cache[1])
 
     def _need(self, key) -> None:
         if key not in self._warmed:
@@ -306,20 +354,28 @@ class GenerationProgramSet:
                     carry[1][slots_t] = new[1]
             last = logits
         else:
+            m = self.model_shards
             if self.kv_quantized:
                 # the first token must match what a decode-step replay of
                 # the same prompt gives (a prefix hit replays its suffix
                 # through the decode step, whose attention reads int8 K/V)
-                store = QuantSimStore(self.spec.n_blocks)
+                stores = self._stores(
+                    lambda k, v: QuantSimStore(self.spec.n_blocks), cache)
                 logits = self.spec.decode_window(
-                    tokens_t, torch.zeros_like(lengths_t), store)
-                ks, vs = store.ks, store.vs
+                    tokens_t, torch.zeros_like(lengths_t), stores)
+                per_rank = [(st.ks, st.vs) for st in
+                            (stores if m > 1 else [stores])]
             else:
                 logits, ks, vs = self.spec.prefill_forward(tokens_t)
-            k_pool, v_pool = cache
+                per_rank = [(ks, vs)] if m == 1 else [
+                    ([k[r] for k in ks], [v[r] for v in vs])
+                    for r in range(m)]
             tables_t = self._t(tables)
-            prefill_scatter(k_pool, ks, tables_t)
-            prefill_scatter(v_pool, vs, tables_t)
+            for r, (ks, vs) in enumerate(per_rank):
+                pools = cache if m == 1 else (rank_pool(cache[0], r),
+                                              rank_pool(cache[1], r))
+                prefill_scatter(pools[0], ks, tables_t)
+                prefill_scatter(pools[1], vs, tables_t)
             rows = torch.arange(logits.shape[0], device=self.device)
             last = logits[rows, lengths_t.long() - 1]
         tok = sample_tokens(last, gen, self._t(temp), self._t(topk))
@@ -343,8 +399,9 @@ class GenerationProgramSet:
                     carry[0][:S] = torch.where(keep, n[0], carry[0][:S])
                     carry[1][:S] = torch.where(keep, n[1], carry[1][:S])
         else:
-            store = PagedStore(cache[0], cache[1], tables, pos, active,
-                               self.config.block_len)
+            store = self._stores(
+                lambda k, v: PagedStore(k, v, tables, pos, active,
+                                        self.config.block_len), cache)
             logits = self.spec.decode_step(tokens, pos, store)
         return sample_tokens(logits, gen, temp, topk)
 
@@ -480,20 +537,35 @@ class GenerationProgramSet:
 
     # --------------------------------------------------------------- hot-swap
     def with_params_from(self, net, draft_net=None) -> "GenerationProgramSet":
-        """Same-architecture swap: a new set running ``net`` that shares
-        this set's warmed programs (the kernels' plans are per shape, not
-        per network). The draft (when speculating) carries over unless a
-        new one is given. Raises ValueError when the signature changed (the
-        caller warms a fresh set before cutover)."""
+        """Same-architecture swap: a new set running ``net`` on this set's
+        mesh that shares this set's warmed programs (the kernels' plans are
+        per shape, not per network). The draft (when speculating) carries
+        over unless a new one is given. Raises ValueError when the
+        signature changed (the caller warms a fresh set before cutover)."""
         new = GenerationProgramSet(net, config=self.config,
                                    adapter=self.adapter,
                                    draft_net=(self.draft_net
                                               if draft_net is None
                                               else draft_net),
-                                   trace_hook=self._trace_hook)
+                                   trace_hook=self._trace_hook,
+                                   mesh=self.mesh)
         if new.signature != self.signature:
             raise ValueError("parameter/architecture changed; full warm-up "
                              "required")
         new._warmed = self._warmed
         new.kv_pool_chip_bytes = self.kv_pool_chip_bytes
         return new
+
+
+def _holds_rows(net) -> bool:
+    return any(s for sd in held_specs(net).values() for s in sd.values())
+
+
+def _sharded_copy(net, m: int):
+    """A copy of ``net``'s parameters laid out on a model axis of ``m``
+    (the served network of a head-sharded set, whole at m = 1; the
+    caller's network is not touched, and no updater state is copied)."""
+    copy = net.clone()
+    copy.opt_state = None
+    place_net(copy, m)
+    return copy

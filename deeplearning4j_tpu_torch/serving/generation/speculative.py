@@ -28,6 +28,10 @@ Two draft adapters:
   un-consume a token, so propose stacks the state after EVERY fed token
   and rewind gathers, per slot, the state matching what verify accepted.
   Each propose step is one K5 launch per LSTM layer (T 1).
+
+Head-sharded (a target or dense draft spec with ``model_shards`` m > 1,
+``models/decode.py``), every cache has its heads split over m rows,
+rank-major, and each pass takes one store a rank over its row.
 """
 from __future__ import annotations
 
@@ -35,6 +39,8 @@ from typing import List, Tuple
 
 import numpy as np
 import torch
+
+from .kvcache import rank_stores
 
 
 class DenseDraftStore:
@@ -67,9 +73,13 @@ class DenseDraftStore:
 
 def make_dense_draft_cache(draft_spec, slots: int, capacity: int,
                            device: torch.device):
-    """Zero-filled (k_cache, v_cache) for the dense draft adapter."""
+    """Zero-filled (k_cache, v_cache) for the dense draft adapter
+    (``[m, layers, slots+1, cap, H/m, Dh]`` head-sharded)."""
+    m = draft_spec.model_shards
     shape = (draft_spec.n_blocks, slots + 1, capacity,
-             draft_spec.n_heads, draft_spec.head_dim)
+             draft_spec.n_heads // m, draft_spec.head_dim)
+    if m > 1:
+        shape = (m,) + shape
     return (torch.zeros(shape, dtype=draft_spec.dtype, device=device),
             torch.zeros(shape, dtype=draft_spec.dtype, device=device))
 
@@ -83,8 +93,8 @@ def draft_prefill_dense(draft_spec, cache, tokens, slots) -> None:
     L = tokens.shape[1]
     slots = slots.long()
     for i in range(draft_spec.n_blocks):
-        kc[i, slots, :L] = ks[i]
-        vc[i, slots, :L] = vs[i]
+        kc[..., i, slots, :L, :, :] = ks[i]
+        vc[..., i, slots, :L, :, :] = vs[i]
 
 
 @torch.inference_mode()
@@ -112,7 +122,9 @@ def propose_dense(draft_spec, cache, k: int, cur, pos, active):
     tok, p = cur, pos.long()
     toks = []
     for _ in range(k + 1):
-        store = DenseDraftStore(kc, vc, p, active)
+        store = rank_stores(draft_spec.model_shards,
+                            lambda k, v: DenseDraftStore(k, v, p, active),
+                            kc, vc)
         logits = draft_spec.decode_step(tok, p, store)
         tok = torch.argmax(logits, dim=-1)
         toks.append(tok)
@@ -160,8 +172,11 @@ def verify(target_spec, cache, block_len: int, k: int, feeds, pos, tables,
     targets [S,k+1]; row i's argmax is what one-token decode at pos+i
     gives."""
     from .kvcache import PagedWindowStore
-    store = PagedWindowStore(cache[0], cache[1], tables, pos, active,
-                             block_len, k + 1)
+    store = rank_stores(target_spec.model_shards,
+                        lambda kp, vp: PagedWindowStore(kp, vp, tables, pos,
+                                                        active, block_len,
+                                                        k + 1),
+                        cache[0], cache[1])
     logits = target_spec.decode_window(feeds, pos, store)
     return torch.argmax(logits, dim=-1)
 

@@ -24,6 +24,13 @@ flight keeps the set it took at dispatch.
 result gains a leading axis of length 1 and the batcher slices the wrong
 axis (ROADMAP §C). Serve a graph with a ``forward_fn`` that returns its
 one output, as the GoogLeNet path does.
+
+**Mesh-sharded serving** (``mesh=``, reference ``:82-120``): the merged
+batch lands on the mesh's data axis. The ladder must divide over it
+(``BucketLadder.validate_for_mesh``); the padded batch is cut into the
+workers' rows (``data_sharding(mesh, data_axis).split``), each worker's
+rows go through the forward in worker order, and the outputs are joined.
+The parameters are the network's, which every worker reads (replicated).
 """
 from __future__ import annotations
 
@@ -32,6 +39,7 @@ from typing import Callable, Optional, Set, Tuple
 import numpy as np
 import torch
 
+from ..parallel.mesh import data_sharding
 from .buckets import BucketLadder
 from .errors import ServingError
 from .metrics import _record_warm_run
@@ -92,13 +100,19 @@ class ProgramSet:
     """One model version's forward, the network it runs and the buckets it
     has warmed."""
 
-    mesh = None             # mesh-sharded serving: ROADMAP A7b-2
-
     def __init__(self, net, *, feature_shape: Tuple[int, ...],
-                 ladder: BucketLadder, dtype="float32",
+                 ladder: BucketLadder, dtype="float32", mesh=None,
+                 data_axis: str = "data",
                  forward_fn: Optional[Callable] = None,
                  trace_hook: Optional[Callable[[], None]] = None):
         self.net = net
+        self.mesh = mesh
+        self.data_axis = data_axis
+        if mesh is not None:
+            if mesh.device != net.device:
+                raise ValueError(f"the mesh lives on {mesh.device}, the "
+                                 f"network on {net.device}")
+            ladder.validate_for_mesh(mesh, data_axis)
         self.feature_shape = tuple(int(d) for d in feature_shape)
         self.ladder = ladder
         self.dtype = np.dtype(dtype)
@@ -108,7 +122,8 @@ class ProgramSet:
         self._warmed: Set[int] = set()
         self.signature = (_param_signature(net), _arch_key(net),
                           self.feature_shape, str(self.dtype),
-                          self.ladder.rungs)
+                          self.ladder.rungs, None if mesh is None else (
+                              mesh.axis_names, mesh.axis_sizes, data_axis))
 
     # ---------------------------------------------------------------- warm-up
     def warm(self) -> "ProgramSet":
@@ -133,7 +148,12 @@ class ProgramSet:
         if x.is_floating_point():
             x = x.to(self.net.dtype)
         with torch.inference_mode():
-            return _to_numpy(self._fwd(self.net, x))
+            if self.mesh is None:
+                return _to_numpy(self._fwd(self.net, x))
+            # each data worker's rows in worker order, then joined
+            sh = data_sharding(self.mesh, self.data_axis)
+            return _to_numpy(sh.gather(torch.stack(
+                [self._fwd(self.net, rows) for rows in sh.split(x)])))
 
     def run(self, padded: np.ndarray) -> np.ndarray:
         """Run the forward on ``padded.shape[0]`` rows, a warmed bucket,
@@ -153,6 +173,7 @@ class ProgramSet:
         set)."""
         new = ProgramSet(net, feature_shape=self.feature_shape,
                          ladder=self.ladder, dtype=self.dtype,
+                         mesh=self.mesh, data_axis=self.data_axis,
                          forward_fn=self._custom_fwd,
                          trace_hook=self._trace_hook)
         if new.signature != self.signature:

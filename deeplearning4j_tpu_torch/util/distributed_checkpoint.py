@@ -25,11 +25,17 @@ leaf sharded on the data axis is a per-worker ``[n, ...]`` tensor on the
 logical mesh: the leaves of a ZeRO state (``parallel/zero.py``, a dict
 ``{"_zero_": ...}``) are stored one block a worker row, as the reference
 stores an array sharded on the data axis; every other leaf is one block,
-as a replicated array is stored once. A restore assembles each leaf from
-its blocks, checks it against the ``like`` tree's shape and dtype and
-puts it on ``like``'s device; a save for another worker count fails that
-check (a ``resharder``, ``parallel.zero.make_zero_resharder``, re-slices
-it instead).
+as a replicated array is stored once. A leaf laid out on a model axis
+(per-rank rows, ``parallel/tensor_parallel.py``; the save's ``specs``
+say which, ``tensor_parallel.tree_specs``) is stored under its global
+shape, one block a rank at that rank's slice of the cut dimension, as the
+reference stores a model-sharded array. A restore assembles each leaf
+from its blocks, checks it against the ``like`` tree's leaf (its shape,
+or the rows of it, and its dtype), puts it on ``like``'s device and cuts
+it into ``like``'s rows where ``like`` holds rows; a save for another
+worker count fails that check (a ``resharder``,
+``parallel.zero.make_zero_resharder`` or
+``parallel.resharding.make_any_resharder``, re-slices it instead).
 """
 from __future__ import annotations
 
@@ -44,6 +50,8 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..parallel.tensor_parallel import (fits, full, global_shape, is_rows,
+                                       place_like, spec_dim)
 from ..parallel.zero import ZERO_STATE_KEY, dtype_name
 
 _log = logging.getLogger("deeplearning4j_tpu_torch")
@@ -75,6 +83,20 @@ def _flatten(tree, rows: bool, out: list, flags: list):
                 [_flatten(v, rows, out, flags) for v in tree])
     raise TypeError(f"a checkpoint tree holds tensors, dicts, lists and "
                     f"tuples, not {type(tree).__name__}")
+
+
+def _spec_leaves(tree, specs, out: list) -> list:
+    """The spec of each of ``tree``'s leaves in ``_flatten``'s order, from
+    its layout tree ``specs`` (None: every leaf whole)."""
+    if isinstance(tree, torch.Tensor):
+        out.append(specs or ())
+    elif isinstance(tree, dict):
+        for k in sorted(tree):
+            _spec_leaves(tree[k], None if specs is None else specs[k], out)
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            _spec_leaves(v, None if specs is None else specs[i], out)
+    return out
 
 
 def tree_flatten(tree) -> Tuple[List[torch.Tensor], Any]:
@@ -133,26 +155,35 @@ def _atomic_write(directory: str, final: str, write) -> None:
 
 def save_sharded_checkpoint(directory: str, step: int, tree: Any,
                             extra: Optional[Dict[str, Any]] = None,
-                            sharding: Optional[Dict[str, Any]] = None) -> str:
+                            sharding: Optional[Dict[str, Any]] = None,
+                            specs: Any = None) -> str:
     """Write ``tree``'s blocks and the manifest (see the module docstring);
     returns the manifest's path. ``extra`` (the caller's resume position)
     and ``sharding`` (the ZeRO engine's layout) are stored in the manifest
-    as given."""
+    as given; ``specs`` is the tree's model-axis layout (a tree of specs,
+    ``tensor_parallel.tree_specs``; None: no leaf is rows)."""
     os.makedirs(directory, exist_ok=True)
     leaves, rows = [], []
     _flatten(tree, False, leaves, rows)
+    cuts = _spec_leaves(tree, specs, [])
     payload = {}
     meta_leaves = []
-    for i, (leaf, by_row) in enumerate(zip(leaves, rows)):
-        shape = tuple(leaf.shape)
+    for i, (leaf, by_row, spec) in enumerate(zip(leaves, rows, cuts)):
+        shape = global_shape(leaf, spec)
         meta_leaves.append({"shape": list(shape),
                             "dtype": dtype_name(leaf.dtype)})
-        if by_row and leaf.dim() >= 1:
+        if is_rows(leaf, spec):         # a model axis' rows: a block a rank
+            cut = spec_dim(spec)
+            k = shape[cut] // leaf.shape[0]
+            blocks = [tuple((r * k, (r + 1) * k) if j == cut else (0, d)
+                            for j, d in enumerate(shape))
+                      for r in range(leaf.shape[0])]
+        elif by_row and leaf.dim() >= 1:
             blocks = [((k, k + 1),) + tuple((0, d) for d in shape[1:])
                       for k in range(shape[0])]
         else:
             blocks = [tuple((0, d) for d in shape)]
-        host = _to_numpy(leaf)
+        host = _to_numpy(full(leaf, spec))
         for j, idx in enumerate(blocks):
             payload[f"l{i}_s{j}"] = host[tuple(slice(a, b) for a, b in idx)]
             payload[f"l{i}_s{j}_idx"] = (
@@ -335,14 +366,14 @@ def restore_sharded_checkpoint(directory: str, step: int, like: Any) -> Any:
                          f"'like' tree has {len(leaves)}")
     for i, leaf in enumerate(leaves):
         meta = manifest["leaves"][i]
-        if list(leaf.shape) != meta["shape"] or \
+        if not fits(leaf.shape, meta["shape"]) or \
                 dtype_name(leaf.dtype) != meta["dtype"]:
             raise ValueError(
                 f"leaf {i}: checkpoint {meta['shape']}/{meta['dtype']} vs "
                 f"like {list(leaf.shape)}/{dtype_name(leaf.dtype)} — was "
                 f"the checkpoint written on a different mesh topology?")
     arrays = load_checkpoint_arrays(directory, step)
-    return tree_unflatten(spec, [a.to(l.device) for a, l in
+    return tree_unflatten(spec, [place_like(a, l) for a, l in
                                  zip(arrays, leaves)])
 
 

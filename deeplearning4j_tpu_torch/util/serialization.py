@@ -23,9 +23,11 @@ configuration JSON; a Java DL4J zip and a Keras HDF5 file are ROADMAP A9.
 ``write_model`` refuses updater state in the ZeRO sharded format
 (``parallel/zero.py``), as the reference's does: a zip holds the per-leaf
 state, so ``ParallelWrapper.gather_opt_state()`` comes first (or
-``save_updater=False``). The reference's ``host_gather`` of
-tensor-parallel leaves has no counterpart (ROADMAP A7b-2): a network here
-lives on one device.
+``save_updater=False``). A network laid out on a model axis (a ``(data,
+model)`` ``ParallelWrapper`` left its sharded leaves as per-rank rows,
+``parallel/tensor_parallel.py``) is gathered first (``host_gather``, the
+reference's ``:59-67``): each rows leaf and its updater state are joined
+in rank order, so a zip is layout-free and restores anywhere.
 """
 from __future__ import annotations
 
@@ -37,6 +39,7 @@ import torch
 
 from ..device import DeviceLike
 from ..parallel.data_parallel import flat_opt_state_order, flat_param_order
+from ..parallel.tensor_parallel import full, specs_by_id
 from ..parallel.zero import is_zero_state
 
 CONFIG_ENTRY = "configuration.json"
@@ -108,7 +111,8 @@ def _write_zip(net, path: str, save_updater: bool,
             "ParallelWrapper.gather_opt_state() (or "
             "ZeroUpdateEngine.unshard_opt_state) before writing a model "
             "zip, or pass save_updater=False")
-    params = [p for _, _, p in flat_param_order(net)]
+    specs = specs_by_id(net)    # a model axis' rows, joined (host_gather)
+    params = [full(p, specs[id(p)]) for _, _, p in flat_param_order(net)]
     states = [t for _, _, t in flat_state_order(net)]
     with zipfile.ZipFile(path, "w", method) as z:
         z.writestr(CONFIG_ENTRY, net.conf.to_json())
@@ -122,7 +126,8 @@ def _write_zip(net, path: str, save_updater: bool,
                     "has_updater": bool(save_updater
                                         and net.opt_state is not None)}
         if manifest["has_updater"]:
-            state = [t for *_, t in flat_opt_state_order(net)]
+            state = [full(t, specs[id(t)])
+                     for *_, t in flat_opt_state_order(net)]
             z.writestr(UPDATER_ENTRY, _flat_bytes(state))
             manifest["n_updater_state"] = int(sum(t.numel() for t in state))
         if extra_manifest:

@@ -433,12 +433,13 @@ def test_constructor_refusals_are_the_references(kwargs, match):
     (dict(prefetch_buffer=2), "A10")])
 def test_unported_modes_raise_naming_their_roadmap_item(kwargs, item):
     """The modes that raised until their item was ported now train (A10,
-    and the A7b-1 options: averaging, windows, overlap, ZeRO,
-    ``step_callback``; their parity is ``tests/test_torch_zero.py`` and
-    ``tests/test_torch_overlap.py``); a model axis still raises naming
-    A7b-2."""
+    the A7b-1 options: averaging, windows, overlap, ZeRO,
+    ``step_callback``, and A7b-2's model axis; their parity is
+    ``tests/test_torch_zero.py``, ``tests/test_torch_overlap.py`` and
+    ``tests/test_torch_tensor_parallel.py``). The rules shard no leaf of a
+    Dense network, so its ``(2, 2)`` run is a data-parallel run."""
     _, pnet = _mlp_pair()
-    if item == "A7b" and "mesh_shape" not in kwargs:
+    if item == "A7b":
         seen = []
         kw = dict(kwargs)
         if "step_callback" in kw:
@@ -462,8 +463,6 @@ def test_unported_modes_raise_naming_their_roadmap_item(kwargs, item):
         pw.fit(ListDataSetIterator(features=x, labels=y, batch_size=8))
         assert pnet.iteration_count == 2
         return
-    with pytest.raises(NotImplementedError, match="A7b-2"):
-        ParallelWrapper(pnet, **kwargs)
 
 
 def test_fit_refusals_and_listeners():

@@ -2,9 +2,10 @@
 CPU a cohort runs the eager step and the graph refuses to be made; the
 runtime counts graphs, replays and the kernel launches they hold; a
 capture that fails surfaces from the engine with no eager retry. The
-``cuda`` tests (a replay equals the eager step on the same inputs, K5's
-launches are counted through replays, a kernel that fails inside the
-capture raises) need a card and skip without one."""
+``cuda`` tests (a replay equals the eager step on the same inputs, also
+head-sharded over a model axis of 2, K5's launches are counted through
+replays, a kernel that fails inside the capture raises) need a card and
+skip without one."""
 import numpy as np
 import pytest
 import torch
@@ -12,6 +13,7 @@ import torch
 from deeplearning4j_tpu_torch.models.zoo_extra import (text_generation_lstm,
                                                        transformer_lm)
 from deeplearning4j_tpu_torch.ops import lstm
+from deeplearning4j_tpu_torch.parallel import make_mesh
 from deeplearning4j_tpu_torch.serving.generation import (GenerationConfig,
                                                          GenerationEngine,
                                                          graphs, scheduler)
@@ -160,6 +162,45 @@ def test_a_replay_equals_the_eager_step(card, model):
         _same_cache(cache, other, 2)
         tokens[:2], pos[:2] = want[:2], pos[:2] + 1
     assert graph.replays == 6
+
+
+@pytest.mark.cuda
+def test_a_head_sharded_replay_equals_the_eager_step(card):
+    """The decode step over head-sharded pools ([2, layers, blocks, blk,
+    H/2, Dh], a (1, 2) mesh) captured and replayed: the eager step's
+    tokens and pools, step after step."""
+    net = transformer_lm(**LM, device=card).init(seed=3)
+    ps = GenerationProgramSet(net, config=GenerationConfig(**ENG),
+                              mesh=make_mesh((1, 2), ("data", "model"),
+                                             card)).warm()
+    assert ps.model_shards == 2
+    c = ps.config
+    S, mb = c.decode_slots, c.blocks_per_seq
+    cache, gen = ps.make_cache(), ps.fresh_generator()
+    assert cache[0].shape[0] == 2 and cache[0].shape[4] == LM["n_heads"] // 2
+    tables = np.zeros((S, mb), np.int64)
+    tables[0, :4], tables[1, :4] = [1, 2, 3, 4], [5, 6, 7, 8]
+    prompt = np.random.default_rng(0).integers(1, LM["vocab_size"],
+                                               size=(2, 32))
+    first = ps.run_prefill(cache, prompt, np.array([20, 27]), tables[:2],
+                           np.array([0, 1]), gen, np.zeros(2, np.float32),
+                           np.zeros(2, np.int64))
+    other = _clone(cache)
+    graph = graphs.DecodeGraph(ps, other, ps.fresh_generator())
+    tokens = np.zeros(S, np.int64)
+    tokens[:2] = first
+    pos = np.array([20, 27, 0, 0])
+    active = np.array([True, True, False, False])
+    temp, topk = np.zeros(S, np.float32), np.zeros(S, np.int64)
+    for _ in range(4):
+        want = ps.run_decode(cache, tokens, pos, tables, active, gen, temp,
+                             topk)
+        got = graph.run(tokens, pos, tables, active, temp, topk)
+        assert got.tolist() == want.tolist()
+        for x, y in zip(cache, other):                # block 0 is trash
+            assert torch.equal(x[:, :, 1:], y[:, :, 1:])
+        tokens[:2], pos[:2] = want[:2], pos[:2] + 1
+    assert graph.replays == 4
 
 
 @pytest.mark.cuda

@@ -51,7 +51,9 @@ _REQUIRED = {f"deeplearning4j_tpu_torch.{m}" for m in (
     "earlystopping.parallel_trainer", "nn.layers.variational",
     "optimize.second_order", "util.gradcheck", "util.timeseries",
     "graft_entry", "optimize.listeners", "parallel.overlap", "parallel.zero",
-    "util.distributed_checkpoint", "util.async_checkpoint")}
+    "util.distributed_checkpoint", "util.async_checkpoint",
+    "parallel.tensor_parallel", "parallel.resharding", "parallel.pipeline",
+    "parallel.expert_parallel", "serving.buckets", "nn.layers.attention")}
 
 _FORBIDDEN = re.compile(
     r"^\s*(import\s+(jax|deeplearning4j_tpu)\b(?!_torch)"

@@ -290,16 +290,26 @@ def test_program_set_refusals_are_the_references(nets):
                                        ("publish", "A8"),
                                        ("head_sharding", "A7b")])
 def test_what_is_left_raises_naming_its_item(nets, ask, item):
-    _, pnet = nets
+    jnet, pnet = nets
     if ask == "mesh":
-        with pytest.raises(NotImplementedError, match=item):
-            GenerationEngine(pnet, device="cpu", mesh=object(), **ENG)
+        # A7b-2 is ported: a (data, model) mesh serves the heads sharded
+        from deeplearning4j_tpu_torch.parallel import make_mesh
+        eng = GenerationEngine(pnet, device="cpu", mesh=make_mesh(
+            (1, 2), ("data", "model"), "cpu"), **ENG)
+        try:
+            assert eng.runtime().active_ps.model_shards == 2
+        finally:
+            eng.stop()
         return
     if ask == "head_sharding":
+        # A7b-2 is ported: the reference's answer at every axis size
+        from deeplearning4j_tpu.models.decode import \
+            TransformerDecodeSpec as JSpec
         from deeplearning4j_tpu_torch.models.decode import \
             TransformerDecodeSpec
-        with pytest.raises(NotImplementedError, match=item):
-            TransformerDecodeSpec(pnet).supports_head_sharding(2)
+        for m in (1, 2, 3, 4):
+            assert TransformerDecodeSpec(pnet).supports_head_sharding(m) \
+                == JSpec(jnet).supports_head_sharding(m)
         return
     eng = GenerationEngine(pnet, device="cpu", **ENG)
     try:

@@ -394,8 +394,12 @@ def test_the_parts_left_for_later_name_their_roadmap_item(tmp_path):
             eng.hot_swap("nope", _net())
     finally:
         eng.stop()
-    with pytest.raises(NotImplementedError, match="A7"):
-        InferenceEngine(_net(), feature_shape=(4,), mesh=object())
+    # a mesh (A7b-2, ported): the default ladder's rung 1 does not divide
+    # over a data axis of 2, refused as the reference refuses it
+    from deeplearning4j_tpu_torch.parallel import make_mesh
+    with pytest.raises(ValueError, match="not divisible"):
+        InferenceEngine(_net(), feature_shape=(4,),
+                        mesh=make_mesh((2,), ("data",), "cpu"))
     with pytest.raises(ValueError, match="feature_shape"):
         InferenceEngine(_net())
 

@@ -13,7 +13,7 @@ bitwise pin of its ZeRO update against its replicated one fails on this
 JAX version by one ulp in a few elements (XLA on the CPU rounds the sharded
 and the whole-tree elementwise update differently), and the two packages'
 forward and backward passes differ in the last bits anyway. The elastic
-trainer's cases are ROADMAP A7b-2 and the telemetry's A8, part 2."""
+trainer's cases are ROADMAP A7b-3 and the telemetry's A8, part 2."""
 import os
 
 import jax
