@@ -251,8 +251,8 @@ Phases; any failure raises and exits non-zero before a result is printed:
    the _TLM, /predict p50 beside ``engine.predict`` p50 at the same batch
    of 2 images, /generate time to first token p50 beside the direct
    call's.
-   In phases 3, 3b, 4, 4b, 7, 8, 11, 12, 12c, 12d, 13b, 12e, 16, 17 and
-   17b the
+   In phases 3, 3b, 4, 4b, 7, 8, 11, 12, 12c, 12d, 13b, 12e, 16, 17, 17b,
+   17c and 17d the
    launch counts are
    set to 0 just before the path is driven and read just after; every
    kernel of the path must launch.
@@ -351,6 +351,48 @@ Phases; any failure raises and exits non-zero before a result is printed:
    against the dense top-2 evaluation, and at capacity factor 1 (experts
    overflow: tokens re-routed and dropped) against the same call on the
    CPU; output rel-to-max 1e-5, the router's gradient 1e-4.
+17d. The rest of the parallel layer (run after phase 19, with 12e, 17b
+   and 17c; under deterministic algorithms where it trains): (a)
+   ``ElasticTrainer`` on the _TLM (f32, Adam(3e-4), 4 logical workers,
+   B 8), 12 steps over an epoch of 8 batches, a save every 4 steps (the
+   newest 2 kept, in a temporary directory removed after): (a1) unfaulted,
+   bitwise a plain ``ParallelWrapper(prefetch_buffer=0)`` over the same 12
+   steps (parameters and Adam state); (a2) a truncated newest save and a
+   worker killed (rejoining) at step 9: one recovery past the truncated
+   save to step 4, 12 steps done, bitwise (a1); (a3) the same in windows
+   of 4 (the wrapper's step as a CUDA graph), the kill planned at step 10
+   inside the window [8, 12), bitwise (a1); (a4) preempted at step 5 (the
+   final save at step 5 on disk), a fresh trainer on the directory
+   continues to 12, bitwise (a1); (a5) a ``(2, 2)`` trainer under
+   Sgd(1e-4) loses worker 3 for good at step 6: the mesh re-forms as
+   ``(3, 1)``, the model-sharded save is restored onto it and the run
+   finishes within rel-to-max 1e-5 of an uninterrupted ``(4,)`` Sgd run;
+   (a6) degraded mode, a 400 ms ``SlowCollective`` over steps [2, 6)
+   against a 50 ms budget: the mode history is exactly averaging at step 2
+   and sync at step 8, K1 launches in both modes, a second run bitwise the
+   first; (a7) after a warm-up fit, a steady-state elastic fit with saves
+   under ``torch.cuda.set_sync_debug_mode("warn")`` makes no more
+   synchronising calls on the loop thread than a plain wrapper fit over
+   the same 8 steps (both counts and their call sites printed). K1-K3 12
+   launches a worker a step (eager plus captured x replays, every wrapper
+   a run made); the step p50 of the elastic run beside the plain
+   wrapper's, the loop thread's ms a ``submit``, the writer's ``write_ms``
+   and ``last_recovery_ms``. (b) ``ParallelInference`` (batch limit 32)
+   over phase 11's GoogLeNet, 8 client threads of 1-8 images: each
+   response within atol 1e-5 of ``net.output`` on the request alone, no
+   merged batch over the limit, K7 37 launches a merged batch, images/s
+   and latency p50 beside phase 11's ``InferenceEngine``; ``shutdown``
+   fails the queued requests; ``ModelServingServer``: /health, /predict
+   (atol 1e-5), a 400 on malformed features, 503 while draining. (c) The
+   char-RNN (phase 8's width, whole 64-step sequences) trained by
+   ``net.fit(iterator=topic)`` from a ``StreamingIngestServer`` a producer
+   thread POSTs 6 batches and /end to: bitwise the same batches through a
+   ``ListDataSetIterator``, /stats published == consumed == 6 and closed,
+   K5 and K6 12 launches each. (d) ``initialize_distributed`` with one
+   process on NCCL, ``global_mesh(("data",))``: a psum of one row is that
+   row, 4 _TLM steps through ``ParallelWrapper(mesh=global_mesh(...))``
+   bitwise the logical ``(1,)`` wrapper's, the NCCL kernels the profiler
+   saw printed, ``shutdown_distributed``.
 18. CPU against card, the parallel layer: one fused ring forward at
    T 2048 on 4 workers (atol 2e-5) and one ``EncodedAccumulator.combine``
    (dense and topk) on the same gradients (bitwise); one float32 ``(2,
@@ -722,31 +764,39 @@ def _k7_instantiations(lib):
 SLEEP_CYCLES = int(2e8)           # ~0.1 s at the card's clock
 
 
-def _behind_sleep(enqueue, cycles=SLEEP_CYCLES):
+def _behind_sleep(enqueue, cycles=SLEEP_CYCLES, tries=3):
     """Run ``enqueue(record)`` while a sleep kernel of ``cycles`` holds the
     current stream; ``record()`` records and returns a timing event.
-    Returns the host's ms for the enqueue. Raises if the card woke before
-    the host was done, since the events would then time the host."""
-    torch.cuda.synchronize()
-    start, woke = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    start.record()
-    torch.cuda._sleep(cycles)
-    woke.record()
-    t0 = time.perf_counter()
+    Returns (the host's ms for the enqueue, the sleep's cycles in the try
+    that gave it). When the card woke before the host was done (the events
+    would then time the host: a slow host, or a one-time initialisation
+    inside the enqueue) it tries again with twice the sleep, ``tries``
+    times in all, then raises."""
+    for attempt in range(tries):
+        torch.cuda.synchronize()
+        start, woke = (torch.cuda.Event(enable_timing=True)
+                       for _ in range(2))
+        start.record()
+        torch.cuda._sleep(cycles << attempt)
+        woke.record()
+        t0 = time.perf_counter()
 
-    def record():
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        return ev
+        def record():
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            return ev
 
-    enqueue(record)
-    host_ms = (time.perf_counter() - t0) * 1e3
-    torch.cuda.synchronize()
-    slept = start.elapsed_time(woke)
-    if slept <= host_ms:
-        raise RuntimeError(f"the sleep kernel ({slept:.1f} ms) ended before "
-                           f"the host had enqueued ({host_ms:.1f} ms)")
-    return host_ms
+        enqueue(record)
+        host_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        slept = start.elapsed_time(woke)
+        if slept > host_ms:
+            return host_ms, cycles << attempt
+        log(f"the sleep kernel ({slept:.1f} ms) ended before the host had "
+            f"enqueued ({host_ms:.1f} ms); again with twice the sleep")
+    raise RuntimeError(f"the sleep kernel ({slept:.1f} ms) ended before "
+                       f"the host had enqueued ({host_ms:.1f} ms), "
+                       f"{tries} times")
 
 
 def _time_ms(fn, iters=20, warmup=3) -> float:
@@ -2595,8 +2645,9 @@ def int8_device_time_phase(rows):
     over 20 calls) at each served product of ``rows`` (filled in as "ms"
     and "library_ms"), and the host time of one call of each behind a
     sleep kernel (300 calls enqueued while the card sleeps: the host alone;
-    "host_us" and "library_host_us"); then per forward at each bucket: the
-    three products summed."""
+    "host_us" and "library_host_us", each beside the sleep's cycles in the
+    try that gave it, "*_sleep_cycles"); then per forward at each bucket:
+    the three products summed."""
     gen = torch.Generator().manual_seed(SEED + 28)
     for r in rows:
         x = torch.randn(r["M"], r["K"], generator=gen).cuda()
@@ -2609,11 +2660,12 @@ def int8_device_time_phase(rows):
         r["library_ms"] = _device_ms_per_call(lib) if lib else None
         for key, fn in (("host_us", call), ("library_host_us", lib)):
             if fn is None:
-                r[key] = None
+                r[key] = r[key + "_sleep_cycles"] = None
                 continue
             fn()
-            r[key] = _behind_sleep(lambda record: [fn() for _ in range(300)]
-                                   ) / 300 * 1e3
+            host_ms, r[key + "_sleep_cycles"] = _behind_sleep(
+                lambda record: [fn() for _ in range(300)])
+            r[key] = host_ms / 300 * 1e3
     per = {(r["M"], r["K"], r["N"]): r for r in rows}
     totals = {}
     for M in INT8_BUCKETS:
@@ -2624,8 +2676,9 @@ def int8_device_time_phase(rows):
             vals = [p[k] for p in prods]
             t[k] = None if None in vals else sum(vals)
         t["bound_by"] = prods[0]["bound_by"]
-        t["host_us_per_call"] = [p["host_us"] for p in prods]
-        t["library_host_us_per_call"] = [p["library_host_us"] for p in prods]
+        for k in ("host_us", "library_host_us"):
+            t[k + "_per_call"] = [p[k] for p in prods]
+            t[k + "_sleep_cycles"] = [p[k + "_sleep_cycles"] for p in prods]
         totals[M] = t
     log("K8 device time, per forward:", totals)
     return totals
@@ -5552,6 +5605,661 @@ def model_axis_phase():
     return out
 
 
+# ---------------------------------------------------------------- phase 17d
+# the elastic trainer on _TLM (f32, Adam(3e-4), 4 logical workers, B 8):
+# 12 steps over an epoch of 8 batches, a save every 4 steps, the newest 2
+# kept; the (2, 2) shrink under Sgd at 17c's float32 pin
+EL_BATCHES, EL_STEPS, EL_EVERY, EL_KEEP, EL_K = 8, 12, 4, 2, 4
+EL_KILL, EL_WINDOW_KILL, EL_PREEMPT, EL_SHRINK_KILL = 9, 10, 5, 6
+EL_SGD_TOL = 1e-5
+# degraded mode: a 400 ms collective over steps [2, 6) against a 50 ms
+# budget; with a latency window of 2, averaging windows of 4 and an exit
+# patience of 2 the loop enters averaging at step 2 and leaves it at step 8
+# (the window [2, 6) ends at 6, the epoch's rest [6, 8) at 8)
+EL_SLOW = dict(step=2, until_step=6, delay_ms=400.0)
+EL_DEGRADED = dict(sync_latency_budget_ms=50.0, latency_window=2,
+                   degraded_averaging_window=4, degraded_exit_patience=2)
+EL_MODES = [(2, "averaging"), (8, "sync")]
+EL_SYNC_STEPS = 8
+# ParallelInference and the legacy model server over phase 11's GoogLeNet
+PI_LIMIT, PI_RESP_TOL = 32, 1e-5
+# the streamed char-RNN: phase 8's width, whole 64-step sequences (one
+# tBPTT chunk each), 6 batches
+STREAM_BATCHES = 6
+DIST_STEPS = 4
+
+
+def _elastic_trainer(net, d, **kw):
+    """An ``ElasticTrainer`` over 4 workers that records every wrapper it
+    makes (a recovery drops them; their graphs' launches still count)."""
+    from deeplearning4j_tpu_torch.parallel import ElasticTrainer
+    tr = ElasticTrainer(net, checkpoint_dir=d, devices=[0, 1, 2, 3],
+                        checkpoint_every_n_steps=EL_EVERY,
+                        keep_last=EL_KEEP, **kw)
+    tr.made = []
+    make = tr._wrapper
+
+    def wrapper():
+        pw = make()
+        if all(pw is not w for w in tr.made):
+            tr.made.append(pw)
+        return pw
+    tr._wrapper = wrapper
+    return tr
+
+
+def _elastic_run(trainer, batches, what, steps=EL_STEPS, clock_k=None):
+    """``trainer.fit`` over ``batches`` to ``steps``, counted: each counted
+    kernel's eager launches plus its launches in the replays of every
+    wrapper the trainer made; the steps the network ran (a listener's
+    losses: recovered steps run twice) and their ms."""
+    net = trainer.net
+    clock = _WindowClock(clock_k) if clock_k else _Losses()
+    net.set_listeners(clock)
+    g0 = {id(pw): pw.graph_stats() for pw in trainer.made}
+    torch.cuda.synchronize()
+    _reset_launches()
+    t0 = time.perf_counter()
+    trainer.fit(ListDataSetIterator(batches), num_steps=steps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    eager = _launches()
+    replayed = {n: 0 for n in COUNTED}
+    for pw in trainer.made:
+        g = pw.graph_stats()["launches_in_replays"]
+        before = g0.get(id(pw), {"launches_in_replays": {}})
+        for n in COUNTED:
+            replayed[n] += g.get(n, 0) - before[
+                "launches_in_replays"].get(n, 0)
+    net.set_listeners()
+    losses = [float(v) for v in clock.losses]
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError(f"{what}: losses {losses}")
+    row = {"run": what, "steps_run": len(losses),
+           "steps_done": trainer.steps_done,
+           "recoveries": trainer.recoveries,
+           "mode_history": trainer.mode_history,
+           "preempted": trainer.preempted,
+           "last_recovery_ms": trainer.last_recovery_ms,
+           "workers": len(trainer._devices),
+           "mesh": list(trainer._mesh.axis_sizes), "wall_s": wall,
+           "launches": {n: eager[n] + replayed[n] for n in COUNTED},
+           "losses": losses}
+    if clock_k:
+        stamps = [t0] + clock.t
+        ms = [(b - a) * 1e3 / clock_k for a, b in zip(stamps, stamps[1:])]
+        row.update(step_ms=ms, step_ms_p50=float(np.median(ms[1:] or ms)))
+    return row
+
+
+def _el_state(net):
+    """Parameters and updater state on the host, for bitwise checks."""
+    return ([p.detach().cpu().clone() for p in net.parameters()],
+            [t.detach().cpu().clone() for t in _opt_tensors(net)])
+
+
+def _el_same(a, b):
+    return all(len(x) == len(y) and all(torch.equal(u, v)
+                                        for u, v in zip(x, y))
+               for x, y in zip(a, b))
+
+
+class _SyncCount:
+    """``torch.cuda.set_sync_debug_mode("warn")`` for a block, counting the
+    synchronising calls this (the loop's) thread makes, by call site; the
+    writer thread's are its design and are not counted."""
+
+    def __enter__(self):
+        import gc
+        import threading
+        import traceback
+        import warnings
+        self.me, self.n, self.sites = threading.get_ident(), 0, {}
+        # earlier runs' garbage (a dropped wrapper's CUDA graph) is freed
+        # now, not by a collection inside the counted fit
+        gc.collect()
+        self._cw = warnings.catch_warnings()
+        self._cw.__enter__()
+        warnings.simplefilter("always")
+
+        def show(message, category, filename, lineno, file=None,
+                 line=None):
+            if "synchroniz" in str(message) and \
+                    threading.get_ident() == self.me:
+                self.n += 1
+                site = str(message)[:60] + ": " + " < ".join(
+                    f"{os.path.relpath(f.filename)}:{f.lineno}"
+                    for f in reversed(traceback.extract_stack()[-7:-1]))
+                self.sites[site] = self.sites.get(site, 0) + 1
+        torch.cuda.synchronize()
+        # switching the mode on has warned once from the switch itself on
+        # the card: count from after it
+        torch.cuda.set_sync_debug_mode("warn")
+        warnings.showwarning = show
+        return self
+
+    def __exit__(self, *exc):
+        torch.cuda.set_sync_debug_mode("default")
+        self._cw.__exit__(*exc)
+
+
+def _elastic_tlm():
+    """(a) ``ElasticTrainer`` on ``_TLM`` at full width (see the module
+    docstring): (a1)-(a7), with each run's launches."""
+    from deeplearning4j_tpu_torch.parallel import (
+        CorruptCheckpoint, FaultInjector, FaultPlan, KillWorker, PreemptAt,
+        SlowCollective)
+    from deeplearning4j_tpu_torch.util import async_checkpoint as ac
+    from deeplearning4j_tpu_torch.util.distributed_checkpoint import (
+        latest_sharded_step, read_manifest)
+    batches = _dp_batches(EL_BATCHES, SEED + 71)
+    runs, bad = {}, []
+    submit_ms, writers = [], []
+    submit = ac.AsyncCheckpointWriter.submit
+
+    def timed_submit(self, *a, **kw):
+        if all(self is not w for w in writers):
+            writers.append(self)
+        t0 = time.perf_counter()
+        out = submit(self, *a, **kw)
+        submit_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+    ac.AsyncCheckpointWriter.submit = timed_submit
+    root = tempfile.mkdtemp(prefix="elastic-")
+
+    def fresh_dir(name):
+        d = os.path.join(root, name)
+        shutil.rmtree(d, ignore_errors=True)
+        return d
+
+    def want(steps):
+        return {n: TLM["n_blocks"] * DP_WORKERS * steps for n in COUNTED}
+
+    base_net = _tlm_f32(SEED + 24)
+    fresh = base_net.clone            # every run starts from these weights
+    try:
+        with _deterministic_algorithms():
+            # (a1) plain wrapper, then the unfaulted trainer
+            net = fresh()
+            clock = _WindowClock(1)
+            net.set_listeners(clock)
+            pw = ParallelWrapper(net, mesh=make_mesh((DP_WORKERS,),
+                                                     ("data",)),
+                                 prefetch_buffer=0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pw.fit(ListDataSetIterator(batches))
+            pw.fit(ListDataSetIterator(batches[:EL_STEPS - EL_BATCHES]))
+            torch.cuda.synchronize()
+            ms = [(b - a) * 1e3 for a, b in zip([t0] + clock.t, clock.t)]
+            runs["plain"] = {"step_ms": ms,
+                             "step_ms_p50": float(np.median(ms[1:]))}
+            net.set_listeners()
+            base = _el_state(net)
+            plain_pw = pw                 # (a7) continues it
+            del net, pw
+            tr = _elastic_trainer(fresh(), fresh_dir("a1"))
+            runs["a1"] = _elastic_run(tr, batches, "a1_unfaulted", clock_k=1)
+            runs["a1"]["bitwise_plain"] = _el_same(_el_state(tr.net), base)
+            runs["a1"]["write_ms"] = list(writers[-1].write_ms)
+            runs["a1"]["newest_save"] = latest_sharded_step(
+                os.path.join(root, "a1"))
+            # (a7) sync freedom: the warm a1 trainer and plain wrapper go
+            # on from step 12 over the same 8 batches (the epoch's second
+            # half, then its first), the trainer with its saves at 16 and
+            # 20 (no synchronous final save)
+            rest = batches[EL_STEPS - EL_BATCHES:] + \
+                batches[:EL_STEPS - EL_BATCHES]
+            with _SyncCount() as plain:
+                plain_pw.fit(ListDataSetIterator(rest))
+            del plain_pw
+            tr.final_checkpoint = False
+            n_sub = len(submit_ms)
+            with _SyncCount() as el:
+                tr.fit(ListDataSetIterator(batches),
+                       num_steps=EL_STEPS + EL_SYNC_STEPS)
+            runs["a7"] = {"plain_syncs": plain.n, "plain_sites": plain.sites,
+                          "elastic_syncs": el.n, "elastic_sites": el.sites,
+                          "submits_counted": len(submit_ms) - n_sub,
+                          "steps": EL_SYNC_STEPS,
+                          "steps_done": tr.steps_done}
+            del tr
+            torch.cuda.empty_cache()
+            # (a2) a truncated newest save and a kill at step 9, rejoining
+            plan = FaultPlan(CorruptCheckpoint(step=EL_KILL, mode="truncate"),
+                             KillWorker(step=EL_KILL, worker=1, rejoin=True))
+            tr = _elastic_trainer(fresh(), fresh_dir("a2"),
+                                  fault_injector=FaultInjector(plan))
+            runs["a2"] = _elastic_run(tr, batches, "a2_kill_truncate")
+            runs["a2"]["bitwise_a1"] = _el_same(_el_state(tr.net), base)
+            del tr
+            torch.cuda.empty_cache()
+            # (a3) the same plan in windows of 4 (a CUDA graph), the kill
+            # planned inside the window [8, 12)
+            plan = FaultPlan(
+                CorruptCheckpoint(step=EL_WINDOW_KILL, mode="truncate"),
+                KillWorker(step=EL_WINDOW_KILL, worker=2, rejoin=True))
+            tr = _elastic_trainer(fresh(), fresh_dir("a3"),
+                                  steps_per_dispatch=EL_K,
+                                  fault_injector=FaultInjector(plan))
+            runs["a3"] = _elastic_run(tr, batches, "a3_windows_kill")
+            runs["a3"]["bitwise_a1"] = _el_same(_el_state(tr.net), base)
+            runs["a3"]["graphs"] = [pw.graph_stats() for pw in tr.made]
+            del tr
+            torch.cuda.empty_cache()
+            # (a4) preempted at step 5, resumed by a fresh trainer
+            d4 = fresh_dir("a4")
+            tr = _elastic_trainer(fresh(), d4,
+                                  fault_injector=FaultInjector(
+                                      FaultPlan(PreemptAt(step=EL_PREEMPT))))
+            first = _elastic_run(tr, batches, "a4_preempted")
+            first["newest_save"] = latest_sharded_step(d4)
+            first["step_in_epoch"] = read_manifest(
+                d4, first["newest_save"])["extra"]["step_in_epoch"]
+            del tr
+            torch.cuda.empty_cache()
+            tr = _elastic_trainer(fresh(), d4)
+            runs["a4"] = _elastic_run(tr, batches, "a4_resumed")
+            runs["a4"]["preempted_run"] = first
+            runs["a4"]["bitwise_a1"] = _el_same(_el_state(tr.net), base)
+            del tr, base
+            torch.cuda.empty_cache()
+            # (a5) (2, 2) under Sgd loses worker 3 for good: (3, 1)
+            ref = transformer_lm(**TLM, token_input=True,
+                                 updater=Sgd(TP_SGD_LR)).init(seed=SEED + 24)
+            pw = ParallelWrapper(ref, mesh=make_mesh((DP_WORKERS,),
+                                                     ("data",)),
+                                 prefetch_buffer=0)
+            pw.fit(ListDataSetIterator(batches))
+            pw.fit(ListDataSetIterator(batches[:EL_STEPS - EL_BATCHES]))
+            want_flat = _tp_flat(ref)
+            names = _tp_names(ref)
+            del ref, pw
+            torch.cuda.empty_cache()
+            net = transformer_lm(**TLM, token_input=True,
+                                 updater=Sgd(TP_SGD_LR)).init(seed=SEED + 24)
+            tr = _elastic_trainer(net, fresh_dir("a5"), mesh_shape=(2, 2),
+                                  fault_injector=FaultInjector(FaultPlan(
+                                      KillWorker(step=EL_SHRINK_KILL,
+                                                 worker=3))))
+            runs["a5"] = _elastic_run(tr, batches, "a5_2x2_shrink_sgd")
+            runs["a5"]["param_rel_to_max_sgd_4"] = _tp_worst(
+                _tp_flat(net), want_flat, names)
+            runs["a5"]["rows_leaves_after"] = _tp_rows(net)
+            del tr, net, want_flat
+            torch.cuda.empty_cache()
+            # (a6) degraded mode, twice
+            states = []
+            for rep in (0, 1):
+                tr = _elastic_trainer(
+                    fresh(), None,
+                    fault_injector=FaultInjector(FaultPlan(
+                        SlowCollective(**EL_SLOW))), **EL_DEGRADED)
+                by_mode = {"sync": 0, "averaging": 0}
+                on_item, mark = tr._on_item, [0]
+
+                def item(net, k, tr=tr, on_item=on_item, by_mode=by_mode,
+                         mark=mark):
+                    n = fa.flash_attention.launches
+                    by_mode[tr.mode] += n - mark[0]
+                    mark[0] = n
+                    on_item(net, k)
+                tr._on_item = item
+                row = _elastic_run(tr, batches, f"a6_degraded_{rep}")
+                row["k1_eager_launches_by_mode"] = by_mode
+                runs[f"a6_{rep}"] = row
+                states.append(_el_state(tr.net))
+                del tr
+                torch.cuda.empty_cache()
+            runs["a6_0"]["bitwise_rerun"] = _el_same(states[0], states[1])
+            del states
+    finally:
+        ac.AsyncCheckpointWriter.submit = submit
+        shutil.rmtree(root, ignore_errors=True)
+        del base_net, fresh
+    # the gates
+    for what in ("a1", "a2", "a3", "a4", "a5", "a6_0", "a6_1"):
+        r = runs[what]
+        if r["steps_done"] != EL_STEPS:
+            bad.append(f"{what}: {r['steps_done']} steps done")
+        # (a5): 2 data workers a step on (2, 2) to the kill, then the
+        # whole batch (8 does not tile 3 workers) from the restored step
+        want_n = ({n: TLM["n_blocks"] * (2 * EL_SHRINK_KILL + EL_STEPS
+                                         - EL_EVERY) for n in COUNTED}
+                  if what == "a5" else want(r["steps_run"]))
+        if r["launches"] != want_n:
+            bad.append(f"{what}: launched {r['launches']} for "
+                       f"{r['steps_run']} steps, not {want_n}")
+    for what in ("a1", "a2", "a3", "a4"):
+        key = "bitwise_plain" if what == "a1" else "bitwise_a1"
+        if not runs[what][key]:
+            bad.append(f"{what} is not bitwise {key[8:]}")
+    if runs["a1"]["recoveries"] or runs["a1"]["newest_save"] != EL_STEPS:
+        bad.append(f"a1: {runs['a1']['recoveries']} recoveries, newest "
+                   f"save {runs['a1']['newest_save']}")
+    for what, ran in (("a2", EL_STEPS + EL_KILL - EL_EVERY),
+                      ("a3", EL_STEPS + EL_STEPS - EL_EVERY)):
+        r = runs[what]
+        if r["recoveries"] != 1 or r["steps_run"] != ran:
+            bad.append(f"{what}: {r['recoveries']} recoveries, "
+                       f"{r['steps_run']} steps run (want {ran})")
+    if sum(g["captures"] for g in runs["a3"]["graphs"]) < 2:
+        bad.append(f"a3: graphs {runs['a3']['graphs']}")
+    p = runs["a4"]["preempted_run"]
+    if not (p["preempted"] and p["steps_done"] == EL_PREEMPT
+            and p["newest_save"] == EL_PREEMPT
+            and p["step_in_epoch"] == EL_PREEMPT
+            and runs["a4"]["steps_run"] == EL_STEPS - EL_PREEMPT):
+        bad.append(f"a4: {p}, then {runs['a4']['steps_run']} steps")
+    r = runs["a5"]
+    if r["recoveries"] != 1 or r["mesh"] != [3, 1] or \
+            r["rows_leaves_after"] != 0 or \
+            r["param_rel_to_max_sgd_4"][0] > EL_SGD_TOL:
+        bad.append(f"a5: {r['recoveries']} recoveries on {r['mesh']}, "
+                   f"{r['rows_leaves_after']} rows leaves, parameters "
+                   f"{r['param_rel_to_max_sgd_4']}")
+    for what in ("a6_0", "a6_1"):
+        r = runs[what]
+        if [tuple(m) for m in r["mode_history"]] != EL_MODES or \
+                min(r["k1_eager_launches_by_mode"].values()) == 0:
+            bad.append(f"{what}: modes {r['mode_history']}, K1 by mode "
+                       f"{r['k1_eager_launches_by_mode']}")
+    if not runs["a6_0"]["bitwise_rerun"]:
+        bad.append("a6: the rerun is not bitwise the first run")
+    r = runs["a7"]
+    if r["elastic_syncs"] > r["plain_syncs"] or r["submits_counted"] < 1:
+        bad.append(f"a7: {r}")
+    runs["submit_ms"] = submit_ms
+    runs["submit_ms_p50"] = float(np.median(submit_ms)) if submit_ms \
+        else None
+    runs["supervision_step_ms_p50"] = {
+        "elastic": runs["a1"]["step_ms_p50"],
+        "plain": runs["plain"]["step_ms_p50"]}
+    if bad:
+        raise AssertionError(f"elastic training: {bad}")
+    for r in runs.values():
+        if isinstance(r, dict):
+            r.pop("losses", None)
+    runs["launches"] = {n: sum(r["launches"][n] for r in runs.values()
+                               if isinstance(r, dict) and "launches" in r)
+                        + runs["a4"]["preempted_run"]["launches"][n]
+                        for n in COUNTED}
+    return runs
+
+
+class _Recording:
+    """A network proxy for ``ParallelInference``: the merged batch sizes
+    that reached ``output``; ``gate`` (an Event) holds each call until
+    set."""
+
+    def __init__(self, net, gate=None):
+        self.net, self.sizes, self.gate = net, [], gate
+
+    def output(self, x):
+        if self.gate is not None:
+            self.gate.wait(60)
+        self.sizes.append(int(x.shape[0]))
+        return self.net.output(x)
+
+
+def _parallel_inference(gserve):
+    """(b) ``ParallelInference`` and ``ModelServingServer`` over phase 11's
+    GoogLeNet (batch limit 32, 8 client threads of requests of 1-8
+    images)."""
+    import threading
+    from deeplearning4j_tpu_torch.parallel import ParallelInference
+    from deeplearning4j_tpu_torch.parallel.model_server import \
+        ModelServingServer
+    net = googlenet(**GNET).init(seed=SEED + 13)
+    pool = np.random.default_rng(SEED + 14).standard_normal(
+        (16, GNET["height"], GNET["width"], GNET["channels"])).astype(
+        np.float32)
+    rec = _Recording(net)
+    pi = ParallelInference(rec, batch_limit=PI_LIMIT)
+    pi.output(pool[:2])                             # first touch
+    rec.sizes.clear()
+    results, lat = {}, []
+
+    def client(c):
+        for i in range(GNET_PER_CLIENT):
+            n = GNET_SIZES[(c + i) % len(GNET_SIZES)]
+            x = pool[c % (len(pool) - n + 1):][:n]
+            t0 = time.perf_counter()
+            results[(c, i)] = (x, pi.output(x))
+            lat.append((time.perf_counter() - t0) * 1e3)
+
+    torch.cuda.synchronize()
+    k7.conv1x1_fused.launches = 0
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(GNET_CLIENTS) as ex:
+        for f in [ex.submit(client, c) for c in range(GNET_CLIENTS)]:
+            f.result()
+    wall = time.perf_counter() - t0
+    launches = k7.conv1x1_fused.launches
+    pi.shutdown()
+    sizes = list(rec.sizes)
+    n_rows = sum(x.shape[0] for x, _ in results.values())
+    worst = 0.0
+    for x, got in results.values():
+        want = net.output(x).cpu().numpy()
+        worst = max(worst, float(np.abs(got - want).max()))
+    # shutdown fails the queued requests: the first request's batch holds
+    # the dispatcher (its gate closed) past shutdown's 2 s join, while
+    # three more wait in the queue
+    gate = threading.Event()
+    blocked = ParallelInference(_Recording(net, gate), batch_limit=PI_LIMIT,
+                                max_wait_ms=1.0)
+    outcomes = []
+
+    def call():
+        try:
+            outcomes.append(("ok", blocked.output(pool[:1]).shape))
+        except RuntimeError as e:
+            outcomes.append(("failed", str(e)))
+    threads = [threading.Thread(target=call) for _ in range(4)]
+    threads[0].start()
+    time.sleep(0.2)
+    for t in threads[1:]:
+        t.start()
+    time.sleep(0.1)
+    blocked.shutdown()
+    gate.set()
+    for t in threads:
+        t.join(30)
+    refused = False
+    try:
+        blocked.output(pool[:1])
+    except RuntimeError:
+        refused = True
+    # the legacy HTTP route
+    srv = ModelServingServer(net, batched=True, max_batch=PI_LIMIT)
+    port = srv.start()
+    base = f"http://127.0.0.1:{port}"
+    client = HTTPClient(timeout=300)
+    try:
+        health = _expect_status(client, "GET", base + "/health", 200,
+                                "model server /health")
+        outs, http_ms = _predict_over_http(client, base, [pool[:2]],
+                                           "model server")
+        http_err = float(np.abs(outs[0] - net.output(pool[:2]).cpu()
+                                .numpy()).max())
+        _expect_status(client, "POST", base + "/predict", 400,
+                       "malformed features",
+                       body=json.dumps({"features": [["x"]]}).encode())
+        srv._draining = True
+        _expect_status(client, "GET", base + "/health", 503,
+                       "draining /health")
+        # a small body: the draining server answers before it reads one
+        _expect_status(client, "POST", base + "/predict", 503,
+                       "draining /predict",
+                       body=json.dumps({"features": [[0.0]]}).encode())
+        srv._draining = False
+    finally:
+        client.close()
+        srv.stop()
+    row = {"model": "googlenet 1000 classes 224x224x3 f32",
+           "batch_limit": PI_LIMIT, "requests": len(lat), "rows": n_rows,
+           "images_per_s": n_rows / wall,
+           "latency_ms_p50": float(np.percentile(lat, 50)),
+           "latency_ms_p99": float(np.percentile(lat, 99)),
+           "inference_engine_images_per_s": gserve["images_per_s"],
+           "inference_engine_latency_ms_p50": gserve["latency_ms_p50"],
+           "merged_batches": len(sizes), "merged_sizes": sizes,
+           "worst_abs_err": worst, "k7_launches": launches,
+           "shutdown_outcomes": outcomes, "refused_after_shutdown": refused,
+           "http_health": health, "http_predict_ms": http_ms,
+           "http_abs_err": http_err}
+    if worst > PI_RESP_TOL or http_err > PI_RESP_TOL or not sizes or \
+            max(sizes) > PI_LIMIT or sum(sizes) != n_rows or \
+            launches != 37 * len(sizes) or not refused or \
+            sorted(o[0] for o in outcomes) != ["failed"] * 3 + ["ok"]:
+        raise AssertionError(f"ParallelInference: {row}")
+    del net
+    torch.cuda.empty_cache()
+    return row
+
+
+def _streaming():
+    """(c) The char-RNN trained from a ``StreamingIngestServer``: a
+    producer thread POSTs 6 batches and /end while ``net.fit`` consumes the
+    topic; bitwise the same batches through a ``ListDataSetIterator``."""
+    import threading
+    from deeplearning4j_tpu_torch.parallel.streaming import (
+        StreamingDataSetIterator, StreamingIngestServer)
+    data = [_char_batch(SEED + 80 + i, CHAR_B, CHAR_T)
+            for i in range(STREAM_BATCHES)]
+    nets = [text_generation_lstm(**CHAR, tbptt_length=CHAR_T)
+            .init(seed=SEED) for _ in range(2)]
+    topic = StreamingDataSetIterator(capacity=2)
+    srv = StreamingIngestServer(topic).start()
+    base = f"http://127.0.0.1:{srv.port}"
+    client = HTTPClient(timeout=300)
+    bodies = [json.dumps({"features": x.tolist(), "labels": y.tolist()})
+              .encode() for x, y in data]
+    refused = [0]
+
+    def producer():
+        for body in bodies:
+            while True:
+                status, _, _ = client.request(
+                    "POST", base + "/publish", body=body,
+                    headers={"Content-Type": "application/json"})
+                if status == 200:
+                    break
+                refused[0] += 1            # full: back-pressure
+                time.sleep(0.01)
+        client.request_json("POST", base + "/end", payload={})
+
+    try:
+        t = threading.Thread(target=producer)
+        torch.cuda.synchronize()
+        _reset_launches()
+        t0 = time.perf_counter()
+        t.start()
+        nets[0].fit(iterator=topic)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        launches = _launches(LSTM_COUNTED)
+        t.join(60)
+        status, stats = client.request_json("GET", base + "/stats")
+    finally:
+        client.close()
+        srv.stop()
+    nets[1].fit(iterator=ListDataSetIterator(
+        [DataSet(x, y) for x, y in data]))
+    same = all(torch.equal(a, b) for a, b in zip(nets[0].parameters(),
+                                                 nets[1].parameters()))
+    want = {n: 2 * STREAM_BATCHES for n in LSTM_COUNTED}
+    row = {"model": "text_generation_lstm vocab 87 hidden 512 f32 "
+                    "RmsProp(1e-3), T 64 in one chunk",
+           "batch": CHAR_B, "seq_len": CHAR_T, "batches": STREAM_BATCHES,
+           "stats": stats, "fit_s": fit_s, "publish_refused": refused[0],
+           "bitwise_list_iterator": same, "launches": launches}
+    if status != 200 or not same or launches != want or \
+            stats["published"] != STREAM_BATCHES or \
+            stats["consumed"] != STREAM_BATCHES or not stats["closed"]:
+        raise AssertionError(f"streaming: {row}")
+    return row
+
+
+def _distributed():
+    """(d) One process on NCCL: ``global_mesh(("data",))``, a psum of one
+    row, 4 ``_TLM`` steps through ``ParallelWrapper(mesh=global_mesh)``
+    bitwise the logical ``(1,)`` wrapper's, whether the profiler saw NCCL
+    kernels."""
+    import socket
+    from deeplearning4j_tpu_torch.parallel import distributed
+    from deeplearning4j_tpu_torch.parallel.mesh import psum
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    batches = _dp_batches(DIST_STEPS, SEED + 73)
+    distributed.initialize_distributed(f"127.0.0.1:{port}", 1, 0)
+    try:
+        mesh = distributed.global_mesh(("data",))
+        row_in = torch.arange(6.0, device="cuda").reshape(1, 6)
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            got = psum(row_in, mesh, "data")
+            torch.cuda.synchronize()
+        nccl = sorted({e.key for e in prof.key_averages()
+                       if "nccl" in e.key.lower()})
+        psum_ok = torch.equal(got, row_in)
+        states, launches = [], {}
+        with _deterministic_algorithms():
+            for what, m in (("process_group", mesh),
+                            ("logical", make_mesh((1,), ("data",)))):
+                net = _tlm_f32(SEED + 24)
+                torch.cuda.synchronize()
+                _reset_launches()
+                ParallelWrapper(net, mesh=m, prefetch_buffer=0).fit(
+                    ListDataSetIterator(batches))
+                torch.cuda.synchronize()
+                launches[what] = _launches()
+                states.append(_el_state(net))
+                del net
+                torch.cuda.empty_cache()
+    finally:
+        distributed.shutdown_distributed()
+    want = {n: TLM["n_blocks"] * DIST_STEPS for n in COUNTED}
+    row = {"backend": "nccl", "processes": 1, "psum_one_row": psum_ok,
+           "bitwise_logical_1": _el_same(states[0], states[1]),
+           "steps": DIST_STEPS, "nccl_kernels_seen": nccl,
+           "launches": {n: launches["process_group"][n]
+                        + launches["logical"][n] for n in COUNTED},
+           "launches_by_run": launches}
+    if not (psum_ok and row["bitwise_logical_1"]) or any(
+            v != want for v in launches.values()):
+        raise AssertionError(f"distributed: {row}")
+    return row
+
+
+def elastic_phase(gserve):
+    """Phase 17d: the rest of the parallel layer on the card (a) to (d)
+    (see the module docstring); returns every part's row and the launches
+    on its paths."""
+    out = {}
+    t_phase = time.perf_counter()
+    for part, run in (("elastic", _elastic_tlm),
+                      ("parallel_inference",
+                       lambda: _parallel_inference(gserve)),
+                      ("streaming", _streaming),
+                      ("distributed", _distributed)):
+        t0 = time.perf_counter()
+        out[part] = run()
+        out[part + "_s"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    out["launches"] = {
+        n: out["elastic"]["launches"][n] + out["distributed"]["launches"][n]
+        for n in COUNTED}
+    out["launches"].update(out["streaming"]["launches"])
+    out["launches"]["conv1x1_bias_relu"] = \
+        out["parallel_inference"]["k7_launches"]
+    log("elastic phase:", out)
+    return out
+
+
 # ----------------------------------------------------------------- phase 18
 def parallel_cross_device_phase():
     """One fused ring forward at T 2048 on 4 workers and one
@@ -5729,6 +6437,8 @@ def main() -> int:
     dp_opt = dp_options_phase()
     model_axis = model_axis_phase()
     tp_n = model_axis["launches"]
+    elastic = elastic_phase(gserve)
+    el_n = elastic["launches"]
     top = next(r for r in rows if r["BH"] == 16 and r["T"] == 1024
                and r["dtype"] == str(torch.float32))
     serve_k1 = slice_row["flash_attention_launches"]
@@ -5754,7 +6464,7 @@ def main() -> int:
         + http_n["flash_attention_fwd"]
         + resume["launches"]["flash_attention_fwd"]
         + dp_opt["launches"]["flash_attention_fwd"]
-        + tp_n["flash_attention_fwd"],
+        + tp_n["flash_attention_fwd"] + el_n["flash_attention_fwd"],
         "launches_by_path": {
             "serve": serve_k1, "serve_generation": gen_row["k1_launches"],
             "train": train_k["flash_attention_fwd"],
@@ -5765,7 +6475,8 @@ def main() -> int:
             "http": http_n["flash_attention_fwd"],
             "train_resume": resume["launches"]["flash_attention_fwd"],
             "train_dp_options": dp_opt["launches"]["flash_attention_fwd"],
-            "model_axis": tp_n["flash_attention_fwd"]},
+            "model_axis": tp_n["flash_attention_fwd"],
+            "elastic_distributed": el_n["flash_attention_fwd"]},
         "max_abs_err": errs[torch.float32],
         "max_abs_err_f32": errs[torch.float32],
         "max_abs_err_bf16": errs[torch.bfloat16],
@@ -5783,7 +6494,7 @@ def main() -> int:
             "replaces": ref.format(line),
             "launches": train_k[name] + win_sum[name]
             + dp_row["launches"][name] + resume["launches"][name]
-            + dp_opt["launches"][name] + tp_n[name]
+            + dp_opt["launches"][name] + tp_n[name] + el_n[name]
             + sum(ring_row[d]["launches"][name] for d in ring_dtypes),
             "launches_by_path": {
                 "train": train_k[name],
@@ -5794,6 +6505,7 @@ def main() -> int:
                 "train_resume": resume["launches"][name],
                 "train_dp_options": dp_opt["launches"][name],
                 "model_axis": tp_n[name],
+                "elastic_distributed": el_n[name],
                 "ring": sum(ring_row[d]["launches"][name]
                             for d in ring_dtypes)},
             "max_abs_err": max(e[0] for e in bwd_errs[kind].values()),
@@ -5823,10 +6535,12 @@ def main() -> int:
             s2s_row["stream_k5_launches"] if kind == "fwd" else 0)
         avg_n = dp_opt["averaging"]["launches"][name]
         tp_lstm = tp_n[name]
+        stream_fit = el_n[name]
         by_path = {"serve": serve_n, "train": train_n,
                    "char_graph_tbptt": graph_n, "seq_classifier": sent_n,
                    "seq2seq": s2s_n, "train_averaging": avg_n,
-                   "train_model_axis": tp_lstm}
+                   "train_model_axis": tp_lstm,
+                   "train_streaming": stream_fit}
         if kind == "fwd":
             by_path["char_graph_rnn_time_step"] = stream_n
         if kind == "fwd":
@@ -5838,7 +6552,7 @@ def main() -> int:
             "name": name, "route": "cuda", "source": lsrc.format(kind),
             "replaces": lref.format(line),
             "launches": serve_n + train_n + graph_n + stream_n + draft_n
-            + http_k5 + sent_n + s2s_n + avg_n + tp_lstm,
+            + http_k5 + sent_n + s2s_n + avg_n + tp_lstm + stream_fit,
             "launches_by_path": by_path,
             "max_abs_err": max(lstm_errs[(kind, torch.float32)],
                                lstm_errs[(kind, torch.bfloat16)]),
@@ -5878,13 +6592,16 @@ def main() -> int:
         "source": "deeplearning4j_tpu_torch/csrc/conv1x1_bias_relu.cu",
         "replaces": "deeplearning4j_tpu/ops/kernels/conv.py:83",
         "launches": gserve["k7_launches"] + http_n["conv1x1_bias_relu"]
-        + transfer_row["k7_launches"] + tp_n["conv1x1_bias_relu"],
+        + transfer_row["k7_launches"] + tp_n["conv1x1_bias_relu"]
+        + el_n["conv1x1_bias_relu"],
         "launches_by_path": {"serve_googlenet": gserve["k7_launches"],
                              "http": http_n["conv1x1_bias_relu"],
                              "transfer_googlenet":
                                  transfer_row["k7_launches"],
                              "serve_googlenet_mesh":
-                                 tp_n["conv1x1_bias_relu"]},
+                                 tp_n["conv1x1_bias_relu"],
+                             "parallel_inference":
+                                 el_n["conv1x1_bias_relu"]},
         "max_abs_err": k7_errs["parity_abs"],
         "max_rel_to_max_err_f32": k7_errs["f32_rel"],
         "max_rel_to_max_err_bf16": k7_errs["bf16_rel"],
@@ -5991,6 +6708,8 @@ def main() -> int:
                       "data_parallel_options": dp_opt, "card": smi},
                      default=str), flush=True)
     print(json.dumps({"model_axis": model_axis, "card": smi}, default=str),
+          flush=True)
+    print(json.dumps({"elastic_phase": elastic, "card": smi}, default=str),
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -40,15 +40,18 @@ class DataSetIterator:
     def reset(self):
         pass
 
-    def prefetch(self, depth: int = 2, *, device=None, dtype=None):
+    def prefetch(self, depth: int = 2, *, device=None, dtype=None,
+                 sharding=None):
         """Wrap this iterator in a ``DevicePrefetchIterator``: a background
         thread stages each batch and copies it to ``device`` (default: the
         CUDA card) so the copy overlaps the previous step's compute;
-        floating arrays take ``dtype`` when given. See
+        floating arrays take ``dtype`` when given. ``sharding`` (a
+        ``parallel.mesh.data_sharding``) lands batches on its mesh's
+        device for a ``ParallelWrapper``'s feed. See
         ``datasets/prefetch.py``."""
         from .prefetch import DevicePrefetchIterator
         return DevicePrefetchIterator(self, depth, device=device,
-                                      dtype=dtype)
+                                      dtype=dtype, sharding=sharding)
 
 
 class ListDataSetIterator(DataSetIterator):

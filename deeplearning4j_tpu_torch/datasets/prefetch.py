@@ -39,8 +39,13 @@ batch (``last_wait_ms``, ``total_wait_ms`` over the current epoch): the
 honest per-iteration ETL cost, zero when the pipeline keeps up. Breaking
 out of the consuming loop (or an error in it) stops the producer within
 one tick; an exception raised by ``base`` reaches the consumer. The
-reference's host-to-device bandwidth gauge is telemetry (ROADMAP A8), and
-its ``sharding`` has no counterpart on the port's one-device logical mesh.
+reference's host-to-device bandwidth gauge is telemetry (ROADMAP A8).
+``sharding`` (a ``parallel.mesh.Sharding``, the reference's
+``data_sharding(mesh)``) ships to its mesh's device and checks that every
+array's cut dimension tiles the axis, as the reference's ``device_put``
+onto a sharding refuses one that does not; on the logical mesh a worker's
+rows are the contiguous blocks of the batch, which the wrapper's split
+takes.
 """
 from __future__ import annotations
 
@@ -111,11 +116,18 @@ class DevicePrefetchIterator(DataSetIterator):
     _TICK = 0.05   # stop-signal poll interval for a blocked producer
 
     def __init__(self, base: DataSetIterator, depth: int = 2, *,
-                 device: DeviceLike = None, dtype=None):
+                 device: DeviceLike = None, dtype=None, sharding=None):
         if depth < 1:
             raise ValueError("depth must be >= 1")
         self.base = base
         self.depth = depth
+        self.sharding = sharding
+        if sharding is not None:
+            if device is not None and resolve_device(device) != \
+                    sharding.mesh.device:
+                raise ValueError(f"the sharding's mesh lives on "
+                                 f"{sharding.mesh.device}, not {device}")
+            device = sharding.mesh.device
         self.device = resolve_device(device)
         self.dtype = (None if dtype is None else dtype
                       if isinstance(dtype, torch.dtype) else torch_dtype(dtype))
@@ -134,6 +146,14 @@ class DevicePrefetchIterator(DataSetIterator):
         if isinstance(a, torch.Tensor) and a.device == self.device:
             return a                        # already there
         t = torch.as_tensor(a)
+        if self.sharding is not None:
+            sh = self.sharding
+            n = sh.mesh.shape[sh.axis]
+            if t.dim() <= sh.dim or t.shape[sh.dim] % n:
+                raise ValueError(
+                    f"an array of shape {tuple(t.shape)} does not tile the "
+                    f"{n} workers of axis {sh.axis!r} along dimension "
+                    f"{sh.dim}")
         if t.device.type != "cpu":
             t = t.cpu()
         dtype = (self.dtype if self.dtype is not None

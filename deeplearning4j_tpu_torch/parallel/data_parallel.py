@@ -93,7 +93,8 @@ from ..nn.tape import collect_state, commit_state
 from ..optimize.solver import (EtlClock, cast_feed, epoch_hook,
                                notify_batch, notify_window, train_step_math)
 from ..optimize.step_graph import WindowGraphs
-from .mesh import Mesh, axis_size, data_sharding, make_mesh, pmean
+from .mesh import (Mesh, axis_size, data_sharding, local_count, make_mesh,
+                   pmean)
 from .overlap import (DEFAULT_BUCKET_BYTES, bucketed_pmean,
                       build_bucket_schedule)
 from .tensor_parallel import MODEL_AXIS, model_axis_size, place_net
@@ -229,6 +230,14 @@ class ParallelWrapper:
                 "collectives (stage 1 is the overlap_sync launch "
                 "pattern; stage 2 reduce-scatters the same buckets) — "
                 "drop overlap_sync rather than have it silently ignored")
+        if self.mesh.group is not None and (
+                zero_stage or gradient_accumulator is not None or averaging
+                or self.m > 1):
+            raise ValueError(
+                "on a process-group mesh the wrapper runs the plain sync "
+                "path over the data axis; ZeRO, a GradientsAccumulator, "
+                "K-step averaging and a model axis over processes are "
+                "not ported (ROADMAP A7b-4)")
         self.zero_stage = zero_stage
         self.steps_per_dispatch = steps_per_dispatch
         self.step_callback = step_callback
@@ -250,9 +259,11 @@ class ParallelWrapper:
         worker draws the same numbers on its shard, as the reference's
         replicated key gives them) and fill the iteration tensor."""
         net = self.net
-        if not self._gens:
+        if not self._gens:              # one a worker this process runs
             self._gens = [torch.Generator(device=net.device)
-                          for _ in range(self.n)]
+                          for _ in range(local_count(self.mesh, "data")
+                                         if "data" in self.mesh.shape
+                                         else self.n)]
             self._it = torch.zeros((), dtype=torch.int64, device=net.device)
         seed = ((net.conf.seed + 31337) << 32) + it
         for g in self._gens:
@@ -280,7 +291,7 @@ class ParallelWrapper:
         sh = data_sharding(self.mesh)
         xs, ys = sh.split(x), sh.split(y)
         runs = [self._loss_and_grads(xs[i], ys[i], self._gens[i])
-                for i in range(self.n)]
+                for i in range(xs.shape[0])]
         new_state = {
             layer: {k: pmean(torch.stack([r[2][layer][k] for r in runs]),
                              self.mesh, "data")[0] for k in st}
@@ -374,7 +385,7 @@ class ParallelWrapper:
                                    "data")
             self._apply([m[0] for m in means], it)
         else:
-            flat = torch.cat([r.reshape(self.n, -1) for r in rows], dim=1)
+            flat = torch.cat([r.reshape(r.shape[0], -1) for r in rows], dim=1)
             if acc is None:
                 combined = pmean(flat, self.mesh, "data")
             else:

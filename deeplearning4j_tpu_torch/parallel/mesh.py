@@ -23,17 +23,30 @@ join them again; a spec is a tuple of axis names (or None) a dimension,
 ONCE on the rows (the body uses the collectives above) and joins the
 outputs.
 
-This is not several cards: all workers' rows live on the one device and a
-"collective" is an indexing operation there. Real ranks
-(``torch.distributed`` with NCCL, one process a card) go behind these same
-functions, so the code above them (``parallel/accumulation.py``,
+On a logical mesh all workers' rows live on the one device and a
+"collective" is an indexing operation there. **Real ranks** go behind the
+same functions: a mesh with a process group (``parallel/distributed.py``
+``global_mesh``, one process a card on NCCL, or CPU processes on gloo)
+holds one worker a process, worker ``rank`` in the flat (row-major)
+order, and each process holds only its own worker's row, ``[1, ...]`` on
+every axis (``local_slots`` / ``keep_local``). A collective there (1)
+all-gathers the rows across the group in rank order, (2) applies the
+logical mesh's own function to the rows of the processes on this
+process's line along the axis (``sum_rows`` in worker order and the
+rest) and (3) keeps this process's row, so a process-group mesh gives the
+same bits as the logical mesh of its shape. It moves every row to every
+process: a reduce-scatter / all-reduce design is later speed work.
+``Sharding.split`` takes the global array and keeps this process's row;
+``shard_map`` takes each process's local part of an array (the reference's
+``make_array_from_process_local_data``) and gives each process its part
+back. The code above these functions (``parallel/accumulation.py``,
 ``parallel/data_parallel.py``, ``parallel/ring_attention.py``) does not
-change when a machine has several cards.
+change.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Callable, Optional, Sequence, Tuple
+from dataclasses import dataclass, field
+from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -42,10 +55,15 @@ from ..device import DeviceLike, resolve_device
 
 @dataclass(frozen=True)
 class Mesh:
-    """Axis names, their sizes and the one device every worker lives on."""
+    """Axis names, their sizes and the one device this process's workers
+    live on; ``group`` (a ``torch.distributed`` process group, None for a
+    logical mesh), this process's ``rank`` in it and its ``world`` size."""
     axis_names: Tuple[str, ...]
     axis_sizes: Tuple[int, ...]
     device: torch.device
+    group: Any = field(default=None, compare=False)
+    rank: int = 0
+    world: int = 1
 
     @property
     def shape(self) -> dict:
@@ -59,13 +77,28 @@ class Mesh:
             n *= s
         return n
 
+    def coords(self, flat: int) -> Tuple[int, ...]:
+        """The (row-major) coordinates of flat worker index ``flat``."""
+        out = []
+        for s in reversed(self.axis_sizes):
+            out.append(flat % s)
+            flat //= s
+        return tuple(reversed(out))
+
+    def logical(self) -> "Mesh":
+        """The same axes as a logical mesh (every row in this process)."""
+        return Mesh(self.axis_names, self.axis_sizes, self.device)
+
 
 def make_mesh(shape: Optional[Tuple[int, ...]] = None,
               axis_names: Sequence[str] = ("data",),
-              device: DeviceLike = None) -> Mesh:
+              device: DeviceLike = None, *, group: Any = None,
+              rank: int = 0, world: int = 1) -> Mesh:
     """Build a logical mesh on ``device`` (default: the CUDA card).
     Default shape: one worker, as the reference's default is one worker a
-    local device."""
+    local device. ``group``/``rank``/``world`` spread it over a process
+    group, one worker a process (``distributed.global_mesh`` passes
+    them)."""
     if shape is None:
         shape = (1,)
     shape = tuple(int(s) for s in shape)
@@ -75,7 +108,12 @@ def make_mesh(shape: Optional[Tuple[int, ...]] = None,
                          f"{axis_names}")
     if any(s < 1 for s in shape):
         raise ValueError(f"mesh shape {shape} must be positive")
-    return Mesh(axis_names, shape, resolve_device(device))
+    mesh = Mesh(axis_names, shape, resolve_device(device), group, int(rank),
+                int(world))
+    if (group is not None or mesh.world != 1) and mesh.size != mesh.world:
+        raise ValueError(f"a mesh of shape {shape} does not spread over "
+                         f"{world} processes (one worker a process)")
+    return mesh
 
 
 def axis_size(mesh: Mesh, axis: str) -> int:
@@ -86,8 +124,61 @@ def axis_size(mesh: Mesh, axis: str) -> int:
                          f"{mesh.axis_names}") from None
 
 
+def local_slots(mesh: Mesh, axis: str) -> range:
+    """The positions on ``axis`` whose rows this process holds: all of
+    them on a logical mesh, its one worker's on a process-group mesh."""
+    if mesh.group is None:
+        return range(axis_size(mesh, axis))
+    i = mesh.coords(mesh.rank)[mesh.axis_names.index(axis)]
+    return range(i, i + 1)
+
+
+def local_count(mesh: Mesh, axis: str) -> int:
+    """Rows of a per-worker value on ``axis`` this process holds."""
+    return len(local_slots(mesh, axis))
+
+
+def keep_local(t: torch.Tensor, mesh: Mesh, axis: str,
+               dim: int = 0) -> torch.Tensor:
+    """This process's rows of ``t``, whose dimension ``dim`` runs over
+    ``axis``' positions (``t`` itself on a logical mesh)."""
+    if mesh.group is None:
+        return t
+    s = local_slots(mesh, axis)
+    return t.narrow(dim, s.start, len(s))
+
+
+def _line_ranks(mesh: Mesh, axis: str) -> List[int]:
+    """The ranks on this process's line along ``axis``, in the axis'
+    order (rank = flat worker index, one worker a process)."""
+    a = mesh.axis_names.index(axis)
+    mine = list(mesh.coords(mesh.rank))
+    ranks = []
+    for i in range(mesh.axis_sizes[a]):
+        mine[a] = i
+        flat = 0
+        for s, ci in zip(mesh.axis_sizes, mine):
+            flat = flat * s + ci
+        ranks.append(flat)
+    return ranks
+
+
+def _across(x: torch.Tensor, mesh: Mesh, axis: str, fn) -> torch.Tensor:
+    """A collective on a process-group mesh: every process's rows
+    gathered in rank order, ``fn`` (the logical collective) on the rows of
+    this process's line along ``axis``, this process's row kept."""
+    import torch.distributed as dist
+    _check_rows(x, mesh, axis)
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(mesh.world)]
+    dist.all_gather(parts, x, group=mesh.group)
+    out = fn(torch.cat([parts[r] for r in _line_ranks(mesh, axis)]),
+             mesh.logical(), axis)
+    return keep_local(out, mesh, axis)
+
+
 def _check_rows(x: torch.Tensor, mesh: Mesh, axis: str) -> int:
-    n = axis_size(mesh, axis)
+    n = local_count(mesh, axis)
     if x.dim() < 1 or x.shape[0] != n:
         raise ValueError(f"a per-worker value on axis {axis!r} has the "
                          f"worker axis leading: expected [{n}, ...], got "
@@ -96,8 +187,10 @@ def _check_rows(x: torch.Tensor, mesh: Mesh, axis: str) -> int:
 
 
 def axis_index(mesh: Mesh, axis: str) -> torch.Tensor:
-    """Each worker's index on ``axis``: ``[n]`` int64, row i is i."""
-    return torch.arange(axis_size(mesh, axis), device=mesh.device)
+    """Each worker's index on ``axis``: ``[n]`` int64, row i is i (this
+    process's row of it on a process-group mesh)."""
+    return keep_local(torch.arange(axis_size(mesh, axis),
+                                   device=mesh.device), mesh, axis)
 
 
 def sum_rows(x: torch.Tensor) -> torch.Tensor:
@@ -114,6 +207,8 @@ def sum_rows(x: torch.Tensor) -> torch.Tensor:
 def psum(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
     """``lax.psum`` over ``axis``: ``[n, ...]`` in and out, every row the
     sum of the rows in worker order (a broadcast view, not n copies)."""
+    if mesh.group is not None:
+        return _across(x, mesh, axis, psum)
     _check_rows(x, mesh, axis)
     return sum_rows(x).unsqueeze(0).expand_as(x)
 
@@ -124,6 +219,8 @@ def pmean(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
     rows are added in x's dtype in worker order, one after the other, and
     the sum divided by n, as ``lax.pmean``: a fixed order gives the same
     bits on the CPU and on the card."""
+    if mesh.group is not None:
+        return _across(x, mesh, axis, pmean)
     n = _check_rows(x, mesh, axis)
     return (sum_rows(x) / n).unsqueeze(0).expand_as(x)
 
@@ -133,6 +230,8 @@ def psum_scatter(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
     per-worker values ``[n, n, ...]`` (each worker's row cut into n
     parts): worker k gets the sum over the workers of part k, ``[n, ...]``
     out. The rows are added in worker order, as ``pmean`` adds them."""
+    if mesh.group is not None:
+        return _across(x, mesh, axis, psum_scatter)
     n = _check_rows(x, mesh, axis)
     if x.dim() < 2 or x.shape[1] != n:
         raise ValueError(f"psum_scatter cuts each worker's row into {n} "
@@ -148,6 +247,8 @@ def all_gather(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
     """``lax.all_gather(x, axis, axis=0, tiled=False)``: every worker gets
     all the rows, ``[n, ...]`` in and ``[n, n, ...]`` out (a broadcast
     view, not n copies)."""
+    if mesh.group is not None:
+        return _across(x, mesh, axis, all_gather)
     n = _check_rows(x, mesh, axis)
     return x.unsqueeze(0).expand((n,) + tuple(x.shape))
 
@@ -157,6 +258,8 @@ def all_to_all(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
     ``[n, n, ...]`` (each worker's row cut into n parts, part j bound for
     worker j): worker i gets part i of every worker's row, in worker
     order, ``out[i, j] = x[j, i]``."""
+    if mesh.group is not None:
+        return _across(x, mesh, axis, all_to_all)
     n = _check_rows(x, mesh, axis)
     if x.dim() < 2 or x.shape[1] != n:
         raise ValueError(f"all_to_all cuts each worker's row into {n} "
@@ -168,6 +271,8 @@ def all_to_all(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
 def ppermute_next(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
     """Worker i's row goes to worker (i + 1) mod n: the ring's
     ``ppermute`` with ``perm = [(i, (i + 1) % n)]``."""
+    if mesh.group is not None:
+        return _across(x, mesh, axis, ppermute_next)
     _check_rows(x, mesh, axis)
     return torch.roll(x, shifts=1, dims=0)
 
@@ -181,19 +286,39 @@ class Sharding:
     dim: int
 
     def split(self, x: torch.Tensor) -> torch.Tensor:
-        """Global array -> ``[n, ...]`` rows (a copy, worker axis leading).
-        The dimension must divide evenly, as ``shard_map`` requires."""
+        """Global array -> ``[n, ...]`` rows (a copy, worker axis leading;
+        this process's row on a process-group mesh). The dimension must
+        divide evenly, as ``shard_map`` requires."""
         n = axis_size(self.mesh, self.axis)
         if x.shape[self.dim] % n:
             raise ValueError(
                 f"dimension {self.dim} of size {x.shape[self.dim]} does not "
                 f"divide over the {n} workers of axis {self.axis!r}")
-        return torch.stack(x.chunk(n, dim=self.dim))
+        return keep_local(torch.stack(x.chunk(n, dim=self.dim)), self.mesh,
+                          self.axis)
 
     def gather(self, rows: torch.Tensor) -> torch.Tensor:
-        """``[n, ...]`` rows -> the global array."""
-        _check_rows(rows, self.mesh, self.axis)
+        """``[n, ...]`` rows -> the global array (on a process-group mesh:
+        this process's rows in, every process's gathered)."""
+        if self.mesh.group is not None:
+            rows = all_gather(rows, self.mesh, self.axis)[0]
+        _check_rows(rows, self.mesh.logical(), self.axis)
         return torch.cat(rows.unbind(0), dim=self.dim)
+
+    def split_local(self, x: torch.Tensor) -> torch.Tensor:
+        """This process's part of the global array -> its rows: its one
+        worker's ``[1, ...]`` on a process-group mesh, the global split on
+        a logical mesh."""
+        if self.mesh.group is None:
+            return self.split(x)
+        return x.unsqueeze(0).clone()
+
+    def join_local(self, rows: torch.Tensor) -> torch.Tensor:
+        """``split_local``'s inverse: this process's rows -> its part."""
+        if self.mesh.group is None:
+            return self.gather(rows)
+        _check_rows(rows, self.mesh, self.axis)
+        return rows[0]
 
 
 def data_sharding(mesh: Mesh, axis: str = "data") -> Sharding:
@@ -232,7 +357,9 @@ def shard_map(f: Callable, *, mesh: Mesh, in_specs: Sequence,
     works through the collectives above), each output joined by its spec
     (a replicated output is row 0, which the body made equal on every
     row). ``out_specs`` is one spec, or a tuple of specs for a tuple of
-    outputs. One mesh axis a call, as every caller here needs."""
+    outputs. One mesh axis a call, as every caller here needs. On a
+    process-group mesh a cut input is this process's part of the global
+    array and a cut output is its part (``Sharding.split_local``)."""
     several = isinstance(out_specs, tuple) and bool(out_specs) and \
         all(isinstance(sp, tuple) for sp in out_specs)
     specs_out = out_specs if several else (out_specs,)
@@ -241,17 +368,18 @@ def shard_map(f: Callable, *, mesh: Mesh, in_specs: Sequence,
         raise ValueError(f"shard_map here maps over one mesh axis, the "
                          f"specs name {sorted(axes)}")
     axis = axes.pop()
-    n = axis_size(mesh, axis)
+    n = local_count(mesh, axis)
 
     def cut(sp):
         a, d = spec_axis(sp)
         if a is None:
             return lambda t: t.unsqueeze(0).expand((n,) + tuple(t.shape))
-        return Sharding(mesh, a, d).split
+        return Sharding(mesh, a, d).split_local
 
     def join(sp):
         a, d = spec_axis(sp)
-        return (lambda t: t[0]) if a is None else Sharding(mesh, a, d).gather
+        return (lambda t: t[0]) if a is None else \
+            Sharding(mesh, a, d).join_local
 
     def run(*args):
         out = f(*(_tree_map(cut(sp), x) for x, sp in zip(args, in_specs)))

@@ -152,12 +152,15 @@ def fits(shape, whole) -> bool:
     return True
 
 
-def place_like(arr: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+def place_like(arr: torch.Tensor, like: torch.Tensor,
+               shape=None) -> torch.Tensor:
     """The global leaf ``arr`` laid out as ``like`` is: on its device, and
-    cut into its rows where ``like`` holds rows of ``arr``'s shape."""
+    cut into its rows where ``like`` holds rows of ``arr``'s shape
+    (``shape``: lay it out as a leaf of that shape instead)."""
     arr = arr.to(like.device)
-    d = rows_cut(like.shape, arr.shape)
-    return arr if d is None else split_rows(arr, like.shape[0], d)
+    shape = like.shape if shape is None else shape
+    d = rows_cut(shape, arr.shape)
+    return arr if d is None else split_rows(arr, shape[0], d)
 
 
 def column(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

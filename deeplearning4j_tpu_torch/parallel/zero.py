@@ -47,8 +47,10 @@ updated parameters are then gathered back to every worker.
 
 The reference's ``zero.*`` gauges and ``profile`` (collective timing and
 trace spans) are telemetry (ROADMAP A8, part 2): dropped here, and
-``profile`` raises naming it. Elastic use (``ElasticTrainer``, faults) is
-ROADMAP A7b-3.
+``profile`` raises naming it. ``parallel/elastic.py``'s ``ElasticTrainer``
+drives it with ``zero_stage``: one engine a worker set, its
+``sharding_meta`` in every save and ``make_zero_resharder`` onto a shrunk
+mesh.
 """
 from __future__ import annotations
 

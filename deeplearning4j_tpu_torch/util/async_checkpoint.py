@@ -54,7 +54,8 @@ class _Snapshot:
     ``submit``) and the event recorded after the copies (None on the
     CPU)."""
 
-    def __init__(self, tree: Any):
+    def __init__(self, tree: Any, specs: Any = None):
+        self.specs = specs
         leaves, self.spec = tree_flatten(tree)
         self.leaves = [t.detach().clone() for t in leaves]
         self.event = None
@@ -106,11 +107,13 @@ class AsyncCheckpointWriter:
     # ----------------------------------------------------- training side
     def submit(self, step: int, tree: Any,
                extra: Optional[Dict[str, Any]] = None,
-               sharding: Optional[Dict[str, Any]] = None) -> bool:
+               sharding: Optional[Dict[str, Any]] = None,
+               specs: Any = None) -> bool:
         """Snapshot ``tree`` and queue it as ``step``; False if it replaced
         an older waiting snapshot. ``sharding`` is the manifest's layout
-        block (the ZeRO engine's ``sharding_meta()``)."""
-        snap = _Snapshot(tree)
+        block (the ZeRO engine's ``sharding_meta()``), ``specs`` the tree's
+        model-axis layout (``save_sharded_checkpoint``'s)."""
+        snap = _Snapshot(tree, specs)
         fresh = True
         with self._lock:
             if self._stop:
@@ -135,7 +138,8 @@ class AsyncCheckpointWriter:
 
     def save_sync(self, step: int, tree: Any,
                   extra: Optional[Dict[str, Any]] = None,
-                  sharding: Optional[Dict[str, Any]] = None) -> None:
+                  sharding: Optional[Dict[str, Any]] = None,
+                  specs: Any = None) -> None:
         """Write now on the calling thread, after draining the queue (the
         steps on disk stay in order); a step already written is
         skipped."""
@@ -143,7 +147,8 @@ class AsyncCheckpointWriter:
         if self.last_completed_step is not None \
                 and step <= self.last_completed_step:
             return
-        self._write(step, _Snapshot(tree), dict(extra or {}), sharding)
+        self._write(step, _Snapshot(tree, specs), dict(extra or {}),
+                    sharding)
 
     def close(self, flush: bool = True) -> None:
         if flush:
@@ -181,7 +186,8 @@ class AsyncCheckpointWriter:
         t0 = time.perf_counter()
         try:
             save_sharded_checkpoint(self.directory, step, snap.to_host(),
-                                    extra=extra, sharding=sharding)
+                                    extra=extra, sharding=sharding,
+                                    specs=snap.specs)
             self._ckpt._prune()
         except BaseException as e:  # a sick disk must not kill training
             self.last_error = e

@@ -36,6 +36,15 @@ it into ``like``'s rows where ``like`` holds rows; a save for another
 worker count fails that check (a ``resharder``,
 ``parallel.zero.make_zero_resharder`` or
 ``parallel.resharding.make_any_resharder``, re-slices it instead).
+
+On a process-group mesh (``parallel/distributed.py``; pass it as
+``mesh``) every process writes its own ``ckpt_step{S}_p{rank:03d}.npz``
+with the blocks of the rows it holds (a ZeRO state's data-axis rows, a
+model axis' rows at this process's place on it; replicated leaves from
+every process, read once) and process 0 writes the manifest with the true
+``num_processes`` after every process's file is in place: the reference's
+layout. A restore onto such a mesh assembles each leaf from every
+process's file (shared storage) and keeps this process's rows.
 """
 from __future__ import annotations
 
@@ -50,7 +59,8 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..parallel.tensor_parallel import (fits, full, global_shape, is_rows,
+from ..parallel.mesh import axis_size, keep_local, local_slots
+from ..parallel.tensor_parallel import (MODEL_AXIS, fits, is_rows,
                                        place_like, spec_dim)
 from ..parallel.zero import ZERO_STATE_KEY, dtype_name
 
@@ -153,43 +163,58 @@ def _atomic_write(directory: str, final: str, write) -> None:
             os.unlink(tmp)
 
 
+def _blocks(leaf, by_row, spec, mesh):
+    """(global shape, [(block, index)]) of a leaf: the rows this process
+    holds (a model axis' rows, or a ZeRO state's data-axis rows; every
+    row on a logical mesh) at their places on their axis, or the whole
+    leaf."""
+    if is_rows(leaf, spec):
+        axis, cut, rows = MODEL_AXIS, spec_dim(spec), leaf.unbind(0)
+    elif by_row and leaf.dim() >= 1:
+        axis, cut, rows = "data", 0, leaf.split(1)
+    else:
+        return tuple(leaf.shape), [(leaf, tuple((0, n) for n in leaf.shape))]
+    group = mesh is not None and mesh.group is not None
+    slots = local_slots(mesh, axis) if group else range(len(rows))
+    shape = list(rows[0].shape)
+    per = shape[cut]
+    shape[cut] *= axis_size(mesh, axis) if group else len(rows)
+    return tuple(shape), [
+        (row, tuple((r * per, (r + 1) * per) if d == cut else (0, n)
+                    for d, n in enumerate(shape)))
+        for row, r in zip(rows, slots)]
+
+
 def save_sharded_checkpoint(directory: str, step: int, tree: Any,
                             extra: Optional[Dict[str, Any]] = None,
                             sharding: Optional[Dict[str, Any]] = None,
-                            specs: Any = None) -> str:
+                            specs: Any = None, mesh: Any = None) -> str:
     """Write ``tree``'s blocks and the manifest (see the module docstring);
     returns the manifest's path. ``extra`` (the caller's resume position)
     and ``sharding`` (the ZeRO engine's layout) are stored in the manifest
     as given; ``specs`` is the tree's model-axis layout (a tree of specs,
-    ``tensor_parallel.tree_specs``; None: no leaf is rows)."""
+    ``tensor_parallel.tree_specs``; None: no leaf is rows). ``mesh``: a
+    process-group mesh whose processes each save their rows (every
+    process calls this)."""
     os.makedirs(directory, exist_ok=True)
     leaves, rows = [], []
     _flatten(tree, False, leaves, rows)
     cuts = _spec_leaves(tree, specs, [])
     payload = {}
     meta_leaves = []
+    group = mesh is not None and mesh.group is not None
+    rank, world = (mesh.rank, mesh.world) if group else (0, 1)
     for i, (leaf, by_row, spec) in enumerate(zip(leaves, rows, cuts)):
-        shape = global_shape(leaf, spec)
+        shape, parts = _blocks(leaf, by_row, spec, mesh)
         meta_leaves.append({"shape": list(shape),
                             "dtype": dtype_name(leaf.dtype)})
-        if is_rows(leaf, spec):         # a model axis' rows: a block a rank
-            cut = spec_dim(spec)
-            k = shape[cut] // leaf.shape[0]
-            blocks = [tuple((r * k, (r + 1) * k) if j == cut else (0, d)
-                            for j, d in enumerate(shape))
-                      for r in range(leaf.shape[0])]
-        elif by_row and leaf.dim() >= 1:
-            blocks = [((k, k + 1),) + tuple((0, d) for d in shape[1:])
-                      for k in range(shape[0])]
-        else:
-            blocks = [tuple((0, d) for d in shape)]
-        host = _to_numpy(full(leaf, spec))
-        for j, idx in enumerate(blocks):
-            payload[f"l{i}_s{j}"] = host[tuple(slice(a, b) for a, b in idx)]
+        for j, (block, idx) in enumerate(parts):
+            payload[f"l{i}_s{j}"] = _to_numpy(block).reshape(
+                tuple(b - a for a, b in idx))
             payload[f"l{i}_s{j}_idx"] = (
                 np.asarray(idx, np.int64).reshape(len(shape), 2)
                 if shape else np.zeros((0, 2), np.int64))
-    data_path = os.path.join(directory, f"ckpt_step{step}_p000.npz")
+    data_path = os.path.join(directory, f"ckpt_step{step}_p{rank:03d}.npz")
 
     def write_npz(tmp):
         with open(tmp, "wb") as f:
@@ -197,7 +222,7 @@ def save_sharded_checkpoint(directory: str, step: int, tree: Any,
 
     _atomic_write(directory, data_path, write_npz)
     manifest = os.path.join(directory, f"ckpt_step{step}.json")
-    meta = {"step": step, "num_processes": 1, "n_leaves": len(leaves),
+    meta = {"step": step, "num_processes": world, "n_leaves": len(leaves),
             "leaves": meta_leaves, "extra": dict(extra or {})}
     if sharding is not None:
         meta["sharding"] = dict(sharding)
@@ -206,7 +231,13 @@ def save_sharded_checkpoint(directory: str, step: int, tree: Any,
         with open(tmp, "w") as f:
             json.dump(meta, f)
 
-    _atomic_write(directory, manifest, write_manifest)
+    if group:
+        import torch.distributed as dist
+        dist.barrier(group=mesh.group)     # every process's file is in
+    if rank == 0:
+        _atomic_write(directory, manifest, write_manifest)
+    if group:
+        dist.barrier(group=mesh.group)     # the save is whole on return
     return manifest
 
 
@@ -355,26 +386,50 @@ def load_checkpoint_arrays(directory: str, step: int) -> List[torch.Tensor]:
     return out
 
 
-def restore_sharded_checkpoint(directory: str, step: int, like: Any) -> Any:
+def _held(leaf: torch.Tensor, whole, mesh) -> Tuple[Tuple[int, ...],
+                                                   Optional[str]]:
+    """(the shape ``leaf`` has on the logical mesh of ``mesh``'s shape,
+    the axis whose rows this process keeps or None). On a process-group
+    mesh a leaf that is not the global leaf ``whole`` holds this process's
+    row of a model axis (one dimension more than ``whole``) or of the
+    data axis (a ZeRO state); on the logical mesh it holds every row."""
+    shape = tuple(leaf.shape)
+    if mesh is None or mesh.group is None or shape == tuple(whole) \
+            or not shape:
+        return shape, None
+    axis = MODEL_AXIS if len(shape) == len(whole) + 1 else "data"
+    if axis not in mesh.shape:
+        return shape, None
+    return (axis_size(mesh, axis),) + shape[1:], axis
+
+
+def restore_sharded_checkpoint(directory: str, step: int, like: Any,
+                               mesh: Any = None) -> Any:
     """The tree saved at ``step``, shaped as ``like`` (its structure; each
-    leaf's shape and dtype checked and its device taken)."""
+    leaf's shape and dtype checked and its device taken). ``mesh``: a
+    process-group mesh whose ``like`` holds this process's rows."""
     with open(os.path.join(directory, f"ckpt_step{step}.json")) as f:
         manifest = json.load(f)
     leaves, spec = tree_flatten(like)
     if len(leaves) != manifest["n_leaves"]:
         raise ValueError(f"checkpoint has {manifest['n_leaves']} leaves; "
                          f"'like' tree has {len(leaves)}")
+    held = []
     for i, leaf in enumerate(leaves):
         meta = manifest["leaves"][i]
-        if not fits(leaf.shape, meta["shape"]) or \
+        shape, axis = _held(leaf, meta["shape"], mesh)
+        if not fits(shape, meta["shape"]) or \
                 dtype_name(leaf.dtype) != meta["dtype"]:
             raise ValueError(
                 f"leaf {i}: checkpoint {meta['shape']}/{meta['dtype']} vs "
                 f"like {list(leaf.shape)}/{dtype_name(leaf.dtype)} — was "
                 f"the checkpoint written on a different mesh topology?")
+        held.append((shape, axis))
     arrays = load_checkpoint_arrays(directory, step)
-    return tree_unflatten(spec, [place_like(a, l) for a, l in
-                                 zip(arrays, leaves)])
+    return tree_unflatten(spec, [
+        keep_local(place_like(a, leaf, shape), mesh, axis) if axis
+        else place_like(a, leaf) for a, leaf, (shape, axis) in
+        zip(arrays, leaves, held)])
 
 
 class DistributedCheckpointer:

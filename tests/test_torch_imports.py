@@ -53,7 +53,9 @@ _REQUIRED = {f"deeplearning4j_tpu_torch.{m}" for m in (
     "graft_entry", "optimize.listeners", "parallel.overlap", "parallel.zero",
     "util.distributed_checkpoint", "util.async_checkpoint",
     "parallel.tensor_parallel", "parallel.resharding", "parallel.pipeline",
-    "parallel.expert_parallel", "serving.buckets", "nn.layers.attention")}
+    "parallel.expert_parallel", "serving.buckets", "nn.layers.attention",
+    "parallel.elastic", "parallel.faults", "parallel.distributed",
+    "parallel.inference", "parallel.model_server", "parallel.streaming")}
 
 _FORBIDDEN = re.compile(
     r"^\s*(import\s+(jax|deeplearning4j_tpu)\b(?!_torch)"
