@@ -371,9 +371,12 @@ Phases; any failure raises and exits non-zero before a result is printed:
    against a 50 ms budget: the mode history is exactly averaging at step 2
    and sync at step 8, K1 launches in both modes, a second run bitwise the
    first; (a7) after a warm-up fit, a steady-state elastic fit with saves
-   under ``torch.cuda.set_sync_debug_mode("warn")`` makes no more
-   synchronising calls on the loop thread than a plain wrapper fit over
-   the same 8 steps (both counts and their call sites printed). K1-K3 12
+   makes no more synchronising calls and host reads on the loop thread
+   than a plain wrapper fit over the same 8 steps, both counted by
+   ``telemetry.HostSyncDetector(sync_debug=True)``
+   (``torch.cuda.set_sync_debug_mode("warn")``'s warnings and the
+   host-read funnel, each wait once; both counts and their call sites
+   printed). K1-K3 12
    launches a worker a step (eager plus captured x replays, every wrapper
    a run made); the step p50 of the elastic run beside the plain
    wrapper's, the loop thread's ms a ``submit``, the writer's ``write_ms``
@@ -417,7 +420,49 @@ Phases; any failure raises and exits non-zero before a result is printed:
    backward at its shape (T 256, B 64). Its profiler sessions come after
    every host-bound phase but 12e and 17b. A kernel that three sessions
    did not record fails the phase.
-20. Report: JSON lines of per-shape kernel times, the serving and training
+20. Telemetry (run last, after 17d: the host-read detector both use
+   wraps ``torch.Tensor``'s read methods for the rest of the process). (a) Phase 3's model and 8
+   requests behind ``ServingHTTPServer`` (the prefix cache off), one at a
+   time, with the registry off and then on, each with its own ``X-Trace-Id``: tokens
+   equal exactly, every id echoed, ``/debug/trace`` holding the
+   ``generation.prefill`` and ``generation.decode_step`` spans and each
+   request's ``http.request`` event, ``/metrics/prometheus`` parsing with
+   a TTFT histogram of 8, ``/metrics`` with ``slo`` and ``perf``,
+   ``/debug/memprof``'s ``generation.tel.kvcache`` rows within one
+   block of the pool's bytes, and a ``/debug/flightrec`` dump that
+   ``tools/trace2summary.py`` reads. (b) First a probe: the detector 17d's
+   (a7) uses sees one ``nonzero`` (a synchronising call) and one
+   ``.item()`` (a host read) once each, and raises under
+   ``action="raise"``. Then the 8 requests concurrently in 4 rounds, the
+   registry on and off alternated. With it on, what the scheduler's loop
+   thread waits on the card for, counted as (a7) counts it: 0 synchronising
+   calls, no wait inside a ``generation.decode_step`` span, and exactly
+   one host read per eager program run (each prefill's, and a draft's
+   or a verify's, result ``.cpu()``: the program's one wait, by design,
+   the same with the registry off). The counters see only the waits
+   torch routes through its sync check: the decode graph's token read
+   waits on a ``torch.cuda.Event`` (``graphs.py``), which neither sees,
+   on and off alike. 0 warm runs or captures after warm-up
+   (``RecompileDetector``); each round's decode step p50 (reported, not
+   gated). (c) Phase 4b's step
+   (bf16 compute, Adam(3e-4), B 8) over 8 batches per step and in one
+   window of 8, the registry on with a ``TrainingWatch`` armed against
+   off: the parameters bitwise equal, the ``fit/epoch/step`` and
+   ``fit/epoch/window/dispatch`` spans, a clean watch, a NaN planted in
+   batch 5's labels flagged at step 5 in both modes,
+   ``PerformanceListener``'s ``mfu`` in (0, 1) against the H100's bf16
+   peak, and the cost index's flops a step beside 6·N·B·T plus attention.
+   (c') The step's cost of telemetry, reported, not gated: phase 4b's
+   step on one net per step and in windows of 8, the registry on, off,
+   and on with a ``TrainingWatch``, alternated in 3 cycles after a warm
+   one (8 steps, or 3 windows, a fit); each state's step (window) p50, and the warm cycle's first steps
+   (the one the cost index counts under its dispatch mode among them).
+   (d) ``device0.bytes_in_use`` equal to ``torch.cuda.memory_allocated``
+   read at the same point, its peak at least that. (e) Forward serving's
+   cost of telemetry, reported, not gated: phase 12's int8 net and
+   closed loop, the registry on and off alternated in 3 cycles after a
+   warm one; each state's latency p50/p99 and rows/s.
+21. Report: JSON lines of per-shape kernel times, the serving and training
    metrics and the kernels, then last ``{"ok": true, "device": ...}``.
 """
 from __future__ import annotations
@@ -5704,43 +5749,29 @@ def _el_same(a, b):
                for x, y in zip(a, b))
 
 
-class _SyncCount:
-    """``torch.cuda.set_sync_debug_mode("warn")`` for a block, counting the
-    synchronising calls this (the loop's) thread makes, by call site; the
-    writer thread's are its design and are not counted."""
+def _sync_watch(thread=None):
+    """``telemetry.HostSyncDetector(sync_debug=True)``, counting: the
+    synchronising calls (``torch.cuda.set_sync_debug_mode("warn")``) and
+    host reads that ``thread`` (default: this one, the loop's) makes; a
+    writer thread's are its design and are not counted. Earlier runs'
+    garbage (a dropped wrapper's CUDA graph) is freed now, not by a
+    collection inside the counted block."""
+    import gc
+    from deeplearning4j_tpu_torch import telemetry as tel
+    gc.collect()
+    torch.cuda.synchronize()
+    return tel.HostSyncDetector(action="count", sync_debug=True,
+                                thread=thread)
 
-    def __enter__(self):
-        import gc
-        import threading
-        import traceback
-        import warnings
-        self.me, self.n, self.sites = threading.get_ident(), 0, {}
-        # earlier runs' garbage (a dropped wrapper's CUDA graph) is freed
-        # now, not by a collection inside the counted fit
-        gc.collect()
-        self._cw = warnings.catch_warnings()
-        self._cw.__enter__()
-        warnings.simplefilter("always")
 
-        def show(message, category, filename, lineno, file=None,
-                 line=None):
-            if "synchroniz" in str(message) and \
-                    threading.get_ident() == self.me:
-                self.n += 1
-                site = str(message)[:60] + ": " + " < ".join(
-                    f"{os.path.relpath(f.filename)}:{f.lineno}"
-                    for f in reversed(traceback.extract_stack()[-7:-1]))
-                self.sites[site] = self.sites.get(site, 0) + 1
-        torch.cuda.synchronize()
-        # switching the mode on has warned once from the switch itself on
-        # the card: count from after it
-        torch.cuda.set_sync_debug_mode("warn")
-        warnings.showwarning = show
-        return self
-
-    def __exit__(self, *exc):
-        torch.cuda.set_sync_debug_mode("default")
-        self._cw.__exit__(*exc)
+def _sync_sites(det):
+    """{call site or read: count} of a ``_sync_watch``'s events."""
+    out = {}
+    for e in det.events:
+        site = e.get("source") or f"read {e['shape']}"
+        site = f"{e['span_path'] or '-'}: {site}"
+        out[site] = out.get(site, 0) + 1
+    return out
 
 
 def _elastic_tlm():
@@ -5810,16 +5841,18 @@ def _elastic_tlm():
             # 20 (no synchronous final save)
             rest = batches[EL_STEPS - EL_BATCHES:] + \
                 batches[:EL_STEPS - EL_BATCHES]
-            with _SyncCount() as plain:
+            with _sync_watch() as plain:
                 plain_pw.fit(ListDataSetIterator(rest))
             del plain_pw
             tr.final_checkpoint = False
             n_sub = len(submit_ms)
-            with _SyncCount() as el:
+            with _sync_watch() as el:
                 tr.fit(ListDataSetIterator(batches),
                        num_steps=EL_STEPS + EL_SYNC_STEPS)
-            runs["a7"] = {"plain_syncs": plain.n, "plain_sites": plain.sites,
-                          "elastic_syncs": el.n, "elastic_sites": el.sites,
+            runs["a7"] = {"plain_syncs": plain.count,
+                          "plain_sites": _sync_sites(plain),
+                          "elastic_syncs": el.count,
+                          "elastic_sites": _sync_sites(el),
                           "submits_counted": len(submit_ms) - n_sub,
                           "steps": EL_SYNC_STEPS,
                           "steps_done": tr.steps_done}
@@ -6386,6 +6419,561 @@ def _tp_cross_device():
 
 
 # ------------------------------------------------------------------- main
+
+
+# ------------------------------------------------------------------ phase 20
+TEL_TRAIN_BATCHES, TEL_NAN_AT = 8, 5   # one window of 8; the NaN's batch
+TEL_ROUNDS = 4                          # (b): registry on/off alternated
+
+
+def _http(base, method, path, body=None, trace_id=None):
+    """(status, headers, body bytes) of one request to the port's server."""
+    import urllib.error
+    import urllib.request
+    headers = {"Content-Type": "application/json"}
+    if trace_id is not None:
+        headers["X-Trace-Id"] = trace_id
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(base + path, data, headers, method=method)
+    try:
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return r.status, dict(r.headers), r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers), e.read()
+
+
+_PROM_LINE = re.compile(r'^[a-zA-Z_:][a-zA-Z0-9_:]*(\{[^}]*\})? '
+                        r'[-+0-9.eEinfINFaN]+$')
+
+
+def _parse_prometheus(text):
+    """{sample name with labels: value} of a Prometheus text dump; raises
+    on a line that is neither a comment nor a sample."""
+    out = {}
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        if not _PROM_LINE.match(line):
+            raise AssertionError(f"telemetry: not a Prometheus sample: "
+                                 f"{line!r}")
+        name, value = line.rsplit(" ", 1)
+        out[name] = float(value)
+    return out
+
+
+def _tel_prompts():
+    rng = np.random.default_rng(SEED)        # phase 3's requests
+    lens = rng.integers(300, 901, size=N_REQUESTS)
+    return [rng.integers(1, TLM["vocab_size"], size=int(n)).tolist()
+            for n in lens]
+
+
+def _tel_serve(net, tmp):
+    """(a) phase 3's requests through ``ServingHTTPServer`` (the prefix
+    cache off), registry off then on (one request at a time, so every
+    prefill batch is the same on both), each with its own X-Trace-Id;
+    then the telemetry routes."""
+    from deeplearning4j_tpu_torch import telemetry as tel
+    from deeplearning4j_tpu_torch.serving import ServingHTTPServer
+    from deeplearning4j_tpu_torch.telemetry import memprof
+    reg = tel.get_registry()
+    prompts = _tel_prompts()
+    # no prefix cache: the second run's requests must prefill again (a hit
+    # replays its prompt through decode steps instead)
+    # and a model name of its own, so the memory profile's pool rows
+    # (owner generation.tel.kvcache) are this engine's alone
+    eng = GenerationEngine(net, **ENGINE, prefix_cache=False,
+                           model_name="tel")
+    srv = ServingHTTPServer(generation=eng)
+    base = f"http://127.0.0.1:{srv.start()}"
+    prev_wd = tel.set_slo_watchdog(tel.SLOWatchdog([tel.LatencySLO(
+        "ttft", "generation.tel.ttft_ms", 1000.0, 0.99)]))
+    prev_fr = tel.set_flight_recorder(tel.FlightRecorder(
+        os.path.join(tmp, "flightrec")))
+    out = {}
+    try:
+        def serve(traced):
+            toks, ids = [], []
+            for i, p in enumerate(prompts):
+                tid = f"{i + 1:08x}" + "c0ffee" * 4 if traced else None
+                st, hd, body = _http(base, "POST", "/generate",
+                                     {"prompt": p, "max_tokens": MAX_TOKENS,
+                                      "stream": False}, tid)
+                if st != 200:
+                    raise AssertionError(f"telemetry: /generate {st}: "
+                                         f"{body[:200]!r}")
+                toks.append(json.loads(body)["tokens"])
+                ids.append((tid, hd.get("X-Trace-Id")))
+            return toks, ids
+
+        reg.enabled = False
+        off_tokens, _ = serve(False)
+        reg.enabled = True
+        reg.reset()
+        torch.cuda.synchronize()
+        fa.flash_attention.launches = 0          # the traced run's count
+        on_tokens, ids = serve(True)
+        out["k1_launches"] = fa.flash_attention.launches
+        if on_tokens != off_tokens:
+            bad = next(i for i, (a, b) in enumerate(zip(on_tokens,
+                                                        off_tokens)) if a != b)
+            raise AssertionError(f"telemetry: request {bad}'s tokens differ "
+                                 f"with the registry on")
+        for tid, echoed in ids:
+            if echoed != tid:
+                raise AssertionError(f"telemetry: X-Trace-Id {tid} came back "
+                                     f"as {echoed}")
+        # /debug/trace: the spans and each request's http.request event
+        st, hd, body = _http(base, "GET", "/debug/trace")
+        events = [json.loads(line) for line in body.splitlines() if line]
+        names = {e["name"] for e in events if e.get("cat") == "span"}
+        for want in ("generation.prefill", "generation.decode_step"):
+            if want not in names:
+                raise AssertionError(f"telemetry: no {want} span in "
+                                     f"/debug/trace ({sorted(names)})")
+        http_ids = {e["args"].get("trace_id") for e in events
+                    if e["name"] == "http.request"}
+        missing = [t for t, _ in ids if t not in http_ids]
+        if st != 200 or missing:
+            raise AssertionError(f"telemetry: /debug/trace {st}, no "
+                                 f"http.request event for {missing}")
+        # /metrics/prometheus parses; its TTFT histogram counts 8
+        st, _, body = _http(base, "GET", "/metrics/prometheus")
+        samples = _parse_prometheus(body.decode())
+        ttft = samples.get("dl4j_tpu_generation_tel_ttft_ms_count")
+        if st != 200 or ttft != N_REQUESTS:
+            raise AssertionError(f"telemetry: /metrics/prometheus {st}, "
+                                 f"TTFT count {ttft}")
+        # /metrics has slo and perf
+        st, _, body = _http(base, "GET", "/metrics")
+        metrics = json.loads(body)
+        if st != 200 or not {"slo", "perf", "generation"} <= set(metrics):
+            raise AssertionError(f"telemetry: /metrics keys {sorted(metrics)}")
+        # /debug/memprof: the pool's bytes within one block of kvcache's
+        # (earlier phases' pools, freed with their engines, collected first)
+        import gc
+        gc.collect()
+        st, _, body = _http(base, "POST", "/debug/memprof", {"top_k": 100})
+        prof = json.loads(body)
+        pool_rows = [r for r in prof["top"]
+                     if r["owner"] == "generation.tel.kvcache"]
+        ps = eng.runtime().active_ps
+        pool = ps.kv_pool_chip_bytes
+        block = int(ps.kv_bytes_per_token() * ENGINE["block_len"])
+        got = sum(r["total_bytes"] for r in pool_rows)
+        if st != 200 or abs(got - pool) > block:
+            raise AssertionError(f"telemetry: /debug/memprof's pool rows "
+                                 f"hold {got} bytes, kvcache counts {pool}")
+        # /debug/flightrec: a dump tools/trace2summary.py reads
+        st, _, body = _http(base, "POST", "/debug/flightrec",
+                            {"note": "chip_smoke"})
+        dump = json.loads(body).get("dumped")
+        summ = subprocess.run([sys.executable, "tools/trace2summary.py",
+                               dump, "--json"], capture_output=True,
+                              text=True, timeout=60)
+        if st != 200 or summ.returncode != 0:
+            raise AssertionError(f"telemetry: /debug/flightrec {st}, "
+                                 f"trace2summary: {summ.stderr[-300:]}")
+        out.update({
+            "tokens_equal_registry_off": True, "trace_ids_echoed": len(ids),
+            "trace_events": len(events), "span_names": sorted(names),
+            "prometheus_samples": len(samples),
+            "ttft_histogram_count": ttft,
+            "slo": metrics["slo"].get("objectives", {}),
+            "perf_programs": [r["path"] for r in
+                              metrics["perf"].get("programs", [])],
+            "memprof_pool_bytes": got, "kvcache_pool_bytes": pool,
+            "block_bytes": block,
+            "flightrec_summary_rows": len(json.loads(summ.stdout or "[]"))})
+        return out, eng, srv
+    except BaseException:
+        srv.stop()
+        raise
+    finally:
+        tel.set_slo_watchdog(prev_wd)
+        tel.set_flight_recorder(prev_fr)
+
+
+# the eager generation programs that end in one result read (``.cpu()``)
+_READ_PROGRAMS = ("prefill", "decode", "propose", "verify")
+
+
+def _sync_probe():
+    """The detector ``_sync_watch`` gives sees what it gates on: a size read
+    inside an op (``nonzero``: the sync debug mode's) and a host read
+    (``.item()``: the funnel's, its own sync warning not counted again),
+    one each; under ``action="raise"`` the op's sync raises."""
+    from deeplearning4j_tpu_torch import telemetry as tel
+    x = torch.arange(8.0, device="cuda")
+    with _sync_watch() as det:
+        torch.nonzero(x)
+        x.sum().item()
+    kinds = [e["shape"] is None for e in det.events]
+    if det.count != 2 or kinds != [True, False]:
+        raise AssertionError(f"telemetry: the sync probe saw {det.events}")
+    try:
+        with tel.HostSyncDetector(action="raise", sync_debug=True):
+            torch.nonzero(x)
+    except tel.HostSyncError:
+        pass
+    else:
+        raise AssertionError("telemetry: a synchronising call under "
+                             "action='raise' did not raise")
+    return {"sync_calls": 1, "host_reads": 1, "raise": True,
+            "sites": _sync_sites(det)}
+
+
+def _tel_decode_cost(eng):
+    """(b) phase 3's 8 concurrent requests in ``TEL_ROUNDS`` rounds,
+    registry on and off alternated: with it on, what the scheduler's loop
+    thread waited on the card for (``_sync_watch``: synchronising calls
+    and host reads) against the eager programs' result reads, warm runs
+    and captures after warm-up, and each round's decode step p50
+    (graph)."""
+    from collections import Counter
+    from deeplearning4j_tpu_torch import telemetry as tel
+    reg = tel.get_registry()
+    rt = eng.runtime()
+    prompts = _tel_prompts()
+    m = rt.metrics
+    rounds = []
+    counted = {"sync_calls": 0, "host_reads": 0, "program_reads": 0,
+               "in_decode_step": 0}
+    sites = {}
+    probe = _sync_probe()
+    with tel.RecompileDetector(allowed=0, warn=False) as det:
+        for r in range(TEL_ROUNDS):
+            on = r % 2 == 0
+            reg.enabled = on
+            n0 = m.decode_steps
+            runs0 = Counter(rt.active_ps.runs)
+            with contextlib.ExitStack() as stack:
+                if on:
+                    hs = stack.enter_context(_sync_watch(rt._thread.ident))
+                # after the detector's set-up (a collection, a synchronise)
+                t0 = time.perf_counter()
+                streams = [eng.generate(p, max_tokens=MAX_TOKENS,
+                                        stream=True) for p in prompts]
+                for s in streams:
+                    s.result()
+                if not rt.wait_idle(60):
+                    raise AssertionError("telemetry: the runtime did not "
+                                         "go idle")
+            wall = time.perf_counter() - t0
+            steps = list(m._step_ms)[-(m.decode_steps - n0):]
+            ran = Counter(rt.active_ps.runs) - runs0
+            rounds.append({"registry": on, "decode_steps": len(steps),
+                           "decode_step_ms_p50": float(np.median(steps)),
+                           "program_runs": dict(ran), "wall_s": wall})
+            if on:
+                counted["program_reads"] += sum(ran[k]
+                                                for k in _READ_PROGRAMS)
+                for e in hs.events:
+                    kind = "sync_calls" if e["shape"] is None \
+                        else "host_reads"
+                    counted[kind] += 1
+                    counted["in_decode_step"] += \
+                        "generation.decode_step" in (e["span_path"] or "")
+                for k, v in _sync_sites(hs).items():
+                    sites[k] = sites.get(k, 0) + v
+    reg.enabled = True
+    # each eager program waits once, on its result read; a decode step (a
+    # graph replay) waits on an event, which no counter sees, with the
+    # registry on and off alike; telemetry adds no wait
+    if counted["sync_calls"] or counted["in_decode_step"] or \
+            counted["host_reads"] != counted["program_reads"]:
+        raise AssertionError(f"telemetry: the decode loop waited on the "
+                             f"card beyond its programs' result reads "
+                             f"with the registry on: {counted} {sites}")
+    if det.count or m.decode_recompiles:
+        raise AssertionError(f"telemetry: {det.count} warm runs or captures "
+                             f"after warm-up ({det.events})")
+    on = [x["decode_step_ms_p50"] for x in rounds if x["registry"]]
+    off = [x["decode_step_ms_p50"] for x in rounds if not x["registry"]]
+    return {"rounds": rounds, "probe": probe,
+            "loop_sync_calls": counted["sync_calls"],
+            "loop_host_reads": counted["host_reads"],
+            "loop_program_result_reads": counted["program_reads"],
+            "loop_waits_in_decode_step": counted["in_decode_step"],
+            "loop_sites": sites,
+            "warm_runs_or_captures_after_warmup": det.count,
+            "decode_step_ms_p50_on": float(np.median(on)),
+            "decode_step_ms_p50_off": float(np.median(off)),
+            "on_over_off": float(np.median(on) / np.median(off))}
+
+
+def _tel_batches(nan_at=None):
+    """Phase 4b's batches (the first ``TEL_TRAIN_BATCHES``); with
+    ``nan_at`` a NaN in that batch's labels (its features are token ids,
+    which hold no NaN)."""
+    V, T = TLM["vocab_size"], TLM["max_length"]
+    rng = np.random.default_rng(SEED + 40)
+    eye = np.eye(V, dtype=np.float32)
+    out = []
+    for i in range(TEL_TRAIN_BATCHES):
+        ids = rng.integers(0, V, (TRAIN_B, T))
+        y = eye[np.roll(ids, 1, axis=1)]
+        if i == nan_at:
+            y = y.copy()
+            y[0, 0, 0] = np.nan
+        out.append(DataSet(ids, y))
+    return out
+
+
+def _tel_fit(batches, k, on, perf=None):
+    """One fit of a fresh ``_TLM`` (phase 4b's bf16-compute step) over
+    ``batches``: with the registry on, a ``TrainingWatch`` armed (and
+    ``perf`` as its listener), or with it off. Returns (net, watch, the
+    run's K1-K3 launches)."""
+    from deeplearning4j_tpu_torch import telemetry as tel
+    reg = tel.get_registry()
+    net = _tlm_amp().init(seed=SEED + 40)
+    watch = tel.TrainingWatch(window=TEL_TRAIN_BATCHES) if on else None
+    prev = tel.set_training_watch(watch)
+    reg.enabled = on
+    try:
+        net.set_listeners(*([perf] if perf is not None else []))
+        launches, _ = _counted_run(
+            net, lambda: net.fit(iterator=ListDataSetIterator(batches),
+                                 steps_per_dispatch=k), COUNTED)
+    finally:
+        reg.enabled = True
+        tel.set_training_watch(prev)
+    if watch is not None:
+        if not watch.drain(60):
+            raise AssertionError("telemetry: the training watch did not "
+                                 "drain")
+        watch.close()
+    return net, watch, launches
+
+
+def _tel_train():
+    """(c) phase 4b's step per step and in a window of 8, the registry on
+    with the watch armed against off: the parameters bitwise equal, the
+    span tree, the watch clean and then flagging a planted NaN at its
+    step in both modes, and ``PerformanceListener``'s MFU."""
+    from deeplearning4j_tpu_torch import telemetry as tel
+    reg = tel.get_registry()
+    reg.reset()
+    clean = _tel_batches()
+    perf = PerformanceListener(frequency=1)
+    launches = {n: 0 for n in COUNTED}
+    out = {"modes": {}}
+    for k, mode in ((1, "per_step"), (TEL_TRAIN_BATCHES, "window")):
+        on_net, watch, n_on = _tel_fit(clean, k, True,
+                                       perf if k == 1 else None)
+        off_net, _, n_off = _tel_fit(clean, k, False)
+        n_params = on_net.num_params()
+        same, worst, name = _params_vs(on_net, off_net)
+        if not same:
+            raise AssertionError(f"telemetry: {mode}: parameters with the "
+                                 f"registry on differ from off ({name}: "
+                                 f"{worst})")
+        if list(watch.unhealthy):
+            raise AssertionError(f"telemetry: {mode}: the watch flagged a "
+                                 f"clean run: {list(watch.unhealthy)}")
+        del on_net, off_net
+        _, nan_watch, n_nan = _tel_fit(_tel_batches(TEL_NAN_AT), k, True)
+        flagged = [(r["iteration"], r["reason"])
+                   for r in nan_watch.unhealthy]
+        if not flagged or flagged[0] != (TEL_NAN_AT, "nonfinite"):
+            raise AssertionError(f"telemetry: {mode}: the planted NaN at "
+                                 f"step {TEL_NAN_AT} was flagged as "
+                                 f"{flagged}")
+        for n in COUNTED:
+            launches[n] += n_on[n] + n_off[n] + n_nan[n]
+        out["modes"][mode] = {"bitwise_registry_off": True,
+                              "watch_first_flag": flagged[0],
+                              "watch_flags": len(flagged),
+                              "launches_on": n_on}
+        torch.cuda.empty_cache()
+    paths = {e["args"]["path"] for e in reg.trace_events()
+             if e.get("cat") == "span"}
+    for want in ("fit/epoch/window/dispatch", "fit/epoch/step"):
+        if want not in paths:
+            raise AssertionError(f"telemetry: no {want} span "
+                                 f"({sorted(paths)})")
+    mfus = [r.get("mfu") for r in perf.history]
+    if not mfus or not all(v is not None and 0 < v < 1 for v in mfus):
+        raise AssertionError(f"telemetry: PerformanceListener's mfu {mfus}")
+    cost = tel.get_cost_index().train_cost()
+    N = n_params
+    T, H, L = TLM["max_length"], TLM["n_heads"], TLM["n_blocks"]
+    Dh = TLM["d_model"] // H
+    pairs = T * (T + 1) / 2
+    analytic = 6.0 * N * TRAIN_B * T + 12.0 * L * TRAIN_B * H * Dh * pairs
+    out.update({
+        "span_paths": sorted(paths),
+        "mfu": mfus, "achieved_tflops": [r["achieved_tflops"]
+                                         for r in perf.history],
+        "cost_path": cost.path, "cost_dtype": cost.dtype,
+        "flops_per_step_counted": cost.flops_per_step,
+        "kernel_flops_per_step": cost.kernel_flops_per_step,
+        "flops_per_step_analytic_6NBT_plus_attention": analytic,
+        "counted_over_analytic": cost.flops_per_step / analytic,
+        "peak_tflops": tel.perf.peak_tflops(dtype=cost.dtype,
+                                            device=cost.device),
+        "launches": launches})
+    return out
+
+
+# (c') the step's cost of telemetry: one warm cycle, then measured ones
+TEL_TIMING_CYCLES = 3
+TEL_STATES = ("on", "off", "on_watch")     # registry on; off; on + watch
+
+
+def _tel_step_times():
+    """(c') phase 4b's step on one net per step and in windows of 8, the
+    registry on, off and on with a ``TrainingWatch`` armed, alternated in
+    cycles after a warm one (each state's first step and each window
+    graph run there): each state's step p50 (per step) or window p50 over
+    8 steps, on the card's clock (``_WindowClock`` waits at each end).
+    The warm cycle's first step is the one the cost index counts under
+    its dispatch mode; it is reported beside the off state's first."""
+    from deeplearning4j_tpu_torch import telemetry as tel
+    reg = tel.get_registry()
+    batches = _tel_batches()
+    out = {}
+    launches = {n: 0 for n in COUNTED}
+    for k, mode, feed in ((1, "per_step", batches),
+                          (TEL_TRAIN_BATCHES, "window", batches * 3)):
+        net = _tlm_amp().init(seed=SEED + 41)
+        ms = {st: [] for st in TEL_STATES}
+        first = {}
+        for cycle in range(1 + TEL_TIMING_CYCLES):
+            for st in TEL_STATES:
+                watch = tel.TrainingWatch(window=TEL_TRAIN_BATCHES) \
+                    if st == "on_watch" else None
+                prev = tel.set_training_watch(watch)
+                reg.enabled = st != "off"
+                clock = _WindowClock(k)
+                net.set_listeners(clock)
+                try:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    n, _ = _counted_run(
+                        net, lambda: net.fit(
+                            iterator=ListDataSetIterator(feed),
+                            steps_per_dispatch=k), COUNTED)
+                finally:
+                    reg.enabled = True
+                    tel.set_training_watch(prev)
+                    net.set_listeners()
+                if watch is not None:
+                    watch.drain(60)
+                    watch.close()
+                for name in COUNTED:
+                    launches[name] += n[name]
+                dt = [(b - a) * 1e3 for a, b in zip([t0] + clock.t, clock.t)]
+                if cycle == 0:
+                    first[st] = dt[0]
+                else:
+                    ms[st] += dt
+        p50 = {st: float(np.median(v)) for st, v in ms.items()}
+        out[mode] = {"ms_p50": p50, "ms": ms,
+                     "on_over_off": p50["on"] / p50["off"],
+                     "on_watch_over_off": p50["on_watch"] / p50["off"],
+                     "first_ms": first,
+                     "unit": "a step" if k == 1 else f"a window of {k}"}
+        del net
+        torch.cuda.empty_cache()
+    out["launches"] = launches
+    return out
+
+
+def _tel_forward_cost():
+    """(e) forward serving (phase 12's int8 net and closed loop, 8 clients
+    of 16 requests), the registry on and off alternated over
+    ``TEL_TIMING_CYCLES`` cycles after a warm one: each state's latency
+    p50 and p99 and rows/s, and the run's K8 launches."""
+    from deeplearning4j_tpu_torch import telemetry as tel
+    reg = tel.get_registry()
+    net = int8_net().init(seed=SEED + 15)
+    eng = InferenceEngine(net, feature_shape=(INT8_NET[0],),
+                          buckets=INT8_BUCKETS,
+                          forward_fn=k8.int8_forward_fn(net))
+    pool = np.random.default_rng(SEED + 16).standard_normal(
+        (64, INT8_NET[0])).astype(np.float32)
+    n_rows = sum(INT8_SIZES[(c + i) % len(INT8_SIZES)]
+                 for c in range(INT8_CLIENTS) for i in range(INT8_PER_CLIENT))
+    lat = {"on": [], "off": []}
+    rows_s = {"on": [], "off": []}
+    try:
+        k8.int8_matmul_fused.launches = 0
+        for cycle in range(1 + TEL_TIMING_CYCLES):
+            for st in ("on", "off"):
+                reg.enabled = st == "on"
+                try:
+                    got, wall = _serve_closed_loop(
+                        eng, pool, INT8_SIZES, INT8_CLIENTS, INT8_PER_CLIENT)
+                finally:
+                    reg.enabled = True
+                if cycle:
+                    lat[st] += got
+                    rows_s[st].append(n_rows / wall)
+        launches = k8.int8_matmul_fused.launches
+    finally:
+        eng.stop()
+    p50 = {st: float(np.percentile(v, 50)) for st, v in lat.items()}
+    return {"latency_ms_p50": p50,
+            "latency_ms_p99": {st: float(np.percentile(v, 99))
+                               for st, v in lat.items()},
+            "rows_per_s": {st: float(np.median(v))
+                           for st, v in rows_s.items()},
+            "p50_on_over_off": p50["on"] / p50["off"],
+            "requests_per_state": len(lat["on"]), "k8_launches": launches}
+
+
+def _tel_memory():
+    """(d) ``device0.bytes_in_use`` against ``torch.cuda.memory_allocated``
+    taken at the same point; the peak gauge at least that."""
+    from deeplearning4j_tpu_torch import telemetry as tel
+    torch.cuda.synchronize()
+    vals = tel.device_memory_gauges()
+    alloc = torch.cuda.memory_allocated(0)
+    used, peak = vals.get("device0.bytes_in_use"), \
+        vals.get("device0.peak_bytes_in_use")
+    if used != alloc or peak is None or peak < used:
+        raise AssertionError(f"telemetry: device0 gauges {vals}, "
+                             f"memory_allocated {alloc}")
+    return {"bytes_in_use": used, "peak_bytes_in_use": peak,
+            "memory_allocated": alloc,
+            "bytes_limit": vals.get("device0.bytes_limit")}
+
+
+def telemetry_phase():
+    """Phase 20 (see the module docstring): (a) serving with the telemetry
+    routes, (b) telemetry's waits and cost on the decode loop, (c)
+    training with the watch, spans and accounting, (c') its step cost,
+    (d) the memory gauges, (e) forward serving's cost."""
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="tel_")
+    net = transformer_lm(**TLM, token_input=True).init(seed=SEED)
+    try:
+        serve, eng, srv = _tel_serve(net, tmp)
+        try:
+            decode = _tel_decode_cost(eng)
+        finally:
+            srv.stop()
+        del eng, srv, net
+        torch.cuda.empty_cache()
+        train = _tel_train()
+        step_times = _tel_step_times()
+        memory = _tel_memory()
+        forward = _tel_forward_cost()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    row = {"serve": serve, "decode_cost": decode, "train": train,
+           "step_cost": step_times, "forward_cost": forward,
+           "memory": memory, "seconds": time.perf_counter() - t0}
+    log(f"telemetry: {row['seconds']:.1f} s, decode step p50 on/off "
+        f"{decode['on_over_off']:.4f}, train mfu {train['mfu']}, step p50 "
+        f"on/off {step_times['per_step']['on_over_off']:.4f} (window "
+        f"{step_times['window']['on_over_off']:.4f}), int8 serving p50 "
+        f"on/off {forward['p50_on_over_off']:.4f}")
+    return row
+
+
 def main() -> int:
     smi = device_phase()
     build_report = build_phase()
@@ -6439,6 +7027,14 @@ def main() -> int:
     tp_n = model_axis["launches"]
     elastic = elastic_phase(gserve)
     el_n = elastic["launches"]
+    # last, after elastic_phase: the host-read detector both use wraps
+    # torch.Tensor's read methods for the rest of the process
+    tel_row = telemetry_phase()
+    tel_serve = tel_row["serve"]["k1_launches"]
+    # (c) and (c')'s fits: the phase's training path
+    tel_train = {n: tel_row["train"]["launches"][n]
+                 + tel_row["step_cost"]["launches"][n] for n in COUNTED}
+    tel_i8 = tel_row["forward_cost"]["k8_launches"]
     top = next(r for r in rows if r["BH"] == 16 and r["T"] == 1024
                and r["dtype"] == str(torch.float32))
     serve_k1 = slice_row["flash_attention_launches"]
@@ -6464,7 +7060,8 @@ def main() -> int:
         + http_n["flash_attention_fwd"]
         + resume["launches"]["flash_attention_fwd"]
         + dp_opt["launches"]["flash_attention_fwd"]
-        + tp_n["flash_attention_fwd"] + el_n["flash_attention_fwd"],
+        + tp_n["flash_attention_fwd"] + el_n["flash_attention_fwd"]
+        + tel_serve + tel_train["flash_attention_fwd"],
         "launches_by_path": {
             "serve": serve_k1, "serve_generation": gen_row["k1_launches"],
             "train": train_k["flash_attention_fwd"],
@@ -6476,7 +7073,9 @@ def main() -> int:
             "train_resume": resume["launches"]["flash_attention_fwd"],
             "train_dp_options": dp_opt["launches"]["flash_attention_fwd"],
             "model_axis": tp_n["flash_attention_fwd"],
-            "elastic_distributed": el_n["flash_attention_fwd"]},
+            "elastic_distributed": el_n["flash_attention_fwd"],
+            "telemetry_serve": tel_serve,
+            "telemetry_train": tel_train["flash_attention_fwd"]},
         "max_abs_err": errs[torch.float32],
         "max_abs_err_f32": errs[torch.float32],
         "max_abs_err_bf16": errs[torch.bfloat16],
@@ -6495,6 +7094,7 @@ def main() -> int:
             "launches": train_k[name] + win_sum[name]
             + dp_row["launches"][name] + resume["launches"][name]
             + dp_opt["launches"][name] + tp_n[name] + el_n[name]
+            + tel_train[name]
             + sum(ring_row[d]["launches"][name] for d in ring_dtypes),
             "launches_by_path": {
                 "train": train_k[name],
@@ -6506,6 +7106,7 @@ def main() -> int:
                 "train_dp_options": dp_opt["launches"][name],
                 "model_axis": tp_n[name],
                 "elastic_distributed": el_n[name],
+                "telemetry_train": tel_train[name],
                 "ring": sum(ring_row[d]["launches"][name]
                             for d in ring_dtypes)},
             "max_abs_err": max(e[0] for e in bwd_errs[kind].values()),
@@ -6616,9 +7217,11 @@ def main() -> int:
         "name": "int8_matmul", "route": "cuda",
         "source": "deeplearning4j_tpu_torch/csrc/int8_matmul.cu",
         "replaces": "deeplearning4j_tpu/ops/kernels/quantized.py:92",
-        "launches": i8serve["k8_launches"] + http_n["int8_matmul"],
+        "launches": i8serve["k8_launches"] + http_n["int8_matmul"]
+        + tel_i8,
         "launches_by_path": {"serve_int8": i8serve["k8_launches"],
-                             "http": http_n["int8_matmul"]},
+                             "http": http_n["int8_matmul"],
+                             "telemetry_serve_int8": tel_i8},
         "max_abs_err": k8_err,
         "shape": "the 3 products of one int8 net forward, M 256 (ms and "
                  "library_ms: device time; _loop: timed loops of calls)",
@@ -6710,6 +7313,8 @@ def main() -> int:
     print(json.dumps({"model_axis": model_axis, "card": smi}, default=str),
           flush=True)
     print(json.dumps({"elastic_phase": elastic, "card": smi}, default=str),
+          flush=True)
+    print(json.dumps({"telemetry": tel_row, "card": smi}, default=str),
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -38,8 +38,15 @@ producer's hands. The consumer records the time it blocked waiting for a
 batch (``last_wait_ms``, ``total_wait_ms`` over the current epoch): the
 honest per-iteration ETL cost, zero when the pipeline keeps up. Breaking
 out of the consuming loop (or an error in it) stops the producer within
-one tick; an exception raised by ``base`` reaches the consumer. The
-reference's host-to-device bandwidth gauge is telemetry (ROADMAP A8).
+one tick; an exception raised by ``base`` reaches the consumer.
+Telemetry, as the reference's (``:140, 269-345``): the producer observes
+each batch's ``prefetch.ship_ms`` and, on the first batch of an epoch and
+every 64th, waits for that batch's copy (its own event, on its own
+thread) to set ``prefetch.host_to_device_gbps`` (also
+``self.host_to_device_gbps``); the consumer observes
+``prefetch.wait_ms``, sets ``prefetch.queue_depth`` and counts
+``prefetch.batches``. On the CPU there is no copy to time and the gauge
+stays unset.
 ``sharding`` (a ``parallel.mesh.Sharding``, the reference's
 ``data_sharding(mesh)``) ships to its mesh's device and checks that every
 array's cut dimension tiles the axis, as the reference's ``device_put``
@@ -56,6 +63,7 @@ from typing import List
 
 import torch
 
+from ..telemetry import get_registry
 from ..device import DeviceLike, resolve_device, torch_dtype
 from .dataset import DataSet, DataSetIterator
 from .iterators import MultiDataSet
@@ -134,6 +142,7 @@ class DevicePrefetchIterator(DataSetIterator):
         self.last_wait_ms = 0.0     # consumer block time for the last batch
         self.total_wait_ms = 0.0    # cumulative over the current epoch
         self.batches = 0            # batches yielded in the current epoch
+        self.host_to_device_gbps = 0.0      # the last sampled copy rate
         # each __iter__ builds its own pool (held by its producer), so a
         # producer of an abandoned epoch can never refill a slot whose copy
         # the new epoch's consumer still waits on; this is the newest
@@ -210,11 +219,15 @@ class DevicePrefetchIterator(DataSetIterator):
                     continue
             return False
 
+        reg = get_registry()
+
         def produce():
+            n_shipped = 0
             for ds in self.base:
                 if stop.is_set():
                     return
                 used, out = [], []
+                t_ship = time.perf_counter()
                 if cuda:
                     with torch.cuda.stream(side):
                         shipped = self._ship(ds, pool, used, out)
@@ -223,6 +236,22 @@ class DevicePrefetchIterator(DataSetIterator):
                     pool.mark(used, event)
                 else:
                     shipped, event = self._ship(ds, pool, used, out), None
+                # observed before the sampled wait below, so it measures
+                # the asynchronous ship every batch
+                reg.histogram("prefetch.ship_ms").observe(
+                    (time.perf_counter() - t_ship) * 1e3)
+                if event is not None and n_shipped % 64 == 0 and out:
+                    # a sampled batch: wait for its copy (this thread's,
+                    # not the loop's) for an honest rate
+                    event.synchronize()
+                    dt = time.perf_counter() - t_ship
+                    nbytes = sum(d.numel() * d.element_size() for d in out)
+                    if dt > 0:
+                        self.host_to_device_gbps = nbytes / dt / 1e9
+                        if reg.enabled:
+                            reg.gauge("prefetch.host_to_device_gbps").set(
+                                self.host_to_device_gbps)
+                n_shipped += 1
                 if not offer((shipped, event, out)):
                     return
 
@@ -259,6 +288,10 @@ class DevicePrefetchIterator(DataSetIterator):
                 self.last_wait_ms = wait_ms
                 self.total_wait_ms += wait_ms
                 self.batches += 1
+                if reg.enabled:
+                    reg.histogram("prefetch.wait_ms").observe(wait_ms)
+                    reg.gauge("prefetch.queue_depth").set(q.qsize())
+                    reg.counter("prefetch.batches").inc()
                 yield shipped
         finally:
             # break / exception / exhaustion: stop the producer and let it

@@ -40,6 +40,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..telemetry.perf import note_kernel
 from .nvcc import PKG, build_library, load_symbol
 from .nvcc import library_path as _lib_path
 
@@ -287,6 +288,17 @@ def _launch(symbol: str, ins, key_mask, outs, *, causal: bool,
                            f"(BH={BH}, T={T}, D={D}, {q3.dtype})")
 
 
+def _pairs(T: int, causal: bool) -> float:
+    """Visible query/key pairs of one head: the kernels' analytic counts
+    (``telemetry.note_kernel``) are flops a pair times these. They count
+    model flops, 2·D a product of a pair: K1 4·D (S = QK^T, O = PV), the
+    backward 8·D in all, K2 4·D (dP = dO V^T, dQ = dS K) and K3 4·D
+    (dV = P^T dO, dK = dS^T Q). The backward kernels' recompute of S, and
+    K3's second dP, are work the card does that the counts leave out, so
+    ``mfu`` is not flattered by the recomputation."""
+    return T * (T + 1) / 2 if causal else float(T * T)
+
+
 def flash_attention_fwd(q3, k3, v3, key_mask=None, *, causal: bool,
                         scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """The ``_fwd`` counterpart (K1): q3/k3/v3 [BH,T,D], key_mask [B,T] or
@@ -300,6 +312,8 @@ def flash_attention_fwd(q3, k3, v3, key_mask=None, *, causal: bool,
     _launch("dl4j_flash_attention_fwd", [q3, k3, v3], key_mask, [o, lse],
             causal=causal, scale=scale)
     flash_attention.launches += 1
+    note_kernel(4.0 * q3.shape[2] * _pairs(q3.shape[1], causal) * q3.shape[0],
+                q3, k3, v3, o, lse)
     return o, lse
 
 
@@ -316,6 +330,8 @@ def flash_attention_bwd_dq(q3, k3, v3, dout, lse, delta, key_mask=None, *,
     _launch("dl4j_flash_attention_bwd_dq", [q3, k3, v3, dout, lse, delta],
             key_mask, [dq], causal=causal, scale=scale)
     flash_attention_bwd_dq.launches += 1
+    note_kernel(4.0 * q3.shape[2] * _pairs(q3.shape[1], causal) * q3.shape[0],
+                q3, k3, v3, dout, lse, delta, dq)
     return dq
 
 
@@ -332,6 +348,8 @@ def flash_attention_bwd_dkv(q3, k3, v3, dout, lse, delta, key_mask=None, *,
     _launch("dl4j_flash_attention_bwd_dkv", [q3, k3, v3, dout, lse, delta],
             key_mask, [dk, dv], causal=causal, scale=scale)
     flash_attention_bwd_dkv.launches += 1
+    note_kernel(4.0 * q3.shape[2] * _pairs(q3.shape[1], causal) * q3.shape[0],
+                q3, k3, v3, dout, lse, delta, dk, dv)
     return dk, dv
 
 

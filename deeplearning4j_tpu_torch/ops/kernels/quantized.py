@@ -36,6 +36,7 @@ from typing import Tuple
 
 import torch
 
+from ...telemetry.perf import note_kernel
 from ..nvcc import PKG, build_library, load_symbol
 
 SOURCE = PKG / "csrc" / "int8_matmul.cu"
@@ -212,6 +213,8 @@ def int8_matmul_fused(x_q, w_q, x_scale, w_scale):
         raise ValueError(f"K8 runs on CPU or CUDA tensors, not {x_q.device}")
     out = _launch(x_q, w_q, x_scale, w_scale)
     int8_matmul_fused.launches += 1
+    note_kernel(2.0 * x_q.shape[0] * x_q.shape[1] * w_q.shape[1], x_q, w_q,
+                x_scale, w_scale, out)
     return out
 
 

@@ -34,6 +34,7 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
+from ..telemetry.perf import note_kernel
 from .nvcc import PKG, build_library, load_symbol
 
 # The probe admits what the kernels take: f32 or bf16, tanh with sigmoid
@@ -405,6 +406,7 @@ def fused_lstm_fwd(x_proj, h0, c0, R, mask=None, peep=None):
             ("c0", c0, (B, H))], x_proj.dtype, x_proj.device)
     out = _fwd_launch(x_proj, h0, c0, R, mask, peep)
     fused_lstm_fwd.launches += 1
+    note_kernel(8.0 * T * B * H * H, x_proj, h0, c0, R, out)
     return out
 
 
@@ -479,6 +481,8 @@ def fused_lstm_bwd(gates, cs, c_prev, h_prev, dhs, R, dhT, dcT, mask=None,
     out = _bwd_launch(gates, cs, c_prev, h_prev, dhs, R, dhT, dcT, mask,
                       peep)
     fused_lstm_bwd.launches += 1
+    note_kernel(16.0 * T * B * H * H, gates, cs, c_prev, h_prev, dhs, R, dhT,
+                dcT, out)
     return out
 
 

@@ -19,10 +19,12 @@ input pipeline's wait (``note_batch``, from ``optimize/solver.py`` and
 ``parallel/data_parallel.py``, which take the wait from the
 ``DevicePrefetchIterator``). A report that falls due inside a window of
 K steps (``note_window``) waits for the window's last step, whose time
-stamp covers all K. Its record holds exactly the keys the reference's
-holds when no cost capture has landed and the telemetry registry is off:
-the cost index (``mfu``, ``achieved_tflops``) and the ``train.*`` gauges
-and histograms come with the telemetry (ROADMAP A8, part 2).
+stamp covers all K. Each report lands in the telemetry registry
+(``train.*`` gauges and histograms), and once the cost index holds the
+train step's cost (``telemetry/perf.py``) the record also holds
+``achieved_tflops`` and ``mfu`` against the peak of the step's compute
+dtype on its card; ``mfu`` is None where there is no peak (the CPU, a
+card not in ``perf.CHIP_PEAKS``), never a TPU figure.
 """
 from __future__ import annotations
 
@@ -149,10 +151,14 @@ class PerformanceListener(TrainingListener):
     host dispatch over the report's interval. The log line is the
     reference's.
 
-    MFU, achieved TFLOP/s and the ``train.*`` gauges come with the
-    telemetry (ROADMAP A8, part 2): until then a record holds no ``mfu`` or
-    ``achieved_tflops`` key, as the reference's does before its cost
-    capture."""
+    Each report also sets the ``train.samples_per_sec`` /
+    ``train.batches_per_sec`` / ``train.windowed_steps_per_sec`` /
+    ``train.steps_per_dispatch`` gauges and observes the
+    ``train.etl_wait_ms`` / ``train.device_ms`` histograms. Once the cost
+    index holds the train step's cost, a record also carries
+    ``achieved_tflops`` and ``mfu`` (None without a peak), implied by the
+    report's per-step device time; before that it holds neither key, as
+    the reference's does before its cost capture."""
 
     def __init__(self, frequency: int = 10, report_samples: bool = True):
         self.frequency = max(1, frequency)
@@ -209,7 +215,30 @@ class PerformanceListener(TrainingListener):
                    "windowed_steps_per_sec": self._batches / dt,
                    "steps_per_dispatch": steps_per_dispatch,
                    "score": value}
+            # cost-model keys (telemetry/perf.py): host floats read at the
+            # report point, as the reference's
+            from ..telemetry.perf import get_cost_index, implied_mfu
+            cost = get_cost_index().train_cost()
+            if cost is not None and cost.flops_per_step and \
+                    rec["device_ms_per_iteration"] > 0:
+                dt_step_s = rec["device_ms_per_iteration"] / 1e3
+                rec["mfu"] = implied_mfu(cost.flops_per_step, dt_step_s,
+                                         dtype=cost.dtype,
+                                         device=cost.device)
+                rec["achieved_tflops"] = \
+                    cost.flops_per_step / dt_step_s / 1e12
             self.history.append(rec)
+            from ..telemetry import get_registry
+            reg = get_registry()
+            if reg.enabled:
+                reg.gauge("train.samples_per_sec").set(rec["samples_per_sec"])
+                reg.gauge("train.batches_per_sec").set(rec["batches_per_sec"])
+                reg.gauge("train.windowed_steps_per_sec").set(
+                    rec["windowed_steps_per_sec"])
+                reg.gauge("train.steps_per_dispatch").set(steps_per_dispatch)
+                reg.histogram("train.etl_wait_ms").observe(etl_per_it)
+                reg.histogram("train.device_ms").observe(
+                    rec["device_ms_per_iteration"])
             log.info("iteration %d: %.1f samples/sec, %.2f batches/sec, "
                      "etl wait %.2f ms/it, device %.2f ms/it, score=%.5f",
                      iteration, rec["samples_per_sec"],

@@ -61,8 +61,25 @@ layers are keyed by vertex name or by layer index.
   shares). The wait is the prefetcher's (``EtlClock``). ``pretrain``
   fires no epoch hooks, as the reference's does not.
 
-The telemetry spans, perf accounting and training watch inside ``fit``
-(ROADMAP A8, part 2) are not ported.
+- **Telemetry** (reference ``:319-520``): a fit runs under the caller's
+  trace context or a fresh one, inside the ``fit`` -> ``epoch`` ->
+  ``window`` -> ``dispatch`` spans (a batch outside a window: ``step``),
+  with the ``train.iterations`` / ``train.windows`` counters. Before it
+  starts the parameters and optimiser state are tagged for the memory
+  profiler (``params``, ``opt_state``). On the SGD paths each dispatch's
+  wait, dispatch and host times go to ``telemetry.StepAccounting``
+  (``perf.step.*``, ``perf.fit.dispatch_ms`` for a window), and the first
+  eager step of each shape is counted into the cost index
+  (``fit/epoch/step``, or ``fit/epoch/window`` with K steps a call: the
+  window's warm step; ``telemetry/perf.py``). With a ``TrainingWatch``
+  armed (``telemetry.set_training_watch``) each step also returns its
+  ``[3]`` health vector (``training_health_vec`` on the gradients, before
+  the update: a read only), which the watch buffers on this thread and
+  reads on its own; a window's rows come out of the CUDA graph through
+  ``WindowGraphs``' per-replay copies. At each epoch's end the device
+  memory gauges are read, the accounting flushed and the cost index
+  folded. tBPTT and the second-order solvers get the spans only, as in
+  the reference.
 """
 from __future__ import annotations
 
@@ -76,12 +93,20 @@ from ..datasets.dataset import DataSet, ListDataSetIterator
 from ..datasets.prefetch import (BatchWindow, DevicePrefetchIterator,
                                  iter_windows, skip_batches)
 from ..nn.tape import collect_state, commit_state
-from .step_graph import WindowGraphs
+from ..telemetry import device_memory_gauges, get_registry, memprof, span
+from ..telemetry.perf import StepAccounting, accounting_enabled, \
+    get_cost_index
+from ..telemetry.slo import get_training_watch, training_health_vec
+from ..telemetry.tracecontext import (current_trace_context,
+                                      new_trace_context, use_trace_context)
+from .step_graph import WindowGraphs, feed_signature
 
 
-def _descend(net, loss, it: torch.Tensor) -> None:
+def _descend(net, loss, it: torch.Tensor, health: bool = False):
     """Gradients of ``loss`` with respect to every parameter of a layer
-    that is not frozen, then the updater in place at iteration ``it``."""
+    that is not frozen, then the updater in place at iteration ``it``.
+    ``health``: also return ``training_health_vec`` of the loss and the
+    gradients, taken before the update (else None)."""
     params = net.param_dicts()
     trainable = [(name, k, p) for name, pd in params.items()
                  if not getattr(net.updater.layer_confs[name], "frozen",
@@ -95,22 +120,24 @@ def _descend(net, loss, it: torch.Tensor) -> None:
         # supervised stack) has a zero gradient, as in the reference
         grads.setdefault(name, {})[k] = torch.zeros_like(p) if g is None \
             else g
+    vec = training_health_vec(loss, grads) if health else None
     net.updater.update(grads, net.opt_state, params, it)
+    return vec
 
 
 def train_step_math(net, x, y, lmask=None, fmask=None, *,
                     gen: Optional[torch.Generator] = None,
-                    it: torch.Tensor) -> torch.Tensor:
+                    it: torch.Tensor, with_health: bool = False):
     """The single-step update every SGD path runs: the loss at the current
     parameters, then ``_descend`` at the iteration tensor ``it``, then the
     forward's new layer state into the layers. Returns the loss
-    (detached)."""
+    (detached), or (loss, health [3]) with ``with_health``."""
     with collect_state({}) as new_state:
         loss = net.loss_fn(x, y, train=True, gen=gen, labels_mask=lmask,
                            features_mask=fmask)
-    _descend(net, loss, it)
+    vec = _descend(net, loss, it, with_health)
     commit_state(new_state)
-    return loss.detach()
+    return (loss.detach(), vec) if with_health else loss.detach()
 
 
 def tbptt_step_math(net, x, y, lmask, fmask, rnn_states, *,
@@ -267,9 +294,14 @@ class Solver:
         self.net = net
         self._gen: Optional[torch.Generator] = None
         self._it: Optional[torch.Tensor] = None
+        # per fit: whether steps return their health vector (a watch is
+        # armed), and the cost entry an eager step is counted into
+        self._health = False
+        self._cost: Optional[tuple] = None
         self._windows = WindowGraphs(
             net, self._step, lambda f: train_step_math(
-                net, *f, gen=self._gen, it=self._it),
+                net, *f, gen=self._gen, it=self._it,
+                with_health=self._health),
             self._at, lambda: self._gen)
         # the last fit's DevicePrefetchIterator (its waits), or None
         self.prefetcher: Optional[DevicePrefetchIterator] = None
@@ -293,10 +325,24 @@ class Solver:
                 for v in (ds.features, ds.labels, ds.labels_mask,
                           ds.features_mask)]
 
-    def _step(self, feed, it: int) -> torch.Tensor:
-        """One eager step at iteration ``it``; returns its loss."""
-        it = self._at(it)
-        return train_step_math(self.net, *feed, gen=self._gen, it=it)
+    def _step(self, feed, it: int):
+        """One eager step at iteration ``it``; returns its loss (and its
+        health vector when a watch is armed). The first step of a shape
+        is counted into ``self._cost``'s entry when there is one."""
+        it_t = self._at(it)
+        net = self.net
+
+        def run():
+            return train_step_math(net, *feed, gen=self._gen, it=it_t,
+                                   with_health=self._health)
+        if self._cost is None:
+            return run()
+        path, k, timing = self._cost
+        return get_cost_index().count(
+            path, (id(self), k, feed_signature(feed)), run,
+            steps_per_call=k, timing_metric=timing,
+            dtype=getattr(net.conf, "compute_dtype", None) or net.dtype,
+            device=net.device)
 
     # ------------------------------------------------------------- fit
     def fit(self, data=None, labels=None, *, epochs=1, batch_size=None,
@@ -337,10 +383,29 @@ class Solver:
         second_order = self._second_order_solver(tbptt)
         # tBPTT and the second-order solvers run per step
         k = 1 if tbptt or second_order else steps_per_dispatch
-        for epoch in range(epochs):
-            self._fit_epoch(feed, iterator, k, tbptt,
-                            skip_first_batches if epoch == 0 else 0,
-                            second_order)
+        reg = get_registry()
+        # the training watch: SGD paths only (tBPTT and the second-order
+        # solvers keep their own step structure, as in the reference)
+        watch = None if tbptt or second_order is not None \
+            else get_training_watch()
+        self._health = watch is not None
+        if reg.enabled:
+            # memory-profiler owners: metadata only, no device read
+            if getattr(net, "opt_state", None) is not None:
+                memprof.tag(net.opt_state, "opt_state")
+            memprof.tag(net.param_dicts(), "params")
+        ctx = current_trace_context()
+        with use_trace_context(ctx if ctx is not None
+                               else new_trace_context()):
+            with span("fit", epochs=epochs, steps_per_dispatch=k,
+                      net=type(net).__name__):
+                for epoch in range(epochs):
+                    with span("epoch", index=epoch):
+                        self._fit_epoch(feed, iterator, k, tbptt,
+                                        skip_first_batches if epoch == 0
+                                        else 0, second_order, reg, watch)
+        if watch is not None:
+            watch.flush()          # the end of a fit is a window boundary
         return net
 
     def _second_order_solver(self, tbptt: bool):
@@ -361,10 +426,22 @@ class Solver:
         return self._second_order
 
     def _fit_epoch(self, feed, iterator, k: int, tbptt: bool,
-                   skip: int, second_order=None) -> None:
+                   skip: int, second_order=None, reg=None,
+                   watch=None) -> None:
         net = self.net
+        reg = reg or get_registry()
         epoch_hook(net.listeners, "on_epoch_start", net)
         clock = EtlClock(self.prefetcher)
+        # step accounting and cost counting: SGD paths only, as the watch
+        acct = None
+        if reg.enabled and not tbptt and second_order is None \
+                and accounting_enabled():
+            acct = StepAccounting(reg)
+        # the Solver's own window timing: the window cost entry pairs with
+        # it (ParallelWrapper's dispatch spans feed span.dispatch_ms)
+        h_disp = reg.histogram("perf.fit.dispatch_ms") if acct else None
+        c_iters = reg.counter("train.iterations")
+        c_windows = reg.counter("train.windows")
         # the mid-epoch resume: the first ``skip`` batches were trained by
         # the run that wrote the checkpoint (iteration_count covers them),
         # so they are consumed here, before windowing
@@ -374,28 +451,77 @@ class Solver:
         for item in (iter_windows(src, k) if k > 1 else src):
             etl_ms = clock.etl_ms()
             if isinstance(item, BatchWindow):
-                losses = self._windows.run([self._feed(ds)
-                                            for ds in item.datasets])
-                notify_window(net, item.datasets, losses, etl_ms,
-                              clock.device_ms(etl_ms))
+                kw = len(item.datasets)
+                with span("window", k=kw, iteration=net.iteration_count):
+                    feeds = [self._feed(ds) for ds in item.datasets]
+                    it0 = net.iteration_count
+                    self._cost = (("fit/epoch/window", kw,
+                                   "perf.fit.dispatch_ms") if acct else None)
+                    t_d0 = time.perf_counter()
+                    with span("dispatch", k=kw):
+                        out = self._windows.run(feeds, key=(self._health,))
+                    dispatch_ms = (time.perf_counter() - t_d0) * 1e3
+                    self._cost = None
+                    if h_disp is not None:
+                        h_disp.observe(dispatch_ms)
+                    losses = out
+                    if self._health:
+                        # [K, 3] device rows: appended, never read here
+                        losses, health = out
+                        watch.on_health(it0, health, kw)
+                    c_windows.inc()
+                    c_iters.inc(kw)
+                    notify_window(net, item.datasets, losses, etl_ms,
+                                  clock.device_ms(etl_ms))
+                if acct is not None:
+                    wall_ms = (time.perf_counter() - clock.t0) * 1e3
+                    acct.on_step(input_wait_ms=etl_ms, compute_ms=dispatch_ms,
+                                 host_ms=wall_ms - etl_ms - dispatch_ms,
+                                 steps=kw)
                 clock.restart()
                 continue
-            x, y, lmask, fmask = self._feed(item)
-            if second_order is not None:
-                loss = second_order.step(x, y, lmask, fmask)
-            elif tbptt:
-                loss = self._fit_tbptt_batch(x, y, lmask, fmask)
-            else:
-                loss = self._step([x, y, lmask, fmask], net.iteration_count)
-            # the listeners see the last iteration run, before the count
-            # moves past it, as the reference's (a tBPTT batch has moved it
-            # once a chunk already)
-            notify_batch(net, item, loss, etl_ms, clock.device_ms(etl_ms),
-                         done=net.iteration_count - 1 if tbptt else None)
-            if not tbptt:
-                net.iteration_count += 1
+            dispatch_ms = None
+            # one span a single-step iteration: the step is the dispatch
+            with span("step", iteration=net.iteration_count):
+                x, y, lmask, fmask = self._feed(item)
+                if second_order is not None:
+                    loss = second_order.step(x, y, lmask, fmask)
+                elif tbptt:
+                    loss = self._fit_tbptt_batch(x, y, lmask, fmask)
+                else:
+                    self._cost = (("fit/epoch/step", 1,
+                                   "perf.step.compute_ms") if acct else None)
+                    t_d0 = time.perf_counter()
+                    loss = self._step([x, y, lmask, fmask],
+                                      net.iteration_count)
+                    dispatch_ms = (time.perf_counter() - t_d0) * 1e3
+                    self._cost = None
+                    if self._health:
+                        loss, health = loss
+                        watch.on_health(net.iteration_count, health, 1)
+                c_iters.inc()
+                # the listeners see the last iteration run, before the
+                # count moves past it, as the reference's (a tBPTT batch
+                # has moved it once a chunk already)
+                notify_batch(net, item, loss, etl_ms,
+                             clock.device_ms(etl_ms),
+                             done=net.iteration_count - 1 if tbptt else None)
+                if not tbptt:
+                    net.iteration_count += 1
+            if acct is not None and dispatch_ms is not None:
+                wall_ms = (time.perf_counter() - clock.t0) * 1e3
+                acct.on_step(input_wait_ms=etl_ms, compute_ms=dispatch_ms,
+                             host_ms=wall_ms - etl_ms - dispatch_ms)
             clock.restart()
         epoch_hook(net.listeners, "on_epoch_end", net)
+        if reg.enabled:
+            # the card's allocator counters, once an epoch (a host read)
+            device_memory_gauges(reg)
+        if acct is not None:
+            # the epoch boundary: flush the decomposition, fold the costs
+            # against their timings (host arithmetic, off the loop)
+            acct.flush()
+            get_cost_index().fold(reg)
         if hasattr(iterator, "reset"):
             iterator.reset()
 

@@ -42,6 +42,13 @@ model is ``serving/generation/graphs.py``'s decode graph:
   trainer's own key fields, the compute dtype and gradient checkpointing),
   recaptured when ``binding`` changed, and the counts ``graph_stats``
   reports.
+- **Several outputs.** A step may return a tuple of tensors (the Solver's
+  loss and, with a ``TrainingWatch`` armed, its ``[3]`` health vector).
+  Each replay overwrites the graph's static outputs, so every replay's are
+  copied into the window's ``[K, ...]`` buffers on the loop's stream before
+  the next replay; the window returns the tuple of buffers. The health
+  vector only reads the gradients, so the parameters are the same bits
+  with it or without it.
 """
 from __future__ import annotations
 
@@ -64,9 +71,11 @@ COUNTED = {"flash_attention_fwd": fa.flash_attention,
 
 def feed_signature(feed: Sequence) -> tuple:
     """(shape, dtype) of each tensor of a step's feed (x, y, labels mask,
-    features mask), None for an absent one."""
-    return tuple(None if t is None else (tuple(t.shape), t.dtype)
-                 for t in feed)
+    features mask; a multi-input graph's lists nest), None for an absent
+    one."""
+    return tuple(None if t is None
+                 else feed_signature(t) if isinstance(t, (list, tuple))
+                 else (tuple(t.shape), t.dtype) for t in feed)
 
 
 def _tensors(tree):
@@ -118,7 +127,7 @@ class TrainStepGraph:
 
     def run(self, feed) -> torch.Tensor:
         """Copy ``feed`` into the static buffers and replay on the current
-        stream; returns the step's loss (a static tensor, overwritten by
+        stream; returns the step's output (static tensors, overwritten by
         the next replay). The caller has set the iteration tensor and the
         generator's seed."""
         for s, t in zip(self._static, feed):
@@ -152,7 +161,8 @@ class WindowGraphs:
 
     def run(self, feeds, key: Tuple = ()) -> torch.Tensor:
         """Run the window's steps from iteration ``net.iteration_count`` on
-        (without advancing it); returns their losses [K]. ``key``: the
+        (without advancing it); returns their losses [K] (a tuple of [K,
+        ...] buffers when the step returns a tuple). ``key``: the
         trainer's fields that change the captured step. On the card the
         window's first step runs eagerly on a capture stream of its own
         (as the decode graph's) when this key has no graph yet, and is
@@ -160,8 +170,10 @@ class WindowGraphs:
         net = self.net
         it0 = net.iteration_count
         if net.device.type != "cuda":
-            return torch.stack([self._warm(feed, it0 + i)
-                                for i, feed in enumerate(feeds)])
+            outs = [self._warm(feed, it0 + i) for i, feed in enumerate(feeds)]
+            if isinstance(outs[0], tuple):
+                return tuple(torch.stack(col) for col in zip(*outs))
+            return torch.stack(outs)
         key = feed_signature(feeds[0]) + tuple(key) + (
             getattr(net.conf, "compute_dtype", None),
             bool(getattr(net.conf, "gradient_checkpointing", False)))
@@ -175,11 +187,10 @@ class WindowGraphs:
             cur = torch.cuda.current_stream(net.device)
             side.wait_stream(cur)
             with torch.cuda.stream(side):      # the warm step: step 0
-                loss = self._warm(feeds[0], it0)
+                first = self._warm(feeds[0], it0)
             cur.wait_stream(side)
-            out = torch.empty((len(feeds),), dtype=loss.dtype,
-                              device=net.device)
-            out[0].copy_(loss)
+            out = _buffers(first, len(feeds))
+            _put(out, 0, first)
             graph = TrainStepGraph(net, feeds[1], self._step, self._gens(),
                                    side)
             self.graphs[key] = graph
@@ -187,11 +198,10 @@ class WindowGraphs:
             start = 1
         for i in range(start, len(feeds)):
             self._at(it0 + i)
-            loss = graph.run(feeds[i])
+            res = graph.run(feeds[i])
             if out is None:
-                out = torch.empty((len(feeds),), dtype=loss.dtype,
-                                  device=net.device)
-            out[i].copy_(loss)
+                out = _buffers(res, len(feeds))
+            _put(out, i, res)       # before the next replay overwrites res
         return out
 
     def stats(self) -> dict:
@@ -205,3 +215,20 @@ class WindowGraphs:
         return {"captures": len(self._made),
                 "replays": sum(g.replays for g in self._made),
                 "launches_in_replays": launches}
+
+
+def _buffers(res, k: int):
+    """[k, ...] buffers for a step's output (a tensor or a tuple)."""
+    if isinstance(res, tuple):
+        return tuple(_buffers(t, k) for t in res)
+    return torch.empty((k,) + tuple(res.shape), dtype=res.dtype,
+                       device=res.device)
+
+
+def _put(out, i: int, res) -> None:
+    """Row ``i`` of the window's buffers := a step's output."""
+    if isinstance(res, tuple):
+        for o, t in zip(out, res):
+            o[i].copy_(t)
+    else:
+        out[i].copy_(res)

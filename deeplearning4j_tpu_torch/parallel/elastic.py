@@ -52,7 +52,7 @@ installed as restored). Every wrapper is dropped after a recovery
 The reference's ``elastic.*`` counters, gauges and histogram, its
 ``elastic.fit`` / ``elastic.recover`` spans, the ``elastic.mode_switch``
 event, the trace context and the flight-recorder dumps are telemetry
-(ROADMAP A8, part 2): the results carry the evidence (``recoveries``,
+(ROADMAP A8, part 2b): the results carry the evidence (``recoveries``,
 ``degraded_transitions``, ``mode_history``, ``preempted``, ``steps_done``,
 ``last_recovery_ms``) and ``registry=`` other than None raises
 ``NotImplementedError``.
@@ -153,7 +153,7 @@ class ElasticTrainer:
             raise NotImplementedError(
                 "ElasticTrainer(registry=...): the elastic.* metrics, spans "
                 "and flight-recorder dumps are telemetry, not ported yet "
-                "(ROADMAP A8, part 2); the trainer's results carry the "
+                "(ROADMAP A8, part 2b); the trainer's results carry the "
                 "evidence")
         self.net = net
         # the degraded mode averages whole per-worker state trajectories,

@@ -32,7 +32,7 @@ helpers (:func:`truncate_newest_sharded`, :func:`corrupt_newest_sharded`,
 :func:`truncate_newest_zip`) work on the port's
 ``util/distributed_checkpoint.py`` and ``util/checkpointing.py`` files.
 The reference's flight-recorder dump before each injected fault
-(``_blackbox``, ``:218-222``) is telemetry (ROADMAP A8, part 2): dropped
+(``_blackbox``, ``:218-222``) is telemetry (ROADMAP A8, part 2b): dropped
 here, with nothing in its place.
 """
 from __future__ import annotations

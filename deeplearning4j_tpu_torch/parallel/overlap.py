@@ -25,7 +25,7 @@ size; what the buckets change here is the number of launches.
 ``fused_pmean`` takes the mean of a list of leaves in one buffer a dtype.
 
 The reference's ``profile_schedule`` times each bucket's collective on a
-mesh and writes trace events: that is telemetry (ROADMAP A8, part 2) and
+mesh and writes trace events: that is telemetry (ROADMAP A8, part 2b) and
 raises ``NotImplementedError`` naming it.
 """
 from __future__ import annotations
@@ -188,4 +188,4 @@ def profile_schedule(mesh, schedule: BucketSchedule, axis: str = "data",
                      repeats: int = 3) -> dict:
     raise NotImplementedError("profile_schedule (per-bucket collective "
                               "timing and trace events) is telemetry: not "
-                              "ported yet (ROADMAP A8, part 2)")
+                              "ported yet (ROADMAP A8, part 2b)")

@@ -46,7 +46,7 @@ updated parameters are then gathered back to every worker.
   ``replicated_state_bytes`` is the saving a worker.
 
 The reference's ``zero.*`` gauges and ``profile`` (collective timing and
-trace spans) are telemetry (ROADMAP A8, part 2): dropped here, and
+trace spans) are telemetry (ROADMAP A8, part 2b): dropped here, and
 ``profile`` raises naming it. ``parallel/elastic.py``'s ``ElasticTrainer``
 drives it with ``zero_stage``: one engine a worker set, its
 ``sharding_meta`` in every save and ``make_zero_resharder`` onto a shrunk
@@ -512,7 +512,7 @@ class ZeroUpdateEngine:
         raise NotImplementedError("ZeroUpdateEngine.profile (collective "
                                   "timing, trace spans and the zero.* "
                                   "gauges) is telemetry: not ported yet "
-                                  "(ROADMAP A8, part 2)")
+                                  "(ROADMAP A8, part 2b)")
 
 
 def _itemsize(dtype: torch.dtype) -> int:

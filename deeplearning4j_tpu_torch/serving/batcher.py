@@ -1,10 +1,13 @@
 """Shape-bucketed dynamic batcher: bounded queue, deadlines, drain.
 
-Counterpart of ``deeplearning4j_tpu/serving/batcher.py`` (framework-free
-apart from its telemetry hooks): the same admission, coalescing, deferral
-and resolution rules. The hooks (``:21-23``: the flight recorder's dump on
-a dispatch error, the per-bucket dispatch-time histogram and the
-request-trace events) wait for telemetry (ROADMAP A8). The runner is
+Counterpart of ``deeplearning4j_tpu/serving/batcher.py``: the same
+admission, coalescing, deferral and resolution rules, and the same
+telemetry: a request carries its submitter's trace id to the dispatch
+thread (``serving.admit`` and ``serving.batch`` events), each batch's
+dispatch time lands in ``serving.<model>.bucket<b>.dispatch_ms`` (the
+timing half of the bucket's cost entry; the runner returns a host array,
+so this is device-complete time) and a dispatch error fires the flight
+recorder (``serving_dispatch_error``, rate-limited). The runner is
 called on the batcher's own thread; the port's runner launches its kernels
 on that thread's current stream and returns a numpy array, so the result
 is on the host before a caller's event is set. One addition: ``on_start``
@@ -34,12 +37,15 @@ import numpy as np
 from .buckets import BucketLadder
 from .errors import (DeadlineExceededError, DrainingError, QueueFullError,
                      ShapeMismatchError)
+from ..telemetry.flightrec import get_flight_recorder
+from ..telemetry.registry import get_registry
+from ..telemetry.tracecontext import current_trace_id, event
 from .metrics import ServingMetrics
 
 
 class _Request:
     __slots__ = ("x", "n", "event", "result", "error", "enqueue_t",
-                 "deadline", "abandoned")
+                 "deadline", "abandoned", "trace_id")
 
     def __init__(self, x: np.ndarray, deadline: float):
         self.x = x
@@ -50,6 +56,10 @@ class _Request:
         self.enqueue_t = time.monotonic()
         self.deadline = deadline
         self.abandoned = False        # caller gave up (deadline expired)
+        # the submitter's trace id rides the request to the dispatch
+        # thread, which stamps it on the request's batch event (None: an
+        # untraced caller costs nothing)
+        self.trace_id = current_trace_id()
 
 
 class ShapeBucketedBatcher:
@@ -155,6 +165,9 @@ class ShapeBucketedBatcher:
                     f"({self.queue_limit} requests)")
             self._dq.append(req)
             self._cond.notify_all()
+        if req.trace_id is not None:
+            event("serving.admit", model=self.name, rows=req.n,
+                  queue_depth=len(self._dq))
         return req
 
     def _await(self, req: _Request, deadline: float) -> np.ndarray:
@@ -255,7 +268,13 @@ class ShapeBucketedBatcher:
             padded[off:off + r.n] = r.x
             off += r.n
         try:
+            t_run = time.perf_counter()
             out = self._runner(padded)
+            reg = get_registry()
+            if reg.enabled:
+                reg.histogram(
+                    f"serving.{self.name}.bucket{bucket}.dispatch_ms"
+                ).observe((time.perf_counter() - t_run) * 1e3)
         except Exception as e:                 # model/device-side failure
             # the loop keeps serving: every caller of this batch gets the
             # error, and the next batch runs
@@ -263,10 +282,22 @@ class ShapeBucketedBatcher:
             for r in batch:
                 r.error = e
                 r.event.set()
+            # the black box after the callers are resolved; rate-limited,
+            # since a failing runner fails every batch
+            get_flight_recorder().dump(
+                "serving_dispatch_error", force=False, model=self.name,
+                bucket=bucket, rows=total, error=str(e),
+                error_type=type(e).__name__)
             return
         self.metrics.record_batch(bucket, total)
         for r in batch:
             self.metrics.record_queue_wait((t_disp - r.enqueue_t) * 1000.0)
+            if r.trace_id is not None:
+                # the dispatch thread has no trace context of its own:
+                # each request's id is stamped on its batch event
+                event("serving.batch", trace_id=r.trace_id,
+                      model=self.name, bucket=bucket, rows=r.n,
+                      queue_ms=round((t_disp - r.enqueue_t) * 1e3, 3))
         off = 0
         for r in batch:
             r.result = out[off:off + r.n]

@@ -15,8 +15,10 @@ onto the device of the model being replaced. The HTTP front end is
 ``serving/http.py``. ``mesh=`` (a logical mesh, reference ``:31-64,
 127``) serves every model mesh-sharded over its ``data_axis``
 (``programs.py``): a ladder whose rungs do not divide over that axis is
-refused, and a hot swap keeps the mesh. ``publish_metrics`` raises
-``NotImplementedError`` naming ROADMAP A8.
+refused, and a hot swap keeps the mesh. ``publish_metrics`` pushes every
+model's snapshot into a StatsStorage backend, as the reference's does;
+each model's ``ProgramSet`` registers its buckets' costs at warm under
+``serving.<model>`` (``programs.py``).
 """
 from __future__ import annotations
 
@@ -73,7 +75,8 @@ class InferenceEngine:
         ps = ProgramSet(net, feature_shape=feature_shape, ladder=ladder,
                         dtype=dtype or self.dtype, mesh=self.mesh,
                         data_axis=self.data_axis, forward_fn=forward_fn,
-                        trace_hook=self._on_trace)
+                        trace_hook=self._on_trace,
+                        cost_path=f"serving.{name}")
         entry_box = {}
 
         def runner(padded: np.ndarray) -> np.ndarray:
@@ -131,8 +134,8 @@ class InferenceEngine:
                 new_set = ProgramSet(
                     net, feature_shape=old.feature_shape, ladder=old.ladder,
                     dtype=old.dtype, mesh=old.mesh, data_axis=old.data_axis,
-                    forward_fn=old._custom_fwd,
-                    trace_hook=self._on_trace).warm()     # warm BEFORE swap
+                    forward_fn=old._custom_fwd, trace_hook=self._on_trace,
+                    cost_path=old.cost_path).warm()       # warm BEFORE swap
             entry.active = new_set                        # atomic cutover
             entry.version += 1
             entry.metrics.record_swap()
@@ -152,9 +155,10 @@ class InferenceEngine:
                 for e in self.registry.entries()}
 
     def publish_metrics(self, storage, session_id: str = "serving") -> None:
-        raise NotImplementedError("publishing serving metrics to a "
-                                  "StatsStorage backend is not ported yet "
-                                  "(ROADMAP A8)")
+        """Push every model's snapshot into a StatsStorage backend."""
+        for e in self.registry.entries():
+            e.metrics.publish(storage, session_id=session_id,
+                              worker_id=e.name)
 
     @property
     def trace_count(self) -> int:
@@ -167,8 +171,9 @@ class InferenceEngine:
 
     @staticmethod
     def compile_count() -> int:
-        """Process-wide warm runs (``metrics.warm_count``), the port's
-        stand-in for the reference's process-wide XLA compile count."""
+        """Process-wide warm runs and captures (``metrics.warm_count``),
+        the port's stand-in for the reference's process-wide XLA compile
+        count."""
         return warm_count()
 
     @property

@@ -25,7 +25,9 @@ engine's device (``serving.registry.load_net``). ``mesh=`` (a logical
 mesh with a ``model`` axis, on the engine or per model; reference
 ``:33-72, 166``) serves a model head-sharded over that axis
 (``programs.py``); a hot swap keeps the model's mesh. ``publish_metrics``
-is ROADMAP A8.
+pushes every model's snapshot into a StatsStorage backend, and each
+model's programs register their costs under ``generation.<model>``, as
+the reference's do.
 """
 from __future__ import annotations
 
@@ -82,15 +84,13 @@ class GenerationEngine:
                 raise ValueError(f"generation model '{name}' already "
                                  "registered (use hot_swap to replace)")
         cfg = config or GenerationConfig(**config_kwargs)
-        self._pause_watch()
-        try:
-            ps = GenerationProgramSet(net, config=cfg, adapter=adapter,
-                                      draft_net=draft,
-                                      trace_hook=self._on_trace, mesh=mesh)
-            if warm:
-                ps.warm()
-        finally:
-            self._resume_watch()
+        # warm-up runs on this thread: the runtimes' detectors count only
+        # their loops' own
+        ps = GenerationProgramSet(net, config=cfg, adapter=adapter,
+                                  draft_net=draft, trace_hook=self._on_trace,
+                                  mesh=mesh, cost_path=f"generation.{name}")
+        if warm:
+            ps.warm()
         rt = ModelRuntime(name, ps, GenerationMetrics(name=name))
         with self._lock:
             if name in self._models:      # lost a registration race
@@ -179,15 +179,11 @@ class GenerationEngine:
             try:
                 new_ps = old.with_params_from(net, draft_net=draft)
             except ValueError:
-                self._pause_watch()
-                try:
-                    new_ps = GenerationProgramSet(
-                        net, config=old.config, adapter="auto",
-                        draft_net=(old.draft_net if draft is None
-                                   else draft),
-                        trace_hook=self._on_trace, mesh=old.mesh).warm()
-                finally:
-                    self._resume_watch()
+                new_ps = GenerationProgramSet(
+                    net, config=old.config, adapter="auto",
+                    draft_net=(old.draft_net if draft is None else draft),
+                    trace_hook=self._on_trace, mesh=old.mesh,
+                    cost_path=old.cost_path).warm()
             rt.active_ps = new_ps         # atomic: the next admission cohort
             rt.version += 1
             rt.metrics.record_swap()
@@ -262,9 +258,12 @@ class GenerationEngine:
         }
 
     def publish_metrics(self, storage, session_id: str = "generation"):
-        raise NotImplementedError("publishing generation metrics to a "
-                                  "StatsStorage backend is not ported yet "
-                                  "(ROADMAP A8)")
+        """Push every model's snapshot into a StatsStorage backend."""
+        with self._lock:
+            rts = list(self._models.values())
+        for rt in rts:
+            rt.metrics.publish(storage, session_id=session_id,
+                               worker_id=rt.name)
 
     @property
     def trace_count(self) -> int:
@@ -274,29 +273,10 @@ class GenerationEngine:
 
     def _on_trace(self):
         self._trace_count += 1
-        with self._lock:
-            rts = list(self._models.values())
-        for rt in rts:
-            if rt.watching:
-                rt.warm_runs_while_serving += 1
 
     @property
     def draining(self) -> bool:
         return self._draining
-
-    def _pause_watch(self):
-        """Warm-up runs are legitimate: keep them out of the serving
-        runtimes' counts."""
-        with self._lock:
-            rts = list(self._models.values())
-        for rt in rts:
-            rt.watching = False
-
-    def _resume_watch(self):
-        with self._lock:
-            rts = list(self._models.values())
-        for rt in rts:
-            rt.watching = True
 
     # ------------------------------------------------------------- lifecycle
     def stop(self, drain: bool = True, timeout: float = 10.0) -> None:

@@ -7,10 +7,13 @@ time to first token, per-decode-step latency, slot occupancy, the prefix
 cache's hits, misses, tokens saved, copy-on-write copies, evictions,
 cached-first-token TTFT and block gauges, the speculative verify windows'
 acceptance and tokens per target dispatch, hot swaps, the block pool's
-bytes per token and the decode loop's warm runs after warm-up. The port
+bytes per token and the warm runs the decode loop made on its own
+thread after warm-up (the reference counts the process's). The port
 adds ``decode_tokens_per_sec`` (tokens that decode steps and verify
-windows emitted over the time they took). The telemetry registry the
-reference mirrors every record into, and ``publish``, are ROADMAP A8.
+windows emitted over the time they took). Every record is mirrored into
+the telemetry registry under ``generation.<model>.*``, with the
+reference's names, and ``publish`` pushes the snapshot into a
+StatsStorage backend, as the reference's do.
 """
 from __future__ import annotations
 
@@ -18,6 +21,8 @@ import threading
 import time
 from collections import deque
 from typing import Dict, List
+
+from ...telemetry import get_registry
 
 
 def _percentile(sorted_vals: List[float], q: float) -> float:
@@ -28,9 +33,11 @@ def _percentile(sorted_vals: List[float], q: float) -> float:
 
 
 class GenerationMetrics:
-    def __init__(self, window: int = 4096, name: str = "default"):
+    def __init__(self, window: int = 4096, name: str = "default",
+                 registry=None):
         self._lock = threading.Lock()
         self.name = name
+        self._registry = registry
         self._ttft_ms = deque(maxlen=window)
         self._step_ms = deque(maxlen=window)
         self._tok_t = deque(maxlen=window)       # emission timestamps
@@ -67,11 +74,20 @@ class GenerationMetrics:
         self.spec_accepted = 0
         self.spec_emitted = 0
         self._t0 = time.monotonic()
+        self._rate_t = self._t0
+
+    @property
+    def registry(self):
+        # resolved per recording so a test-swapped global registry applies
+        return self._registry if self._registry is not None else get_registry()
 
     # ------------------------------------------------------------- recording
     def record_request(self) -> None:
         with self._lock:
             self.requests += 1
+        reg = self.registry
+        if reg.enabled:
+            reg.counter(f"generation.{self.name}.requests").inc()
 
     def record_prefill(self, rows: int, ttft_ms_per_row,
                        emitted: int = 0) -> None:
@@ -82,6 +98,15 @@ class GenerationMetrics:
             self._ttft_ms.extend(ttft_ms_per_row)
             self.tokens_out += emitted          # each row's FIRST token
             self._tok_t.extend([now] * emitted)
+        reg = self.registry
+        if reg.enabled:
+            reg.counter(f"generation.{self.name}.prefills").inc()
+            if emitted:
+                reg.counter(
+                    f"generation.{self.name}.tokens_out").inc(emitted)
+            h = reg.histogram(f"generation.{self.name}.ttft_ms")
+            for v in ttft_ms_per_row:
+                h.observe(v)
 
     def record_decode_step(self, step_ms: float, active_slots: int,
                            emitted: int, *, slots: int, blocks_used: int = 0,
@@ -98,36 +123,92 @@ class GenerationMetrics:
             self._tok_t.extend([now] * emitted)
             self.slots = slots
             self.blocks_total = blocks_total
+        reg = self.registry
+        if reg.enabled:
+            reg.counter(f"generation.{self.name}.decode_steps").inc()
+            reg.counter(f"generation.{self.name}.tokens_out").inc(emitted)
+            reg.histogram(
+                f"generation.{self.name}.decode_step_ms").observe(step_ms)
+            self._loop_gauges(reg, now, active_slots, slots, blocks_used,
+                              queue_depth)
+
+    def _loop_gauges(self, reg, now, active_slots, slots, blocks_used,
+                     queue_depth) -> None:
+        reg.gauge(f"generation.{self.name}.slot_occupancy").set(
+            active_slots / slots if slots else 0.0)
+        reg.gauge(f"generation.{self.name}.blocks_in_use").set(blocks_used)
+        reg.gauge(f"generation.{self.name}.queue_depth").set(queue_depth)
+        # throttled: the rate scan over the timestamp ring is not free and
+        # the decode step is the serving hot loop
+        if now - self._rate_t >= 0.5:
+            self._rate_t = now
+            reg.gauge(f"generation.{self.name}.tokens_per_sec").set(
+                self._recent_tokens_per_sec(now))
 
     # -------------------------------------------------------- prefix cache
     def record_prefix_hit(self, tokens_saved: int) -> None:
         with self._lock:
             self.prefix_hits += 1
             self.prefix_tokens_saved += tokens_saved
+        reg = self.registry
+        if reg.enabled:
+            reg.counter(f"generation.{self.name}.prefix.hits").inc()
+            if tokens_saved:
+                reg.counter(
+                    f"generation.{self.name}.prefix.tokens_saved").inc(
+                    tokens_saved)
+            self._hit_rate_gauge(reg)
 
     def record_prefix_miss(self) -> None:
         with self._lock:
             self.prefix_misses += 1
+        reg = self.registry
+        if reg.enabled:
+            reg.counter(f"generation.{self.name}.prefix.misses").inc()
+            self._hit_rate_gauge(reg)
+
+    def _hit_rate_gauge(self, reg) -> None:
+        total = self.prefix_hits + self.prefix_misses
+        if total:
+            reg.gauge(f"generation.{self.name}.prefix_hit_rate").set(
+                round(self.prefix_hits / total, 4))
 
     def record_cow(self) -> None:
         with self._lock:
             self.cow_copies += 1
+        reg = self.registry
+        if reg.enabled:
+            reg.counter(f"generation.{self.name}.prefix.cow_copies").inc()
 
     def record_prefix_evictions(self, n: int) -> None:
         with self._lock:
             self.prefix_evictions += n
+        reg = self.registry
+        if reg.enabled:
+            reg.counter(f"generation.{self.name}.prefix.evictions").inc(n)
 
     def record_cached_first_token(self, ttft_ms: float) -> None:
         """TTFT for a cache-hit admission (prefill skipped; the first token
         fell out of the replay's final decode step)."""
         with self._lock:
             self._ttft_cached_ms.append(ttft_ms)
+        reg = self.registry
+        if reg.enabled:
+            reg.histogram(
+                f"generation.{self.name}.ttft_cached_ms").observe(ttft_ms)
 
     def set_prefix_gauges(self, stats: dict) -> None:
         """The active cohort's block-pool economics (shared blocks, cached
         LRU size): the snapshot's prefix gauges."""
         with self._lock:
             self._prefix_gauges = dict(stats)
+        reg = self.registry
+        if reg.enabled:
+            reg.gauge(f"generation.{self.name}.prefix.shared_blocks").set(
+                stats.get("shared_blocks", 0))
+            reg.gauge(
+                f"generation.{self.name}.prefix.cached_lru_blocks").set(
+                stats.get("cached_lru_blocks", 0))
 
     # ------------------------------------------------- speculative decoding
     def record_verify(self, step_ms: float, active_slots: int, *,
@@ -153,23 +234,49 @@ class GenerationMetrics:
             self._tok_t.extend([now] * emitted)
             self.slots = slots
             self.blocks_total = blocks_total
+            per_verify = (self.spec_emitted / self.verify_slot_steps
+                          if self.verify_slot_steps else 0.0)
+        reg = self.registry
+        if reg.enabled:
+            reg.counter(f"generation.{self.name}.spec.verify_steps").inc()
+            reg.counter(f"generation.{self.name}.spec.proposed").inc(proposed)
+            reg.counter(f"generation.{self.name}.spec.accepted").inc(accepted)
+            reg.counter(f"generation.{self.name}.tokens_out").inc(emitted)
+            reg.histogram(
+                f"generation.{self.name}.verify_step_ms").observe(step_ms)
+            reg.gauge(
+                f"generation.{self.name}.spec.accepted_per_verify").set(
+                round(per_verify, 3))
+            self._loop_gauges(reg, now, active_slots, slots, blocks_used,
+                              queue_depth)
 
     def record_finish(self, reason: str) -> None:
         with self._lock:
             self.finished[reason] = self.finished.get(reason, 0) + 1
+        reg = self.registry
+        if reg.enabled:
+            reg.counter(
+                f"generation.{self.name}.finished.{reason}").inc()
 
     def record_rejection(self, kind: str) -> None:
         with self._lock:
             self.rejected[kind] = self.rejected.get(kind, 0) + 1
+        reg = self.registry
+        if reg.enabled:
+            reg.counter(f"generation.{self.name}.rejected.{kind}").inc()
 
     def record_swap(self) -> None:
         with self._lock:
             self.swaps += 1
+        reg = self.registry
+        if reg.enabled:
+            reg.counter(f"generation.{self.name}.hot_swaps").inc()
 
     def record_recompile(self, n: int) -> None:
-        """Warm runs made while the decode loop was serving (the reference
-        counts backend compiles there); warm-up before traffic and before
-        a hot swap's cutover is not counted."""
+        """Warm runs and captures the model's decode loop made on its own
+        thread while serving (the reference counts every backend compile
+        in the process there); warm-up before traffic, a hot swap's
+        warm-up and other engines' warm runs are not counted."""
         with self._lock:
             self.decode_recompiles = n
 
@@ -180,6 +287,10 @@ class GenerationMetrics:
             return
         with self._lock:
             self.kv_bytes_per_token = float(v)
+        reg = self.registry
+        if reg.enabled:
+            reg.gauge(f"generation.{self.name}.kv_bytes_per_token").set(
+                float(v))
 
     def _recent_tokens_per_sec(self, now: float, window_s: float = 5.0):
         if not self._tok_t:
@@ -273,6 +384,6 @@ class GenerationMetrics:
 
     def publish(self, storage, session_id: str = "generation",
                 worker_id: str = "default") -> dict:
-        raise NotImplementedError("publishing generation metrics to a "
-                                  "StatsStorage backend is not ported yet "
-                                  "(ROADMAP A8)")
+        snap = self.snapshot()
+        storage.put_update(session_id, worker_id, snap)
+        return snap

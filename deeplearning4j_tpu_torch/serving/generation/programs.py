@@ -28,6 +28,17 @@ of each cohort then runs as a CUDA graph (``graphs.py``), captured from
 ``decode_tensors``; the other programs run eagerly (ROADMAP A2a-rest). The
 caches are updated in place.
 
+**Telemetry** (reference ``:285-303, 538-575``): every cache ``make_cache``
+builds is tagged for the memory profiler as ``<cost_path>.kvcache``
+(``generation.<model>.kvcache``; ``generation.kvcache`` without a cost
+path). Each warm run is noted to ``telemetry.note_warm_run`` and, with
+``cost_path`` set, counted (``telemetry.perf``: the aten ops' formulas and
+the kernels' own counts, at the warm run's shapes) into the reference's
+cost entries: ``<cost_path>.decode_step`` (paired with the scheduler's
+``decode_step_ms`` histogram), ``<cost_path>.verify`` (``verify_step_ms``)
+and ``<cost_path>.prefill.b<P>xp<L>`` (cost only), each divided by the
+model axis.
+
 **Head-sharded decode** (``mesh=`` with a ``model`` axis of m > 1, the
 reference's ``:156-235, 262-300``): the set serves a copy of the network
 laid out on the model axis (``parallel/tensor_parallel.py`` ``place_net``)
@@ -56,6 +67,9 @@ import torch
 from ...models.decode import LSTMDecodeSpec, TransformerDecodeSpec
 from ...parallel.tensor_parallel import (held_specs, model_axis_size,
                                         place_net)
+from ...telemetry import memprof
+from ...telemetry.perf import get_cost_index
+from ...telemetry.torchsignals import timed_warm_run
 from ..errors import ServingError
 from .kvcache import (PagedStore, QuantSimStore, cow_copy, make_pools,
                       pool_bytes, prefill_scatter, rank_pool, rank_stores)
@@ -155,10 +169,11 @@ class GenerationProgramSet:
     def __init__(self, net, *, config: GenerationConfig,
                  adapter: str = "auto", draft_net=None,
                  trace_hook: Optional[Callable[[], None]] = None,
-                 mesh=None):
+                 mesh=None, cost_path: Optional[str] = None):
         self.net = net
         self.config = config
         self._trace_hook = trace_hook
+        self.cost_path = cost_path    # "generation.<model>": cost entries
         self.adapter = self._resolve_adapter(net, adapter)
         self.model_shards = model_axis_size(mesh)
         self.mesh = mesh if self.model_shards > 1 else None
@@ -267,11 +282,15 @@ class GenerationProgramSet:
         recurrent layer for ``decode_slots + 1`` rows."""
         c, s = self.config, self.spec
         if self.adapter == "state":
-            return s.init_states(c.decode_slots + 1)
-        return make_pools(s.n_blocks, c.num_blocks, c.block_len, s.n_heads,
-                          s.head_dim, self.dtype, self.device,
-                          quantized=self.kv_quantized,
-                          shards=self.model_shards)
+            cache = s.init_states(c.decode_slots + 1)
+        else:
+            cache = make_pools(s.n_blocks, c.num_blocks, c.block_len,
+                               s.n_heads, s.head_dim, self.dtype, self.device,
+                               quantized=self.kv_quantized,
+                               shards=self.model_shards)
+        # the memory profiler's owner: the pool dominates the card's bytes
+        memprof.tag(cache, (self.cost_path or "generation") + ".kvcache")
+        return cache
 
     def fresh_generator(self) -> torch.Generator:
         return torch.Generator(device=self.device).manual_seed(
@@ -314,7 +333,15 @@ class GenerationProgramSet:
 
     # -------------------------------------------------------------- programs
     def _t(self, a) -> torch.Tensor:
-        return torch.as_tensor(a, device=self.device)
+        """A host array onto the device. On the card through pinned memory
+        and an asynchronous copy: a copy from pageable memory makes the
+        loop thread wait for the work queued on the stream before it (a
+        synchronising call for each input). The program's result read
+        (``.cpu()``) is then its one wait on the card."""
+        if self.device.type != "cuda":
+            return torch.as_tensor(a, device=self.device)
+        host = torch.from_numpy(np.ascontiguousarray(a)).pin_memory()
+        return host.to(self.device, non_blocking=True)
 
     def _stores(self, make, cache):
         """``make(k_pool, v_pool)`` over the cache's pools, one a rank when
@@ -469,10 +496,37 @@ class GenerationProgramSet:
         return tgt.cpu().numpy()
 
     # --------------------------------------------------------------- warm-up
-    def _warm_run(self, key) -> None:
+    def _warm_run(self, key, run: Callable[[], object]):
+        """Mark ``key`` warmed and run it once: noted as a warm run, and
+        counted into its cost entry where it has one. Returns the run's
+        output."""
         if self._trace_hook is not None:
             self._trace_hook()              # counts warm runs
         self._warmed.add(key)
+        entry = self._cost_entry(key)
+        with timed_warm_run():
+            if entry is None:
+                return run()
+            path, timing, items = entry
+            return get_cost_index().count(
+                path, (key, self.signature), run, timing_metric=timing,
+                items_per_step=items, model_axis_size=self.model_shards,
+                dtype=self.dtype, device=self.device)
+
+    def _cost_entry(self, key):
+        """(path, timing histogram, items a step) of a program's cost
+        entry, or None (no cost path, or a program without one)."""
+        if self.cost_path is None:
+            return None
+        base, S = self.cost_path, float(self.config.decode_slots)
+        if key[0] == "decode":
+            return f"{base}.decode_step", f"{base}.decode_step_ms", S
+        if key[0] == "verify":
+            return f"{base}.verify", f"{base}.verify_step_ms", S
+        if key[0] == "prefill":
+            _, P, L = key
+            return f"{base}.prefill.b{P}xp{L}", None, float(P)
+        return None
 
     def warm(self) -> "GenerationProgramSet":
         """Run every program once on a scratch cache: each (prefill batch,
@@ -487,35 +541,35 @@ class GenerationProgramSet:
                       np.zeros((S,), np.bool_))
         for P in c.prefill_batches:
             for L in c.prompt_rungs:
-                self._warm_run(("prefill", P, L))
-                self._prefill(cache, np.zeros((P, L), np.int64),
-                              np.ones((P,), np.int64),
-                              np.zeros((P, mb), np.int64),
-                              np.full((P,), S, np.int64), gen,
-                              np.zeros((P,), np.float32),
-                              np.zeros((P,), np.int64))
-        self._warm_run(("decode",))
-        self.run_decode(cache, zS, zS, np.zeros((S, mb), np.int64), bS, gen,
-                        fS, zS)
+                self._warm_run(
+                    ("prefill", P, L), lambda P=P, L=L: self._prefill(
+                        cache, np.zeros((P, L), np.int64),
+                        np.ones((P,), np.int64), np.zeros((P, mb), np.int64),
+                        np.full((P,), S, np.int64), gen,
+                        np.zeros((P,), np.float32),
+                        np.zeros((P,), np.int64)))
+        self._warm_run(("decode",), lambda: self.run_decode(
+            cache, zS, zS, np.zeros((S, mb), np.int64), bS, gen, fS, zS))
         if self.prefix_enabled:
-            self._warm_run(("cow",))
-            self.run_cow(cache, 0, 0)
+            self._warm_run(("cow",), lambda: self.run_cow(cache, 0, 0))
         if k:
             dcache = self.make_draft_cache()
             for P in c.prefill_batches:
                 for L in c.prompt_rungs:
-                    self._warm_run(("draft_prefill", P, L))
-                    self.run_draft_prefill(dcache, np.zeros((P, L), np.int64),
-                                           np.ones((P,), np.int64),
-                                           np.full((P,), S, np.int64))
-            self._warm_run(("propose",))
-            _, stack = self.run_propose(dcache, zS, zS, bS)
+                    self._warm_run(
+                        ("draft_prefill", P, L),
+                        lambda P=P, L=L: self.run_draft_prefill(
+                            dcache, np.zeros((P, L), np.int64),
+                            np.ones((P,), np.int64),
+                            np.full((P,), S, np.int64)))
+            _, stack = self._warm_run(("propose",), lambda: self.run_propose(
+                dcache, zS, zS, bS))
             if self.draft_adapter == "state":
-                self._warm_run(("rewind",))
-                self.run_rewind(dcache, stack, np.ones((S,), np.int64), bS)
-            self._warm_run(("verify",))
-            self.run_verify(cache, np.zeros((S, k + 1), np.int64), zS,
-                            np.zeros((S, mb), np.int64), bS)
+                self._warm_run(("rewind",), lambda: self.run_rewind(
+                    dcache, stack, np.ones((S,), np.int64), bS))
+            self._warm_run(("verify",), lambda: self.run_verify(
+                cache, np.zeros((S, k + 1), np.int64), zS,
+                np.zeros((S, mb), np.int64), bS))
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.runs.clear()
@@ -548,7 +602,7 @@ class GenerationProgramSet:
                                               if draft_net is None
                                               else draft_net),
                                    trace_hook=self._trace_hook,
-                                   mesh=self.mesh)
+                                   mesh=self.mesh, cost_path=self.cost_path)
         if new.signature != self.signature:
             raise ValueError("parameter/architecture changed; full warm-up "
                              "required")

@@ -30,9 +30,23 @@ On the card each cohort's decode step runs as a CUDA graph captured on
 this thread when the cohort is made (``graphs.DecodeGraph``): the first
 cohort before the runtime takes traffic, a swapped-in set's at the loop's
 next turn. Prefill, the block copy and the draft and verify passes run
-eagerly on this thread's current stream. The host side is numpy. The
-reference's telemetry spans, trace events and flight recorder are
-ROADMAP A8.
+eagerly on this thread's current stream. The host side is numpy.
+
+Telemetry, as the reference's: the ``generation.prefill``,
+``generation.decode_step`` and ``generation.verify`` spans (on the card
+a decode step's span times the host's copy-in, replay enqueue and token
+read, outside any capture); a request carries its submitter's trace id
+into this thread, which stamps it on the request's ``generation.submit``,
+``admit``, ``prefill``, ``prefix_hit``, ``decode_step``, ``verify`` and
+``finish`` events; a dispatch failure fires the flight recorder
+(``generation_error``) after every caller is resolved; and a
+``telemetry.RecompileDetector(thread_only=True)`` stays armed on this
+thread while it serves, its count the metrics' ``decode_recompiles``: the
+warm runs and captures this loop made (it is paused while a swapped-in
+set's cohort captures its graph). Warm runs on other threads (a hot
+swap's warm-up, another model's, a fit's window capture) are not this
+model's recompiles and are not counted, where the reference's detector
+counts every compile in the process.
 """
 from __future__ import annotations
 
@@ -44,6 +58,9 @@ from typing import Dict, List, Optional, Sequence, Set
 
 import numpy as np
 
+from ...telemetry import RecompileDetector, span
+from ...telemetry.flightrec import get_flight_recorder
+from ...telemetry.tracecontext import current_trace_id, event
 from ..errors import (BlockPoolExhaustedError, DeadlineExceededError,
                       DrainingError, GenerationClosedError, QueueFullError,
                       ShapeMismatchError)
@@ -113,7 +130,8 @@ class _GenRequest:
     __slots__ = ("prompt", "max_new", "temperature", "top_k", "stop",
                  "deadline", "stream", "slot", "blocks", "shared_blocks",
                  "replay", "replaying", "matched_tokens", "spec", "emitted",
-                 "cancelled", "cancel_reason", "enqueue_t", "cohort")
+                 "cancelled", "cancel_reason", "enqueue_t", "cohort",
+                 "trace_id")
 
     def __init__(self, prompt: np.ndarray, max_new: int, temperature: float,
                  top_k: int, stop: frozenset, deadline: float,
@@ -140,6 +158,9 @@ class _GenRequest:
         self.cancelled = False
         self.cancel_reason = "cancelled"
         self.enqueue_t = time.monotonic()
+        # the submitter's trace id rides the request into the loop thread
+        # (None: untraced, the per-token events are skipped entirely)
+        self.trace_id = current_trace_id()
 
     def _cancel(self):
         self.cancelled = True
@@ -211,10 +232,10 @@ class ModelRuntime:
         self._gen = ps.fresh_generator()
         self._draining = False
         self._stopped = False
-        # warm runs seen while the loop serves (the engine pauses this
-        # around warm-up, as the reference pauses its recompile detector)
-        self.watching = True
-        self.warm_runs_while_serving = 0
+        # warm runs and captures the loop makes while it serves (armed on
+        # the loop thread, which alone it counts)
+        self._det = RecompileDetector(allowed=0, warn=False,
+                                      thread_only=True)
         self.cohorts_made = 0
         # replays and kernel runs of the decode graphs of retired cohorts
         self._retired = {"replays": 0, "kernel_runs": Counter()}
@@ -356,6 +377,9 @@ class ModelRuntime:
             self._idle.clear()
             self._queue.append(req)
             self._cond.notify_all()
+        if req.trace_id is not None:
+            event("generation.submit", model=self.name, prompt_len=plen,
+                  max_tokens=int(max_new))
         return req.stream
 
     def wait_idle(self, timeout: Optional[float] = None) -> bool:
@@ -375,6 +399,7 @@ class ModelRuntime:
                 return
             finally:
                 self._ready.set()
+            self._det.__enter__()
             while True:
                 with self._cond:
                     if self._stopped:
@@ -391,13 +416,20 @@ class ModelRuntime:
                 except Exception as e:       # nobody may hang on a failure
                     self._fail_all(e)
         finally:
+            self._det.__exit__(None, None, None)
             self._shutdown_flush()
 
     def _cohort_for_admission(self) -> _Cohort:
         ps = self.active_ps
         if self._cohorts and self._cohorts[-1].ps is ps:
             return self._cohorts[-1]
-        coh = _Cohort(ps, self.version, self._gen)
+        # a swapped-in set's graph capture is its warm-up, not a recompile
+        self._det.__exit__(None, None, None)
+        try:
+            coh = _Cohort(ps, self.version, self._gen)
+        finally:
+            if not self._stopped and self._ready.is_set():
+                self._det.__enter__()
         self.cohorts_made += 1
         self._cohorts = self._cohorts + [coh]
         return coh
@@ -497,6 +529,14 @@ class ModelRuntime:
                 cands.append(r)
         if not cands:
             return
+        for r in cands:
+            if r.trace_id is not None:
+                # the queue -> slot handoff, stamped per request (this
+                # thread has no trace context of its own)
+                event("generation.admit", trace_id=r.trace_id,
+                      model=self.name, slot=r.slot,
+                      queue_ms=round((time.monotonic() - r.enqueue_t) * 1e3,
+                                     3))
         hits = [r for r in cands if r.matched_tokens]
         misses = [r for r in cands if not r.matched_tokens]
         if misses:
@@ -531,8 +571,10 @@ class ModelRuntime:
             slots[i] = r.slot
             temp[i] = r.temperature
             topk[i] = r.top_k
-        first = coh.ps.run_prefill(coh.cache, tokens, lengths, tables_p,
-                                   slots, self._gen, temp, topk)
+        with span("generation.prefill", model=self.name, batch=len(cands),
+                  rung=L):
+            first = coh.ps.run_prefill(coh.cache, tokens, lengths, tables_p,
+                                       slots, self._gen, temp, topk)
         now = time.monotonic()
         emitted = 0
         for i, r in enumerate(cands):
@@ -553,6 +595,11 @@ class ModelRuntime:
                     drop = set(managed)
                     r.blocks = [b for b in r.blocks if b not in drop]
                     r.shared_blocks.extend(managed)
+            if r.trace_id is not None:
+                event("generation.prefill", trace_id=r.trace_id,
+                      model=self.name, slot=s, rung=int(L),
+                      batch=len(cands),
+                      ttft_ms=round((now - r.enqueue_t) * 1e3, 3))
             did_emit, _ = self._slot_emit(coh, r, int(first[i]), now)
             emitted += did_emit
         self.metrics.record_prefill(
@@ -569,6 +616,7 @@ class ModelRuntime:
         for r in hits:
             s = r.slot
             plen = len(r.prompt)
+            cow = 0
             if r.matched_tokens == plen:
                 src = r.shared_blocks[-1]
                 dst = r.blocks[0]
@@ -579,6 +627,7 @@ class ModelRuntime:
                 self.metrics.record_cow()
                 table = r.shared_blocks + [dst] + r.blocks[1:]
                 start = plen - 1
+                cow = 1
             else:
                 table = r.shared_blocks + r.blocks
                 start = r.matched_tokens
@@ -594,6 +643,12 @@ class ModelRuntime:
             r.replay = deque(int(t) for t in r.prompt[start + 1:])
             r.replaying = True
             self.metrics.record_prefix_hit(start)
+            if r.trace_id is not None:
+                event("generation.prefix_hit", trace_id=r.trace_id,
+                      model=self.name, slot=s,
+                      matched_tokens=int(r.matched_tokens),
+                      shared_blocks=len(r.shared_blocks) + cow,
+                      cow=cow, replay_tokens=plen - start)
 
     def _draft_prefill(self, coh: _Cohort, cands: List[_GenRequest]):
         """The draft consumes every admitted FULL prompt (hits included —
@@ -631,7 +686,7 @@ class ModelRuntime:
                 self._plain_step(coh, plain)
             if specs:
                 self._spec_step(coh, specs)
-        self.metrics.record_recompile(self.warm_runs_while_serving)
+        self.metrics.record_recompile(self._det.count)
         # drop drained cohorts (old weights, pools and graphs released)
         keep = [c for c in self._cohorts
                 if c.slots or c.ps is self.active_ps]
@@ -647,13 +702,21 @@ class ModelRuntime:
         mask = np.zeros(S, np.bool_)
         mask[live] = True
         t0 = time.perf_counter()
-        nxt = coh.decode(self._tokens, self._pos, mask, self._temp,
-                         self._topk)
+        with span("generation.decode_step", model=self.name,
+                  slots=len(live)):
+            nxt = coh.decode(self._tokens, self._pos, mask, self._temp,
+                             self._topk)
         dt_ms = (time.perf_counter() - t0) * 1e3
         now = time.monotonic()
         emitted = 0
         for s in live:
             r = self._slot_req[s]
+            if r.trace_id is not None:
+                # one event per decode step the request took part in: the
+                # per-request timeline's heartbeat
+                event("generation.decode_step", trace_id=r.trace_id,
+                      model=self.name, slot=s, token_index=r.emitted,
+                      step_ms=round(dt_ms, 3))
             if r.replaying:
                 emitted += self._replay_advance(coh, r, int(nxt[s]), now)
                 continue
@@ -715,11 +778,13 @@ class ModelRuntime:
         mask = np.zeros(S, np.bool_)
         mask[specs] = True
         t0 = time.perf_counter()
-        props, stack = coh.ps.run_propose(coh.draft_cache, self._tokens,
-                                          self._pos, mask)
-        feeds = np.concatenate([self._tokens[:, None], props], axis=1)
-        targets = coh.ps.run_verify(coh.cache, feeds, self._pos, coh.tables,
-                                    mask)
+        with span("generation.verify", model=self.name, slots=len(specs),
+                  k=k):
+            props, stack = coh.ps.run_propose(coh.draft_cache, self._tokens,
+                                              self._pos, mask)
+            feeds = np.concatenate([self._tokens[:, None], props], axis=1)
+            targets = coh.ps.run_verify(coh.cache, feeds, self._pos,
+                                        coh.tables, mask)
         dt_ms = (time.perf_counter() - t0) * 1e3
         counts, emitted_toks = accept_greedy(props, targets)
         now = time.monotonic()
@@ -729,6 +794,11 @@ class ModelRuntime:
         rewind_idx = np.ones(S, np.int64)
         for s in specs:
             r = self._slot_req[s]
+            if r.trace_id is not None:
+                event("generation.verify", trace_id=r.trace_id,
+                      model=self.name, slot=s, token_index=r.emitted,
+                      proposed=k, accepted=int(counts[s]),
+                      step_ms=round(dt_ms, 3))
             accepted += int(counts[s])
             n_emit, cont = 0, False
             for tok in emitted_toks[s]:
@@ -799,6 +869,10 @@ class ModelRuntime:
                      error: Optional[BaseException] = None):
         s = r.slot
         r.stream._finish(reason, error)
+        if r.trace_id is not None:
+            event("generation.finish", trace_id=r.trace_id,
+                  model=self.name, slot=s, reason=reason,
+                  tokens=r.emitted)
         self.metrics.record_finish(reason)
         if r.blocks:
             coh.allocator.free(r.blocks)
@@ -839,6 +913,12 @@ class ModelRuntime:
         for r in reqs:
             self._finish_slot(r.cohort, r, "error", exc)
         self._drop_cohorts()
+        # the black box after every caller is resolved; the ring still
+        # holds the spans and events (and trace ids) before the failure
+        get_flight_recorder().dump(
+            "generation_error", model=self.name, error=str(exc),
+            error_type=type(exc).__name__, in_flight=len(reqs),
+            queued=len(queued))
 
     def _shutdown_flush(self):
         err = DrainingError(f"generation model '{self.name}' stopped")

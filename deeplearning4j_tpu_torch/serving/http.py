@@ -25,13 +25,21 @@ and ``/reload`` retry policy (``_RELOAD_RETRY``). Routes:
   GET  /metrics            per-model serving metrics (+ "generation" key
                            when a generation engine is attached)
   GET  /models             registry listing (version, buckets, warm state)
-  GET  /debug/trace, /debug/metrics, /metrics/prometheus
-                           telemetry routes: 501, ROADMAP A8
+  GET  /metrics/prometheus the registry in the Prometheus text format (after
+                           an SLO check and a cost-index fold)
+  GET  /debug/trace        the registry's trace ring as NDJSON, one event
+                           per line with its ``seq`` stamp;
+                           ``?since_seq=N`` returns only events past the
+                           cursor
+  GET  /debug/metrics      raw mergeable metrics: counters, gauges, and
+                           histograms as cumulative ``le`` buckets
   POST /reload             {"model": name, "path": zip-or-checkpoint-dir}
                            -> zero-downtime hot-swap (forward-serving OR
                            generation model), returns new version
-  POST /debug/flightrec, /debug/memprof
-                           telemetry routes: 501, ROADMAP A8
+  POST /debug/flightrec    explicit flight-recorder dump (black box)
+  POST /debug/memprof      memory profile: top-K tagged-tensor groups by
+                           (shape, dtype, owner) + per-device totals
+                           ({"top_k": n} optional body)
 
 Status mapping: malformed payload -> 400, unknown model -> 404, queue full
 OR KV block-pool exhaustion -> 429 (the latter with a retry_after_ms hint),
@@ -40,14 +48,16 @@ before ANY output -> 504 (a deadline expiring mid-stream terminates the
 stream with reason "deadline" instead — HTTP status is already on the
 wire).
 
-Deliberate differences until telemetry is ported (ROADMAP A8): the
-telemetry routes answer 501 with an ``error`` naming A8 (the HTTP form of
-the port's named raise); requests carry no trace context, so no
-``X-Trace-Id`` is echoed and no ``http.request`` event is recorded; and
-``/metrics`` holds the engines' ``metrics()`` without the reference's
-``slo`` and ``perf`` keys. ``/reload`` restores the network onto the
-device of the engine it replaces a model in (the generation engine's
-when both serve the name).
+Every request runs under a trace context: the inbound ``X-Trace-Id``
+(normalized hex) or a fresh 128-bit id, echoed on every response, and a
+POST records an ``http.request`` event under it. ``/metrics`` carries the
+``slo`` key when an SLO watchdog is set and the ``perf`` key when the
+registry is on, as the reference's does. Differences: ``/reload``
+restores the network onto the device of the engine it replaces a model
+in (the generation engine's when both serve the name), and
+``/debug/memprof`` answers the port's ``telemetry.memprof.snapshot``
+(tagged tensors plus the allocator's ``untagged`` remainder, see that
+module).
 """
 from __future__ import annotations
 
@@ -58,6 +68,12 @@ from typing import Optional
 
 import numpy as np
 
+from ..telemetry import get_registry
+from ..telemetry.flightrec import get_flight_recorder
+from ..telemetry.perf import get_cost_index, perf_snapshot
+from ..telemetry.slo import get_slo_watchdog
+from ..telemetry.tracecontext import (event, new_trace_context,
+                                      use_trace_context)
 from ..util.retry import RetryError, RetryPolicy
 from .engine import InferenceEngine
 from .errors import (BlockPoolExhaustedError, DeadlineExceededError,
@@ -73,11 +89,6 @@ _RELOAD_RETRY = RetryPolicy(
     max_attempts=3, base_delay_s=0.05, max_delay_s=0.25,
     retryable=lambda e: (isinstance(e, (OSError, zipfile.BadZipFile))
                          and not isinstance(e, FileNotFoundError)))
-
-# the routes that need telemetry (ROADMAP A8): 501 until it is ported
-_TELEMETRY_ROUTES = {("GET", "/debug/trace"), ("GET", "/debug/metrics"),
-                     ("GET", "/metrics/prometheus"),
-                     ("POST", "/debug/flightrec"), ("POST", "/debug/memprof")}
 
 _STATUS = ((ShapeMismatchError, 400), (UnknownModelError, 404),
            (QueueFullError, 429), (DrainingError, 503),
@@ -139,26 +150,50 @@ class ServingHTTPServer:
         class Handler(hs.BaseHTTPRequestHandler):
             protocol_version = "HTTP/1.1"    # required for chunked replies
 
+            # ------------------------------------------------ request tracing
+            # every request runs under a TraceContext (the inbound
+            # X-Trace-Id, else a fresh id) echoed on EVERY response: the
+            # end_headers override covers write_json and the chunked path
+            _trace_ctx = None
+
+            def _traced(self):
+                ctx = new_trace_context(self.headers.get("X-Trace-Id"))
+                self._trace_ctx = ctx
+                return use_trace_context(ctx)
+
+            def end_headers(self):
+                ctx = self._trace_ctx
+                if ctx is not None:
+                    self.send_header("X-Trace-Id", ctx.trace_id)
+                super().end_headers()
+
             def do_GET(self):       # noqa: N802
-                path = self.path.partition("?")[0]
-                if ("GET", path) in _TELEMETRY_ROUTES:
-                    self._not_ported(path)
-                    return
-                self._route_get()
+                try:
+                    with self._traced():
+                        self._route_get()
+                finally:
+                    # keep-alive: a later malformed request on this
+                    # connection must not echo THIS request's id
+                    self._trace_ctx = None
 
             def do_POST(self):      # noqa: N802
-                if ("POST", self.path) in _TELEMETRY_ROUTES:
-                    self._drain_body()
-                    self._not_ported(self.path)
-                    return
-                self._route_post()
-
-            def _not_ported(self, path: str):
-                write_json(self, 501, {"error": f"{path} needs telemetry, "
-                                                f"which is not ported yet "
-                                                f"(ROADMAP A8)"})
+                try:
+                    with self._traced():
+                        event("http.request", method="POST",
+                              route=self.path)
+                        self._route_post()
+                finally:
+                    self._trace_ctx = None
 
             def _route_get(self):
+                # query strings only exist on the /debug/trace cursor route
+                path, _, query = self.path.partition("?")
+                if path == "/debug/trace":
+                    self._debug_trace(query)
+                    return
+                if path == "/debug/metrics":
+                    write_json(self, 200, get_registry().raw_metrics())
+                    return
                 if self.path == "/health":
                     depths = engine.queue_depths() if engine else {}
                     gdepths = generation.queue_depths() if generation else {}
@@ -186,7 +221,30 @@ class ServingHTTPServer:
                     if generation is not None:
                         body = dict(body)
                         body["generation"] = generation.metrics()
+                    wd = get_slo_watchdog()
+                    if wd is not None:
+                        # fresh evaluation per scrape
+                        body = dict(body)
+                        body["slo"] = wd.check()
+                    if get_registry().enabled:
+                        body = dict(body)
+                        body["perf"] = perf_snapshot()
                     write_json(self, 200, body)
+                elif self.path == "/metrics/prometheus":
+                    wd = get_slo_watchdog()
+                    if wd is not None:
+                        wd.check()        # refresh slo.* gauges first
+                    if get_registry().enabled:
+                        # refresh the perf.* gauges too: a deployment
+                        # scraped only here would never fold otherwise
+                        get_cost_index().fold(get_registry())
+                    text = get_registry().to_prometheus_text().encode()
+                    self.send_response(200)
+                    self.send_header("Content-Type",
+                                     "text/plain; version=0.0.4")
+                    self.send_header("Content-Length", str(len(text)))
+                    self.end_headers()
+                    self.wfile.write(text)
                 elif self.path == "/models":
                     body = engine.models() if engine else {}
                     if generation is not None:
@@ -205,9 +263,76 @@ class ServingHTTPServer:
                     self._generate()
                 elif self.path == "/reload":
                     self._reload()
+                elif self.path == "/debug/flightrec":
+                    self._flightrec()
+                elif self.path == "/debug/memprof":
+                    self._memprof()
                 else:
                     self._drain_body()
                     write_json(self, 404, {"error": f"no route {self.path}"})
+
+            def _debug_trace(self, query: str):
+                """The trace ring as NDJSON, one event a line with its
+                ``seq``; ``?since_seq=N`` returns only events past the
+                cursor. ``X-Trace-Seq`` echoes the registry's watermark."""
+                from urllib.parse import parse_qs
+                reg = get_registry()
+                try:
+                    q = parse_qs(query)
+                    since = int(q.get("since_seq", ["0"])[0])
+                except (ValueError, TypeError):
+                    write_json(self, 400,
+                               {"error": "since_seq must be an integer"})
+                    return
+                events = reg.trace_events_since(since)
+                body = "".join(json.dumps(e) + "\n"
+                               for e in events).encode()
+                self.send_response(200)
+                self.send_header("Content-Type", "application/x-ndjson")
+                self.send_header("Content-Length", str(len(body)))
+                self.send_header("X-Trace-Seq", str(reg.last_seq))
+                self.send_header("X-Trace-Dropped",
+                                 str(reg.trace_dropped))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def _memprof(self):
+                """The memory profile (``telemetry/memprof.py``). Optional
+                JSON body: {"top_k": n}."""
+                try:
+                    info = read_json(self)
+                    top_k = int(info.get("top_k", 10)) \
+                        if isinstance(info, dict) else 10
+                except Exception:
+                    top_k = 10
+                from ..telemetry import memprof
+                try:
+                    body = memprof.snapshot(top_k=max(1, min(top_k, 100)))
+                except Exception as e:     # pragma: no cover - defensive
+                    write_json(self, 500, {"error": str(e)})
+                    return
+                write_json(self, 200, body)
+
+            def _flightrec(self):
+                """Explicit black-box dump; the (optional) JSON body's
+                fields land in the dump's info block."""
+                try:
+                    info = read_json(self)
+                    if not isinstance(info, dict):
+                        info = {"note": info}
+                except Exception:
+                    info = {}
+                # body keys must not collide with dump()'s own parameters
+                safe = {("body_" + k if k in ("self", "trigger", "force")
+                         else str(k)): v for k, v in info.items()}
+                path = get_flight_recorder().dump("http_debug", **safe)
+                if path is None:
+                    write_json(self, 503,
+                               {"error": "flight recorder unavailable "
+                                         "(telemetry disabled or dump "
+                                         "failed)"})
+                    return
+                write_json(self, 200, {"dumped": path})
 
             def _drain_body(self):
                 """Error paths that respond BEFORE parsing must still

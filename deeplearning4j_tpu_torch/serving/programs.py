@@ -8,7 +8,14 @@ to compile: ``warm()`` runs every rung once on the network's device, which
 builds the CUDA kernels, loads the libraries and lets cuDNN pick its
 algorithms for those shapes before the first request; ``run`` refuses a
 bucket that was not warmed, as the reference refuses one with no
-executable. A CUDA graph per bucket (ROADMAP A2) is later work.
+executable. A CUDA graph per bucket (ROADMAP A2) is later work. Each warm
+run is noted to ``telemetry.note_warm_run`` and, with ``cost_path`` set
+(the engine's ``serving.<model>``), is counted (``telemetry.perf``
+``ProgramCostIndex.count``: the aten ops' formulas and the kernels' own
+counts) into the ``<cost_path>.bucket<b>`` cost entry, paired with the
+batcher's ``<cost_path>.bucket<b>.dispatch_ms`` histogram, as the
+reference registers each bucket's executable (``:78, 138-155``). The
+entry folds against the peak of the network's compute dtype.
 
 A ``forward_fn`` is called as ``forward_fn(net, x)`` with the set's own
 network and the padded batch as a tensor on its device, and returns the
@@ -42,7 +49,8 @@ import torch
 from ..parallel.mesh import data_sharding
 from .buckets import BucketLadder
 from .errors import ServingError
-from .metrics import _record_warm_run
+from ..telemetry.perf import get_cost_index
+from ..telemetry.torchsignals import timed_warm_run
 
 
 def _describe(module) -> Tuple:
@@ -104,8 +112,10 @@ class ProgramSet:
                  ladder: BucketLadder, dtype="float32", mesh=None,
                  data_axis: str = "data",
                  forward_fn: Optional[Callable] = None,
-                 trace_hook: Optional[Callable[[], None]] = None):
+                 trace_hook: Optional[Callable[[], None]] = None,
+                 cost_path: Optional[str] = None):
         self.net = net
+        self.cost_path = cost_path
         self.mesh = mesh
         self.data_axis = data_axis
         if mesh is not None:
@@ -133,10 +143,24 @@ class ProgramSet:
         for b in self.ladder:
             if self._trace_hook is not None:
                 self._trace_hook()          # counts warm runs
-            _record_warm_run()
-            self._execute(np.zeros((b,) + self.feature_shape, self.dtype))
+            pad = np.zeros((b,) + self.feature_shape, self.dtype)
+            with timed_warm_run():
+                if self.cost_path is None:
+                    self._execute(pad)
+                else:
+                    self._count(b, pad)
             self._warmed.add(b)
         return self
+
+    def _count(self, b: int, pad: np.ndarray) -> None:
+        """Bucket ``b``'s warm run, counted into its cost entry."""
+        net = self.net
+        get_cost_index().count(
+            f"{self.cost_path}.bucket{b}", (b,) + self.signature,
+            lambda: self._execute(pad), items_per_step=float(b),
+            timing_metric=f"{self.cost_path}.bucket{b}.dispatch_ms",
+            dtype=getattr(net.conf, "compute_dtype", None) or net.dtype,
+            device=net.device)
 
     @property
     def warmed(self) -> bool:
@@ -175,7 +199,8 @@ class ProgramSet:
                          ladder=self.ladder, dtype=self.dtype,
                          mesh=self.mesh, data_axis=self.data_axis,
                          forward_fn=self._custom_fwd,
-                         trace_hook=self._trace_hook)
+                         trace_hook=self._trace_hook,
+                         cost_path=self.cost_path)
         if new.signature != self.signature:
             raise ValueError("parameter shapes or architecture changed; full "
                              "warm-up required")

@@ -28,7 +28,7 @@ that only set ``triggered`` and call ``on_preempt``; the training loop
 polls it and calls ``save_sync`` at its next step boundary, where the
 state is consistent. The reference's ``elastic.checkpoint.*`` counters,
 the write histogram and the ``checkpoint_write`` span are telemetry
-(ROADMAP A8, part 2); ``write_ms`` keeps each write's time here.
+(ROADMAP A8, part 2b); ``write_ms`` keeps each write's time here.
 """
 from __future__ import annotations
 

@@ -42,7 +42,7 @@ step) order, structural validation of a zip, its manifest and
   iterations and writes a Chrome trace into ``log_dir``. A profiler that
   is already active (the process allows one) is logged and the window is
   skipped; the fit goes on. The reference's ``profiler_capture`` span is
-  telemetry (ROADMAP A8, part 2).
+  telemetry (ROADMAP A8, part 2b).
 """
 from __future__ import annotations
 

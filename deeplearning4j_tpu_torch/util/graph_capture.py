@@ -27,15 +27,21 @@ or per batch. Both go through ``capture``, so they keep one set of rules:
   holds: a kernel then ran its wrapper's count plus that number times the
   graph's replays. (A launch of the same kernel by another thread during
   the capture would be counted as captured.)
+- **Telemetry.** A finished capture is noted to
+  ``telemetry.note_capture`` (the port's counterpart of a compile event),
+  after the capture ends.
 """
 from __future__ import annotations
 
 import contextlib
 import gc
 import threading
+import time
 from typing import Callable, Dict, Mapping, Sequence, Tuple, Union
 
 import torch
+
+from ..telemetry.torchsignals import note_capture
 
 # CUDA allows one stream capture at a time per process
 _lock = threading.Lock()
@@ -68,6 +74,7 @@ def capture(graph: torch.cuda.CUDAGraph, fn: Callable, *,
     launches the capture holds, by name."""
     counted = dict(counted)
     before = {n: w.launches for n, w in counted.items()}
+    t0 = time.perf_counter()
     with _lock, torch.cuda.device(device), _no_collection():
         stream.wait_stream(torch.cuda.current_stream(device))
         for g in ([] if gen is None else
@@ -88,6 +95,9 @@ def capture(graph: torch.cuda.CUDAGraph, fn: Callable, *,
             except Exception as e:
                 raise RuntimeError(f"capturing {what} failed: {e}") from e
         torch.cuda.current_stream(device).wait_stream(stream)
+    # outside the captured region: the telemetry record allocates nothing
+    # on the card, but no host work belongs inside a capture
+    note_capture(time.perf_counter() - t0)
     launches = {}
     for n, w in counted.items():
         if w.launches != before[n]:

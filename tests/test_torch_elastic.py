@@ -9,7 +9,7 @@ The reference's cases that read the telemetry registry
 (``elastic.recoveries``, ``elastic.degraded_transitions``,
 ``elastic.checkpoint.dropped``) read the trainer's and the writer's own
 results here (``recoveries``, ``degraded_transitions``, ``submit``'s False):
-the registry is ROADMAP A8, part 2. Its sync-freedom case counts the host
+the registry is ROADMAP A8, part 2b. Its sync-freedom case counts the host
 reads the step-loop thread makes (``Tensor.item``, ``tolist``, ``numpy``,
 ``cpu``, ``__bool__``, ``__float__``, ``__int__``) instead of the JAX host
 sync detector. ``test_elastic_recovery_bench_smoke`` drives ``bench.py`` and
@@ -449,7 +449,7 @@ def test_refusals():
         ElasticTrainer(_net(), devices=[0, 1], mesh_shape=(2, 2))
     with pytest.raises(ValueError, match=r"\(d,\) or \(d, m\)"):
         ElasticTrainer(_net(), devices=W4, mesh_shape=(1, 2, 2))
-    with pytest.raises(NotImplementedError, match="A8, part 2"):
+    with pytest.raises(NotImplementedError, match="A8, part 2b"):
         ElasticTrainer(_net(), devices=W4, registry=object())
 
 

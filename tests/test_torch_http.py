@@ -11,9 +11,11 @@ KV-pool exhaustion (429 without a retry hint), and ``/reload`` from a zip
 and from a checkpoint directory whose newest zip is truncated. Status
 codes and bodies are equal; outputs match at atol 1e-6 and tokens are
 equal. The cases follow the JAX ``tests/test_serving_engine.py``
-(``:386-490``) and ``tests/test_generation_http.py``. The telemetry
-routes answer 501 naming ROADMAP A8 (the port only), and ``/metrics``
-carries no ``slo``/``perf`` keys."""
+(``:386-490``) and ``tests/test_generation_http.py``. The five telemetry
+routes answer on both with the same status, content type and body keys
+and echo ``X-Trace-Id`` (``tests/test_torch_telemetry_serving.py`` holds
+their bodies against the reference's), and ``/metrics`` carries the same
+top-level keys (``perf`` with the registry on)."""
 import http.client
 import json
 import os
@@ -174,7 +176,8 @@ def test_get_routes_answer_as_the_jax_server(forward_pair, route):
     if route != "/metrics":
         assert tb == jb
     else:
-        assert set(tb) == set(jb) - {"slo", "perf"} == {"default"}
+        assert set(tb) == set(jb)
+        assert set(tb) - {"slo", "perf"} == {"default"}
         assert set(tb["default"]) == set(jb["default"])
 
 
@@ -263,14 +266,51 @@ def test_reload_from_a_zip_and_a_checkpoint_directory(tmp_path):
         pair.stop()
 
 
-def test_the_telemetry_routes_answer_501_naming_a8(forward_pair):
-    for path in ("/debug/trace", "/debug/trace?since_seq=3",
-                 "/debug/metrics", "/metrics/prometheus"):
-        status, body = _get(forward_pair.tb, path)
-        assert status == 501 and "ROADMAP A8" in body["error"], path
-    for path in ("/debug/flightrec", "/debug/memprof"):
-        status, body = _post(forward_pair.tb, path, {"top_k": 3})
-        assert status == 501 and "ROADMAP A8" in body["error"], path
+def _raw(base, method, path, body=None, trace_id=None):
+    """(status, headers, body bytes) of one request."""
+    headers = {"Content-Type": "application/json"}
+    if trace_id is not None:
+        headers["X-Trace-Id"] = trace_id
+    req = urllib.request.Request(base + path, body, headers, method=method)
+    try:
+        with urllib.request.urlopen(req, timeout=30) as r:
+            return r.status, dict(r.headers), r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers), e.read()
+
+
+@pytest.mark.parametrize("method, path", [
+    ("GET", "/debug/trace"), ("GET", "/debug/trace?since_seq=3"),
+    ("GET", "/debug/trace?since_seq=x"), ("GET", "/debug/metrics"),
+    ("GET", "/metrics/prometheus"), ("POST", "/debug/flightrec"),
+    ("POST", "/debug/memprof")])
+def test_the_telemetry_routes_answer_as_the_jax_server(forward_pair, method,
+                                                      path, tmp_path,
+                                                      monkeypatch):
+    """Each telemetry route: the same status and content type as the JAX
+    server's, the caller's ``X-Trace-Id`` echoed (normalized), and a JSON
+    body with the same keys."""
+    monkeypatch.setenv("DL4J_TPU_FLIGHTREC_DIR", str(tmp_path))
+    from deeplearning4j_tpu.telemetry import flightrec as jfr
+    from deeplearning4j_tpu_torch.telemetry import flightrec as tfr
+    jprev = jfr.set_flight_recorder(jfr.FlightRecorder(str(tmp_path / "j")))
+    tprev = tfr.set_flight_recorder(tfr.FlightRecorder(str(tmp_path / "t")))
+    body = json.dumps({"top_k": 3}).encode() if method == "POST" else None
+    tid = "ABCDEF0123456789-abcdef0123456789"
+    try:
+        js, jh, jb = _raw(forward_pair.jb, method, path, body, tid)
+        ts, th, tb = _raw(forward_pair.tb, method, path, body, tid)
+    finally:
+        jfr.set_flight_recorder(jprev)
+        tfr.set_flight_recorder(tprev)
+    assert ts == js, (ts, tb, js, jb)
+    assert th["Content-Type"] == jh["Content-Type"]
+    assert th["X-Trace-Id"] == jh["X-Trace-Id"] == \
+        "abcdef0123456789abcdef0123456789"
+    if th["Content-Type"] == "application/json":
+        assert set(json.loads(tb)) == set(json.loads(jb))
+    elif path.startswith("/debug/trace"):
+        assert "X-Trace-Seq" in th and "X-Trace-Dropped" in th
 
 
 def test_status_for_is_the_references():
@@ -353,7 +393,7 @@ def test_keepalive_is_not_desynced_by_early_errors(gen_pair):
     for method, path, payload, code in (
             ("POST", "/predict", body, 404), ("GET", "/health", None, 200),
             ("POST", "/nope", body, 404), ("POST", "/debug/memprof", body,
-                                           501),
+                                           200),
             ("GET", "/models", None, 200)):
         conn.request(method, path, payload,
                      {"Content-Type": "application/json"})

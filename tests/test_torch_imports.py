@@ -55,7 +55,11 @@ _REQUIRED = {f"deeplearning4j_tpu_torch.{m}" for m in (
     "parallel.tensor_parallel", "parallel.resharding", "parallel.pipeline",
     "parallel.expert_parallel", "serving.buckets", "nn.layers.attention",
     "parallel.elastic", "parallel.faults", "parallel.distributed",
-    "parallel.inference", "parallel.model_server", "parallel.streaming")}
+    "parallel.inference", "parallel.model_server", "parallel.streaming",
+    "telemetry", "telemetry.registry", "telemetry.tracecontext",
+    "telemetry.spans", "telemetry.spool", "telemetry.flightrec",
+    "telemetry.torchsignals", "telemetry.memprof", "telemetry.perf",
+    "telemetry.slo")}
 
 _FORBIDDEN = re.compile(
     r"^\s*(import\s+(jax|deeplearning4j_tpu)\b(?!_torch)"

@@ -139,8 +139,13 @@ def test_performance_listener_records_have_the_references_keys(k):
     jlst, plst = _fit_both(lambda m: m.PerformanceListener(frequency=3),
                            steps_per_dispatch=k)
     assert len(plst.history) == len(jlst.history) > 0
+    cost = {"mfu", "achieved_tflops"}
     for a, b in zip(plst.history, jlst.history):
-        assert set(a) == set(b) - {"mfu", "achieved_tflops"}
+        # the port counts its step's cost at the first step (the reference
+        # captures it after 256): its records carry the cost keys, and on
+        # the CPU there is no peak, so no MFU
+        assert set(a) - cost == set(b) - cost
+        assert a["mfu"] is None and a["achieved_tflops"] > 0
         assert a["iteration"] == b["iteration"]
         assert a["steps_per_dispatch"] == b["steps_per_dispatch"]
         assert a["score"] == pytest.approx(b["score"], rel=1e-5)

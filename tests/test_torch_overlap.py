@@ -75,7 +75,7 @@ def test_bucket_schedule_rejects_empty_and_bad_bytes():
         build_bucket_schedule([], 1024)
     with pytest.raises(ValueError, match="bucket_bytes"):
         build_bucket_schedule([torch.zeros(4)], 0)
-    with pytest.raises(NotImplementedError, match="A8, part 2"):
+    with pytest.raises(NotImplementedError, match="A8, part 2b"):
         profile_schedule(make_mesh((2,), ("data",), "cpu"),
                          build_bucket_schedule([torch.zeros(4)]))
 

@@ -287,7 +287,6 @@ def test_program_set_refusals_are_the_references(nets):
 
 @pytest.mark.parametrize("ask, item", [("mesh", "A7b"), ("path", "A2b"),
                                        ("reload", "A2b"),
-                                       ("publish", "A8"),
                                        ("head_sharding", "A7b")])
 def test_what_is_left_raises_naming_its_item(nets, ask, item):
     jnet, pnet = nets
@@ -324,8 +323,39 @@ def test_what_is_left_raises_naming_its_item(nets, ask, item):
             swap = eng.hot_swap if ask == "path" else \
                 eng.reload_from_checkpoint
             assert swap("default", path) == 2
-            return
-        with pytest.raises(NotImplementedError, match=item):
-            eng.publish_metrics(object())
     finally:
         eng.stop()
+
+
+class _Storage:
+    """A StatsStorage stand-in: keeps every ``put_update``."""
+
+    def __init__(self):
+        self.updates = []
+
+    def put_update(self, session_id, worker_id, snap):
+        self.updates.append((session_id, worker_id, snap))
+
+
+def test_publish_metrics_pushes_the_snapshot_as_the_jax_engine(nets):
+    """``publish_metrics`` (ported with the telemetry): one update a model
+    under the reference's session and worker ids, holding the keys the
+    JAX engine's snapshot holds (the port's ``decode_tokens_per_sec``
+    besides)."""
+    jnet, pnet = nets
+    eng = GenerationEngine(pnet, device="cpu", **ENG)
+    jeng = JEngine(jnet, **ENG)
+    try:
+        ours, ref = _Storage(), _Storage()
+        assert eng.generate([1, 2, 3], max_tokens=2)[1] == "length"
+        jeng.generate([1, 2, 3], max_tokens=2)
+        eng.runtime().wait_idle(10)
+        eng.publish_metrics(ours)
+        jeng.publish_metrics(ref)
+        assert [u[:2] for u in ours.updates] == [u[:2] for u in ref.updates]
+        assert set(ours.updates[0][2]) - {"decode_tokens_per_sec"} \
+            == set(ref.updates[0][2])
+        assert ours.updates[0][2]["requests"] == 1
+    finally:
+        eng.stop()
+        jeng.stop()

@@ -297,10 +297,10 @@ def test_c5_keywords_build_and_reach_both_configurations(conf, layers):
     (lambda: _dp().ParallelWrapper(_tiny(), mesh_shape=(2, 2)), None),
     (lambda: importlib.import_module(
         "deeplearning4j_tpu_torch.parallel.overlap").profile_schedule(
-        make_mesh((2,), ("data",), "cpu"), None), "A8, part 2"),
+        make_mesh((2,), ("data",), "cpu"), None), "A8, part 2b"),
     (lambda: importlib.import_module(
         "deeplearning4j_tpu_torch.parallel.zero").ZeroUpdateEngine.from_net(
-        _tiny(), make_mesh((2,), ("data",), "cpu")).profile(), "A8, part 2")],
+        _tiny(), make_mesh((2,), ("data",), "cpu")).profile(), "A8, part 2b")],
     ids=["model_axis", "profile_schedule", "zero_profile"])
 def test_what_the_parallel_slice_leaves_names_its_item(call, item):
     """What ROADMAP A7b-1 and A8's first part leave still raises, naming

@@ -373,6 +373,37 @@ def test_changed_architecture_hot_swap_warms_before_cutover():
         eng.stop()
 
 
+class _Storage:
+    """A StatsStorage stand-in: keeps every ``put_update``."""
+
+    def __init__(self):
+        self.updates = []
+
+    def put_update(self, session_id, worker_id, snap):
+        self.updates.append((session_id, worker_id, snap))
+
+
+def test_publish_metrics_pushes_each_models_snapshot():
+    """``publish_metrics`` (ported with the telemetry): one update a model,
+    the snapshot ``metrics()`` gives, under the reference's session and
+    worker ids."""
+    eng = InferenceEngine(_net(), feature_shape=(4,), buckets=(4,))
+    jeng = JEngine(_jnet(), feature_shape=(4,), buckets=(4,))
+    try:
+        eng.predict(_x(2))
+        jeng.predict(_x(2))
+        ours, ref = _Storage(), _Storage()
+        eng.publish_metrics(ours)
+        jeng.publish_metrics(ref)
+        assert [u[:2] for u in ours.updates] == [u[:2] for u in ref.updates] \
+            == [("serving", "default")]
+        assert set(ours.updates[0][2]) == set(ref.updates[0][2])
+        assert ours.updates[0][2]["requests"] == 1
+    finally:
+        eng.stop()
+        jeng.stop()
+
+
 def test_the_parts_left_for_later_name_their_roadmap_item(tmp_path):
     from deeplearning4j_tpu_torch.util.serialization import write_model
     eng = InferenceEngine(_net(), feature_shape=(4,), buckets=(4,))
@@ -388,8 +419,6 @@ def test_the_parts_left_for_later_name_their_roadmap_item(tmp_path):
         x = _x(2)
         np.testing.assert_allclose(eng.predict(x), other.output(x).numpy(),
                                    atol=1e-6)
-        with pytest.raises(NotImplementedError, match="A8"):
-            eng.publish_metrics(object())
         with pytest.raises(UnknownModelError):
             eng.hot_swap("nope", _net())
     finally:
