@@ -420,7 +420,7 @@ Phases; any failure raises and exits non-zero before a result is printed:
    backward at its shape (T 256, B 64). Its profiler sessions come after
    every host-bound phase but 12e and 17b. A kernel that three sessions
    did not record fails the phase.
-20. Telemetry (run last, after 17d: the host-read detector both use
+20. Telemetry (after 17d, before 21: the host-read detector both use
    wraps ``torch.Tensor``'s read methods for the rest of the process). (a) Phase 3's model and 8
    requests behind ``ServingHTTPServer`` (the prefix cache off), one at a
    time, with the registry off and then on, each with its own ``X-Trace-Id``: tokens
@@ -462,7 +462,41 @@ Phases; any failure raises and exits non-zero before a result is printed:
    cost of telemetry, reported, not gated: phase 12's int8 net and
    closed loop, the registry on and off alternated in 3 cycles after a
    warm one; each state's latency p50/p99 and rows/s.
-21. Report: JSON lines of per-shape kernel times, the serving and training
+21. The parallel layer's telemetry and the serving fleet (after phase
+   20). (a) ``_TLM`` f32 on 4 logical workers into a fresh registry: ZeRO-2
+   per step (2 batches), then overlap in a window of 2: the reference's
+   ``fit`` / ``epoch`` / ``step`` / ``window`` / ``dispatch`` spans,
+   ``train.iterations`` 4, ``train.windows`` 1 and
+   ``parallel.collective_launches`` the buckets' and gathers' count, the
+   ``parallel.*`` and ``zero.*`` gauges; ``ZeroUpdateEngine.profile`` and
+   ``profile_schedule`` (their ms printed: the logical mesh's adds and
+   views, not a wire). ``ElasticTrainer`` (``_TLM``'s width, 2 of its
+   blocks) with a kill at step 3: ``elastic.recoveries`` 1 and the
+   ``fault_killworker`` and ``elastic_recovery`` dumps in the phase's
+   directory. A ring step (phase 5's shape, f32, forward and backward)
+   and a compressed step (phase 5's) under the cost count: counted flops
+   over 12·D a visible pair, and over 6·N·B·T plus attention; K9's counted
+   bytes (the compressed step's kernel bytes less the plain step's) equal
+   9 an element a worker. The plain sync step with the registry on and
+   off, alternated in 3 cycles after a warm one (reported, not gated).
+   (b) Two replica processes of ``transformer_lm`` at ``_TLM``'s width and
+   12 blocks (f32, prefill batch 1, rungs 256 and 512, 4 decode slots) on
+   the card behind an affinity ``FleetRouter``, a ``FleetCollector`` and
+   ``FleetHTTPServer``; the second starts once the first has built K1
+   into their shared kernel-library directory and must report no build.
+   8 streamed greedy requests at once, each traced, must equal an
+   in-process ``GenerationEngine``'s tokens from the same seed; each
+   replica's served prefill programs must carry K1's counted flops, and
+   each replica's own K1 count (its ``/health`` ``kernel_launches``,
+   read before the requests and after the TTFT ones) must rise; that
+   difference is K1's ``fleet_replicas`` launches. TTFT p50 through the
+   door beside the direct call's (8 fresh prompts each).
+   A kill before the first token replays on the survivor with equal
+   tokens; a kill at the first token of a long stream closes it with
+   ``replica_lost``; with both dead, the collector stitches a dead
+   replica's request from its spool into one trace with the front door's
+   events. Every figure printed with the card's name and power limit.
+22. Report: JSON lines of per-shape kernel times, the serving and training
    metrics and the kernels, then last ``{"ok": true, "device": ...}``.
 """
 from __future__ import annotations
@@ -531,6 +565,7 @@ from deeplearning4j_tpu_torch.parallel.ring_attention import \
 from deeplearning4j_tpu_torch.serving import (InferenceEngine,
                                               ServingHTTPServer)
 from deeplearning4j_tpu_torch.serving.generation import GenerationEngine
+from deeplearning4j_tpu_torch.telemetry import configure_flight_recorder
 from deeplearning4j_tpu_torch.util.checkpointing import (
     CheckpointListener, ProfilerListener, fit_with_checkpointing,
     latest_checkpoint, read_checkpoint_manifest)
@@ -6974,6 +7009,549 @@ def telemetry_phase():
     return row
 
 
+# ----------------------------------------------------------------- phase 21
+# (a) the parallel layer's telemetry at _TLM on 4 logical workers; the
+# reference's names (deeplearning4j_tpu/parallel/{data_parallel,zero,
+# overlap,elastic}.py, util/async_checkpoint.py), checked by name here
+PT_SPANS = {"fit", "epoch", "window", "dispatch", "step"}
+PT_COUNTERS = {"train.iterations", "train.windows",
+               "parallel.collective_launches"}
+PT_GAUGES = {"parallel.bucket_count", "zero.shard_bytes",
+             "zero.gathered_bytes", "zero.groups", "zero.reduce_scatter_ms",
+             "zero.allgather_ms", "parallel.collective_ms"}
+PT_PROFILE_SPANS = {"reduce_scatter", "all_gather", "zero.allgather",
+                    "bucket_psum"}
+PT_ONOFF_CYCLES, PT_ONOFF_STEPS = 3, 3
+# (b) the fleet: _TLM's width and 12 blocks behind two replica processes
+FLEET_GEN = dict(block_len=16, max_seq_len=512, decode_slots=4,
+                 prefill_batches=(1,), prompt_rungs=(256, 512))
+FLEET_REQUESTS, FLEET_MAX_TOKENS = 8, 16
+
+
+def _pt_batches(n, seed):
+    V, T = TLM["vocab_size"], TLM["max_length"]
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        x = torch.as_tensor(rng.integers(0, V, (TRAIN_B, T)), device="cuda")
+        out.append(DataSet(x, _one_hot_prev(x, V, torch.float32)))
+    return out
+
+
+def _pt_wrapper(tel, batches):
+    """(a1) ZeRO-2 per step, then overlap in a window of 2, into a fresh
+    registry: the reference's spans, counters and gauges, and
+    ``train.iterations`` = the steps run; then (a2) the two profiles."""
+    from deeplearning4j_tpu_torch.parallel.overlap import profile_schedule
+    reg = tel.MetricsRegistry(enabled=True)
+    prev = tel.set_registry(reg)
+    try:
+        net = _tlm_f32(SEED + 60)
+        mesh = make_mesh((DP_WORKERS,), ("data",))
+        _reset_launches()
+        zero = ParallelWrapper(net, mesh=mesh, zero_stage=2,
+                               prefetch_buffer=0)
+        zero.fit(ListDataSetIterator(batches[:2]))
+        torch.cuda.synchronize()
+        launches = _launches(PARALLEL_COUNTED)
+        zero.gather_opt_state()
+        _reset_launches()
+        over = ParallelWrapper(net, mesh=mesh, overlap_sync=True,
+                               steps_per_dispatch=2, prefetch_buffer=0)
+        over.fit(ListDataSetIterator(batches[2:4]))
+        torch.cuda.synchronize()
+        replays = over.graph_stats()["launches_in_replays"]
+        window = {n: c + replays.get(n, 0)
+                  for n, c in _launches(PARALLEL_COUNTED).items()}
+        eng = zero._zero()
+        zp = eng.profile(mesh, repeats=3)
+        sp = profile_schedule(mesh, over._grad_schedule(), repeats=3)
+        snap = reg.snapshot()
+        events = reg.trace_events()
+    finally:
+        tel.set_registry(prev)
+    spans = {e["name"] for e in events if e.get("cat") == "span"}
+    coll = {e["name"] for e in events if e.get("cat") == "collective"}
+    paths = {e["args"]["path"] for e in events if e.get("cat") == "span"}
+    for want, have, what in ((PT_SPANS, spans, "spans"),
+                             (PT_PROFILE_SPANS, spans | coll,
+                              "profile spans"),
+                             (PT_COUNTERS, set(snap["counters"]),
+                              "counters"),
+                             (PT_GAUGES, set(snap["gauges"]), "gauges")):
+        if not want <= have:
+            raise AssertionError(f"phase 21 (a): {what} lack "
+                                 f"{sorted(want - have)}")
+    for want in ("fit/epoch/step", "fit/epoch/window/dispatch"):
+        if want not in paths:
+            raise AssertionError(f"phase 21 (a): no {want} span")
+    c = snap["counters"]
+    n_coll = (eng.collectives_per_step + 1) * 2 \
+        + (len(over._grad_schedule()) + 1) * 2
+    if (c["train.iterations"], c["train.windows"],
+            c["parallel.collective_launches"]) != (4, 1, n_coll):
+        raise AssertionError(f"phase 21 (a): counters {c}, not 4 steps, 1 "
+                             f"window and {n_coll} collectives")
+    per_step = TLM["n_blocks"] * DP_WORKERS * 2
+    if any(launches[n] != per_step for n in COUNTED):
+        raise AssertionError(f"phase 21 (a): ZeRO steps launched "
+                             f"{launches}, not {per_step} of K1-K3")
+    g = snap["gauges"]
+    return {"spans": sorted(spans), "span_paths": sorted(paths),
+            "counters": {k: c[k] for k in sorted(PT_COUNTERS)},
+            "gauges": {k: g[k]["value"] for k in sorted(PT_GAUGES)},
+            "zero_launches": launches, "window_launches": window,
+            "window_graph": over.graph_stats(),
+            "zero_profile_ms": {"reduce_scatter": zp["reduce_scatter_ms"],
+                                "allgather": zp["allgather_ms"],
+                                "buckets": len(zp["reduce_scatter"]),
+                                "groups": len(zp["all_gather"])},
+            "schedule_profile_ms": sp["collective_ms"],
+            "schedule_buckets": len(sp["buckets"])}
+
+
+def _pt_elastic(tel, batches, tmp):
+    """(a3) ``ElasticTrainer`` at _TLM's width (2 of its 12 blocks) with
+    one injected kill: ``elastic.recoveries`` 1 and the black boxes in
+    this phase's directory."""
+    from deeplearning4j_tpu_torch.parallel import (ElasticTrainer,
+                                                   FaultInjector, FaultPlan,
+                                                   KillWorker)
+    rec_dir = os.path.join(tmp, "flightrec")
+    prev_fr = tel.set_flight_recorder(tel.FlightRecorder(rec_dir))
+    reg = tel.MetricsRegistry(enabled=True)
+    try:
+        net = transformer_lm(**dict(TLM, n_blocks=2), token_input=True,
+                             updater=Adam(3e-4)).init(seed=SEED + 61)
+        tr = ElasticTrainer(
+            net, checkpoint_dir=os.path.join(tmp, "elastic"),
+            devices=list(range(DP_WORKERS)), checkpoint_every_n_steps=2,
+            fault_injector=FaultInjector(FaultPlan(
+                KillWorker(step=3, worker=1, rejoin=True))), registry=reg)
+        _reset_launches()
+        t0 = time.perf_counter()
+        tr.fit(ListDataSetIterator(batches[:2]), num_steps=6)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = _launches(PARALLEL_COUNTED)
+    finally:
+        tel.set_flight_recorder(prev_fr)
+    c = reg.snapshot()["counters"]
+    dumps = sorted(os.listdir(rec_dir))
+    found = {t: [d for d in dumps if d.endswith(f"_{t}.json")]
+             for t in ("fault_killworker", "elastic_recovery")}
+    if tr.recoveries != 1 or c.get("elastic.recoveries") != 1 or \
+            tr.steps_done != 6 or not all(found.values()):
+        raise AssertionError(f"phase 21 (a): elastic recoveries "
+                             f"{tr.recoveries} / {c}, steps "
+                             f"{tr.steps_done}, dumps {dumps}")
+    return {"recoveries": c["elastic.recoveries"], "launches": launches,
+            "checkpoints_written": c.get("elastic.checkpoint.written"),
+            "last_recovery_ms": tr.last_recovery_ms, "seconds": seconds,
+            "dumps": dumps}
+
+
+def _pt_ring_cost(tel):
+    """(a4) a ring step's counted cost (K4 forward, K2/K3 backward)
+    against 12·D model flops a visible pair."""
+    B, H, T, D, n = (RING[k] for k in ("B", "H", "T", "D", "workers"))
+    fused = ring_attention_sharded(make_mesh((n,), ("seq",)), "seq",
+                                   causal=True)
+    gen = torch.Generator().manual_seed(SEED + 63)
+    q, k, v, do = ((torch.randn(B, H, T, D, generator=gen) * 0.5).cuda()
+                   for _ in range(4))
+    leaves = [t.requires_grad_() for t in (q, k, v)]
+    _reset_launches()
+    with tel.count_cost() as cost:
+        torch.autograd.grad(fused(*leaves), leaves, do)
+    torch.cuda.synchronize()
+    launches = _launches(PARALLEL_COUNTED)
+    analytic = 12.0 * D * T * (T + 1) / 2 * B * H
+    hops = n * (n + 1) // 2
+    if launches["flash_block_update"] != hops:
+        raise AssertionError(f"phase 21 (a): the ring launched {launches}")
+    return {"shape": [B, H, T, D], "workers": n, "launches": launches,
+            "kernel_flops_counted": cost.kernel_flops,
+            "flops_counted": cost.total_flops,
+            "flops_analytic_12D_pairs": analytic,
+            "kernel_over_analytic": cost.kernel_flops / analytic,
+            "counted_over_analytic": cost.total_flops / analytic}
+
+
+def _pt_compressed_cost(tel, batches):
+    """(a5) a compressed data-parallel step's counted cost against 6·N·B·T
+    plus attention, and K9's counted bytes (the compressed step's kernel
+    bytes less the plain step's on the same batch) against 9 an element a
+    worker."""
+    net = _tlm_f32(SEED + 64)
+    mesh = make_mesh((DP_WORKERS,), ("data",))
+    N = net.num_params()
+    out = {}
+    for name, acc in (("plain", None),
+                      ("compressed", EncodedAccumulator(
+                          threshold=DP_THRESHOLD))):
+        pw = ParallelWrapper(net, mesh=mesh, gradient_accumulator=acc,
+                             prefetch_buffer=0)
+        _reset_launches()
+        with tel.count_cost() as cost:
+            pw.fit(ListDataSetIterator(batches[:1]))
+        torch.cuda.synchronize()
+        out[name] = {"launches": _launches(PARALLEL_COUNTED),
+                     "flops": cost.total_flops,
+                     "kernel_flops": cost.kernel_flops,
+                     "kernel_bytes": cost.kernel_bytes}
+    T, H, L = TLM["max_length"], TLM["n_heads"], TLM["n_blocks"]
+    Dh = TLM["d_model"] // H
+    analytic = 6.0 * N * TRAIN_B * T \
+        + 12.0 * L * TRAIN_B * H * Dh * T * (T + 1) / 2
+    k9_analytic = 9.0 * N * DP_WORKERS
+    k9_counted = out["compressed"]["kernel_bytes"] \
+        - out["plain"]["kernel_bytes"]
+    if out["compressed"]["launches"]["threshold_encode"] != DP_WORKERS:
+        raise AssertionError(f"phase 21 (a): the compressed step launched "
+                             f"{out['compressed']['launches']}")
+    if abs(k9_counted / k9_analytic - 1.0) > 1e-9:
+        raise AssertionError(f"phase 21 (a): K9's counted bytes "
+                             f"{k9_counted} are not 9 an element a worker "
+                             f"({k9_analytic})")
+    out.update({"num_params": N, "flops_analytic": analytic,
+                "counted_over_analytic":
+                    out["compressed"]["flops"] / analytic,
+                "k9_bytes_counted": k9_counted,
+                "k9_bytes_analytic": k9_analytic,
+                "k9_counted_over_analytic": k9_counted / k9_analytic})
+    return out
+
+
+def _pt_on_off(tel, batches):
+    """(a6) the plain sync step at _TLM on 4 workers with the registry on
+    and off, alternated (reported, not gated)."""
+    net = _tlm_f32(SEED + 65)
+    pw = ParallelWrapper(net, mesh=make_mesh((DP_WORKERS,), ("data",)),
+                         prefetch_buffer=0)
+    reg = tel.get_registry()
+    was = reg.enabled
+    times = {"on": [], "off": []}
+    _reset_launches()
+    try:
+        for cycle in range(PT_ONOFF_CYCLES + 1):
+            for state in ("on", "off"):
+                reg.enabled = state == "on"
+                for b in batches[:PT_ONOFF_STEPS]:
+                    t0 = time.perf_counter()
+                    pw.fit(ListDataSetIterator([b]))
+                    torch.cuda.synchronize()
+                    if cycle:                     # the first is the warm one
+                        times[state].append(
+                            (time.perf_counter() - t0) * 1e3)
+    finally:
+        reg.enabled = was
+    launches = _launches(PARALLEL_COUNTED)
+    q = {s: [float(v) for v in np.percentile(t, [25, 50, 75])]
+         for s, t in times.items()}
+    return {"step_ms": times, "p25_p50_p75": q, "launches": launches,
+            "on_over_off": q["on"][1] / q["off"][1]}
+
+
+def _fleet_prompts(n, seed, lo=64, hi=400):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(1, TLM["vocab_size"], size=int(k)).tolist()
+            for k in rng.integers(lo, hi, size=n)]
+
+
+def _fleet_stream(client, base, payload, trace_id=None, on_line=None):
+    """One streamed /generate through the front door: its lines and the
+    first token's arrival (ms after the request)."""
+    headers = {"Content-Type": "application/json"}
+    if trace_id is not None:
+        headers["X-Trace-Id"] = trace_id
+    lines, ttft = [], None
+    t0 = time.perf_counter()
+    with client.stream("POST", base + "/generate",
+                       body=json.dumps(payload).encode(), headers=headers,
+                       timeout=300.0) as resp:
+        if resp.status != 200:
+            raise AssertionError(f"phase 21 (b): /generate {resp.status}")
+        for raw in resp:
+            if not raw.strip():
+                continue
+            obj = json.loads(raw)
+            if "token" in obj and ttft is None:
+                ttft = (time.perf_counter() - t0) * 1e3
+            lines.append(obj)
+            if on_line is not None:
+                on_line(obj)
+    return lines, ttft
+
+
+def _fleet_k1_launches(client, url):
+    """A replica's K1 launches since it turned ready: its own wrapper's
+    count, served in the ``replica`` block of its ``/health``."""
+    st, h = client.request_json("GET", url + "/health", timeout=60.0)
+    if st != 200:
+        raise AssertionError(f"phase 21 (b): {url}/health {st}")
+    return h["replica"]["kernel_launches"]["flash_attention_fwd"]
+
+
+def _fleet_k1(client, url, n_blocks):
+    """K1 on a replica, read from what it serves: its prefill programs'
+    counted kernel flops (K1's ``note_kernel``, 4·Dh a visible pair a
+    head and block) and its served prefills."""
+    st, m = client.request_json("GET", url + "/metrics", timeout=60.0)
+    if st != 200:
+        raise AssertionError(f"phase 21 (b): {url}/metrics {st}")
+    H = TLM["n_heads"]
+    Dh = TLM["d_model"] // H
+    rows = []
+    for p in m["perf"]["programs"]:
+        if ".prefill." not in p["path"]:
+            continue
+        P, L = (int(s[1:]) for s in p["path"].rsplit(".", 1)[1].split("x"))
+        want = n_blocks * 4.0 * Dh * L * (L + 1) / 2 * H * P
+        rows.append({"path": p["path"],
+                     "kernel_flops": p["kernel_flops_per_step"],
+                     "k1_analytic": want})
+        if p["kernel_flops_per_step"] != want:
+            raise AssertionError(f"phase 21 (b): {url}'s {p['path']} "
+                                 f"counted {p['kernel_flops_per_step']} "
+                                 f"kernel flops, not K1's {want}")
+    prefills = m["generation"]["lm"]["prefills"]
+    if not rows or not prefills:
+        raise AssertionError(f"phase 21 (b): {url} served no K1 prefill")
+    return {"prefill_programs": rows, "prefills_served": prefills,
+            "k1_launches_if_one_a_block": prefills * n_blocks}
+
+
+def _fleet(tel, tmp):
+    """(b) two replica processes of _TLM behind the router, the collector
+    and the front door: 8 streamed greedy requests equal to an in-process
+    engine's; K1 on each replica; a kill before the first token replays
+    on the survivor; a kill after it closes the stream with
+    ``replica_lost``; the dead replicas' spools stitch into the traces;
+    the second replica joins the warm library directory with no build."""
+    from deeplearning4j_tpu_torch.serving.fleet import (FleetCollector,
+                                                        FleetHTTPServer,
+                                                        FleetRouter,
+                                                        ReplicaProcess)
+    dumps = os.path.join(tmp, "fleet_flightrec")
+    prev_fr = tel.set_flight_recorder(tel.FlightRecorder(dumps))
+    # the front door's own events and the collector's stitching share one
+    # fresh registry
+    prev_reg = tel.set_registry(tel.MetricsRegistry(enabled=True))
+    kw = dict(TLM, seed=SEED + 66, dtype="float32", token_input=True)
+    spec = {"model": {"zoo": "transformer_lm", "kwargs": kw},
+            "model_name": "lm", "generation": FLEET_GEN, "device": "cuda",
+            "compile_cache": os.path.join(tmp, "fleet_kernels"),
+            "spool_period_s": 0.1}
+    env = {"DL4J_TPU_FLIGHTREC_DIR": dumps}
+    router = FleetRouter(policy="affinity", health_period_s=0.1).start()
+    col = FleetCollector(router)
+    front = FleetHTTPServer(router, collector=col)
+    client = HTTPClient(max_per_host=FLEET_REQUESTS, timeout=300.0)
+    procs, direct = {}, None
+    try:
+        ready = {}
+        for rid in ("r0", "r1"):     # the second starts on a warm directory
+            procs[rid] = ReplicaProcess(spec, rid, workdir=tmp, env=env)
+            t0 = time.perf_counter()
+            router.add_process(procs[rid], wait_ready=True, timeout=600.0)
+            ready[rid] = dict(procs[rid].ready_info,
+                              wall_s=time.perf_counter() - t0)
+        if ready["r0"]["fresh_compiles"] < 1 or \
+                ready["r1"]["fresh_compiles"] != 0 or \
+                ready["r1"]["cache_hits"] < 1:
+            raise AssertionError(f"phase 21 (b): cold starts {ready}")
+        base = f"http://127.0.0.1:{front.start()}"
+        net = transformer_lm(**kw).init()
+        _reset_launches()                       # the direct engine's K1
+        direct = GenerationEngine(net, model_name="lm", **FLEET_GEN)
+
+        def want(p, n=FLEET_MAX_TOKENS):
+            return direct.generate(p, max_tokens=n)[0]
+
+        # each replica's own K1 count, read before and after the requests
+        k1_before = {rid: _fleet_k1_launches(client, r.base_url)
+                     for rid, r in procs.items()}
+        # 8 streamed greedy requests at once, each traced
+        prompts = _fleet_prompts(FLEET_REQUESTS, SEED + 67)
+        tids = [f"{i + 1:08x}" + "f1ee7" * 4 for i in range(len(prompts))]
+        with ThreadPoolExecutor(len(prompts)) as ex:
+            got = list(ex.map(lambda a: _fleet_stream(
+                client, base, {"prompt": a[0],
+                               "max_tokens": FLEET_MAX_TOKENS}, a[1]),
+                zip(prompts, tids)))
+        served_by = {}
+        for i, (p, (lines, _)) in enumerate(zip(prompts, got)):
+            toks = [l["token"] for l in lines if "token" in l]
+            if toks != want(p) or lines[-1].get("reason") != "length":
+                raise AssertionError(f"phase 21 (b): request {i}'s tokens "
+                                     f"differ from the direct engine's")
+            served_by[tids[i]] = lines[-1]["replica"]
+        if set(served_by.values()) != {"r0", "r1"}:
+            raise AssertionError(f"phase 21 (b): one replica served all "
+                                 f"({served_by})")
+        # TTFT through the door beside the direct call's, fresh prompts
+        ttft = {"front_door": [], "direct": []}
+        for p in _fleet_prompts(FLEET_REQUESTS, SEED + 68):
+            ttft["front_door"].append(_fleet_stream(
+                client, base, {"prompt": p, "max_tokens": 4})[1])
+        for p in _fleet_prompts(FLEET_REQUESTS, SEED + 69):
+            t0 = time.perf_counter()
+            toks = iter(direct.generate(p, max_tokens=4, stream=True))
+            next(toks)
+            ttft["direct"].append((time.perf_counter() - t0) * 1e3)
+            list(toks)
+        k1 = {rid: _fleet_k1(client, r.base_url, TLM["n_blocks"])
+              for rid, r in procs.items()}
+        for rid, r in procs.items():
+            k1[rid]["k1_launches"] = \
+                _fleet_k1_launches(client, r.base_url) - k1_before[rid]
+            if k1[rid]["k1_launches"] < 1:
+                raise AssertionError(f"phase 21 (b): replica {rid} "
+                                     f"launched no K1 ({k1[rid]})")
+        # a kill before the first token: the replay on the survivor
+        p_replay = _fleet_prompts(1, SEED + 70)[0]
+        victim = router.candidates(p_replay)[0][0]
+        survivor = "r1" if victim == "r0" else "r0"
+        router.stop()                          # the victim stays READY
+        procs[victim].kill()
+        lines = list(router.stream_generate({"prompt": p_replay,
+                                             "max_tokens": FLEET_MAX_TOKENS}))
+        toks = [l["token"] for l in lines if "token" in l]
+        done = lines[-1]
+        if toks != want(p_replay) or done.get("replica") != survivor or \
+                not done.get("retries"):
+            raise AssertionError(f"phase 21 (b): the replay {done}")
+        router.start()
+        deadline = time.monotonic() + 30
+        while {r["id"]: r["state"] for r in router.replicas()}[victim] \
+                != "dead":
+            if time.monotonic() > deadline:
+                raise AssertionError("phase 21 (b): the victim never dead")
+            time.sleep(0.05)
+        # a kill after the first token: the stream closes, replica_lost
+        killed = []
+
+        def kill_at_first_token(obj):
+            if "token" in obj and not killed:
+                killed.append(True)
+                router.kill_replica(survivor)
+
+        lost, _ = _fleet_stream(client, base,
+                                {"prompt": _fleet_prompts(1, SEED + 71,
+                                                          64, 200)[0],
+                                 "max_tokens": 256},
+                                on_line=kill_at_first_token)
+        n_lost = sum(1 for l in lost if "token" in l)
+        if lost[-1].get("reason") != "replica_lost" or \
+                lost[-1].get("replica") != survivor or n_lost >= 256:
+            raise AssertionError(f"phase 21 (b): the lost stream ended "
+                                 f"{lost[-1]}")
+        # both replicas dead: the collector reads only their spools
+        deadline = time.monotonic() + 30
+        while any(r["state"] != "dead" for r in router.replicas()):
+            if time.monotonic() > deadline:
+                raise AssertionError("phase 21 (b): replicas not dead")
+            time.sleep(0.05)
+        col.pull_once()
+        tid = next(t for t, r in served_by.items() if r == victim)
+        events = col.events_for_trace(tid)
+        where = {e["args"]["replica"] for e in events}
+        if col.spools_recovered < 2 or not {"front", victim} <= where or \
+                not any(e["name"].startswith("generation.")
+                        and e["args"]["replica"] == victim
+                        for e in events):
+            raise AssertionError(f"phase 21 (b): trace {tid} stitched "
+                                 f"from {where} ({col.snapshot()})")
+        lost_dumps = [d for d in os.listdir(dumps)
+                      if d.endswith("_fleet_replica_lost.json")]
+        if len(lost_dumps) < 2:
+            raise AssertionError(f"phase 21 (b): dumps {os.listdir(dumps)}")
+        direct_k1 = fa.flash_attention.launches
+    finally:
+        tel.set_flight_recorder(prev_fr)
+        tel.set_registry(prev_reg)
+        client.close()
+        front.stop(close_router=True)
+        col.stop()
+        for p in procs.values():
+            p.kill()
+        if direct is not None:
+            direct.stop(drain=False)
+    p50 = lambda v: float(np.median(v))
+    return {"n_blocks": TLM["n_blocks"], "requests": FLEET_REQUESTS,
+            "max_tokens": FLEET_MAX_TOKENS, "generation": FLEET_GEN,
+            "ready": ready, "served_by": served_by,
+            "ttft_ms": ttft, "ttft_p50_front_door": p50(ttft["front_door"]),
+            "ttft_p50_direct": p50(ttft["direct"]), "k1": k1,
+            "k1_launches": {"replicas": sum(
+                r["k1_launches"] for r in k1.values()),
+                "direct_engine": direct_k1},
+            "replay": {"victim": victim, "survivor": survivor,
+                       "retries": done["retries"]},
+            "lost_stream_tokens": n_lost,
+            "stitched_events": len(events),
+            "spools_recovered": col.spools_recovered,
+            "replica_lost_dumps": len(lost_dumps)}
+
+
+def parallel_fleet_phase():
+    """Phase 21 (see the module docstring): (a) the parallel layer's
+    telemetry, (b) the serving fleet."""
+    from deeplearning4j_tpu_torch import telemetry as tel
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="p21_")
+    try:
+        batches = _pt_batches(4, SEED + 59)
+        wrapper = _pt_wrapper(tel, batches)
+        torch.cuda.empty_cache()
+        elastic = _pt_elastic(tel, batches, tmp)
+        torch.cuda.empty_cache()
+        ring = _pt_ring_cost(tel)
+        torch.cuda.empty_cache()
+        compressed = _pt_compressed_cost(tel, batches)
+        torch.cuda.empty_cache()
+        on_off = _pt_on_off(tel, batches)
+        del batches
+        torch.cuda.empty_cache()
+        t_b = time.perf_counter()
+        fleet = _fleet(tel, tmp)
+        fleet["seconds"] = time.perf_counter() - t_b
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    by_path = {
+        "parallel_telemetry_zero": wrapper["zero_launches"],
+        "parallel_telemetry_window": wrapper["window_launches"],
+        "parallel_telemetry_elastic": elastic["launches"],
+        "parallel_telemetry_ring": ring["launches"],
+        "parallel_telemetry_compressed": {
+            n: compressed["plain"]["launches"][n]
+            + compressed["compressed"]["launches"][n]
+            for n in PARALLEL_COUNTED},
+        "parallel_telemetry_on_off": on_off["launches"],
+        "fleet_direct": {n: 0 for n in PARALLEL_COUNTED},
+        "fleet_replicas": {n: 0 for n in PARALLEL_COUNTED}}
+    by_path["fleet_direct"]["flash_attention_fwd"] = \
+        fleet["k1_launches"]["direct_engine"]
+    by_path["fleet_replicas"]["flash_attention_fwd"] = \
+        fleet["k1_launches"]["replicas"]
+    row = {"wrapper": wrapper, "elastic": elastic, "ring_cost": ring,
+           "compressed_cost": compressed, "registry_on_off": on_off,
+           "fleet": fleet, "launches_by_path": by_path,
+           "launches": {n: sum(p[n] for p in by_path.values())
+                        for n in PARALLEL_COUNTED},
+           "seconds": time.perf_counter() - t0}
+    log(f"phase 21: {row['seconds']:.1f} s (fleet {fleet['seconds']:.1f}); "
+        f"ring counted/analytic {ring['counted_over_analytic']:.4f}, "
+        f"compressed {compressed['counted_over_analytic']:.4f}, K9 bytes "
+        f"{compressed['k9_counted_over_analytic']:.4f}; step p50 on/off "
+        f"{on_off['on_over_off']:.4f}; ready "
+        f"{[round(r['wall_s'], 1) for r in fleet['ready'].values()]} s; "
+        f"TTFT p50 door/direct {fleet['ttft_p50_front_door']:.1f}/"
+        f"{fleet['ttft_p50_direct']:.1f} ms")
+    return row
+
+
 def main() -> int:
     smi = device_phase()
     build_report = build_phase()
@@ -7035,6 +7613,12 @@ def main() -> int:
     tel_train = {n: tel_row["train"]["launches"][n]
                  + tel_row["step_cost"]["launches"][n] for n in COUNTED}
     tel_i8 = tel_row["forward_cost"]["k8_launches"]
+    # phase 21 after phase 20: its fleet's replicas are processes of their
+    # own, and its parallel paths each count their launches
+    p21 = parallel_fleet_phase()
+    p21_n = p21["launches"]
+    p21_paths = lambda name: {path: n[name] for path, n in
+                              p21["launches_by_path"].items() if n[name]}
     top = next(r for r in rows if r["BH"] == 16 and r["T"] == 1024
                and r["dtype"] == str(torch.float32))
     serve_k1 = slice_row["flash_attention_launches"]
@@ -7061,7 +7645,8 @@ def main() -> int:
         + resume["launches"]["flash_attention_fwd"]
         + dp_opt["launches"]["flash_attention_fwd"]
         + tp_n["flash_attention_fwd"] + el_n["flash_attention_fwd"]
-        + tel_serve + tel_train["flash_attention_fwd"],
+        + tel_serve + tel_train["flash_attention_fwd"]
+        + p21_n["flash_attention_fwd"],
         "launches_by_path": {
             "serve": serve_k1, "serve_generation": gen_row["k1_launches"],
             "train": train_k["flash_attention_fwd"],
@@ -7075,7 +7660,8 @@ def main() -> int:
             "model_axis": tp_n["flash_attention_fwd"],
             "elastic_distributed": el_n["flash_attention_fwd"],
             "telemetry_serve": tel_serve,
-            "telemetry_train": tel_train["flash_attention_fwd"]},
+            "telemetry_train": tel_train["flash_attention_fwd"],
+            **p21_paths("flash_attention_fwd")},
         "max_abs_err": errs[torch.float32],
         "max_abs_err_f32": errs[torch.float32],
         "max_abs_err_bf16": errs[torch.bfloat16],
@@ -7094,7 +7680,7 @@ def main() -> int:
             "launches": train_k[name] + win_sum[name]
             + dp_row["launches"][name] + resume["launches"][name]
             + dp_opt["launches"][name] + tp_n[name] + el_n[name]
-            + tel_train[name]
+            + tel_train[name] + p21_n[name]
             + sum(ring_row[d]["launches"][name] for d in ring_dtypes),
             "launches_by_path": {
                 "train": train_k[name],
@@ -7108,7 +7694,7 @@ def main() -> int:
                 "elastic_distributed": el_n[name],
                 "telemetry_train": tel_train[name],
                 "ring": sum(ring_row[d]["launches"][name]
-                            for d in ring_dtypes)},
+                            for d in ring_dtypes), **p21_paths(name)},
             "max_abs_err": max(e[0] for e in bwd_errs[kind].values()),
             "max_rel_err_f32": bwd_errs[kind][torch.float32][1],
             "max_rel_err_bf16": bwd_errs[kind][torch.bfloat16][1],
@@ -7239,7 +7825,9 @@ def main() -> int:
         "name": "flash_block_update", "route": "cuda",
         "source": "deeplearning4j_tpu_torch/csrc/flash_block_update.cu",
         "replaces": "deeplearning4j_tpu/ops/pallas_attention.py:440",
-        "launches": ring_k4, "launches_by_path": {"ring": ring_k4},
+        "launches": ring_k4 + p21_n["flash_block_update"],
+        "launches_by_path": {"ring": ring_k4,
+                             **p21_paths("flash_block_update")},
         "max_abs_err": k4_errs[torch.float32],
         "max_abs_err_f32": k4_errs[torch.float32],
         "max_abs_err_bf16": k4_errs[torch.bfloat16],
@@ -7259,9 +7847,11 @@ def main() -> int:
         "name": "threshold_encode", "route": "cuda",
         "source": "deeplearning4j_tpu_torch/csrc/threshold_encode.cu",
         "replaces": "deeplearning4j_tpu/ops/pallas_compression.py:89",
-        "launches": dp_row["launches"]["threshold_encode"],
+        "launches": dp_row["launches"]["threshold_encode"]
+        + p21_n["threshold_encode"],
         "launches_by_path": {
-            "train_data_parallel": dp_row["launches"]["threshold_encode"]},
+            "train_data_parallel": dp_row["launches"]["threshold_encode"],
+            **p21_paths("threshold_encode")},
         "max_abs_err": k9_err,
         "shape": f"one worker's flat residual: n={n_params} float32",
         "ms": k9_top["ms"], "plain_ms": k9_top["plain_ms"],
@@ -7316,6 +7906,8 @@ def main() -> int:
           flush=True)
     print(json.dumps({"telemetry": tel_row, "card": smi}, default=str),
           flush=True)
+    print(json.dumps({"parallel_telemetry_and_fleet": p21, "card": smi},
+                     default=str), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -7330,4 +7922,12 @@ if __name__ == "__main__":
         for row in amp_seed_study(int(sys.argv[2])):
             print(json.dumps(row, default=str), flush=True)
         sys.exit(0)
-    sys.exit(main())
+    # every phase's flight-recorder dumps (17d's kills and recoveries
+    # among them) go to a directory of this run, never into the checkout
+    dumps = tempfile.mkdtemp(prefix="chip_smoke_flightrec_")
+    configure_flight_recorder(directory=dumps)
+    try:
+        rc = main()
+    finally:
+        shutil.rmtree(dumps, ignore_errors=True)
+    sys.exit(rc)

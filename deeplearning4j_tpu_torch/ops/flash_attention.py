@@ -494,6 +494,10 @@ def flash_block_update(acc, m, l, q3, k3, v3, *, causal: bool, scale: float):
                            f"error {err} (BH={BH}, Tq={Tq}, Tk={Tk}, D={D}, "
                            f"{q3.dtype})")
     flash_block_update.launches += 1
+    # model flops as the bound counts them: 4·D a visible pair (S = QK^T,
+    # the P.V fold); the diagonal hop sees its lower triangle
+    note_kernel(4.0 * D * (_pairs(Tq, True) if causal else float(Tq * Tk))
+                * BH, q3, k3, v3, acc, m, l, *outs)
     return outs
 
 

@@ -8,7 +8,10 @@ includes (``#include "..."``, directly or through another local header),
 so an edited source or header rebuilds;
 nvcc's report (registers, shared memory, spills), preceded by the build's
 seconds, is kept beside it with the suffix ``.log``. Sources are built at
-first use, never at import.
+first use, never at import. ``BUILD_DIR`` is the directory a serving
+fleet's replicas share (``serving/fleet/coldstart.py`` points it
+elsewhere); ``build_counts()`` says how many libraries this process built
+and how many it found built.
 """
 from __future__ import annotations
 
@@ -30,6 +33,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _symbols: Dict[str, object] = {}     # C entry points, loaded once
+_counts = {"built": 0, "found": 0}    # build_library's answers, this process
 
 
 def _nvcc() -> str:
@@ -76,6 +80,7 @@ def build_library(source: Path) -> Path:
     """Compile ``source`` unless its library exists; return the library."""
     out = library_path(source)
     if out.exists():
+        _counts["found"] += 1
         return out
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -91,7 +96,14 @@ def build_library(source: Path) -> Path:
         raise RuntimeError(f"nvcc failed ({res.returncode}) building "
                            f"{source.name}:\n{res.stderr[-4000:]}")
     os.replace(tmp, out)
+    _counts["built"] += 1
     return out
+
+
+def build_counts() -> Dict[str, int]:
+    """This process's ``build_library`` calls: ``built``, the libraries
+    nvcc compiled; ``found``, those already in ``BUILD_DIR``."""
+    return dict(_counts)
 
 
 def load_symbol(symbol: str, build: Callable[[], Path],

@@ -62,6 +62,17 @@ key gives them the same numbers on their shards.
   ``step_callback(net, k)`` after each dispatched item's k iterations are
   counted (the reference's seam for elastic supervision and asynchronous
   checkpoints).
+- **Telemetry** (reference ``:369-371, 728-744, 757-904``): the ``fit`` /
+  ``epoch`` / ``window`` / ``dispatch`` / ``step`` spans, the
+  ``train.iterations`` and ``train.windows`` counters,
+  ``parallel.collective_launches`` (the collectives a step's sync runs on
+  the mesh: a bucket's reduction each, ZeRO's all-gathers, and the fused
+  state and loss mean; counted on the host per dispatched step, as the
+  reference counts them), the ``parallel.bucket_count`` gauge when the
+  schedule is built and, on a model axis, ``parallel.model_axis``,
+  ``parallel.param_bytes_per_replica`` and
+  ``parallel.opt_bytes_per_replica`` after the fit. A window's spans wrap
+  its replays on the host; nothing is recorded inside the captured step.
 
 Feeds run through a ``DevicePrefetchIterator`` of ``prefetch_buffer``
 batches (0 feeds batches as they come) on every path; the reference's
@@ -93,11 +104,13 @@ from ..nn.tape import collect_state, commit_state
 from ..optimize.solver import (EtlClock, cast_feed, epoch_hook,
                                notify_batch, notify_window, train_step_math)
 from ..optimize.step_graph import WindowGraphs
+from ..telemetry import get_registry, span
 from .mesh import (Mesh, axis_size, data_sharding, local_count, make_mesh,
                    pmean)
 from .overlap import (DEFAULT_BUCKET_BYTES, bucketed_pmean,
                       build_bucket_schedule)
-from .tensor_parallel import MODEL_AXIS, model_axis_size, place_net
+from .tensor_parallel import (MODEL_AXIS, model_axis_size,
+                              per_replica_bytes, place_net, tree_specs)
 from .zero import ZeroUpdateEngine, is_zero_state
 
 
@@ -333,6 +346,10 @@ class ParallelWrapper:
             self._bucket_schedule = build_bucket_schedule(
                 [p for _, _, p in flat_param_order(self.net)],
                 self.bucket_bytes)
+            reg = get_registry()
+            if reg.enabled:
+                reg.gauge("parallel.bucket_count").set(
+                    len(self._bucket_schedule))
         return self._bucket_schedule
 
     def _zero(self) -> ZeroUpdateEngine:
@@ -519,12 +536,49 @@ class ParallelWrapper:
             feed = iterator
         self.prefetcher = (feed if isinstance(feed, DevicePrefetchIterator)
                            else None)
-        for epoch in range(epochs):
-            self._fit_epoch(feed, iterator, sync,
-                            skip_first_batches if epoch == 0 else 0)
+        reg = get_registry()
+        with span("fit", epochs=epochs, mode=self.training_mode,
+                  devices=self.n, net="ParallelWrapper"):
+            for epoch in range(epochs):
+                with span("epoch", index=epoch):
+                    self._fit_epoch(feed, iterator, sync,
+                                    skip_first_batches if epoch == 0
+                                    else 0, reg)
+            if self.m > 1 and reg.enabled:
+                # a rank's footprint once laid out: a model-sharded leaf
+                # counts one row of its m
+                reg.gauge("parallel.model_axis").set(self.m)
+                params = net.param_dicts()
+                reg.gauge("parallel.param_bytes_per_replica").set(
+                    per_replica_bytes(params, tree_specs(net, params)))
+                reg.gauge("parallel.opt_bytes_per_replica").set(
+                    per_replica_bytes(net.opt_state,
+                                      tree_specs(net, net.opt_state)))
         return net
 
-    def _fit_epoch(self, feed, iterator, sync: bool, skip: int) -> None:
+    def _collectives(self) -> Tuple[int, int]:
+        """(buckets, collectives) of one sync step on the mesh: a bucket's
+        reduction each, ZeRO's all-gather a group, plus the fused state
+        and loss mean; (0, 0) on the plain and the accumulator paths, as
+        the reference counts them."""
+        if self.zero_stage:
+            eng = self._zero()
+            return eng.num_reduce_launches, eng.collectives_per_step + 1
+        if self.overlap_sync:
+            n = len(self._grad_schedule())
+            return n, n + 1
+        return 0, 0
+
+    def _step_collectives(self, x, n_coll: int) -> int:
+        """A step's collectives on a batch ``x``: a batch that does not tile
+        the mesh takes the whole-batch step, which keeps ZeRO's and runs
+        no other (the reference's remainder programs)."""
+        if x.shape[0] % self.n and not self.zero_stage:
+            return 0
+        return n_coll
+
+    def _fit_epoch(self, feed, iterator, sync: bool, skip: int,
+                   reg) -> None:
         net = self.net
         epoch_hook(net.listeners, "on_epoch_start", net)
         clock = EtlClock(self.prefetcher)
@@ -534,6 +588,11 @@ class ParallelWrapper:
         if skip:
             clock.skipped()
         if sync:
+            # resolved once an epoch: one locked add an iteration
+            c_iters = reg.counter("train.iterations")
+            c_windows = reg.counter("train.windows")
+            c_coll = reg.counter("parallel.collective_launches")
+            buckets, n_coll = self._collectives()
             windowed = (self.steps_per_dispatch > 1
                         and self.gradient_accumulator is None)
             for item in (iter_windows(src, self.steps_per_dispatch)
@@ -541,17 +600,30 @@ class ParallelWrapper:
                 etl_ms = clock.etl_ms()
                 if isinstance(item, BatchWindow):
                     k = len(item)
-                    losses = self._window([self._feed(d)
-                                           for d in item.datasets])
-                    notify_window(net, item.datasets, losses, etl_ms,
-                                  clock.device_ms(etl_ms))
+                    with span("window", k=k, iteration=net.iteration_count):
+                        feeds = [self._feed(d) for d in item.datasets]
+                        with span("dispatch", k=k, buckets=buckets):
+                            losses = self._window(feeds)
+                        c_windows.inc()
+                        c_iters.inc(k)
+                        nc = self._step_collectives(feeds[0][0], n_coll)
+                        if nc:
+                            c_coll.inc(k * nc)
+                        notify_window(net, item.datasets, losses, etl_ms,
+                                      clock.device_ms(etl_ms))
                 else:
                     k = 1
-                    loss = self._sync_step(*self._feed(item),
-                                           net.iteration_count)
-                    notify_batch(net, item, loss, etl_ms,
-                                 clock.device_ms(etl_ms))
-                    net.iteration_count += 1
+                    # the step is the dispatch on this path: one span
+                    with span("step", iteration=net.iteration_count):
+                        x, y = self._feed(item)
+                        loss = self._sync_step(x, y, net.iteration_count)
+                        c_iters.inc()
+                        nc = self._step_collectives(x, n_coll)
+                        if nc:
+                            c_coll.inc(nc)
+                        notify_batch(net, item, loss, etl_ms,
+                                     clock.device_ms(etl_ms))
+                        net.iteration_count += 1
                 if self.step_callback is not None:
                     self.step_callback(net, k)
                 clock.restart()
@@ -570,7 +642,15 @@ class ParallelWrapper:
             iterator.reset()
 
     def _avg_window(self, buf) -> None:
-        # every batch of the window reports the window's mean loss
-        notify_window(self.net, buf, [self._run_avg(buf)] * len(buf))
+        net, k = self.net, len(buf)
+        with span("window", k=k, kind="averaging",
+                  iteration=net.iteration_count):
+            with span("dispatch", k=k):
+                loss = self._run_avg(buf)
+            reg = get_registry()
+            reg.counter("train.windows").inc()
+            reg.counter("train.iterations").inc(k)
+            # every batch of the window reports the window's mean loss
+            notify_window(net, buf, [loss] * k)
         if self.step_callback is not None:
             self.step_callback(self.net, len(buf))

@@ -49,13 +49,20 @@ into the network's own tensors (a ZeRO state of another worker count is
 installed as restored). Every wrapper is dropped after a recovery
 (programs are per mesh), so the next captures its windows again.
 
-The reference's ``elastic.*`` counters, gauges and histogram, its
-``elastic.fit`` / ``elastic.recover`` spans, the ``elastic.mode_switch``
-event, the trace context and the flight-recorder dumps are telemetry
-(ROADMAP A8, part 2b): the results carry the evidence (``recoveries``,
+**Telemetry** (reference ``:425-457, 523-526, 573-646``), into
+``registry`` (the process-wide one by default): the
+``elastic.recoveries``, ``elastic.degraded_transitions`` and
+``elastic.preemptions`` counters, the ``elastic.mesh_devices`` and
+``elastic.degraded`` gauges, the ``elastic.recover_ms`` histogram, the
+async writer's ``elastic.checkpoint.*`` metrics; the ``elastic.fit`` span
+inside one trace context for the whole run (the wrapper's spans nest in
+it) and an ``elastic.recover`` span a recovery; an ``elastic.mode_switch``
+event at each flip; and flight-recorder dumps before a recovery touches
+anything (``elastic_recovery``) and at a preemption's step boundary
+(``preemption``). All of it is host bookkeeping: nothing reads the device.
+The results carry the same evidence (``recoveries``,
 ``degraded_transitions``, ``mode_history``, ``preempted``, ``steps_done``,
-``last_recovery_ms``) and ``registry=`` other than None raises
-``NotImplementedError``.
+``last_recovery_ms``).
 """
 from __future__ import annotations
 
@@ -66,6 +73,10 @@ from typing import List, Optional
 
 import torch
 
+from ..telemetry import get_registry, span
+from ..telemetry.flightrec import get_flight_recorder
+from ..telemetry.tracecontext import (current_trace_context, event,
+                                      new_trace_context, use_trace_context)
 from ..util.async_checkpoint import AsyncCheckpointWriter, PreemptionGuard
 from ..util.distributed_checkpoint import (latest_sharded_step,
                                            restore_latest_sharded_checkpoint,
@@ -149,12 +160,6 @@ class ElasticTrainer:
                  zero_stage: int = 0,
                  bucket_bytes: int = DEFAULT_BUCKET_BYTES,
                  registry=None):
-        if registry is not None:
-            raise NotImplementedError(
-                "ElasticTrainer(registry=...): the elastic.* metrics, spans "
-                "and flight-recorder dumps are telemetry, not ported yet "
-                "(ROADMAP A8, part 2b); the trainer's results carry the "
-                "evidence")
         self.net = net
         # the degraded mode averages whole per-worker state trajectories,
         # which a ZeRO-sharded updater state cannot hold
@@ -179,6 +184,7 @@ class ElasticTrainer:
         self.final_checkpoint = final_checkpoint
         self._injector = fault_injector
         self._retry = retry_policy or _default_retry_policy()
+        self._reg = registry if registry is not None else get_registry()
         self._all_devices = list(
             devices if devices is not None
             else range(make_mesh(device=net.device).size))
@@ -425,10 +431,18 @@ class ElasticTrainer:
 
     def _switch_mode(self, to: str) -> None:
         self.degraded_transitions += 1
+        # an instant event in the trace ring: a later flight dump shows
+        # when and why the mode flipped
+        event("elastic.mode_switch", to=to, step=self.net.iteration_count,
+              budget_ms=self.sync_latency_budget_ms)
         self.mode_history.append((self.net.iteration_count, to))
         self.mode = to
         self._lat.clear()
         self._ok_items = 0
+        if self._reg.enabled:
+            self._reg.counter("elastic.degraded_transitions").inc()
+            self._reg.gauge("elastic.degraded").set(
+                1.0 if to != "sync" else 0.0)
         log.warning("elastic: %s mode at step %d (sync latency budget "
                     "%s ms)", "entering degraded averaging-window" if
                     to != "sync" else "returning to per-step sync",
@@ -437,43 +451,53 @@ class ElasticTrainer:
     # --------------------------------------------------------------- recover
     def _recover(self, exc: BaseException) -> None:
         self.recoveries += 1
+        # the black box before anything moves: what the trainer was doing
+        # just before the loss is what the ring still holds
+        get_flight_recorder().dump(
+            "elastic_recovery", reason=str(exc),
+            reason_type=type(exc).__name__, attempt=self.recoveries,
+            step=self.net.iteration_count, mesh_devices=len(self._devices))
+        if self._reg.enabled:
+            self._reg.counter("elastic.recoveries").inc()
         if self.recoveries > self.max_recoveries:
             raise RecoveryFailedError(
                 f"recovery #{self.recoveries} exceeds max_recoveries="
                 f"{self.max_recoveries}") from exc
         t0 = time.perf_counter()
-        if self._writer is not None:
-            self._writer.flush()
+        with span("elastic.recover", reason=str(exc),
+                  attempt=self.recoveries):
+            if self._writer is not None:
+                self._writer.flush()
 
-        def attempt():
-            if self._injector is not None:
-                self._injector.on_coordinate()   # may raise (retried)
-            workers = (self._injector.surviving(self._all_devices)
-                       if self._injector is not None
-                       else list(self._all_devices))
-            if not workers:
-                raise RecoveryFailedError("no surviving workers")
-            mesh = self._mesh_for(workers)
-            like = self._like_tree(mesh, workers)
-            if self.checkpoint_dir is not None:
-                step, tree, extra = restore_latest_sharded_checkpoint(
-                    self.checkpoint_dir, like,
-                    resharder=self._resharder(mesh, workers))
-            else:
-                step, tree, extra = None, like, {}
-            return workers, mesh, step, tree, extra
+            def attempt():
+                if self._injector is not None:
+                    self._injector.on_coordinate()   # may raise (retried)
+                workers = (self._injector.surviving(self._all_devices)
+                           if self._injector is not None
+                           else list(self._all_devices))
+                if not workers:
+                    raise RecoveryFailedError("no surviving workers")
+                mesh = self._mesh_for(workers)
+                like = self._like_tree(mesh, workers)
+                if self.checkpoint_dir is not None:
+                    step, tree, extra = restore_latest_sharded_checkpoint(
+                        self.checkpoint_dir, like,
+                        resharder=self._resharder(mesh, workers))
+                else:
+                    step, tree, extra = None, like, {}
+                return workers, mesh, step, tree, extra
 
-        try:
-            workers, mesh, step, tree, extra = self._retry.call(
-                attempt,
-                on_retry=lambda i, e: log.warning(
-                    "elastic: coordination attempt %d failed (%s); "
-                    "backing off", i + 1, e))
-        except RecoveryFailedError:
-            raise
-        except RetryError as e:
-            raise RecoveryFailedError(
-                f"mesh re-form/restore gave up: {e}") from e
+            try:
+                workers, mesh, step, tree, extra = self._retry.call(
+                    attempt,
+                    on_retry=lambda i, e: log.warning(
+                        "elastic: coordination attempt %d failed (%s); "
+                        "backing off", i + 1, e))
+            except RecoveryFailedError:
+                raise
+            except RetryError as e:
+                raise RecoveryFailedError(
+                    f"mesh re-form/restore gave up: {e}") from e
 
         if len(workers) != len(self._devices):
             log.warning("elastic: mesh re-formed with %d workers (was %d)",
@@ -502,6 +526,10 @@ class ElasticTrainer:
         self._lat.clear()
         self._ok_items = 0
         self.last_recovery_ms = (time.perf_counter() - t0) * 1e3
+        if self._reg.enabled:
+            self._reg.histogram("elastic.recover_ms").observe(
+                self.last_recovery_ms)
+            self._reg.gauge("elastic.mesh_devices").set(len(workers))
         log.warning("elastic: recovered to step %s on a %d-worker mesh in "
                     "%.0f ms", net.iteration_count, len(workers),
                     self.last_recovery_ms)
@@ -540,59 +568,19 @@ class ElasticTrainer:
         self._preempt_flag = False
         self.preempted = False
         self.steps_done = 0
+        reg = self._reg
         if self.checkpoint_dir is not None:
-            self._writer = AsyncCheckpointWriter(self.checkpoint_dir,
-                                                 keep_last=self.keep_last)
+            self._writer = AsyncCheckpointWriter(
+                self.checkpoint_dir, keep_last=self.keep_last, registry=reg)
+        # one trace id for the whole supervised run (checkpoints, mode
+        # switches and recoveries included): the wrapper's spans stamp it
+        ctx = current_trace_context()
         try:
-            if self.checkpoint_dir is not None:
-                self._initial_restore()
-            every = self.checkpoint_every_n_steps or 1
-            self._next_ckpt_step = (net.iteration_count // every + 1) * every
-            self._pass_start = net.iteration_count
-            self._pass_skip = self._skip_next or 0
-            while net.iteration_count < num_steps and not self._preempt_flag:
-                skip = self._skip_next
-                if skip is None:
-                    L = self._epoch_len
-                    skip = (net.iteration_count % L) if L else 0
-                self._skip_next = None
-                self._pass_start = net.iteration_count
-                self._pass_skip = skip
-                self._t_item = time.perf_counter()
-                if hasattr(iterator, "reset"):
-                    iterator.reset()
-                pw = self._wrapper()
-                try:
-                    pw.fit(iterator, epochs=1, skip_first_batches=skip)
-                except (_StopRun, _Preempted):
-                    # the mid-epoch position, so a continuation fit() on
-                    # this trainer resumes here (it % epoch_len is not
-                    # known before the first clean pass)
-                    self._skip_next = self._step_in_epoch()
-                    break
-                except _ModeSwitch as ms:
-                    consumed = self._step_in_epoch()
-                    self._switch_mode(ms.to)
-                    self._skip_next = consumed
-                    continue
-                except WorkerLostError as e:
-                    self._recover(e)
-                    continue
-                # a clean pass: the epoch's length
-                n_pass = self._step_in_epoch()
-                if n_pass == 0:
-                    # an exhausted iterator that cannot reset would spin
-                    # here forever at zero progress
-                    raise ValueError(
-                        f"iterator yielded no batches at step "
-                        f"{net.iteration_count} of {num_steps}: "
-                        f"ElasticTrainer re-runs the iterator per "
-                        f"pass and needs it resettable (reset()) or "
-                        f"re-iterable")
-                self._epoch_len = n_pass
-                self._skip_next = 0
-            if self._preempt_flag:
-                self.preempted = True
+            with use_trace_context(ctx if ctx is not None
+                                   else new_trace_context()), \
+                    span("elastic.fit", num_steps=num_steps,
+                         devices=len(self._devices)):
+                self._supervise(iterator, num_steps)
         finally:
             writer, self._writer = self._writer, None
             if writer is not None:
@@ -607,3 +595,68 @@ class ElasticTrainer:
                     writer.close()
         self.steps_done = net.iteration_count
         return net
+
+    def _supervise(self, iterator, num_steps: int) -> None:
+        """The step loop: passes of ``ParallelWrapper.fit`` over the epoch
+        stream until ``num_steps`` or a preemption, with the recoveries
+        and mode switches between them."""
+        net, reg = self.net, self._reg
+        if self.checkpoint_dir is not None:
+            self._initial_restore()
+        every = self.checkpoint_every_n_steps or 1
+        self._next_ckpt_step = (net.iteration_count // every + 1) * every
+        self._pass_start = net.iteration_count
+        self._pass_skip = self._skip_next or 0
+        if reg.enabled:
+            reg.gauge("elastic.mesh_devices").set(len(self._devices))
+            reg.gauge("elastic.degraded").set(
+                0.0 if self.mode == "sync" else 1.0)
+        while net.iteration_count < num_steps and not self._preempt_flag:
+            skip = self._skip_next
+            if skip is None:
+                L = self._epoch_len
+                skip = (net.iteration_count % L) if L else 0
+            self._skip_next = None
+            self._pass_start = net.iteration_count
+            self._pass_skip = skip
+            self._t_item = time.perf_counter()
+            if hasattr(iterator, "reset"):
+                iterator.reset()
+            pw = self._wrapper()
+            try:
+                pw.fit(iterator, epochs=1, skip_first_batches=skip)
+            except (_StopRun, _Preempted):
+                # the mid-epoch position, so a continuation fit() on
+                # this trainer resumes here (it % epoch_len is not
+                # known before the first clean pass)
+                self._skip_next = self._step_in_epoch()
+                break
+            except _ModeSwitch as ms:
+                consumed = self._step_in_epoch()
+                self._switch_mode(ms.to)
+                self._skip_next = consumed
+                continue
+            except WorkerLostError as e:
+                self._recover(e)
+                continue
+            # a clean pass: the epoch's length
+            n_pass = self._step_in_epoch()
+            if n_pass == 0:
+                # an exhausted iterator that cannot reset would spin
+                # here forever at zero progress
+                raise ValueError(
+                    f"iterator yielded no batches at step "
+                    f"{net.iteration_count} of {num_steps}: "
+                    f"ElasticTrainer re-runs the iterator per "
+                    f"pass and needs it resettable (reset()) or "
+                    f"re-iterable")
+            self._epoch_len = n_pass
+            self._skip_next = 0
+        if self._preempt_flag:
+            self.preempted = True
+            if reg.enabled:
+                reg.counter("elastic.preemptions").inc()
+            # the black box at the step boundary (the handler only sets a
+            # flag: a dump from a signal handler could deadlock)
+            get_flight_recorder().dump("preemption", step=net.iteration_count,
+                                       steps_target=num_steps)

@@ -31,9 +31,10 @@ are indices into the trainer's worker list (``surviving``). The file
 helpers (:func:`truncate_newest_sharded`, :func:`corrupt_newest_sharded`,
 :func:`truncate_newest_zip`) work on the port's
 ``util/distributed_checkpoint.py`` and ``util/checkpointing.py`` files.
-The reference's flight-recorder dump before each injected fault
-(``_blackbox``, ``:218-222``) is telemetry (ROADMAP A8, part 2b): dropped
-here, with nothing in its place.
+Each injected kill and each checkpoint damage first dumps the flight
+recorder (``fault_killworker``, ``fault_corruptcheckpoint``; reference
+``_blackbox``, ``:218-222``), so every chaos run leaves a readable black
+box of the spans and events before the injected loss.
 """
 from __future__ import annotations
 
@@ -42,6 +43,7 @@ import time
 from dataclasses import dataclass, field
 from typing import List, Optional, Sequence, Set
 
+from ..telemetry.flightrec import get_flight_recorder
 from ..util.distributed_checkpoint import (_shard_files,
                                            list_sharded_checkpoints)
 
@@ -194,6 +196,7 @@ class FaultInjector:
             if isinstance(f, CorruptCheckpoint):
                 f.fired = True
                 self._apply_corrupt(f, trainer)
+                self._blackbox(f, step)
             elif isinstance(f, PreemptAt):
                 f.fired = True
                 if trainer is not None:
@@ -208,11 +211,20 @@ class FaultInjector:
         if kill is not None:
             kill.fired = True
             self.failed_workers.add(kill.worker)
+            # the dump before the raise: the black box holds what preceded
+            # the injected loss
+            self._blackbox(kill, step, worker=kill.worker)
             raise WorkerLostError(kill.worker, step)
         for f in self.plan:
             if isinstance(f, SlowCollective) and f.sleep \
                     and f.step <= step < f.until_step:
                 time.sleep(f.delay_ms / 1e3)
+
+    @staticmethod
+    def _blackbox(fault: Fault, step: int, **info) -> None:
+        get_flight_recorder().dump(
+            f"fault_{type(fault).__name__.lower()}", step=step,
+            planned_step=fault.step, **info)
 
     def _apply_corrupt(self, f: CorruptCheckpoint, trainer) -> None:
         directory = getattr(trainer, "checkpoint_dir", None)

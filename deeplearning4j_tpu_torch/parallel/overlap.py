@@ -24,17 +24,22 @@ bitwise the per-leaf sweep's on the CPU and on the card, at every bucket
 size; what the buckets change here is the number of launches.
 ``fused_pmean`` takes the mean of a list of leaves in one buffer a dtype.
 
-The reference's ``profile_schedule`` times each bucket's collective on a
-mesh and writes trace events: that is telemetry (ROADMAP A8, part 2b) and
-raises ``NotImplementedError`` naming it.
+``profile_schedule`` (reference ``:195-220``) times each bucket's mean on
+a mesh with :func:`time_collective`, records a ``bucket_psum`` span a
+bucket and sets the ``parallel.collective_ms`` and
+``parallel.bucket_count`` gauges. The mesh is logical, so these times
+measure the collective's kernels and copies on the one device (the rows'
+adds), not a wire.
 """
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
-from typing import List, Sequence, Tuple
+from typing import Callable, List, Sequence, Tuple
 
 import torch
 
+from ..telemetry import get_registry, record_external_span
 from .mesh import Mesh, pmean
 
 DEFAULT_BUCKET_BYTES = 4 * 2 ** 20      # ~4 MB, the reference's
@@ -184,8 +189,56 @@ def fused_pmean(rows: Sequence[torch.Tensor], mesh: Mesh,
     return out
 
 
-def profile_schedule(mesh, schedule: BucketSchedule, axis: str = "data",
-                     repeats: int = 3) -> dict:
-    raise NotImplementedError("profile_schedule (per-bucket collective "
-                              "timing and trace events) is telemetry: not "
-                              "ported yet (ROADMAP A8, part 2b)")
+def time_collective(fn: Callable[[], object], device: torch.device,
+                    repeats: int = 3) -> float:
+    """Best-of-``repeats`` milliseconds of ``fn()`` after one warm call:
+    between two CUDA events on the card (the collective's kernels on the
+    current stream), by ``perf_counter`` on the CPU. Host-side tooling: it
+    waits for the card, so no training loop calls it."""
+    fn()
+    best = float("inf")
+    for _ in range(max(1, repeats)):
+        if device.type == "cuda":
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            ms = start.elapsed_time(end)
+        else:
+            t0 = time.perf_counter()
+            fn()
+            ms = (time.perf_counter() - t0) * 1e3
+        best = min(best, ms)
+    return best
+
+
+def profile_schedule(mesh: Mesh, schedule: BucketSchedule,
+                     axis: str = "data", repeats: int = 3) -> dict:
+    """Time each bucket's mean over ``axis`` of ``mesh`` (a zero buffer of
+    the bucket's elements a worker, best of ``repeats``), record a
+    ``bucket_psum`` span a bucket (cat "collective") under the current
+    span path, and set the ``parallel.collective_ms`` gauge to the total
+    and ``parallel.bucket_count``. The mesh is logical: the times are the
+    rows' adds on the one device, not a wire. Host-side tooling; the
+    training step never calls it."""
+    reg = get_registry()
+    n = mesh.shape[axis]
+    rows, total_ms = [], 0.0
+    for i, b in enumerate(schedule.buckets):
+        dtype = schedule.leaf_dtypes[b.indices[0]]
+        elems = b.nbytes // torch.empty((), dtype=dtype).element_size()
+        buf = torch.zeros((n, max(1, elems)), dtype=dtype,
+                          device=mesh.device)
+        ms = time_collective(lambda: pmean(buf, mesh, axis), mesh.device,
+                             repeats)
+        total_ms += ms
+        rows.append({"bucket": i, "leaves": len(b), "bytes": b.nbytes,
+                     "ms": round(ms, 4)})
+        record_external_span("bucket_psum", ms, cat="collective",
+                             bucket=i, bytes=b.nbytes, leaves=len(b))
+    if reg.enabled:
+        reg.gauge("parallel.collective_ms").set(total_ms)
+        reg.gauge("parallel.bucket_count").set(len(schedule))
+    return {"buckets": rows, "collective_ms": round(total_ms, 4)}

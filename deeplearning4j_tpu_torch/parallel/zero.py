@@ -45,9 +45,19 @@ updated parameters are then gathered back to every worker.
   state shaped for another worker count. ``shard_state_bytes`` against
   ``replicated_state_bytes`` is the saving a worker.
 
-The reference's ``zero.*`` gauges and ``profile`` (collective timing and
-trace spans) are telemetry (ROADMAP A8, part 2b): dropped here, and
-``profile`` raises naming it. ``parallel/elastic.py``'s ``ElasticTrainer``
+- **Telemetry.** A new engine sets the ``zero.shard_bytes``,
+  ``zero.gathered_bytes`` and ``zero.groups`` gauges (reference
+  ``:266-271``). ``profile`` (``:572-651``) times each bucket's gradient
+  collective (stage 2's reduce-scatter, recorded as ``reduce_scatter``
+  spans; stage 1's all-reduce and slice, ``grad_allreduce``) and each
+  group's all-gather (``all_gather`` spans under a ``zero.allgather``
+  span), sets ``zero.reduce_scatter_ms`` and ``zero.allgather_ms`` and
+  refreshes the gauges. The mesh is logical, so these times measure the
+  collectives' kernels and copies on the one device, not a wire: a
+  reduction is the rows' adds, and an all-gather a broadcast view whose
+  time is the host's.
+
+``parallel/elastic.py``'s ``ElasticTrainer``
 drives it with ``zero_stage``: one engine a worker set, its
 ``sharding_meta`` in every save and ``make_zero_resharder`` onto a shrunk
 mesh.
@@ -59,8 +69,10 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from ..telemetry import get_registry, record_external_span, span
 from .mesh import Mesh, all_gather, pmean, psum_scatter
-from .overlap import DEFAULT_BUCKET_BYTES, build_bucket_schedule
+from .overlap import (DEFAULT_BUCKET_BYTES, build_bucket_schedule,
+                      time_collective)
 
 __all__ = ["ZeroUpdateEngine", "is_zero_state", "make_zero_resharder",
            "ZERO_STATE_KEY"]
@@ -178,6 +190,7 @@ class ZeroUpdateEngine:
                            else list(dict.fromkeys(g for g, _ in
                                                    self.leaf_keys)))
         self.groups = self._build_groups(leaves, rules, lr_mults)
+        self._publish_gauges()
 
     @classmethod
     def from_net(cls, net, mesh: Mesh, *, stage: int = 1,
@@ -250,6 +263,13 @@ class ZeroUpdateEngine:
         """Bytes all-gathered a step (padded parameter shards)."""
         return sum(g.length * self.n * _itemsize(g.dtype)
                    for g in self.groups)
+
+    def _publish_gauges(self) -> None:
+        reg = get_registry()
+        if reg.enabled:
+            reg.gauge("zero.shard_bytes").set(float(self.shard_state_bytes))
+            reg.gauge("zero.gathered_bytes").set(float(self.gathered_bytes))
+            reg.gauge("zero.groups").set(float(len(self.groups)))
 
     def sharding_meta(self) -> dict:
         """The checkpoint manifest's ``sharding`` block, as the
@@ -508,11 +528,67 @@ class ZeroUpdateEngine:
             off += old_lb
         return torch.cat(rows, dim=1)
 
-    def profile(self, mesh=None, repeats: int = 3) -> dict:
-        raise NotImplementedError("ZeroUpdateEngine.profile (collective "
-                                  "timing, trace spans and the zero.* "
-                                  "gauges) is telemetry: not ported yet "
-                                  "(ROADMAP A8, part 2b)")
+    # -------------------------------------------------------- profiling
+    def profile(self, mesh: Optional[Mesh] = None, repeats: int = 3) -> dict:
+        """Time this stage's gradient collective a bucket (stage 2's
+        reduce-scatter, ``reduce_scatter`` spans; stage 1's all-reduce and
+        slice, ``grad_allreduce``) and each group's all-gather, on zero
+        buffers of the padded shapes (best of ``repeats``: CUDA events on
+        the card, ``perf_counter`` on the CPU); record each as a
+        cat "collective" span, the gathers under a ``zero.allgather``
+        span; set ``zero.reduce_scatter_ms`` and ``zero.allgather_ms`` and
+        refresh the ``zero.*`` gauges. A row's ``bytes`` is the padded
+        buffer the collective moves. The mesh is logical: the times are the
+        kernels and copies on the one device, not a wire. Host-side
+        tooling; the training step never calls it."""
+        mesh = mesh if mesh is not None else self.mesh
+        if mesh is None:
+            raise ValueError("profile() needs a mesh")
+        reg = get_registry()
+        n, axis, dev = self.n, self.axis, mesh.device
+        reduce_name = "reduce_scatter" if self.stage == 2 else \
+            "grad_allreduce"
+
+        def scat(buf, lb):
+            if self.stage == 1:
+                return pmean(buf, mesh, axis)[0].view(n, lb)
+            return psum_scatter(buf.view(n, n, lb), mesh, axis) / n
+
+        rows = {"reduce_scatter": [], "all_gather": []}
+        rs_ms = 0.0
+        for gi, g in enumerate(self.groups):
+            for bi, b in enumerate(g.buckets):
+                buf = torch.zeros((n, n * b.lb), dtype=g.dtype, device=dev)
+                ms = time_collective(lambda: scat(buf, b.lb), dev, repeats)
+                rs_ms += ms
+                nbytes = n * b.lb * _itemsize(g.dtype)
+                rows["reduce_scatter"].append(
+                    {"group": gi, "bucket": bi, "bytes": nbytes,
+                     "ms": round(ms, 4)})
+                record_external_span(reduce_name, ms, cat="collective",
+                                     bucket=bi, group=gi, bytes=nbytes)
+        ag_ms = 0.0
+        with span("zero.allgather", groups=len(self.groups)):
+            for gi, g in enumerate(self.groups):
+                buf = torch.zeros((n, g.length), dtype=g.dtype, device=dev)
+                ms = time_collective(lambda: all_gather(buf, mesh, axis),
+                                     dev, repeats)
+                ag_ms += ms
+                nbytes = g.length * n * _itemsize(g.dtype)
+                rows["all_gather"].append(
+                    {"group": gi, "bytes": nbytes, "ms": round(ms, 4)})
+                record_external_span("all_gather", ms, cat="collective",
+                                     group=gi, bytes=nbytes)
+        self._publish_gauges()
+        if reg.enabled:
+            reg.gauge("zero.reduce_scatter_ms").set(rs_ms)
+            reg.gauge("zero.allgather_ms").set(ag_ms)
+        return {"reduce_scatter": rows["reduce_scatter"],
+                "all_gather": rows["all_gather"],
+                "reduce_scatter_ms": round(rs_ms, 4),
+                "allgather_ms": round(ag_ms, 4),
+                "shard_state_bytes": self.shard_state_bytes,
+                "replicated_state_bytes": self.replicated_state_bytes}
 
 
 def _itemsize(dtype: torch.dtype) -> int:

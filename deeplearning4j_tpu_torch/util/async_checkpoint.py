@@ -26,9 +26,14 @@ Counterpart of ``deeplearning4j_tpu/util/async_checkpoint.py``:
 ``PreemptionGuard`` installs handlers for SIGTERM (the preemption notice)
 that only set ``triggered`` and call ``on_preempt``; the training loop
 polls it and calls ``save_sync`` at its next step boundary, where the
-state is consistent. The reference's ``elastic.checkpoint.*`` counters,
-the write histogram and the ``checkpoint_write`` span are telemetry
-(ROADMAP A8, part 2b); ``write_ms`` keeps each write's time here.
+state is consistent.
+
+Telemetry (reference ``:108-193``), into ``registry`` (the process-wide
+one by default): the ``elastic.checkpoint.submitted`` and ``.dropped``
+counters on the training thread, a ``checkpoint_write`` span around each
+write, then ``elastic.checkpoint.errors`` or ``.written`` and the
+``elastic.checkpoint.write_ms`` histogram. ``write_ms`` keeps each write's
+time too.
 """
 from __future__ import annotations
 
@@ -40,6 +45,7 @@ from typing import Any, Callable, Dict, Iterable, List, Optional
 
 import torch
 
+from ..telemetry import get_registry, span
 from .distributed_checkpoint import (DistributedCheckpointer,
                                      save_sharded_checkpoint, tree_flatten,
                                      tree_unflatten)
@@ -88,9 +94,11 @@ class AsyncCheckpointWriter:
         w.flush(); w.close()
     """
 
-    def __init__(self, directory: str, *, keep_last: int = 3):
+    def __init__(self, directory: str, *, keep_last: int = 3,
+                 registry=None):
         self.directory = directory
         self.keep_last = keep_last
+        self._reg = registry if registry is not None else get_registry()
         self._ckpt = DistributedCheckpointer(directory, every_n_steps=1,
                                              keep_last=keep_last)
         self._lock = threading.Condition()
@@ -120,8 +128,12 @@ class AsyncCheckpointWriter:
                 raise RuntimeError("AsyncCheckpointWriter is closed")
             if self._pending is not None:
                 fresh = False
+                if self._reg.enabled:
+                    self._reg.counter("elastic.checkpoint.dropped").inc()
             self._pending = (step, snap, dict(extra or {}), sharding)
             self._lock.notify_all()
+        if self._reg.enabled:
+            self._reg.counter("elastic.checkpoint.submitted").inc()
         return fresh
 
     def flush(self, timeout: Optional[float] = None) -> bool:
@@ -185,17 +197,24 @@ class AsyncCheckpointWriter:
                sharding: Optional[Dict[str, Any]] = None) -> None:
         t0 = time.perf_counter()
         try:
-            save_sharded_checkpoint(self.directory, step, snap.to_host(),
-                                    extra=extra, sharding=sharding,
-                                    specs=snap.specs)
-            self._ckpt._prune()
+            with span("checkpoint_write", step=step):
+                save_sharded_checkpoint(self.directory, step,
+                                        snap.to_host(), extra=extra,
+                                        sharding=sharding, specs=snap.specs)
+                self._ckpt._prune()
         except BaseException as e:  # a sick disk must not kill training
             self.last_error = e
+            if self._reg.enabled:
+                self._reg.counter("elastic.checkpoint.errors").inc()
             _log.warning("async checkpoint write for step %d failed: %s",
                          step, e)
             return
         self.last_completed_step = step
-        self.write_ms.append((time.perf_counter() - t0) * 1e3)
+        ms = (time.perf_counter() - t0) * 1e3
+        self.write_ms.append(ms)
+        if self._reg.enabled:
+            self._reg.counter("elastic.checkpoint.written").inc()
+            self._reg.histogram("elastic.checkpoint.write_ms").observe(ms)
 
 
 class PreemptionGuard:

@@ -41,8 +41,8 @@ step) order, structural validation of a zip, its manifest and
 - **``ProfilerListener``** runs ``torch.profiler`` over a window of
   iterations and writes a Chrome trace into ``log_dir``. A profiler that
   is already active (the process allows one) is logged and the window is
-  skipped; the fit goes on. The reference's ``profiler_capture`` span is
-  telemetry (ROADMAP A8, part 2b).
+  skipped; the fit goes on. A ``profiler_capture`` span covers the window,
+  as the reference's (``:304-305``).
 """
 from __future__ import annotations
 
@@ -58,6 +58,7 @@ from typing import List, Optional, Tuple
 import torch
 
 from ..optimize.listeners import TrainingListener
+from ..telemetry import span
 from .serialization import (MANIFEST_ENTRY, flat_state_order, restore_model,
                             _write_zip)
 
@@ -307,6 +308,7 @@ class ProfilerListener(TrainingListener):
         self._active = False
         self._done = False
         self._prof = None
+        self._span = None
         self.trace_path: Optional[str] = None
 
     def _start(self, model) -> None:
@@ -332,6 +334,9 @@ class ProfilerListener(TrainingListener):
         except Exception as e:      # a failed export must not kill the fit
             _log.warning("ProfilerListener: stopping the trace failed (%s)",
                          e)
+        if self._span is not None:
+            self._span.end()
+            self._span = None
         self._active = False
         self._done = True
 
@@ -346,6 +351,10 @@ class ProfilerListener(TrainingListener):
                              "(%s); skipping this capture window", e)
                 self._done = True
                 return
+            self._span = span("profiler_capture", log_dir=self.log_dir,
+                              start_iteration=iteration,
+                              n_iterations=self.end_iteration
+                              - self.start_iteration).start()
             self._active = True
         elif self._active and iteration >= self.end_iteration:
             if getattr(model, "device", None) is not None and \

@@ -40,6 +40,8 @@ from deeplearning4j_tpu_torch.nn.inputs import InputType
 from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
 from deeplearning4j_tpu_torch.optimize import updaters as tupd
 from deeplearning4j_tpu_torch.serving.generation import GenerationEngine
+from _torch_flightrec import _port_flightrec_dir  # noqa: F401
+
 
 V, HID, B, T = 31, 128, 8, 12
 CFG = dict(vocab_size=V, hidden=HID, max_length=T)

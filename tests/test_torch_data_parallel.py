@@ -43,6 +43,7 @@ from deeplearning4j_tpu_torch.parallel import ParallelWrapper, make_mesh
 from deeplearning4j_tpu_torch.parallel import accumulation as tacc
 from deeplearning4j_tpu_torch.parallel import mesh as tmesh
 from deeplearning4j_tpu_torch.parallel.data_parallel import flat_param_order
+from _torch_flightrec import _port_flightrec_dir  # noqa: F401
 
 
 def _np(tree):

@@ -19,6 +19,8 @@ from deeplearning4j_tpu_torch.serving.generation import (GenerationConfig,
                                                          graphs, scheduler)
 from deeplearning4j_tpu_torch.serving.generation.programs import \
     GenerationProgramSet
+from _torch_flightrec import _port_flightrec_dir  # noqa: F401
+
 
 ENG = dict(block_len=8, max_seq_len=64, decode_slots=4,
            prefill_batches=(1, 2), prompt_rungs=(32, 64))

@@ -7,9 +7,11 @@ conftest's 8 CPU devices) and the port's from the same weights.
 
 The reference's cases that read the telemetry registry
 (``elastic.recoveries``, ``elastic.degraded_transitions``,
-``elastic.checkpoint.dropped``) read the trainer's and the writer's own
-results here (``recoveries``, ``degraded_transitions``, ``submit``'s False):
-the registry is ROADMAP A8, part 2b. Its sync-freedom case counts the host
+``elastic.checkpoint.dropped``) read it here too, from a registry handed to
+the trainer or the writer (``registry=``), beside the trainer's and the
+writer's own results (``recoveries``, ``degraded_transitions``,
+``submit``'s False); the recovery case also finds its flight-recorder
+dumps. Its sync-freedom case counts the host
 reads the step-loop thread makes (``Tensor.item``, ``tolist``, ``numpy``,
 ``cpu``, ``__bool__``, ``__float__``, ``__int__``) instead of the JAX host
 sync detector. ``test_elastic_recovery_bench_smoke`` drives ``bench.py`` and
@@ -51,6 +53,11 @@ from deeplearning4j_tpu_torch.util.distributed_checkpoint import (
     is_valid, latest_sharded_step, read_manifest,
     restore_latest_sharded_checkpoint, save_sharded_checkpoint)
 from deeplearning4j_tpu_torch.util.retry import RetryPolicy
+from deeplearning4j_tpu_torch.telemetry import (MetricsRegistry,
+                                                get_flight_recorder,
+                                                get_registry)
+from _torch_flightrec import _port_flightrec_dir  # noqa: F401
+
 
 R = np.random.default_rng(41)
 _X = R.normal(size=(64, 6)).astype(np.float32)
@@ -105,8 +112,8 @@ def test_async_writer_writes_valid_checkpoints(tmp_path):
 
 def test_async_writer_latest_wins_coalescing(tmp_path, monkeypatch):
     """A slow write coalesces queued submits: only the newest waiting
-    snapshot is kept. The reference counts the drop in the registry; here
-    the replaced submit returns False."""
+    snapshot is kept; the replaced submit returns False and the registry
+    counts the drop."""
     gate = threading.Event()
     written = []
     orig = ac.save_sharded_checkpoint
@@ -118,7 +125,8 @@ def test_async_writer_latest_wins_coalescing(tmp_path, monkeypatch):
 
     monkeypatch.setattr(ac, "save_sharded_checkpoint", slow_save)
     tree = {"a": torch.ones(4)}
-    w = ac.AsyncCheckpointWriter(str(tmp_path), keep_last=4)
+    reg = MetricsRegistry(enabled=True)
+    w = ac.AsyncCheckpointWriter(str(tmp_path), keep_last=4, registry=reg)
     try:
         assert w.submit(1, tree)          # picked up by the (gated) writer
         time.sleep(0.05)
@@ -129,6 +137,11 @@ def test_async_writer_latest_wins_coalescing(tmp_path, monkeypatch):
     finally:
         w.close()
     assert written == [1, 3]
+    counters = reg.snapshot()["counters"]
+    assert counters["elastic.checkpoint.dropped"] == 1
+    assert counters["elastic.checkpoint.submitted"] == 3
+    assert counters["elastic.checkpoint.written"] == 2
+    assert reg.histogram("elastic.checkpoint.write_ms").count == 2
 
 
 def test_async_writer_survives_write_errors(tmp_path, monkeypatch):
@@ -259,21 +272,34 @@ def test_elastic_no_fault_matches_parallel_wrapper(tmp_path):
 def test_kill_plus_truncated_checkpoint_recovers_bit_identical(tmp_path):
     """A worker kill at step 13 with the newest checkpoint truncated: the
     recovery skips the damaged save, restores the older one, re-forms the
-    mesh (rejoin: the same shape) and ends bitwise the uninterrupted run
-    (the reference's registry counter is ``recoveries`` here)."""
+    mesh (rejoin: the same shape) and ends bitwise the uninterrupted run.
+    The registry counts the recovery; the faults and the recovery each
+    dumped a black box first."""
     a, _ = _baseline(tmp_path)
     b = _net()
     inj = FaultInjector(FaultPlan(
         CorruptCheckpoint(step=13, mode="truncate"),
         KillWorker(step=13, worker=1, rejoin=True)))
+    reg = MetricsRegistry(enabled=True)
+    rec = get_flight_recorder()
+    before = set(os.listdir(rec.directory)) \
+        if os.path.isdir(rec.directory) else set()
     tr = ElasticTrainer(b, checkpoint_dir=str(tmp_path / "faulted"),
                         devices=W4, checkpoint_every_n_steps=4,
-                        keep_last=4, fault_injector=inj)
+                        keep_last=4, fault_injector=inj, registry=reg)
     tr.fit(_it(), num_steps=20)
     assert tr.recoveries == 1
     assert tr.steps_done == 20
     assert tr.last_recovery_ms is not None and tr.last_recovery_ms > 0
     assert torch.equal(_flat(a), _flat(b))
+    snap = reg.snapshot()
+    assert snap["counters"]["elastic.recoveries"] == 1
+    assert snap["gauges"]["elastic.mesh_devices"]["value"] == 4
+    assert reg.histogram("elastic.recover_ms").count == 1
+    dumps = set(os.listdir(rec.directory)) - before
+    for trigger in ("fault_corruptcheckpoint", "fault_killworker",
+                    "elastic_recovery"):
+        assert [d for d in dumps if d.endswith(f"_{trigger}.json")]
 
 
 def test_kill_without_rejoin_shrinks_mesh_and_converges(tmp_path):
@@ -418,17 +444,26 @@ def test_no_surviving_workers_raises(tmp_path):
 def test_degraded_mode_enters_and_exits(tmp_path):
     """A slow-collective latency above the budget flips the loop into
     averaging windows (one collective a K steps) and back once the
-    interconnect recovers (the registry's transition counter is the
-    trainer's ``degraded_transitions`` here)."""
+    interconnect recovers; the registry counts both transitions and each
+    leaves an ``elastic.mode_switch`` event."""
     b = _net()
     inj = FaultInjector(FaultPlan(
         SlowCollective(step=4, until_step=16, delay_ms=400.0)))
+    reg = MetricsRegistry(enabled=True)
+    seq0 = get_registry().last_seq
     tr = ElasticTrainer(b, checkpoint_dir=str(tmp_path), devices=W4,
                         checkpoint_every_n_steps=100,
                         sync_latency_budget_ms=50.0, latency_window=2,
                         degraded_averaging_window=4,
-                        degraded_exit_patience=2, fault_injector=inj)
+                        degraded_exit_patience=2, fault_injector=inj,
+                        registry=reg)
     tr.fit(_it(), num_steps=32)
+    assert reg.snapshot()["counters"]["elastic.degraded_transitions"] == 2
+    assert reg.snapshot()["gauges"]["elastic.degraded"]["value"] == 0.0
+    switches = [e["args"]["to"]
+                for e in get_registry().trace_events_since(seq0)
+                if e["name"] == "elastic.mode_switch"]
+    assert switches == ["averaging", "sync"]
     assert tr.steps_done >= 32
     assert tr.degraded_transitions == 2
     assert [m for _, m in tr.mode_history] == ["averaging", "sync"]
@@ -449,8 +484,36 @@ def test_refusals():
         ElasticTrainer(_net(), devices=[0, 1], mesh_shape=(2, 2))
     with pytest.raises(ValueError, match=r"\(d,\) or \(d, m\)"):
         ElasticTrainer(_net(), devices=W4, mesh_shape=(1, 2, 2))
-    with pytest.raises(NotImplementedError, match="A8, part 2b"):
-        ElasticTrainer(_net(), devices=W4, registry=object())
+
+
+def test_registry_takes_the_trainers_metrics_and_spans(tmp_path):
+    """``registry=`` receives the trainer's and its writer's metrics (the
+    process-wide registry none of them); the spans land in the process's
+    trace ring under one trace id: ``elastic.fit`` around the wrapper's
+    ``fit`` / ``epoch`` / ``step`` and the writer's ``checkpoint_write``."""
+    reg, glob = MetricsRegistry(enabled=True), get_registry()
+    seq0 = glob.last_seq
+    before = dict(glob.snapshot()["counters"])
+    tr = ElasticTrainer(_net(), checkpoint_dir=str(tmp_path), devices=W4,
+                        checkpoint_every_n_steps=4, registry=reg)
+    tr.fit(_it(), num_steps=8)
+    counters = reg.snapshot()["counters"]
+    # steps 4 and 8; the final save finds step 8 written and skips
+    assert counters["elastic.checkpoint.submitted"] == 2
+    assert counters["elastic.checkpoint.written"] == 2
+    assert reg.snapshot()["gauges"]["elastic.mesh_devices"]["value"] == 4
+    after = glob.snapshot()["counters"]
+    assert all(after.get(k, 0) == before.get(k, 0)
+               for k in counters if k.startswith("elastic."))
+    assert after["train.iterations"] - before.get("train.iterations",
+                                                  0) == 8
+    spans = [e for e in glob.trace_events_since(seq0) if e["ph"] == "X"]
+    names = {e["name"] for e in spans}
+    assert {"elastic.fit", "fit", "epoch", "step",
+            "checkpoint_write"} <= names
+    fit_ids = {e["args"].get("trace_id") for e in spans
+               if e["name"] in ("elastic.fit", "fit", "step")}
+    assert len(fit_ids) == 1 and None not in fit_ids
 
 
 @pytest.mark.parametrize("survivors,shape", [(4, (2, 2)), (3, (3, 1)),
@@ -473,11 +536,20 @@ def test_preemption_flushes_final_checkpoint_and_resumes(tmp_path):
     d = str(tmp_path / "preempt")
     b = _net()
     inj = FaultInjector(FaultPlan(PreemptAt(step=9)))
+    reg = MetricsRegistry(enabled=True)
+    rec = get_flight_recorder()
+    n0 = len([f for f in os.listdir(rec.directory)
+              if f.endswith("_preemption.json")]) \
+        if os.path.isdir(rec.directory) else 0
     tr = ElasticTrainer(b, checkpoint_dir=d, devices=W4,
-                        checkpoint_every_n_steps=4, fault_injector=inj)
+                        checkpoint_every_n_steps=4, fault_injector=inj,
+                        registry=reg)
     tr.fit(_it(), num_steps=20)
     assert tr.preempted
     assert tr.steps_done == 9
+    assert reg.snapshot()["counters"]["elastic.preemptions"] == 1
+    assert len([f for f in os.listdir(rec.directory)
+                if f.endswith("_preemption.json")]) == n0 + 1
     # the final save landed at exactly the preemption step
     assert latest_sharded_step(d) == 9
     assert read_manifest(d, 9)["extra"]["step_in_epoch"] == 1

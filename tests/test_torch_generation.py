@@ -18,6 +18,8 @@ from deeplearning4j_tpu_torch.serving.generation import (BlockAllocator,
 from deeplearning4j_tpu_torch.serving.generation.kvcache import (
     PagedStore, make_pools, prefill_scatter)
 from deeplearning4j_tpu_torch.serving.generation.sampling import sample_tokens
+from _torch_flightrec import _port_flightrec_dir  # noqa: F401
+
 
 CPU = torch.device("cpu")
 

@@ -44,6 +44,8 @@ from deeplearning4j_tpu_torch.serving.generation import GenerationEngine as \
     TGen
 from deeplearning4j_tpu_torch.serving.http import status_for
 from deeplearning4j_tpu_torch.util.serialization import restore_model
+from _torch_flightrec import _port_flightrec_dir  # noqa: F401
+
 
 R = np.random.default_rng(23)
 
@@ -187,19 +189,27 @@ def test_a_full_queue_answers_429_on_both(tmp_path):
     kw = dict(feature_shape=(4,), buckets=(1,), queue_limit=2,
               batch_window_ms=0.1)
     jeng, teng = JEngine(jnet, **kw), TEngine(tnet, **kw)
-    gate = threading.Event()
+    gate, held = threading.Event(), []
     for eng in (jeng, teng):
         entry = eng.registry.get()
         real = entry.batcher._runner
-        entry.batcher._runner = (lambda r: lambda p: (gate.wait(10.0),
-                                                      r(p))[1])(real)
+        held.append(threading.Event())
+        entry.batcher._runner = (lambda r, h: lambda p: (
+            h.set(), gate.wait(10.0), r(p))[2])(real, held[-1])
     pair = _Pair(dict(engine=jeng), dict(engine=teng))
     x = X[:1].tolist()
     threads = [threading.Thread(target=_post, args=(b, "/predict",
                                                     {"features": x}))
                for b in (pair.jb, pair.tb) for _ in range(3)]
     try:
-        for t in threads:
+        # each engine's first request is in its held runner before the
+        # other two come: a third that came while the first still queued
+        # would be refused early, and the depth would stay at 1
+        for t in threads[::3]:
+            t.start()
+        for h in held:
+            assert h.wait(10.0)
+        for t in threads[1:3] + threads[4:]:
             t.start()
         deadline = time.monotonic() + 10.0
         while not (jeng.registry.get().batcher.queue_depth == 2
@@ -211,7 +221,8 @@ def test_a_full_queue_answers_429_on_both(tmp_path):
     finally:
         gate.set()
         for t in threads:
-            t.join(timeout=20)
+            if t.ident is not None:
+                t.join(timeout=20)
         pair.stop()
 
 

@@ -59,7 +59,10 @@ _REQUIRED = {f"deeplearning4j_tpu_torch.{m}" for m in (
     "telemetry", "telemetry.registry", "telemetry.tracecontext",
     "telemetry.spans", "telemetry.spool", "telemetry.flightrec",
     "telemetry.torchsignals", "telemetry.memprof", "telemetry.perf",
-    "telemetry.slo")}
+    "telemetry.slo", "serving.fleet", "serving.fleet.affinity",
+    "serving.fleet.coldstart", "serving.fleet.replica",
+    "serving.fleet.router", "serving.fleet.collector",
+    "serving.fleet.autoscale", "serving.fleet.http")}
 
 _FORBIDDEN = re.compile(
     r"^\s*(import\s+(jax|deeplearning4j_tpu)\b(?!_torch)"

@@ -34,6 +34,8 @@ from deeplearning4j_tpu_torch.parallel.mesh import data_sharding
 from deeplearning4j_tpu_torch.parallel.model_server import ModelServingServer
 from deeplearning4j_tpu_torch.parallel.streaming import (
     StreamingDataSetIterator, StreamingIngestServer)
+from _torch_flightrec import _port_flightrec_dir  # noqa: F401
+
 
 R = np.random.default_rng(3)
 

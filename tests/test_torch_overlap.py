@@ -37,6 +37,7 @@ from deeplearning4j_tpu_torch.parallel.overlap import (build_bucket_schedule,
                                                        bucketed_pmean,
                                                        fused_pmean,
                                                        profile_schedule)
+from deeplearning4j_tpu_torch.telemetry import MetricsRegistry, set_registry
 
 R = np.random.default_rng(23)
 X = R.normal(size=(256, 6)).astype(np.float32)
@@ -75,9 +76,29 @@ def test_bucket_schedule_rejects_empty_and_bad_bytes():
         build_bucket_schedule([], 1024)
     with pytest.raises(ValueError, match="bucket_bytes"):
         build_bucket_schedule([torch.zeros(4)], 0)
-    with pytest.raises(NotImplementedError, match="A8, part 2b"):
-        profile_schedule(make_mesh((2,), ("data",), "cpu"),
-                         build_bucket_schedule([torch.zeros(4)]))
+
+
+def test_profile_schedule_times_each_bucket_into_the_gauges():
+    """One row and one ``bucket_psum`` span a bucket; the gauges hold the
+    total and the bucket count (the reference's names)."""
+    reg = MetricsRegistry(enabled=True)
+    prev = set_registry(reg)
+    try:
+        sched = build_bucket_schedule(
+            [torch.zeros(8), torch.zeros(8, dtype=torch.bfloat16),
+             torch.zeros(8)], bucket_bytes=1 << 20)
+        out = profile_schedule(make_mesh((2,), ("data",), "cpu"), sched)
+    finally:
+        set_registry(prev)
+    assert [r["bucket"] for r in out["buckets"]] == [0, 1, 2]
+    assert [r["bytes"] for r in out["buckets"]] == [32, 16, 32]
+    gauges = reg.snapshot()["gauges"]
+    assert gauges["parallel.bucket_count"]["value"] == 3
+    assert gauges["parallel.collective_ms"]["value"] == pytest.approx(
+        sum(r["ms"] for r in out["buckets"]), abs=1e-3)
+    spans = [e for e in reg.trace_events() if e["name"] == "bucket_psum"]
+    assert [e["args"]["bucket"] for e in spans] == [0, 1, 2]
+    assert {e["cat"] for e in spans} == {"collective"}
 
 
 @pytest.mark.parametrize("bucket_bytes", [1, 256, 2048, 1 << 30])

@@ -42,6 +42,7 @@ from deeplearning4j_tpu_torch.nn.inputs import InputType
 from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
 from deeplearning4j_tpu_torch.optimize.updaters import Sgd
 from deeplearning4j_tpu_torch.parallel import ParallelWrapper
+from _torch_flightrec import _port_flightrec_dir  # noqa: F401
 
 
 def _tiny(seed=12, device="cpu"):

@@ -31,6 +31,8 @@ from deeplearning4j_tpu_torch.serving.generation import (GenerationConfig,
 from deeplearning4j_tpu_torch.serving.generation import kvcache as tkv
 from deeplearning4j_tpu_torch.serving.generation.programs import \
     GenerationProgramSet
+from _torch_flightrec import _port_flightrec_dir  # noqa: F401
+
 
 CFG = dict(vocab_size=64, d_model=64, n_heads=4, n_blocks=2, max_length=64,
            token_input=True)

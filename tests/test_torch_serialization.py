@@ -50,6 +50,8 @@ from deeplearning4j_tpu_torch.util.checkpointing import (
     CheckpointListener as TCheckpointListener, fit_with_checkpointing,
     is_valid_checkpoint, latest_checkpoint, list_checkpoints,
     read_checkpoint_manifest)
+from _torch_flightrec import _port_flightrec_dir  # noqa: F401
+
 
 FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                         "fixtures")

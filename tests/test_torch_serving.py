@@ -7,8 +7,10 @@ the JAX engine's at atol 1e-6; traffic after warm-up warms nothing; a
 same-shape hot swap shares the warmed buckets and serves the new weights.
 Also served: GoogLeNet (32x32) through a ``forward_fn`` that returns its
 one output, and the int8 tier through ``int8_forward_fn``."""
+import json
 import threading
 import time
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -33,8 +35,15 @@ from deeplearning4j_tpu_torch.serving import (BucketLadder,
                                               ProgramSet, QueueFullError,
                                               ServingError, ShapeMismatchError,
                                               UnknownModelError, warm_count)
+from deeplearning4j_tpu_torch.telemetry import (MetricsRegistry,
+                                                get_flight_recorder,
+                                                new_trace_context,
+                                                set_registry,
+                                                use_trace_context)
+from _torch_flightrec import _port_flightrec_dir  # noqa: F401
 
 R = np.random.default_rng(77)
+REPO = Path(__file__).resolve().parents[1]
 
 
 def _net(seed=3, n_in=4, n_out=3, act="tanh", hidden=16):
@@ -191,6 +200,32 @@ def test_unwarmed_engine_raises_then_serves_after_warm_up():
         eng.stop()
 
 
+def test_a_dispatch_errors_dump_lands_in_the_tmp_dir(monkeypatch):
+    rec = get_flight_recorder()
+    where = Path(rec.directory).resolve()
+    assert REPO not in where.parents and where != REPO
+    # the batcher's dump is rate-limited a trigger; an earlier test's
+    # dispatch error must not suppress this one
+    monkeypatch.setattr(rec, "min_interval_s", 0.0)
+    before = set(where.glob("*serving_dispatch_error.json"))
+    eng = InferenceEngine(_net(seed=91), feature_shape=(4,), buckets=(8,),
+                          batch_window_ms=0.5, warm=False)
+    try:
+        with pytest.raises(ServingError, match="no warmed program"):
+            eng.predict(np.zeros((2, 4), np.float32), timeout=5)
+        # the dump follows the callers' release, on the dispatch thread
+        deadline = time.monotonic() + 10.0
+        while set(where.glob("*serving_dispatch_error.json")) == before \
+                and time.monotonic() < deadline:
+            time.sleep(0.005)
+    finally:
+        eng.stop(drain=False)
+    (path,) = set(where.glob("*serving_dispatch_error.json")) - before
+    record = json.loads(path.read_text())
+    assert record["trigger"] == "serving_dispatch_error"
+    assert record["info"]["model"] == "default"
+
+
 def test_queue_full_fast_fails():
     eng = InferenceEngine(_net(), feature_shape=(4,), buckets=(1,),
                           queue_limit=2, batch_window_ms=0.1)
@@ -242,20 +277,40 @@ def test_deadline_draining_shape_and_unknown_model():
 
 
 def test_drain_then_stop_resolves_everything():
+    # each client runs under its own trace id, so the batcher's
+    # ``serving.admit`` event says when its request is in: the drain starts
+    # only once all five are admitted (a client that has not reached the
+    # queue yet is refused by a drain, as the contract says)
+    reg = MetricsRegistry(enabled=True)
+    prev = set_registry(reg)
     eng = InferenceEngine(_net(), feature_shape=(4,), buckets=(8,),
                           batch_window_ms=50.0)
-    outs, errs = [], []
+    outs, errs, ids = [], [], []
 
     def client():
+        ctx = new_trace_context()
+        ids.append(ctx.trace_id)
         try:
-            outs.append(eng.predict(_x(2), timeout=10))
+            with use_trace_context(ctx):
+                outs.append(eng.predict(_x(2), timeout=10))
         except Exception as e:           # pragma: no cover - must not happen
             errs.append(e)
 
+    def admitted() -> int:
+        return sum(1 for e in reg.trace_events()
+                   if e["name"] == "serving.admit"
+                   and e["args"].get("trace_id") in ids)
+
     threads = [threading.Thread(target=client) for _ in range(5)]
-    for t in threads:
-        t.start()
-    time.sleep(0.01)
+    try:
+        for t in threads:
+            t.start()
+        deadline = time.monotonic() + 10.0
+        while admitted() < 5 and time.monotonic() < deadline:
+            time.sleep(0.001)
+        assert admitted() == 5
+    finally:
+        set_registry(prev)
     eng.stop(drain=True)
     for t in threads:
         t.join(timeout=10)

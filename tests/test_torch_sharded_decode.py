@@ -27,6 +27,8 @@ from deeplearning4j_tpu_torch.serving.generation import (GenerationConfig,
                                                          GenerationEngine)
 from deeplearning4j_tpu_torch.serving.generation.programs import \
     GenerationProgramSet
+from _torch_flightrec import _port_flightrec_dir  # noqa: F401
+
 
 V = 29
 CFG = dict(block_len=8, max_seq_len=16, decode_slots=2, prefill_batches=(1,))

@@ -22,6 +22,8 @@ from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
 from deeplearning4j_tpu_torch.parallel import make_mesh
 from deeplearning4j_tpu_torch.serving import InferenceEngine
 from deeplearning4j_tpu_torch.serving.buckets import BucketLadder
+from _torch_flightrec import _port_flightrec_dir  # noqa: F401
+
 
 R = np.random.default_rng(5)
 

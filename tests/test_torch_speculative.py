@@ -34,6 +34,8 @@ from deeplearning4j_tpu_torch.models.zoo_extra import (text_generation_lstm,
 from deeplearning4j_tpu_torch.serving.generation import (GenerationEngine,
                                                          accept_greedy)
 from deeplearning4j_tpu_torch.serving.generation import kvcache as tkv
+from _torch_flightrec import _port_flightrec_dir  # noqa: F401
+
 
 CFG = dict(vocab_size=64, d_model=64, n_heads=4, n_blocks=2, max_length=64,
            token_input=True)

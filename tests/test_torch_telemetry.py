@@ -36,6 +36,9 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_flightrec import _port_flightrec_dir  # noqa: F401
+
+
 J = importlib.import_module("deeplearning4j_tpu.telemetry")
 P = importlib.import_module("deeplearning4j_tpu_torch.telemetry")
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -41,6 +41,8 @@ from deeplearning4j_tpu_torch.nn.layers import DenseLayer, OutputLayer
 from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
 from deeplearning4j_tpu_torch.optimize.listeners import PerformanceListener
 from deeplearning4j_tpu_torch.optimize.updaters import Adam
+from _torch_flightrec import _port_flightrec_dir  # noqa: F401
+
 
 J = importlib.import_module("deeplearning4j_tpu.telemetry")
 P = importlib.import_module("deeplearning4j_tpu_torch.telemetry")

@@ -36,6 +36,8 @@ from deeplearning4j_tpu_torch.interop.jax_params import load_jax_params
 from deeplearning4j_tpu_torch.models.zoo_extra import transformer_lm
 from deeplearning4j_tpu_torch.serving import ServingHTTPServer as TServer
 from deeplearning4j_tpu_torch.serving.generation import GenerationEngine
+from _torch_flightrec import _port_flightrec_dir  # noqa: F401
+
 
 J = importlib.import_module("deeplearning4j_tpu.telemetry")
 P = importlib.import_module("deeplearning4j_tpu_torch.telemetry")

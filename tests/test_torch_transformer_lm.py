@@ -23,6 +23,8 @@ from deeplearning4j_tpu_torch.models.decode import (TransformerDecodeSpec,
 from deeplearning4j_tpu_torch.models.zoo_extra import transformer_lm
 from deeplearning4j_tpu_torch.serving.generation import GenerationEngine
 from deeplearning4j_tpu_torch.serving.generation import kvcache as tkv
+from _torch_flightrec import _port_flightrec_dir  # noqa: F401
+
 
 ATOL = 1e-4
 CFG = dict(vocab_size=64, d_model=128, n_heads=2, n_blocks=2,
