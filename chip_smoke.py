@@ -252,7 +252,7 @@ Phases; any failure raises and exits non-zero before a result is printed:
    of 2 images, /generate time to first token p50 beside the direct
    call's.
    In phases 3, 3b, 4, 4b, 7, 8, 11, 12, 12c, 12d, 13b, 12e, 16, 17, 17b,
-   17c and 17d the
+   17c, 17d and 22 the
    launch counts are
    set to 0 just before the path is driven and read just after; every
    kernel of the path must launch.
@@ -496,11 +496,42 @@ Phases; any failure raises and exits non-zero before a result is printed:
    ``replica_lost``; with both dead, the collector stitches a dead
    replica's request from its spool into one trace with the front door's
    events. Every figure printed with the card's name and power limit.
-22. Report: JSON lines of per-shape kernel times, the serving and training
+22. The kernel registry and the training UI (last). (a) The registry's
+   names are the reference's five, ``active_impl`` is ``fused`` on the
+   card and ``fallback`` on the CPU for each, every parity pin run on the
+   card holds its tolerance (2e-5, 1e-5, bitwise, bitwise, 1e-5); each
+   kernel's device time (profiler; CUDA events where a session records
+   none) at one full-width shape the repository runs (K1 phase 3's B 1
+   H 16 T 1024 D 64 f32 causal, K5 the char-RNN's T 64 B 32 H 512, K9
+   ``_TLM``'s parameter count, K8 the int8 net's first product at M 256,
+   K7 GoogLeNet's first 1x1 conv at B 32) goes through
+   ``record_kernel_timing``, whose roofline figures are printed beside
+   this script's bound for the same shape; a perf dump must render in
+   ``tools/kernels_report.py`` with five ``fused`` rows and five roofline
+   lines. (b) The char-RNN (vocab 87, 2 x GravesLSTM(512), tBPTT 64, B 32)
+   with a ``StatsListener`` reporting every iteration (histograms,
+   updates, activations of a 1-sequence sample, memory): a 2-iteration
+   check whose last record must equal numpy's statistics of host copies
+   of the same parameters (1e-5 of the leaf's scale, histograms exact)
+   with one host read a report; then 3 interleaved rounds of 8 iterations
+   each with the listener (into a JSON-lines and a SQLite storage), with
+   the same listener into memory (the storages' share) and without, each
+   step's time to its end. Two greedy requests to the
+   trained net through a ``GenerationEngine``, its metrics published into
+   the storage. Phase 12c's GoogLeNet transfer network, 4 steps at B 8
+   with a ``ConvolutionalIterationListener`` at frequency 2 on one image
+   (K7 37 launches a step and a listener forward). The telemetry registry
+   published into the storage; both files read back with equal record
+   counts. A ``TrainingUIServer`` over the SQLite file serves three pages
+   (HTTP 200, the kernel table's five ``fused`` rows with (a)'s ratios,
+   no "vs baseline" row, the warm-runs headline, the activation grids)
+   and takes one ``POST /collect``; each page's bytes and ms printed.
+23. Report: JSON lines of per-shape kernel times, the serving and training
    metrics and the kernels, then last ``{"ok": true, "device": ...}``.
 """
 from __future__ import annotations
 
+import base64
 import contextlib
 import importlib
 import json
@@ -2195,11 +2226,12 @@ def char_serve_phase():
             "wall_s": wall_s, "launches": launches}
 
 
-def _replay_kernels(rt, name, want, tries=3):
+def _replay_kernels(rt, name, want, tries=8):
     """Two replays of the runtime's live decode graph under the profiler
     must show ``want`` kernels whose name holds ``name``. The profiler
-    loses a few records a session (``_device_ms_per_call``), so up to
-    ``tries`` sessions are taken; none may show more."""
+    loses a few records a session (``_device_ms_per_call``): two whole
+    runs lost one of the 4 K5 launches here in 5 sessions of 6 (PERF.md).
+    So up to ``tries`` sessions are taken; none may show more."""
     g = rt.cohorts[-1].graph
     seen, tallies = [], []
     for _ in range(tries):
@@ -7552,6 +7584,543 @@ def parallel_fleet_phase():
     return row
 
 
+# ----------------------------------------------------------------- phase 22
+REGISTRY_NAMES = ["attention", "conv1x1_bias_relu", "int8_matmul", "lstm",
+                  "threshold_encode"]
+UI_ROUNDS, UI_ITERS, UI_BINS = 3, 8, 20     # (b): rounds of 8 iterations
+UI_COUNTED = dict(LSTM_COUNTED, conv1x1_bias_relu=k7.conv1x1_fused)
+UI_GNET_STEPS, UI_GNET_B = 4, 8
+UI_GEN = dict(block_len=16, max_seq_len=128, decode_slots=2,
+              prefill_batches=(1,), prompt_rungs=(64,))
+
+
+def _ui_reset():
+    for fn in UI_COUNTED.values():
+        fn.launches = 0
+
+
+def _ui_launches():
+    return {n: fn.launches for n, fn in UI_COUNTED.items()}
+
+
+def _event_ms_per_call(fn, n=50):
+    """Device time of one call by CUDA events over ``n`` calls (after a
+    warm call): where the profiler records no kernel late in a run."""
+    fn()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def _kernel_device_ms(fn, name):
+    """(ms, source): the profiler's device time of one call, or CUDA
+    events' where its sessions record no kernel of that name."""
+    try:
+        return _device_ms_per_call(fn, name=name), "profiler"
+    except AssertionError as e:
+        log(f"phase 22: {e}; timing {name} by CUDA events")
+        return _event_ms_per_call(fn), "cuda_events"
+
+
+def _registry_timings(kreg, n_params):
+    """Each registered kernel's device time at one full-width shape the
+    repository runs, folded in by ``record_kernel_timing``, beside
+    PERF.md's bound for the same shape (``_bound``, ``_lstm_bound``,
+    ``_roof_ms``)."""
+    gen = torch.Generator().manual_seed(SEED + 80)
+    f32 = torch.float32
+    cases = {}
+    q, k, v, _ = _case(gen, 16, 1024, 64, f32, True, False)
+    cases["attention"] = (
+        "1x16x1024x64", "flash_fwd", lambda: fa.flash_attention_fwd(
+            q, k, v, causal=True, scale=0.125),
+        _bound("fwd", 16, 1024, 64, f32, True),
+        "phase 3's serve shape, causal; the registry's formula counts the "
+        "full T^2 square and q/k/v/o only")
+    H = CHAR["hidden"]
+    fwd, _, peeps, _ = _lstm_case(gen, CHAR_T, CHAR_B, H, f32, True, False)
+    cases["lstm"] = (
+        f"{CHAR_T}x{CHAR_B}x{H}", "lstm_fwd",
+        lambda: lstm.fused_lstm_fwd(*fwd, None, peeps),
+        _lstm_bound("fwd", CHAR_T, CHAR_B, H, f32, True, False),
+        "the char-RNN's, Graves peepholes; the registry's bytes leave out "
+        "gates, cs and the carries K5 writes")
+    r = _residual_like(gen, n_params, f32, DP_THRESHOLD)
+    cases["threshold_encode"] = (
+        str(n_params), "threshold_encode",
+        lambda: k9.threshold_encode_fused(r, DP_THRESHOLD),
+        (k9.roofline_bytes(n_params, f32) / HBM_BYTES_PER_S * 1e3, "bytes"),
+        "_TLM's parameter count, f32; the same 9 bytes an element")
+    M, K, N = int8_products(max(INT8_BUCKETS))[0]
+    xq, xs = k8.quantize_rows(torch.randn(M, K, generator=gen).cuda())
+    wq, ws = k8.quantize_weights(torch.randn(K, N, generator=gen).cuda())
+    xq, wq = xq.contiguous(), wq.contiguous()
+    cases["int8_matmul"] = (
+        f"{M}x{K}x{N}", "int8", lambda: k8.int8_matmul_fused(xq, wq, xs, ws),
+        _roof_ms(*k8.roofline(M, K, N), PEAK_INT8_OPS),
+        "the int8 net's first product at M 256; the same formula")
+    vertex, M, C, Fo = googlenet_1x1_shapes(TRANSFER_B)[0]
+    x = torch.randn(M, C, generator=gen).cuda()
+    w = (torch.randn(C, Fo, generator=gen) * (2.0 / C) ** 0.5).cuda()
+    b = (torch.randn(Fo, generator=gen) * 0.1 + 0.2).cuda()
+    cases["conv1x1_bias_relu"] = (
+        f"{M}x{C}x{Fo}", "conv1x1", lambda: k7.conv1x1_fused(x, w, b),
+        _roof_ms(*k7.roofline(M, C, Fo), PEAK_FLOPS[f32]),
+        f"GoogLeNet's {vertex} at B {TRANSFER_B}; the same formula")
+    rows = {}
+    for name in REGISTRY_NAMES:
+        sig, kernel, call, (bound, by), note = cases[name]
+        ms, source = _kernel_device_ms(call, kernel)
+        got = kreg.record_kernel_timing(name, sig, ms / 1e3)
+        if got is None:
+            raise AssertionError(f"record_kernel_timing({name!r}) set no "
+                                 f"gauge on {torch.cuda.get_device_name()}")
+        rows[name] = {"sig": sig, "device_ms": ms, "timed_by": source,
+                      "registry": got, "perf_md_bound_ms": bound,
+                      "perf_md_bound_by": by,
+                      "ms_over_perf_md_bound": ms / bound, "bound_note": note}
+    return rows
+
+
+def _registry_phase(n_params, tmp):
+    """(a): the registry on the card: names, implementations, every pin
+    on the card within its tolerance, the five timings and a perf dump
+    that ``tools/kernels_report.py`` renders."""
+    from deeplearning4j_tpu_torch import telemetry as tel
+    from deeplearning4j_tpu_torch.ops import kernels as kreg
+    names = kreg.names()
+    if names != REGISTRY_NAMES:
+        raise AssertionError(f"registered kernels {names}")
+    impls = {n: [kreg.active_impl(n, "cuda"), kreg.active_impl(n, "cpu")]
+             for n in names}
+    if any(v != ["fused", "fallback"] for v in impls.values()):
+        raise AssertionError(f"active implementations {impls}")
+    pins = {}
+    for n in names:
+        spec = kreg.get(n)
+        got, plain = spec.parity.run(SEED, "cuda")
+        torch.cuda.synchronize()
+        if not all(t.is_cuda for t in got + plain):
+            raise AssertionError(f"the {n} pin did not run on the card")
+        err = max(float((a.double() - b.double()).abs().max())
+                  for a, b in zip(got, plain))
+        if not err <= spec.parity.tol:
+            raise AssertionError(f"the {n} pin on the card: max abs error "
+                                 f"{err:.3g} over its tolerance "
+                                 f"{spec.parity.tol}")
+        pins[n] = {"max_abs_err": err, "tol": spec.parity.tol}
+    timings = _registry_timings(kreg, n_params)
+    snap = kreg.kernels_snapshot()
+    if any(snap[n]["impl"] != "fused" for n in names):
+        raise AssertionError(f"snapshot rows {snap}")
+    dump = tel.write_perf_dump(os.path.join(tmp, "perf_dump.json"))
+    rep = subprocess.run([sys.executable, "tools/kernels_report.py", dump],
+                         capture_output=True, text=True, timeout=120,
+                         env=dict(os.environ, DL4J_TPU_AUTOTUNE_CACHE=
+                                  os.path.join(tmp, "autotune.json")))
+    lines = rep.stdout.splitlines()
+    table = [ln.split() for ln in lines if ln.split()[:1]
+             and ln.split()[0] in names and "measured" not in ln]
+    roof = [ln.split()[0] for ln in lines if "measured" in ln
+            and "roofline" in ln]
+    if rep.returncode != 0 or [t[:2] for t in table] != \
+            [[n, "fused"] for n in names] or sorted(roof) != names:
+        raise AssertionError(f"kernels_report.py: rc {rep.returncode}, "
+                             f"{rep.stdout[-2000:]} {rep.stderr[-2000:]}")
+    return {"names": names, "active_impl": impls, "pins": pins,
+            "timings": timings, "report_lines": lines}
+
+
+class _TeeStorage:
+    """One listener's records into two storages (its reads from the
+    first)."""
+
+    def __init__(self, first, second):
+        self.first, self.second = first, second
+
+    def put_static_info(self, sid, wid, info):
+        self.first.put_static_info(sid, wid, info)
+        self.second.put_static_info(sid, wid, info)
+
+    def put_update(self, sid, wid, update):
+        self.first.put_update(sid, wid, update)
+        self.second.put_update(sid, wid, update)
+
+
+class _ReadsCounted:
+    """Runs a listener's ``iteration_done`` under a
+    ``telemetry.HostSyncDetector``: the host reads a report makes."""
+
+    def __init__(self, inner):
+        self.inner, self.reads = inner, []
+
+    def iteration_done(self, net, iteration, loss):
+        from deeplearning4j_tpu_torch import telemetry as tel
+        with tel.HostSyncDetector(action="count") as det:
+            self.inner.iteration_done(net, iteration, loss)
+        self.reads.append(det.count)
+
+
+class _HostCopies:
+    """Host copies of every parameter and of the sample's activations at
+    each iteration (after the listener before it in the list)."""
+
+    def __init__(self, sample):
+        self.sample, self.params, self.acts = sample, [], []
+
+    def iteration_done(self, net, iteration, loss):
+        from deeplearning4j_tpu_torch.ui.stats import named_leaves
+        self.params.append({n: p.detach().float().cpu().clone().numpy()
+                            for n, p in named_leaves(net.param_dicts())})
+        with torch.no_grad():
+            acts = net.feed_forward(self.sample)[1:]
+        self.acts.append([a.float().cpu().numpy() for a in acts])
+
+
+def _np_edges(lo, hi, bins):
+    """``jnp.histogram``'s float32 edges as XLA computes them (the
+    listener's rule), in numpy float64 where the products are exact."""
+    f32 = np.float32
+    r = float(f32(1.0) / f32(bins))
+    i = np.arange(bins, dtype=np.float64)
+    a = float(lo) * (1.0 - (i * r).astype(f32)).astype(f32).astype(
+        np.float64)
+    br = float(f32(float(hi) * r))
+    e = i * br + a.astype(f32).astype(np.float64)
+    e[1] = a[1] + br
+    return np.concatenate([e.astype(f32), [f32(hi)]])
+
+
+def _np_stats(x, bins):
+    """A leaf's record in numpy (float64 moments of the float32 values)."""
+    x = x.reshape(-1)
+    x64 = x.astype(np.float64)
+    mn, mx = x.min(), x.max()
+    lo, hi = (mn - np.float32(0.5), mx + np.float32(0.5)) if mn == mx \
+        else (mn, mx)
+    edges = _np_edges(lo, hi, bins)
+    idx = np.searchsorted(edges, x, side="right")
+    idx[x == edges[-1]] = bins
+    counts = np.bincount(idx, minlength=bins + 1)[1:]
+    return {"max": float(mx), "mean": x64.mean(),
+            "meanmag": np.abs(x64).mean(), "min": float(mn),
+            "stdev": x64.std(), "histogram": {
+                "counts": [float(c) for c in counts], "lo": float(lo),
+                "hi": float(hi)}}
+
+
+def _rel(got, want, scale):
+    return abs(got - want) / max(abs(want), scale, 1e-30)
+
+
+def _stats_vs_numpy(rec, copies):
+    """The largest relative error of each statistic of the last record
+    against numpy on host copies of the same parameters (moments relative
+    to the leaf's largest magnitude, update moments to their mean
+    magnitude); histogram counts and ranges must be equal."""
+    now, prev = copies.params[-1], copies.params[-2]
+    errs = {}
+    for n, x in now.items():
+        want = _np_stats(x, UI_BINS)
+        got = rec["params"][n]
+        scale = max(abs(want["min"]), abs(want["max"]))
+        for k in ("max", "mean", "meanmag", "min", "stdev"):
+            errs[f"params.{k}"] = max(errs.get(f"params.{k}", 0.0),
+                                      _rel(got[k], want[k], scale))
+        if got["histogram"] != want["histogram"]:
+            raise AssertionError(f"{n}: histogram {got['histogram']} vs "
+                                 f"numpy's {want['histogram']}")
+        d = (x - prev[n]).astype(np.float64)
+        up = {"mean": d.mean(), "meanmag": np.abs(d).mean(),
+              "stdev": d.std()}
+        for k, v in up.items():
+            errs[f"updates.{k}"] = max(errs.get(f"updates.{k}", 0.0),
+                                       _rel(rec["updates"][n][k], v,
+                                            up["meanmag"]))
+    for i, a in enumerate(copies.acts[-1]):
+        errs["activations"] = max(errs.get("activations", 0.0), _rel(
+            rec["activations"][f"layer_{i}"],
+            np.abs(a.astype(np.float64)).mean(), 0.0))
+    if max(errs.values()) > 1e-5:
+        raise AssertionError(f"listener statistics against numpy: {errs}")
+    return errs
+
+
+def _quartiles(ms):
+    q = np.percentile(ms, [25, 50, 75])
+    return {"p25": float(q[0]), "p50": float(q[1]), "p75": float(q[2])}
+
+
+def _ui_char(tee, ui_mod):
+    """(b1): the char-RNN with a ``StatsListener`` (every iteration:
+    histograms, updates, activations of a 1-sequence sample, memory)
+    into ``tee``: a check run against numpy with its host reads counted,
+    then 3 interleaved rounds of 8 iterations with it, with it into
+    memory and without."""
+    net = text_generation_lstm(**CHAR, tbptt_length=CHAR_T).init(
+        seed=SEED + 81)
+    xs, ys = _char_batch(SEED + 82, CHAR_B * UI_ITERS, CHAR_T)
+    x, y = (torch.as_tensor(a, device=net.device) for a in (xs, ys))
+    sample = xs[:1]
+    cfg = ui_mod.StatsUpdateConfiguration(
+        report_frequency=1, collect_histograms=True, histogram_bins=UI_BINS,
+        collect_activation_stats=True)
+    launches = {n: 0 for n in UI_COUNTED}
+
+    def counted(fit):
+        torch.cuda.synchronize()
+        _ui_reset()
+        fit()
+        torch.cuda.synchronize()
+        for n, c in _ui_launches().items():
+            launches[n] += c
+
+    check = ui_mod.StatsListener(ui_mod.InMemoryStatsStorage(), config=cfg,
+                                 session_id="p22_check",
+                                 activation_sample=sample)
+    reads, copies = _ReadsCounted(check), _HostCopies(sample)
+    net.set_listeners(reads, copies)
+    counted(lambda: net.fit(x[:2 * CHAR_B], y[:2 * CHAR_B],
+                            batch_size=CHAR_B))
+    rec = check.storage.get_latest_update("p22_check", "worker_0")
+    errs = _stats_vs_numpy(rec, copies)
+    if reads.reads != [1, 1]:
+        raise AssertionError(f"host reads a report: {reads.reads}")
+    # the listener into the two files; the same listener's work into
+    # memory (the storages' share); no listener
+    listeners = {
+        "with": ui_mod.StatsListener(tee, config=cfg, session_id="p22_char",
+                                     activation_sample=sample),
+        "with_memory": ui_mod.StatsListener(
+            ui_mod.InMemoryStatsStorage(), config=cfg,
+            session_id="p22_memory", activation_sample=sample),
+        "without": None}
+    modes = list(listeners)
+    step_ms = {m: [] for m in modes}
+    for rnd in range(UI_ROUNDS):
+        for mode in modes[rnd:] + modes[:rnd]:
+            clock = _WindowClock(1)
+            lst = listeners[mode]
+            net.set_listeners(*([lst, clock] if lst else [clock]))
+            t0 = time.perf_counter()
+            counted(lambda: net.fit(x, y, batch_size=CHAR_B))
+            step_ms[mode] += [(b - a) * 1e3 for a, b in
+                              zip([t0] + clock.t, clock.t)]
+    net.set_listeners()
+    # 2 layers a step, a listener's forward and the check's own forward
+    steps = 2 + len(modes) * UI_ROUNDS * UI_ITERS
+    reports = 2 + 2 * UI_ROUNDS * UI_ITERS
+    want = {"lstm_fwd": 2 * (steps + reports + 2), "lstm_bwd": 2 * steps,
+            "conv1x1_bias_relu": 0}
+    if launches != want:
+        raise AssertionError(f"char-RNN fits launched {launches}, not "
+                             f"{want}")
+    q = {m: _quartiles(v[1:]) for m, v in step_ms.items()}
+    base = q["without"]["p50"]
+    return net, {
+        "model": f"text_generation_lstm vocab {CHAR['vocab_size']} hidden "
+                 f"{CHAR['hidden']} f32 RmsProp(1e-3) tBPTT {CHAR_T}, "
+                 f"B {CHAR_B}",
+        "reports": UI_ROUNDS * UI_ITERS, "check_reports": 2,
+        "host_reads_per_report": reads.reads,
+        "max_rel_err_vs_numpy": errs,
+        "step_ms": step_ms, "step_ms_quartiles": q,
+        "with_over_without_p50": q["with"]["p50"] / base,
+        "with_memory_over_without_p50": q["with_memory"]["p50"] / base,
+        "launches": launches}
+
+
+def _ui_googlenet(tee, ui_mod):
+    """(b2): phase 12c's transfer network, 4 steps at B 8 with a
+    ``ConvolutionalIterationListener`` at frequency 2 on a 1-image
+    sample."""
+    src = googlenet(**GNET).init(seed=SEED + 83)
+    net = (TransferLearningGraph(src).set_feature_extractor("avg3")
+           .n_out_replace("output", TRANSFER_CLASSES, weight_init="xavier")
+           .fine_tune_configuration(FineTuneConfiguration(updater=Adam(1e-3)))
+           .build())
+    del src
+    batches = _resnet_batches(UI_GNET_STEPS, SEED + 84, TRANSFER_CLASSES,
+                              GNET["height"], UI_GNET_B)
+    lst = ui_mod.ConvolutionalIterationListener(
+        batches[0].features[:1], storage=tee, frequency=2,
+        session_id="p22_googlenet")
+    net.set_listeners(lst)
+    torch.cuda.synchronize()
+    _ui_reset()
+    t0 = time.perf_counter()
+    net.fit(iterator=ListDataSetIterator(batches))
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = _ui_launches()
+    net.set_listeners()
+    forwards = UI_GNET_STEPS + UI_GNET_STEPS // 2
+    if launches["conv1x1_bias_relu"] != 37 * forwards:
+        raise AssertionError(f"K7 launched {launches} for {UI_GNET_STEPS} "
+                             f"steps and {UI_GNET_STEPS // 2} listener "
+                             f"forwards (37 each)")
+    grids = [base64.b64decode(png) for u in
+             tee.first.get_updates("p22_googlenet", "worker_0")
+             for png in u["conv_activations"].values()]
+    if len(grids) != (UI_GNET_STEPS // 2) * lst.max_layers or \
+            not all(g[:8] == b"\x89PNG\r\n\x1a\n" for g in grids):
+        raise AssertionError(f"{len(grids)} activation grids")
+    return net, {"steps": UI_GNET_STEPS, "batch": UI_GNET_B,
+                 "listener_forwards": UI_GNET_STEPS // 2, "fit_s": fit_s,
+                 "grids": len(grids), "png_bytes": sum(map(len, grids)),
+                 "launches": launches}
+
+
+def _ui_generation(net, tee):
+    """(b3): two greedy requests to the trained char-RNN through a small
+    ``GenerationEngine``; its metrics published into the storage."""
+    eng = GenerationEngine(net, **UI_GEN)
+    rt = eng.runtime()
+    rng = np.random.default_rng(SEED + 85)
+    prompts = [rng.integers(0, CHAR["vocab_size"], size=40).tolist()
+               for _ in range(2)]
+    try:
+        _ui_reset()
+        results = [eng.generate(p, max_tokens=16) for p in prompts]
+        if not rt.wait_idle(60):
+            raise AssertionError("the runtime did not go idle")
+        eager = _ui_launches()
+        graphs = rt.graph_stats()
+        eng.publish_metrics(tee)
+    finally:
+        eng.stop()
+    if any(len(t) != 16 for t, _ in results):
+        raise AssertionError(f"generation results {results}")
+    k5 = eager["lstm_fwd"] + graphs["kernel_runs"].get("lstm_fwd", 0)
+    return {"requests": 2, "tokens": [t for t, _ in results],
+            "launches": dict(eager, lstm_fwd=k5),
+            "graph_replays": graphs["replays"]}
+
+
+def _ui_server(ui_mod, reader, timings):
+    """(b4): ``TrainingUIServer`` on an ephemeral port over ``reader``:
+    three pages and one POST; the Performance card's kernel table, no
+    baseline row, the warm-runs headline."""
+    server = ui_mod.TrainingUIServer()
+    server.attach(reader)
+    port = server.start()
+    base = f"http://127.0.0.1:{port}"
+    pages = {}
+    try:
+        for what, path in (("overview", "/"),
+                           ("char_model_page", "/?session=p22_char"),
+                           ("googlenet_session", "/?session=p22_googlenet")):
+            t0 = time.perf_counter()
+            status, _, body = _http(base, "GET", path)
+            ms = (time.perf_counter() - t0) * 1e3
+            pages[what] = {"status": status, "bytes": len(body), "ms": ms}
+            page = body.decode()
+            if status != 200:
+                raise AssertionError(f"GET {path}: {status}")
+            table = page[page.index("<h3>Kernels (impl"):]
+            rows = table[:table.index("</table>")].split("<tr>")[2:]
+            got = {r.split("<td>")[1].split("<")[0]: r for r in rows}
+            if sorted(got) != REGISTRY_NAMES:
+                raise AssertionError(f"GET {path}: kernel rows {sorted(got)}")
+            for n, r in got.items():
+                ratio = timings[n]["registry"]["vs_roofline"]
+                if "<td>fused</td>" not in r or \
+                        f"{ratio:.2f}x bound" not in r:
+                    raise AssertionError(f"GET {path}: row {r}")
+            if "vs baseline" in page:
+                raise AssertionError(f"GET {path}: a baseline row")
+            if not re.search(r"<tr><th>warm runs</th><td>\d+</td></tr>",
+                             page):
+                raise AssertionError(f"GET {path}: no warm-runs headline")
+        if "Convolutional activations" not in \
+                _http(base, "GET", "/?session=p22_googlenet")[2].decode():
+            raise AssertionError("no activation grids on the page")
+        char_page = _http(base, "GET", "/?session=p22_char")[2].decode()
+        if not all(k in char_page for k in ("Model graph", "GravesLSTM",
+                                            "Parameter histograms")):
+            raise AssertionError("the char session's page lacks its model "
+                                 "graph or histograms")
+        status, _, body = _http(base, "POST", "/collect", {
+            "kind": "update", "session_id": "p22_remote",
+            "worker_id": "w0", "data": {"iteration": 1, "score": 0.5}})
+        if status != 200 or json.loads(body) != {"ok": True} or \
+                reader.get_latest_update("p22_remote", "w0")["score"] != 0.5:
+            raise AssertionError(f"POST /collect: {status} {body!r}")
+        pages["post_collect"] = {"status": status}
+    finally:
+        server.stop()
+    return pages
+
+
+def ui_phase(n_params):
+    """Phase 22 (see the module docstring): (a) the kernel registry on the
+    card, (b) the training UI on a listener-instrumented fit."""
+    from deeplearning4j_tpu_torch import telemetry as tel
+    from deeplearning4j_tpu_torch import ui as ui_mod
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="p22_")
+    try:
+        registry = _registry_phase(n_params, tmp)
+        torch.cuda.empty_cache()
+        t_b = time.perf_counter()
+        jsonl, db = os.path.join(tmp, "stats.jsonl"), os.path.join(tmp,
+                                                                   "stats.db")
+        files = ui_mod.FileStatsStorage(jsonl)
+        sqlite = ui_mod.SqliteStatsStorage(db)
+        tee = _TeeStorage(files, sqlite)
+        char_net, char = _ui_char(tee, ui_mod)
+        gen = _ui_generation(char_net, tee)
+        del char_net
+        torch.cuda.empty_cache()
+        gnet, gnet_row = _ui_googlenet(tee, ui_mod)
+        del gnet
+        torch.cuda.empty_cache()
+        tel.get_registry().publish(tee)
+        readers = {"jsonl": ui_mod.FileStatsStorage(jsonl),
+                   "sqlite": ui_mod.SqliteStatsStorage(db)}
+        records = {k: {s: sum(len(r.get_updates(s, w))
+                              for w in r.list_worker_ids(s))
+                       for s in r.list_session_ids()}
+                   for k, r in readers.items()}
+        if records["jsonl"] != records["sqlite"] or \
+                records["jsonl"].get("p22_char") != char["reports"] or \
+                records["jsonl"].get("p22_googlenet") != \
+                gnet_row["listener_forwards"] or \
+                "telemetry" not in records["jsonl"] or \
+                "generation" not in records["jsonl"]:
+            raise AssertionError(f"records read back: {records}")
+        pages = _ui_server(ui_mod, readers["sqlite"], registry["timings"])
+        for s in (sqlite, readers["sqlite"]):
+            s.close()
+        ui_s = time.perf_counter() - t_b
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    paths = {"ui_listener_fit": char["launches"],
+             "ui_conv_listener": gnet_row["launches"],
+             "ui_generation": gen["launches"]}
+    row = {"registry": registry, "char": char, "googlenet": gnet_row,
+           "generation": gen, "records_read_back": records, "pages": pages,
+           "launches_by_path": paths,
+           "launches": {n: sum(p.get(n, 0) for p in paths.values())
+                        for n in UI_COUNTED},
+           "ui_seconds": ui_s, "seconds": time.perf_counter() - t0}
+    t = registry["timings"]
+    log(f"phase 22: {row['seconds']:.1f} s (UI {ui_s:.1f}); pins "
+        f"{ {n: p['max_abs_err'] for n, p in registry['pins'].items()} }; "
+        f"vs roofline "
+        f"{ {n: round(r['registry']['vs_roofline'], 3) for n, r in t.items()} }"
+        f"; step p50 with/without {char['with_over_without_p50']:.3f} "
+        f"(into memory {char['with_memory_over_without_p50']:.3f}); grids "
+        f"{gnet_row['grids']} ({gnet_row['png_bytes']} bytes); "
+        f"pages {[(k, p.get('bytes')) for k, p in pages.items()]}")
+    return row
+
+
 def main() -> int:
     smi = device_phase()
     build_report = build_phase()
@@ -7617,6 +8186,10 @@ def main() -> int:
     # own, and its parallel paths each count their launches
     p21 = parallel_fleet_phase()
     p21_n = p21["launches"]
+    # phase 22 last: the registry's timings and the UI over the fits
+    p22 = ui_phase(n_params)
+    p22_paths = lambda name: {path: n[name] for path, n in
+                              p22["launches_by_path"].items() if n[name]}
     p21_paths = lambda name: {path: n[name] for path, n in
                               p21["launches_by_path"].items() if n[name]}
     top = next(r for r in rows if r["BH"] == 16 and r["T"] == 1024
@@ -7735,11 +8308,13 @@ def main() -> int:
                 serve_decode_graph_replays=char_serve[
                     "launches_in_replays"].get(name, 0),
                 serve_lstm_draft=draft_n, http=http_k5)
+        by_path.update(p22_paths(name))
         kernels.append({
             "name": name, "route": "cuda", "source": lsrc.format(kind),
             "replaces": lref.format(line),
             "launches": serve_n + train_n + graph_n + stream_n + draft_n
-            + http_k5 + sent_n + s2s_n + avg_n + tp_lstm + stream_fit,
+            + http_k5 + sent_n + s2s_n + avg_n + tp_lstm + stream_fit
+            + p22["launches"][name],
             "launches_by_path": by_path,
             "max_abs_err": max(lstm_errs[(kind, torch.float32)],
                                lstm_errs[(kind, torch.bfloat16)]),
@@ -7780,7 +8355,7 @@ def main() -> int:
         "replaces": "deeplearning4j_tpu/ops/kernels/conv.py:83",
         "launches": gserve["k7_launches"] + http_n["conv1x1_bias_relu"]
         + transfer_row["k7_launches"] + tp_n["conv1x1_bias_relu"]
-        + el_n["conv1x1_bias_relu"],
+        + el_n["conv1x1_bias_relu"] + p22["launches"]["conv1x1_bias_relu"],
         "launches_by_path": {"serve_googlenet": gserve["k7_launches"],
                              "http": http_n["conv1x1_bias_relu"],
                              "transfer_googlenet":
@@ -7788,7 +8363,8 @@ def main() -> int:
                              "serve_googlenet_mesh":
                                  tp_n["conv1x1_bias_relu"],
                              "parallel_inference":
-                                 el_n["conv1x1_bias_relu"]},
+                                 el_n["conv1x1_bias_relu"],
+                             **p22_paths("conv1x1_bias_relu")},
         "max_abs_err": k7_errs["parity_abs"],
         "max_rel_to_max_err_f32": k7_errs["f32_rel"],
         "max_rel_to_max_err_bf16": k7_errs["bf16_rel"],
@@ -7907,6 +8483,8 @@ def main() -> int:
     print(json.dumps({"telemetry": tel_row, "card": smi}, default=str),
           flush=True)
     print(json.dumps({"parallel_telemetry_and_fleet": p21, "card": smi},
+                     default=str), flush=True)
+    print(json.dumps({"kernel_registry_and_ui": p22, "card": smi},
                      default=str), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -49,8 +49,6 @@ Deliberate differences:
   reference's ``DL4J_TPU_PERF_CAPTURE_AFTER`` deferral, there to skip a
   retrace, has nothing to defer. ``normalize_cost_analysis``,
   ``cost_analysis_of`` and ``maybe_capture`` are not ported.
-- ``perf_snapshot`` has no ``kernels`` block: the kernel registry it
-  reads is ROADMAP A11, not ported.
 """
 from __future__ import annotations
 
@@ -781,6 +779,14 @@ def perf_snapshot(registry: Optional[MetricsRegistry] = None,
         out["step_decomposition"] = decomposition_summary(reg)
     except Exception as e:          # pragma: no cover - defensive
         log.debug("perf snapshot failed: %s", e)
+    try:
+        # the kernel library (ops/kernels/registry.py): registered kernels,
+        # the implementation a call runs here, autotune decisions; a lazy
+        # import, so telemetry never forces the ops package
+        from ..ops.kernels import kernels_snapshot
+        out["kernels"] = kernels_snapshot()
+    except Exception as e:          # pragma: no cover - defensive
+        log.debug("kernels snapshot failed: %s", e)
     try:
         # cached walk (~2 s max staleness) by default: /metrics scrapes
         # and repeat-fire dump triggers must not pay a fresh walk each.

@@ -62,7 +62,10 @@ _REQUIRED = {f"deeplearning4j_tpu_torch.{m}" for m in (
     "telemetry.slo", "serving.fleet", "serving.fleet.affinity",
     "serving.fleet.coldstart", "serving.fleet.replica",
     "serving.fleet.router", "serving.fleet.collector",
-    "serving.fleet.autoscale", "serving.fleet.http")}
+    "serving.fleet.autoscale", "serving.fleet.http", "ops.kernels",
+    "ops.kernels.registry", "ops.kernels.builtins", "ops.kernels.autotune",
+    "ui", "ui.storage", "ui.components", "ui.i18n", "ui.stats",
+    "ui.visual", "ui.dashboard")}
 
 _FORBIDDEN = re.compile(
     r"^\s*(import\s+(jax|deeplearning4j_tpu)\b(?!_torch)"

@@ -438,8 +438,8 @@ def test_flight_recorder_dumps_as_the_reference(regs, recorders):
     ref, got = _dumped(J, regs[0], recorders[0]), \
         _dumped(P, regs[1], recorders[1])
     assert got[:7] == ref[:7]
-    # the perf block: the port has no ``kernels`` key (ROADMAP A11)
-    assert set(got[7]) == set(ref[7]) - {"kernels"}
+    # the perf block, the kernel registry's ``kernels`` key included
+    assert set(got[7]) == set(ref[7])
     assert got[8] == ref[8] == "manual.json"
     assert got[6] == {"a": 2, "flightrec.dumps": 1}
 
