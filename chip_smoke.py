@@ -526,7 +526,41 @@ Phases; any failure raises and exits non-zero before a result is printed:
    (HTTP 200, the kernel table's five ``fused`` rows with (a)'s ratios,
    no "vs baseline" row, the warm-runs headline, the activation grids)
    and takes one ``POST /collect``; each page's bytes and ms printed.
-23. Report: JSON lines of per-shape kernel times, the serving and training
+23. The NLP library (``nlp/``; it runs none of the nine kernels). (a) The
+   bulk skip-gram NS step at ``bench.py``'s word2vec width (V 100,000, D
+   128, B 4096, 5 negatives, lr 0.025; syn0 N(0, 1) x 0.01, syn1 zeros):
+   two steps on the card against the same steps on the CPU with the same
+   negatives, both tables within rel-to-max 1e-5 (the card adds
+   colliding rows by atomics, in no fixed order); ``bench.py``'s two
+   quality gates after 200 steps of ``make_neg_sampling_step`` (probe
+   loss down by 0.1, trained pairs' cosine 0.1 over random pairs'); wall
+   and device ms a step, kernels a step, words/s and peak memory at V
+   100,000 and V 1,000,000. (b) ``Word2Vec.fit`` on a generated topical
+   corpus (13,000 sentences, ~195 k tokens, 20 topics of 150 words and
+   200 fillers; layer 100, window 5): skip-gram NS, skip-gram HS and
+   CBOW NS, each on the card and on the CPU from the same seed (the same
+   pairs and negatives): syn0 and the output table within rel-to-max 1e-4
+   after the whole fit, or syn0 within 1e-5 after the third flush if the
+   whole fit drifts further (both printed); the within-topic cosine 0.1
+   over the across-topic one; no host read between the first flush and
+   the last (``HostSyncDetector(sync_debug=True)``); words/s, the host's
+   shares (pair generation, flushes) and, for skip-gram NS, the
+   profiler's device time of a second fit and that fit's distance to the
+   first; whether HS at the default batch of 8,192 stays finite
+   (reported). (c) ``ParagraphVectors``
+   (PV-DBOW, PV-DM, PV-DBOW with HS, ``infer_vector``) on 300 generated
+   documents, ``Glove`` on 2,000 sentences and ``DistributedWord2Vec`` on
+   a 4-worker logical mesh (its step against the single step at atol
+   2e-6 and B 8190, which 4 does not divide; a fit on (b)'s corpus with
+   the topic gate), each card fit against the CPU's as in (b) (the word
+   phase's third flush where the whole fit drifts); ``infer_vector`` on
+   the card against the CPU's on the same tables at rel-to-max 1e-5.
+   Hierarchical softmax steps 1,024 pairs at a time in (b) and (c): at
+   the default 8,192 every pair's update of the tree's root row lands in
+   one step and the fit diverges to NaN on this corpus. (d) The (b) skip-gram model written with
+   ``write_word_vectors`` and ``write_binary_word_vectors`` and read
+   back: within the text's 6 decimals, bitwise from the binary file.
+24. Report: JSON lines of per-shape kernel times, the serving and training
    metrics and the kernels, then last ``{"ok": true, "device": ...}``.
 """
 from __future__ import annotations
@@ -579,6 +613,9 @@ from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
 from deeplearning4j_tpu_torch.nn.preprocessors import (
     FeedForwardToRnnPreProcessor, RnnToFeedForwardPreProcessor)
 from deeplearning4j_tpu_torch.nn.tape import collect_state
+from deeplearning4j_tpu_torch import nlp as tnlp
+from deeplearning4j_tpu_torch.nlp import distributed_w2v as tdist
+from deeplearning4j_tpu_torch.nlp import sequence_vectors as sv
 from deeplearning4j_tpu_torch.nn.transfer import (FineTuneConfiguration,
                                                   TransferLearningGraph)
 from deeplearning4j_tpu_torch.ops import flash_attention as fa
@@ -2399,6 +2436,12 @@ def _roof_ms(flops, nbytes, peak):
                                        else "bytes")
 
 
+# the device times taken by CUDA events because no profiler session
+# recorded the kernel (the profiler loses records late in a long run,
+# PERF.md section 7); printed with the report
+EVENT_TIMED = []
+
+
 def _device_ms_per_call(fn, n=20, name=None, tries=3, per_call=1):
     """Device time of one call of ``fn`` (ms) from the profiler's kernel
     times over ``n`` calls. The profiler loses the records of a few
@@ -2406,8 +2449,10 @@ def _device_ms_per_call(fn, n=20, name=None, tries=3, per_call=1):
     divided by the launches it did record: of the kernels whose name holds
     ``name`` (``per_call`` of them a call), or, with no name, of the most
     often recorded kernel (one launch of it a call). A session that records
-    no such kernel is taken again, up to ``tries`` sessions; then this
-    raises."""
+    no such kernel is taken again, up to ``tries`` sessions; then the call
+    is timed by CUDA events over ``n`` calls (``_event_ms_per_call``: from
+    the first launch to the end of the last, gaps included) and noted in
+    ``EVENT_TIMED``."""
     def many():
         for _ in range(n):
             fn()
@@ -2419,9 +2464,11 @@ def _device_ms_per_call(fn, n=20, name=None, tries=3, per_call=1):
             if name is None:
                 return ms / max(r["calls"] for r in rows)
             return ms / sum(r["calls"] for r in rows) * per_call
-    raise AssertionError(f"{tries} profiler sessions recorded no kernel"
-                         f"{'' if name is None else ' named ' + name} in "
-                         f"{n} calls")
+    what = "a kernel" if name is None else name
+    log(f"{tries} profiler sessions recorded no {what} in {n} calls; "
+        f"timing it by CUDA events")
+    EVENT_TIMED.append(what)
+    return _event_ms_per_call(fn, n)
 
 
 def conv_kernel_phase():
@@ -7618,13 +7665,11 @@ def _event_ms_per_call(fn, n=50):
 
 
 def _kernel_device_ms(fn, name):
-    """(ms, source): the profiler's device time of one call, or CUDA
-    events' where its sessions record no kernel of that name."""
-    try:
-        return _device_ms_per_call(fn, name=name), "profiler"
-    except AssertionError as e:
-        log(f"phase 22: {e}; timing {name} by CUDA events")
-        return _event_ms_per_call(fn), "cuda_events"
+    """(ms, source): the device time of one call, and whether the profiler
+    or CUDA events gave it."""
+    k = len(EVENT_TIMED)
+    ms = _device_ms_per_call(fn, name=name)
+    return ms, "profiler" if len(EVENT_TIMED) == k else "cuda_events"
 
 
 def _registry_timings(kreg, n_params):
@@ -8121,6 +8166,454 @@ def ui_phase(n_params):
     return row
 
 
+# ------------------------------------------------------------------ phase 23
+# (a) bench.py:1932's word2vec width, and a vocabulary ten times larger
+W2V_V, W2V_D, W2V_B, W2V_NEG, W2V_LR = 100_000, 128, 4096, 5, 0.025
+W2V_V_LARGE, W2V_STEPS = 1_000_000, 200
+# (b) a generated topical corpus of ~200 k tokens: 20 topics of 150 words
+# and 200 shared fillers; sentences of 10-20 tokens
+NLP_TOPICS, NLP_TOPIC_WORDS, NLP_FILLER = 20, 150, 200
+NLP_SENTENCES, NLP_LAYER, NLP_WINDOW = 13_000, 100, 5
+NLP_FIT_REL, NLP_FLUSH_REL, NLP_GAP = 1e-4, 1e-5, 0.1
+
+
+def _nlp_corpus(n, seed, lo=10, hi=21):
+    """``n`` sentences of ``lo``..``hi - 1`` tokens. Each picks a topic and
+    draws 70 % of its tokens from the topic's words, 30 % from the shared
+    fillers, both by Zipf-like ranks (1/r). Returns (sentences, the topic
+    of each, each topic's words)."""
+    r = np.random.default_rng(seed)
+    topic_words = [[f"t{t}w{i}" for i in range(NLP_TOPIC_WORDS)]
+                   for t in range(NLP_TOPICS)]
+    filler = [f"f{i}" for i in range(NLP_FILLER)]
+
+    def zipf(m):
+        p = 1.0 / np.arange(1, m + 1)
+        return p / p.sum()
+    pw, pf = zipf(NLP_TOPIC_WORDS), zipf(NLP_FILLER)
+    topics = r.integers(0, NLP_TOPICS, n)
+    out = []
+    for t, m in zip(topics, r.integers(lo, hi, n)):
+        own = r.random(m) < 0.7
+        tw, fw = r.choice(NLP_TOPIC_WORDS, m, p=pw), r.choice(NLP_FILLER, m,
+                                                              p=pf)
+        out.append(" ".join(topic_words[t][a] if k else filler[b]
+                            for k, a, b in zip(own, tw, fw)))
+    return out, topics, topic_words
+
+
+def _topic_gap(model, topic_words, top=20):
+    """(within, across): the mean cosine of word pairs within a topic's
+    ``top`` most frequent words, and between consecutive topics' words."""
+    def rows(t):
+        v = np.stack([model.get_word_vector(w) for w in topic_words[t][:top]
+                      if model.has_word(w)])
+        return v / np.linalg.norm(v, axis=1, keepdims=True)
+    within, across = [], []
+    for t in range(len(topic_words)):
+        a, b = rows(t), rows((t + 1) % len(topic_words))
+        s = a @ a.T
+        within.append((s.sum() - np.trace(s)) / (len(a) * (len(a) - 1)))
+        across.append(float((a @ b.T).mean()))
+    return float(np.mean(within)), float(np.mean(across))
+
+
+def _sgns_cross_device():
+    """(a) Two steps of ``sv_step`` from bench.py's start (syn0 N(0, 1) x
+    0.01, syn1 zeros; the second step moves syn0 too) on the card and on
+    the CPU with the same indices and negatives: rel-to-max of both
+    tables after each step. The card's ``index_add_`` adds colliding rows
+    by atomics, in no fixed order: a tolerance, not bitwise."""
+    r = np.random.default_rng(SEED + 50)
+    s0 = (r.normal(size=(W2V_V, W2V_D)) * 0.01).astype(np.float32)
+    tabs = {d: [torch.from_numpy(s0).to(d),
+                torch.zeros(W2V_V, W2V_D, device=d)] for d in ("cuda", "cpu")}
+    errs = []
+    for _ in range(2):
+        idx = [r.integers(0, W2V_V, W2V_B), r.integers(0, W2V_V, W2V_B),
+               r.integers(0, W2V_V, (W2V_B, W2V_NEG))]
+        for d, (syn0, syn1) in tabs.items():
+            c, x, n = (torch.from_numpy(a).to(d) for a in idx)
+            sv.sv_step(syn0, syn1, c, x, W2V_LR, negs=n)
+        errs.append([_rel_to_max(tabs["cuda"][i].cpu(), tabs["cpu"][i])
+                     for i in range(2)])
+    worst = max(max(e) for e in errs)
+    if not worst <= NLP_FLUSH_REL:
+        raise AssertionError(f"phase 23 (a): the SGNS step card vs CPU "
+                             f"{errs} (rel-to-max; pin {NLP_FLUSH_REL})")
+    return {"rel_to_max_by_step": [{"syn0": e[0], "syn1": e[1]}
+                                   for e in errs], "pin": NLP_FLUSH_REL}
+
+
+def _sgns_quality():
+    """(a) bench.py:1965-1996's two gates on the port: 200 steps of
+    ``make_neg_sampling_step`` from scratch on one fixed batch must cut
+    the probe loss (fixed negatives) by >= 0.1, and the trained pairs'
+    mean cosine (syn0[center], syn1[context]) must exceed random pairs' by
+    >= 0.1."""
+    r = np.random.default_rng(SEED + 51)
+    syn0 = torch.from_numpy((r.normal(size=(W2V_V, W2V_D)) * 0.01
+                             ).astype(np.float32)).cuda()
+    syn1 = torch.zeros(W2V_V, W2V_D, device="cuda")
+    centers, contexts, ra, rb = (
+        torch.from_numpy(r.integers(0, W2V_V, W2V_B)).cuda()
+        for _ in range(4))
+    probe_negs = torch.randint(0, W2V_V, (W2V_B, W2V_NEG), device="cuda",
+                               generator=torch.Generator("cuda")
+                               .manual_seed(123))
+
+    def probe():
+        *_, loss_row = sv._sgns_grads(syn0[centers], syn1[contexts],
+                                      syn1[probe_negs])
+        return float(loss_row.sum() / W2V_B)
+
+    def pair_cos(a, b):
+        va, vb = syn0[a], syn1[b]
+        return float(((va * vb).sum(1) / ((va.norm(dim=1) + 1e-9)
+                                          * (vb.norm(dim=1) + 1e-9))).mean())
+    before = probe()
+    step = sv.make_neg_sampling_step(lr=W2V_LR, negative=W2V_NEG)
+    gen = torch.Generator("cuda").manual_seed(7)
+    for _ in range(W2V_STEPS):
+        step(syn0, syn1, centers, contexts, gen)
+    after = probe()
+    trained, rand = pair_cos(centers, contexts), pair_cos(ra, rb)
+    row = {"probe_loss_before": before, "probe_loss_after": after,
+           "trained_pair_cosine": trained, "random_pair_cosine": rand,
+           "steps": W2V_STEPS}
+    if not after < before - 0.1:
+        raise AssertionError(f"phase 23 (a): word2vec quality gate: probe "
+                             f"loss {before:.4f} -> {after:.4f}")
+    if not trained > rand + 0.1:
+        raise AssertionError(f"phase 23 (a): word2vec similarity gate: "
+                             f"{trained:.3f} vs random {rand:.3f}")
+    return row
+
+
+def _sgns_timing(V):
+    """(a) The bulk step at vocabulary ``V`` (D 128, B 4096, 5 negatives
+    drawn on the card): wall ms a step over 200 steps (ended by a
+    synchronise), the profiler's device time and kernels over 50 steps
+    (CUDA events over 50 steps where a session records none), words/s,
+    peak memory over what the process held before. Tables from the card's
+    own generator."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    gen = torch.Generator("cuda").manual_seed(SEED + 52)
+    syn0 = torch.randn(V, W2V_D, device="cuda", generator=gen) * 0.01
+    syn1 = torch.zeros(V, W2V_D, device="cuda")
+    centers, contexts = (torch.randint(0, V, (W2V_B,), device="cuda",
+                                       generator=gen) for _ in range(2))
+    step = sv.make_neg_sampling_step(lr=W2V_LR, negative=W2V_NEG)
+
+    def one():
+        step(syn0, syn1, centers, contexts, gen)
+    for _ in range(10):
+        one()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(W2V_STEPS):
+        one()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / W2V_STEPS
+    n = 50
+    prof = _device_kernels(lambda: [one() for _ in range(n)], top=1000)
+    if prof["device_ms"] > 0:
+        dev_ms, by = prof["device_ms"] / n, "profiler"
+        kernels = sum(r["calls"] for r in prof["top"]) / n
+    else:
+        dev_ms, by, kernels = _event_ms_per_call(one, n), "cuda_events", None
+    peak = torch.cuda.max_memory_allocated() - held
+    return {"V": V, "D": W2V_D, "B": W2V_B, "negative": W2V_NEG,
+            "wall_ms_per_step": wall_ms, "device_ms_per_step": dev_ms,
+            "timed_by": by, "kernels_per_step": kernels,
+            "top_kernels": prof["top"][:8],
+            "words_per_s_wall": W2V_B / wall_ms * 1e3,
+            "words_per_s_device": W2V_B / dev_ms * 1e3,
+            "table_bytes": 2 * V * W2V_D * 4, "peak_memory_bytes": peak}
+
+
+class _FitProbe:
+    """Wraps one model's ``_pairs_for_sentence`` and ``_flush`` (instance
+    attributes over the class's methods): host seconds in pair generation
+    and in the flushes (drawing negatives, uploads, launching the step),
+    the host-read detector's count at the first flush and after the last,
+    and a device copy of ``syn0`` after flush ``snap_at``."""
+
+    def __init__(self, model, det=None, snap_at=3):
+        self.pair_s = self.flush_s = 0.0
+        self.flushes, self.reads_first, self.reads_last = 0, None, None
+        self.snap = None
+        pairs, flush = model._pairs_for_sentence, model._flush
+
+        def timed_pairs(*a):
+            t = time.perf_counter()
+            out = pairs(*a)
+            self.pair_s += time.perf_counter() - t
+            return out
+
+        def timed_flush(*a):
+            if det is not None and self.flushes == 0:
+                self.reads_first = det.count
+            t = time.perf_counter()
+            syn0, syn1 = flush(*a)
+            self.flush_s += time.perf_counter() - t
+            self.flushes += 1
+            if det is not None:
+                self.reads_last = det.count
+            if self.flushes == snap_at:
+                self.snap = syn0.clone()
+            return syn0, syn1
+        model._pairs_for_sentence = timed_pairs
+        model._flush = timed_flush
+
+
+# HS steps 1,024 pairs at a time: at the default 8,192 every pair's update
+# of the tree's root row lands in one step, and the fit diverges to NaN on
+# this corpus (reported in (b); ROADMAP section C)
+W2V_VARIANTS = {"skipgram_ns": {},
+                "skipgram_hs": {"use_hierarchical_softmax": True,
+                                "batch_size": 1024},
+                "cbow_ns": {"learning_algorithm": "cbow"}}
+
+
+def _w2v_fits(sentences, topic_words):
+    """(b) ``Word2Vec.fit`` on the corpus, each variant on the card (host
+    reads counted between the first flush and the last) and on the CPU
+    from the same seed; the card's tables against the CPU's after the
+    whole fit and after the third flush; the topic gap; words/s and the
+    host's shares. The skip-gram NS fit runs once more under the profiler
+    for its device time."""
+    tokens = sum(len(s.split()) for s in sentences)
+    rows, models = {}, {}
+    for name, extra in W2V_VARIANTS.items():
+        kw = dict(layer_size=NLP_LAYER, window=NLP_WINDOW, seed=SEED + 53,
+                  **extra)
+        card = tnlp.Word2Vec(device="cuda", **kw)
+        with _sync_watch() as det:
+            probe = _FitProbe(card, det)
+            t0 = time.perf_counter()
+            card.fit(sentences)
+            fit_s = time.perf_counter() - t0
+        cpu = tnlp.Word2Vec(device="cpu", **kw)
+        cprobe = _FitProbe(cpu)
+        t1 = time.perf_counter()
+        cpu.fit(sentences)
+        cpu_s = time.perf_counter() - t1
+        out = "syn1" if extra.get("use_hierarchical_softmax") else "syn1neg"
+        whole = _rel_to_max(torch.from_numpy(card.syn0),
+                            torch.from_numpy(cpu.syn0))
+        whole_out = _rel_to_max(torch.from_numpy(getattr(card, out)),
+                                torch.from_numpy(getattr(cpu, out)))
+        three = _rel_to_max(probe.snap.cpu(), cprobe.snap)
+        within, across = _topic_gap(card, topic_words)
+        loop_reads = probe.reads_last - probe.reads_first
+        row = {"tokens": tokens, "vocab": len(card.vocab),
+               "flushes": probe.flushes, "fit_s": fit_s, "cpu_fit_s": cpu_s,
+               "words_per_s": tokens / fit_s,
+               "cpu_words_per_s": tokens / cpu_s,
+               "pair_generation_share": probe.pair_s / fit_s,
+               "flush_host_share": probe.flush_s / fit_s,
+               "host_reads_in_loop": loop_reads,
+               "host_reads_whole_fit": det.count,
+               "host_read_sites": _sync_sites(det),
+               "syn0_rel_to_max_whole_fit": whole,
+               f"{out}_rel_to_max_whole_fit": whole_out,
+               "syn0_rel_to_max_after_3_flushes": three,
+               "within_topic_cosine": within, "across_topic_cosine": across}
+        row["gate"] = _drift_gate(f"(b) {name}", {"syn0": whole,
+                                                    out: whole_out}, three)
+        if loop_reads != 0:
+            raise AssertionError(f"phase 23 (b) {name}: {loop_reads} host "
+                                 f"reads in the fit's loop: "
+                                 f"{_sync_sites(det)}")
+        if not within > across + NLP_GAP:
+            raise AssertionError(f"phase 23 (b) {name}: within-topic cosine "
+                                 f"{within:.3f}, across {across:.3f}")
+        rows[name], models[name] = row, card
+    prof_model = tnlp.Word2Vec(device="cuda", layer_size=NLP_LAYER,
+                               window=NLP_WINDOW, seed=SEED + 53)
+    prof = _device_kernels(lambda: prof_model.fit(sentences), top=6)
+    # a second card fit of the same seed: how far the card's own
+    # unordered adds carry the whole fit
+    rows["skipgram_ns"].update(
+        profiled_fit_wall_ms=prof["wall_ms"],
+        profiled_fit_device_ms=prof["device_ms"],
+        device_busy_share=prof["device_ms"] / prof["wall_ms"],
+        top_kernels=prof["top"],
+        card_vs_card_syn0_rel_to_max=_rel_to_max(
+            torch.from_numpy(prof_model.syn0),
+            torch.from_numpy(models["skipgram_ns"].syn0)))
+    # why HS steps 1,024 pairs: the default batch, reported, not gated
+    hs = tnlp.Word2Vec(device="cuda", layer_size=NLP_LAYER, window=NLP_WINDOW,
+                       seed=SEED + 53, use_hierarchical_softmax=True)
+    rows["skipgram_hs"]["batch_8192_syn0_finite"] = bool(
+        np.isfinite(hs.fit(sentences).syn0).all())
+    return rows, models["skipgram_ns"]
+
+
+def _drift_gate(what, whole, three):
+    """The card-vs-CPU gate of a fit: every table's rel-to-max after the
+    whole fit within ``NLP_FIT_REL``; where the card's unordered adds
+    carry the whole fit past it, syn0 after the third flush (``three``,
+    None for a trainer without flushes) within ``NLP_FLUSH_REL``."""
+    if max(whole.values()) <= NLP_FIT_REL:
+        return f"whole fit <= {NLP_FIT_REL}"
+    if three is not None and three <= NLP_FLUSH_REL:
+        return (f"first 3 flushes <= {NLP_FLUSH_REL} (the whole fit "
+                f"drifted past {NLP_FIT_REL})")
+    raise AssertionError(f"phase 23 {what}: card vs CPU {whole} (whole "
+                         f"fit), {three} (syn0 after 3 flushes)")
+
+
+def _card_vs_cpu(make, fit_arg, tables, what):
+    """One trainer fitted on the card and on the CPU from the same seed:
+    rel-to-max of each named table and of syn0 after the third flush
+    (where the trainer flushes: the word phase of ParagraphVectors),
+    gated by ``_drift_gate``."""
+    models, probes = {}, {}
+    for d in ("cuda", "cpu"):
+        models[d] = make(d)
+        probes[d] = _FitProbe(models[d])
+        t0 = time.perf_counter()
+        models[d].fit(fit_arg)
+        if d == "cuda":
+            card_s = time.perf_counter() - t0
+    card, cpu = models["cuda"], models["cpu"]
+    errs = {t: _rel_to_max(torch.from_numpy(getattr(card, t)),
+                           torch.from_numpy(getattr(cpu, t)))
+            for t in tables}
+    snaps = [probes[d].snap for d in ("cuda", "cpu")]
+    three = None if snaps[0] is None else _rel_to_max(snaps[0].cpu(),
+                                                      snaps[1])
+    return card, cpu, {"rel_to_max": errs, "syn0_rel_to_max_after_3_flushes":
+                       three, "gate": _drift_gate(f"(c) {what}", errs, three),
+                       "card_fit_s": card_s}
+
+
+def _other_trainers(sentences, topics, topic_words):
+    """(c) ParagraphVectors (PV-DBOW, PV-DM, PV-DBOW with HS, and
+    ``infer_vector``) on 300 generated documents, GloVe on 2,000 of (b)'s
+    sentences, and DistributedWord2Vec on a 4-worker logical mesh: its
+    step against the single-device step (atol 2e-6) and a fit on (b)'s
+    corpus, each against the CPU."""
+    docs_s, docs_t, _ = _nlp_corpus(300, SEED + 54, lo=40, hi=81)
+    docs = [(f"doc{i}", s) for i, s in enumerate(docs_s)]
+    out = {}
+    for name, extra in (("pv_dbow", {}), ("pv_dm", {"dm": True}),
+                        ("pv_dbow_hs", {"use_hierarchical_softmax": True,
+                                        "batch_size": 1024})):
+        hs = extra.get("use_hierarchical_softmax", False)
+        card, cpu, row = _card_vs_cpu(
+            lambda d: tnlp.ParagraphVectors(
+                device=d, layer_size=NLP_LAYER, window=NLP_WINDOW, epochs=5,
+                seed=SEED + 55, **extra),
+            docs, ("doc_vectors", "syn0", "syn1" if hs else "syn1neg"), name)
+        # inference on the same tables on both devices (the fits differ
+        # by the card's unordered adds)
+        cpu.syn0, cpu.syn1neg, cpu.syn1 = card.syn0, card.syn1neg, card.syn1
+        text = docs_s[0]
+        inferred = _rel_to_max(torch.from_numpy(card.infer_vector(text)),
+                               torch.from_numpy(cpu.infer_vector(text)))
+        if not inferred <= NLP_FLUSH_REL:
+            raise AssertionError(f"phase 23 (c) {name}: infer_vector card "
+                                 f"vs CPU {inferred:.3g}")
+        row["infer_vector_rel_to_max"] = inferred
+        out[name] = row
+    _, _, out["glove"] = _card_vs_cpu(
+        lambda d: tnlp.Glove(device=d, layer_size=50, window=NLP_WINDOW,
+                             epochs=10, seed=SEED + 56),
+        [s.split() for s in sentences[:2000]], ("syn0",), "glove")
+    # DistributedWord2Vec: the sharded step against the single step
+    r = np.random.default_rng(SEED + 57)
+    V, B = 10_000, 8190                      # 4 does not divide B: padded
+    s0, s1 = ((r.normal(size=(V, NLP_LAYER)) * 0.1).astype(np.float32)
+              for _ in range(2))
+    idx = [torch.from_numpy(a).cuda() for a in
+           (r.integers(0, V, B), r.integers(0, V, B),
+            r.integers(0, V, (B, W2V_NEG)))]
+    mesh = make_mesh((4,), ("data",))
+    dist = tdist.DistributedWord2Vec(layer_size=NLP_LAYER, mesh=mesh)
+    a0, a1 = torch.from_numpy(s0).cuda(), torch.from_numpy(s1).cuda()
+    b0, b1 = a0.clone(), a1.clone()
+    _, _, dloss = dist._build_step()(a0, a1, *idx, W2V_LR)
+    sloss = sv.sv_step(b0, b1, idx[0], idx[1], W2V_LR, negs=idx[2])
+    step_err = max((a0 - b0).abs().max().item(), (a1 - b1).abs().max().item())
+    loss_rel = abs(float(dloss) - float(sloss)) / float(sloss)
+    if not (step_err <= 2e-6 and loss_rel <= 1e-5):
+        raise AssertionError(f"phase 23 (c): the 4-worker step vs the "
+                             f"single step: abs {step_err:.3g}, loss rel "
+                             f"{loss_rel:.3g}")
+    card, _, row = _card_vs_cpu(
+        lambda d: tdist.DistributedWord2Vec(
+            device=d, mesh=make_mesh((4,), ("data",), d),
+            layer_size=NLP_LAYER, window=NLP_WINDOW, seed=SEED + 58),
+        [s.split() for s in sentences], ("syn0", "syn1neg"),
+        "distributed_w2v")
+    within, across = _topic_gap(card, topic_words)
+    if not within > across + NLP_GAP:
+        raise AssertionError(f"phase 23 (c) distributed: within-topic "
+                             f"{within:.3f}, across {across:.3f}")
+    row.update(step_abs_err=step_err, step_loss_rel=loss_rel, workers=4,
+               batch=B, within_topic_cosine=within,
+               across_topic_cosine=across)
+    out["distributed_w2v"] = row
+    return out
+
+
+def _serde_round_trip(model, tmp):
+    """(d) The card-trained model written in both formats and read back:
+    the text file within its 6 decimals, the binary one bitwise."""
+    txt, binp = os.path.join(tmp, "vecs.txt"), os.path.join(tmp, "vecs.bin")
+    tnlp.write_word_vectors(model, txt)
+    tnlp.write_binary_word_vectors(model, binp)
+    a, b = tnlp.read_word_vectors(txt), tnlp.read_binary_word_vectors(binp)
+    words = [model.vocab.word_at(i) for i in range(len(model.vocab))]
+    text_err = float(np.abs(a.syn0 - model.syn0).max())
+    ok = (words == [a.vocab.word_at(i) for i in range(len(a.vocab))]
+          == [b.vocab.word_at(i) for i in range(len(b.vocab))]
+          and text_err <= 5e-7 + 1e-7 and np.array_equal(b.syn0, model.syn0))
+    if not ok:
+        raise AssertionError(f"phase 23 (d): the vectors files read back "
+                             f"wrong (text max abs {text_err:.3g})")
+    return {"text_max_abs_err": text_err, "binary_bitwise": True,
+            "text_bytes": os.path.getsize(txt),
+            "binary_bytes": os.path.getsize(binp)}
+
+
+def nlp_phase():
+    """Phase 23 (see the module docstring): the NLP library on the card."""
+    t0 = time.perf_counter()
+    cross = _sgns_cross_device()
+    quality = _sgns_quality()
+    timing = [_sgns_timing(V) for V in (W2V_V, W2V_V_LARGE)]
+    torch.cuda.empty_cache()
+    t_b = time.perf_counter()
+    sentences, topics, topic_words = _nlp_corpus(NLP_SENTENCES, SEED + 59)
+    fits, ns_model = _w2v_fits(sentences, topic_words)
+    t_c = time.perf_counter()
+    others = _other_trainers(sentences, topics, topic_words)
+    tmp = tempfile.mkdtemp(prefix="p23_")
+    try:
+        serde = _serde_round_trip(ns_model, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    row = {"sgns_step_card_vs_cpu": cross, "sgns_quality": quality,
+           "sgns_step_timing": timing, "word2vec_fits": fits,
+           "other_trainers": others, "serde": serde,
+           "seconds_a": t_b - t0, "seconds_b": t_c - t_b,
+           "seconds": time.perf_counter() - t0}
+    rates = [(n, round(f["words_per_s"]), f["gate"]) for n, f in fits.items()]
+    log(f"phase 23: {row['seconds']:.1f} s; step card-vs-CPU "
+        f"{cross['rel_to_max_by_step']}; probe loss "
+        f"{quality['probe_loss_before']:.4f} -> "
+        f"{quality['probe_loss_after']:.4f}; step device ms "
+        f"{[(t['V'], round(t['device_ms_per_step'], 4)) for t in timing]}; "
+        f"fits {rates}")
+    return row
+
+
 def main() -> int:
     smi = device_phase()
     build_report = build_phase()
@@ -8188,6 +8681,8 @@ def main() -> int:
     p21_n = p21["launches"]
     # phase 22 last: the registry's timings and the UI over the fits
     p22 = ui_phase(n_params)
+    # phase 23 after phase 22: the NLP library (no kernel of ours on it)
+    p23 = nlp_phase()
     p22_paths = lambda name: {path: n[name] for path, n in
                               p22["launches_by_path"].items() if n[name]}
     p21_paths = lambda name: {path: n[name] for path, n in
@@ -8446,6 +8941,7 @@ def main() -> int:
                       "build": build_report, "software": SOFTWARE,
                       "sdpa_backward_by_backend": sdpa_backends,
                       "ring_hops_diagonal_vs_full": ring_hops,
+                      "device_times_by_cuda_events": EVENT_TIMED,
                       "card": smi}),
           flush=True)
     print(json.dumps({"slice": slice_row, "generation": gen_row,
@@ -8486,6 +8982,7 @@ def main() -> int:
                      default=str), flush=True)
     print(json.dumps({"kernel_registry_and_ui": p22, "card": smi},
                      default=str), flush=True)
+    print(json.dumps({"nlp": p23, "card": smi}, default=str), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

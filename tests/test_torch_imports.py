@@ -65,7 +65,11 @@ _REQUIRED = {f"deeplearning4j_tpu_torch.{m}" for m in (
     "serving.fleet.autoscale", "serving.fleet.http", "ops.kernels",
     "ops.kernels.registry", "ops.kernels.builtins", "ops.kernels.autotune",
     "ui", "ui.storage", "ui.components", "ui.i18n", "ui.stats",
-    "ui.visual", "ui.dashboard")}
+    "ui.visual", "ui.dashboard", "nlp", "nlp.tokenizer",
+    "nlp.sentence_iterator", "nlp.vocab", "nlp.dict_build", "nlp.serde",
+    "nlp.vectorizers", "nlp.sequence_vectors", "nlp.word2vec", "nlp.glove",
+    "nlp.distributed_w2v", "nlp.segmentation", "nlp.lemmatizer",
+    "nlp.pos")}
 
 _FORBIDDEN = re.compile(
     r"^\s*(import\s+(jax|deeplearning4j_tpu)\b(?!_torch)"
