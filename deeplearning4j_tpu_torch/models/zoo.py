@@ -6,9 +6,10 @@ names (ResNet-50's convs without a bias, each followed by a
 BatchNormalization), plus the ``device`` the network lives on (default:
 the CUDA card). Every model is an NHWC ``ComputationGraph`` with random
 weights from its seed; call ``init()`` to create them. Pretrained weights
-are ROADMAP A9. The builders' convs are 3x3 or larger, or followed by a
-BatchNormalization, so none of them takes K7 (GoogLeNet's 1x1 convs do,
-``models/zoo_extra.py``).
+load from a local model zip through ``models/pretrained.py``
+``init_pretrained``, as in the reference. The builders' convs are 3x3 or
+larger, or followed by a BatchNormalization, so none of them takes K7
+(GoogLeNet's 1x1 convs do, ``models/zoo_extra.py``).
 """
 from __future__ import annotations
 

@@ -19,7 +19,7 @@ So a zip written by either package restores in the other, bytes for
 bytes. Everything is written as float32; a restored network takes its
 configuration's dtype and lives on ``device`` (the CUDA card unless the
 caller names another). ``restore_model`` sniffs a model zip or a bare
-configuration JSON; a Java DL4J zip and a Keras HDF5 file are ROADMAP A9.
+configuration JSON; a Java DL4J zip and a Keras HDF5 file are ROADMAP A9c.
 ``write_model`` refuses updater state in the ZeRO sharded format
 (``parallel/zero.py``), as the reference's does: a zip holds the per-leaf
 state, so ``ParallelWrapper.gather_opt_state()`` comes first (or
@@ -200,13 +200,13 @@ def restore_model(path: str, load_updater: bool = True, *,
         if CONFIG_ENTRY in names and PARAMS_ENTRY in names:
             raise NotImplementedError(
                 f"{path}: a Java DL4J model zip; its importer "
-                f"(interop/dl4j_zip.py) is not ported yet (ROADMAP A9)")
+                f"(interop/dl4j_zip.py) is not ported yet (ROADMAP A9c)")
         raise ValueError(f"{path}: zip but not a deeplearning4j_tpu model")
     with open(path, "rb") as f:
         raw = f.read()
     if raw.startswith(_HDF5_MAGIC):
         raise NotImplementedError(f"{path}: a Keras HDF5 file; the Keras "
-                                  f"importer is not ported yet (ROADMAP A9)")
+                                  f"importer is not ported yet (ROADMAP A9c)")
     try:
         text = raw.decode()
         data = json.loads(text)

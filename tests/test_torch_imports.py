@@ -69,7 +69,11 @@ _REQUIRED = {f"deeplearning4j_tpu_torch.{m}" for m in (
     "nlp.sentence_iterator", "nlp.vocab", "nlp.dict_build", "nlp.serde",
     "nlp.vectorizers", "nlp.sequence_vectors", "nlp.word2vec", "nlp.glove",
     "nlp.distributed_w2v", "nlp.segmentation", "nlp.lemmatizer",
-    "nlp.pos")}
+    "nlp.pos", "graphs", "graphs.graph", "graphs.deepwalk",
+    "graphs.node2vec", "clustering", "clustering.kmeans",
+    "clustering.vptree", "clustering.trees", "clustering.tsne",
+    "clustering.server", "ml", "datasets.export", "datasets.fetchers",
+    "datasets.mnist", "models.pretrained", "native")}
 
 _FORBIDDEN = re.compile(
     r"^\s*(import\s+(jax|deeplearning4j_tpu)\b(?!_torch)"

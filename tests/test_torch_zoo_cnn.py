@@ -175,8 +175,14 @@ def test_one_float64_fit_step_matches_jax(name):
 
 
 def test_digits_cnn_pretrained_names_its_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        tlenet.digits_cnn(pretrained=True, device="cpu")
+    """The item (ROADMAP A9b, models/pretrained.py) is ported:
+    ``pretrained=True`` restores exactly the committed artifact's
+    parameters, where it raised before."""
+    from deeplearning4j_tpu_torch.util.serialization import restore_model
+    net = tlenet.digits_cnn(pretrained=True, device="cpu")
+    want = restore_model(tlenet.DIGITS_CNN_ARTIFACT, load_updater=False,
+                         device="cpu").params_flat()
+    assert torch.equal(net.params_flat(), want)
 
 
 def test_graft_entry_is_resnet50s_eval_forward():
