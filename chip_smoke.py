@@ -305,7 +305,8 @@ Phases; any failure raises and exits non-zero before a result is printed:
    falls; ``_acc_state`` is [4, num_params] and finite. Times a step
    beside the plain sync path's and a single worker's ``fit`` on the same
    batch.
-17b. The data-parallel options at the same width (f32, 4 logical
+17b. The data-parallel options at the same width and half the depth (6
+   of _TLM's 12 blocks; f32, 4 logical
    workers, B 8, 8 batches, under deterministic algorithms): ZeRO stages
    1 and 2 and ``overlap_sync`` (the default bucket and a 64 KB one) must
    end with the plain sync wrapper's parameters and (gathered) updater
@@ -355,8 +356,8 @@ Phases; any failure raises and exits non-zero before a result is printed:
    CPU; output rel-to-max 1e-5, the router's gradient 1e-4.
 17d. The rest of the parallel layer (run after phase 19, with 12e, 17b
    and 17c; under deterministic algorithms where it trains): (a)
-   ``ElasticTrainer`` on the _TLM (f32, Adam(3e-4), 4 logical workers,
-   B 8), 12 steps over an epoch of 8 batches, a save every 4 steps (the
+   ``ElasticTrainer`` on the _TLM at half its depth (6 blocks; f32,
+   Adam(3e-4), 4 logical workers, B 8), 12 steps over an epoch of 8 batches, a save every 4 steps (the
    newest 2 kept, in a temporary directory removed after): (a1) unfaulted,
    bitwise a plain ``ParallelWrapper(prefetch_buffer=0)`` over the same 12
    steps (parameters and Adam state); (a2) a truncated newest save and a
@@ -610,7 +611,30 @@ Phases; any failure raises and exits non-zero before a result is printed:
    of the fixture's, K5 counted; ``digits_cnn(pretrained=True)``: the
    checksum pinned, 0.95 or better on the 400 held-out scans
    (``tests/fixtures/digits_heldout_400.npz``).
-25. Report: JSON lines of per-shape kernel times, the serving and training
+25. The import formats (phase 25; K5 and K6). (a) ``bench.py``'s char-RNN
+   (vocab 87, 2 x GravesLSTM(512), rnnoutput softmax MCXENT,
+   Nesterovs(0.1, 0.9)) written as the Java reference saves it (the
+   layouts of ``tools/build_dl4j_fixtures.py``, a seeded updater state)
+   and restored through ``restore_model`` on the card (no import notes)
+   and on the CPU: a forward at B 32, T 64 (K5 twice) within 1e-5 of the
+   CPU's and within 2e-4 of a float64 numpy forward from the Java layout;
+   one ``fit`` step from the imported momentum (K6) with the parameters
+   and ``v`` within rel-to-max 3e-5 of the CPU's step; the three
+   committed zips of ``tests/fixtures/dl4j`` on the card within 1e-5 of
+   the CPU. (b) Keras's ``lstm_text_generation`` model built from
+   ``tests/fixtures/keras/lstm_text_generation.json`` with seeded weights
+   through the importer's build (the card machine has no h5py; where it
+   has, also through an ``.h5`` file and ``restore_model``): a forward at
+   B 128, T 40 (K5 once, no peepholes) within 1e-5 of the CPU's; K5 at
+   that shape against its plain version, its device time beside cuDNN's
+   ``nn.LSTM(57, 128)`` and the bound. (c) Keras ResNet-50 at 224x224x3
+   with 1000 classes from ``tests/fixtures/keras/resnet50_224.json`` (He
+   kernels; BatchNormalization gamma 1, beta 0, mean 0, var 1, but gamma
+   0.25 on each residual branch's last one, which keeps the pooled
+   features near unit scale): the build's seconds and vertices; card vs
+   CPU at B 2 in float64 within rel-to-max 1e-6 (float32 reported);
+   served at B 32 over 20 batches: images/s, p50 ms a batch, peak memory.
+26. Report: JSON lines of per-shape kernel times, the serving and training
    metrics and the kernels, then last ``{"ok": true, "device": ...}``.
 """
 from __future__ import annotations
@@ -652,8 +676,10 @@ from deeplearning4j_tpu_torch.earlystopping import (
     DataSetLossCalculator, EarlyStoppingConfiguration, EarlyStoppingTrainer,
     InMemoryModelSaver, MaxEpochsTerminationCondition,
     ScoreImprovementEpochTerminationCondition)
+from deeplearning4j_tpu_torch.interop.dl4j_zip import write_nd4j_array
 from deeplearning4j_tpu_torch.interop.jax_params import (load_jax_opt_state,
                                                          load_jax_params)
+from deeplearning4j_tpu_torch.keras_import import importer as tki
 from deeplearning4j_tpu_torch.models.decode import (TransformerDecodeSpec,
                                                     naive_generate,
                                                     naive_generate_lstm,
@@ -725,6 +751,10 @@ ENGINE = dict(block_len=16, max_seq_len=1024, decode_slots=8,
               prefill_batches=(1, 2), prompt_rungs=(512, 1024))
 N_REQUESTS, MAX_TOKENS = 8, 32
 TRAIN_B, TRAIN_STEPS = 8, 6                  # bench.py _TLM batch
+# phases 17b and 17d train _TLM at its width and half its depth: the whole
+# script read 1098.1 s (over 1050 s of its 1200) on an H100 whose host ran
+# phases 20-24 1.3-1.9x slower than a fast one's
+TLM_CUT = dict(TLM, n_blocks=6)
 # bench.py bench_lstm: the char-RNN (vocab 87, 2 x GravesLSTM(512), T 64)
 CHAR = dict(vocab_size=87, hidden=512, max_length=64)
 CHAR_B, CHAR_T, CHAR_FITS = 32, 64, 6
@@ -4586,8 +4616,8 @@ def ring_phase():
 
 
 # ----------------------------------------------------------------- phase 17
-def _tlm_f32(seed):
-    return transformer_lm(**TLM, token_input=True,
+def _tlm_f32(seed, tlm=TLM):
+    return transformer_lm(**tlm, token_input=True,
                           updater=Adam(3e-4)).init(seed=seed)
 
 
@@ -4964,12 +4994,13 @@ def _dp_batches(n, seed):
     return out
 
 
-def _dp_run(batches, what, net=None, skip=0, shape=None, **kw):
-    """``_TLM`` f32 (phase 17's) on ``DP_WORKERS`` logical workers (or a
-    ``mesh_shape``, ``shape``) through ``ParallelWrapper(**kw).fit`` over
-    ``batches``, counted (eager launches plus captured x replays) and
-    timed a dispatch; returns (net, wrapper, row)."""
-    net = net if net is not None else _tlm_f32(SEED + 24)
+def _dp_run(batches, what, net=None, skip=0, shape=None, tlm=TLM, **kw):
+    """``_TLM`` f32 (phase 17's; ``tlm`` its configuration) on
+    ``DP_WORKERS`` logical workers (or a ``mesh_shape``, ``shape``) through
+    ``ParallelWrapper(**kw).fit`` over ``batches``, counted (eager launches
+    plus captured x replays) and timed a dispatch; returns (net, wrapper,
+    row)."""
+    net = net if net is not None else _tlm_f32(SEED + 24, tlm)
     pw = ParallelWrapper(net, mesh_shape=shape, **kw) if shape else \
         ParallelWrapper(net, mesh=make_mesh((DP_WORKERS,), ("data",)), **kw)
     k = kw.get("steps_per_dispatch", 1)
@@ -4997,8 +5028,8 @@ def _dp_run(batches, what, net=None, skip=0, shape=None, **kw):
                      "launches": launches, "graph": g1}
 
 
-def _want_dp(steps):
-    n = TLM["n_blocks"] * DP_WORKERS * steps
+def _want_dp(steps, tlm=TLM):
+    n = tlm["n_blocks"] * DP_WORKERS * steps
     return {name: n for name in COUNTED}
 
 
@@ -5031,10 +5062,10 @@ def _avg_char_run(device, batches, updater, weights=None,
 
 
 def dp_options_phase():
-    """Phase 17b: the data-parallel options at ``_TLM``'s width (f32,
-    Adam(3e-4), 4 logical workers, B 8): ZeRO stages 1 and 2 and
-    ``overlap_sync`` (the default bucket and a 64 KB one) bitwise the plain
-    sync wrapper over 8 batches, parameters and gathered updater state;
+    """Phase 17b: the data-parallel options at ``_TLM``'s width and half
+    its depth (``TLM_CUT``; f32, Adam(3e-4), 4 logical workers, B 8):
+    ZeRO stages 1 and 2 and ``overlap_sync`` (the default bucket and a 64
+    KB one) bitwise the plain sync wrapper over 8 batches, parameters and gathered updater state;
     the updater state's bytes a worker; ``steps_per_dispatch=4`` (the
     wrapper's step as a CUDA graph) on plain sync and ZeRO-2 bitwise their
     per-step runs; an ``AsyncCheckpointWriter`` submitting the ZeRO state
@@ -5065,7 +5096,8 @@ def dp_options_phase():
                                              for u, v in zip(got, want))
 
     with _deterministic_algorithms():
-        net, _, runs["plain_sync"] = _dp_run(batches, "plain_sync")
+        net, _, runs["plain_sync"] = _dp_run(batches, "plain_sync",
+                                             tlm=TLM_CUT)
         plain = snap(net)
         del net
         for what, kw in (("zero1", dict(zero_stage=1)),
@@ -5073,7 +5105,7 @@ def dp_options_phase():
                          ("overlap", dict(overlap_sync=True)),
                          ("overlap_64k", dict(overlap_sync=True,
                                               bucket_bytes=DP_SMALL_BUCKET))):
-            net, pw, row = _dp_run(batches, what, **kw)
+            net, pw, row = _dp_run(batches, what, tlm=TLM_CUT, **kw)
             if kw.get("zero_stage"):
                 eng = pw._zero()
                 row["updater_bytes_a_worker"] = {
@@ -5107,7 +5139,7 @@ def dp_options_phase():
                  plain),
                 ("zero2_windows", dict(zero_stage=2,
                                        steps_per_dispatch=DP_OPT_K), None)):
-            net, pw, row = _dp_run(batches, what, **kw)
+            net, pw, row = _dp_run(batches, what, tlm=TLM_CUT, **kw)
             g = row["graph"]
             if (g["captures"], g["replays"]) != (1, DP_OPT_BATCHES - 1):
                 raise AssertionError(f"{what}: graphs {g}")
@@ -5127,9 +5159,10 @@ def dp_options_phase():
             del net, pw
             torch.cuda.empty_cache()
         for what, row in runs.items():
-            if row["launches"] != _want_dp(DP_OPT_BATCHES):
+            if row["launches"] != _want_dp(DP_OPT_BATCHES, TLM_CUT):
                 raise AssertionError(f"{what} launched {row['launches']}, "
-                                     f"not {_want_dp(DP_OPT_BATCHES)}")
+                                     f"not "
+                                     f"{_want_dp(DP_OPT_BATCHES, TLM_CUT)}")
         # asynchronous checkpoints of the ZeRO-2 run and a crash
         tmp = tempfile.mkdtemp(prefix="dl4j_async_")
         try:
@@ -5146,7 +5179,7 @@ def dp_options_phase():
                 if net.iteration_count == 5:
                     raise _StopAfter.Crash("stopped after step 5")
 
-            b = _tlm_f32(SEED + 24)
+            b = _tlm_f32(SEED + 24, TLM_CUT)
             cb_pw = ParallelWrapper(b, mesh=make_mesh((DP_WORKERS,),
                                                       ("data",)),
                                     zero_stage=2, step_callback=callback)
@@ -5168,7 +5201,7 @@ def dp_options_phase():
             step = latest_sharded_step(tmp)
             del b, cb_pw
             torch.cuda.empty_cache()
-            c = _tlm_f32(SEED + 99)
+            c = _tlm_f32(SEED + 99, TLM_CUT)
             pw_c = ParallelWrapper(c, mesh=make_mesh((DP_WORKERS,),
                                                      ("data",)),
                                    zero_stage=2)
@@ -5198,8 +5231,9 @@ def dp_options_phase():
                     and row["updater_bitwise_uninterrupted"]
                     and got_step == step == 4 and c.iteration_count
                     == DP_OPT_BATCHES
-                    and row["launches"] == _want_dp(DP_OPT_BATCHES - 4)
-                    and stopped == _want_dp(5)):
+                    and row["launches"] == _want_dp(DP_OPT_BATCHES - 4,
+                                                    TLM_CUT)
+                    and stopped == _want_dp(5, TLM_CUT)):
                 raise AssertionError(f"async checkpoint resume: {row}")
             # the same save re-sharded onto 2 workers
             eng4 = pw_c._zero()
@@ -5848,7 +5882,8 @@ def model_axis_phase():
 
 
 # ---------------------------------------------------------------- phase 17d
-# the elastic trainer on _TLM (f32, Adam(3e-4), 4 logical workers, B 8):
+# the elastic trainer on _TLM at half depth (TLM_CUT; f32, Adam(3e-4), 4
+# logical workers, B 8):
 # 12 steps over an epoch of 8 batches, a save every 4 steps, the newest 2
 # kept; the (2, 2) shrink under Sgd at 17c's float32 pin
 EL_BATCHES, EL_STEPS, EL_EVERY, EL_KEEP, EL_K = 8, 12, 4, 2, 4
@@ -5972,8 +6007,9 @@ def _sync_sites(det):
 
 
 def _elastic_tlm():
-    """(a) ``ElasticTrainer`` on ``_TLM`` at full width (see the module
-    docstring): (a1)-(a7), with each run's launches."""
+    """(a) ``ElasticTrainer`` on ``_TLM`` at full width and half its depth
+    (``TLM_CUT``; see the module docstring): (a1)-(a7), with each run's
+    launches."""
     from deeplearning4j_tpu_torch.parallel import (
         CorruptCheckpoint, FaultInjector, FaultPlan, KillWorker, PreemptAt,
         SlowCollective)
@@ -6001,9 +6037,10 @@ def _elastic_tlm():
         return d
 
     def want(steps):
-        return {n: TLM["n_blocks"] * DP_WORKERS * steps for n in COUNTED}
+        return {n: TLM_CUT["n_blocks"] * DP_WORKERS * steps
+                for n in COUNTED}
 
-    base_net = _tlm_f32(SEED + 24)
+    base_net = _tlm_f32(SEED + 24, TLM_CUT)
     fresh = base_net.clone            # every run starts from these weights
     try:
         with _deterministic_algorithms():
@@ -6095,7 +6132,7 @@ def _elastic_tlm():
             del tr, base
             torch.cuda.empty_cache()
             # (a5) (2, 2) under Sgd loses worker 3 for good: (3, 1)
-            ref = transformer_lm(**TLM, token_input=True,
+            ref = transformer_lm(**TLM_CUT, token_input=True,
                                  updater=Sgd(TP_SGD_LR)).init(seed=SEED + 24)
             pw = ParallelWrapper(ref, mesh=make_mesh((DP_WORKERS,),
                                                      ("data",)),
@@ -6106,7 +6143,7 @@ def _elastic_tlm():
             names = _tp_names(ref)
             del ref, pw
             torch.cuda.empty_cache()
-            net = transformer_lm(**TLM, token_input=True,
+            net = transformer_lm(**TLM_CUT, token_input=True,
                                  updater=Sgd(TP_SGD_LR)).init(seed=SEED + 24)
             tr = _elastic_trainer(net, fresh_dir("a5"), mesh_shape=(2, 2),
                                   fault_injector=FaultInjector(FaultPlan(
@@ -6154,7 +6191,7 @@ def _elastic_tlm():
             bad.append(f"{what}: {r['steps_done']} steps done")
         # (a5): 2 data workers a step on (2, 2) to the kill, then the
         # whole batch (8 does not tile 3 workers) from the restored step
-        want_n = ({n: TLM["n_blocks"] * (2 * EL_SHRINK_KILL + EL_STEPS
+        want_n = ({n: TLM_CUT["n_blocks"] * (2 * EL_SHRINK_KILL + EL_STEPS
                                          - EL_EVERY) for n in COUNTED}
                   if what == "a5" else want(r["steps_run"]))
         if r["launches"] != want_n:
@@ -9413,6 +9450,411 @@ def graphs_clustering_data_phase(dev="cuda"):
     return row
 
 
+# ------------------------------------------------------------------ phase 25
+# (a) bench.py's char-RNN (vocab 87, 2 x GravesLSTM(512), rnnoutput softmax
+# MCXENT) as a zip saved by the Java reference, Nesterovs(0.1, 0.9), in
+# tools/build_dl4j_fixtures.py's layouts (copied here: the legacy string
+# dialect; input W [nIn, 4H] and recurrent [H, 4H+3] in 'f' order, the
+# peepholes in the last 3 columns; gate columns (g, f, o, i)); a forward
+# and one fit step at CHAR_B x CHAR_T
+P25_LR, P25_MOMENTUM = 0.1, 0.9
+P25_ORACLE_TOL = 2e-4          # tests/test_dl4j_interop.py:201-211's oracle
+P25_STEP_TOL = LSTM_TOL[("bwd", torch.float32)]   # K6's pin, rel-to-max
+DL4J_FIXTURES = {"080_mlp_3_4_5.zip": (7, 3), "080_lenet_flat_8x8.zip": (5, 64),
+                 "080_graves_char_rnn.zip": (3, 6, 5)}
+# (b) Keras's lstm_text_generation example at its batch and maxlen
+TEXTGEN_B, TEXTGEN_T = 128, 40
+# (c) Keras ResNet-50 at 224x224x3 with 1000 classes: card vs CPU at B 2 in
+# float64, then B 32 over 20 batches (after 2 warm-up batches)
+KRES_CROSS_B, KRES_B, KRES_BATCHES, KRES_WARM, KRES_F64_REL = 2, 32, 20, 2, 1e-6
+KERAS_FIXTURES = os.path.join(FIXTURES, "keras")
+
+
+def _java_layer(name, act, nin, nout, **kw):
+    """One layer of a Java MultiLayerConfiguration in the legacy string
+    dialect, with the char-RNN's updater on every layer."""
+    return dict({"layerName": name, "activationFunction": act, "nin": nin,
+                 "nout": nout, "weightInit": "XAVIER", "biasInit": 0.0,
+                 "learningRate": P25_LR, "momentum": P25_MOMENTUM,
+                 "updater": "NESTEROVS", "l1": 0.0, "l2": 0.0,
+                 "dropOut": 0.0}, **kw)
+
+
+def _java_char_rnn_zip(path, seed):
+    """Write the char-RNN as the Java reference saves it (configuration,
+    coefficients, a seeded updater state); returns the raw Java-layout
+    weights for the numpy oracle."""
+    V, H = CHAR["vocab_size"], CHAR["hidden"]
+    rng = np.random.default_rng(seed)
+    conf = {"backprop": True, "pretrain": False, "backpropType": "Standard",
+            "confs": [{"seed": seed, "pretrain": False, "layer": {k: d}}
+                      for k, d in (
+                          ("gravesLSTM", _java_layer("lstm0", "tanh", V, H)),
+                          ("gravesLSTM", _java_layer("lstm1", "tanh", H, H)),
+                          ("rnnoutput", _java_layer(
+                              "out", "softmax", H, V,
+                              lossFunction="MCXENT")))],
+            "inputPreProcessors": {}}
+    raw, pieces = {"lstm": []}, []
+    for nin in (V, H):
+        W = (rng.standard_normal((nin, 4 * H)) / np.sqrt(nin)).astype(
+            np.float32)
+        RW = (rng.standard_normal((H, 4 * H + 3)) / np.sqrt(H)).astype(
+            np.float32)
+        b = (rng.standard_normal(4 * H) * 0.1).astype(np.float32)
+        raw["lstm"].append((W, RW, b))
+        pieces += [W.ravel(order="F"), RW.ravel(order="F"), b]
+    raw["oW"] = (rng.standard_normal((H, V)) / np.sqrt(H)).astype(np.float32)
+    raw["ob"] = (rng.standard_normal(V) * 0.1).astype(np.float32)
+    flat = np.concatenate(pieces + [raw["oW"].ravel(order="F"), raw["ob"]])
+    upd = (rng.standard_normal(flat.size) * 0.01).astype(np.float32)
+    with zipfile.ZipFile(path, "w") as z:
+        z.writestr("configuration.json", json.dumps(conf))
+        z.writestr("coefficients.bin",
+                   write_nd4j_array(flat.reshape(1, -1), order="c"))
+        z.writestr("updaterState.bin",
+                   write_nd4j_array(upd.reshape(1, -1), order="c"))
+    return raw
+
+
+def _numpy_java_char_rnn(x, raw):
+    """The forward from the Java layout in float64 numpy
+    (tests/test_dl4j_interop.py's Graves cell, LSTMHelpers.java semantics:
+    gate columns (g, f, o, i), peepholes (wFF, wOO, wGG) = (forget,
+    output, input gate)), two layers, then the softmax output."""
+    sig = lambda z: 1.0 / (1.0 + np.exp(-z))
+    h_in = x.astype(np.float64)
+    for W, RW, b in raw["lstm"]:
+        H = RW.shape[0]
+        R4 = RW[:, :4 * H].astype(np.float64)
+        wFF, wOO, wGG = (RW[:, 4 * H + i].astype(np.float64)
+                         for i in range(3))
+        B, T = h_in.shape[:2]
+        hs = np.zeros((B, T, H))
+        hp, cp = np.zeros((B, H)), np.zeros((B, H))
+        xp = h_in @ W.astype(np.float64) + b
+        for t in range(T):
+            z = xp[:, t] + hp @ R4
+            zg, zf, zo, zi = (z[:, :H], z[:, H:2 * H], z[:, 2 * H:3 * H],
+                              z[:, 3 * H:])
+            f = sig(zf + cp * wFF)
+            i = sig(zi + cp * wGG)
+            c = f * cp + i * np.tanh(zg)
+            o = sig(zo + c * wOO)
+            hp, cp = o * np.tanh(c), c
+            hs[:, t] = hp
+        h_in = hs
+    z = h_in @ raw["oW"].astype(np.float64) + raw["ob"]
+    e = np.exp(z - z.max(-1, keepdims=True))
+    return e / e.sum(-1, keepdims=True)
+
+
+def _p25_java_zip(tmp):
+    """(a): the char-RNN's Java zip restored through ``restore_model`` on
+    the card and on the CPU; a forward (K5 x 2) against the CPU (K5's pin)
+    and the numpy oracle; one ``fit`` step from the imported Nesterovs
+    state (K6) against the CPU's; the committed fixtures on both."""
+    path = os.path.join(tmp, "char_rnn_java.zip")
+    raw = _java_char_rnn_zip(path, SEED + 250)
+    t0 = time.perf_counter()
+    net = restore_model(path)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    cpu = restore_model(path, device="cpu")
+    if net.import_notes or cpu.import_notes or \
+            [type(l).__name__ for l in net.conf.layers] != \
+            ["GravesLSTM", "GravesLSTM", "RnnOutputLayer"]:
+        raise AssertionError(f"phase 25 (a): the Java zip restored as "
+                             f"{[type(l).__name__ for l in net.conf.layers]} "
+                             f"with notes {net.import_notes}")
+    x, y = _char_batch(SEED + 251, CHAR_B, CHAR_T)
+    _reset_launches()
+    out = net.output(torch.as_tensor(x, device=net.device))
+    torch.cuda.synchronize()
+    fwd_n = _launches(LSTM_COUNTED)
+    out = out.cpu()
+    cpu_out = cpu.output(torch.as_tensor(x))
+    vs_cpu = (out - cpu_out).abs().max().item()
+    vs_oracle = float(np.abs(out.double().numpy()
+                             - _numpy_java_char_rnn(x, raw)).max())
+    if fwd_n != {"lstm_fwd": 2, "lstm_bwd": 0} or \
+            vs_cpu > LSTM_TOL[("fwd", torch.float32)] or \
+            vs_oracle > P25_ORACLE_TOL:
+        raise AssertionError(f"phase 25 (a): forward launched {fwd_n}; card "
+                             f"vs CPU {vs_cpu:.3g}, vs the numpy oracle "
+                             f"{vs_oracle:.3g}")
+    _reset_launches()
+    net.fit(x, y, batch_size=CHAR_B)
+    torch.cuda.synchronize()
+    fit_n = _launches(LSTM_COUNTED)
+    cpu.fit(x, y, batch_size=CHAR_B)
+    pairs = [(f"{i}.{n}", p.detach().cpu(), cpu.param_dicts()[i][n].detach(),
+              net.opt_state[i][n]["v"].cpu(), cpu.opt_state[i][n]["v"])
+             for i, pd in net.param_dicts().items() for n, p in pd.items()]
+    param_rel = max(_rel_to_max(g, c) for _, g, c, _, _ in pairs)
+    v_rel = max(_rel_to_max(g, c) for _, _, _, g, c in pairs)
+    param_abs = max((g - c).abs().max().item() for _, g, c, _, _ in pairs)
+    v_abs = max((g - c).abs().max().item() for _, _, _, g, c in pairs)
+    if fit_n["lstm_bwd"] < 1 or fit_n["lstm_fwd"] < 1 or \
+            max(param_rel, v_rel) > P25_STEP_TOL:
+        raise AssertionError(f"phase 25 (a): the fit step launched {fit_n}; "
+                             f"card vs CPU parameters rel-to-max "
+                             f"{param_rel:.3g}, v {v_rel:.3g}")
+    fixtures, fix_n = {}, 0
+    for name, shape in DL4J_FIXTURES.items():
+        fpath = os.path.join(FIXTURES, "dl4j", name)
+        xf = np.random.default_rng(SEED + 252).standard_normal(shape).astype(
+            np.float32)
+        card_f = restore_model(fpath)
+        _reset_launches()
+        got = card_f.output(torch.as_tensor(xf, device=card_f.device)).cpu()
+        fix_n += _launches(LSTM_COUNTED)["lstm_fwd"]
+        err = (got - restore_model(fpath, device="cpu").output(
+            torch.as_tensor(xf))).abs().max().item()
+        if err > 1e-5 or card_f.import_notes:
+            raise AssertionError(f"phase 25 (a): {name} on the card vs the "
+                                 f"CPU {err:.3g}, notes "
+                                 f"{card_f.import_notes}")
+        fixtures[name] = err
+    return {"restore_s": restore_s, "num_params": net.num_params(),
+            "forward_vs_cpu": vs_cpu, "forward_vs_numpy_oracle": vs_oracle,
+            "forward_launches": fwd_n, "fit_launches": fit_n,
+            "step_param_rel_to_max": param_rel, "step_v_rel_to_max": v_rel,
+            "step_param_max_abs": param_abs, "step_v_max_abs": v_abs,
+            "fixtures_vs_cpu": fixtures, "fixtures_k5_launches": fix_n,
+            "launches": {"lstm_fwd": fwd_n["lstm_fwd"] + fit_n["lstm_fwd"]
+                         + fix_n, "lstm_bwd": fit_n["lstm_bwd"]}}
+
+
+def _keras_fixture(name):
+    with open(os.path.join(KERAS_FIXTURES, name + ".json")) as f:
+        return json.load(f)
+
+
+def _keras_weights(fixture, seed, branch_gamma=1.0):
+    """Seeded float32 arrays in a fixture's weight shapes: kernels at He
+    scale; biases, betas and means 0; variances 1; gammas 1, except
+    ``branch_gamma`` on each residual branch's last BatchNormalization
+    (``*_3_bn``) (tests/test_torch_keras_applications.py's weights, that
+    one gamma apart)."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for layer, entries in fixture["weights"].items():
+        arrays = []
+        for wname, shape in entries:
+            leaf = wname.rsplit("/", 1)[-1]
+            if leaf == "gamma":
+                a = np.full(shape, branch_gamma if layer.endswith("_3_bn")
+                            else 1.0, np.float32)
+            elif leaf == "moving_variance":
+                a = np.ones(shape, np.float32)
+            elif leaf in ("beta", "bias", "moving_mean"):
+                a = np.zeros(shape, np.float32)
+            else:
+                fan_in = int(np.prod(shape[:-1]))
+                a = (rng.standard_normal(shape) * np.sqrt(2.0 / fan_in)
+                     ).astype(np.float32)
+            arrays.append(a)
+        out[layer] = arrays
+    return out
+
+
+def _write_keras_h5(h5py, path, fixture, weights):
+    """A fixture and its arrays in Keras's legacy ``.h5`` layout."""
+    with h5py.File(path, "w") as f:
+        f.attrs["model_config"] = json.dumps(fixture["model_config"])
+        f.attrs["training_config"] = json.dumps(fixture["training_config"])
+        g = f.create_group("model_weights")
+        for layer, entries in fixture["weights"].items():
+            lg = g.create_group(layer)
+            lg.attrs["weight_names"] = [n.encode() for n, _ in entries]
+            for (wname, _), arr in zip(entries, weights[layer]):
+                lg.create_dataset(wname, data=arr)
+
+
+def _p25_keras_textgen(tmp):
+    """(b): Keras's text-generation LSTM built from its committed
+    configuration with seeded weights, on the card and on the CPU; a
+    forward at B 128, T 40 (K5 once, no peepholes) against the CPU's;
+    K5 at that shape against its plain version, by device time beside
+    cuDNN's ``nn.LSTM(57, 128)`` and the bound; through an ``.h5`` file
+    and ``restore_model`` where h5py is installed."""
+    fx = _keras_fixture("lstm_text_generation")
+    weights = _keras_weights(fx, SEED + 253)
+    loss = fx["training_config"]["loss"]
+    t0 = time.perf_counter()
+    net = tki._build(fx["model_config"], loss, weights)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    cpu = tki._build(fx["model_config"], loss, weights, device="cpu")
+    V = fx["model_config"]["config"]["layers"][0]["config"]["batch_shape"][-1]
+    H = net.vertices["lstm__seq"].layer.n_out
+    ids = np.random.default_rng(SEED + 254).integers(0, V, (TEXTGEN_B,
+                                                           TEXTGEN_T))
+    x = np.eye(V, dtype=np.float32)[ids]
+    _reset_launches()
+    out = net.output(torch.as_tensor(x, device=net.device))
+    torch.cuda.synchronize()
+    fwd_n = _launches(LSTM_COUNTED)
+    out = out.cpu()
+    vs_cpu = (out - cpu.output(torch.as_tensor(x))).abs().max().item()
+    if fwd_n != {"lstm_fwd": 1, "lstm_bwd": 0} or \
+            vs_cpu > LSTM_TOL[("fwd", torch.float32)] or \
+            tuple(out.shape) != (TEXTGEN_B, V):
+        raise AssertionError(f"phase 25 (b): forward {tuple(out.shape)} "
+                             f"launched {fwd_n}; card vs CPU {vs_cpu:.3g}")
+    try:
+        import h5py
+    except ImportError:
+        h5py = None
+    print(f"phase 25 (b): h5py present on this machine: {h5py is not None}",
+          flush=True)
+    h5_n, h5_err = 0, None
+    if h5py is not None:
+        path = os.path.join(tmp, "lstm_text_generation.h5")
+        _write_keras_h5(h5py, path, fx, weights)
+        restored = restore_model(path)
+        _reset_launches()
+        got = restored.output(torch.as_tensor(x, device=restored.device))
+        torch.cuda.synchronize()
+        h5_n = _launches(LSTM_COUNTED)["lstm_fwd"]
+        h5_err = (got.cpu() - out).abs().max().item()
+        if h5_err > 1e-6:
+            raise AssertionError(f"phase 25 (b): the .h5 restore differs "
+                                 f"from the build by {h5_err:.3g}")
+    # K5 at this shape: against its plain version, then by device time
+    gen = torch.Generator().manual_seed(SEED + 255)
+    f32 = torch.float32
+    fwd, _, _, _ = _lstm_case(gen, TEXTGEN_T, TEXTGEN_B, H, f32, False,
+                              False)
+    err = _max_err(lstm.fused_lstm_fwd(*fwd, None, None),
+                   lstm.lstm_fwd_reference(*fwd, None, None))
+    if err > LSTM_TOL[("fwd", f32)]:
+        raise AssertionError(f"phase 25 (b): K5 at T {TEXTGEN_T} B "
+                             f"{TEXTGEN_B} H {H} vs plain: {err:.3g}")
+    ms = _device_ms_per_call(lambda: lstm.fused_lstm_fwd(*fwd, None, None),
+                             name="lstm")
+    plain_ms = _library_device_ms(
+        lambda: lstm.lstm_fwd_reference(*fwd, None, None))
+    cud = torch.nn.LSTM(V, H).cuda()
+    xin = torch.randn(TEXTGEN_T, TEXTGEN_B, V, generator=gen).cuda()
+    with torch.no_grad():
+        lib_ms = _library_device_ms(lambda: cud(xin))
+    bound_ms, bound_by = _lstm_bound("fwd", TEXTGEN_T, TEXTGEN_B, H, f32,
+                                     False, False)
+    return {"build_s": build_s, "forward_vs_cpu": vs_cpu,
+            "forward_launches": fwd_n, "h5py_present": h5py is not None,
+            "h5_restore_vs_build": h5_err,
+            "k5": {"shape": f"T={TEXTGEN_T} B={TEXTGEN_B} H={H} float32 no "
+                            f"peepholes (device time; library: cuDNN "
+                            f"nn.LSTM({V}, {H}))",
+                   "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "library_ms": lib_ms},
+            "launches": {"lstm_fwd": fwd_n["lstm_fwd"] + h5_n,
+                         "lstm_bwd": 0}}
+
+
+def _as_float64(net, device):
+    """The same graph in float64 on ``device``, with ``net``'s weights and
+    running statistics (the statistics stay float32)."""
+    conf = type(net.conf).from_json(net.conf.to_json())
+    conf.dtype = "float64"
+    out = ComputationGraph(conf, device=device).init()
+    out.load_state_dict({k: v.to(device) for k, v in
+                         net.state_dict().items()})
+    return out
+
+
+def _p25_keras_resnet():
+    """(c): Keras ResNet-50 at 224x224x3 with 1000 classes built from its
+    committed configuration on the card (the import's seconds, its
+    vertices); card against CPU at B 2 in float64 (and float32, reported);
+    served at B 32 over 20 batches: images/s, p50 ms a batch, peak
+    memory."""
+    fx = _keras_fixture("resnet50_224")
+    weights = _keras_weights(fx, SEED + 256, branch_gamma=0.25)
+    loss = fx["training_config"]["loss"]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    net = tki._build(fx["model_config"], loss, weights)
+    torch.cuda.synchronize()
+    import_s = time.perf_counter() - t0
+    cpu = tki._build(fx["model_config"], loss, weights, device="cpu")
+    x = np.random.default_rng(SEED + 257).standard_normal(
+        (KRES_CROSS_B, 224, 224, 3))
+    with torch.no_grad():
+        o32 = net.output(torch.as_tensor(x, dtype=torch.float32,
+                                         device=net.device)).cpu()
+        f32_rel = _rel_to_max(o32, cpu.output(torch.as_tensor(
+            x, dtype=torch.float32)))
+        del cpu
+        c64, g64 = _as_float64(net, "cpu"), _as_float64(net, net.device)
+        want = c64.output(torch.as_tensor(x))
+        got = g64.output(torch.as_tensor(x, device=net.device)).cpu()
+    del c64, g64
+    f64_rel = _rel_to_max_f64(got, want)
+    if not (f64_rel <= KRES_F64_REL and torch.isfinite(o32).all()
+            and tuple(o32.shape) == (KRES_CROSS_B, 1000)):
+        raise AssertionError(f"phase 25 (c): ResNet-50 card vs CPU float64 "
+                             f"rel-to-max {f64_rel:.3g}, output "
+                             f"{tuple(o32.shape)}")
+    torch.cuda.empty_cache()
+    xb = torch.randn(KRES_B, 224, 224, 3,
+                     generator=torch.Generator().manual_seed(SEED + 258)
+                     ).cuda()
+    times = []
+    with torch.no_grad():
+        for i in range(KRES_WARM + KRES_BATCHES):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            y = net.output(xb)
+            torch.cuda.synchronize()
+            if i >= KRES_WARM:
+                times.append((time.perf_counter() - t1) * 1e3)
+    if not torch.isfinite(y).all():
+        raise AssertionError("phase 25 (c): ResNet-50 served a non-finite "
+                             "output")
+    return {"import_s": import_s, "vertices": len(net.vertex_names),
+            "num_params": net.num_params(),
+            "card_vs_cpu_rel_to_max_float64": f64_rel,
+            "card_vs_cpu_rel_to_max_float32": f32_rel,
+            "serve_B": KRES_B, "serve_batches": KRES_BATCHES,
+            "images_per_s": KRES_B * KRES_BATCHES / (sum(times) / 1e3),
+            "p50_ms_per_batch": float(np.median(times)),
+            "ms_per_batch": times,
+            "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+
+
+def import_formats_phase():
+    """Phase 25 (see the module docstring): a Java DL4J zip and two Keras
+    models through the port's importers on the card."""
+    t0 = time.perf_counter()
+    row, marks = {}, {}
+    tmp = tempfile.mkdtemp(prefix="p25_")
+    try:
+        for part, fn in (("java_char_rnn", lambda: _p25_java_zip(tmp)),
+                         ("keras_textgen", lambda: _p25_keras_textgen(tmp)),
+                         ("keras_resnet50", _p25_keras_resnet)):
+            t1 = time.perf_counter()
+            row[part] = fn()
+            marks[part] = time.perf_counter() - t1
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    row.update(seconds_by_part=marks, seconds=time.perf_counter() - t0,
+               launches={n: row["java_char_rnn"]["launches"][n]
+                         + row["keras_textgen"]["launches"][n]
+                         for n in LSTM_COUNTED})
+    r, k5 = row["keras_resnet50"], row["keras_textgen"]["k5"]
+    log(f"phase 25: {row['seconds']:.1f} s {marks}; ResNet-50 import "
+        f"{r['import_s']:.2f} s, {r['images_per_s']:.1f} images/s, peak "
+        f"{r['peak_memory_bytes'] / 2**30:.2f} GiB; K5 at the textgen shape "
+        f"{k5['ms']:.4f} ms (cuDNN {k5['library_ms']:.4f}, bound "
+        f"{k5['bound_ms']:.4f})")
+    return row
+
+
 def main() -> int:
     smi = device_phase()
     build_report = build_phase()
@@ -9482,8 +9924,10 @@ def main() -> int:
     p22 = ui_phase(n_params)
     # phase 23 after phase 22: the NLP library (no kernel of ours on it)
     p23 = nlp_phase()
-    # phase 24 last: graphs, clustering, the data side, pretrained models
+    # phase 24: graphs, clustering, the data side, pretrained models
     p24 = graphs_clustering_data_phase()
+    # phase 25 last: the import formats (K5 and K6 counted)
+    p25 = import_formats_phase()
     p22_paths = lambda name: {path: n[name] for path, n in
                               p22["launches_by_path"].items() if n[name]}
     p21_paths = lambda name: {path: n[name] for path, n in
@@ -9608,12 +10052,14 @@ def main() -> int:
         p24_n = p24["launches"].get(name, 0)
         if p24_n:
             by_path["pretrained_textgen"] = p24_n
+        p25_n = p25["launches"][name]
+        by_path["import_formats"] = p25_n
         kernels.append({
             "name": name, "route": "cuda", "source": lsrc.format(kind),
             "replaces": lref.format(line),
             "launches": serve_n + train_n + graph_n + stream_n + draft_n
             + http_k5 + sent_n + s2s_n + avg_n + tp_lstm + stream_fit
-            + p22["launches"][name] + p24_n,
+            + p22["launches"][name] + p24_n + p25_n,
             "launches_by_path": by_path,
             "max_abs_err": max(lstm_errs[(kind, torch.float32)],
                                lstm_errs[(kind, torch.bfloat16)]),
@@ -9630,6 +10076,8 @@ def main() -> int:
                                    if k.startswith(kind)},
             "library_device_ms": lstm_device.get(
                 f"cudnn_{kind}_train_T64_B32"),
+            **({"keras_textgen_shape": p25["keras_textgen"]["k5"]}
+               if kind == "fwd" else {}),
             "library_device_ms_by_shape": {
                 k.split("_", 2)[2]: v for k, v in lstm_device.items()
                 if k.startswith(f"cudnn_{kind}")},
@@ -9791,6 +10239,8 @@ def main() -> int:
     print(json.dumps({"nlp": p23, "card": smi}, default=str), flush=True)
     print(json.dumps({"graphs_clustering_data": p24, "card": smi},
                      default=str), flush=True)
+    print(json.dumps({"import_formats": p25, "card": smi}, default=str),
+          flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -9804,6 +10254,12 @@ if __name__ == "__main__":
         device_phase()
         for row in amp_seed_study(int(sys.argv[2])):
             print(json.dumps(row, default=str), flush=True)
+        sys.exit(0)
+    if sys.argv[1:2] == ["--phase-25"]:
+        # phase 25 alone, after the card's check
+        smi = device_phase()
+        print(json.dumps({"card": smi, "import_formats":
+                          import_formats_phase()}, default=str), flush=True)
         sys.exit(0)
     if sys.argv[1:2] == ["--phase-24"]:
         # phase 24 alone, after the card's check (PERF.md's r-runs)

@@ -77,10 +77,6 @@ from ..telemetry import get_registry, span
 from ..telemetry.flightrec import get_flight_recorder
 from ..telemetry.tracecontext import (current_trace_context, event,
                                       new_trace_context, use_trace_context)
-from ..util.async_checkpoint import AsyncCheckpointWriter, PreemptionGuard
-from ..util.distributed_checkpoint import (latest_sharded_step,
-                                           restore_latest_sharded_checkpoint,
-                                           tree_flatten)
 from ..util.retry import RetryError, RetryPolicy
 from .data_parallel import ParallelWrapper
 from .faults import CoordinationError, FaultInjector, WorkerLostError
@@ -243,6 +239,7 @@ class ElasticTrainer:
     def preemption_guard(self, signals=None) -> PreemptionGuard:
         """A context manager installing SIGTERM handlers that take the
         clean preemption path (final checkpoint, clean return)."""
+        from ..util.async_checkpoint import PreemptionGuard
         kw = {} if signals is None else {"signals": signals}
         return PreemptionGuard(on_preempt=self._on_preempt, **kw)
 
@@ -345,6 +342,7 @@ class ElasticTrainer:
         """Copy a restored tree into the network's own tensors (the
         captured windows of a kept wrapper read them); a state of another
         shape (ZeRO on another worker count) is installed as restored."""
+        from ..util.distributed_checkpoint import tree_flatten
         net = self.net
         for key in ("params", "state"):
             for live, new in zip(tree_flatten(self._tree()[key])[0],
@@ -470,6 +468,8 @@ class ElasticTrainer:
                 self._writer.flush()
 
             def attempt():
+                from ..util.distributed_checkpoint import \
+                    restore_latest_sharded_checkpoint
                 if self._injector is not None:
                     self._injector.on_coordinate()   # may raise (retried)
                 workers = (self._injector.surviving(self._all_devices)
@@ -540,6 +540,8 @@ class ElasticTrainer:
         state is ahead of the newest save (a second ``fit`` continuing the
         run) is never rolled back: the manifest scan is checked first, so
         such a fit pays no shard reads."""
+        from ..util.distributed_checkpoint import (
+            latest_sharded_step, restore_latest_sharded_checkpoint)
         newest = latest_sharded_step(self.checkpoint_dir)
         if newest is None or newest <= self.net.iteration_count:
             return
@@ -570,6 +572,7 @@ class ElasticTrainer:
         self.steps_done = 0
         reg = self._reg
         if self.checkpoint_dir is not None:
+            from ..util.async_checkpoint import AsyncCheckpointWriter
             self._writer = AsyncCheckpointWriter(
                 self.checkpoint_dir, keep_last=self.keep_last, registry=reg)
         # one trace id for the whole supervised run (checkpoints, mode

@@ -44,8 +44,7 @@ from dataclasses import dataclass, field
 from typing import List, Optional, Sequence, Set
 
 from ..telemetry.flightrec import get_flight_recorder
-from ..util.distributed_checkpoint import (_shard_files,
-                                           list_sharded_checkpoints)
+from ..util import distributed_checkpoint as _dck  # a module: no cycle
 
 __all__ = [
     "WorkerLostError", "CoordinationError", "Fault", "KillWorker",
@@ -125,11 +124,11 @@ def truncate_newest_sharded(directory: str, keep_bytes: int = 64) -> Optional[in
     """Truncate every shard file of the newest sharded checkpoint (manifest
     left intact — the dangerous shape: a save that LOOKS complete). Returns
     the damaged step, or None if the directory has no checkpoints."""
-    ckpts = list_sharded_checkpoints(directory)
+    ckpts = _dck.list_sharded_checkpoints(directory)
     if not ckpts:
         return None
     step = ckpts[-1][0]
-    for path in _shard_files(directory, step):
+    for path in _dck._shard_files(directory, step):
         size = os.path.getsize(path)
         with open(path, "r+b") as f:
             f.truncate(min(keep_bytes, size))
@@ -140,11 +139,11 @@ def corrupt_newest_sharded(directory: str) -> Optional[int]:
     """Flip bytes mid-file in every shard of the newest checkpoint: the
     zip central directory survives (``is_zipfile`` passes) but the member
     CRC fails on read — the corruption only the actual restore catches."""
-    ckpts = list_sharded_checkpoints(directory)
+    ckpts = _dck.list_sharded_checkpoints(directory)
     if not ckpts:
         return None
     step = ckpts[-1][0]
-    for path in _shard_files(directory, step):
+    for path in _dck._shard_files(directory, step):
         size = os.path.getsize(path)
         with open(path, "r+b") as f:
             f.seek(size // 2)

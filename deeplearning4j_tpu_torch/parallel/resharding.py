@@ -26,9 +26,6 @@ from __future__ import annotations
 
 from typing import Any, Optional
 
-from ..util.distributed_checkpoint import (load_checkpoint_arrays,
-                                           restore_sharded_checkpoint,
-                                           tree_flatten, tree_unflatten)
 from .mesh import Mesh
 from .tensor_parallel import (fits, full, model_axis_size, place_like,
                               spec_dim, split_rows)
@@ -69,6 +66,8 @@ def _host_reshard(directory: str, step: int, like: Any) -> Any:
     Raises (so the restore walks back to an older save) when a global
     shape disagrees, which is also how a ZeRO flat save for another
     worker count shows when no engine was given to read it."""
+    from ..util.distributed_checkpoint import (load_checkpoint_arrays,
+                                               tree_flatten, tree_unflatten)
     arrs = load_checkpoint_arrays(directory, step)
     leaves, spec = tree_flatten(like)
     if len(arrs) != len(leaves):
@@ -102,6 +101,7 @@ def make_any_resharder(zero_engine: Optional[Any] = None):
                  if zero_engine is not None else None)
 
     def _reshard(directory: str, step: int, like: Any, manifest: dict):
+        from ..util.distributed_checkpoint import restore_sharded_checkpoint
         layout = (manifest or {}).get("sharding") or {}
         if zero_hook is not None and layout.get("format") == "zero-flat":
             tree = zero_hook(directory, step, like, manifest)

@@ -18,8 +18,9 @@ five entries, as the reference's does:
 So a zip written by either package restores in the other, bytes for
 bytes. Everything is written as float32; a restored network takes its
 configuration's dtype and lives on ``device`` (the CUDA card unless the
-caller names another). ``restore_model`` sniffs a model zip or a bare
-configuration JSON; a Java DL4J zip and a Keras HDF5 file are ROADMAP A9c.
+caller names another). ``restore_model`` sniffs a model zip, a Java
+DL4J zip (``interop/dl4j_zip.py``), a bare configuration JSON or a Keras
+HDF5 file (``keras_import/importer.py``), as the reference's does.
 ``write_model`` refuses updater state in the ZeRO sharded format
 (``parallel/zero.py``), as the reference's does: a zip holds the per-leaf
 state, so ``ParallelWrapper.gather_opt_state()`` comes first (or
@@ -47,9 +48,6 @@ PARAMS_ENTRY = "coefficients.bin"
 UPDATER_ENTRY = "updaterState.bin"
 STATE_ENTRY = "state.bin"
 MANIFEST_ENTRY = "manifest.json"
-
-_HDF5_MAGIC = b"\x89HDF\r\n\x1a\n"
-
 
 def flat_state_order(net):
     """(group, state name, tensor) for the layer state of ``net`` in
@@ -184,8 +182,9 @@ def restore_computation_graph(path: str, load_updater: bool = True, *,
 def restore_model(path: str, load_updater: bool = True, *,
                   device: DeviceLike = None):
     """Sniff and restore (reference util/ModelGuesser.java): a model zip
-    (either model class) or a bare configuration JSON, which gives a
-    freshly initialized network."""
+    (either model class), a zip saved by the Java reference, a bare
+    configuration JSON, which gives a freshly initialized network, or a
+    Keras HDF5 file."""
     if zipfile.is_zipfile(path):
         with zipfile.ZipFile(path) as z:
             names = set(z.namelist())
@@ -197,23 +196,27 @@ def restore_model(path: str, load_updater: bool = True, *,
                                                  device=device)
             return restore_multilayer_network(path, load_updater,
                                               device=device)
-        if CONFIG_ENTRY in names and PARAMS_ENTRY in names:
-            raise NotImplementedError(
-                f"{path}: a Java DL4J model zip; its importer "
-                f"(interop/dl4j_zip.py) is not ported yet (ROADMAP A9c)")
+        from ..interop.dl4j_zip import import_dl4j_zip, is_dl4j_zip
+        if is_dl4j_zip(path):
+            # a zip saved by the JAVA reference (ModelSerializer.java:79-96)
+            return import_dl4j_zip(path, load_updater=load_updater,
+                                   device=device)
         raise ValueError(f"{path}: zip but not a deeplearning4j_tpu model")
     with open(path, "rb") as f:
         raw = f.read()
-    if raw.startswith(_HDF5_MAGIC):
-        raise NotImplementedError(f"{path}: a Keras HDF5 file; the Keras "
-                                  f"importer is not ported yet (ROADMAP A9c)")
     try:
         text = raw.decode()
         data = json.loads(text)
-    except (json.JSONDecodeError, UnicodeDecodeError) as e:
+    except (json.JSONDecodeError, UnicodeDecodeError):
+        pass
+    else:
+        body = data.get("config", data) if isinstance(data, dict) else data
+        if isinstance(body, dict) and \
+                body.get("@class") == "ComputationGraphConfiguration":
+            return _graph(text, device)
+        return _multilayer(text, device)
+    try:
+        from ..keras_import.importer import import_keras_model
+        return import_keras_model(path, device=device)
+    except Exception as e:
         raise ValueError(f"Cannot determine model type of {path}") from e
-    body = data.get("config", data) if isinstance(data, dict) else data
-    if isinstance(body, dict) and \
-            body.get("@class") == "ComputationGraphConfiguration":
-        return _graph(text, device)
-    return _multilayer(text, device)

@@ -1,11 +1,17 @@
 """The port stands alone: importing any module of deeplearning4j_tpu_torch
-pulls in neither jax nor the JAX package, and neither the package's source
-nor the scripts that drive it on the card (chip_smoke.py, k7_study.py,
-lstm_study.py, gen_study.py) name them in an import."""
+pulls in neither jax, the JAX package, keras nor h5py, and neither the
+package's source nor the scripts that drive it on the card (chip_smoke.py,
+k7_study.py, lstm_study.py, gen_study.py) name jax, keras or the JAX
+package in an import; h5py is imported only inside the Keras importer's
+functions that open an ``.h5`` file. A module that the package itself
+imports late (``util.distributed_checkpoint`` and its neighbours) imports
+first in a fresh interpreter too."""
 import pathlib
 import re
 import subprocess
 import sys
+
+import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "deeplearning4j_tpu_torch"
@@ -17,8 +23,8 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for n in names:
     importlib.import_module(n)
 bad = sorted(m for m in sys.modules
-             if m == "jax" or m.startswith("jax.")
-             or m == "deeplearning4j_tpu" or m.startswith("deeplearning4j_tpu."))
+             if m.split(".")[0] in ("jax", "deeplearning4j_tpu", "keras",
+                                    "h5py"))
 print(len(names))
 print(",".join(bad))
 print(",".join(names))
@@ -73,11 +79,12 @@ _REQUIRED = {f"deeplearning4j_tpu_torch.{m}" for m in (
     "graphs.node2vec", "clustering", "clustering.kmeans",
     "clustering.vptree", "clustering.trees", "clustering.tsne",
     "clustering.server", "ml", "datasets.export", "datasets.fetchers",
-    "datasets.mnist", "models.pretrained", "native")}
+    "datasets.mnist", "models.pretrained", "native", "interop",
+    "interop.dl4j_zip", "keras_import", "keras_import.importer")}
 
 _FORBIDDEN = re.compile(
-    r"^\s*(import\s+(jax|deeplearning4j_tpu)\b(?!_torch)"
-    r"|from\s+(jax|deeplearning4j_tpu)\b(?!_torch))"
+    r"^\s*(import\s+(jax|keras|deeplearning4j_tpu)\b(?!_torch)"
+    r"|from\s+(jax|keras|deeplearning4j_tpu)\b(?!_torch))"
     r"|\bdeeplearning4j_tpu\.(?!_)", re.M)
 
 
@@ -104,8 +111,34 @@ def test_sources_name_no_jax_import():
     assert hits == []
 
 
+def test_h5py_is_imported_only_where_a_file_is_opened():
+    """In the package only the Keras importer names h5py; there and in
+    chip_smoke.py (which looks for it on the card's machine) only inside
+    a function."""
+    hits = [(f.relative_to(ROOT).as_posix(), m.group(1))
+            for f in sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+            for m in re.finditer(r"^([ \t]*)(import|from)\s+h5py\b",
+                                 f.read_text(), re.M)]
+    assert {f for f, _ in hits} == {
+        "deeplearning4j_tpu_torch/keras_import/importer.py", "chip_smoke.py"}
+    assert all(indent for _, indent in hits), hits
+
+
+@pytest.mark.parametrize("module", ["util.distributed_checkpoint",
+                                    "util.async_checkpoint",
+                                    "parallel.faults"])
+def test_module_imports_first_in_a_fresh_interpreter(module):
+    """The import cycle between the sharded checkpoints and the parallel
+    package stays broken: each side imports first on its own."""
+    out = subprocess.run(
+        [sys.executable, "-c", f"import deeplearning4j_tpu_torch.{module}"],
+        cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
 def test_forbidden_pattern_catches_what_it_should():
     for line in ("import jax", "import jax.numpy as jnp", "from jax import nn",
+                 "import keras", "from keras import layers",
                  "from deeplearning4j_tpu.nn import layers",
                  "import deeplearning4j_tpu",
                  "x = deeplearning4j_tpu.models"):

@@ -19,7 +19,8 @@ against the JAX package's.
   give the JAX package's bytes and counts.
 - ``latest_checkpoint`` skips a truncated newest zip, as in the JAX
   ``test_checkpointing.py``; ``load_net`` takes a zip or a directory;
-  what the port does not read yet raises naming its ROADMAP item."""
+  a Java DL4J zip restores with the reference's parameters, and a bogus
+  HDF5 file or junk raises "Cannot determine" as the reference's does."""
 import json
 import os
 import zipfile
@@ -305,12 +306,22 @@ def test_restore_model_reads_a_bare_configuration_json(tmp_path):
 
 
 def test_what_the_port_cannot_read_yet_names_its_item(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        tser.restore_model(os.path.join(FIXTURES, "dl4j",
-                                        "080_mlp_3_4_5.zip"), device="cpu")
+    # a Java DL4J zip restores through interop/dl4j_zip.py, as the
+    # reference's does (tests/test_torch_dl4j_zip.py holds the rest)
+    java = os.path.join(FIXTURES, "dl4j", "080_mlp_3_4_5.zip")
+    net, ref = (tser.restore_model(java, device="cpu"),
+                jser.restore_model(java))
+    assert type(net).__name__ == "MultiLayerNetwork"
+    for i, p in enumerate(ref.params):
+        for k, v in p.items():
+            np.testing.assert_array_equal(
+                net.param_dicts()[i][k].detach().numpy(), np.asarray(v))
+    # an HDF5 header that Keras cannot read fails as the reference's does
     h5 = tmp_path / "model.h5"
     h5.write_bytes(b"\x89HDF\r\n\x1a\n" + b"\0" * 64)
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+    with pytest.raises(ValueError, match="Cannot determine"):
+        jser.restore_model(str(h5))
+    with pytest.raises(ValueError, match="Cannot determine"):
         tser.restore_model(str(h5), device="cpu")
     junk = tmp_path / "junk.bin"
     junk.write_bytes(b"\x00\x01garbage")
