@@ -397,8 +397,11 @@ Phases; any failure raises and exits non-zero before a result is printed:
    K5 and K6 12 launches each. (d) ``initialize_distributed`` with one
    process on NCCL, ``global_mesh(("data",))``: a psum of one row is that
    row, 4 _TLM steps through ``ParallelWrapper(mesh=global_mesh(...))``
-   bitwise the logical ``(1,)`` wrapper's, the NCCL kernels the profiler
-   saw printed, ``shutdown_distributed``.
+   bitwise the logical ``(1,)`` wrapper's, and so again with ZeRO-2, the
+   dense ``EncodedAccumulator`` (K9 once a step) and K-step averaging
+   (``averaging_frequency=2``), each bitwise the logical ``(1,)``
+   wrapper's (parameters and the gathered Adam state), the NCCL kernels
+   the profiler saw printed, ``shutdown_distributed``.
 18. CPU against card, the parallel layer: one fused ring forward at
    T 2048 on 4 workers (atol 2e-5) and one ``EncodedAccumulator.combine``
    (dense and topk) on the same gradients (bitwise); one float32 ``(2,
@@ -634,7 +637,26 @@ Phases; any failure raises and exits non-zero before a result is printed:
    features near unit scale): the build's seconds and vertices; card vs
    CPU at B 2 in float64 within rel-to-max 1e-6 (float32 reported);
    served at B 32 over 20 batches: images/s, p50 ms a batch, peak memory.
-26. Report: JSON lines of per-shape kernel times, the serving and training
+26. Processes sharing the card (phase 26; K1-K3, K9): two child
+   processes (``--phase-26-worker``) join one gloo group with the card as
+   their device (``initialize_distributed(..., backend="gloo",
+   device="cuda:0")``: NCCL refuses two ranks on one card) and each trains
+   its worker of ``global_mesh(("data",))``: the _TLM at its full width
+   (12 blocks; f32, Adam(3e-4), B 8, 4 batches a mode) through plain sync,
+   ZeRO-1, ZeRO-2, the dense ``EncodedAccumulator`` (threshold 0.1) and
+   K-step averaging (``averaging_frequency=2``), under deterministic
+   algorithms. The parent runs the logical ``(2,)`` wrapper on the card
+   from the same seeded weights and batches: every mode's parameters and
+   gathered Adam state must be bitwise equal in both processes and the
+   parent (SHA-256 of the bytes); K1-K3 12 launches a worker a step; K9
+   once a process a step in the encoded mode. Printed per mode: each
+   process's step p50, the bytes a process hands ``torch.distributed`` a
+   step (its calls wrapped in the child), the updater bytes a process
+   (ZeRO's shard row against the replicated state), and the parent's
+   logical step p50. Two more children first probe which collectives
+   gloo takes on card tensors (the mesh hands gloo its card tensors as
+   they are: torch 2.11's gloo took every one asked).
+27. Report: JSON lines of per-shape kernel times, the serving and training
    metrics and the kernels, then last ``{"ok": true, "device": ...}``.
 """
 from __future__ import annotations
@@ -6449,11 +6471,28 @@ def _streaming():
     return row
 
 
+# (d)'s paths on the one NCCL rank, each against the logical (1,) wrapper
+DIST_MODES = {"plain": {}, "zero2": dict(zero_stage=2),
+              "dense": dict(encoder="dense"),
+              "averaging": dict(training_mode="averaging",
+                                averaging_frequency=2)}
+
+
+def _dist_options(kw):
+    """A mode's ``ParallelWrapper`` options (the encoder named by a key:
+    phase 17's ``EncodedAccumulator(DP_THRESHOLD)``)."""
+    kw = dict(kw)
+    if kw.pop("encoder", None):
+        kw["gradient_accumulator"] = EncodedAccumulator(
+            threshold=DP_THRESHOLD)
+    return kw
+
+
 def _distributed():
     """(d) One process on NCCL: ``global_mesh(("data",))``, a psum of one
-    row, 4 ``_TLM`` steps through ``ParallelWrapper(mesh=global_mesh)``
-    bitwise the logical ``(1,)`` wrapper's, whether the profiler saw NCCL
-    kernels."""
+    row, 4 ``_TLM`` steps through ``ParallelWrapper(mesh=global_mesh)`` on
+    each of ``DIST_MODES``' paths bitwise the logical ``(1,)`` wrapper's,
+    whether the profiler saw NCCL kernels."""
     import socket
     from deeplearning4j_tpu_torch.parallel import distributed
     from deeplearning4j_tpu_torch.parallel.mesh import psum
@@ -6472,31 +6511,41 @@ def _distributed():
         nccl = sorted({e.key for e in prof.key_averages()
                        if "nccl" in e.key.lower()})
         psum_ok = torch.equal(got, row_in)
-        states, launches = [], {}
+        same, launches = {}, {}
         with _deterministic_algorithms():
-            for what, m in (("process_group", mesh),
-                            ("logical", make_mesh((1,), ("data",)))):
-                net = _tlm_f32(SEED + 24)
-                torch.cuda.synchronize()
-                _reset_launches()
-                ParallelWrapper(net, mesh=m, prefetch_buffer=0).fit(
-                    ListDataSetIterator(batches))
-                torch.cuda.synchronize()
-                launches[what] = _launches()
-                states.append(_el_state(net))
-                del net
-                torch.cuda.empty_cache()
+            for mode, opts in DIST_MODES.items():
+                states = []
+                for what, m in (("process_group", mesh),
+                                ("logical", make_mesh((1,), ("data",)))):
+                    net = _tlm_f32(SEED + 24)
+                    torch.cuda.synchronize()
+                    _reset_launches()
+                    pw = ParallelWrapper(net, mesh=m, prefetch_buffer=0,
+                                         **_dist_options(opts))
+                    pw.fit(ListDataSetIterator(batches))
+                    torch.cuda.synchronize()
+                    launches[f"{mode}_{what}"] = _launches(PARALLEL_COUNTED)
+                    pw.gather_opt_state()
+                    states.append(_el_state(net))
+                    del net, pw
+                    torch.cuda.empty_cache()
+                same[mode] = _el_same(states[0], states[1])
+                del states
     finally:
         distributed.shutdown_distributed()
     want = {n: TLM["n_blocks"] * DIST_STEPS for n in COUNTED}
+    k9 = {run: n["threshold_encode"] for run, n in launches.items()}
     row = {"backend": "nccl", "processes": 1, "psum_one_row": psum_ok,
-           "bitwise_logical_1": _el_same(states[0], states[1]),
-           "steps": DIST_STEPS, "nccl_kernels_seen": nccl,
-           "launches": {n: launches["process_group"][n]
-                        + launches["logical"][n] for n in COUNTED},
-           "launches_by_run": launches}
-    if not (psum_ok and row["bitwise_logical_1"]) or any(
-            v != want for v in launches.values()):
+           "bitwise_logical_1": same, "steps": DIST_STEPS,
+           "nccl_kernels_seen": nccl,
+           "launches": {n: sum(v[n] for v in launches.values())
+                        for n in COUNTED},
+           "k9_launches": sum(k9.values()), "launches_by_run": launches}
+    if not (psum_ok and all(same.values())) or any(
+            {n: v[n] for n in COUNTED} != want
+            for v in launches.values()) or any(
+            v != (DIST_STEPS if run.startswith("dense") else 0)
+            for run, v in k9.items()):
         raise AssertionError(f"distributed: {row}")
     return row
 
@@ -9855,6 +9904,267 @@ def import_formats_phase():
     return row
 
 
+# ----------------------------------------------------------------- phase 26
+# two processes share the card over gloo (NCCL refuses two ranks on one
+# device), each one worker of global_mesh(("data",)): _TLM at full width
+P26_PROCS, P26_STEPS = 2, 4
+P26_MODES = {"plain": {}, "zero1": dict(zero_stage=1),
+             "zero2": dict(zero_stage=2), "dense": dict(encoder="dense"),
+             "averaging": dict(training_mode="averaging",
+                               averaging_frequency=2)}
+# the collectives gloo is asked to take on card tensors (the probe)
+P26_PROBES = ("all_reduce", "broadcast", "all_gather_into_tensor",
+              "all_to_all_single", "all_to_all_single_splits")
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _digest(net) -> str:
+    """SHA-256 of the parameters' and the (gathered) updater state's bytes,
+    in ``flat_param_order`` / ``jax.tree.leaves`` order."""
+    import hashlib
+    h = hashlib.sha256()
+    for t in [p for p in net.parameters()] + _opt_tensors(net):
+        h.update(t.detach().cpu().reshape(-1).view(torch.uint8)
+                 .numpy().tobytes())
+    return h.hexdigest()
+
+
+def _p26_run(mesh, mode, batches, wire=None):
+    """One mode's fit of the seeded _TLM on ``mesh`` (the process group's
+    or the logical (2,)), counted and timed a step; its digest after the
+    updater state is gathered. ``wire``: a child's [bytes handed, bytes
+    written back] counters, read over the fit alone."""
+    kw = P26_MODES[mode]
+    k = kw.get("averaging_frequency", 1)
+    net = _tlm_f32(SEED + 26)
+    pw = ParallelWrapper(net, mesh=mesh, prefetch_buffer=0,
+                         **_dist_options(kw))
+    clock = _WindowClock(k)
+    net.set_listeners(clock)
+    torch.cuda.synchronize()
+    _reset_launches()
+    if wire is not None:
+        wire[:] = [0, 0]
+    t0 = time.perf_counter()
+    pw.fit(ListDataSetIterator(batches))
+    torch.cuda.synchronize()
+    launches = _launches(PARALLEL_COUNTED)
+    moved = list(wire) if wire is not None else None
+    stamps = [t0] + clock.t
+    ms = [(b - a) * 1e3 / k for a, b in zip(stamps, stamps[1:])]
+    losses = [float(v) for v in clock.losses]
+    net.set_listeners()
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError(f"phase 26 {mode}: losses {losses}")
+    opt = sum(t.numel() * t.element_size() for t in _opt_tensors(net))
+    row = {"step_ms": ms, "step_ms_p50": float(np.median(ms[1:] or ms)),
+           "losses": losses, "launches": launches,
+           "updater_bytes": opt}
+    if moved is not None:
+        row["bytes_handed_per_step"] = moved[0] / len(batches)
+        row["bytes_written_per_step"] = moved[1] / len(batches)
+    if kw.get("zero_stage"):
+        eng = pw._zero()
+        row["updater_bytes_replicated"] = eng.replicated_state_bytes
+        row["zero_state_shapes"] = sorted({tuple(v.shape) for g in
+                                           net.opt_state["_zero_"]
+                                           for v in g.values()})
+    pw.gather_opt_state()
+    row["digest"] = _digest(net)
+    del net, pw
+    torch.cuda.empty_cache()
+    return row
+
+
+def _p26_worker(rank: int, port: int, out: str) -> None:
+    """A phase-26 child: one worker of the two-process gloo group on the
+    card, every mode in turn; the bytes it hands ``torch.distributed``
+    counted by wrapping its calls here. Writes its rows to ``out``."""
+    import torch.distributed as dist
+    from deeplearning4j_tpu_torch.parallel import distributed
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.use_deterministic_algorithms(True)
+    wire = [0, 0]
+
+    def counting(fn):
+        def wrapped(out_t, inp, *a, **kw):
+            wire[0] += inp.numel() * inp.element_size()
+            wire[1] += out_t.numel() * out_t.element_size()
+            return fn(out_t, inp, *a, **kw)
+        return wrapped
+    for name in ("all_to_all_single", "all_gather_into_tensor",
+                 "all_gather_single"):
+        if hasattr(dist, name):
+            setattr(dist, name, counting(getattr(dist, name)))
+    distributed.initialize_distributed(f"127.0.0.1:{port}", P26_PROCS, rank,
+                                       backend="gloo", device="cuda:0")
+    rows = {}
+    try:
+        mesh = distributed.global_mesh(("data",))
+        batches = _dp_batches(P26_STEPS, SEED + 126)
+        for mode in P26_MODES:
+            rows[mode] = _p26_run(mesh, mode, batches, wire)
+        del mesh
+    finally:
+        distributed.shutdown_distributed()
+    with open(out, "w") as f:
+        json.dump(rows, f)
+
+
+def _p26_probe(rank: int, port: int, out: str) -> None:
+    """Which collectives gloo takes on card tensors here (torch only): each
+    tried once on both ranks, its error kept."""
+    import datetime
+    import torch.distributed as dist
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=P26_PROCS, rank=rank,
+                            timeout=datetime.timedelta(seconds=20))
+    n, dev, got = P26_PROCS, "cuda:0", {}
+    x = torch.arange(4.0, device=dev) + rank
+    calls = {
+        "all_reduce": lambda: dist.all_reduce(x.clone()),
+        "broadcast": lambda: dist.broadcast(x.clone(), 0),
+        "all_gather_into_tensor": lambda: dist.all_gather_into_tensor(
+            torch.empty(n * 4, device=dev), x),
+        "all_to_all_single": lambda: dist.all_to_all_single(
+            torch.empty(n * 2, device=dev), torch.arange(
+                n * 2.0, device=dev)),
+        "all_to_all_single_splits": lambda: dist.all_to_all_single(
+            torch.empty(n - 1, 4, device=dev), torch.ones(n - 1, 4,
+                                                          device=dev),
+            [0 if j == rank else 1 for j in range(n)],
+            [0 if j == rank else 1 for j in range(n)])}
+    for name in P26_PROBES:
+        try:
+            calls[name]()
+            torch.cuda.synchronize()
+            got[name] = "ok"
+        except Exception as e:            # the probe's answer, not a fault
+            got[name] = f"{type(e).__name__}: {str(e)[:160]}"
+    dist.destroy_process_group()
+    with open(out, "w") as f:
+        json.dump(got, f)
+
+
+def _spawn(flag, tmp, tag, port):
+    """The phase's children (``python3 chip_smoke.py flag rank port out``)
+    with deterministic cuBLAS; returns (processes, output files)."""
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    outs = [os.path.join(tmp, f"{tag}{r}.json") for r in range(P26_PROCS)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), flag, str(r), str(port),
+         outs[r]], env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for r in range(P26_PROCS)]
+    return procs, outs
+
+
+def _reap(procs, outs, what, timeout):
+    """Wait for the children (killed at ``timeout``); their rows."""
+    logs, deadline = [], time.monotonic() + timeout
+    for p in procs:
+        try:
+            out, _ = p.communicate(timeout=max(1.0, deadline
+                                               - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            out, _ = p.communicate()
+        logs.append(out)
+    for r, (p, log_text) in enumerate(zip(procs, logs)):
+        if p.returncode != 0 or not os.path.exists(outs[r]):
+            raise AssertionError(f"{what} child {r} failed "
+                                 f"({p.returncode}):\n{log_text[-4000:]}")
+    rows = []
+    for path in outs:
+        with open(path) as f:
+            rows.append(json.load(f))
+    return rows
+
+
+def distributed_processes_phase():
+    """Phase 26 (see the module docstring): the probe's children, the
+    logical (2,) wrapper here, then the two training children; every
+    mode's digest equal in all three, the launches and bytes read."""
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_p26_")
+    try:
+        probe_procs, probe_outs = _spawn("--phase-26-probe", tmp, "probe",
+                                         _free_port())
+        batches = _dp_batches(P26_STEPS, SEED + 126)
+        logical = {}
+        with _deterministic_algorithms():
+            for mode in P26_MODES:
+                logical[mode] = _p26_run(
+                    make_mesh((P26_PROCS,), ("data",)), mode, batches)
+        del batches
+        torch.cuda.empty_cache()
+        try:
+            probe = _reap(probe_procs, probe_outs, "gloo probe", 60)
+        except AssertionError as e:       # the probe's answer, not a gate
+            probe = [{"probe_failed": str(e)[-600:]}] * P26_PROCS
+        procs, outs = _spawn("--phase-26-worker", tmp, "worker",
+                             _free_port())
+        ranks = _reap(procs, outs, "phase 26", 600)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    blocks = TLM["n_blocks"]
+    row = {"processes": P26_PROCS, "backend": "gloo", "device": "cuda:0",
+           "steps": P26_STEPS, "gloo_on_card_tensors": probe[0],
+           "modes": {}}
+    ok = True
+    for mode in P26_MODES:
+        lg, rs = logical[mode], [r[mode] for r in ranks]
+        k9_want = P26_STEPS if mode == "dense" else 0
+        m = {"bitwise": all(r["digest"] == lg["digest"] for r in rs),
+             "step_ms_p50_by_process": [r["step_ms_p50"] for r in rs],
+             "step_ms_by_process": [r["step_ms"] for r in rs],
+             "logical_step_ms_p50": lg["step_ms_p50"],
+             "bytes_handed_per_step": [r["bytes_handed_per_step"]
+                                       for r in rs],
+             "bytes_written_per_step": [r["bytes_written_per_step"]
+                                        for r in rs],
+             "updater_bytes_by_process": [r["updater_bytes"] for r in rs],
+             "updater_bytes_logical": lg["updater_bytes"],
+             "launches_by_process": [r["launches"] for r in rs],
+             "launches_logical": lg["launches"],
+             "losses": rs[0]["losses"]}
+        if "updater_bytes_replicated" in rs[0]:
+            m["updater_bytes_replicated"] = rs[0]["updater_bytes_replicated"]
+            m["zero_state_shapes"] = [r["zero_state_shapes"] for r in rs]
+            ok &= all(s[0] == 1 for r in rs
+                      for s in r["zero_state_shapes"])
+        ok &= m["bitwise"] and all(
+            r["launches"][n] == blocks * P26_STEPS for r in rs
+            for n in COUNTED) and all(
+            lg["launches"][n] == blocks * P26_STEPS * P26_PROCS
+            for n in COUNTED) and all(
+            r["launches"]["threshold_encode"] == k9_want for r in rs) and \
+            lg["launches"]["threshold_encode"] == k9_want * P26_PROCS
+        row["modes"][mode] = m
+    row["launches"] = {n: sum(r[mode]["launches"][n] for r in
+                              ranks + [logical] for mode in P26_MODES)
+                       for n in PARALLEL_COUNTED}
+    row["launches_by_run"] = {
+        "processes": {n: sum(r[mode]["launches"][n] for r in ranks
+                             for mode in P26_MODES)
+                      for n in PARALLEL_COUNTED},
+        "logical": {n: sum(logical[mode]["launches"][n]
+                           for mode in P26_MODES)
+                    for n in PARALLEL_COUNTED}}
+    row["phase_s"] = time.perf_counter() - t_phase
+    log("distributed processes phase:", row)
+    if not ok:
+        raise AssertionError(f"phase 26: {row}")
+    return row
+
+
 def main() -> int:
     smi = device_phase()
     build_report = build_phase()
@@ -9926,8 +10236,11 @@ def main() -> int:
     p23 = nlp_phase()
     # phase 24: graphs, clustering, the data side, pretrained models
     p24 = graphs_clustering_data_phase()
-    # phase 25 last: the import formats (K5 and K6 counted)
+    # phase 25: the import formats (K5 and K6 counted)
     p25 = import_formats_phase()
+    # phase 26 last: two processes sharing the card over gloo (K1-K3, K9)
+    p26 = distributed_processes_phase()
+    p26_n = p26["launches"]
     p22_paths = lambda name: {path: n[name] for path, n in
                               p22["launches_by_path"].items() if n[name]}
     p21_paths = lambda name: {path: n[name] for path, n in
@@ -9959,7 +10272,7 @@ def main() -> int:
         + dp_opt["launches"]["flash_attention_fwd"]
         + tp_n["flash_attention_fwd"] + el_n["flash_attention_fwd"]
         + tel_serve + tel_train["flash_attention_fwd"]
-        + p21_n["flash_attention_fwd"],
+        + p21_n["flash_attention_fwd"] + p26_n["flash_attention_fwd"],
         "launches_by_path": {
             "serve": serve_k1, "serve_generation": gen_row["k1_launches"],
             "train": train_k["flash_attention_fwd"],
@@ -9974,7 +10287,8 @@ def main() -> int:
             "elastic_distributed": el_n["flash_attention_fwd"],
             "telemetry_serve": tel_serve,
             "telemetry_train": tel_train["flash_attention_fwd"],
-            **p21_paths("flash_attention_fwd")},
+            **p21_paths("flash_attention_fwd"),
+            "distributed_processes": p26_n["flash_attention_fwd"]},
         "max_abs_err": errs[torch.float32],
         "max_abs_err_f32": errs[torch.float32],
         "max_abs_err_bf16": errs[torch.bfloat16],
@@ -9993,7 +10307,7 @@ def main() -> int:
             "launches": train_k[name] + win_sum[name]
             + dp_row["launches"][name] + resume["launches"][name]
             + dp_opt["launches"][name] + tp_n[name] + el_n[name]
-            + tel_train[name] + p21_n[name]
+            + tel_train[name] + p21_n[name] + p26_n[name]
             + sum(ring_row[d]["launches"][name] for d in ring_dtypes),
             "launches_by_path": {
                 "train": train_k[name],
@@ -10007,7 +10321,8 @@ def main() -> int:
                 "elastic_distributed": el_n[name],
                 "telemetry_train": tel_train[name],
                 "ring": sum(ring_row[d]["launches"][name]
-                            for d in ring_dtypes), **p21_paths(name)},
+                            for d in ring_dtypes), **p21_paths(name),
+                "distributed_processes": p26_n[name]},
             "max_abs_err": max(e[0] for e in bwd_errs[kind].values()),
             "max_rel_err_f32": bwd_errs[kind][torch.float32][1],
             "max_rel_err_bf16": bwd_errs[kind][torch.bfloat16][1],
@@ -10171,9 +10486,13 @@ def main() -> int:
         "source": "deeplearning4j_tpu_torch/csrc/threshold_encode.cu",
         "replaces": "deeplearning4j_tpu/ops/pallas_compression.py:89",
         "launches": dp_row["launches"]["threshold_encode"]
-        + p21_n["threshold_encode"] + p24["launches"]["threshold_encode"],
+        + p21_n["threshold_encode"] + p24["launches"]["threshold_encode"]
+        + elastic["distributed"]["k9_launches"]
+        + p26_n["threshold_encode"],
         "launches_by_path": {
             "train_data_parallel": dp_row["launches"]["threshold_encode"],
+            "distributed_one_rank": elastic["distributed"]["k9_launches"],
+            "distributed_processes": p26_n["threshold_encode"],
             **p21_paths("threshold_encode"),
             **({"native_codec": p24["launches"]["threshold_encode"]}
                if p24["launches"]["threshold_encode"] else {})},
@@ -10241,6 +10560,8 @@ def main() -> int:
                      default=str), flush=True)
     print(json.dumps({"import_formats": p25, "card": smi}, default=str),
           flush=True)
+    print(json.dumps({"distributed_processes": p26, "card": smi},
+                     default=str), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -10254,6 +10575,22 @@ if __name__ == "__main__":
         device_phase()
         for row in amp_seed_study(int(sys.argv[2])):
             print(json.dumps(row, default=str), flush=True)
+        sys.exit(0)
+    if sys.argv[1:2] in (["--phase-26-worker"], ["--phase-26-probe"]):
+        # a phase-26 child: rank, port, output file
+        fn = _p26_worker if sys.argv[1] == "--phase-26-worker" else \
+            _p26_probe
+        fn(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+        sys.exit(0)
+    if sys.argv[1:2] == ["--phase-26"]:
+        # phase 26 alone, after the card's check and its kernels' builds
+        smi = device_phase()
+        for name in ("flash_attention_fwd", "flash_attention_bwd",
+                     "flash_attention_bwd_dkv", "threshold_encode"):
+            BUILDS[name]()
+        print(json.dumps({"card": smi, "distributed_processes":
+                          distributed_processes_phase()}, default=str),
+              flush=True)
         sys.exit(0)
     if sys.argv[1:2] == ["--phase-25"]:
         # phase 25 alone, after the card's check

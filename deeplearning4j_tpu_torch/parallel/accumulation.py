@@ -8,13 +8,18 @@ knowing the transport.
 
 The reference calls ``combine`` once per worker inside ``shard_map`` with a
 mesh axis in scope. Here the workers are the rows of a tensor
-(``parallel/mesh.py``): ``combine(flat_grad [n, P], state [n, ...], mesh,
-axis)`` runs every worker's encode, row by row as each worker would, and
-one ``pmean``; it returns the combined gradient ``[n, P]`` (every row the
-same) and the new per-worker carry. The dense encoder's row goes through
+(``parallel/mesh.py``): ``combine(flat_grad [local, P], state [local,
+...], mesh, axis)`` runs the encode of every worker this process holds
+(all n on a logical mesh, its own one on a process-group mesh), row by
+row as each worker would, all-gathers the payloads (the dense encoder's
+int8 sign map, one byte an element, or the topk encoder's fixed-size
+indices and signs), decodes every worker's and adds them in worker order,
+then divides by n: bitwise ``pmean`` of the decoded updates. It returns
+the combined gradient ``[local, P]`` (every row the same) and the new
+per-worker carry. The dense encoder's row goes through
 ``ops.compression.threshold_encode_signs`` and so, for a row of at least
 64K elements, through the one-pass kernel (K9): one launch a worker a
-step.
+step, once a process a step over processes.
 """
 from __future__ import annotations
 
@@ -24,10 +29,10 @@ from typing import Any, Optional, Tuple
 import torch
 
 from ..device import DeviceLike, resolve_device
-from ..ops.compression import (threshold_decode, threshold_encode,
-                               threshold_encode_signs)
+from ..ops.compression import (ThresholdPayload, threshold_decode,
+                               threshold_encode, threshold_encode_signs)
 from ..ops.threshold_encode import threshold_update
-from .mesh import Mesh, pmean
+from .mesh import Mesh, all_gather, pmean
 
 
 class GradientsAccumulator:
@@ -92,23 +97,39 @@ class EncodedAccumulator(GradientsAccumulator):
         return torch.zeros(size, dtype=dtype, device=resolve_device(device))
 
     def combine(self, flat_grad, state, mesh, axis="data"):
-        residual = state + flat_grad                       # [n, P]
-        n, size = residual.shape
+        residual = state + flat_grad                       # [local, P]
+        local, size = residual.shape
+        dtype, t = residual.dtype, self.threshold
         new_residual = torch.empty_like(residual)
-        sent = torch.empty_like(residual)
         if self.encoder == "dense":
-            # the sign-map front door, one pass a worker; the update peers
-            # apply is rebuilt from the int8 map only as the mean's operand
-            for i in range(n):
-                signs, new_residual[i] = threshold_encode_signs(
-                    residual[i], self.threshold)
-                threshold_update(signs, self.threshold, residual.dtype,
-                                 out=sent[i])
-            return pmean(sent, mesh, axis), new_residual
-        capacity = max(1, int(self.capacity_fraction * size))
-        for i in range(n):
-            payload, new_residual[i] = threshold_encode(
-                residual[i], self.threshold, capacity)
-            sent[i] = threshold_decode(payload, self.threshold, size,
-                                       flat_grad.dtype)
-        return pmean(sent, mesh, axis), new_residual
+            # the sign-map front door, one pass a worker: the int8 map is
+            # what crosses to the peers
+            maps = []
+            for i in range(local):
+                signs, new_residual[i] = threshold_encode_signs(residual[i], t)
+                maps.append(signs)
+            wire = (torch.stack(maps),)
+
+            def decode(every, j):
+                return threshold_update(every[0][j], t, dtype)
+        else:
+            capacity = max(1, int(self.capacity_fraction * size))
+            idx, signs = [], []
+            for i in range(local):
+                payload, new_residual[i] = threshold_encode(residual[i], t,
+                                                            capacity)
+                idx.append(payload.indices)
+                signs.append(payload.signs)
+            wire = (torch.stack(idx), torch.stack(signs))
+
+            def decode(every, j):
+                return threshold_decode(ThresholdPayload(
+                    every[0][j], every[1][j], None), t, size, dtype)
+        # every worker's payload [n, ...] (a view on a logical mesh), each
+        # decoded and added in worker order, as pmean adds the rows
+        every = [all_gather(w, mesh, axis)[0] for w in wire]
+        n = every[0].shape[0]
+        total = decode(every, 0)
+        for j in range(1, n):
+            total = total + decode(every, j)
+        return (total / n).unsqueeze(0).expand(local, size), new_residual

@@ -81,6 +81,15 @@ batches. ``skip_first_batches`` consumes the first batches of the first
 epoch without training them (the mid-epoch resume, reference
 ``:659-760``).
 
+**Over processes** (a mesh from ``distributed.global_mesh``, one worker a
+process): every path of the data axis runs, each process computing its own
+worker's row and the collectives crossing the group (``parallel/mesh.py``):
+plain sync, ``overlap_sync``, ZeRO (each process holds its shard row of
+the updater state), a ``GradientsAccumulator`` (its carry is the
+process's own row; the encoded one ships its payload) and K-step
+averaging (the means over the processes). Each gives the logical mesh's
+bits. A model axis over processes is refused (ROADMAP A7b-4b).
+
 **A model axis** (``mesh_shape=(d, m)`` or a mesh with a ``model`` axis,
 reference ``:126-173, 259-360``): on entry to ``fit`` the network's
 parameters and updater state are laid out by ``tensor_parallel``'s rules
@@ -243,14 +252,12 @@ class ParallelWrapper:
                 "collectives (stage 1 is the overlap_sync launch "
                 "pattern; stage 2 reduce-scatters the same buckets) — "
                 "drop overlap_sync rather than have it silently ignored")
-        if self.mesh.group is not None and (
-                zero_stage or gradient_accumulator is not None or averaging
-                or self.m > 1):
+        if self.mesh.group is not None and self.m > 1:
             raise ValueError(
-                "on a process-group mesh the wrapper runs the plain sync "
-                "path over the data axis; ZeRO, a GradientsAccumulator, "
-                "K-step averaging and a model axis over processes are "
-                "not ported (ROADMAP A7b-4)")
+                "on a process-group mesh the wrapper runs the data axis' "
+                "paths (plain sync, ZeRO, a GradientsAccumulator, K-step "
+                "averaging); a model axis over processes is not ported "
+                "(ROADMAP A7b-4b)")
         self.zero_stage = zero_stage
         self.steps_per_dispatch = steps_per_dispatch
         self.step_callback = step_callback
@@ -338,7 +345,8 @@ class ParallelWrapper:
         if isinstance(per_worker, tuple) and per_worker == ():
             # stateless accumulator (PsumAccumulator)
             per_worker = torch.zeros(0, dtype=dtype, device=self.net.device)
-        return per_worker.expand((self.n,) + tuple(per_worker.shape)).clone()
+        rows = local_count(self.mesh, "data")
+        return per_worker.expand((rows,) + tuple(per_worker.shape)).clone()
 
     def _grad_schedule(self):
         """The bucket schedule over the parameters (built once)."""
@@ -471,8 +479,13 @@ class ParallelWrapper:
         worker's trajectory is the same, so the mean is that trajectory).
         Without ``average_updaters`` each worker keeps its own updater
         state from window to window, worker 0's in ``net.opt_state``, as
-        each device keeps its own in the reference's program. Returns the
-        mean loss (over the K steps, then the workers)."""
+        each device keeps its own in the reference's program. On a
+        process-group mesh a process runs its own worker's trajectory, the
+        means run over the processes, and ``net.opt_state`` without
+        ``average_updaters`` is its own worker's; a batch that does not
+        tile the mesh runs whole on every process, the same trajectory
+        everywhere, so no mean is taken. Returns the mean loss (over the
+        K steps, then the workers)."""
         net, n = self.net, self.n
         it0 = net.iteration_count
         feeds = [self._feed(d) for d in buf]
@@ -483,7 +496,7 @@ class ParallelWrapper:
         shards = None if whole else [(sh.split(x), sh.split(y))
                                      for x, y in feeds]
         ends, losses = [], []
-        for w in range(1 if whole else n):
+        for w in range(1 if whole else local_count(self.mesh, "data")):
             own = (self._worker_opt[w] if self._worker_opt is not None
                    and not self.average_updaters else start[2])
             self._load(live, (start[0], start[1], own))

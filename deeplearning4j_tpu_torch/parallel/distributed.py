@@ -9,9 +9,9 @@ mesh over them spans hosts. Here every process joins a
 ``torch.distributed`` process group (NCCL between cards, gloo between CPU
 processes) and ``global_mesh`` gives a ``parallel/mesh.py`` ``Mesh`` over
 one worker a process, each process holding its own worker's row. The
-collectives on such a mesh gather the rows across the group and apply the
-logical mesh's functions, so its bits are the logical mesh's (see
-``parallel/mesh.py``).
+collectives on such a mesh move reduce-scatter and all-gather bytes and
+add every sum locally in rank order, so its bits are the logical mesh's
+(see ``parallel/mesh.py``).
 
 Usage (one process a card; nothing on the machine names the cluster, so
 each process is given the address, the count and its rank):
@@ -23,7 +23,20 @@ each process is given the address, the count and its rank):
     ParallelWrapper(net, mesh=mesh, prefetch_buffer=0).fit(iterator)
 
 Each process feeds the same global batches; each trains its workers' rows
-of them. Tested with CPU processes on gloo (``tests/test_torch_distributed.py``).
+of them, on every path of the data axis: plain sync, ZeRO stages 1 and 2,
+a ``GradientsAccumulator`` and K-step averaging. Tested with CPU processes
+on gloo (``tests/test_torch_distributed.py``,
+``tests/test_torch_distributed_options.py``).
+
+Several processes may share one card: NCCL refuses two ranks on one
+device, so they join on gloo with the card as their device,
+
+    distributed.initialize_distributed("127.0.0.1:29500", 2, rank,
+                                       backend="gloo", device="cuda:0")
+
+and gloo takes their card tensors (the semantics and bits of several
+cards, not their speed: gloo moves them through host memory and
+loopback TCP). NCCL stays the default on a card.
 """
 from __future__ import annotations
 
@@ -48,7 +61,8 @@ def initialize_distributed(coordinator_address: str, num_processes: int,
     ``tcp://coordinator_address``. ``device`` is this process's device
     (default: the CUDA card, ``cuda:{process_id % device_count}``; pass
     ``"cpu"`` for CPU processes). ``backend`` defaults to NCCL on a card
-    and gloo on the CPU (the reference's ``cpu_collectives="gloo"``)."""
+    and gloo on the CPU (the reference's ``cpu_collectives="gloo"``);
+    ``backend="gloo"`` with a card lets several processes share it."""
     global _DEVICE
     if device is None and torch.cuda.is_available():
         device = torch.device("cuda", process_id % torch.cuda.device_count())

@@ -26,22 +26,40 @@ outputs.
 On a logical mesh all workers' rows live on the one device and a
 "collective" is an indexing operation there. **Real ranks** go behind the
 same functions: a mesh with a process group (``parallel/distributed.py``
-``global_mesh``, one process a card on NCCL, or CPU processes on gloo)
-holds one worker a process, worker ``rank`` in the flat (row-major)
-order, and each process holds only its own worker's row, ``[1, ...]`` on
-every axis (``local_slots`` / ``keep_local``). A collective there (1)
-all-gathers the rows across the group in rank order, (2) applies the
-logical mesh's own function to the rows of the processes on this
-process's line along the axis (``sum_rows`` in worker order and the
-rest) and (3) keeps this process's row, so a process-group mesh gives the
-same bits as the logical mesh of its shape. It moves every row to every
-process: a reduce-scatter / all-reduce design is later speed work.
-``Sharding.split`` takes the global array and keeps this process's row;
-``shard_map`` takes each process's local part of an array (the reference's
-``make_array_from_process_local_data``) and gives each process its part
-back. The code above these functions (``parallel/accumulation.py``,
-``parallel/data_parallel.py``, ``parallel/ring_attention.py``) does not
-change.
+``global_mesh``, one process a card on NCCL, or processes on gloo, on the
+CPU or sharing one card) holds one worker a process, worker ``rank`` in
+the flat (row-major) order, and each process holds only its own worker's
+row, ``[1, ...]`` on every axis (``local_slots`` / ``keep_local``). Where
+the axis spans the whole group in rank order (every 1-D mesh), a
+collective moves what it must and no more, and every sum stays local, in
+rank order, so no backend's reduction order enters the result and the
+bits are the logical mesh's:
+
+- ``psum_scatter``: ``all_to_all_single`` hands rank j part j of this
+  process's row (its own part stays home, so a process hands the backend
+  (n-1)/n of its row); the n parts of this process's slot are then added
+  in rank order, as ``sum_rows`` adds the logical rows;
+- ``psum`` / ``pmean``: that reduce-scatter over the row cut into n parts
+  (zero-padded), then ``all_gather_into_tensor`` of the summed part (a
+  process hands (n-1)/n + 1/n of its row, where gathering every row
+  handed it whole and took n rows back);
+- ``all_gather`` and ``all_to_all``: the backend's own, directly;
+  ``ppermute_next``: ``all_to_all_single`` with one nonzero split each
+  way (gloo has no CUDA send/recv; NCCL and gloo both take this).
+
+A line that is not the whole group (the model axis over processes, ROADMAP
+A7b-4b) keeps the first design (``_across``): every row gathered in rank
+order, the logical function on the line's rows, this process's row kept.
+gloo takes card tensors for every collective here (torch 2.11 on an H100,
+``chip_smoke.py`` phase 26's probe), so two processes sharing one card
+(NCCL refuses two ranks on a device) hand it their card tensors as they
+are. ``Sharding.split`` takes the global array and keeps
+this process's row; ``shard_map`` takes each process's local part of an
+array (the reference's ``make_array_from_process_local_data``) and gives
+each process its part back. The code above these functions
+(``parallel/accumulation.py``, ``parallel/data_parallel.py``,
+``parallel/zero.py``, ``parallel/ring_attention.py``) reads its own rows
+with ``local_slots`` and otherwise does not change.
 """
 from __future__ import annotations
 
@@ -53,17 +71,30 @@ import torch
 from ..device import DeviceLike, resolve_device
 
 
+WORLD = "WORLD"           # ``Mesh.group`` of the default process group
+
+
 @dataclass(frozen=True)
 class Mesh:
     """Axis names, their sizes and the one device this process's workers
-    live on; ``group`` (a ``torch.distributed`` process group, None for a
-    logical mesh), this process's ``rank`` in it and its ``world`` size."""
+    live on; ``group`` (a ``torch.distributed`` process group, ``WORLD``
+    for the default one, None for a logical mesh), this process's
+    ``rank`` in it and its ``world`` size."""
     axis_names: Tuple[str, ...]
     axis_sizes: Tuple[int, ...]
     device: torch.device
     group: Any = field(default=None, compare=False)
     rank: int = 0
     world: int = 1
+
+    @property
+    def pg(self) -> Any:
+        """The group to pass ``torch.distributed`` (None: the default
+        group, looked up at each call). A mesh holds no reference to the
+        default group: one still held when the interpreter exits, after
+        ``destroy_process_group``, aborts the process from gloo's
+        destructor."""
+        return None if self.group == WORLD else self.group
 
     @property
     def shape(self) -> dict:
@@ -108,6 +139,10 @@ def make_mesh(shape: Optional[Tuple[int, ...]] = None,
                          f"{axis_names}")
     if any(s < 1 for s in shape):
         raise ValueError(f"mesh shape {shape} must be positive")
+    if group is not None:
+        import torch.distributed as dist
+        if group is dist.group.WORLD:
+            group = WORLD
     mesh = Mesh(axis_names, shape, resolve_device(device), group, int(rank),
                 int(world))
     if (group is not None or mesh.world != 1) and mesh.size != mesh.world:
@@ -163,15 +198,67 @@ def _line_ranks(mesh: Mesh, axis: str) -> List[int]:
     return ranks
 
 
-def _across(x: torch.Tensor, mesh: Mesh, axis: str, fn) -> torch.Tensor:
-    """A collective on a process-group mesh: every process's rows
-    gathered in rank order, ``fn`` (the logical collective) on the rows of
-    this process's line along ``axis``, this process's row kept."""
+def _whole_line(mesh: Mesh, axis: str) -> bool:
+    """True if this process's line along ``axis`` is the whole group in
+    rank order (every 1-D process-group mesh)."""
+    return _line_ranks(mesh, axis) == list(range(mesh.world))
+
+
+def _gather_into(mesh: Mesh, out: torch.Tensor, inp: torch.Tensor) -> None:
+    """Every process's ``inp`` into ``out`` ``[world, *inp.shape]``, in
+    rank order."""
     import torch.distributed as dist
+    fn = getattr(dist, "all_gather_single", None) or \
+        dist.all_gather_into_tensor
+    fn(out.view(-1), inp.contiguous().view(-1), group=mesh.pg)
+
+
+def _scatter_sum(parts: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The reduce-scatter: ``parts`` ``[n, ...]`` is this process's row
+    cut into n parts, part j bound for rank j; returns the sum over the
+    ranks of their part ``rank``, added in rank order. Part ``rank`` stays
+    here: the backend is handed the other n - 1."""
+    import torch.distributed as dist
+    n, k = mesh.world, mesh.rank
+    if n == 1:
+        return parts[0]
+    sends = torch.cat([parts[:k], parts[k + 1:]])
+    recv = torch.empty_like(sends)
+    splits = [0 if j == k else 1 for j in range(n)]
+    dist.all_to_all_single(recv, sends, splits, splits, group=mesh.pg)
+    rows = list(recv[:k]) + [parts[k]] + list(recv[k:])
+    total = rows[0]
+    for r in rows[1:]:
+        total = total + r
+    return total
+
+
+def _reduce(x: torch.Tensor, mesh: Mesh, mean: bool) -> torch.Tensor:
+    """``psum`` / ``pmean`` of this process's row ``[1, ...]`` over the
+    whole group: the reduce-scatter of the row cut into n zero-padded
+    parts, then the summed parts all-gathered."""
+    n = mesh.world
+    flat = x.reshape(-1)
+    size = flat.numel()
+    c = -(-size // n)
+    if n * c != size:
+        flat = torch.cat([flat, flat.new_zeros(n * c - size)])
+    mine = _scatter_sum(flat.view(n, c), mesh)
+    if mean:
+        mine = mine / n
+    out = mine.new_empty(n * c)
+    _gather_into(mesh, out, mine)
+    return out[:size].view(x.shape)
+
+
+def _across(x: torch.Tensor, mesh: Mesh, axis: str, fn) -> torch.Tensor:
+    """A collective on a line that is not the whole group (the model axis
+    over processes, ROADMAP A7b-4b): every process's rows gathered in rank
+    order, ``fn`` (the logical collective) on the rows of this process's
+    line along ``axis``, this process's row kept."""
     _check_rows(x, mesh, axis)
-    x = x.contiguous()
-    parts = [torch.empty_like(x) for _ in range(mesh.world)]
-    dist.all_gather(parts, x, group=mesh.group)
+    parts = x.new_empty((mesh.world,) + tuple(x.shape))
+    _gather_into(mesh, parts, x)
     out = fn(torch.cat([parts[r] for r in _line_ranks(mesh, axis)]),
              mesh.logical(), axis)
     return keep_local(out, mesh, axis)
@@ -208,7 +295,10 @@ def psum(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
     """``lax.psum`` over ``axis``: ``[n, ...]`` in and out, every row the
     sum of the rows in worker order (a broadcast view, not n copies)."""
     if mesh.group is not None:
-        return _across(x, mesh, axis, psum)
+        if not _whole_line(mesh, axis):
+            return _across(x, mesh, axis, psum)
+        _check_rows(x, mesh, axis)
+        return _reduce(x, mesh, mean=False)
     _check_rows(x, mesh, axis)
     return sum_rows(x).unsqueeze(0).expand_as(x)
 
@@ -220,7 +310,10 @@ def pmean(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
     the sum divided by n, as ``lax.pmean``: a fixed order gives the same
     bits on the CPU and on the card."""
     if mesh.group is not None:
-        return _across(x, mesh, axis, pmean)
+        if not _whole_line(mesh, axis):
+            return _across(x, mesh, axis, pmean)
+        _check_rows(x, mesh, axis)
+        return _reduce(x, mesh, mean=True)
     n = _check_rows(x, mesh, axis)
     return (sum_rows(x) / n).unsqueeze(0).expand_as(x)
 
@@ -230,13 +323,17 @@ def psum_scatter(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
     per-worker values ``[n, n, ...]`` (each worker's row cut into n
     parts): worker k gets the sum over the workers of part k, ``[n, ...]``
     out. The rows are added in worker order, as ``pmean`` adds them."""
-    if mesh.group is not None:
-        return _across(x, mesh, axis, psum_scatter)
-    n = _check_rows(x, mesh, axis)
+    n = axis_size(mesh, axis)
     if x.dim() < 2 or x.shape[1] != n:
         raise ValueError(f"psum_scatter cuts each worker's row into {n} "
-                         f"parts: expected [{n}, {n}, ...], got "
-                         f"{tuple(x.shape)}")
+                         f"parts: expected [{local_count(mesh, axis)}, "
+                         f"{n}, ...], got {tuple(x.shape)}")
+    if mesh.group is not None:
+        if not _whole_line(mesh, axis):
+            return _across(x, mesh, axis, psum_scatter)
+        _check_rows(x, mesh, axis)
+        return _scatter_sum(x[0], mesh).unsqueeze(0)
+    _check_rows(x, mesh, axis)
     total = x[0]
     for i in range(1, n):
         total = total + x[i]
@@ -248,7 +345,12 @@ def all_gather(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
     all the rows, ``[n, ...]`` in and ``[n, n, ...]`` out (a broadcast
     view, not n copies)."""
     if mesh.group is not None:
-        return _across(x, mesh, axis, all_gather)
+        if not _whole_line(mesh, axis):
+            return _across(x, mesh, axis, all_gather)
+        _check_rows(x, mesh, axis)
+        out = x.new_empty((1, mesh.world) + tuple(x.shape[1:]))
+        _gather_into(mesh, out[0], x[0])
+        return out
     n = _check_rows(x, mesh, axis)
     return x.unsqueeze(0).expand((n,) + tuple(x.shape))
 
@@ -258,13 +360,20 @@ def all_to_all(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
     ``[n, n, ...]`` (each worker's row cut into n parts, part j bound for
     worker j): worker i gets part i of every worker's row, in worker
     order, ``out[i, j] = x[j, i]``."""
-    if mesh.group is not None:
-        return _across(x, mesh, axis, all_to_all)
-    n = _check_rows(x, mesh, axis)
+    n = axis_size(mesh, axis)
     if x.dim() < 2 or x.shape[1] != n:
         raise ValueError(f"all_to_all cuts each worker's row into {n} "
-                         f"parts: expected [{n}, {n}, ...], got "
-                         f"{tuple(x.shape)}")
+                         f"parts: expected [{local_count(mesh, axis)}, "
+                         f"{n}, ...], got {tuple(x.shape)}")
+    if mesh.group is not None:
+        if not _whole_line(mesh, axis):
+            return _across(x, mesh, axis, all_to_all)
+        import torch.distributed as dist
+        _check_rows(x, mesh, axis)
+        out = torch.empty_like(x)
+        dist.all_to_all_single(out[0], x[0].contiguous(), group=mesh.pg)
+        return out
+    _check_rows(x, mesh, axis)
     return x.transpose(0, 1)
 
 
@@ -272,7 +381,19 @@ def ppermute_next(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
     """Worker i's row goes to worker (i + 1) mod n: the ring's
     ``ppermute`` with ``perm = [(i, (i + 1) % n)]``."""
     if mesh.group is not None:
-        return _across(x, mesh, axis, ppermute_next)
+        if not _whole_line(mesh, axis):
+            return _across(x, mesh, axis, ppermute_next)
+        import torch.distributed as dist
+        _check_rows(x, mesh, axis)
+        n, k = mesh.world, mesh.rank
+        if n == 1:
+            return x.clone()
+        out = torch.empty_like(x)
+        dist.all_to_all_single(out, x.contiguous(),
+                               [int(j == (k - 1) % n) for j in range(n)],
+                               [int(j == (k + 1) % n) for j in range(n)],
+                               group=mesh.pg)
+        return out
     _check_rows(x, mesh, axis)
     return torch.roll(x, shifts=1, dims=0)
 

@@ -40,7 +40,7 @@ from typing import Callable, List, Sequence, Tuple
 import torch
 
 from ..telemetry import get_registry, record_external_span
-from .mesh import Mesh, pmean
+from .mesh import Mesh, local_count, pmean
 
 DEFAULT_BUCKET_BYTES = 4 * 2 ** 20      # ~4 MB, the reference's
 
@@ -145,11 +145,12 @@ def bucketed_pmean(rows: Sequence[torch.Tensor], schedule: BucketSchedule,
     """The mean over the workers of each leaf, a bucket at a time:
     ``rows[i]`` is leaf i's per-worker value ``[n, *shape]``; the result is
     a list of ``[n, *shape]`` (every row the mean). Bitwise the per-leaf
-    ``pmean`` sweep's."""
-    n = mesh.shape.get(axis)
-    if n is None:
+    ``pmean`` sweep's. On a process-group mesh n is this process's rows,
+    one."""
+    if axis not in mesh.shape:
         raise ValueError(f"mesh has no axis {axis!r}; its axes are "
                          f"{mesh.axis_names}")
+    n = local_count(mesh, axis)
     _check_rows(schedule, rows, n)
     out = list(rows)
     for b in schedule.buckets:
@@ -173,7 +174,7 @@ def fused_pmean(rows: Sequence[torch.Tensor], mesh: Mesh,
     """The mean over the workers of every ``[n, ...]`` leaf of ``rows``,
     one buffer a dtype (the reference's one variadic pmean launch):
     elementwise the per-leaf ``pmean``'s."""
-    n = mesh.shape[axis]
+    n = local_count(mesh, axis)
     out = list(rows)
     by_dtype = {}
     for i, r in enumerate(rows):
@@ -220,11 +221,12 @@ def profile_schedule(mesh: Mesh, schedule: BucketSchedule,
     the bucket's elements a worker, best of ``repeats``), record a
     ``bucket_psum`` span a bucket (cat "collective") under the current
     span path, and set the ``parallel.collective_ms`` gauge to the total
-    and ``parallel.bucket_count``. The mesh is logical: the times are the
-    rows' adds on the one device, not a wire. Host-side tooling; the
-    training step never calls it."""
+    and ``parallel.bucket_count``. On a logical mesh the times are the
+    rows' adds on the one device, not a wire; on a process-group mesh
+    (every process calls it) they include the group's exchange.
+    Host-side tooling; the training step never calls it."""
     reg = get_registry()
-    n = mesh.shape[axis]
+    n = local_count(mesh, axis)
     rows, total_ms = [], 0.0
     for i, b in enumerate(schedule.buckets):
         dtype = schedule.leaf_dtypes[b.indices[0]]

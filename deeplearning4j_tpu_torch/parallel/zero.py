@@ -20,7 +20,11 @@ updated parameters are then gathered back to every worker.
 - **The state** is ``{"_zero_": (group 0, group 1, ...)}``, each group a
   dict of state name -> ``[n, length]``: row k is worker k's shard, the
   reference's ``[N, L]`` array sharded on the data axis, here on the
-  logical mesh (``parallel/mesh.py``) as the worker axis leading.
+  logical mesh (``parallel/mesh.py``) as the worker axis leading. On a
+  process-group mesh a process holds only its own row, ``[1, length]``:
+  its updater bytes are the replicated bytes / n, plus padding. There
+  stage 2's reduce-scatter hands the backend (n-1)/n of a bucket a
+  process, stage 1's all-reduce a whole bucket, and the gather 1/n.
 - **A step.** ``grad_sync`` takes each leaf's per-worker gradient
   ``[n, *shape]`` and gives each group's mean-gradient shards
   ``[n, length]``: stage 1 by the bucket's all-reduce (``pmean``) and a
@@ -70,7 +74,8 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from ..telemetry import get_registry, record_external_span, span
-from .mesh import Mesh, all_gather, pmean, psum_scatter
+from .mesh import (Mesh, all_gather, keep_local, local_count, pmean,
+                   psum_scatter)
 from .overlap import (DEFAULT_BUCKET_BYTES, build_bucket_schedule,
                       time_collective)
 
@@ -176,6 +181,10 @@ class ZeroUpdateEngine:
         self.stage = stage
         self.axis = axis
         self.mesh = mesh
+        # the shard rows this process holds: all n on a logical mesh, its
+        # own worker's one on a process-group mesh
+        self.local = (local_count(mesh, axis) if mesh is not None
+                      else self.n)
         self.bucket_bytes = bucket_bytes
         self.leaf_shapes = [tuple(t.shape) for t in leaves]
         self.leaf_dtypes = [t.dtype for t in leaves]
@@ -294,14 +303,21 @@ class ZeroUpdateEngine:
                 and meta.get("groups") == mine["groups"])
 
     # ----------------------------------------------------- pack / unpack
+    def _mine(self, t: torch.Tensor) -> torch.Tensor:
+        """This process's rows of an ``[n, ...]`` tensor (all of them on a
+        logical mesh)."""
+        return t if self.mesh is None else keep_local(t, self.mesh,
+                                                      self.axis)
+
     def _pack_rows(self, b: _ZeroBucket, rows) -> torch.Tensor:
-        """One bucket of per-worker leaves ``[n, *shape]``, flattened and
-        padded a worker: ``[n, n * lb]``."""
-        n = self.n
-        parts = [rows[i].reshape(n, -1) for i in b.indices]
+        """One bucket of this process's per-worker leaves
+        ``[local, *shape]``, flattened and padded a worker:
+        ``[local, n * lb]``."""
+        n, local = self.n, self.local
+        parts = [rows[i].reshape(local, -1) for i in b.indices]
         pad = n * b.lb - b.nb
         if pad:
-            parts.append(parts[0].new_zeros((n, pad)))
+            parts.append(parts[0].new_zeros((local, pad)))
         return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
 
     def _pack_whole(self, b: _ZeroBucket, leaves) -> torch.Tensor:
@@ -333,12 +349,13 @@ class ZeroUpdateEngine:
     # ------------------------------------------------ the update seam
     def grad_sync(self, rows: Sequence[torch.Tensor],
                   replicated: bool = False) -> Tuple[torch.Tensor, ...]:
-        """Each group's mean-gradient shards ``[n, length]`` (row k is
-        worker k's) from each leaf's per-worker gradient ``rows[i]``
-        ``[n, *shape]``: one collective a bucket (stage 1: all-reduce and
-        slice; stage 2: reduce-scatter). ``replicated``: ``rows[i]`` is the
-        whole batch's gradient ``[*shape]``, which every worker holds; it
-        is the mean as it is."""
+        """Each group's mean-gradient shards ``[local, length]`` (row k is
+        worker k's; this process's one on a process-group mesh) from each
+        leaf's per-worker gradient ``rows[i]`` ``[local, *shape]``: one
+        collective a bucket (stage 1: all-reduce and slice; stage 2:
+        reduce-scatter). ``replicated``: ``rows[i]`` is the whole batch's
+        gradient ``[*shape]``, which every worker holds; it is the mean as
+        it is."""
         if len(rows) != len(self.leaf_shapes):
             raise ValueError("grad tree does not match the zero layout — "
                              "rebuild the engine when the parameter "
@@ -349,17 +366,19 @@ class ZeroUpdateEngine:
             parts = []
             for b in g.buckets:
                 if replicated:
-                    parts.append(self._pack_whole(b, rows))
+                    parts.append(self._mine(self._pack_whole(b, rows)))
                     continue
                 packed = self._pack_rows(b, rows)
                 if self.stage == 1:
                     red = pmean(packed, mesh, self.axis)
-                    # worker k's slice of its all-reduced copy: the copies
-                    # are one tensor here, so its rows are the shards
-                    parts.append(red[0].view(n, b.lb))
+                    # worker k's slice of its all-reduced copy: on a
+                    # logical mesh the copies are one tensor, so its rows
+                    # are the shards
+                    parts.append(self._mine(red[0].view(n, b.lb)))
                 else:
-                    parts.append(psum_scatter(packed.view(n, n, b.lb), mesh,
-                                              self.axis) / n)
+                    parts.append(psum_scatter(
+                        packed.view(self.local, n, b.lb), mesh,
+                        self.axis) / n)
             shards.append(self._join(parts))
         return tuple(shards)
 
@@ -382,8 +401,8 @@ class ZeroUpdateEngine:
         st = opt_state[ZERO_STATE_KEY]
         step = step_tensor(step)
         for gi, g in enumerate(self.groups):
-            p_loc = self._join([self._pack_whole(b, leaves)
-                                for b in g.buckets])
+            p_loc = self._mine(self._join([self._pack_whole(b, leaves)
+                                           for b in g.buckets]))
             s_loc = st[gi]
             lr = g.rule.lr(step, g.lr_mult)
             upd, ns = g.rule.update_one(shards[gi], s_loc, lr, step,
@@ -399,7 +418,7 @@ class ZeroUpdateEngine:
     def init_opt_state(self) -> dict:
         """Fresh (zero) sharded updater state."""
         return {ZERO_STATE_KEY: tuple(
-            {key: torch.zeros((self.n, g.length), dtype=g.dtype,
+            {key: torch.zeros((self.local, g.length), dtype=g.dtype,
                               device=self.device)
              for key in g.state_keys} for g in self.groups)}
 
@@ -442,23 +461,26 @@ class ZeroUpdateEngine:
                         f"training")
         groups = []
         for g in self.groups:
-            groups.append({key: self._join(
+            groups.append({key: self._mine(self._join(
                 [self._pack_whole(b, [None if s is None or key not in s
                                       else s[key] for s in flat_state])
-                 for b in g.buckets]).clone()
+                 for b in g.buckets])).clone()
                 for key in g.state_keys})
         return {ZERO_STATE_KEY: tuple(groups)}
 
     @torch.no_grad()
     def unshard_opt_state(self, opt_state) -> dict:
         """The replicated per-leaf state rebuilt from the sharded format
-        (all-gather): ``MultiLayerUpdater.init``'s shape, a frozen leaf's
-        state its rule's init zeros, a stateless leaf ``{}``."""
+        (all-gather; on a process-group mesh every process must call it):
+        ``MultiLayerUpdater.init``'s shape, a frozen leaf's state its
+        rule's init zeros, a stateless leaf ``{}``."""
         self.check_state(opt_state)
         flat_state: List[Optional[dict]] = [None] * len(self.leaf_shapes)
         for gi, g in enumerate(self.groups):
             for key in g.state_keys:
                 full = opt_state[ZERO_STATE_KEY][gi][key]
+                if self.local != self.n:
+                    full = all_gather(full, self.mesh, self.axis)[0]
                 off = 0
                 for b in g.buckets:
                     flat = full[:, off:off + b.lb].reshape(self.n * b.lb)
@@ -498,11 +520,11 @@ class ZeroUpdateEngine:
                     f"zero state keys {sorted(s)} != layout "
                     f"{sorted(g.state_keys)}")
             for key, v in s.items():
-                if tuple(v.shape) != (self.n, g.length):
+                if tuple(v.shape) != (self.local, g.length):
                     raise ValueError(
                         f"zero state leaf {key} has shape "
                         f"{tuple(v.shape)}, layout wants "
-                        f"{(self.n, g.length)} — state saved on a "
+                        f"{(self.local, g.length)} — state saved on a "
                         f"different mesh size must be re-sharded "
                         f"(make_zero_resharder)")
 
@@ -549,16 +571,19 @@ class ZeroUpdateEngine:
         reduce_name = "reduce_scatter" if self.stage == 2 else \
             "grad_allreduce"
 
+        local = local_count(mesh, axis)
+
         def scat(buf, lb):
             if self.stage == 1:
                 return pmean(buf, mesh, axis)[0].view(n, lb)
-            return psum_scatter(buf.view(n, n, lb), mesh, axis) / n
+            return psum_scatter(buf.view(local, n, lb), mesh, axis) / n
 
         rows = {"reduce_scatter": [], "all_gather": []}
         rs_ms = 0.0
         for gi, g in enumerate(self.groups):
             for bi, b in enumerate(g.buckets):
-                buf = torch.zeros((n, n * b.lb), dtype=g.dtype, device=dev)
+                buf = torch.zeros((local, n * b.lb), dtype=g.dtype,
+                                  device=dev)
                 ms = time_collective(lambda: scat(buf, b.lb), dev, repeats)
                 rs_ms += ms
                 nbytes = n * b.lb * _itemsize(g.dtype)
@@ -570,7 +595,8 @@ class ZeroUpdateEngine:
         ag_ms = 0.0
         with span("zero.allgather", groups=len(self.groups)):
             for gi, g in enumerate(self.groups):
-                buf = torch.zeros((n, g.length), dtype=g.dtype, device=dev)
+                buf = torch.zeros((local, g.length), dtype=g.dtype,
+                                  device=dev)
                 ms = time_collective(lambda: all_gather(buf, mesh, axis),
                                      dev, repeats)
                 ag_ms += ms

@@ -233,11 +233,11 @@ def save_sharded_checkpoint(directory: str, step: int, tree: Any,
 
     if group:
         import torch.distributed as dist
-        dist.barrier(group=mesh.group)     # every process's file is in
+        dist.barrier(group=mesh.pg)     # every process's file is in
     if rank == 0:
         _atomic_write(directory, manifest, write_manifest)
     if group:
-        dist.barrier(group=mesh.group)     # the save is whole on return
+        dist.barrier(group=mesh.pg)     # the save is whole on return
     return manifest
 
 

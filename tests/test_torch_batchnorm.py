@@ -12,6 +12,7 @@ state buffers; 4 logical ``ParallelWrapper`` workers, plain sync and
 accumulator; and ``clone``.
 The JAX weights and state cross with ``load_jax_params`` /
 ``load_jax_state``. Inputs come from numpy seeds."""
+import _torch_threads  # noqa: F401
 import jax
 import jax.numpy as jnp
 import numpy as np

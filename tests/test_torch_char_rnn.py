@@ -8,6 +8,7 @@ autograd Functions over the plain versions. Tolerances: output atol 1e-5,
 loss rel 1e-5, gradients rel-to-max 1e-4, parameters after three tBPTT
 iterations from a carried-over RmsProp state atol 1e-5; greedy tokens and
 sampled ids are equal."""
+import _torch_threads  # noqa: F401
 import threading
 
 import jax

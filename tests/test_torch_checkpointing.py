@@ -8,6 +8,7 @@ updater state, iteration count and, for a network with
 BatchNormalization, the layer state (``state.bin``), which the port
 restores and the reference does not (its fault, pinned below by
 ``test_the_reference_resume_drops_batchnorm_statistics``)."""
+import _torch_threads  # noqa: F401
 import json
 import os
 import zipfile

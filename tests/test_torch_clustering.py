@@ -14,6 +14,7 @@ about every step from the fifth, see
 gates then run on the port (``tests/test_clustering.py``,
 ``tests/test_trees_deepwalk.py``).
 """
+import _torch_threads  # noqa: F401
 import numpy as np
 import pytest
 import torch

@@ -8,6 +8,7 @@ kernel is 0.0): indices, sign maps and counts are compared as integers and
 residuals bit for bit, any NaN equal to any NaN (the two frameworks give a
 NaN different payload bits). bf16 arrays cross as float32, which holds
 every bf16 value exactly."""
+import _torch_threads  # noqa: F401
 import importlib
 
 import jax.numpy as jnp

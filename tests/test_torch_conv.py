@@ -6,6 +6,7 @@ Layers: atol 1e-5. K7's plain version against the Pallas kernel run in
 interpret mode at the reference's parity shape (atol 1e-5, the reference's
 pin) and against ``_conv1x1_xla`` at GoogLeNet's ragged (C, F) pairs; K7's
 autograd gradients against ``jax.grad`` at rel-to-max 1e-5."""
+import _torch_threads  # noqa: F401
 import jax
 import jax.numpy as jnp
 import numpy as np

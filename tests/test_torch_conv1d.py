@@ -11,6 +11,7 @@ divisor; every padding form; the output length each layer's
 conv drops before an LSTM and a ``LastTimeStepVertex``, in both packages.
 In a graph the ``GlobalPoolingLayer`` takes no mask, as the reference's
 takes none (its layer does not ``accepts_mask``)."""
+import _torch_threads  # noqa: F401
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -7,6 +7,7 @@ and at ragged ones); on the CPU the wrapper takes its plain version, whose
 tests are in ``test_torch_conv.py``. What runs here is the arithmetic of
 the plan: which blocks a call becomes and which channels each one adds.
 """
+import _torch_threads  # noqa: F401
 import numpy as np
 import pytest
 import torch

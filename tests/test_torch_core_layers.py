@@ -11,6 +11,7 @@ pretraining loss on the JAX package's own corruption mask (drawn with the
 reference's key handling) matches at atol 1e-6, its gradients at
 rel-to-max 1e-4. The binomial init has the right shape, support and
 mean."""
+import _torch_threads  # noqa: F401
 import jax
 import jax.numpy as jnp
 import numpy as np

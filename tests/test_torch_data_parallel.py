@@ -13,6 +13,7 @@ whose sign flipped to differ by whole quanta (the threshold, one a step at
 most), bounds the share of flipped entries at 0.2 %, and holds the
 parameters within ``lr * threshold`` a step (a flipped quantum on every
 worker) plus that noise."""
+import _torch_threads  # noqa: F401
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -13,6 +13,7 @@ both). The native threshold codec equals the port's
 in both packages: the same files and seeds give identical arrays. Every
 MNIST test writes the four IDX files first, so no download is tried.
 """
+import _torch_threads  # noqa: F401
 import gzip
 import io
 import json

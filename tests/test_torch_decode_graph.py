@@ -6,6 +6,7 @@ capture that fails surfaces from the engine with no eager retry. The
 head-sharded over a model axis of 2, K5's launches are counted through
 replays, a kernel that fails inside the capture raises) need a card and
 skip without one."""
+import _torch_threads  # noqa: F401
 import numpy as np
 import pytest
 import torch

@@ -16,6 +16,7 @@ held against runs in the test's own process.
 - Four processes (``slow``, as the reference's): a ``(2, 2)`` mesh, the
   collectives on each axis, and a sharded checkpoint with one file a
   process and the manifest from process 0."""
+import _torch_threads  # noqa: F401
 import json
 import os
 import socket
@@ -323,7 +324,8 @@ def test_entry_points_without_a_group():
 def test_one_process_group_mesh_is_the_logical_mesh():
     """A one-process gloo group: the mesh's one worker's collectives go
     through the group and give the logical ``(1,)`` mesh's bits; a shape
-    that does not cover its worker is refused."""
+    that does not cover its worker is refused, and so is a model axis
+    over processes (ROADMAP A7b-4b)."""
     port = _free_port()
     distributed.initialize_distributed(f"127.0.0.1:{port}", 1, 0,
                                        device="cpu")
@@ -347,7 +349,12 @@ def test_one_process_group_mesh_is_the_logical_mesh():
                 ListDataSetIterator(features=xx, labels=yy, batch_size=8))
             nets.append(net)
         assert torch.equal(nets[0].params_flat(), nets[1].params_flat())
-        with pytest.raises(ValueError, match="process-group mesh"):
-            ParallelWrapper(nets[0], mesh=mesh, zero_stage=1)
+        # a model axis over processes is the one path refused (a (1, 2)
+        # mesh on the group: the refusal comes before any collective)
+        with pytest.raises(ValueError,
+                           match="process-group mesh.*A7b-4b"):
+            ParallelWrapper(nets[0], mesh=make_mesh(
+                (1, 2), ("data", "model"), "cpu", group=mesh.group,
+                rank=0, world=2))
     finally:
         distributed.shutdown_distributed()

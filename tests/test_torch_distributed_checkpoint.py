@@ -4,6 +4,7 @@ reference's ``tests/test_distributed_checkpoint.py`` cases, a save the JAX
 package wrote on its 8 virtual devices restored by the port (and the
 port's read by the JAX package), the writer's latest-wins queue and
 ``flush``, and ``PreemptionGuard`` under a real SIGTERM."""
+import _torch_threads  # noqa: F401
 import os
 import signal
 import threading

@@ -8,6 +8,7 @@ within 1e-5 and with the reference test's plain-numpy oracles at its
 tolerances, ``import_notes`` are equal string for string, and an imported
 Nesterovs momentum ``v`` equals the JAX leaf of the same parameter. Every
 port network is built on the CPU (``device="cpu"``)."""
+import _torch_threads  # noqa: F401
 import io
 import json
 import os

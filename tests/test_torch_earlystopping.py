@@ -10,6 +10,7 @@ statistics in ``state.bin`` included, and restores the best model; the
 reference's own patience case (``tests/test_checkpoint_eval.py:105``)
 runs, and ``EarlyStoppingParallelTrainer`` on 2 logical workers follows
 the JAX trainer on 2 devices."""
+import _torch_threads  # noqa: F401
 import math
 import zipfile
 

@@ -16,6 +16,7 @@ reads the step-loop thread makes (``Tensor.item``, ``tolist``, ``numpy``,
 ``cpu``, ``__bool__``, ``__float__``, ``__int__``) instead of the JAX host
 sync detector. ``test_elastic_recovery_bench_smoke`` drives ``bench.py`` and
 is not ported."""
+import _torch_threads  # noqa: F401
 import os
 import signal
 import threading

@@ -12,6 +12,7 @@ package's committed trained ``digits_cnn.zip``, restored by the port,
 reaches at least 0.97 held-out accuracy on scikit-learn's bundled digits
 (the split of ``tests/test_pretrained_digits.py``), and its ``Evaluation``
 equals the JAX network's."""
+import _torch_threads  # noqa: F401
 import importlib
 import json
 import os

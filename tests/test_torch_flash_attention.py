@@ -5,6 +5,7 @@ version, held against the JAX Pallas forward ``_fwd`` in interpret mode
 ``ring_attention.attention``. O and lse at atol 2e-5, the reference's own
 attention pin (ops/kernels/builtins.py:54). The CUDA kernel itself is held
 against the plain version on the card by chip_smoke.py."""
+import _torch_threads  # noqa: F401
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -10,6 +10,7 @@ The plain backward is also held against autograd through the plain
 forward, including rows that see no key, where the port deliberately
 differs from the TPU kernel. The CUDA kernels are held against the plain
 versions on the card by chip_smoke.py."""
+import _torch_threads  # noqa: F401
 import hashlib
 import math
 

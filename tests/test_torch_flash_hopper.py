@@ -8,6 +8,7 @@ the ``cuda`` test below does the same at the tiles' edges and skips without
 a card. On the CPU every wrapper takes its plain version, whose tests are
 ``test_torch_flash_attention*.py``.
 """
+import _torch_threads  # noqa: F401
 import hashlib
 import math
 import re

@@ -9,6 +9,7 @@ chain hashes are THE SAME hashes the replica prefix caches key blocks by
 disruption, the learned LRU map, and the candidate-ordering policy
 (affinity preferred, overload spills, unseen prefixes rendezvous).
 """
+import _torch_threads  # noqa: F401
 from types import SimpleNamespace
 
 import numpy as np

@@ -7,6 +7,7 @@ decide() is a pure function of fleet state and the clock, so the whole
 policy truth table runs without processes; the Autoscaler tests drive
 tick() by hand against a duck-typed fake router and a manual clock.
 """
+import _torch_threads  # noqa: F401
 import itertools
 import threading
 import time

@@ -17,6 +17,7 @@ Every destructive test revives its victim before it returns. Every wait
 is on a state, never a sleep. The children's dumps land in this module's
 tmp dir (``DL4J_TPU_FLIGHTREC_DIR``). The reference's slow chaos soak and
 orphan test stay slow there and are not ported."""
+import _torch_threads  # noqa: F401
 import json
 import os
 import time

@@ -21,6 +21,7 @@ trace2timeline/fleet_report tool surfaces. True multi-PROCESS stitching
 (separate registries per OS process, SIGKILL spool recovery) lives in
 tests/test_fleet_process.py.
 """
+import _torch_threads  # noqa: F401
 import json
 import os
 import sys

@@ -12,6 +12,7 @@ is the kernel-library directory; and a replica's default device, the card.
 Every wait is on a state (a ready file, a ``/health`` answer, a pulled
 event), never a sleep. The children's flight-recorder dumps land in this
 module's tmp dir (``DL4J_TPU_FLIGHTREC_DIR``)."""
+import _torch_threads  # noqa: F401
 import json
 import os
 from types import SimpleNamespace

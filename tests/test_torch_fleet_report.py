@@ -7,6 +7,7 @@ report, key for key, as the JAX front door's over the JAX package's
 engines serving the same requests; its CLI renders a saved port snapshot
 as text and JSON; and it imports neither package nor torch.
 """
+import _torch_threads  # noqa: F401
 import ast
 import json
 import os

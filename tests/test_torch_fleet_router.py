@@ -12,6 +12,7 @@ tokens are EXACTLY the single-replica greedy sequence, with the
 drain-then-remove scale-in. The subprocess/chaos half lives in
 tests/test_fleet_process.py.
 """
+import _torch_threads  # noqa: F401
 import socket
 
 import pytest

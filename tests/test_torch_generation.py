@@ -2,6 +2,7 @@
 capacity plan against the JAX GenerationConfig, sampling, and the
 scheduler's admission checks, stream lifecycle and continuous batching
 (greedy streams through the engine equal the port's naive reference)."""
+import _torch_threads  # noqa: F401
 import numpy as np
 import pytest
 import torch

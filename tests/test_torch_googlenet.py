@@ -8,6 +8,7 @@ eagerly with its K7 Pallas kernel opted into interpret mode (it takes the
 four 1x1 convs whose C and F are multiples of 128); the port's 37 1x1 convs
 take K7's plain version. Every vertex's activation agrees at rel-to-max
 1e-5."""
+import _torch_threads  # noqa: F401
 import jax.numpy as jnp
 import numpy as np
 import pytest

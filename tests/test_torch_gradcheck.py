@@ -12,6 +12,7 @@ autoencoder's loss and refuses the RBM's CD-k, as the reference's does.
 The check bites: it fails on a layer whose backward is deliberately
 wrong (a test double built here), and it refuses a float32 network. The
 parameter subset is drawn as the reference draws it."""
+import _torch_threads  # noqa: F401
 import numpy as np
 import pytest
 import torch

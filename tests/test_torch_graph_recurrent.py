@@ -11,6 +11,7 @@ on the whole sequence and JAX's ``rnn_time_step`` (1e-5, K5's pin), and
 kinds gives equal outputs and is independent after training, as the
 reference's. A two-input graph trains from a ``MultiDataSet`` iterator as
 JAX's does (1e-5)."""
+import _torch_threads  # noqa: F401
 import numpy as np
 import pytest
 import torch

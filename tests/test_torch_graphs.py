@@ -14,6 +14,7 @@ with one bridge (``tests/test_trees_deepwalk.py``,
 (negative sampling), 1.0e-6 (hierarchical softmax), 7.3e-6 (node2vec).
 The reference tests' similarity assertions then run on the port's fits.
 """
+import _torch_threads  # noqa: F401
 import numpy as np
 import pytest
 import torch

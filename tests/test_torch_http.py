@@ -16,6 +16,7 @@ routes answer on both with the same status, content type and body keys
 and echo ``X-Trace-Id`` (``tests/test_torch_telemetry_serving.py`` holds
 their bodies against the reference's), and ``/metrics`` carries the same
 top-level keys (``perf`` with the registry on)."""
+import _torch_threads  # noqa: F401
 import http.client
 import json
 import os

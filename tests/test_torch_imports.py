@@ -6,6 +6,7 @@ package in an import; h5py is imported only inside the Keras importer's
 functions that open an ``.h5`` file. A module that the package itself
 imports late (``util.distributed_checkpoint`` and its neighbours) imports
 first in a fresh interpreter too."""
+import _torch_threads  # noqa: F401
 import pathlib
 import re
 import subprocess

@@ -13,6 +13,7 @@ through both packages (the port's on the CPU):
 - the text-generation LSTM: its forward too, within 1e-5.
 
 Only ``h5py`` is needed, not ``keras``."""
+import _torch_threads  # noqa: F401
 import json
 import os
 

@@ -8,6 +8,7 @@ through both packages (the port's on the CPU): the vertex names and the
 layer classes are equal, the outputs agree with the JAX network's within
 1e-5 and with ``model.predict`` at the reference test's tolerance, and a
 model the reference refuses is refused with the same message."""
+import _torch_threads  # noqa: F401
 import numpy as np
 import pytest
 import torch

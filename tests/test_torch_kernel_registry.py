@@ -21,6 +21,7 @@ package's ``ops/kernels``.
 - ``tools/kernels_report.py``, unchanged, reads a perf dump the port
   wrote.
 """
+import _torch_threads  # noqa: F401
 import json
 import os
 import subprocess

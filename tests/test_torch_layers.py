@@ -1,6 +1,7 @@
 """Port's layers, activations, vertices and initializers against the JAX
 package's: the same numpy parameters and inputs through each JAX layer's
 ``apply`` and the port's module, at atol 1e-5."""
+import _torch_threads  # noqa: F401
 import jax.numpy as jnp
 import numpy as np
 import pytest

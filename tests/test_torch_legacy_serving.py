@@ -6,6 +6,7 @@
 ``tests/test_prefetch_pipeline.py`` (a streamed topic behind the
 prefetcher), on the CPU, and the served output against the JAX network's
 on the same weights."""
+import _torch_threads  # noqa: F401
 import json
 import threading
 import time

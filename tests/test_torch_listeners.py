@@ -8,6 +8,7 @@ listener acts on, the scores (at 1e-5: the packages' losses differ in the
 last bits), the record keys. ``PerformanceListener``'s window-aligned
 reports are checked with ``time.perf_counter`` replaced by a clock the test
 moves, in both packages, so no wall-clock threshold is involved."""
+import _torch_threads  # noqa: F401
 import logging
 
 import numpy as np

@@ -1,6 +1,7 @@
 """Every loss of the port (deeplearning4j_tpu_torch/nn/losses.py) against
 the JAX package's, by every registered name, with and without a mask, on
 the same float32 inputs made with numpy. Tolerance 1e-6."""
+import _torch_threads  # noqa: F401
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -11,6 +11,7 @@ through both packages' ``_lstm_scan`` dispatch; the autograd Functions are
 pinned against autograd through the plain forward; the probe and the
 wrappers' checks are pinned; and a CUDA tensor without a built kernel
 raises instead of computing the plain version (on a card only)."""
+import _torch_threads  # noqa: F401
 import jax
 import jax.numpy as jnp
 import numpy as np

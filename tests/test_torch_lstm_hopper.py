@@ -10,6 +10,7 @@ package is ``test_torch_lstm.py``'s. What runs here is the arithmetic of
 the plan, which blocks own which hidden units and gate columns, and the
 host path up to the C call.
 """
+import _torch_threads  # noqa: F401
 import functools
 import hashlib
 import itertools

@@ -16,6 +16,7 @@ they are held on the parameters. An LSTM network under bf16 compute takes
 the fused K5/K6 Function with bf16 operands. The field
 survives the JSON round trip in both directions, and the decode path
 refuses a mixed-precision network with the reference's words."""
+import _torch_threads  # noqa: F401
 import jax.numpy as jnp
 import numpy as np
 import pytest

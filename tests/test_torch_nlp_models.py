@@ -14,6 +14,7 @@ largest magnitude). Measured on this tree: at most 1.45e-5 (Word2Vec with
 negative sampling, 10 epochs: syn0), 5.6e-6 and below for the rest. The
 reference's similarity assertions then run on the port's fit.
 """
+import _torch_threads  # noqa: F401
 import numpy as np
 import pytest
 

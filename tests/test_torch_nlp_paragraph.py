@@ -7,6 +7,7 @@ at most 2.2e-6. ``infer_vector`` seeds its generator from ``hash(text)``
 in both packages, so the two agree within one process: atol 1e-6, the
 reference's pin for its analytic step.
 """
+import _torch_threads  # noqa: F401
 import numpy as np
 import pytest
 

@@ -7,6 +7,7 @@ a held-out Japanese corpus), with the bundled lexicon and with the
 embedded core alone. The port reads its own copy of each lexicon; their
 SHA-256 equal the reference's, so the copies cannot drift.
 """
+import _torch_threads  # noqa: F401
 import hashlib
 import json
 import os

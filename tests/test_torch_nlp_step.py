@@ -11,6 +11,7 @@ generation, which the port builds with numpy instead of a Python loop,
 must give the reference's pairs and leave the generator where the
 reference leaves it.
 """
+import _torch_threads  # noqa: F401
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -9,6 +9,7 @@ bitwise-equal unigram table (every negative a fit samples is read from
 it). The cases are the reference tests' (``tests/test_nlp.py``,
 ``tests/test_lemmatizer.py``) run through both packages.
 """
+import _torch_threads  # noqa: F401
 import numpy as np
 import pytest
 

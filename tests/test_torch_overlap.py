@@ -9,6 +9,7 @@ The schedule is host metadata and equals the reference's leaf for leaf.
 and the overlap path bitwise to the plain sync path at every bucket size.
 Across the packages a fit is held at 1e-6 rel-to-max (their forward and
 backward passes differ in the last bits)."""
+import _torch_threads  # noqa: F401
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -19,6 +19,7 @@ Pinned exactly:
 - the profiles' rows (buckets, groups, bytes) and result keys.
 
 Times (``*_ms``) are compared by name only: the port's mesh is logical."""
+import _torch_threads  # noqa: F401
 import importlib
 from collections import Counter
 

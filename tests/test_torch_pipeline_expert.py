@@ -6,6 +6,7 @@ virtual CPU devices): ``pipeline_apply``'s outputs and gradients,
 re-routing, its router gradient, and ``load_balancing_loss``; ``psum``,
 ``all_to_all`` and ``shard_map`` against ``lax``'s under ``shard_map``.
 All at rel-to-max 1e-5."""
+import _torch_threads  # noqa: F401
 import jax
 import jax.numpy as jnp
 import numpy as np

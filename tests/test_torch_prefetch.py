@@ -14,6 +14,7 @@ iterator runs without pinned memory or streams; the card's copy path
 (pinned staging, a side stream, an event the consumer waits on) is held by
 the ``cuda`` tests of ``tests/test_torch_step_graph.py`` and by
 ``chip_smoke.py`` phase 4b."""
+import _torch_threads  # noqa: F401
 import threading
 import time
 

@@ -6,6 +6,7 @@ under pool pressure, the opt-out, no sharing across a hot-swap cohort and
 the ``prefix_cache=None`` default. f32 on the CPU; tokens token for token,
 with the JAX forward's top-1/top-2 margin at every compared step above
 1e-4 so that no match rests on a tie."""
+import _torch_threads  # noqa: F401
 import threading
 
 import numpy as np

@@ -9,6 +9,7 @@ refuses where JAX's does. A network whose configuration builder inserts a
 JAX's weights, and its int8 forward (``int8_forward_fn``) equals JAX's at
 atol 1e-6: the preprocessor runs in the walk, where the port used to
 raise. A graph vertex with an explicit preprocessor runs it too."""
+import _torch_threads  # noqa: F401
 import jax
 import numpy as np
 import pytest

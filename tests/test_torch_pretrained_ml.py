@@ -14,6 +14,7 @@ reference's restored network does (atol 1e-5). The estimators wrap
 networks whose weights ``interop/jax_params.py`` carries across; after
 the same fits their predictions are within 1e-5 of the reference's.
 """
+import _torch_threads  # noqa: F401
 import importlib
 import os
 

@@ -7,6 +7,7 @@ shape); the int8 forward of bench.py's int8 serving net (Dense 512 -> 512
 -> 512, softmax 256) at B 16 equals JAX's at atol 1e-6 (its activations are
 relu, so no quantization step flips) and stays within the reference's rel
 0.05 of the f32 forward."""
+import _torch_threads  # noqa: F401
 import jax
 import jax.numpy as jnp
 import numpy as np

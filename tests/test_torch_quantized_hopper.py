@@ -8,6 +8,7 @@ no IDP4A); the ``cuda`` test below does the same at the tiles' edges and
 skips without a card. On the CPU the wrapper takes its plain version, whose
 parity with the JAX package is ``test_torch_quantized.py``'s.
 """
+import _torch_threads  # noqa: F401
 import hashlib
 import itertools
 

@@ -6,6 +6,7 @@ int8 engine's (weights carried across with ``load_jax_params``), a prefix
 hit against a miss and speculation against plain decode under int8 (and
 all three together against the JAX engine), and the configuration's
 messages. f32 on the CPU."""
+import _torch_threads  # noqa: F401
 import os
 import tempfile
 

@@ -9,6 +9,7 @@ one layer the recompute must draw the forward's mask: the port replays the
 first forward's masks (``torch.utils.checkpoint`` restores only the global
 generators, not the explicit one dropout draws from), so remat equals
 plain there too, where a fresh draw would give another gradient."""
+import _torch_threads  # noqa: F401
 import numpy as np
 import pytest
 import torch

@@ -18,6 +18,7 @@
   (carried into the network's and the graph's configuration) and the
   workspace and cache-mode keywords (ignored), as the reference does.
 """
+import _torch_threads  # noqa: F401
 import importlib
 
 import jax

@@ -5,6 +5,7 @@ a save the JAX package wrote from its ``(2, 2)`` mesh restores through the
 port's ``make_any_resharder``, and the port's through the JAX package's;
 ``redistribute`` is pure layout; a truncated newest save walks back past
 the resharder; a ZeRO flat save delegates to the ZeRO resharder."""
+import _torch_threads  # noqa: F401
 import os
 
 import jax

@@ -6,6 +6,7 @@ devices, and against plain ``attention`` on the whole sequence.
 Tolerances are the reference's (``tests/test_attention.py:241-272``): forward
 atol 2e-5, gradients max error over max |gradient| 1e-4; bf16 2e-2. On the
 CPU the port's kernel wrappers compute their plain versions."""
+import _torch_threads  # noqa: F401
 import jax
 import jax.numpy as jnp
 import numpy as np

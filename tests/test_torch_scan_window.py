@@ -14,6 +14,7 @@ iteration over 20 iterations at 1e-6, and a window fit matches the JAX
 package's ``fit(steps_per_dispatch=4)`` at 1e-5. The embedding's backward
 on the CPU (an index_put with accumulation) is bitwise only in its
 deterministic form, which the graph cases turn on."""
+import _torch_threads  # noqa: F401
 import jax.numpy as jnp
 import numpy as np
 import pytest

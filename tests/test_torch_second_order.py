@@ -9,6 +9,7 @@ outer iteration and the parameters after K of them at 1e-9; the
 reference's unknown-algorithm raise; LBFGS's curvature guard; and a
 second-order fit runs per step (``steps_per_dispatch`` is ignored, as the
 reference ignores it)."""
+import _torch_threads  # noqa: F401
 import numpy as np
 import pytest
 import torch

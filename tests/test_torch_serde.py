@@ -10,6 +10,7 @@ counterpart of ``tests/test_serde_completeness.py``); and every class the
 JAX registry holds that the port lacks raises naming its ROADMAP item.
 Activations and losses are names (strings) in both packages' JSON: each
 name either package knows is known to the other."""
+import _torch_threads  # noqa: F401
 import dataclasses
 import importlib
 import json

@@ -21,6 +21,7 @@ against the JAX package's.
   ``test_checkpointing.py``; ``load_net`` takes a zip or a directory;
   a Java DL4J zip restores with the reference's parameters, and a bogus
   HDF5 file or junk raises "Cannot determine" as the reference's does."""
+import _torch_threads  # noqa: F401
 import json
 import os
 import zipfile

@@ -7,6 +7,7 @@ the JAX engine's at atol 1e-6; traffic after warm-up warms nothing; a
 same-shape hot swap shares the warmed buckets and serves the new weights.
 Also served: GoogLeNet (32x32) through a ``forward_fn`` that returns its
 one output, and the int8 tier through ``int8_forward_fn``."""
+import _torch_threads  # noqa: F401
 import json
 import threading
 import time

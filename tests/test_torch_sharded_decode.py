@@ -7,6 +7,7 @@ half, the ``"paged"`` and ``"n_heads"`` refusals with the reference's
 words, and ``with_params_from`` keeping the mesh and its warmed programs
 (no warm run). The engine's path (prefix hits, a sharded draft, the int8
 pools, a hot swap) against ``naive_generate``."""
+import _torch_threads  # noqa: F401
 import jax
 import numpy as np
 import pytest

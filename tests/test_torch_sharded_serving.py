@@ -4,6 +4,7 @@ JAX package's engine on its 8 virtual CPU devices: the same responses for
 batches that fill and that pad a rung, the workers' rows in worker order,
 the same refusal of a ladder whose rungs do not divide over the data axis,
 and a hot swap that keeps the mesh."""
+import _torch_threads  # noqa: F401
 import jax
 import numpy as np
 import pytest

@@ -6,6 +6,7 @@ transformer draft and with an LSTM draft (weights carried across with
 mid-window, sampling and ``spec_k=0`` on the plain path, and the hot-swap
 cohort pinning. f32 on the CPU; tokens token for token, with the JAX
 forward's top-1/top-2 margin at every compared step above 1e-4."""
+import _torch_threads  # noqa: F401
 import time
 
 import jax.numpy as jnp

@@ -15,6 +15,7 @@ fit equals the unwrapped one and its pinned pool rotates depth + 2
 buffers a shape; a batch of six same-shape arrays at depth 1 arrives
 intact (the pool grows rather than overwrite a buffer still being
 copied)."""
+import _torch_threads  # noqa: F401
 import gc
 
 import numpy as np

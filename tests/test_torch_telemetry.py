@@ -24,6 +24,7 @@ detector wraps ``torch.Tensor``'s read methods (CPU tensors flagged only
 with ``include_cpu``), and no peak exists on the CPU (``mfu`` None). The
 reference's cached-read case has no counterpart (torch keeps no host copy
 of a device value) and is not ported."""
+import _torch_threads  # noqa: F401
 import importlib
 import json
 import os

@@ -22,6 +22,7 @@ Pinned, each exactly unless named:
 - the parameters and optimiser state tagged for the memory profiler.
 The watch's losses and gradient norms match the reference's at rel 1e-4
 (float32 dense steps on two frameworks)."""
+import _torch_threads  # noqa: F401
 import importlib
 
 import numpy as np

@@ -20,6 +20,7 @@ requests on both servers, one at a time, each under its own
 
 Also ``InferenceEngine``'s batcher events, bucket costs and dispatch
 histograms, and the forward server's ``X-Trace-Id`` echo."""
+import _torch_threads  # noqa: F401
 import importlib
 import json
 import urllib.error

@@ -6,6 +6,7 @@ the reference tests' sizes (``tests/test_tensor_parallel.py:30-41``: d 16,
 ``(4,)`` (also with windows and ZeRO-2, and with ``overlap_sync``), the
 per-rank rows and their bytes, the refusals, and a zip that the JAX
 package restores bitwise. Each JAX run is a module-scoped fixture."""
+import _torch_threads  # noqa: F401
 import jax
 import numpy as np
 import pytest

@@ -10,6 +10,7 @@ versions. Tolerances: loss rel 1e-5, gradients rel-to-max 1e-4, parameters
 after three ``fit`` steps atol 1e-5 with Sgd(1e-3) and 1e-4 with Adam(3e-4)
 (Adam's m/sqrt(v) magnifies differences in near-zero gradients), and a
 bf16 step's loss rtol 2e-2."""
+import _torch_threads  # noqa: F401
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -18,6 +18,7 @@ own generator. The compared fits use ``Sgd``: Adam moves an entry whose
 gradient is near its epsilon by lr·g/(|g| + eps), which turns float32
 noise in such a gradient into head differences of 3e-3 of the largest
 entry after 8 steps."""
+import _torch_threads  # noqa: F401
 import importlib
 
 import numpy as np

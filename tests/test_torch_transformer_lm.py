@@ -8,6 +8,7 @@ runs its Pallas flash kernel (interpret mode) and the port's probe admits
 the same shapes (its plain version on the CPU). Logits at atol 1e-4;
 greedy tokens token for token, with the JAX top-1/top-2 logit margin of
 every compared step above 1e-3 so that no match rests on a tie."""
+import _torch_threads  # noqa: F401
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -9,6 +9,7 @@ its Performance card carries the kernel registry's rows and draws no
 "vs baseline" row unless its caller names a baseline directory, its
 telemetry card heads with the port's warm runs, and ``TrainingUIServer``
 serves live pages and receives a POST."""
+import _torch_threads  # noqa: F401
 import base64
 import importlib
 import io

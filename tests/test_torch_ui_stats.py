@@ -16,6 +16,7 @@ The storages' files cross-read both ways: a JSON-lines or SQLite file the
 port wrote reads back in the JAX package, and one the JAX package wrote
 reads back in the port, with equal records.
 """
+import _torch_threads  # noqa: F401
 import numpy as np
 import pytest
 import torch

@@ -3,6 +3,7 @@ against the JAX package's on the same float32 arrays made with numpy: each
 of the nine rules over three steps, the six schedules, the five gradient
 normalization modes, and ``MultiLayerUpdater``'s per-layer rules,
 learning-rate multipliers and frozen layers. Tolerance 1e-6."""
+import _torch_threads  # noqa: F401
 import jax.numpy as jnp
 import numpy as np
 import pytest

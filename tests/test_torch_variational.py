@@ -17,6 +17,7 @@ parameters after one epoch at 1e-9. The port's own samplers are checked
 apart: shapes, support, and mean and variance over many draws against
 stated bounds. A configuration JSON with every new class crosses both
 ways."""
+import _torch_threads  # noqa: F401
 import json
 
 import jax

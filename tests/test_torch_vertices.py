@@ -17,6 +17,7 @@ in f32, parameters after three Adam steps with element-wise clipping at
 1e-9 in f64. And the graph of ``examples/seq2seq_tbptt.py`` (encoder LSTM
 -> ``LastTimeStepVertex`` -> ``DuplicateToTimeSeriesVertex`` -> decoder
 LSTM, tBPTT 5): fits and ``rnn_time_step`` at atol 1e-5."""
+import _torch_threads  # noqa: F401
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -25,6 +25,7 @@ moves by lr·g/eps, which turns the two frameworks' float noise in such
 an entry into parameter differences of 1e-7; and SimpleCNN's dropout is
 switched off in both, since the port's masks draw from its own generator
 (their bits differ from JAX's by design)."""
+import _torch_threads  # noqa: F401
 import importlib
 import json
 

@@ -11,6 +11,7 @@ float32 evaluation output at atol 1e-5. FaceNet then takes one float64
 JAX's jitted ``train_step_math``: the loss at rel 1e-10, every parameter,
 the class ``centers`` among them, at atol 1e-9, and the running statistics
 (float32) at rel 1e-6 plus atol 1e-7."""
+import _torch_threads  # noqa: F401
 import importlib
 
 import jax
